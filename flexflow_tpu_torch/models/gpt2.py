@@ -1,0 +1,80 @@
+"""GPT-2 (counterpart: flexflow_tpu/models/gpt2.py).
+
+Pre-LN decoder blocks with learned positional embeddings, causal
+attention, a gelu (tanh) MLP and a bias-free LM head. The build is the
+JAX package's, layer for layer, so params transfer by (layer, weight)
+name.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from flexflow_tpu_torch.core.model import FFModel
+from flexflow_tpu_torch.dtype import DataType
+
+
+@dataclasses.dataclass
+class GPT2Config:
+    vocab: int = 50257
+    seq: int = 1024
+    d_model: int = 768
+    heads: int = 12
+    layers: int = 12
+    d_ff: int = 0  # 0 -> 4*d_model
+    dropout: float = 0.1
+    # pad the lm_head output dim up to a multiple of this (0 = off)
+    vocab_pad_to: int = 0
+
+    @staticmethod
+    def small():
+        return GPT2Config()
+
+    @staticmethod
+    def medium():
+        return GPT2Config(d_model=1024, heads=16, layers=24)
+
+    @staticmethod
+    def tiny(seq: int = 128):
+        return GPT2Config(vocab=5120, seq=seq, d_model=256, heads=4, layers=2)
+
+    @property
+    def ff(self):
+        return self.d_ff or 4 * self.d_model
+
+
+def gpt2_block(model: FFModel, t, cfg: GPT2Config, name: str,
+               decode: bool = False):
+    h = model.layer_norm(t, name=f"{name}_ln1")
+    att = model.multihead_attention(h, h, h, cfg.d_model, cfg.heads,
+                                    dropout=0.0 if decode else cfg.dropout,
+                                    causal=True, decode=decode,
+                                    name=f"{name}_attn")
+    t = model.add(att, t, name=f"{name}_res1")
+    h = model.layer_norm(t, name=f"{name}_ln2")
+    up = model.dense(h, cfg.ff, activation="gelu", name=f"{name}_mlp_up")
+    down = model.dense(up, cfg.d_model, name=f"{name}_mlp_down")
+    return model.add(down, t, name=f"{name}_res2")
+
+
+def build_gpt2(model: FFModel, cfg: GPT2Config, batch: int = 8,
+               decode: bool = False):
+    """decode=True builds the single-token serving twin ([batch, 1] ids and
+    positions, attention on the paged KV cache, dropout inert); layer
+    names, weight specs and topo order match the full build."""
+    seq = 1 if decode else cfg.seq
+    ids = model.create_tensor([batch, seq], DataType.INT32, name="input_ids")
+    pos = model.create_tensor([batch, seq], DataType.INT32, name="position_ids")
+    tok = model.embedding(ids, cfg.vocab, cfg.d_model, name="wte")
+    pe = model.embedding(pos, cfg.seq, cfg.d_model, name="wpe")
+    t = model.add(tok, pe, name="embed_add")
+    if cfg.dropout:
+        t = model.dropout(t, 0.0 if decode else cfg.dropout, name="embed_drop")
+    for i in range(cfg.layers):
+        t = gpt2_block(model, t, cfg, f"h{i}", decode=decode)
+    t = model.layer_norm(t, name="ln_f")
+    out_v = cfg.vocab
+    if cfg.vocab_pad_to:
+        out_v = -(-cfg.vocab // cfg.vocab_pad_to) * cfg.vocab_pad_to
+    logits = model.dense(t, out_v, use_bias=False, name="lm_head")
+    return (ids, pos), logits
