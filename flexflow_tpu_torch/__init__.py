@@ -8,3 +8,7 @@ hand-written CUDA kernel for Hopper here (csrc/, kernels/).
 
 from flexflow_tpu_torch.config import FFConfig  # noqa: F401
 from flexflow_tpu_torch.core.model import FFModel  # noqa: F401
+from flexflow_tpu_torch.losses import LossType  # noqa: F401
+from flexflow_tpu_torch.metrics import MetricsType  # noqa: F401
+from flexflow_tpu_torch.optimizers import (  # noqa: F401
+    AdamOptimizer, SGDOptimizer)

@@ -2,10 +2,14 @@
 
 `build_forward` returns a module that interprets the graph in topological
 order on every call; PyTorch runs eagerly, so there is no trace and no
-mesh. It runs in inference mode (dropout is the identity): serving is the
-only caller so far. The mixed-precision policy is the JAX package's:
-floating inputs and weights are cast to the compute dtype, except norm
-params (gamma/beta), whose lowerings compute the affine in f32.
+mesh. `training` selects the train-step lowering, as the JAX forward's
+`training` argument does; the graph then runs under autograd and the
+gradients reach the f32 master params through the per-layer casts. There
+is no remat yet, and no dropout in training: a dropout of rate > 0 raises
+there (ops/norm_ops.py, ops/attention_ops.py). The mixed-precision policy
+is the JAX package's: floating inputs and weights are cast to the compute
+dtype, except norm params (gamma/beta), whose lowerings compute the affine
+in f32.
 """
 
 from __future__ import annotations
@@ -40,7 +44,8 @@ def cast_exempt(layers: Sequence[Layer]) -> Dict[str, set]:
 
 
 class GraphForward(nn.Module):
-    """forward(params, state, input_arrays) -> (output_arrays, new_state)."""
+    """forward(params, state, input_arrays, training=False) ->
+    (output_arrays, new_state)."""
 
     def __init__(self, layers: Sequence[Layer], graph_inputs: Sequence[Tensor],
                  outputs: Sequence[Tensor], compute_dtype: Optional[str] = None,
@@ -54,8 +59,10 @@ class GraphForward(nn.Module):
         self.exempt = cast_exempt(layers)
 
     def forward(self, params: Dict[str, Dict[str, torch.Tensor]],
-                state: Dict[str, Any], input_arrays: List[torch.Tensor]):
-        ctx = LoweringCtx(state=dict(state), enable_fusion=self.enable_fusion)
+                state: Dict[str, Any], input_arrays: List[torch.Tensor],
+                training: bool = False):
+        ctx = LoweringCtx(state=dict(state), enable_fusion=self.enable_fusion,
+                          training=training)
         cast_to = self.cast_to
         env: Dict[int, torch.Tensor] = {}
         for t, arr in zip(self.graph_inputs, input_arrays):

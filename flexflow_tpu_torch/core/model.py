@@ -4,6 +4,8 @@ The builder methods append Layers to the frontend graph with the same op
 types, params and default names as the JAX package, so the same build
 script yields the same layer names, weight specs and topological order in
 both packages. Only the builders GPT-2 calls are ported so far.
+`compile`, `fit`, `eval`, `forward`, `get_weight` and `set_weight`
+delegate to the `CompiledModel` (compiler/compile.py), as in JAX.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ class FFModel:
         self.layers: List[Layer] = []
         self.input_tensors: List[Tensor] = []
         self._initializer_overrides: Dict[Tuple[str, str], Any] = {}
+        self._compiled = None
 
     def create_tensor(self, dims: Sequence[int], dtype=DataType.FLOAT,
                       name: Optional[str] = None) -> Tensor:
@@ -98,3 +101,47 @@ class FFModel:
                 name=None) -> Tensor:
         return self._add_layer(OperatorType.DROPOUT,
                                {"rate": rate, "seed": seed}, [input], name)[0]
+
+    # ------------------------------------------------------------- compile
+    def compile(self, optimizer=None,
+                loss_type="sparse_categorical_crossentropy",
+                metrics: Sequence = ("accuracy",), device=None):
+        """Build the training program (compiler/compile.py). It runs on the
+        GPU unless `device="cpu"` is passed."""
+        from flexflow_tpu_torch.compiler.compile import compile_model
+
+        self._compiled = compile_model(self, optimizer, loss_type, metrics,
+                                       device=device)
+        return self._compiled
+
+    @property
+    def compiled(self):
+        if self._compiled is None:
+            raise RuntimeError("call compile() first")
+        return self._compiled
+
+    # ------------------------------------------------------------ training
+    def fit(self, x, y, batch_size: Optional[int] = None,
+            epochs: Optional[int] = None, verbose: bool = True,
+            sync_every: Optional[int] = None):
+        """Train; `sync_every` overrides the config's for this call."""
+        return self.compiled.fit(x, y, batch_size=batch_size, epochs=epochs,
+                                 verbose=verbose, sync_every=sync_every)
+
+    def forward(self, *inputs):
+        return self.compiled.forward(*inputs)
+
+    def eval(self, x, y, batch_size: Optional[int] = None):
+        return self.compiled.evaluate(x, y, batch_size=batch_size)
+
+    def get_layer_by_name(self, name: str) -> Layer:
+        for l in self.layers:
+            if l.name == name:
+                return l
+        raise KeyError(name)
+
+    def get_weight(self, layer_name: str, wname: str = "kernel"):
+        return self.compiled.get_weight(layer_name, wname)
+
+    def set_weight(self, layer_name: str, wname: str, value) -> None:
+        self.compiled.set_weight(layer_name, wname, value)

@@ -58,3 +58,16 @@ def default_initializer(wname: str) -> Initializer:
     if wname == "gamma":
         return OneInitializer()
     return GlorotUniformInitializer()
+
+
+def init_params(layers, overrides, seed: int, device):
+    """`{layer: {weight: tensor}}` for `layers` (those with weights), drawn
+    in order from one `torch.Generator` seeded with `seed` on `device`,
+    each weight by its override or its default initializer."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return {layer.name: {
+        w: (overrides.get((layer.name, w)) or default_initializer(w))(
+            gen, spec, device)
+        for w, spec in sorted(layer.weight_specs.items())}
+        for layer in layers if layer.weight_specs}

@@ -1,23 +1,26 @@
-"""Flash-attention forward: a hand-written CUDA kernel and its plain version.
+"""Flash attention: hand-written CUDA kernels for the forward and the
+backward, their plain versions, and the autograd Function that joins them.
 
-Replaces the Pallas TPU kernel `flexflow_tpu/kernels/flash_attention.py`
-`_fwd` -> `_fwd_kernel`: blocked online-softmax attention, causal or not,
-returning O and the per-row logsumexp. The CUDA source is
-`csrc/flash_attention.cu`; its header says how it is laid out.
+Replaces the Pallas TPU kernels of `flexflow_tpu/kernels/flash_attention.py`:
+`_fwd` -> `_fwd_kernel` (blocked online-softmax attention, causal or not,
+returning O and the per-row logsumexp), and `_bwd` -> `_dq_kernel` and
+`_dkv_kernel` (dQ, and dK/dV, from the saved lse). The CUDA sources are
+`csrc/flash_attention.cu` (forward) and `csrc/flash_attention_bwd.cu`
+(backward); their headers say how they are laid out.
 
-What bounds it on an H100: at the prefill shapes of GPT-2 medium
-(8 x 16 heads x 1024 x 64, bf16, causal) the function moves ~68 MB of
-q/k/v/o/lse and does ~17 GFLOP, so the card's bound is about even between
-its memory (20 us at 3.35 TB/s) and its bf16 tensor cores (17 us at 989
-TFLOP/s). This first kernel does its products as scalar f32 FMAs fed from
-shared memory and is bound by those instead; `wgmma` and TMA are later
-work.
+What bounds them on an H100: at GPT-2 medium's shapes (8 x 16 heads x
+1024 x 64, bf16, causal) the forward moves ~68 MB and does ~17 GFLOP, so
+the card's bound is about even between its memory (20 us at 3.35 TB/s) and
+its bf16 tensor cores (17 us at 989 TFLOP/s); the backward's dQ does 3
+such causal products and dK/dV 4. These first kernels do their products as
+scalar f32 FMAs fed from shared memory and are bound by those instead;
+`wgmma` and TMA are later work.
 
-The gate is Hopper's: head_dim 64 or 128, f32 or bf16, the block's
+The gate is Hopper's: head_dim 64 or 128, f32 or bf16, every kernel's
 shared-memory tiles within the 227 KB a block may use, and sq == sk when
-causal (as the TPU kernel requires). The wrapper runs the plain version
-only for tensors on the CPU; for CUDA tensors it launches the kernel or
-raises. `launches` counts kernel launches.
+causal (as the TPU kernel requires). The wrappers run the plain versions
+only for tensors on the CPU; for CUDA tensors they launch the kernels or
+raise. `launches`, `launches_dq` and `launches_dkv` count kernel launches.
 """
 
 from __future__ import annotations
@@ -35,19 +38,25 @@ BLOCK_K = 64
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = 0
+launches = 0       # forward kernel
+launches_dq = 0    # backward dQ kernel
+launches_dkv = 0   # backward dK/dV kernel
 
 
 def smem_bytes(d: int) -> int:
-    """Dynamic shared memory of one block (mirrors smem_floats<D>)."""
-    return 4 * (BLOCK_Q * (d + 1) + BLOCK_K * (d + 1) + BLOCK_K * d
-                + BLOCK_Q * (BLOCK_K + 1))
+    """Dynamic shared memory of the largest of the three kernels' blocks
+    (mirrors smem_floats<D>, dq_smem_floats<D> and dkv_smem_floats<D>)."""
+    fwd = (BLOCK_Q * (d + 1) + BLOCK_K * (d + 1) + BLOCK_K * d
+           + BLOCK_Q * (BLOCK_K + 1))
+    dq = 4 * 64 * (d + 1) + BLOCK_Q * (BLOCK_K + 1)
+    dkv = 4 * 64 * (d + 1) + 2 * BLOCK_K * (BLOCK_Q + 1) + 2 * BLOCK_Q
+    return 4 * max(fwd, dq, dkv)
 
 
 def flash_supported(sq: int, sk: int, d: int, dtype: torch.dtype,
                     causal: bool = False, batch_heads: int = 1) -> bool:
-    """Whether the CUDA kernel covers this shape (the Hopper counterpart of
-    the TPU package's VMEM gate)."""
+    """Whether the CUDA kernels cover this shape, forward and backward (the
+    Hopper counterpart of the TPU package's VMEM gate)."""
     return (d in (64, 128) and dtype in _DTYPE_CODE
             and (not causal or sq == sk) and sq > 0 and sk > 0
             and 0 < batch_heads <= 65535
@@ -122,8 +131,140 @@ def _fwd(q, k, v, causal: bool, scale: float):
     return _fwd_cuda(q, k, v, causal, scale)
 
 
+# -------------------------------------------------------------- backward
+def _bwd_terms(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """P recomputed from the saved lse (causal mask applied to P, f32) and
+    dS = P (dP - delta) scale rounded to k's dtype, as `_bwd` makes them."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    p = torch.exp(s - lse)
+    if causal:
+        sq, sk = p.shape[-2], p.shape[-1]
+        keep = torch.ones(sq, sk, dtype=torch.bool, device=p.device).tril()
+        p = p.masked_fill(~keep, 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
+    ds = (p * (dp - delta) * scale).to(k.dtype)
+    return p, ds
+
+
+def _dq_plain(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """dQ = dS.K in plain PyTorch (the `_dq_kernel` function)."""
+    _, ds = _bwd_terms(q, k, v, do, lse, delta, causal, scale)
+    return torch.einsum("bhqk,bhkd->bhqd", ds.float(), k.float()).to(q.dtype)
+
+
+def _dkv_plain(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """dK = dS^T.q and dV = round(P)^T.dO in plain PyTorch (the
+    `_dkv_kernel` function); P is rounded to dO's dtype, dS to q's."""
+    p, ds = _bwd_terms(q, k, v, do, lse, delta, causal, scale)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(do.dtype).float(), do.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).float(), q.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _delta(o, do):
+    """rowsum(f32(dO) * f32(O)): (b, h, sq, 1) f32."""
+    return (do.float() * o.float()).sum(dim=-1, keepdim=True)
+
+
+def _bwd_plain(q, k, v, o, lse, do, causal: bool, scale: float):
+    """The backward in plain PyTorch, rounding for rounding as `_bwd`:
+    returns (dq, dk, dv) in the inputs' dtypes."""
+    delta = _delta(o, do)
+    dq = _dq_plain(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = _dkv_plain(q, k, v, do, lse, delta, causal, scale)
+    return dq, dk, dv
+
+
+def _bwd_fn(name: str, n_ptr: int, n_strides: int):
+    fn = getattr(load_library("flash_attention_bwd"), name)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6
+                       + [ctypes.c_longlong] * (3 * n_strides)
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    return fn
+
+
+def _strides(*ts):
+    out = []
+    for t in ts:
+        out += [t.stride(0), t.stride(1), t.stride(2)]
+    return out
+
+
+def _dq_cuda(q, k, v, do, lse, delta, causal: bool, scale: float):
+    global launches_dq
+    b, h, sq, d = q.shape
+    dq = torch.empty_like(q)           # in q's layout
+    err = _bwd_fn("ff_flash_bwd_dq", 7, 5)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), _DTYPE_CODE[q.dtype],
+        b, h, sq, k.shape[2], d, *_strides(q, k, v, do, dq), float(scale),
+        int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash dQ kernel launch failed: CUDA error {err}")
+    launches_dq += 1
+    return dq
+
+
+def _dkv_cuda(q, k, v, do, lse, delta, causal: bool, scale: float):
+    global launches_dkv
+    b, h, sq, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = _bwd_fn("ff_flash_bwd_dkv", 8, 6)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        _DTYPE_CODE[q.dtype], b, h, sq, k.shape[2], d,
+        *_strides(q, k, v, do, dk, dv), float(scale), int(bool(causal)),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash dK/dV kernel launch failed: CUDA error {err}")
+    launches_dkv += 1
+    return dk, dv
+
+
+def _bwd(q, k, v, o, lse, do, causal: bool, scale: float):
+    """(dq, dk, dv) for the saved forward inputs and the output gradient.
+    CPU tensors take the plain version; CUDA tensors the two kernels (delta
+    is one PyTorch reduction between them, as it is XLA's in JAX)."""
+    dev = q.device.type
+    if dev == "cpu":
+        return _bwd_plain(q, k, v, o, lse, do, causal, scale)
+    if dev != "cuda":
+        raise ValueError(f"flash attention runs on cuda or cpu, not {dev}")
+    if do.dtype != q.dtype or do.shape != q.shape:
+        raise ValueError(f"flash backward: dO {tuple(do.shape)} {do.dtype} "
+                         f"vs q {tuple(q.shape)} {q.dtype}")
+    if do.stride(-1) != 1:
+        do = do.contiguous()  # the kernels read rows of dO as contiguous
+    delta = _delta(o, do).contiguous()   # indexed as (b*h, sq) rows
+    dq = _dq_cuda(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = _dkv_cuda(q, k, v, do, lse, delta, causal, scale)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with the hand-written backward: forward saves
+    (q, k, v, o, lse) as `_flash_fwd` does; backward is `_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        o, lse = _fwd(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _bwd(q, k, v, o, lse, do, ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+# ------------------------------------------------------------ public API
 def flash_attention(q, k, v, causal: bool = False, scale: float | None = None):
-    """q: (b, h, sq, d), k/v: (b, h, sk, d) -> (b, h, sq, d)."""
+    """q: (b, h, sq, d), k/v: (b, h, sk, d) -> (b, h, sq, d), differentiable
+    through the backward kernels."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError(f"expected rank-4 q/k/v, got {q.shape}/{k.shape}/{v.shape}")
     if causal and q.shape[2] != k.shape[2]:
@@ -133,7 +274,7 @@ def flash_attention(q, k, v, causal: bool = False, scale: float | None = None):
         raise ValueError(f"k/v length mismatch {k.shape} vs {v.shape}")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    return _fwd(q, k, v, causal, float(scale))[0]
+    return FlashAttention.apply(q, k, v, bool(causal), float(scale))
 
 
 def flash_attention_qkv(q, k, v, causal: bool = False, scale: float | None = None):

@@ -42,6 +42,23 @@ class GPT2Config:
     def ff(self):
         return self.d_ff or 4 * self.d_model
 
+    def flops_per_token(self) -> float:
+        """Training (fwd + bwd) matmul FLOPs per token: 6 * N_matmul +
+        attention scores. Embedding lookups are gathers (zero matmul
+        FLOPs); the lm_head projection over the true vocab is counted."""
+        n_matmul = (self.layers * (4 * self.d_model * self.d_model
+                                   + 2 * self.d_model * self.ff)
+                    + self.d_model * self.vocab)  # lm_head
+        attn = self.layers * 2 * 2 * self.seq * self.d_model  # qk^T + av, fwd
+        return 6.0 * n_matmul + 3.0 * attn
+
+    def param_count(self) -> int:
+        d = self.d_model
+        return (self.vocab * d + self.seq * d
+                + self.layers * (4 * d * d + 2 * d * self.ff
+                                 + 9 * d + self.ff)  # biases + 2 LN per block
+                + 2 * d + d * self.vocab)  # ln_f + lm_head
+
 
 def gpt2_block(model: FFModel, t, cfg: GPT2Config, name: str,
                decode: bool = False):

@@ -14,7 +14,10 @@ Two lowerings, as in the JAX package:
 Unlike the JAX lowering, nothing here falls back to einsum: with fusion on
 the kernel wrapper is the one gate, and on a CUDA tensor it launches its
 kernel or raises (a shape it does not cover, a build or launch error). Only
-`enable_fusion=False` (`--no-fusion`) selects the einsum paths. The projections and the compute-dtype
+`enable_fusion=False` (`--no-fusion`) selects the einsum paths. In training
+the flash path is differentiable through the backward kernels;
+attention-prob dropout is not ported, so a training step with dropout > 0
+raises rather than dropping nothing. The projections and the compute-dtype
 decode einsum are plain `torch.matmul`/`torch.einsum`, as the JAX package
 leaves them to XLA. The cache pools are updated in place (the JAX lowering
 returns new pools); the updated pools are also returned in `new_state`.
@@ -174,6 +177,10 @@ def _mha_lower(layer: "Layer", inputs, weights, ctx: LoweringCtx):
         ctx.new_state[layer.name] = {"k": kh, "v": vh}
     qh = _split_heads(_proj(weights, q, "wq", "bq"), heads)
 
+    if ctx.training and p.get("dropout", 0.0) > 0.0:
+        raise NotImplementedError(
+            f"{layer.name}: attention-prob dropout (rate {p['dropout']}) in "
+            "training is not ported yet; build the model with dropout 0")
     causal = p.get("causal", False)
     scale = 1.0 / math.sqrt(embed // heads)
     b, sq = q.shape[0], q.shape[1]

@@ -2,7 +2,9 @@
 
 Layer norm takes its statistics and its affine in f32 (eps 1e-5 by
 default) and casts back to the activation dtype, as the JAX lowering does.
-Dropout lowers for inference only, where it is the identity.
+Dropout is the identity in inference and at rate 0; in training at a
+rate above 0 it raises, because its mask is not ported yet (it must never
+act as a silent identity there).
 """
 
 from __future__ import annotations
@@ -57,6 +59,10 @@ def _dropout_infer(layer: "Layer"):
 
 
 def _dropout_lower(layer: "Layer", inputs, weights, ctx):
+    if ctx.training and layer.params.get("rate", 0.0) > 0.0:
+        raise NotImplementedError(
+            f"{layer.name}: dropout (rate {layer.params['rate']}) in training "
+            "is not ported yet; build the model with dropout 0")
     return [inputs[0]]
 
 

@@ -31,6 +31,8 @@ class LoweringCtx:
     new_state: Dict[str, Any] = dataclasses.field(default_factory=dict)
     # --fusion: False keeps the hand-written attention kernels off
     enable_fusion: bool = True
+    # training (the train step) or inference (serving, eval, infer)
+    training: bool = False
 
 
 @dataclasses.dataclass

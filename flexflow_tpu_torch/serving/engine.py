@@ -19,28 +19,17 @@ from __future__ import annotations
 
 from typing import Any, Dict, List, Optional
 
-import numpy as np
 import torch
 
 from flexflow_tpu_torch.compiler.lowering import (build_forward, cast_dtype,
                                                   cast_exempt)
 from flexflow_tpu_torch.core.graph import topo_order
-from flexflow_tpu_torch.initializers import default_initializer
+from flexflow_tpu_torch.device import resolve_device, to_device
+from flexflow_tpu_torch.initializers import init_params
 from flexflow_tpu_torch.ops.op_type import OperatorType
 from flexflow_tpu_torch.serving.kv_cache import (ACTIVE_KEY, POS_KEY,
                                                  KVCacheSpec, PagedKVCache)
 from flexflow_tpu_torch.serving.program import clone_for_serving
-
-
-def resolve_device(device=None) -> torch.device:
-    """`None` means the GPU; a CUDA request without a CUDA device raises
-    instead of carrying on quietly on the CPU."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: flexflow_tpu_torch serves on the GPU; pass "
-            "device='cpu' to run on the CPU")
-    return dev
 
 
 def _resolve_kv_dtype(cfg, kv_cache_dtype: Optional[str]):
@@ -94,12 +83,6 @@ def compile_serving(model, max_batch_slots: Optional[int] = None,
                            kv_quantized=kv_quantized, device=dev)
 
 
-def _to_device(x, device) -> torch.Tensor:
-    if isinstance(x, torch.Tensor):
-        return x.to(device)
-    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
-
-
 class ServingCompiled:
     """The two serving programs + the paged cache they share."""
 
@@ -139,16 +122,9 @@ class ServingCompiled:
         (default cfg.seed), drawn on the engine's device with the JAX
         package's default initializers (other numbers than JAX's)."""
         seed = self.cfg.seed if seed is None else seed
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(int(seed))
-        overrides = self.model._initializer_overrides
-        params = {}
-        for layer in self._weight_layers():
-            params[layer.name] = {
-                w: (overrides.get((layer.name, w)) or default_initializer(w))(
-                    gen, spec, self.device)
-                for w, spec in sorted(layer.weight_specs.items())}
-        self.params = self._place_params(params)
+        self.params = self._place_params(init_params(
+            self._weight_layers(), self.model._initializer_overrides, seed,
+            self.device))
         return self.params
 
     def _place_params(self, params) -> Dict[str, Any]:
@@ -166,7 +142,7 @@ class ServingCompiled:
         for layer in layers:
             d = {}
             for w, spec in layer.weight_specs.items():
-                x = _to_device(params[layer.name][w], self.device)
+                x = to_device(params[layer.name][w], self.device)
                 if tuple(x.shape) != tuple(spec.shape):
                     raise ValueError(f"{layer.name}.{w}: shape {tuple(x.shape)} "
                                      f"vs expected {tuple(spec.shape)}")
@@ -188,7 +164,7 @@ class ServingCompiled:
         """Run the prefill program: returns (logits, kv_state) where
         kv_state maps each attention layer to its `[slots, S, h, d]`
         per-head K/V for `PagedKVCache.commit_prefill`."""
-        inputs = [_to_device(x, self.device) for x in input_arrays]
+        inputs = [to_device(x, self.device) for x in input_arrays]
         with torch.no_grad():
             outs, kv_state = self._prefill_fwd(params, {}, inputs)
         return outs[0], kv_state
@@ -197,7 +173,7 @@ class ServingCompiled:
         """One single-token step over all slots: returns (logits
         `[slots, 1, vocab]`, new cache state with positions advanced).
         Nothing is synchronized with the host."""
-        inputs = [_to_device(x, self.device) for x in input_arrays]
+        inputs = [to_device(x, self.device) for x in input_arrays]
         with torch.no_grad():
             outs, ns = self._decode_fwd(params, state, inputs)
             # device-side sequence advance: every ACTIVE slot cached one

@@ -96,3 +96,146 @@ def test_uncovered_shape_raises_on_card():
             logits, _ = eng.prefill(params, inputs)
             assert bool(torch.isfinite(logits).all())
         assert flash_attention.launches == before
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| over max(1, max |want|): the backward's outputs sum
+    hundreds of products, so their scale grows with the sequence."""
+    want = want.float()
+    return float((got.float() - want).abs().max()
+                 / max(1.0, float(want.abs().max())))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_backward_kernels_match_plain_on_card(dtype, tol, causal, d):
+    """dQ and dK/dV against their plain versions at a ragged length (200
+    is not a multiple of the 64-row tiles), and the autograd Function's
+    gradients against `_bwd_plain`, one launch of each kernel per call."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = _cuda_or_skip()
+    g = torch.Generator(device=dev).manual_seed(1)
+    q, k, v, do = (torch.randn((2, 200, 3, d), generator=g, device=dev)
+                   .to(dtype).transpose(1, 2) for _ in range(4))
+    scale = d ** -0.5
+    o, lse = flash_attention._fwd(q, k, v, causal, scale)
+    delta = flash_attention._delta(o, do).contiguous()
+    n_dq, n_dkv = flash_attention.launches_dq, flash_attention.launches_dkv
+    dq = flash_attention._dq_cuda(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = flash_attention._dkv_cuda(q, k, v, do, lse, delta, causal, scale)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches_dq, flash_attention.launches_dkv) == \
+        (n_dq + 1, n_dkv + 1)
+    assert dq.stride() == q.stride() and dk.stride() == k.stride()
+    rdq = flash_attention._dq_plain(q, k, v, do, lse, delta, causal, scale)
+    rdk, rdv = flash_attention._dkv_plain(q, k, v, do, lse, delta, causal,
+                                          scale)
+    for got, want in ((dq, rdq), (dk, rdk), (dv, rdv)):
+        assert _rel_err(got, want) <= tol
+
+    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    out = flash_attention.flash_attention_qkv(qs, ks, vs, causal=causal)
+    grads = torch.autograd.grad(out, (qs, ks, vs), do.transpose(1, 2))
+    torch.cuda.synchronize()
+    assert (flash_attention.launches_dq, flash_attention.launches_dkv) == \
+        (n_dq + 2, n_dkv + 2)
+    ref = flash_attention._bwd_plain(q, k, v, o, lse, do, causal, scale)
+    for got, want in zip(grads, ref):
+        assert _rel_err(got.transpose(1, 2), want) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("wd", [0.0, 0.01])
+def test_fused_adam_kernel_matches_plain_on_card(state_dtype, wd):
+    """Three steps of the one-launch Adam kernel against its plain version
+    over leaves of ragged sizes, one of them misaligned (the kernel's
+    scalar path), and a replaced param that must rebuild the table."""
+    from flexflow_tpu_torch import AdamOptimizer
+    from flexflow_tpu_torch.kernels import fused_optim
+
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(6)
+    sizes = [(1,), (1001,), (64, 65), (3, 40000)]
+    base = {f"l{i}": {"w": torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)).to(dev)}
+        for i, s in enumerate(sizes)}
+    buf = torch.zeros(5001, device=dev)
+    base["odd"] = {"w": buf[1:]}   # 4 bytes past an aligned address
+    base["odd"]["w"].copy_(torch.from_numpy(
+        rng.standard_normal(5000).astype(np.float32)))
+    opt = AdamOptimizer(alpha=1e-2, weight_decay=wd, state_dtype=state_dtype)
+    plan = fused_optim.plan_for(opt)
+    trees = []
+    for _ in range(2):
+        params = {l: {w: t.clone() for w, t in ws.items()}
+                  for l, ws in base.items()}
+        params["odd"]["w"] = torch.zeros(5001, device=dev)[1:]
+        params["odd"]["w"].copy_(base["odd"]["w"])
+        trees.append((params, opt.init_state(params)))
+    (pk, sk), (pp, sp) = trees
+    for step in range(3):
+        grads = {l: {"w": torch.from_numpy(rng.standard_normal(
+            tuple(t.shape)).astype(np.float32)).to(dev)}
+            for l, ws in base.items() for t in ws.values()}
+        if step == 2:   # a replaced param: new pointer, rebuilt table
+            pk["l1"]["w"] = pk["l1"]["w"].clone()
+        before = fused_optim.launches
+        sk = fused_optim.fused_update(plan, grads, sk, pk)
+        torch.cuda.synchronize()
+        assert fused_optim.launches == before + 1
+        gs = [grads[l]["w"] for l in pp]
+        fused_optim._adam_plain(plan, gs, [sp["mu"][l]["w"] for l in pp],
+                                [sp["nu"][l]["w"] for l in pp],
+                                [pp[l]["w"] for l in pp], step + 1)
+        for l in pp:
+            assert float((pk[l]["w"] - pp[l]["w"]).abs().max()) <= 1e-6
+            for m in ("mu", "nu"):
+                assert float((sk[m][l]["w"].float() - sp[m][l]["w"].float())
+                             .abs().max()) <= 1e-6
+    assert sk["count"] == 3
+
+
+def _tiny_train_model(vocab=250, **cfg):
+    """head_dim 64 and seq 64, inside the flash gate."""
+    model = FFModel(FFConfig(batch_size=2, **cfg))
+    build_gpt2(model, GPT2Config(vocab=vocab, seq=64, d_model=128, heads=2,
+                                 layers=1, dropout=0.0), batch=2)
+    return model
+
+
+def _batch(vocab):
+    rng = np.random.default_rng(7)
+    ids = rng.integers(0, vocab, size=(2, 64)).astype(np.int32)
+    pos = np.tile(np.arange(64, dtype=np.int32), (2, 1))
+    return [ids, pos], rng.integers(0, vocab, size=(2, 64)).astype(np.int32)
+
+
+@pytest.mark.cuda
+def test_unported_training_kernels_raise_on_card():
+    """The fused SGD kernels (#8/#9) and the fused CE kernels (#5/#6) are
+    not ported: on the card their gates raise instead of running plain
+    PyTorch; the `off` switches are the explicit way around."""
+    from flexflow_tpu_torch import AdamOptimizer, SGDOptimizer
+
+    dev = _cuda_or_skip()
+    cases = [(dict(), SGDOptimizer(lr=0.1), 250, "fused_optimizer='off'"),
+             (dict(fused_loss="auto"), AdamOptimizer(), 256,
+              "fused_loss='off'")]
+    for cfg, opt, vocab, msg in cases:
+        cm = _tiny_train_model(vocab, **cfg).compile(opt, device=dev)
+        cm.init(seed=0)
+        inputs, label = _batch(vocab)
+        with pytest.raises(NotImplementedError, match=msg):
+            cm.train_step(cm.params, cm.opt_state, cm.state, inputs, label)
+    off = dict(fused_optimizer="off")
+    cm = _tiny_train_model(250, **off).compile(SGDOptimizer(lr=0.1),
+                                               device=dev)
+    cm.init(seed=0)
+    *_, loss, _ = cm.train_step(cm.params, cm.opt_state, cm.state,
+                                *_batch(250))
+    assert bool(torch.isfinite(loss))

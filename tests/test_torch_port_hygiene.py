@@ -1,8 +1,8 @@
 """The port stands alone: it imports neither JAX nor the JAX package, its
-entry points refuse to fall back to the CPU quietly, its attention takes
-the kernel wrappers whenever fusion is on (no shape decides it behind the
-wrapper's back), and its kernel wrappers count no launch when they run
-their plain versions."""
+entry points (serving and training) refuse to fall back to the CPU
+quietly, its attention takes the kernel wrappers whenever fusion is on (no
+shape decides it behind the wrapper's back), and its kernel wrappers count
+no launch when they run their plain versions."""
 
 import pathlib
 import re
@@ -14,7 +14,8 @@ import pytest
 import torch
 
 import flexflow_tpu_torch
-from flexflow_tpu_torch import FFConfig, FFModel
+from flexflow_tpu_torch import AdamOptimizer, FFConfig, FFModel
+from flexflow_tpu_torch.compiler.compile import CompiledModel, compile_model
 from flexflow_tpu_torch.kernels import dequant_attention, flash_attention
 from flexflow_tpu_torch.models import GPT2Config, build_gpt2
 from flexflow_tpu_torch.ops import attention_ops
@@ -73,6 +74,27 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert eng.device.type == "cpu"
     assert all(t.device.type == "cpu" for t in eng.kv.state.values()
                if isinstance(t, torch.Tensor))
+
+
+def test_training_entry_points_raise_without_cuda(monkeypatch):
+    """FFModel.compile, compile_model and CompiledModel run on the GPU
+    unless the caller passes device="cpu"."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for dev in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            _tiny_model().compile(AdamOptimizer(), device=dev)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            compile_model(_tiny_model(), AdamOptimizer(),
+                          "sparse_categorical_crossentropy", device=dev)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            m = _tiny_model()
+            CompiledModel(m, AdamOptimizer(), "sparse_categorical_crossentropy",
+                          [], m.layers[-1].outputs, device=dev)
+    cm = _tiny_model().compile(AdamOptimizer(), device="cpu")
+    params = cm.init(seed=0)
+    assert cm.device.type == "cpu"
+    assert all(t.device.type == "cpu" and t.dtype == torch.float32
+               for ws in params.values() for t in ws.values())
 
 
 def test_cpu_wrappers_count_no_launch():

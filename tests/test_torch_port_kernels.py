@@ -1,4 +1,4 @@
-"""The port's attention kernels against the JAX package's Pallas kernels.
+"""The port's kernels against the JAX package's Pallas kernels.
 
 On the CPU the port's wrappers run their plain PyTorch versions; the JAX
 kernels run in Pallas interpret mode, as the JAX package's own tests run
@@ -9,18 +9,30 @@ card by tests/test_torch_port_cuda.py.
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
+from flexflow_tpu import AdamOptimizer as JAdamOptimizer
+from flexflow_tpu import SGDOptimizer as JSGDOptimizer
+from flexflow_tpu.losses import LossType as JLossType
 from flexflow_tpu.serving.kv_cache import kv_quantize as jkv_quantize
-from flexflow_tpu_torch.kernels import dequant_attention, flash_attention
+from flexflow_tpu_torch import AdamOptimizer, SGDOptimizer
+from flexflow_tpu_torch.convert import (opt_state_from_jax, params_from_jax,
+                                        params_to_numpy)
+from flexflow_tpu_torch.kernels import (dequant_attention, flash_attention,
+                                        fused_ce, fused_optim)
+from flexflow_tpu_torch.losses import LossType
 from flexflow_tpu_torch.serving.kv_cache import kv_dequantize, kv_quantize
 
 # `flexflow_tpu.kernels` re-exports functions under the module names
 jflash = importlib.import_module("flexflow_tpu.kernels.flash_attention")
 jdequant = importlib.import_module("flexflow_tpu.kernels.dequant_attention")
+jfused_ce = importlib.import_module("flexflow_tpu.kernels.fused_ce")
+jfused_optim = importlib.import_module("flexflow_tpu.kernels.fused_optim")
 
 # f32 on both sides; the two sum the same products in another order
 ATOL_F32 = 2e-5
@@ -135,3 +147,231 @@ def test_wrappers_raise_off_cpu_and_cuda():
     with pytest.raises(ValueError, match="cuda or cpu"):
         dequant_attention.dequant_decode_attention(q[:, :1], kq, ks, kq, ks,
                                                    pos)
+
+
+# ------------------------------------------------------- flash backward
+def _rel_err(got, want) -> float:
+    """max |got - want| over max(1, max |want|): the gradients sum hundreds
+    of products, so their scale grows with the sequence."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return float(np.abs(got - want).max() / max(1.0, np.abs(want).max()))
+
+
+# f32: the same products summed in another order (Pallas blocks of 128 or
+# 256 against one einsum). bf16: dS and P are rounded to bf16 at the same
+# points on both sides, so what differs is an f32 sum that lands on the
+# other side of a bf16 rounding boundary, a few bf16 ulps at most.
+BWD_TOL = {np.float32: 2e-5, jnp.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d,seq", [(64, 256), (128, 128)])
+def test_bwd_plain_matches_jax_grad(dtype, causal, d, seq):
+    """`_bwd_plain` against jax.vjp of the Pallas flash attention (its
+    `_bwd`: the `_dq_kernel` and `_dkv_kernel` in interpret mode)."""
+    rng = np.random.default_rng(10)
+    q, k, v, g = (_normal(rng, (1, 2, seq, d)) for _ in range(4))
+    jq, jk, jv, jg = (jnp.asarray(a).astype(dtype) for a in (q, k, v, g))
+    jo, vjp = jax.vjp(lambda a, b, c: jflash.flash_attention(
+        a, b, c, causal=causal), jq, jk, jv)
+    jgrads = vjp(jg)
+    tq, tk, tv, tg = (torch.from_numpy(np.array(a.astype(jnp.float32)))
+                      .to(torch.float32 if dtype is np.float32
+                          else torch.bfloat16) for a in (jq, jk, jv, jg))
+    o, lse = flash_attention._fwd(tq, tk, tv, causal, d ** -0.5)
+    grads = flash_attention._bwd_plain(tq, tk, tv, o, lse, tg, causal,
+                                       d ** -0.5)
+    for got, want in zip(grads, jgrads):
+        assert got.dtype == tq.dtype
+        assert _rel_err(got.float().numpy(),
+                        np.asarray(want.astype(jnp.float32))) <= BWD_TOL[dtype]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bwd_plain_matches_torch_autograd(causal):
+    """In f32 the hand-derived backward equals autograd of the plain
+    forward (the same function, differentiated by PyTorch)."""
+    rng = np.random.default_rng(11)
+    q, k, v, g = (torch.from_numpy(_normal(rng, (2, 3, 96, 64)))
+                  for _ in range(4))
+    qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
+    o, lse = flash_attention._fwd_plain(qa, ka, va, causal, 0.125)
+    want = torch.autograd.grad(o, (qa, ka, va), g)
+    got = flash_attention._bwd_plain(q, k, v, o.detach(), lse.detach(), g,
+                                     causal, 0.125)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=2e-5)
+
+
+def test_flash_function_grads_are_bwd_plain():
+    """On CPU tensors the autograd Function's backward is `_bwd_plain`,
+    bit for bit, through the (b, s, h, d) entry's transposes."""
+    rng = np.random.default_rng(12)
+    q, k, v, g = (torch.from_numpy(_normal(rng, (2, 128, 2, 64)))
+                  for _ in range(4))
+    qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
+    out = flash_attention.flash_attention_qkv(qa, ka, va, causal=True)
+    got = torch.autograd.grad(out, (qa, ka, va), g)
+    t = lambda x: x.transpose(1, 2)
+    o, lse = flash_attention._fwd(t(q), t(k), t(v), True, 0.125)
+    want = flash_attention._bwd_plain(t(q), t(k), t(v), o, lse, t(g), True,
+                                      0.125)
+    for a, b in zip(got, want):
+        assert torch.equal(a, t(b))
+
+
+# ------------------------------------------------------------ optimizers
+def _param_tree(rng):
+    return {"a": {"kernel": _normal(rng, (33, 17)), "bias": _normal(rng, (17,))},
+            "b": {"gamma": _normal(rng, (300,))}}
+
+
+def _grads(rng, tree):
+    return {l: {w: _normal(rng, a.shape) for w, a in ws.items()}
+            for l, ws in tree.items()}
+
+
+def _assert_tree_close(port, jtree, rtol):
+    jt = jax.device_get(jtree)
+    for l, ws in port.items():
+        for w, t in ws.items():
+            np.testing.assert_allclose(t.float().numpy(),
+                                       np.asarray(jt[l][w], np.float32),
+                                       rtol=rtol, atol=1e-7, err_msg=f"{l}.{w}")
+
+
+# f32 moments: the same f32 operations, which XLA may contract into FMAs
+# (one rounding less); bf16 moments: that difference can move a stored
+# moment by one bf16 ulp (2**-8 relative).
+MOMENT_RTOL = {"float32": 1e-6, "bfloat16": 2 ** -7}
+
+
+@pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("wd", [0.0, 0.01])
+def test_fused_adam_plain_matches_jax(state_dtype, wd):
+    """The fused update's plain version against the JAX `fused_update`
+    (the Pallas `_adam_kernel` in interpret mode) plus `apply_updates`,
+    over three counts, from the JAX state carried across."""
+    rng = np.random.default_rng(13)
+    tree = _param_tree(rng)
+    jopt = JAdamOptimizer(alpha=1e-2, weight_decay=wd, state_dtype=state_dtype)
+    opt = AdamOptimizer(alpha=1e-2, weight_decay=wd, state_dtype=state_dtype)
+    jplan, plan = jfused_optim.plan_for(jopt), fused_optim.plan_for(opt)
+    assert plan["kind"] == jplan["kind"] == "adam"
+    jparams = jax.tree_util.tree_map(jnp.asarray, tree)
+    jstate = jopt.to_optax().init(jparams)
+    params = params_from_jax(tree)
+    state = opt_state_from_jax(jax.device_get(jstate))
+    for _ in range(3):
+        g = _grads(rng, tree)
+        upd, jstate = jfused_optim.fused_update(
+            jplan, jax.tree_util.tree_map(jnp.asarray, g), jstate, jparams)
+        jparams = optax.apply_updates(jparams, upd)
+        state = fused_optim.fused_update(plan, params_from_jax(g), state,
+                                         params)
+        _assert_tree_close(params, jparams, 1e-6)
+        js = jstate[0]
+        assert state["count"] == int(js.count)
+        assert state["mu"]["a"]["kernel"].dtype == opt.moment_dtype()
+        _assert_tree_close(state["mu"], js.mu, MOMENT_RTOL[state_dtype])
+        _assert_tree_close(state["nu"], js.nu, MOMENT_RTOL[state_dtype])
+    assert fused_optim.launches == 0
+
+
+OPTIMIZERS = [
+    ("sgd", dict(lr=0.1)),
+    ("sgd", dict(lr=0.1, momentum=0.9, weight_decay=0.01)),
+    ("sgd", dict(lr=0.1, momentum=0.9, nesterov=True)),
+    ("adam", dict(alpha=1e-2)),
+    ("adam", dict(alpha=1e-2, weight_decay=0.01)),
+    ("adam", dict(alpha=1e-2, state_dtype="bfloat16", weight_decay=0.01)),
+]
+
+
+@pytest.mark.parametrize("kind,kw", OPTIMIZERS)
+def test_optimizer_update_matches_optax(kind, kw):
+    """The port's own (unfused) update against the JAX optimizer's optax
+    chain, over three steps."""
+    rng = np.random.default_rng(14)
+    tree = _param_tree(rng)
+    jopt = (JAdamOptimizer if kind == "adam" else JSGDOptimizer)(**kw)
+    opt = (AdamOptimizer if kind == "adam" else SGDOptimizer)(**kw)
+    tx = jopt.to_optax()
+    jparams = jax.tree_util.tree_map(jnp.asarray, tree)
+    jstate = tx.init(jparams)
+    params = params_from_jax(tree)
+    state = opt.init_state(params)
+    for _ in range(3):
+        g = _grads(rng, tree)
+        upd, jstate = tx.update(jax.tree_util.tree_map(jnp.asarray, g),
+                                jstate, jparams)
+        jparams = optax.apply_updates(jparams, upd)
+        state = opt.update(params_from_jax(g), state, params)
+    _assert_tree_close(params, jparams, 1e-6)
+    carried = opt_state_from_jax(jax.device_get(jstate))
+    assert set(carried) == set(state)
+    for key in carried:
+        if key == "count":
+            assert carried[key] == state[key] == 3
+        else:
+            _assert_tree_close(state[key], params_to_numpy(carried[key]),
+                               MOMENT_RTOL[kw.get("state_dtype", "float32")])
+
+
+def test_params_round_trip_through_numpy():
+    rng = np.random.default_rng(15)
+    tree = _param_tree(rng)
+    back = params_to_numpy(params_from_jax(tree, dtype=torch.bfloat16))
+    for l, ws in tree.items():
+        for w, a in ws.items():
+            assert back[l][w].dtype == np.float32
+            np.testing.assert_allclose(back[l][w], a, rtol=2 ** -8)
+
+
+# ------------------------------------------------------------- fused CE
+CE_SHAPES = [(8, 1024, 50257), (8, 128, 5120), (4, 128, 5120), (3, 5, 256),
+             (16, 256), (8, 100), (2, 64, 250), (2, 64, 256), (7, 128)]
+
+
+@pytest.mark.parametrize("shape", CE_SHAPES)
+def test_fused_ce_gate_matches_jax(shape):
+    """`fused_ce_supported` and `use_fused_ce` answer as the JAX gate does,
+    for both dtypes, every mode and fusion on or off."""
+    for tdt, jdt in ((torch.float32, jnp.float32),
+                     (torch.bfloat16, jnp.bfloat16)):
+        logits = torch.empty(shape, dtype=tdt, device="meta")
+        jlogits = jax.ShapeDtypeStruct(shape, jdt)
+        want = jfused_ce.fused_ce_supported(shape, jdt)
+        assert fused_ce.fused_ce_supported(shape, tdt) == want
+        for mode in ("auto", "off"):
+            for fusion in (True, False):
+                assert fused_ce.use_fused_ce(
+                    LossType.SPARSE_CATEGORICAL_CROSSENTROPY, logits, mode,
+                    fusion) == jfused_ce.use_fused_ce(
+                    JLossType.SPARSE_CATEGORICAL_CROSSENTROPY, jlogits, mode,
+                    fusion)
+        if want:
+            assert fused_ce.use_fused_ce("sparse_categorical_crossentropy",
+                                         logits, "on")
+        else:
+            with pytest.raises(ValueError, match="don't qualify"):
+                fused_ce.use_fused_ce("sparse_categorical_crossentropy",
+                                      logits, "on")
+        assert not fused_ce.use_fused_ce("mean_squared_error", logits, "auto")
+    assert not fused_ce.fused_ce_supported((8, 1024, 50257), torch.float32)
+
+
+def test_fused_ce_plain_matches_jax():
+    """Loss and logits gradient of the plain version against the JAX
+    fused cross-entropy (its Pallas kernels in interpret mode)."""
+    rng = np.random.default_rng(16)
+    x = _normal(rng, (32, 512)) * 3.0
+    y = rng.integers(0, 512, size=(32,)).astype(np.int32)
+    jl, jg = jax.value_and_grad(jfused_ce.fused_cross_entropy)(
+        jnp.asarray(x), jnp.asarray(y))
+    xt = torch.from_numpy(x).requires_grad_()
+    loss = fused_ce.fused_cross_entropy(xt, torch.from_numpy(y))
+    (g,) = torch.autograd.grad(loss, (xt,))
+    np.testing.assert_allclose(float(loss.detach()), float(jl), rtol=1e-6)
+    np.testing.assert_allclose(g.numpy(), np.asarray(jg), atol=1e-7)
