@@ -6,15 +6,18 @@ Phases, each fatal on failure (nothing is caught to let the run exit 0):
 
 1. Environment: the card's name and power limit (nvidia-smi), then every
    kernel of the serving and training paths built from
-   flexflow_tpu_torch/csrc/ by one nvcc per source, all started together,
-   with the build time.
+   flexflow_tpu_torch/csrc/ by one nvcc per source (five sources), all
+   started together, with the build time.
 2. Kernels against their plain PyTorch versions on the card, at the shapes
    the GPT-2 medium paths give them, in bf16 and in f32 (TF32 is off for
    every float32 product here, so f32 is compared at 1e-4): the flash
    forward and the int8 dequant decode at the serving shapes, the flash
    backward's dQ and dK/dV at the training shape (8, 1024, 16, 64) causal,
-   and the fused Adam over GPT-2 medium's real param set (f32 and bf16
-   moments, weight decay 0 and 0.01). Each kernel is timed with CUDA
+   the fused Adam over GPT-2 medium's real param set (f32 and bf16
+   moments, weight decay 0 and 0.01), the fused cross-entropy forward and
+   backward at (8192, 50304) (GPT-2 medium's vocab padded to 128, bf16 and
+   f32), and the fused SGD with and without a momentum trace over the
+   padded model's param set. Each kernel is timed with CUDA
    events (L2 flushed before every launch) beside its plain version, one
    library call computing the same function (timed here only; the port
    never calls it) and its bound.
@@ -37,9 +40,24 @@ Phases, each fatal on failure (nothing is caught to let the run exit 0):
        samples/s, tokens/s, MFU, peak memory and the loss at every step;
        the launch counters are set to 0 before the 12 steps and read after,
        and each step must have launched the flash forward, dQ and dK/dV
-       once per layer and Adam at least once;
-   (c) one `fit` epoch over 4 batches with `sync_every=0`;
-   (d) torch.profiler over two train steps.
+       once per layer, Adam once and nothing else; the optimizer's pointer
+       table must be built in the first step and never again;
+   (c) one `fit` epoch over 4 batches with `sync_every=0`, no table built;
+   (d) torch.profiler over two train steps;
+   (e) gradient check as (a), with the vocab padded to 128 (the fused
+       cross-entropy kernels) and SGD with momentum (the fused SGD kernel);
+       the update compared is -lr times the stored trace, and every
+       updated param is held to the rounding bound of `sgd_param_excess`;
+   (f) GPT-2 medium at full depth with the vocab padded to 128, b8, seq
+       1024, bf16, SGD(0.01, momentum 0.9): 2 warm-up and 10 timed steps,
+       reported and checked as (b); each step must launch the flash
+       forward, dQ and dK/dV once per layer, each cross-entropy kernel and
+       the SGD kernel once, and nothing else;
+   (g) one `fit` epoch over 4 batches with `accum_steps=2`, SGD(0.01)
+       without momentum, `sync_every=0`: 2 updates, 4 launches of each
+       cross-entropy kernel and 2 of the trace-less SGD kernel, one table
+       built;
+   (h) torch.profiler over two steps of (f).
 
 The line before the last is `{"kernels": [...]}`; the last line is
 `{"ok": true, "device": {...}}`.
@@ -52,6 +70,7 @@ import json
 import subprocess
 import sys
 import time
+from gc import collect as collect_garbage
 
 import numpy as np
 import torch
@@ -66,6 +85,10 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # GPT-2 medium serving shapes (models/gpt2.py GPT2Config.medium)
 SLOTS, SEQ, HEADS, HEAD_DIM, LAYERS = 8, 1024, 16, 64, 24
 BATCH, LR, TRAIN_STEPS, WARMUP_STEPS = 8, 1e-4, 10, 2
+# the padded-vocab SGD path: GPT2Config(vocab_pad_to=128) gives lm_head
+# 50304 columns, which the fused cross-entropy gate admits; labels stay
+# below GPT-2's true vocab of 50257
+PAD_TO, PAD_VOCAB, GPT2_VOCAB, SGD_LR = 128, 50304, 50257, 0.01
 PAGE, NEW_TOKENS, REQUESTS = 16, 32, 16
 CTX = -(-(SEQ + NEW_TOKENS) // PAGE) * PAGE        # 1056 cached positions
 
@@ -290,7 +313,7 @@ def check_flash_bwd(timer, gen):
     return rows
 
 
-def medium_param_specs():
+def medium_param_specs(vocab_pad_to: int = 0):
     """GPT-2 medium's weight specs, in the order the CompiledModel holds
     them."""
     from flexflow_tpu_torch import FFConfig, FFModel
@@ -299,7 +322,7 @@ def medium_param_specs():
 
     model = FFModel(FFConfig(batch_size=BATCH))
     gc = GPT2Config.medium()
-    gc.dropout = 0.0
+    gc.dropout, gc.vocab_pad_to = 0.0, vocab_pad_to
     build_gpt2(model, gc, batch=BATCH)
     return [(l.name, w, spec) for l in topo_order(model.layers)
             for w, spec in sorted(l.weight_specs.items())]
@@ -377,6 +400,184 @@ def check_adam(timer, gen):
             "library": "torch.optim.Adam(fused=True).step"}
 
 
+def ulp_err(got, want) -> float:
+    """max over elements of |got - want| in ulps of got's dtype, the ulp
+    taken at the larger of the two magnitudes."""
+    eps = torch.finfo(got.dtype).eps                 # f32 2**-23, bf16 2**-7
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(
+        torch.finfo(torch.float32).tiny)
+    _, e = torch.frexp(mag)                          # mag in [2**(e-1), 2**e)
+    ulp = torch.ldexp(torch.full_like(mag, eps), e - 1)
+    return float(((g - w).abs() / ulp).max())
+
+
+# Fused cross-entropy tolerances. Forward: lse and the row losses (values
+# near 11) are f32 sums of 50304 exponentials taken in another order than
+# the plain version's: 1e-5 absolute. Backward, from the same lse, element
+# by element in ulps of the logits' dtype: the kernel's expf and PyTorch's
+# exp may differ in the last bit, which can move an f32 dx by up to 2 ulps
+# (the product with g/N rounds again) and round a bf16 dx one ulp the
+# other way.
+CE_TOL = {"fwd": 1e-5, "bwd_ulps": {torch.float32: 2, torch.bfloat16: 1}}
+
+
+def check_fused_ce(timer, gen):
+    """Both cross-entropy kernels at the padded training shape (8192,
+    50304), labels in [0, 50257), against their plain versions in f32 and
+    bf16; timed in bf16 (the path's dtype)."""
+    from flexflow_tpu_torch.kernels import fused_ce as fc
+
+    n, v = BATCH * SEQ, PAD_VOCAB
+    y = torch.randint(0, GPT2_VOCAB, (n,), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    g = torch.ones((), device="cuda")
+    gs = g / n
+    errs = {"fwd": {}, "bwd": {}, "bwd_ulps": {}}
+    for dt in (torch.float32, torch.bfloat16):
+        x = (torch.randn((n, v), generator=gen, device="cuda") * 2.0).to(dt)
+        loss, lse = fc._fwd_cuda(x, y)
+        dx = fc._bwd_cuda(x, y, lse, g)
+        torch.cuda.synchronize()
+        rloss, rlse = fc._fwd_plain(x, y)
+        errs["fwd"][dt] = max(float((loss - rloss).abs().max()),
+                              float((lse - rlse).abs().max()))
+        rdx = fc._bwd_plain(x, y, lse, gs)
+        errs["bwd"][dt] = float((dx.float() - rdx.float()).abs().max())
+        errs["bwd_ulps"][dt] = ulp_err(dx, rdx)
+        log(f"fused_ce ({n}, {v}) {dt}: forward max abs err (loss, lse) "
+            f"{errs['fwd'][dt]:.3e} (tolerance {CE_TOL['fwd']}), backward "
+            f"max abs err {errs['bwd'][dt]:.3e}, {errs['bwd_ulps'][dt]:g} "
+            f"ulps of {dt} element by element (tolerance "
+            f"{CE_TOL['bwd_ulps'][dt]})")
+        if not (errs["fwd"][dt] <= CE_TOL["fwd"]
+                and errs["bwd_ulps"][dt] <= CE_TOL["bwd_ulps"][dt]):
+            fail(f"fused cross-entropy {dt}: {errs}")
+        del loss, lse, dx, rloss, rlse, rdx
+        torch.cuda.empty_cache()
+    # timed in bf16: x is the last dtype of the loop
+    _, lse = fc._fwd_cuda(x, y)
+    y64 = y.long()
+    fwd = {"ms": timer(lambda: fc._fwd_cuda(x, y)),
+           "plain_ms": timer(lambda: fc._fwd_plain(x, y)),
+           "library_ms": timer(lambda: F.cross_entropy(x.float(), y64))}
+    xs = x.detach().requires_grad_()
+    out = F.cross_entropy(xs.float(), y64)
+    bwd = {"ms": timer(lambda: fc._bwd_cuda(x, y, lse, g)),
+           "plain_ms": timer(lambda: fc._bwd_plain(x, y, lse, gs)),
+           "library_ms": timer(lambda: torch.autograd.grad(
+               out, (xs,), retain_graph=True))}
+    del xs, out
+    nv = float(n) * v
+    rows = []
+    for name, times, nbytes, src_line, lib in (
+            ("fused_ce_fwd", fwd, nv * 2 + 4 * n + 8 * n, 139,
+             "torch.nn.functional.cross_entropy(x.float(), y) (the unfused "
+             "path's loss)"),
+            ("fused_ce_bwd", bwd, 2 * nv * 2 + 8 * n + 4, 184,
+             "backward of cross_entropy(x.float(), y) to the bf16 logits")):
+        # a max, a subtraction, an exp and an add (fwd) or a subtraction,
+        # an exp and a product (bwd) per element, in f32
+        bound_ms, bound_by = bound(nbytes, 4 * nv, F32_FLOPS)
+        k = name[-3:]
+        tol = ({"tolerance": CE_TOL["fwd"], "tolerance_of": "max abs err"}
+               if k == "fwd" else
+               {"max_ulp_err": errs["bwd_ulps"][torch.bfloat16],
+                "max_ulp_err_f32": errs["bwd_ulps"][torch.float32],
+                "tolerance": CE_TOL["bwd_ulps"][torch.bfloat16],
+                "tolerance_f32": CE_TOL["bwd_ulps"][torch.float32],
+                "tolerance_of": "max ulps of the dtype, element by element"})
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "flexflow_tpu_torch/csrc/fused_ce.cu",
+            "replaces": f"flexflow_tpu/kernels/fused_ce.py:{src_line}",
+            "shape": [n, v], "dtype": "bfloat16",
+            "max_abs_err": errs[k][torch.bfloat16],
+            "max_abs_err_f32": errs[k][torch.float32], **tol, **times,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library": lib})
+    return rows
+
+
+def check_sgd(timer, gen):
+    """The one-launch SGD over the padded GPT-2 medium param set against
+    its plain version (no momentum, momentum 0.9, momentum 0.9 with weight
+    decay 0.01, nesterov): equal to 1e-6, bit for bit expected. Timed in
+    the two configurations the training paths run: SGD(0.01, momentum 0.9)
+    with a trace, SGD(0.01) without."""
+    from flexflow_tpu_torch import SGDOptimizer
+    from flexflow_tpu_torch.kernels import fused_optim as fo
+
+    specs = medium_param_specs(PAD_TO)
+
+    def leaves(scale):
+        return [torch.randn(spec.shape, generator=gen, device="cuda") * scale
+                for _, _, spec in specs]
+
+    params, grads = leaves(0.02), leaves(1e-3)
+    n_params = sum(p.numel() for p in params)
+    configs = {"sgd": dict(lr=SGD_LR),
+               "momentum": dict(lr=SGD_LR, momentum=0.9),
+               "momentum wd=0.01": dict(lr=SGD_LR, momentum=0.9,
+                                        weight_decay=0.01),
+               "nesterov": dict(lr=SGD_LR, momentum=0.9, nesterov=True)}
+    errs = {}
+    for cname, kw in configs.items():
+        plan = fo.plan_for(SGDOptimizer(**kw))
+        traces = leaves(1e-3) if plan["momentum"] else None
+        runs = []
+        for fn in (fo._sgd_cuda, fo._sgd_plain):
+            ps = [p.clone() for p in params]
+            ts = None if traces is None else [t.clone() for t in traces]
+            fn(plan, grads, ts, ps)
+            runs.append(ps + (ts or []))
+        torch.cuda.synchronize()
+        errs[cname] = max(float((a - b).abs().max())
+                          for a, b in zip(*runs))
+        log(f"fused_sgd {n_params} params, {cname}: max abs err (params and "
+            f"trace) {errs[cname]:.3e} (tolerance 1e-6)")
+        if not errs[cname] <= 1e-6:
+            fail(f"fused SGD {cname}: max abs err {errs[cname]}")
+        del runs, traces
+    rows = []
+    for name, cname, src_line, bytes_per, flops_per in (
+            ("fused_sgd", "momentum", 180, 20.0, 4.0),
+            ("fused_sgd_plain", "sgd", 169, 12.0, 2.0)):
+        kw = configs[cname]
+        plan = fo.plan_for(SGDOptimizer(**kw))
+        traces = leaves(1e-3) if plan["momentum"] else None
+        ms = timer(lambda: fo._sgd_cuda(plan, grads, traces, params))
+        plain_ms = timer(lambda: fo._sgd_plain(plan, grads, traces, params))
+        lib_params = [p.clone() for p in params]
+        for p, g in zip(lib_params, grads):
+            p.grad = g
+        mom = kw.get("momentum", 0.0)
+        try:
+            opt = torch.optim.SGD(lib_params, lr=SGD_LR, momentum=mom,
+                                  fused=True)
+            opt.step()
+            lib = "torch.optim.SGD(fused=True).step"
+        except (TypeError, RuntimeError):
+            opt = torch.optim.SGD(lib_params, lr=SGD_LR, momentum=mom,
+                                  foreach=True)
+            lib = "torch.optim.SGD(foreach=True).step"
+        lib_ms = timer(opt.step)
+        del opt, lib_params, traces
+        # g, p (and the trace) read once, p (and the trace) written once
+        bound_ms, bound_by = bound(bytes_per * n_params, flops_per * n_params,
+                                   F32_FLOPS)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "flexflow_tpu_torch/csrc/fused_optim.cu",
+            "replaces": f"flexflow_tpu/kernels/fused_optim.py:{src_line}",
+            "params": n_params, "leaves": len(params), "config": kw,
+            "max_abs_err": max(v for c, v in errs.items()
+                               if (c == "sgd") == (name == "fused_sgd_plain")),
+            "max_abs_err_by_config": errs, "tolerance": 1e-6, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms, "library": lib})
+    return rows
+
+
 # ---------------------------------------------------------------- serving
 class PlainKernels:
     """Swap each kernel wrapper's launch for its plain version, to run the
@@ -386,12 +587,18 @@ class PlainKernels:
     def __enter__(self):
         from flexflow_tpu_torch.kernels import dequant_attention as da
         from flexflow_tpu_torch.kernels import flash_attention as fa
+        from flexflow_tpu_torch.kernels import fused_ce as fc
         from flexflow_tpu_torch.kernels import fused_optim as fo
         self.counts = launch_counts()
         swaps = [(fa, "_fwd_cuda", fa._fwd_plain), (da, "_cuda", da._plain),
                  (fa, "_dq_cuda", fa._dq_plain),
                  (fa, "_dkv_cuda", fa._dkv_plain),
-                 (fo, "_adam_cuda", fo._adam_plain)]
+                 (fo, "_adam_cuda", fo._adam_plain),
+                 (fc, "_fwd_cuda", fc._fwd_plain),
+                 # the kernel divides the cotangent by N on the card
+                 (fc, "_bwd_cuda", lambda x2, y2, lse, g: fc._bwd_plain(
+                     x2, y2, lse, g / x2.shape[0])),
+                 (fo, "_sgd_cuda", fo._sgd_plain)]
         self.saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
         for mod, name, plain in swaps:
             setattr(mod, name, plain)
@@ -408,20 +615,28 @@ def launch_counts() -> dict:
     """Every kernel wrapper's launch counter, by the kernel's name."""
     from flexflow_tpu_torch.kernels import dequant_attention as da
     from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.kernels import fused_ce as fc
     from flexflow_tpu_torch.kernels import fused_optim as fo
     return {"flash_attention_fwd": fa.launches,
             "flash_attention_dq": fa.launches_dq,
             "flash_attention_dkv": fa.launches_dkv,
             "dequant_decode_attention": da.launches,
-            "fused_adam": fo.launches}
+            "fused_adam": fo.launches,
+            "fused_ce_fwd": fc.launches_fwd,
+            "fused_ce_bwd": fc.launches_bwd,
+            "fused_sgd": fo.launches_sgd,
+            "fused_sgd_plain": fo.launches_sgd_plain}
 
 
 def zero_launch_counts() -> None:
     from flexflow_tpu_torch.kernels import dequant_attention as da
     from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.kernels import fused_ce as fc
     from flexflow_tpu_torch.kernels import fused_optim as fo
     fa.launches = fa.launches_dq = fa.launches_dkv = 0
     da.launches = fo.launches = 0
+    fc.launches_fwd = fc.launches_bwd = 0
+    fo.launches_sgd = fo.launches_sgd_plain = 0
 
 
 def serve(engine, params, prompts, label: str):
@@ -574,18 +789,21 @@ def profile_engine(engine, params, prompts) -> dict:
 
 
 # --------------------------------------------------------------- training
-def gpt2_train_model(seed: int, layers: int, compute_dtype: str):
+def gpt2_train_model(seed: int, layers: int, compute_dtype: str,
+                     optimizer=None, vocab_pad_to: int = 0):
     """GPT-2 medium widths at `layers` deep, dropout 0, compiled for
-    training with Adam(1e-4) and sparse CE, weights from the seed."""
+    training with `optimizer` (Adam(1e-4) when None) and sparse CE, the
+    lm_head padded to a multiple of `vocab_pad_to`, weights from the
+    seed."""
     from flexflow_tpu_torch import AdamOptimizer, FFConfig, FFModel
     from flexflow_tpu_torch.models import GPT2Config, build_gpt2
 
     gc = GPT2Config.medium()
-    gc.layers, gc.dropout = layers, 0.0
+    gc.layers, gc.dropout, gc.vocab_pad_to = layers, 0.0, vocab_pad_to
     model = FFModel(FFConfig(batch_size=BATCH, compute_dtype=compute_dtype,
                              seed=seed))
     build_gpt2(model, gc, batch=BATCH)
-    cm = model.compile(AdamOptimizer(alpha=LR),
+    cm = model.compile(optimizer or AdamOptimizer(alpha=LR),
                        "sparse_categorical_crossentropy", [])
     cm.init(seed=seed)
     return gc, model, cm
@@ -614,17 +832,43 @@ def l2_rel(a, b) -> float:
 # near 0, where the bf16 noise decides the sign; 0.3 allows 2%.
 GRAD_TOL = {"float32": {"loss": 1e-5, "grad": 1e-4, "update": 1e-3},
             "bfloat16": {"loss": 1e-2, "grad": 5e-2, "update": 3e-1}}
+# (e), SGD with momentum: the update compared is the one the optimizer
+# applies, -lr t', read from the trace it stores, not p' - p (where the
+# params' own ulp swamps updates of a few ulps, e.g. on LayerNorm gains
+# near 1). From a zero trace t' = g exactly, so the update is held to the
+# gradient's tolerance.
+GRAD_TOL_SGD = {dt: dict(tol, update=tol["grad"])
+                for dt, tol in GRAD_TOL.items()}
 
 
-def train_grad_check(seed: int) -> dict:
+def sgd_param_excess(p_k, p_p, d_k, d_p) -> float:
+    """Each updated param is p' = fl(p + d) from the same p, with d the
+    applied update, so IEEE rounding gives |p'_k - p'_p| <= |d_k - d_p| +
+    one ulp of the larger p'. Returns the largest excess over that bound
+    (<= 0 when it holds), in float64."""
+    big = torch.maximum(p_k.abs(), p_p.abs())
+    ulp = (torch.nextafter(big, torch.full_like(big, float("inf")))
+           - big).double()
+    return float(((p_k.double() - p_p.double()).abs()
+                  - (d_k.double() - d_p.double()).abs() - ulp).max())
+
+
+def train_grad_check(seed: int, optimizer_fn=None, vocab_pad_to: int = 0,
+                     tols=GRAD_TOL, tag: str = "train") -> dict:
     """One step through the kernels and one through the plain versions,
-    from the same params, at GPT-2 medium widths and 2 layers. The key
-    bias `bk` is left out of the gradient check: its gradient is zero in
+    from the same params, at GPT-2 medium widths and 2 layers, with the
+    optimizer `optimizer_fn()` (Adam(1e-4) when None). The key bias `bk`
+    is left out of the gradient and update checks: its gradient is zero in
     exact arithmetic (the softmax cancels it), so both runs hold rounding
-    noise there."""
+    noise there. Under SGD with momentum (no weight decay) the update is
+    -lr t' from the stored trace, and every updated param is held to
+    `sgd_param_excess`."""
     out = {}
     for dt in ("float32", "bfloat16"):
-        gc, _, cm = gpt2_train_model(seed, 2, dt)
+        gc, _, cm = gpt2_train_model(
+            seed, 2, dt, optimizer_fn() if optimizer_fn else None,
+            vocab_pad_to)
+        sgd_lr = (cm.optimizer.lr if "trace" in cm.opt_state else None)
         ids, pos, labels = train_batch(seed + 1, gc.vocab)
         inputs = [torch.from_numpy(ids).cuda(), torch.from_numpy(pos).cuda()]
         label = torch.from_numpy(labels).cuda()
@@ -637,7 +881,7 @@ def train_grad_check(seed: int) -> dict:
                                                    inputs, label)
         grad_err = max(l2_rel(g_k[l][w], g_p[l][w])
                        for l in g_k for w in g_k[l] if w != "bk")
-        updated = []
+        updated, after = [], []
         for plain in (False, True):
             cm.load_params(p0)
             if plain:
@@ -646,34 +890,57 @@ def train_grad_check(seed: int) -> dict:
                                   label)
             else:
                 cm.train_step(cm.params, cm.opt_state, cm.state, inputs, label)
-            updated.append({l: {w: t.detach() - p0[l][w]
+            after.append({l: {w: t.detach() for w, t in ws.items()}
+                          for l, ws in cm.params.items()})
+            updated.append({l: {w: (-sgd_lr * cm.opt_state["trace"][l][w]
+                                    if sgd_lr is not None
+                                    else t - p0[l][w])
                                 for w, t in ws.items()}
-                            for l, ws in cm.params.items()})
+                            for l, ws in after[-1].items()})
         upd_err = max(l2_rel(updated[0][l][w], updated[1][l][w])
                       for l in p0 for w in p0[l] if w != "bk")
         loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
-        tol = GRAD_TOL[dt]
+        tol = tols[dt]
         out[dt] = {"loss_kernels": float(loss_k), "loss_plain": float(loss_p),
                    "loss_rel_err": loss_err, "grad_rel_l2_max": grad_err,
-                   "update_rel_l2_max": upd_err, "tolerance": tol}
-        log(f"[train {dt}, 2 layers] loss {float(loss_k):.6f} vs plain "
+                   "update_rel_l2_max": upd_err,
+                   "update_read_as": ("-lr * trace" if sgd_lr is not None
+                                      else "p' - p"), "tolerance": tol}
+        ok = (loss_err <= tol["loss"] and grad_err <= tol["grad"]
+              and upd_err <= tol["update"])
+        excess = ""
+        if sgd_lr is not None:
+            out[dt]["param_excess_max"] = max(
+                sgd_param_excess(after[0][l][w], after[1][l][w],
+                                 updated[0][l][w], updated[1][l][w])
+                for l in p0 for w in p0[l])
+            ok = ok and out[dt]["param_excess_max"] <= 0.0
+            excess = (f", params' worst excess over the rounding bound "
+                      f"{out[dt]['param_excess_max']:.2e} (tolerance 0)")
+        log(f"[{tag} {dt}, 2 layers] loss {float(loss_k):.6f} vs plain "
             f"{float(loss_p):.6f} (rel {loss_err:.2e}), worst gradient rel L2 "
-            f"{grad_err:.2e}, worst update rel L2 {upd_err:.2e} "
-            f"(tolerances {tol})")
-        if not (loss_err <= tol["loss"] and grad_err <= tol["grad"]
-                and upd_err <= tol["update"]):
+            f"{grad_err:.2e}, worst update ({out[dt]['update_read_as']}) rel "
+            f"L2 {upd_err:.2e}{excess} (tolerances {tol})")
+        if not ok:
             fail(f"training step through the kernels vs plain ({dt}): "
                  f"{out[dt]}")
-        del cm, g_k, g_p, updated, p0
+        del cm, g_k, g_p, updated, after, p0
         torch.cuda.empty_cache()
     return out
 
 
-def train_full(seed: int) -> tuple:
+def train_full(seed: int, optimizer, vocab_pad_to: int, exact: dict,
+               tag: str) -> tuple:
     """GPT-2 medium at full depth: 2 warm-up and 10 timed steps on one
     batch, the launch counters zeroed before the 12 steps and read after.
-    Returns (summary, compiled model, device inputs, label)."""
-    gc, model, cm = gpt2_train_model(seed, LAYERS, "bfloat16")
+    `exact` gives every kernel's launches per step (a kernel it does not
+    name must not launch). The optimizer's pointer table must be built
+    in the first step and never again. Returns (summary, compiled model,
+    device inputs, label)."""
+    from flexflow_tpu_torch.kernels import fused_optim as fo
+
+    gc, model, cm = gpt2_train_model(seed, LAYERS, "bfloat16", optimizer,
+                                     vocab_pad_to)
     ids, pos, labels = train_batch(seed, gc.vocab)
     inputs = [torch.from_numpy(ids).cuda(), torch.from_numpy(pos).cuda()]
     label = torch.from_numpy(labels).cuda()
@@ -685,11 +952,18 @@ def train_full(seed: int) -> tuple:
         losses.append(loss)
 
     torch.cuda.synchronize()
+    # an earlier model is freed only by the collector (FFModel and its
+    # CompiledModel refer to each other): collect it before the peak is
+    # reset, so that the peak counts this model's memory alone
+    collect_garbage()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     zero_launch_counts()
+    builds0 = fo.table_builds
     for _ in range(WARMUP_STEPS):
         step()
     torch.cuda.synchronize()
+    builds = [fo.table_builds - builds0]
     windows = []
     for _ in range(TRAIN_STEPS // 2):
         t0 = time.perf_counter()
@@ -698,66 +972,133 @@ def train_full(seed: int) -> tuple:
         torch.cuda.synchronize()
         windows.append((time.perf_counter() - t0) / 2)
     counts = launch_counts()
+    builds.append(fo.table_builds - builds0 - builds[0])
     steps = WARMUP_STEPS + TRAIN_STEPS
     loss_vals = [float(x) for x in losses]
     step_s = float(np.median(windows))
     tokens = BATCH * SEQ
     summary = {
         "model": "gpt2-medium", "layers": LAYERS, "batch": BATCH, "seq": SEQ,
-        "compute_dtype": "bfloat16", "optimizer": f"Adam({LR})",
-        "params": gc.param_count(), "steps": steps,
+        "vocab_pad_to": vocab_pad_to,
+        "lm_head_columns": int(cm.params["lm_head"]["kernel"].shape[1]),
+        "compute_dtype": "bfloat16",
+        "optimizer": (f"{type(optimizer).__name__}({vars(optimizer)})"
+                      if optimizer else f"Adam({LR})"),
+        "params": sum(t.numel() for ws in cm.params.values()
+                      for t in ws.values()), "steps": steps,
         "step_ms_median": 1e3 * step_s,
         "step_ms_windows": [1e3 * w for w in windows],
         "samples_per_s": BATCH / step_s, "tokens_per_s": tokens / step_s,
         "mfu": gc.flops_per_token() * tokens / step_s / BF16_FLOPS,
         "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "losses": loss_vals, "launches": counts}
-    log(f"[train full depth] step {summary['step_ms_median']:.1f} ms "
+        "losses": loss_vals, "launches": counts,
+        "table_builds_warmup_timed": builds}
+    log(f"[{tag}] step {summary['step_ms_median']:.1f} ms "
         f"(windows {', '.join(f'{w:.1f}' for w in summary['step_ms_windows'])})"
         f", {summary['samples_per_s']:.2f} samples/s, "
         f"{summary['tokens_per_s']:.0f} tokens/s, MFU "
         f"{100 * summary['mfu']:.2f}%, peak "
         f"{summary['max_memory_allocated_gib']:.1f} GiB")
-    log(f"[train full depth] losses {' '.join(f'{x:.4f}' for x in loss_vals)}")
-    log(f"[train full depth] launches over {steps} steps: {counts}")
+    log(f"[{tag}] losses {' '.join(f'{x:.4f}' for x in loss_vals)}")
+    log(f"[{tag}] launches over {steps} steps: {counts}; optimizer table "
+        f"builds in the warm-up and timed steps: {builds}")
     if not all(np.isfinite(loss_vals)):
         fail(f"non-finite training loss: {loss_vals}")
     if not loss_vals[-1] < loss_vals[0]:
         fail(f"training loss did not fall: {loss_vals}")
-    for name, per_step in (("flash_attention_fwd", LAYERS),
-                           ("flash_attention_dq", LAYERS),
-                           ("flash_attention_dkv", LAYERS)):
-        if counts[name] != per_step * steps:
-            fail(f"{name}: {counts[name]} launches in {steps} steps, "
-                 f"expected {per_step} per step")
-    if counts["fused_adam"] < steps:
-        fail(f"fused Adam launched {counts['fused_adam']} times in {steps} "
-             "steps")
+    want = {name: exact.get(name, 0) * steps for name in counts}
+    if counts != want:
+        fail(f"{tag}: launches over {steps} steps {counts}, expected {want}")
+    if builds != [1, 0]:
+        fail(f"{tag}: the optimizer's pointer table was built {builds} "
+             f"times in the warm-up and timed steps, expected [1, 0]")
     return summary, cm, inputs, label
 
 
 def train_fit(cm, vocab: int, seed: int) -> dict:
     """One fit epoch over 4 batches with the loss read only at its end."""
+    from flexflow_tpu_torch.kernels import fused_optim as fo
+
     ids, pos, labels = train_batch(seed + 2, vocab, n=4 * BATCH)
     torch.cuda.synchronize()
     zero_launch_counts()
+    builds0 = fo.table_builds
     t0 = time.perf_counter()
     hist = cm.fit([ids, pos], labels, epochs=1, verbose=False, sync_every=0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
     out = {"history": hist, "step_stats": dict(cm.step_stats),
-           "wall_s": wall, "launches": counts}
+           "wall_s": wall, "launches": counts,
+           "table_builds": fo.table_builds - builds0}
     log(f"[train fit] loss {hist[0]['loss']:.4f}, "
         f"{hist[0]['samples_per_sec']:.2f} samples/s, step_stats "
-        f"{cm.step_stats}, launches {counts}")
+        f"{cm.step_stats}, launches {counts}, optimizer table builds "
+        f"{out['table_builds']}")
     if not np.isfinite(hist[0]["loss"]) or cm.step_stats != {
-            "dispatches": 4, "host_syncs": 0}:
+            "dispatches": 4, "host_syncs": 0} or out["table_builds"] != 0:
         fail(f"fit epoch: {out}")
     if min(counts[n] for n in ("flash_attention_fwd", "flash_attention_dq",
                                "flash_attention_dkv", "fused_adam")) <= 0:
         fail(f"fit did not launch every training kernel: {counts}")
     return out
+
+
+def train_accum_fit(seed: int) -> dict:
+    """(g): GPT-2 medium at full depth with the vocab padded to 128 and
+    SGD(0.01) without momentum: one fit epoch over 4 batches with
+    accum_steps=2 and the loss read only at its end, the launch counters
+    zeroed just before it: 2 updates, each of 2 microbatches."""
+    from flexflow_tpu_torch import SGDOptimizer
+    from flexflow_tpu_torch.kernels import fused_optim as fo
+
+    _, _, cm = gpt2_train_model(seed, LAYERS, "bfloat16",
+                                SGDOptimizer(lr=SGD_LR), PAD_TO)
+    ids, pos, labels = train_batch(seed + 3, GPT2_VOCAB, n=4 * BATCH)
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    builds0 = fo.table_builds
+    t0 = time.perf_counter()
+    hist = cm.fit([ids, pos], labels, epochs=1, verbose=False, sync_every=0,
+                  accum_steps=2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    want = {name: 0 for name in counts}
+    want.update({"flash_attention_fwd": 4 * LAYERS,
+                 "flash_attention_dq": 4 * LAYERS,
+                 "flash_attention_dkv": 4 * LAYERS,
+                 "fused_ce_fwd": 4, "fused_ce_bwd": 4, "fused_sgd_plain": 2})
+    out = {"history": hist, "step_stats": dict(cm.step_stats),
+           "wall_s": wall, "launches": counts,
+           "table_builds": fo.table_builds - builds0}
+    log(f"[train accum fit] loss {hist[0]['loss']:.4f}, "
+        f"{hist[0]['samples_per_sec']:.2f} samples/s, step_stats "
+        f"{cm.step_stats}, launches {counts}, optimizer table builds "
+        f"{out['table_builds']}")
+    if not np.isfinite(hist[0]["loss"]) or cm.step_stats != {
+            "dispatches": 2, "host_syncs": 0} or out["table_builds"] != 1:
+        fail(f"accum_steps=2 fit epoch: {out}")
+    if counts != want:
+        fail(f"accum_steps=2 fit epoch: launches {counts}, expected {want}")
+    return out
+
+
+def profile_train(cm, inputs, label, tag: str) -> dict:
+    """torch.profiler over two train steps of `cm` on one batch."""
+    def step():
+        (cm.params, cm.opt_state, cm.state, _, _) = cm.train_step(
+            cm.params, cm.opt_state, cm.state, inputs, label)
+    prof = _device_profile(step, 2, cm.device)
+    if "wall_ms_per_call" in prof:
+        log(f"[{tag}] step: {prof['wall_ms_per_call']:.2f} ms wall, device "
+            f"busy {prof['device_busy_ms_per_call']:.2f} ms, idle share "
+            f"{prof['device_idle_share']:.3f}, "
+            f"{prof['kernel_launches_per_call']:.0f} kernel launches")
+        for k in prof["top_kernels"]:
+            log(f"[{tag}]   {k['ms_per_call']:8.3f} ms "
+                f"{k['launches_per_call']:5.0f}x  {k['name']}")
+    return prof
 
 
 def main() -> None:
@@ -783,7 +1124,7 @@ def main() -> None:
 
     # ---- 1. build
     kernels = ("flash_attention", "flash_attention_bwd", "dequant_attention",
-               "fused_optim")
+               "fused_optim", "fused_ce")
     t0 = time.perf_counter()
     paths = build_all(kernels)
     log(f"built {len(paths)} kernel libraries in "
@@ -798,6 +1139,8 @@ def main() -> None:
     timer = Timer()
     rows = [check_flash(timer, gen), *check_flash_bwd(timer, gen),
             check_dequant(timer, gen, args.seed), check_adam(timer, gen)]
+    torch.cuda.empty_cache()
+    rows += [*check_fused_ce(timer, gen), *check_sgd(timer, gen)]
     torch.cuda.empty_cache()
     for r in rows:
         log(f"{r['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
@@ -853,35 +1196,48 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- 5. train GPT-2 medium
+    flash = {"flash_attention_fwd": LAYERS, "flash_attention_dq": LAYERS,
+             "flash_attention_dkv": LAYERS}
     train = {"grad_check": train_grad_check(args.seed)}
-    train["full_depth"], cm, inputs, label = train_full(args.seed)
+    train["full_depth"], cm, inputs, label = train_full(
+        args.seed, None, 0, dict(flash, fused_adam=1), "train full depth")
     train["fit"] = train_fit(cm, gc.vocab, args.seed)
+    train["profile"] = profile_train(cm, inputs, label, "train")
+    del cm, inputs, label
+    torch.cuda.empty_cache()
 
-    def step():
-        (cm.params, cm.opt_state, cm.state, _, _) = cm.train_step(
-            cm.params, cm.opt_state, cm.state, inputs, label)
-    train["profile"] = _device_profile(step, 2, cm.device)
-    prof = train["profile"]
-    if "wall_ms_per_call" in prof:
-        log(f"[train] step: {prof['wall_ms_per_call']:.2f} ms wall, device "
-            f"busy {prof['device_busy_ms_per_call']:.2f} ms, idle share "
-            f"{prof['device_idle_share']:.3f}, "
-            f"{prof['kernel_launches_per_call']:.0f} kernel launches")
-        for k in prof["top_kernels"]:
-            log(f"[train]   {k['ms_per_call']:8.3f} ms "
-                f"{k['launches_per_call']:5.0f}x  {k['name']}")
+    # ---- 5e-5h. GPT-2 medium with the vocab padded to 128, under SGD
+    from flexflow_tpu_torch import SGDOptimizer
 
-    # launches on the main paths: both serving runs, the 12 training steps
-    # and the fit epoch, each counted from 0 just before it ran
+    def momentum_sgd():
+        return SGDOptimizer(lr=SGD_LR, momentum=0.9)
+    tag = "train sgd padded"
+    sgd = {"grad_check": train_grad_check(args.seed, momentum_sgd, PAD_TO,
+                                          GRAD_TOL_SGD, tag)}
+    sgd["full_depth"], cm, inputs, label = train_full(
+        args.seed, momentum_sgd(), PAD_TO,
+        dict(flash, fused_ce_fwd=1, fused_ce_bwd=1, fused_sgd=1),
+        f"{tag} full depth")
+    sgd["profile"] = profile_train(cm, inputs, label, tag)
+    del cm, inputs, label
+    torch.cuda.empty_cache()
+    sgd["accum_fit"] = train_accum_fit(args.seed)
+
+    # launches on the main paths: both serving runs, the 12 Adam training
+    # steps and the Adam fit epoch, the 12 padded-vocab SGD steps and the
+    # accum_steps=2 fit epoch, each counted from 0 just before it ran
     paths = {f"serve_{r['kv_cache_dtype']}": r["launches"] for r in runs}
     paths["train_steps"] = train["full_depth"]["launches"]
     paths["train_fit"] = train["fit"]["launches"]
+    paths["train_sgd_padded_steps"] = sgd["full_depth"]["launches"]
+    paths["train_accum_fit"] = sgd["accum_fit"]["launches"]
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in paths.values())
         r["launches_by_path"] = {p: c[r["name"]] for p, c in paths.items()}
         r["card"] = card
     log(json.dumps({"serve": runs}))
     log(json.dumps({"train": train}))
+    log(json.dumps({"train_sgd_padded": sgd}))
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,9 +5,16 @@
 forward (compiler/lowering.py) and returns a `CompiledModel` with
 `init`, `train_step`, `eval_step`, `infer`, `fit`, `evaluate`, `forward`,
 `get_weight` and `set_weight`, as the JAX package's. One device, no mesh:
-the strategy search, ZeRO, gradient accumulation (`accum_steps` must be
-1), the fused multi-step dispatch, resilience, health and telemetry are
-not ported yet.
+the strategy search, ZeRO, the fused multi-step dispatch, resilience,
+health and telemetry are not ported yet.
+
+Gradient accumulation is `compile.py:655-701`'s: with `accum_steps` N > 1
+(the config's, or `fit(accum_steps=N)`) the train step takes inputs and
+labels with a leading (N, ...) microbatch dim, runs `value_and_grads` on
+each microbatch, sums the f32 gradients, multiplies the sum by 1 / N and
+applies ONE optimizer update; loss and metrics are the microbatch sums
+times 1 / N. `fit` groups N consecutive loader batches per update
+(`runtime/dataloader.group_microbatches`).
 
 Params are f32 master weights; the lowering casts them to the compute
 dtype per layer, so their gradients come back in f32, as in JAX. The
@@ -42,7 +49,8 @@ from flexflow_tpu_torch.kernels import fused_ce, fused_optim
 from flexflow_tpu_torch.losses import LossType, compute_loss
 from flexflow_tpu_torch.metrics import MetricsType, PerfMetrics, compute_metrics
 from flexflow_tpu_torch.optimizers import SGDOptimizer
-from flexflow_tpu_torch.runtime.dataloader import SingleDataLoader
+from flexflow_tpu_torch.runtime.dataloader import (SingleDataLoader,
+                                                   group_microbatches)
 
 
 def compile_model(model, optimizer, loss_type, metrics: Sequence = (),
@@ -50,11 +58,6 @@ def compile_model(model, optimizer, loss_type, metrics: Sequence = (),
     """The training program of `model`'s graph, its output the last
     layer's first output (SGD at its default step size when no optimizer
     is given, as in JAX)."""
-    cfg = model.config
-    if int(cfg.accum_steps) != 1:
-        raise NotImplementedError(
-            f"accum_steps={cfg.accum_steps}: gradient accumulation is not "
-            "ported yet (accum_steps must be 1)")
     return CompiledModel(model, optimizer or SGDOptimizer(),
                          LossType.from_any(loss_type),
                          [MetricsType.from_any(m) for m in metrics],
@@ -84,7 +87,10 @@ class CompiledModel:
                 raise ValueError(
                     f"--fused-optimizer=on but {type(optimizer).__name__} is "
                     "not a recognized Adam/SGD configuration")
-        # dispatches / host_syncs of the last fit
+        # microbatches per optimizer update (cfg default; a fit call may
+        # override it, and the next fit without one goes back to cfg's)
+        self._accum_steps = max(1, int(self.cfg.accum_steps))
+        # dispatches (optimizer updates) / host_syncs of the last fit
         self.step_stats: Dict[str, int] = {}
         self.params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
         self.state: Dict[str, Any] = {}
@@ -161,17 +167,58 @@ class CompiledModel:
             grads.setdefault(l, {})[w] = g
         return loss.detach(), logits.detach(), new_state, grads
 
+    def _metrics(self, logits, label):
+        # no f32 copy of the logits when there is no metric to compute
+        if not self.metrics:
+            return {}
+        with torch.no_grad():
+            return compute_metrics(self.metrics, logits.float(), label)
+
     def train_step(self, params, opt_state, state, inputs, label):
-        """One step: `value_and_grads`, then the optimizer update. `params`
-        and `opt_state` are updated in place and returned with the new
-        state, the loss and the metrics (device scalars)."""
+        """One optimizer update: `value_and_grads`, then the update, or
+        with accum_steps N > 1 the accumulating step over the (N, ...)
+        microbatches of `inputs` and `label`. `params` and `opt_state` are
+        updated in place and returned with the new state, the loss and the
+        metrics (device scalars)."""
+        if self._accum_steps > 1:
+            return self._accum_step(params, opt_state, state, inputs, label)
         label = to_device(label, self.device)
         loss, logits, new_state, grads = self.value_and_grads(
             params, state, inputs, label)
         opt_state = self._apply_update(params, opt_state, grads)
-        with torch.no_grad():
-            mvals = compute_metrics(self.metrics, logits.float(), label)
-        return params, opt_state, new_state, loss, mvals
+        return params, opt_state, new_state, loss, self._metrics(logits, label)
+
+    def _accum_step(self, params, opt_state, state, inputs, label):
+        n = self._accum_steps
+        inputs = [to_device(x, self.device) for x in inputs]
+        label = to_device(label, self.device)
+        want = [(n, *t.shape) for t in self.model.input_tensors]
+        got = [tuple(x.shape) for x in inputs]
+        if got != want or label.dim() < 2 or label.shape[0] != n:
+            raise ValueError(
+                f"accum_steps={n}: inputs {want} and a label with a leading "
+                f"({n}, ...) microbatch dim needed; got inputs {got}, label "
+                f"{tuple(label.shape)}")
+        gsum = lsum = msum = None
+        for j in range(n):
+            loss, logits, state, grads = self.value_and_grads(
+                params, state, [x[j] for x in inputs], label[j])
+            mvals = self._metrics(logits, label[j])
+            if gsum is None:
+                gsum, lsum, msum = grads, loss, mvals
+                continue
+            for l, ws in grads.items():
+                for w, g in ws.items():
+                    gsum[l][w].add_(g)
+            lsum = lsum + loss
+            msum = {k: msum[k] + v for k, v in mvals.items()}
+        inv = 1.0 / n
+        for ws in gsum.values():
+            for g in ws.values():
+                g.mul_(inv)
+        opt_state = self._apply_update(params, opt_state, gsum)
+        return (params, opt_state, state, lsum * inv,
+                {k: v * inv for k, v in msum.items()})
 
     @torch.no_grad()
     def eval_step(self, params, state, inputs, label):
@@ -198,16 +245,21 @@ class CompiledModel:
     # ------------------------------------------------------------- training
     def fit(self, x, y, batch_size: Optional[int] = None,
             epochs: Optional[int] = None, verbose: bool = True,
-            sync_every: Optional[int] = None):
+            sync_every: Optional[int] = None,
+            accum_steps: Optional[int] = None):
         """Train for `epochs` over (x, y), shuffled by the config's seed.
-        The loss stays on the device and is read every `sync_every` steps
-        (0 = at epoch end only). Returns one summary dict per epoch;
-        `step_stats` counts the fit's dispatches (train steps) and its
-        mid-epoch host syncs."""
+        With accum_steps N > 1 (None = the config's value) every N
+        consecutive batches make one update. The loss stays on the device
+        and is read every `sync_every` updates (0 = at epoch end only).
+        Returns one summary dict per epoch; `step_stats` counts the fit's
+        dispatches (optimizer updates) and its mid-epoch host syncs."""
         xs = x if isinstance(x, (list, tuple)) else [x]
         epochs = epochs or self.cfg.epochs
         sync = max(0, int(self.cfg.sync_every if sync_every is None
                           else sync_every))
+        self._accum_steps = max(1, int(self.cfg.accum_steps if accum_steps
+                                       is None else accum_steps))
+        accum = self._accum_steps
         if self.params is None:
             self.init()
         batch_size = self._coerce_batch(batch_size or self.cfg.batch_size)
@@ -219,7 +271,7 @@ class CompiledModel:
             pm, pml = PerfMetrics(), PerfMetrics()
             nb = since_sync = ep_sync = 0
             t0 = time.perf_counter()
-            for dx, dy in loader.epoch():
+            for dx, dy in group_microbatches(loader.epoch(), accum):
                 (self.params, self.opt_state, self.state, loss,
                  mvals) = self.train_step(self.params, self.opt_state,
                                           self.state, dx, dy)
@@ -227,7 +279,7 @@ class CompiledModel:
                 since_sync += 1
                 stats["dispatches"] += 1
                 pml.update_deferred(1, {"loss": loss})
-                pm.update_deferred(batch_size, mvals)
+                pm.update_deferred(batch_size * accum, mvals)
                 if sync and since_sync >= sync:
                     pml.materialize()
                     pm.materialize()

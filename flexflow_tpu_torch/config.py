@@ -32,8 +32,9 @@ class FFConfig:
     #                    stores int8 pools with per-(entry, head) f32 scales
     kv_cache_dtype: str = "auto"
     # training loop (compiler/compile.py): fit reads the loss to the host
-    # every sync_every steps (0 = at epoch end only); accum_steps != 1 is
-    # not ported yet and raises
+    # every sync_every updates (0 = at epoch end only); accum_steps N > 1
+    # makes every update one over N microbatches (fit(accum_steps=)
+    # overrides it per call)
     sync_every: int = 0
     accum_steps: int = 1
     # fused kernels of the train step: "auto" takes the kernel where the

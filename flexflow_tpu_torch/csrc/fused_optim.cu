@@ -1,33 +1,50 @@
-// Fused Adam update for Hopper (sm_90a), hand-written CUDA C++.
+// Fused optimizer updates for Hopper (sm_90a), hand-written CUDA C++.
 //
-// Replaces the Pallas TPU kernel flexflow_tpu/kernels/fused_optim.py
-// `_adam_leaf` -> `_adam_kernel`: one pass that reads (g, mu, nu, p) and
-// writes (mu', nu', p'), with all arithmetic in f32 and the moments stored
-// in the optimizer's state dtype (f32, or bf16 rounded to nearest even as
-// `astype(bf16)` does). Same math as the TPU kernel followed by
-// `optax.apply_updates`:
+// Replaces the Pallas TPU kernels of flexflow_tpu/kernels/fused_optim.py:
 //
-//   mu' = b1 mu + (1 - b1) g          nu' = b2 nu + (1 - b2) g g
-//   u   = (mu' / bc1) / (sqrt(nu' / bc2) + eps)   [+ wd p]
-//   p'  = p + (-lr u)
+//   `_adam_leaf` -> `_adam_kernel`: one pass that reads (g, mu, nu, p) and
+//       writes (mu', nu', p'), all arithmetic in f32, the moments stored in
+//       the optimizer's state dtype (f32, or bf16 rounded to nearest even
+//       as `astype(bf16)` does). Same math as the TPU kernel followed by
+//       `optax.apply_updates`:
 //
-// with bc1 = 1 - b1**count and bc2 = 1 - b2**count computed by the caller in
-// f32. The update goes straight into p, which saves the pass that writes
-// the update and reads it back.
+//         mu' = b1 mu + (1 - b1) g          nu' = b2 nu + (1 - b2) g g
+//         u   = (mu' / bc1) / (sqrt(nu' / bc2) + eps)   [+ wd p]
+//         p'  = p + (-lr u)
+//
+//       with bc1 = 1 - b1**count and bc2 = 1 - b2**count computed by the
+//       caller in f32.
+//   `_sgd_leaf` -> `_sgd_kernel` (momentum trace t, f32) and
+//       `_sgd_plain_kernel` (no trace):
+//
+//         g' = g [+ wd p]     t' = g' + m t     u = t', or g' + m t' (nesterov)
+//         p' = p + (-lr u)    (without a trace: u = g')
+//
+// Every update goes straight into p (and the moments or trace in place),
+// which saves the pass that writes the update and reads it back.
 //
 // Design: ONE launch per step over every parameter (the TPU code launches
 // one pallas_call per padded leaf, 389 a step for GPT-2 medium, which on
 // this card would be pure host cost). The caller builds a device table with
-// one entry per fixed-size chunk of every leaf: the chunk's g, mu, nu and p
-// pointers and its length. Block c takes chunk c; its threads walk the chunk
-// with 16-byte loads of g and p (8-byte loads of bf16 moments) where every
-// pointer is aligned, and scalar loads otherwise.
+// one entry per fixed-size chunk of every leaf: the chunk's leaf index and
+// element offset, its pointers into the arrays that persist from step to
+// step (params, moments, trace) and its length. The gradients are new
+// tensors every step, so their leaves' base pointers come in a separate
+// per-step array `gptrs`, indexed by the entry's leaf: the table itself is
+// built once and reused while the persistent pointers hold. Block c takes
+// chunk c; its threads walk the chunk with 16-byte loads of the f32 arrays
+// (8-byte loads of bf16 moments) where every pointer is aligned, and scalar
+// loads otherwise.
 //
-// What bounds it on an H100: bytes. GPT-2 medium's 406,286,336 f32 params
-// move 28 bytes each (g, mu, nu, p read; mu, nu, p written) = 11.4 GB,
-// 3.40 ms at 3.35 TB/s; the arithmetic is ~15 flops per element.
+// What bounds them on an H100: bytes. Adam moves 28 bytes per f32 param
+// (g, mu, nu, p read; mu, nu, p written): 11.4 GB for GPT-2 medium's
+// 406,286,336 params, 3.40 ms at 3.35 TB/s. SGD with a trace moves 20
+// bytes (g, t, p read; t, p written), without one 12 (g, p read; p
+// written): 2.43 and 1.46 ms for the 406,334,464 params of GPT-2 medium
+// with its vocab padded to 50304. The arithmetic is 2 to 15 flops per
+// element.
 //
-// C interface (ctypes): ff_adam returns cudaGetLastError().
+// C interface (ctypes): ff_adam and ff_sgd return cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,10 +59,16 @@ struct AdamArgs {
   float lr, b1, omb1, b2, omb2, eps, wd, bc1, bc2;
 };
 
-// one table entry: g, mu, nu, p pointers and the chunk's element count
+// one table entry: the leaf's index into gptrs, the chunk's element offset
+// in the leaf, mu, nu, p pointers and the chunk's element count
 struct Chunk {
-  long long g, mu, nu, p, n;
+  long long leaf, off, mu, nu, p, n;
 };
+
+__device__ __forceinline__ const float* grad_ptr(const long long* gptrs, long long leaf,
+                                                 long long off) {
+  return reinterpret_cast<const float*>(gptrs[leaf]) + off;
+}
 
 template <typename M> __device__ __forceinline__ float ld(const M* x);
 template <> __device__ __forceinline__ float ld<float>(const float* x) { return *x; }
@@ -102,14 +125,16 @@ __device__ __forceinline__ void store4<__nv_bfloat16>(__nv_bfloat16* x, const fl
 
 template <typename M>
 __global__ void __launch_bounds__(NT) adam_kernel(const Chunk* __restrict__ table,
+                                                  const long long* __restrict__ gptrs,
                                                   AdamArgs a) {
   const Chunk c = table[blockIdx.x];
-  const float* g = reinterpret_cast<const float*>(c.g);
+  const float* g = grad_ptr(gptrs, c.leaf, c.off);
   M* mu = reinterpret_cast<M*>(c.mu);
   M* nu = reinterpret_cast<M*>(c.nu);
   float* p = reinterpret_cast<float*>(c.p);
   const long long n = c.n;
-  const bool vec = ((c.g | c.p) & 15) == 0 && ((c.mu | c.nu) & (4 * sizeof(M) - 1)) == 0;
+  const bool vec = (((long long)g | c.p) & 15) == 0 &&
+                   ((c.mu | c.nu) & (4 * sizeof(M) - 1)) == 0;
   long long i0 = 0;
   if (vec) {
     const long long n4 = n & ~3LL;
@@ -136,23 +161,144 @@ __global__ void __launch_bounds__(NT) adam_kernel(const Chunk* __restrict__ tabl
   }
 }
 
+struct SgdArgs {
+  float lr, m, wd;
+};
+
+// table entries of the SGD kernels, with a trace (t, p) and without (p),
+// after the gradient's leaf index and offset as in Chunk
+struct TraceChunk {
+  long long leaf, off, t, p, n;
+};
+struct PlainChunk {
+  long long leaf, off, p, n;
+};
+
+// Each product and sum rounded on its own, as the plain version rounds them.
+template <bool WD, bool NESTEROV>
+__device__ __forceinline__ void sgd_elem(const SgdArgs& a, float g, float& t, float& p) {
+  if (WD) g = __fadd_rn(g, __fmul_rn(a.wd, p));
+  const float tn = __fadd_rn(g, __fmul_rn(a.m, t));
+  const float u = NESTEROV ? __fadd_rn(g, __fmul_rn(a.m, tn)) : tn;
+  t = tn;
+  p = __fadd_rn(p, __fmul_rn(-a.lr, u));
+}
+
+template <bool WD>
+__device__ __forceinline__ void sgd_plain_elem(const SgdArgs& a, float g, float& p) {
+  if (WD) g = __fadd_rn(g, __fmul_rn(a.wd, p));
+  p = __fadd_rn(p, __fmul_rn(-a.lr, g));
+}
+
+template <bool WD, bool NESTEROV>
+__global__ void __launch_bounds__(NT) sgd_kernel(const TraceChunk* __restrict__ table,
+                                                 const long long* __restrict__ gptrs,
+                                                 SgdArgs a) {
+  const TraceChunk c = table[blockIdx.x];
+  const float* g = grad_ptr(gptrs, c.leaf, c.off);
+  float* t = reinterpret_cast<float*>(c.t);
+  float* p = reinterpret_cast<float*>(c.p);
+  const long long n = c.n;
+  long long i0 = 0;
+  if ((((long long)g | c.t | c.p) & 15) == 0) {
+    const long long n4 = n & ~3LL;
+    for (long long i = 4LL * threadIdx.x; i < n4; i += 4LL * NT) {
+      float gv[4], tv[4], pv[4];
+      load4<float>(g + i, gv);
+      load4<float>(t + i, tv);
+      load4<float>(p + i, pv);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sgd_elem<WD, NESTEROV>(a, gv[j], tv[j], pv[j]);
+      store4<float>(t + i, tv);
+      store4<float>(p + i, pv);
+    }
+    i0 = n4;
+  }
+  for (long long i = i0 + threadIdx.x; i < n; i += NT) {
+    float tv = t[i], pv = p[i];
+    sgd_elem<WD, NESTEROV>(a, g[i], tv, pv);
+    t[i] = tv;
+    p[i] = pv;
+  }
+}
+
+template <bool WD>
+__global__ void __launch_bounds__(NT) sgd_plain_kernel(const PlainChunk* __restrict__ table,
+                                                       const long long* __restrict__ gptrs,
+                                                       SgdArgs a) {
+  const PlainChunk c = table[blockIdx.x];
+  const float* g = grad_ptr(gptrs, c.leaf, c.off);
+  float* p = reinterpret_cast<float*>(c.p);
+  const long long n = c.n;
+  long long i0 = 0;
+  if ((((long long)g | c.p) & 15) == 0) {
+    const long long n4 = n & ~3LL;
+    for (long long i = 4LL * threadIdx.x; i < n4; i += 4LL * NT) {
+      float gv[4], pv[4];
+      load4<float>(g + i, gv);
+      load4<float>(p + i, pv);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sgd_plain_elem<WD>(a, gv[j], pv[j]);
+      store4<float>(p + i, pv);
+    }
+    i0 = n4;
+  }
+  for (long long i = i0 + threadIdx.x; i < n; i += NT) {
+    float pv = p[i];
+    sgd_plain_elem<WD>(a, g[i], pv);
+    p[i] = pv;
+  }
+}
+
 }  // namespace
 
-// table: n_chunks entries of 5 int64 (g, mu, nu, p, n) in device memory;
+// table: n_chunks entries of 6 int64 (leaf, off, mu, nu, p, n) in device
+// memory; gptrs: one int64 gradient base pointer per leaf, in device memory.
 // g and p are float32, mu and nu are float32 (moment_dtype 0) or bfloat16
 // (moment_dtype 1).
-extern "C" int ff_adam(const void* table, int n_chunks, int moment_dtype, float lr,
-                       float b1, float omb1, float b2, float omb2, float eps, float wd,
+extern "C" int ff_adam(const void* table, const void* gptrs, int n_chunks, int moment_dtype,
+                       float lr, float b1, float omb1, float b2, float omb2, float eps, float wd,
                        float bc1, float bc2, void* stream) {
   if (n_chunks <= 0) return (int)cudaErrorInvalidValue;
   const AdamArgs a{lr, b1, omb1, b2, omb2, eps, wd, bc1, bc2};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Chunk* t = static_cast<const Chunk*>(table);
+  const long long* gp = static_cast<const long long*>(gptrs);
   if (moment_dtype == 0)
-    adam_kernel<float><<<n_chunks, NT, 0, st>>>(t, a);
+    adam_kernel<float><<<n_chunks, NT, 0, st>>>(t, gp, a);
   else if (moment_dtype == 1)
-    adam_kernel<__nv_bfloat16><<<n_chunks, NT, 0, st>>>(t, a);
+    adam_kernel<__nv_bfloat16><<<n_chunks, NT, 0, st>>>(t, gp, a);
   else
     return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// table: n_chunks entries of 5 int64 (leaf, off, t, p, n) when has_trace,
+// else of 4 int64 (leaf, off, p, n), in device memory; gptrs as for ff_adam;
+// g, t and p are float32.
+extern "C" int ff_sgd(const void* table, const void* gptrs, int n_chunks, int has_trace,
+                      int nesterov, float lr, float momentum, float wd, void* stream) {
+  if (n_chunks <= 0) return (int)cudaErrorInvalidValue;
+  const SgdArgs a{lr, momentum, wd};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool decay = wd != 0.f;
+  const long long* gp = static_cast<const long long*>(gptrs);
+  if (has_trace) {
+    const TraceChunk* t = static_cast<const TraceChunk*>(table);
+    if (decay && nesterov)
+      sgd_kernel<true, true><<<n_chunks, NT, 0, st>>>(t, gp, a);
+    else if (decay)
+      sgd_kernel<true, false><<<n_chunks, NT, 0, st>>>(t, gp, a);
+    else if (nesterov)
+      sgd_kernel<false, true><<<n_chunks, NT, 0, st>>>(t, gp, a);
+    else
+      sgd_kernel<false, false><<<n_chunks, NT, 0, st>>>(t, gp, a);
+  } else {
+    const PlainChunk* t = static_cast<const PlainChunk*>(table);
+    if (decay)
+      sgd_plain_kernel<true><<<n_chunks, NT, 0, st>>>(t, gp, a);
+    else
+      sgd_plain_kernel<false><<<n_chunks, NT, 0, st>>>(t, gp, a);
+  }
   return (int)cudaGetLastError();
 }

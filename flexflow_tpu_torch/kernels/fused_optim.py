@@ -1,27 +1,34 @@
-"""Fused optimizer update: a hand-written CUDA Adam kernel and its plain
-version (counterpart: flexflow_tpu/kernels/fused_optim.py).
+"""Fused optimizer update: hand-written CUDA Adam and SGD kernels and
+their plain versions (counterpart: flexflow_tpu/kernels/fused_optim.py).
 
-Replaces the Pallas TPU kernel `_adam_leaf` -> `_adam_kernel`: Adam's
+Replaces the Pallas TPU kernels `_adam_leaf` -> `_adam_kernel` (Adam's
 moments and update in one pass over (g, mu, nu, p), all arithmetic in f32,
-moments stored in the optimizer's state dtype (f32 or bf16), decoupled
-weight decay after the Adam term, `scale(-lr)` last. The CUDA source is
-`csrc/fused_optim.cu`; it writes `p + (-lr u)` straight into p, the same
-f32 arithmetic as the TPU kernel followed by `optax.apply_updates`, so the
-plain version here takes the same two steps.
+moments stored in the optimizer's state dtype, f32 or bf16, decoupled
+weight decay after the Adam term, `scale(-lr)` last) and `_sgd_leaf` ->
+`_sgd_kernel` (momentum or nesterov trace, stored f32) and
+`_sgd_plain_kernel` (no trace). The CUDA source is `csrc/fused_optim.cu`;
+it writes `p + (-lr u)` straight into p, the same f32 arithmetic as the
+TPU kernels followed by `optax.apply_updates`, so the plain versions here
+take the same two steps and round every product and sum where the kernel
+does: kernel and plain version agree bit for bit.
 
-What bounds it on an H100: bytes. Each f32 param moves 28 bytes (g, mu,
-nu, p read; mu, nu, p written): 3.40 ms for GPT-2 medium's 406 M params at
-3.35 TB/s. The TPU code launches one kernel per padded leaf (389 a step
-for GPT-2 medium); the port launches ONE over every param, from a device
-table of per-chunk pointers that the wrapper builds once and reuses while
-the pointers stay the same (params and moments are updated in place; a
-replaced param, e.g. by `set_weight`, changes its pointer and rebuilds the
-table).
+What bounds them on an H100: bytes. Each f32 param moves 28 bytes under
+Adam (g, mu, nu, p read; mu, nu, p written), 20 under SGD with a trace
+and 12 without: 3.40, 2.43 and 1.46 ms for GPT-2 medium's ~406 M params
+at 3.35 TB/s. The TPU code launches one kernel per padded leaf (389 a
+step for GPT-2 medium); the port launches ONE over every param, from a
+device table of per-chunk pointers into the params and moments or trace,
+which the wrapper builds once and reuses while those pointers stay the
+same (they are updated in place; a replaced param, e.g. by `set_weight`,
+changes its pointer and rebuilds the table). Autograd hands back new
+gradient tensors every step, so the gradients' base pointers go to the
+kernel apart, one int64 per leaf copied each step. Adam and SGD keep
+their tables apart, per plan.
 
-`plan_for` recognises the port's optimizers as the JAX one does. The SGD
-kernels (#8 `_sgd_plain_kernel`, #9 `_sgd_kernel`) are not ported yet: an
-SGD plan runs its plain version on CPU tensors and raises on CUDA tensors.
-`launches` counts Adam kernel launches.
+`plan_for` recognises the port's optimizers as the JAX one does.
+`launches` counts Adam launches, `launches_sgd` SGD launches with a trace
+(#9) and `launches_sgd_plain` those without (#8); `table_builds` counts
+the tables built.
 """
 
 from __future__ import annotations
@@ -39,7 +46,10 @@ from flexflow_tpu_torch.optimizers import (AdamOptimizer, SGDOptimizer,
 CHUNK = 32768   # elements of one table entry (one block)
 _MOMENT_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = 0
+launches = 0            # Adam (#7 `_adam_kernel`)
+launches_sgd = 0        # SGD with a momentum trace (#9 `_sgd_kernel`)
+launches_sgd_plain = 0  # SGD without one (#8 `_sgd_plain_kernel`)
+table_builds = 0        # pointer tables built on the host (Adam and SGD)
 
 
 def plan_for(optimizer) -> Optional[Dict[str, Any]]:
@@ -84,30 +94,57 @@ def _adam_fn():
     fn = load_library("fused_optim").ff_adam
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-                       + [ctypes.c_float] * 9 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                        ctypes.c_int] + [ctypes.c_float] * 9
+                       + [ctypes.c_void_p])
     return fn
 
 
-def _chunk_table(gs, mus, nus, ps, device) -> torch.Tensor:
-    """(n_chunks, 5) int64 on the device: per CHUNK-element slice of each
-    leaf, its g, mu, nu and p addresses and its length."""
-    msize = mus[0].element_size()
+def _to_device(host: np.ndarray, device) -> torch.Tensor:
+    # pinned + non-blocking: the host does not wait; the pinned block is
+    # not reused before the copy has run
+    return torch.from_numpy(np.ascontiguousarray(host)).pin_memory().to(
+        device, non_blocking=True)
+
+
+def _chunk_table(columns, device) -> torch.Tensor:
+    """(n_chunks, len(columns) + 3) int64 on the device: per CHUNK-element
+    slice of each leaf, the leaf's index and the slice's element offset,
+    the slice's address in every column (`columns` is a list of leaf lists
+    in the same leaf order) and its length. Empty leaves have no entry."""
     rows = []
-    for g, mu, nu, p in zip(gs, mus, nus, ps):
-        n = p.numel()
+    for i, leaves in enumerate(zip(*columns)):
+        n = leaves[-1].numel()
         if n == 0:
             continue
         starts = np.arange(0, n, CHUNK, dtype=np.int64)
-        rows.append(np.stack([g.data_ptr() + 4 * starts,
-                              mu.data_ptr() + msize * starts,
-                              nu.data_ptr() + msize * starts,
-                              p.data_ptr() + 4 * starts,
-                              np.minimum(CHUNK, n - starts)], axis=1))
-    host = torch.from_numpy(np.ascontiguousarray(np.concatenate(rows)))
-    # pinned + non-blocking: the host does not wait; the pinned block is
-    # not reused before the copy has run
-    return host.pin_memory().to(device, non_blocking=True)
+        rows.append(np.stack([np.full_like(starts, i), starts]
+                             + [t.data_ptr() + t.element_size() * starts
+                                for t in leaves]
+                             + [np.minimum(CHUNK, n - starts)], axis=1))
+    return _to_device(np.concatenate(rows), device)
+
+
+def _cached_table(plan, slot: str, columns, device) -> torch.Tensor:
+    """The plan's table in `slot` over the arrays that persist from step
+    to step (params and moments or trace, updated in place), rebuilt when
+    any of their pointers or sizes changed."""
+    global table_builds
+    key = tuple(tuple(t.data_ptr() for t in leaves) + (leaves[-1].numel(),)
+                for leaves in zip(*columns))
+    cached = plan.get(slot)
+    if cached is None or cached[0] != key:
+        cached = plan[slot] = (key, _chunk_table(columns, device))
+        table_builds += 1
+    return cached[1]
+
+
+def _grad_ptrs(gs, device) -> torch.Tensor:
+    """The gradients' base pointers, one int64 per leaf, on the device:
+    autograd returns new gradient tensors every step, so these go to the
+    kernel apart from the cached table."""
+    return _to_device(np.array([g.data_ptr() for g in gs], dtype=np.int64),
+                      device)
 
 
 def _adam_cuda(plan, gs, mus, nus, ps, count: int):
@@ -126,15 +163,12 @@ def _adam_cuda(plan, gs, mus, nus, ps, count: int):
                 f"{tuple(p.shape)}, g {g.dtype} {tuple(g.shape)}, moments "
                 f"{mu.dtype}/{nu.dtype}; fused_optimizer='off' runs the "
                 "unfused update")
-    key = tuple((g.data_ptr(), mu.data_ptr(), nu.data_ptr(), p.data_ptr(),
-                 p.numel()) for g, mu, nu, p in zip(gs, mus, nus, ps))
-    cached = plan.get("_table")
-    if cached is None or cached[0] != key:
-        cached = plan["_table"] = (key, _chunk_table(gs, mus, nus, ps, dev))
-    table = cached[1]
+    table = _cached_table(plan, "_adam_table", (mus, nus, ps), dev)
+    gptrs = _grad_ptrs(gs, dev)
     bc1, bc2 = bias_corrections(plan["b1"], plan["b2"], count)
     b1, b2 = plan["b1"], plan["b2"]
-    err = _adam_fn()(table.data_ptr(), table.shape[0], _MOMENT_CODE[md],
+    err = _adam_fn()(table.data_ptr(), gptrs.data_ptr(), table.shape[0],
+                     _MOMENT_CODE[md],
                      plan["lr"], b1, 1 - b1, b2, 1 - b2, plan["eps"],
                      plan["wd"], bc1, bc2,
                      torch.cuda.current_stream(dev).cuda_stream)
@@ -147,7 +181,8 @@ def _adam_cuda(plan, gs, mus, nus, ps, count: int):
 @torch.no_grad()
 def _sgd_plain(plan, gs, traces, ps):
     """`_sgd_kernel` (traces given) or `_sgd_plain_kernel` in plain
-    PyTorch."""
+    PyTorch, each product and sum rounded on its own as the kernel rounds
+    them."""
     m, wd, lr = plan["momentum"], plan["wd"], plan["lr"]
     for i, (g, p) in enumerate(zip(gs, ps)):
         g = g.float()
@@ -161,6 +196,47 @@ def _sgd_plain(plan, gs, traces, ps):
         p.add_(-lr * g)
 
 
+def _sgd_fn():
+    fn = load_library("fused_optim").ff_sgd
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                       + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+    return fn
+
+
+def _sgd_cuda(plan, gs, traces, ps):
+    """One launch of `_sgd_kernel` (traces given) or `_sgd_plain_kernel`
+    over every leaf."""
+    global launches_sgd, launches_sgd_plain
+    dev = ps[0].device
+    ts = traces if traces is not None else [None] * len(ps)
+    for g, t, p in zip(gs, ts, ps):
+        arrays = (g, p) if t is None else (g, t, p)
+        if not all(a.dtype == torch.float32 and a.is_contiguous()
+                   and a.device == dev and a.numel() == p.numel()
+                   for a in arrays):
+            raise ValueError(
+                f"fused SGD kernel covers contiguous f32 params, grads and "
+                f"traces on one device; got p {p.dtype} {tuple(p.shape)}, g "
+                f"{g.dtype} {tuple(g.shape)}, trace "
+                f"{None if t is None else (t.dtype, tuple(t.shape))}; "
+                "fused_optimizer='off' runs the unfused update")
+    columns = (ps,) if traces is None else (traces, ps)
+    table = _cached_table(plan, "_sgd_table", columns, dev)
+    gptrs = _grad_ptrs(gs, dev)
+    err = _sgd_fn()(table.data_ptr(), gptrs.data_ptr(), table.shape[0],
+                    int(traces is not None),
+                    int(plan["nesterov"]), plan["lr"], plan["momentum"],
+                    plan["wd"], torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused SGD kernel launch failed: CUDA error {err}")
+    if traces is None:
+        launches_sgd_plain += 1
+    else:
+        launches_sgd += 1
+
+
 # ------------------------------------------------------------------- update
 def _leaves(tree, order):
     return [tree[l][w] for l, w in order]
@@ -170,8 +246,7 @@ def fused_update(plan: Dict[str, Any], grads, state: Dict[str, Any],
                  params) -> Dict[str, Any]:
     """The optimizer step over `{layer: {weight: tensor}}` trees: params
     and moments are written in place; returns the new state. CPU tensors
-    take the plain versions; CUDA tensors the Adam kernel, and an SGD plan
-    raises there (its kernels are not ported)."""
+    take the plain versions, CUDA tensors the kernels."""
     order = [(l, w) for l, ws in params.items() for w in ws]
     ps, gs = _leaves(params, order), _leaves(grads, order)
     dev = ps[0].device.type
@@ -184,13 +259,8 @@ def fused_update(plan: Dict[str, Any], grads, state: Dict[str, Any],
            ps, count)
         return dict(state, count=count)
     if plan["kind"] == "sgd":
-        if dev == "cuda":
-            raise NotImplementedError(
-                "the fused SGD kernels (TPU kernels #8 _sgd_plain_kernel and "
-                "#9 _sgd_kernel) are not ported to CUDA yet; pass "
-                "fused_optimizer='off' to run SGD's unfused update")
         traces = (_leaves(state["trace"], order) if plan["momentum"]
                   else None)
-        _sgd_plain(plan, gs, traces, ps)
+        (_sgd_plain if dev == "cpu" else _sgd_cuda)(plan, gs, traces, ps)
         return state
     raise ValueError(f"unknown fused optimizer plan {plan['kind']!r}")

@@ -4,8 +4,10 @@
 batch at a time, shuffled by `np.random.default_rng(seed)` exactly as the
 JAX package's loader shuffles, so both packages draw the same batches in
 the same order. Only full batches are drawn (the JAX loader's default).
-The JAX loader's native gather and prefetch thread are not ported: the
-caller moves each batch to the device.
+`group_microbatches` stacks N consecutive batches for gradient
+accumulation, as the JAX package's does. The JAX loader's native gather
+and prefetch thread are not ported: the caller moves each batch to the
+device.
 """
 
 from __future__ import annotations
@@ -42,3 +44,27 @@ class SingleDataLoader:
         for b in range(self.num_batches):
             idx = order[b * self.batch_size:(b + 1) * self.batch_size]
             yield [x[idx] for x in self.xs], self.y[idx]
+
+
+def _batch_shapes(xs, y):
+    return tuple(np.asarray(x).shape for x in xs) + (np.asarray(y).shape,)
+
+
+def group_microbatches(it, n: int):
+    """Stack `n` consecutive (inputs, label) batches into (n, ...) arrays,
+    one item per accumulating train step. A group that cannot be completed
+    with batches of one shape is dropped: the trailing short group, and
+    any group broken by a batch of another shape."""
+    if n <= 1:
+        yield from it
+        return
+    buf = []
+    for xs, y in it:
+        if buf and _batch_shapes(xs, y) != _batch_shapes(*buf[0]):
+            buf = []  # a ragged batch: the partial group cannot stack
+        buf.append((xs, y))
+        if len(buf) == n:
+            yield ([np.stack([b[0][i] for b in buf])
+                    for i in range(len(buf[0][0]))],
+                   np.stack([b[1] for b in buf]))
+            buf = []

@@ -37,6 +37,18 @@ def _cuda_or_skip():
     return torch.device("cuda")
 
 
+def _ulp_err(got, want):
+    """max over elements of |got - want| in ulps of got's dtype, the ulp
+    taken at the larger of the two magnitudes."""
+    eps = torch.finfo(got.dtype).eps
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(
+        torch.finfo(torch.float32).tiny)
+    _, e = torch.frexp(mag)                # mag in [2**(e-1), 2**e)
+    return float(((g - w).abs() / torch.ldexp(torch.full_like(mag, eps),
+                                              e - 1)).max())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
                                        (torch.float32, 1e-4)])
@@ -185,9 +197,12 @@ def test_fused_adam_kernel_matches_plain_on_card(state_dtype, wd):
         if step == 2:   # a replaced param: new pointer, rebuilt table
             pk["l1"]["w"] = pk["l1"]["w"].clone()
         before = fused_optim.launches
+        builds = fused_optim.table_builds
         sk = fused_optim.fused_update(plan, grads, sk, pk)
         torch.cuda.synchronize()
         assert fused_optim.launches == before + 1
+        # built for the fresh plan and the replaced param, not for new grads
+        assert fused_optim.table_builds == builds + (step != 1)
         gs = [grads[l]["w"] for l in pp]
         fused_optim._adam_plain(plan, gs, [sp["mu"][l]["w"] for l in pp],
                                 [sp["nu"][l]["w"] for l in pp],
@@ -200,11 +215,12 @@ def test_fused_adam_kernel_matches_plain_on_card(state_dtype, wd):
     assert sk["count"] == 3
 
 
-def _tiny_train_model(vocab=250, **cfg):
+def _tiny_train_model(vocab=250, vocab_pad_to=0, **cfg):
     """head_dim 64 and seq 64, inside the flash gate."""
     model = FFModel(FFConfig(batch_size=2, **cfg))
     build_gpt2(model, GPT2Config(vocab=vocab, seq=64, d_model=128, heads=2,
-                                 layers=1, dropout=0.0), batch=2)
+                                 layers=1, dropout=0.0,
+                                 vocab_pad_to=vocab_pad_to), batch=2)
     return model
 
 
@@ -216,26 +232,145 @@ def _batch(vocab):
 
 
 @pytest.mark.cuda
-def test_unported_training_kernels_raise_on_card():
-    """The fused SGD kernels (#8/#9) and the fused CE kernels (#5/#6) are
-    not ported: on the card their gates raise instead of running plain
-    PyTorch; the `off` switches are the explicit way around."""
-    from flexflow_tpu_torch import AdamOptimizer, SGDOptimizer
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,v", [(64, 5120), (8, 384)])
+def test_fused_ce_kernels_match_plain_on_card(dtype, n, v):
+    """The forward (per-row loss and lse) and the backward (dx in the
+    logits' dtype) kernels against their plain versions, a label outside
+    the vocab included; the autograd Function launches each kernel once,
+    converts int64 labels on the card, and a non-contiguous vocab dim or a
+    shape outside the gate raises."""
+    from flexflow_tpu_torch.kernels import fused_ce
 
     dev = _cuda_or_skip()
-    cases = [(dict(), SGDOptimizer(lr=0.1), 250, "fused_optimizer='off'"),
-             (dict(fused_loss="auto"), AdamOptimizer(), 256,
-              "fused_loss='off'")]
-    for cfg, opt, vocab, msg in cases:
-        cm = _tiny_train_model(vocab, **cfg).compile(opt, device=dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = (torch.randn((n, v), generator=g, device=dev) * 3.0).to(dtype)
+    y = torch.randint(0, v, (n,), generator=g, device=dev,
+                      dtype=torch.int32)
+    y[1] = v                     # matches no column, as in JAX
+    f0, b0 = fused_ce.launches_fwd, fused_ce.launches_bwd
+    loss, lse = fused_ce._fwd_cuda(x, y)
+    gs = torch.tensor(0.7, device=dev)
+    dx = fused_ce._bwd_cuda(x, y, lse, gs)
+    torch.cuda.synchronize()
+    assert (fused_ce.launches_fwd, fused_ce.launches_bwd) == (f0 + 1, b0 + 1)
+    rloss, rlse = fused_ce._fwd_plain(x, y)
+    torch.testing.assert_close(lse, rlse, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(loss, rloss, rtol=1e-6, atol=1e-6)
+    ref = fused_ce._bwd_plain(x, y, lse, gs / n)
+    assert dx.dtype == dtype
+    # element by element: expf may differ from PyTorch's exp in its last
+    # bit, which can move an f32 dx 2 ulps (the product with g/n rounds
+    # again) and round a bf16 dx one ulp the other way
+    ulps = 2 if dtype == torch.float32 else 1
+    assert _ulp_err(dx, ref) <= ulps
+
+    xa = x.clone().requires_grad_()
+    out = fused_ce.fused_cross_entropy(xa, y.long())
+    (gx,) = torch.autograd.grad(out, (xa,), gs)
+    torch.cuda.synchronize()
+    assert (fused_ce.launches_fwd, fused_ce.launches_bwd) == (f0 + 2, b0 + 2)
+    torch.testing.assert_close(out, loss.mean())
+    assert torch.equal(gx, dx)
+
+    # one element past an aligned address: the kernels' scalar path
+    xm = torch.empty(n * v + 1, dtype=dtype, device=dev)[1:].view(n, v)
+    xm.copy_(x)
+    mloss, mlse = fused_ce._fwd_cuda(xm, y)
+    mdx = fused_ce._bwd_cuda(xm, y, mlse, gs)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(mlse, rlse, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(mloss, rloss, rtol=1e-6, atol=1e-6)
+    ref = fused_ce._bwd_plain(xm, y, mlse, gs / n)
+    assert _ulp_err(mdx, ref) <= ulps
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_ce._fwd_cuda(torch.empty((v, n), dtype=dtype, device=dev).t(), y)
+    with pytest.raises(ValueError, match="do not cover"):
+        fused_ce._fwd_cuda(x[:, :v - 1], y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(lr=0.1), dict(lr=0.1, weight_decay=0.01),
+                                dict(lr=0.1, momentum=0.9, weight_decay=0.01),
+                                dict(lr=0.1, momentum=0.9, nesterov=True)])
+def test_fused_sgd_kernels_match_plain_on_card(kw):
+    """Three steps of the one-launch SGD kernel (with a trace or without)
+    against its plain version over leaves of ragged sizes, one of them
+    misaligned (the scalar path), and a replaced param that must rebuild
+    the table: equal to 1e-6 (the same roundings, expected bit for
+    bit)."""
+    from flexflow_tpu_torch import SGDOptimizer
+    from flexflow_tpu_torch.kernels import fused_optim
+
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(8)
+    sizes = [(1,), (1001,), (64, 65), (3, 40000)]
+    base = {f"l{i}": {"w": torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)).to(dev)}
+        for i, s in enumerate(sizes)}
+    opt = SGDOptimizer(**kw)
+    plan = fused_optim.plan_for(opt)
+    trees = []
+    for _ in range(2):
+        params = {l: {w: t.clone() for w, t in ws.items()}
+                  for l, ws in base.items()}
+        params["odd"] = {"w": torch.zeros(5001, device=dev)[1:]}
+        params["odd"]["w"].copy_(torch.arange(5000, device=dev) * 1e-3)
+        trees.append((params, opt.init_state(params)))
+    (pk, sk), (pp, sp) = trees
+    counter = "launches_sgd" if kw.get("momentum") else "launches_sgd_plain"
+    for step in range(3):
+        grads = {l: {"w": torch.from_numpy(rng.standard_normal(
+            tuple(t.shape)).astype(np.float32)).to(dev)}
+            for l, ws in pk.items() for t in ws.values()}
+        if step == 2:   # a replaced param: new pointer, rebuilt table
+            pk["l1"]["w"] = pk["l1"]["w"].clone()
+        before = getattr(fused_optim, counter)
+        builds = fused_optim.table_builds
+        sk = fused_optim.fused_update(plan, grads, sk, pk)
+        torch.cuda.synchronize()
+        assert getattr(fused_optim, counter) == before + 1
+        # built for the fresh plan and the replaced param, not for new grads
+        assert fused_optim.table_builds == builds + (step != 1)
+        order = list(pp)
+        fused_optim._sgd_plain(
+            plan, [grads[l]["w"] for l in order],
+            [sp["trace"][l]["w"] for l in order] if kw.get("momentum")
+            else None, [pp[l]["w"] for l in order])
+        for l in order:
+            assert float((pk[l]["w"] - pp[l]["w"]).abs().max()) <= 1e-6
+            if kw.get("momentum"):
+                assert float((sk["trace"][l]["w"] - sp["trace"][l]["w"])
+                             .abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_padded_vocab_sgd_step_runs_fused_on_card():
+    """A vocab padded to a multiple of 128 takes the fused cross-entropy
+    kernels under `fused_loss="auto"`, and SGD with momentum (the default
+    optimizer's family) the fused SGD kernel: one launch of each per step,
+    a finite loss that matches the unfused path's, and `fused_loss="off"`
+    with `fused_optimizer="off"` launches neither."""
+    from flexflow_tpu_torch import SGDOptimizer
+    from flexflow_tpu_torch.kernels import fused_ce, fused_optim
+
+    dev = _cuda_or_skip()
+    inputs, label = _batch(250)
+    losses = []
+    for cfg in (dict(fused_loss="auto"),
+                dict(fused_loss="off", fused_optimizer="off")):
+        cm = _tiny_train_model(250, 128, **cfg).compile(
+            SGDOptimizer(lr=0.1, momentum=0.9), device=dev)
         cm.init(seed=0)
-        inputs, label = _batch(vocab)
-        with pytest.raises(NotImplementedError, match=msg):
-            cm.train_step(cm.params, cm.opt_state, cm.state, inputs, label)
-    off = dict(fused_optimizer="off")
-    cm = _tiny_train_model(250, **off).compile(SGDOptimizer(lr=0.1),
-                                               device=dev)
-    cm.init(seed=0)
-    *_, loss, _ = cm.train_step(cm.params, cm.opt_state, cm.state,
-                                *_batch(250))
-    assert bool(torch.isfinite(loss))
+        before = (fused_ce.launches_fwd, fused_ce.launches_bwd,
+                  fused_optim.launches_sgd)
+        *_, loss, _ = cm.train_step(cm.params, cm.opt_state, cm.state,
+                                    inputs, label)
+        torch.cuda.synchronize()
+        after = (fused_ce.launches_fwd, fused_ce.launches_bwd,
+                 fused_optim.launches_sgd)
+        fused = cfg["fused_loss"] == "auto"
+        assert [a - b for a, b in zip(after, before)] == [int(fused)] * 3
+        assert bool(torch.isfinite(loss))
+        losses.append(float(loss))
+    assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1])

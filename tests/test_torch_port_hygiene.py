@@ -14,9 +14,10 @@ import pytest
 import torch
 
 import flexflow_tpu_torch
-from flexflow_tpu_torch import AdamOptimizer, FFConfig, FFModel
+from flexflow_tpu_torch import AdamOptimizer, FFConfig, FFModel, SGDOptimizer
 from flexflow_tpu_torch.compiler.compile import CompiledModel, compile_model
-from flexflow_tpu_torch.kernels import dequant_attention, flash_attention
+from flexflow_tpu_torch.kernels import (dequant_attention, flash_attention,
+                                        fused_ce, fused_optim)
 from flexflow_tpu_torch.models import GPT2Config, build_gpt2
 from flexflow_tpu_torch.ops import attention_ops
 from flexflow_tpu_torch.serving import (KVCacheSpec, PagedKVCache,
@@ -107,6 +108,23 @@ def test_cpu_wrappers_count_no_launch():
     dequant_attention.dequant_decode_attention(q[:, :1], kq, ks, kq, ks, pos)
     assert (flash_attention.launches, dequant_attention.launches) == (f0, d0)
     assert (f0, d0) == (0, 0)
+
+
+def test_cpu_training_wrappers_count_no_launch():
+    """The fused cross-entropy (forward and backward) and the fused Adam
+    and SGD updates on CPU tensors run their plain versions and count no
+    launch."""
+    x = torch.randn(8, 128, requires_grad=True)
+    fused_ce.fused_cross_entropy(x, torch.zeros(8, dtype=torch.int32)).backward()
+    assert x.grad is not None
+    p = {"a": {"w": torch.randn(40)}}
+    for opt in (SGDOptimizer(lr=0.1), SGDOptimizer(lr=0.1, momentum=0.9),
+                AdamOptimizer()):
+        fused_optim.fused_update(fused_optim.plan_for(opt), p,
+                                 opt.init_state(p), p)
+    assert (fused_ce.launches_fwd, fused_ce.launches_bwd, fused_optim.launches,
+            fused_optim.launches_sgd, fused_optim.launches_sgd_plain) == \
+        (0, 0, 0, 0, 0)
 
 
 def test_kv_cache_needs_a_device():

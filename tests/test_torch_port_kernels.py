@@ -232,13 +232,13 @@ def _grads(rng, tree):
             for l, ws in tree.items()}
 
 
-def _assert_tree_close(port, jtree, rtol):
+def _assert_tree_close(port, jtree, rtol, atol=1e-7):
     jt = jax.device_get(jtree)
     for l, ws in port.items():
         for w, t in ws.items():
             np.testing.assert_allclose(t.float().numpy(),
                                        np.asarray(jt[l][w], np.float32),
-                                       rtol=rtol, atol=1e-7, err_msg=f"{l}.{w}")
+                                       rtol=rtol, atol=atol, err_msg=f"{l}.{w}")
 
 
 # f32 moments: the same f32 operations, which XLA may contract into FMAs
@@ -330,8 +330,11 @@ def test_params_round_trip_through_numpy():
 
 
 # ------------------------------------------------------------- fused CE
-CE_SHAPES = [(8, 1024, 50257), (8, 128, 5120), (4, 128, 5120), (3, 5, 256),
-             (16, 256), (8, 100), (2, 64, 250), (2, 64, 256), (7, 128)]
+# GPT-2 medium at 50257 and padded to 50304 (`vocab_pad_to=128`); GPT-2
+# tiny at 5120 and at 5000, whose padded lm_head has 5120 columns
+CE_SHAPES = [(8, 1024, 50257), (8, 1024, 50304), (8, 128, 5120),
+             (4, 128, 5120), (4, 128, 5000), (3, 5, 256), (16, 256), (8, 100),
+             (2, 64, 250), (2, 64, 256), (7, 128)]
 
 
 @pytest.mark.parametrize("shape", CE_SHAPES)
@@ -375,3 +378,159 @@ def test_fused_ce_plain_matches_jax():
     (g,) = torch.autograd.grad(loss, (xt,))
     np.testing.assert_allclose(float(loss.detach()), float(jl), rtol=1e-6)
     np.testing.assert_allclose(g.numpy(), np.asarray(jg), atol=1e-7)
+
+
+CE_DTYPES = [(jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)]
+
+
+def _ce_inputs(rng, n, v, jdt, tdt):
+    """The same (n, v) logits in both packages (rounded to bf16 once, by
+    JAX) and int32 labels."""
+    jx = jnp.asarray(_normal(rng, (n, v)) * 3.0).astype(jdt)
+    tx = torch.from_numpy(np.asarray(jx.astype(jnp.float32))).to(tdt)
+    y = rng.integers(0, v, size=(n,)).astype(np.int32)
+    return jx, tx, y
+
+
+@pytest.mark.parametrize("jdt,tdt", CE_DTYPES)
+@pytest.mark.parametrize("n,v", [(64, 512), (256, 1280), (512, 5120)])
+def test_fused_ce_fwd_plain_matches_jax(n, v, jdt, tdt):
+    """`_fwd_plain` against the JAX `_forward` (`_fwd_kernel` in
+    interpret mode): per-row loss and lse in f32, equal to 1e-6 relative
+    (the two sum the row's exponentials in another order)."""
+    rng = np.random.default_rng(17)
+    jx, tx, y = _ce_inputs(rng, n, v, jdt, tdt)
+    jloss, jlse = jfused_ce._forward(jx, jnp.asarray(y)[:, None])
+    loss, lse = fused_ce._fwd_plain(tx, torch.from_numpy(y))
+    assert loss.dtype == lse.dtype == torch.float32
+    assert loss.shape == lse.shape == (n,)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[:, 0], rtol=1e-6)
+    np.testing.assert_allclose(loss.numpy(), np.asarray(jloss)[:, 0],
+                               rtol=1e-6)
+
+
+def _bf16_ulp(a):
+    """One bf16 ulp at each value of `a` (8 significant bits)."""
+    e = np.floor(np.log2(np.maximum(np.abs(a), np.finfo(np.float32).tiny)))
+    return 2.0 ** (e - 7)
+
+
+@pytest.mark.parametrize("jdt,tdt", CE_DTYPES)
+@pytest.mark.parametrize("n,v", [(64, 512), (256, 1280), (512, 5120)])
+def test_fused_ce_bwd_plain_matches_jax(n, v, jdt, tdt):
+    """`_bwd_plain` against the JAX `_backward` (`_bwd_kernel` in
+    interpret mode) from the same lse and g/n: dx in the logits' dtype,
+    within 1e-7 absolute in f32 and one bf16 ulp in bf16 (the two
+    packages' exp may differ in the last bit before the rounding)."""
+    rng = np.random.default_rng(18)
+    jx, tx, y = _ce_inputs(rng, n, v, jdt, tdt)
+    _, jlse = jfused_ce._forward(jx, jnp.asarray(y)[:, None])
+    gs = np.float32(0.7 / n)
+    jdx = jfused_ce._backward(jx, jnp.asarray(y)[:, None], jlse,
+                              jnp.float32(gs))
+    dx = fused_ce._bwd_plain(tx, torch.from_numpy(y),
+                             torch.from_numpy(np.asarray(jlse)[:, 0]),
+                             torch.tensor(gs))
+    assert dx.dtype == tdt and dx.shape == (n, v)
+    want = np.asarray(jdx.astype(jnp.float32))
+    err = np.abs(dx.float().numpy() - want)
+    if tdt == torch.float32:
+        assert err.max() <= 1e-7
+    else:
+        assert np.all(err <= _bf16_ulp(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_ce_function_grad_is_bwd_plain(dtype):
+    """On CPU tensors the autograd Function returns the mean of
+    `_fwd_plain`'s rows and its gradient is `_bwd_plain` from the saved
+    lse and g / n, bit for bit, through the [B, S, vocab] reshape; int64
+    labels give the same result as int32."""
+    rng = np.random.default_rng(19)
+    x = torch.from_numpy(_normal(rng, (2, 16, 256)) * 3.0).to(dtype)
+    y = torch.from_numpy(rng.integers(0, 256, size=(2, 16)).astype(np.int32))
+    g = torch.tensor(0.7)
+    xa = x.clone().requires_grad_()
+    loss = fused_ce.fused_cross_entropy(xa, y)
+    (got,) = torch.autograd.grad(loss, (xa,), g)
+    rows, lse = fused_ce._fwd_plain(x.reshape(32, 256), y.reshape(32))
+    want = fused_ce._bwd_plain(x.reshape(32, 256), y.reshape(32), lse, g / 32)
+    assert torch.equal(loss.detach(), rows.mean())
+    assert got.dtype == dtype and torch.equal(got, want.reshape(2, 16, 256))
+    xb = x.clone().requires_grad_()
+    loss64 = fused_ce.fused_cross_entropy(xb, y.long())
+    assert torch.equal(loss64.detach(), loss.detach())
+    assert torch.equal(torch.autograd.grad(loss64, (xb,), g)[0], got)
+    assert (fused_ce.launches_fwd, fused_ce.launches_bwd) == (0, 0)
+
+
+def test_fused_ce_labels_outside_vocab_pick_nothing():
+    """A label outside [0, v) matches no column, as in JAX: its row's loss
+    is its lse and its gradient row the softmax alone."""
+    rng = np.random.default_rng(20)
+    x = _normal(rng, (16, 256))
+    y = rng.integers(0, 256, size=(16,)).astype(np.int32)
+    y[3], y[7] = -1, 256
+    jloss, jlse = jfused_ce._forward(jnp.asarray(x), jnp.asarray(y)[:, None])
+    loss, lse = fused_ce._fwd_plain(torch.from_numpy(x), torch.from_numpy(y))
+    np.testing.assert_allclose(loss.numpy(), np.asarray(jloss)[:, 0],
+                               rtol=1e-6)
+    assert float(loss[3]) == float(lse[3])
+    dx = fused_ce._bwd_plain(torch.from_numpy(x), torch.from_numpy(y), lse,
+                             torch.tensor(1.0))
+    assert bool((dx[7] >= 0).all())
+    jdx = jfused_ce._backward(jnp.asarray(x), jnp.asarray(y)[:, None],
+                              jlse, jnp.float32(1.0))
+    np.testing.assert_allclose(dx.numpy(), np.asarray(jdx), atol=1e-7)
+
+
+def test_fused_wrappers_raise_off_cpu_and_cuda():
+    """The fused CE and fused optimizer entries refuse any device other
+    than the CPU (plain versions) and CUDA (kernels)."""
+    x = torch.zeros((8, 128), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fused_ce.fused_cross_entropy(x, torch.zeros((8,), dtype=torch.int32,
+                                                    device="meta"))
+    p = {"a": {"w": torch.zeros((4,), device="meta")}}
+    for opt in (SGDOptimizer(lr=0.1), AdamOptimizer()):
+        with pytest.raises(ValueError, match="cuda or cpu"):
+            fused_optim.fused_update(fused_optim.plan_for(opt), p,
+                                     opt.init_state(p), p)
+
+
+SGD_CONFIGS = [dict(lr=0.1), dict(lr=0.1, weight_decay=0.01),
+               dict(lr=0.1, momentum=0.9, weight_decay=0.01),
+               dict(lr=0.1, momentum=0.9, nesterov=True)]
+
+
+@pytest.mark.parametrize("kw", SGD_CONFIGS)
+def test_fused_sgd_plain_matches_jax(kw):
+    """The fused SGD update's plain version against the JAX
+    `fused_update` (the Pallas `_sgd_kernel` or `_sgd_plain_kernel` in
+    interpret mode) plus `apply_updates`, over three steps, from the JAX
+    state carried across: params and the trace within 1e-6 relative (XLA
+    may contract a product and a sum into one FMA), and 1e-6 absolute
+    where `p - lr u` cancels near 0 (the error of its O(1) operands)."""
+    rng = np.random.default_rng(21)
+    tree = _param_tree(rng)
+    jopt, opt = JSGDOptimizer(**kw), SGDOptimizer(**kw)
+    jplan, plan = jfused_optim.plan_for(jopt), fused_optim.plan_for(opt)
+    assert plan["kind"] == jplan["kind"] == "sgd"
+    assert {k: plan[k] for k in jplan} == jplan
+    jparams = jax.tree_util.tree_map(jnp.asarray, tree)
+    jstate = jopt.to_optax().init(jparams)
+    params = params_from_jax(tree)
+    state = opt_state_from_jax(jax.device_get(jstate))
+    assert set(state) == ({"trace"} if kw.get("momentum") else set())
+    for _ in range(3):
+        g = _grads(rng, tree)
+        upd, jstate = jfused_optim.fused_update(
+            jplan, jax.tree_util.tree_map(jnp.asarray, g), jstate, jparams)
+        jparams = optax.apply_updates(jparams, upd)
+        state = fused_optim.fused_update(plan, params_from_jax(g), state,
+                                         params)
+        _assert_tree_close(params, jparams, 1e-6, atol=1e-6)
+        if kw.get("momentum"):
+            jtrace = jfused_optim._find_node(jstate, optax.TraceState)
+            _assert_tree_close(state["trace"], jtrace.trace, 1e-6, atol=1e-6)
+    assert (fused_optim.launches_sgd, fused_optim.launches_sgd_plain) == (0, 0)
