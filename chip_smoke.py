@@ -7,7 +7,9 @@ Phases, each fatal on failure (nothing is caught to let the run exit 0):
 1. Environment: the card's name and power limit (nvidia-smi), then every
    kernel of the serving and training paths built from
    flexflow_tpu_torch/csrc/ by one nvcc per source (five sources), all
-   started together, with the build time.
+   started together, with the build time, and the registers and spills
+   that ptxas reports for each kernel (the two bf16 tensor-core kernels,
+   flash forward and dK/dV, among them).
 2. Kernels against their plain PyTorch versions on the card, at the shapes
    the GPT-2 medium paths give them, in bf16 and in f32 (TF32 is off for
    every float32 product here, so f32 is compared at 1e-4): the flash
@@ -18,9 +20,14 @@ Phases, each fatal on failure (nothing is caught to let the run exit 0):
    backward at (8192, 50304) (GPT-2 medium's vocab padded to 128, bf16 and
    f32), and the fused SGD with and without a momentum trace over the
    padded model's param set. Each kernel is timed with CUDA
-   events (L2 flushed before every launch) beside its plain version, one
+   events (L2 flushed before every launch, the device held busy while the
+   host enqueues it) beside its plain version, one
    library call computing the same function (timed here only; the port
-   never calls it) and its bound.
+   never calls it) and its bound. The rows of the flash forward and dK/dV
+   also carry their achieved TFLOP/s, their share of the bound and their
+   design. The forward's lse is held to the plain lse at 1e-4, and its
+   bf16 O element by element to a bound on the rounding of P (see
+   `flash_bf16_o_bound`).
 3. Serving: GPT-2 medium at full width and depth with random weights from
    the seed, bf16 compute, 8 slots, 16 requests of 32 new tokens, through
    `compile_serving` and `ContinuousBatchingScheduler`, once with the
@@ -67,6 +74,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -90,7 +98,16 @@ BATCH, LR, TRAIN_STEPS, WARMUP_STEPS = 8, 1e-4, 10, 2
 # below GPT-2's true vocab of 50257
 PAD_TO, PAD_VOCAB, GPT2_VOCAB, SGD_LR = 128, 50304, 50257, 0.01
 PAGE, NEW_TOKENS, REQUESTS = 16, 32, 16
+# the design of the two kernels redesigned for the tensor cores
+TC_DESIGN = {
+    "flash_attention_fwd": "mma.sync m16n8k16 bf16, 2 m-tiles a warp, "
+                           "cp.async x2 (K, V), bf16 smem padded rows, "
+                           "P in registers",
+    "flash_attention_dkv": "mma.sync m16n8k16 bf16, cp.async x2 (Q, dO, "
+                           "lse, delta), bf16 smem padded rows, P^T and "
+                           "dS^T in registers"}
 CTX = -(-(SEQ + NEW_TOKENS) // PAGE) * PAGE        # 1056 cached positions
+LSE_TOL = 1e-4   # the forward's lse: f32 sums of up to 1024 exponentials
 
 
 def log(msg: str) -> None:
@@ -114,7 +131,12 @@ def card_line() -> str:
 class Timer:
     """Median milliseconds of one call, from CUDA events around each
     launch, with the L2 cache flushed before every launch (the serving
-    path finds each layer's inputs cold)."""
+    path finds each layer's inputs cold). The device is held busy (a ~1 ms
+    spin) while the host enqueues the call, so that the events time the
+    device's work and not the host's launch overhead, which is as long as
+    a 0.1 ms kernel."""
+
+    HOLD_CYCLES = 2_000_000   # ~1 ms at the H100's clocks
 
     def __init__(self, reps: int = 20, warmup: int = 3):
         self.reps, self.warmup = reps, warmup
@@ -126,6 +148,7 @@ class Timer:
         times = []
         for _ in range(self.reps):
             self.flush.zero_()
+            torch.cuda._sleep(self.HOLD_CYCLES)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -147,43 +170,99 @@ def bound(nbytes: float, flops: float, peak: float):
                                        else "operations")
 
 
+def tc_fields(name: str, flops: float, ms: float, bound_ms: float) -> dict:
+    """What the rows of the redesigned kernels carry beside the others."""
+    return {"tflops": flops / (ms * 1e-3) / 1e12, "bound_share": bound_ms / ms,
+            "design": TC_DESIGN[name]}
+
+
+def port_kernel_names() -> tuple:
+    """The `__global__` functions of the port's CUDA sources: the names
+    its kernels carry in a profile."""
+    from flexflow_tpu_torch.kernels._build import CSRC_DIR
+
+    return tuple(sorted({name for src in CSRC_DIR.glob("*.cu")
+                         for name in re.findall(
+                             r"__global__\s+void\s+(?:__launch_bounds__"
+                             r"\([^)]*\)\s+)?(\w+)\s*\(", src.read_text())}))
+
+
+def flash_bf16_o_bound(q, k, v, causal: bool, scale: float):
+    """The largest |O - plain O| allowed, element by element, for the bf16
+    forward on (b, h, s, d) views. Both round each p_j to bf16 before P.V,
+    but from exp(s - m) against other maxima (the kernel's running max,
+    the plain version's final one), so each term p_j v_j / l carries its
+    own rounding error in each: at most 2**-8 relative, with a standard
+    deviation below 2**-7 / sqrt(12), so below 2**-7 / sqrt(6) in their
+    difference. Allowed: ten standard deviations of that sum, 10 * 2**-7 /
+    sqrt(6) * sqrt(sum_j (p_j v_j)**2) / l, capped at its worst case 2**-7
+    * sum_j p_j |v_j| / l, plus 2 bf16 ulps of |O| for O's own rounding."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        keep = torch.ones(s.shape[-2], s.shape[-1], dtype=torch.bool,
+                          device=s.device).tril()
+        s = s.masked_fill(~keep, float("-inf"))
+    p = torch.softmax(s, dim=-1)                     # p_j / l
+    vf = v.float()
+    o = p @ vf
+    rss = torch.sqrt((p * p) @ (vf * vf))
+    noise = torch.minimum(10 * 2 ** -7 / 6 ** 0.5 * rss, 2 ** -7 * (p @ vf.abs()))
+    _, e = torch.frexp(o.abs().clamp_min(torch.finfo(torch.float32).tiny))
+    return noise + 2 * torch.ldexp(torch.full_like(o, 2 ** -7), e - 1)
+
+
 # ---------------------------------------------------------------- kernels
 def check_flash(timer, gen):
     from flexflow_tpu_torch.kernels import flash_attention as fa
 
     b, h, s, d = SLOTS, HEADS, SEQ, HEAD_DIM
     scale = d ** -0.5
-    errs = {}
+    errs, lse_errs = {}, {}
     for dt in (torch.float32, torch.bfloat16):
         q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda")
                    .to(dt) for _ in range(3))
-        out = fa.flash_attention_qkv(q, k, v, causal=True, scale=scale)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))   # (b, h, s, d)
+        out, lse = fa._fwd(qt, kt, vt, True, scale)
         torch.cuda.synchronize()
-        ref = fa._fwd_plain(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), True, scale)[0].transpose(1, 2)
+        ref, ref_lse = fa._fwd_plain(qt, kt, vt, True, scale)
         errs[dt] = float((out.float() - ref.float()).abs().max())
+        lse_errs[dt] = float((lse - ref_lse).abs().max())
         if not errs[dt] <= TOL[dt]:
             fail(f"flash {dt}: max err {errs[dt]} > {TOL[dt]}")
+        if not lse_errs[dt] <= LSE_TOL:
+            fail(f"flash {dt}: lse err {lse_errs[dt]} > {LSE_TOL}")
         log(f"flash_attention {tuple(q.shape)} {dt} causal: max abs err "
-            f"{errs[dt]:.3e} (tolerance {TOL[dt]})")
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))   # bf16, (b,h,s,d)
+            f"{errs[dt]:.3e} (tolerance {TOL[dt]}), lse {lse_errs[dt]:.3e} "
+            f"(tolerance {LSE_TOL})")
+        if dt == torch.bfloat16:
+            excess = float(((out.float() - ref.float()).abs()
+                            / flash_bf16_o_bound(qt, kt, vt, True, scale))
+                           .max())
+            if not excess <= 1.0:
+                fail(f"flash bf16: O exceeds its element bound {excess}x")
+            log(f"flash_attention bf16: O at most {excess:.3f} of its "
+                "element-wise rounding bound")
     ms = timer(lambda: fa.flash_attention_qkv(q, k, v, causal=True,
                                               scale=scale))
     plain_ms = timer(lambda: fa._fwd_plain(qt, kt, vt, True, scale))
     lib_ms = timer(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, scale=scale))
     n = b * h * s * d
-    bound_ms, bound_by = bound(4 * n * 2 + b * h * s * 4,
-                               4 * b * h * d * s * (s + 1) / 2, BF16_FLOPS)
+    flops = 4 * b * h * d * s * (s + 1) / 2
+    bound_ms, bound_by = bound(4 * n * 2 + b * h * s * 4, flops, BF16_FLOPS)
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "flexflow_tpu_torch/csrc/flash_attention.cu",
             "replaces": "flexflow_tpu/kernels/flash_attention.py:151",
             "shape": [b, s, h, d], "dtype": "bfloat16", "causal": True,
             "max_abs_err": errs[torch.bfloat16],
             "max_abs_err_f32": errs[torch.float32],
-            "tolerance": TOL[torch.bfloat16], "ms": ms, "plain_ms": plain_ms,
+            "tolerance": TOL[torch.bfloat16], "o_bound_share": excess,
+            "lse_err": lse_errs[torch.bfloat16],
+            "lse_err_f32": lse_errs[torch.float32], "lse_tolerance": LSE_TOL,
+            "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
-            "library": "torch.nn.functional.scaled_dot_product_attention"}
+            "library": "torch.nn.functional.scaled_dot_product_attention",
+            **tc_fields("flash_attention_fwd", flops, ms, bound_ms)}
 
 
 def check_dequant(timer, gen, seed):
@@ -295,9 +374,9 @@ def check_flash_bwd(timer, gen):
                                            ("dkv", 2, 4, 284)):
         # reads q, k, v, dO (bf16) and lse, delta (f32); writes the outputs
         nbytes = 4 * n * 2 + 2 * b * h * s * 4 + n_out * n * 2
-        bound_ms, bound_by = bound(nbytes, matmuls * 2 * pairs * d,
-                                   BF16_FLOPS)
-        rows.append({
+        flops = matmuls * 2 * pairs * d
+        bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS)
+        row = {
             "name": f"flash_attention_{name}", "route": "cuda",
             "source": "flexflow_tpu_torch/csrc/flash_attention_bwd.cu",
             "replaces": f"flexflow_tpu/kernels/flash_attention.py:{src_line}",
@@ -309,7 +388,10 @@ def check_flash_bwd(timer, gen):
             "plain_ms": plain_ms[name], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": lib_ms,
             "library": "scaled_dot_product_attention backward (dQ, dK and "
-                       "dV together)"})
+                       "dV together)"}
+        if row["name"] in TC_DESIGN:
+            row.update(tc_fields(row["name"], flops, ms[name], bound_ms))
+        rows.append(row)
     return rows
 
 
@@ -741,13 +823,23 @@ def _device_profile(fn, reps: int, dev: torch.device) -> dict:
         t, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    port: dict = {}
+    port_name = re.compile(r"\b(" + "|".join(port_kernel_names()) + r")[<(]")
+    for n, (t, c) in by_name.items():
+        m = port_name.search(n)
+        if m:
+            pt, pc = port.get(m.group(1), (0.0, 0))
+            port[m.group(1)] = (pt + t, pc + c)
     return {"calls": reps, "wall_ms_per_call": wall_us / reps / 1e3,
             "device_busy_ms_per_call": busy / reps / 1e3,
             "device_idle_share": 1.0 - busy / wall_us,
             "kernel_launches_per_call": len(kern) / reps,
             "top_kernels": [{"name": n[:80], "ms_per_call": t / reps / 1e3,
                              "launches_per_call": c / reps}
-                            for n, (t, c) in top]}
+                            for n, (t, c) in top],
+            "port_kernels": {n: {"ms_per_call": t / reps / 1e3,
+                                 "launches_per_call": c / reps}
+                             for n, (t, c) in sorted(port.items())}}
 
 
 def profile_engine(engine, params, prompts) -> dict:
@@ -1098,6 +1190,9 @@ def profile_train(cm, inputs, label, tag: str) -> dict:
         for k in prof["top_kernels"]:
             log(f"[{tag}]   {k['ms_per_call']:8.3f} ms "
                 f"{k['launches_per_call']:5.0f}x  {k['name']}")
+        log(f"[{tag}] the port's kernels: " + ", ".join(
+            f"{n} {k['ms_per_call']:.3f} ms in {k['launches_per_call']:.0f}"
+            for n, k in prof["port_kernels"].items()))
     return prof
 
 
@@ -1129,10 +1224,12 @@ def main() -> None:
     paths = build_all(kernels)
     log(f"built {len(paths)} kernel libraries in "
         f"{time.perf_counter() - t0:.1f} s")
+    # ptxas -v: each entry function's name, then its spills and registers
     for name in kernels:
         for line in build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+            if ("entry function" in line or "registers" in line
+                    or "spill" in line):
+                log(f"  {name}: {line.strip()[:160]}")
 
     # ---- 2. kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -1146,6 +1243,10 @@ def main() -> None:
         log(f"{r['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']})")
+        if r["name"] in TC_DESIGN:
+            log(f"{r['name']}: {r['tflops']:.1f} TFLOP/s, "
+                f"{100 * r['bound_share']:.1f}% of its bound "
+                f"({r['design']})")
 
     # ---- 3. serve GPT-2 medium, compute-dtype KV then int8 KV
     gc = GPT2Config.medium()
@@ -1181,7 +1282,10 @@ def main() -> None:
                 log(f"[{kv}] {phase}: {prof['wall_ms_per_call']:.2f} ms wall, "
                     f"device busy {prof['device_busy_ms_per_call']:.2f} ms, "
                     f"idle share {prof['device_idle_share']:.3f}, "
-                    f"{prof['kernel_launches_per_call']:.0f} kernel launches")
+                    f"{prof['kernel_launches_per_call']:.0f} kernel launches"
+                    f", the port's kernels " + ", ".join(
+                        f"{n} {k['ms_per_call']:.3f} ms"
+                        for n, k in prof["port_kernels"].items()))
         runs.append(run)
         del engine
         torch.cuda.empty_cache()

@@ -11,27 +11,41 @@
 // product accumulates in f32 and each output is written once in the input
 // dtype.
 //
-// Design (simple first, the forward's thread layout): 256 threads as 16 x
-// 16; thread (ty, tx) owns rows ty*4 .. ty*4+3 and columns tx + 16*j of each
-// 64 x 64 score tile, and the same rows of its 64 x D accumulator. Tiles sit
-// in shared memory as f32 with a padded row stride (D + 1), so the column
-// walks of the score products are free of bank conflicts.
+// Routes, by dtype in the C entry points:
 //
-// - dQ: one block per (64-row q tile, batch*head). q, dO, lse and delta are
+// - dQ, both dtypes: flash_dq_kernel, scalar f32 FMAs. 256 threads as 16 x
+//   16; thread (ty, tx) owns rows ty*4 .. ty*4+3 and columns tx + 16*j of
+//   each 64 x 64 score tile and the same rows of its 64 x D accumulator.
+//   Tiles sit in shared memory as f32 with a padded row stride (D + 1).
+//   One block per (64-row q tile, batch*head): q, dO, lse and delta are
 //   loaded once; a loop walks the 64-key k/v tiles (to the diagonal when
-//   causal) and accumulates dQ += dS.K in registers. The block owns its dQ
-//   rows: no reduction across blocks.
-// - dK/dV: one block per (64-key k/v tile, batch*head). k and v stay in
-//   shared memory; a loop walks the q tiles from the diagonal to the end
-//   (all of them when not causal) and accumulates dV += round(P)^T.dO and
-//   dK += dS^T.q in registers. Each output is written once; no atomics.
+//   causal) and accumulates dQ += dS.K in registers.
+// - dK/dV, float32: flash_dkv_kernel, the same scalar layout. One block per
+//   (64-key tile, batch*head); k and v stay in shared memory; a loop walks
+//   the q tiles from the diagonal to the end (all of them when not causal)
+//   and accumulates dV += round(P)^T.dO and dK += dS^T.q in registers.
+//   Tensor cores give no f32 products at the 1e-4 the f32 checks hold it to.
+// - dK/dV, bfloat16: flash_dkv_tc_kernel, on the tensor cores (mma.sync
+//   m16n8k16, tc_bf16.cuh). One block of 4 warps per (64-key tile,
+//   batch*head), each warp owning 16 keys; its K and V rows are A
+//   fragments (held in registers at head_dim 64, read again from shared
+//   memory each q tile at 128, where registers run out). The loop over q
+//   tiles double-buffers Q, dO, lse and delta with cp.async: tile i+1 is in
+//   flight while tile i is in the tensor cores. S^T = K.Q^T and dP^T =
+//   V.dO^T come out as accumulator fragments; P^T and dS^T are formed
+//   there (P by expf, as dQ and the scalar kernel make it), rounded
+//   to bf16 and packed straight into A fragments for dV +=
+//   P^T.dO and dK += dS^T.Q (B by transposed ldmatrix). Only the diagonal
+//   tile and the ragged end are masked. dK and dV are staged in the warp's
+//   own K and V rows and written once, with 16-byte stores; no atomics.
+//
+// Each output is written once; no reduction across blocks.
 //
 // What bounds them on an H100: at GPT-2 medium's training shape (8 x 16
 // heads x 1024 x 64, bf16, causal) dQ does 3 causal matmuls (25.8 GFLOP,
 // 0.026 ms at 989 TFLOP/s) and dK/dV 4 (34.4 GFLOP, 0.035 ms), against
-// ~85 MB of traffic (0.025 ms): about even, slightly operations bound.
-// These kernels do their products as scalar f32 FMAs from shared memory and
-// are bound by those instead; mma.sync/wgmma tiles are later work.
+// ~85 MB of traffic (0.025 ms): about even, slightly operations bound. The
+// scalar kernels are bound by their FMAs from shared memory instead.
 //
 // C interface (ctypes): each entry point returns cudaGetLastError().
 
@@ -39,6 +53,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tc_bf16.cuh"
 
 namespace {
 
@@ -325,6 +341,175 @@ __global__ void __launch_bounds__(NT) flash_dkv_kernel(
   }
 }
 
+// ------------------------------------------- bf16 tensor-core dK/dV route
+constexpr int TC_THREADS = 128;  // 4 warps x 16 keys
+
+template <int D>
+constexpr size_t dkv_tc_smem_bytes() {  // K, V, (Q, dO) x 2 padded bf16 tiles, (lse, delta) x 2
+  return (size_t)(2 * BK + 4 * BQ) * (D + tc::PAD) * sizeof(__nv_bfloat16) +
+         4 * (size_t)BQ * sizeof(float);
+}
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS) flash_dkv_tc_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int H, int SQ, int SK,
+    Strides qs, Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs, float scale,
+    int causal) {
+  static_assert(BQ == 64 && BK == 64, "4 warps x 16 keys, 8 n-blocks of q rows");
+  constexpr int RS = D + tc::PAD, KD = D / 16, ND = D / 8;
+  constexpr bool KV_IN_REGS = D <= 64;  // at 128 the fragments would spill
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BK][RS]
+  __nv_bfloat16* Vs = Ks + BK * RS;                                // [BK][RS]
+  __nv_bfloat16* Qs = Vs + BK * RS;                                // [2][BQ][RS]
+  __nv_bfloat16* dOs = Qs + 2 * BQ * RS;                           // [2][BQ][RS]
+  float* Ls = reinterpret_cast<float*>(dOs + 2 * BQ * RS);         // [2][BQ]
+  float* Dl = Ls + 2 * BQ;                                         // [2][BQ]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;  // batch*head fastest: the key tiles with the most q tiles first
+  const int bb = bh / H, hh = bh % H;
+  const int k0 = blockIdx.y * BK;
+  const __nv_bfloat16* qp = q + bb * qs.b + hh * qs.h;
+  const __nv_bfloat16* dop = dout + bb * dos.b + hh * dos.h;
+  const float* lse_bh = lse + (long long)bh * SQ;
+  const float* delta_bh = delta + (long long)bh * SQ;
+
+  // Q, dO, lse and delta of the q tile starting at row q0 into buffer b
+  auto load_q_tile = [&](int b, int q0) {
+    tc::load_tile_async<D, TC_THREADS>(Qs + b * BQ * RS, qp, qs.s, q0, SQ);
+    tc::load_tile_async<D, TC_THREADS>(dOs + b * BQ * RS, dop, dos.s, q0, SQ);
+    const int r = tid & (BQ - 1);  // threads 0..63 load lse, 64..127 delta
+    const bool ok = q0 + r < SQ;
+    if (tid < BQ)
+      tc::cp_async4(Ls + b * BQ + r, ok ? lse_bh + q0 + r : lse_bh, ok);
+    else
+      tc::cp_async4(Dl + b * BQ + r, ok ? delta_bh + q0 + r : delta_bh, ok);
+  };
+
+  // causal: q rows before this tile's first key see none of its keys
+  const int qt0 = causal ? k0 / BQ : 0;
+  const int nq = (SQ + BQ - 1) / BQ;
+  tc::load_tile_async<D, TC_THREADS>(Ks, k + bb * ks.b + hh * ks.h, ks.s, k0, SK);
+  tc::load_tile_async<D, TC_THREADS>(Vs, v + bb * vs.b + hh * vs.h, vs.s, k0, SK);
+  if (qt0 < nq) load_q_tile(0, qt0 * BQ);
+  tc::cp_async_commit();
+  tc::cp_async_wait<0>();
+  __syncthreads();
+
+  uint32_t kf[KV_IN_REGS ? KD : 1][4], vf[KV_IN_REGS ? KD : 1][4];
+  if constexpr (KV_IN_REGS) {
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      tc::ldmatrix_x4(kf[kd], tc::a16x16<RS>(Ks, warp * 16, kd * 16, lane));
+      tc::ldmatrix_x4(vf[kd], tc::a16x16<RS>(Vs, warp * 16, kd * 16, lane));
+    }
+  }
+
+  float dk_acc[ND][4], dv_acc[ND][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[nd][e] = dv_acc[nd][e] = 0.f;
+
+  for (int qt = qt0; qt < nq; ++qt) {
+    const int buf = (qt - qt0) & 1;
+    if (qt + 1 < nq) load_q_tile(buf ^ 1, (qt + 1) * BQ);  // in flight during this tile
+    tc::cp_async_commit();
+    const __nv_bfloat16* Qb = Qs + buf * BQ * RS;
+    const __nv_bfloat16* dOb = dOs + buf * BQ * RS;
+    const float* Lb = Ls + buf * BQ;
+    const float* Db = Dl + buf * BQ;
+
+    // S^T = K.Q^T and dP^T = V.dO^T: 16 keys x 64 q rows a warp
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      uint32_t ka[4], va[4];
+      if constexpr (KV_IN_REGS) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ka[e] = kf[kd][e], va[e] = vf[kd][e];
+      } else {
+        tc::ldmatrix_x4(ka, tc::a16x16<RS>(Ks, warp * 16, kd * 16, lane));
+        tc::ldmatrix_x4(va, tc::a16x16<RS>(Vs, warp * 16, kd * 16, lane));
+      }
+#pragma unroll
+      for (int nb2 = 0; nb2 < 4; ++nb2) {
+        uint32_t b[4];
+        tc::ldmatrix_x4(b, tc::b_rows<RS>(Qb, nb2 * 16, kd * 16, lane));
+        tc::mma_bf16(s[2 * nb2], ka, b[0], b[1]);
+        tc::mma_bf16(s[2 * nb2 + 1], ka, b[2], b[3]);
+        tc::ldmatrix_x4(b, tc::b_rows<RS>(dOb, nb2 * 16, kd * 16, lane));
+        tc::mma_bf16(dp[2 * nb2], va, b[0], b[1]);
+        tc::mma_bf16(dp[2 * nb2 + 1], va, b[2], b[3]);
+      }
+    }
+
+    // P^T and dS^T on the fragments: [nb][e] is key k0 + 16 warp + g +
+    // 8 (e / 2), q row q0 + 8 nb + 2 t + e % 2
+    const int q0 = qt * BQ;
+    const bool edge = (causal && qt == qt0) || q0 + BQ > SQ;
+    uint32_t pf[4][4], dsf[4][4];  // A fragments of 4 k-steps of 16 q rows
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+      const int qc = nb * 8 + 2 * t;
+      const float2 lse2 = *reinterpret_cast<const float2*>(Lb + qc);
+      const float2 delta2 = *reinterpret_cast<const float2*>(Db + qc);
+      float p[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float lse_e = (e & 1) ? lse2.y : lse2.x;
+        const float delta_e = (e & 1) ? delta2.y : delta2.x;
+        bool keep = true;
+        if (edge) {
+          const int key = k0 + warp * 16 + g + (e >> 1) * 8, row = q0 + qc + (e & 1);
+          keep = row < SQ && key < SK && (!causal || key <= row);
+        }
+        p[e] = keep ? expf(__fmul_rn(s[nb][e], scale) - lse_e) : 0.f;
+        ds[e] = p[e] * (dp[nb][e] - delta_e) * scale;
+      }
+      pf[nb >> 1][(nb & 1) * 2] = tc::pack_bf16(p[0], p[1]);
+      pf[nb >> 1][(nb & 1) * 2 + 1] = tc::pack_bf16(p[2], p[3]);
+      dsf[nb >> 1][(nb & 1) * 2] = tc::pack_bf16(ds[0], ds[1]);
+      dsf[nb >> 1][(nb & 1) * 2 + 1] = tc::pack_bf16(ds[2], ds[3]);
+    }
+
+    // dV += round(P)^T.dO and dK += dS^T.Q, B by transposed ldmatrix
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+#pragma unroll
+      for (int nd2 = 0; nd2 < ND / 2; ++nd2) {
+        uint32_t b[4];
+        tc::ldmatrix_x4_trans(b, tc::b_trans<RS>(dOb, kc * 16, nd2 * 16, lane));
+        tc::mma_bf16(dv_acc[2 * nd2], pf[kc], b[0], b[1]);
+        tc::mma_bf16(dv_acc[2 * nd2 + 1], pf[kc], b[2], b[3]);
+        tc::ldmatrix_x4_trans(b, tc::b_trans<RS>(Qb, kc * 16, nd2 * 16, lane));
+        tc::mma_bf16(dk_acc[2 * nd2], dsf[kc], b[0], b[1]);
+        tc::mma_bf16(dk_acc[2 * nd2 + 1], dsf[kc], b[2], b[3]);
+      }
+    }
+    tc::cp_async_wait<0>();  // tile qt+1 has landed
+    __syncthreads();         // and every warp is done with buffer qt
+  }
+
+  // staged in this warp's own K and V rows (only this warp reads them),
+  // then 16-byte stores of the keys below SK
+  tc::stage_rows<D>(Ks, warp * 16, dk_acc, 1.f, 1.f, lane);
+  tc::stage_rows<D>(Vs, warp * 16, dv_acc, 1.f, 1.f, lane);
+  __syncwarp();
+  const int krow = k0 + warp * 16;
+  tc::store_rows<D>(dk + bb * dks.b + hh * dks.h, dks.s, Ks, warp * 16, krow, SK, lane);
+  tc::store_rows<D>(dv + bb * dvs.b + hh * dvs.h, dvs.s, Vs, warp * 16, krow, SK, lane);
+}
+
 template <typename T, int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const float* lse, const float* delta, void* dq, int B, int H,
@@ -362,11 +547,35 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v, const void* dout,
+                          const float* lse, const float* delta, void* dk, void* dv, int B,
+                          int H, int SQ, int SK, Strides qs, Strides ks, Strides vs,
+                          Strides dos, Strides dks, Strides dvs, float scale, int causal,
+                          cudaStream_t stream) {
+  const size_t smem = dkv_tc_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(flash_dkv_tc_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (SK + BK - 1) / BK);
+  using bf = __nv_bfloat16;
+  flash_dkv_tc_kernel<D><<<grid, TC_THREADS, smem, stream>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
+      static_cast<const bf*>(dout), lse, delta, static_cast<bf*>(dk), static_cast<bf*>(dv), H,
+      SQ, SK, qs, ks, vs, dos, dks, dvs, scale, causal);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements, for the
-// (batch, head, seq) dims of each tensor viewed as (b, h, s, d) with the
-// last dim contiguous. lse and delta are contiguous (b, h, sq) float32.
+// dtype: 0 = float32, 1 = bfloat16 (dQ: the scalar kernel for both; dK/dV:
+// the scalar kernel for float32, the tensor-core kernel for bfloat16, which
+// wants 16-byte aligned rows: base pointers on 16 bytes, strides in
+// multiples of 8 elements; the Python wrapper checks). Strides are in
+// elements, for the (batch, head, seq) dims of each tensor viewed as
+// (b, h, s, d) with the last dim contiguous. lse and delta are contiguous
+// (b, h, sq) float32.
 extern "C" int ff_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse, const void* delta,
                                void* dq, int dtype, int B, int H, int SQ, int SK, int D,
@@ -418,12 +627,10 @@ extern "C" int ff_flash_bwd_dkv(const void* q, const void* k, const void* v,
     return (int)launch_dkv<float, 128>(q, k, v, dout, l, dl, dk, dv, B, H, SQ, SK, qs, ks,
                                        vs, dos, dks, dvs, scale, causal, st);
   if (dtype == 1 && D == 64)
-    return (int)launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, l, dl, dk, dv, B, H, SQ, SK,
-                                              qs, ks, vs, dos, dks, dvs, scale, causal,
-                                              st);
+    return (int)launch_dkv_tc<64>(q, k, v, dout, l, dl, dk, dv, B, H, SQ, SK, qs, ks, vs, dos,
+                                  dks, dvs, scale, causal, st);
   if (dtype == 1 && D == 128)
-    return (int)launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, l, dl, dk, dv, B, H, SQ, SK,
-                                               qs, ks, vs, dos, dks, dvs, scale, causal,
-                                               st);
+    return (int)launch_dkv_tc<128>(q, k, v, dout, l, dl, dk, dv, B, H, SQ, SK, qs, ks, vs,
+                                   dos, dks, dvs, scale, causal, st);
   return (int)cudaErrorInvalidValue;
 }

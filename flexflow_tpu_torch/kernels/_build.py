@@ -3,9 +3,10 @@
 Each source is compiled by `nvcc` into a shared library with a plain C
 interface and loaded with `ctypes`. The build happens at first use, into
 `build/flexflow_tpu_torch/` under the checkout, keyed by a hash of the
-source and the flags, so a fresh checkout builds itself and a changed
-source rebuilds. `nvcc -Xptxas -v` output (registers, shared memory,
-spills) is kept beside each library as `<lib>.log`.
+source, the shared headers (csrc/*.cuh) and the flags, so a fresh
+checkout builds itself and a changed source or header rebuilds.
+`nvcc -Xptxas -v` output (registers, shared memory, spills) is kept
+beside each library as `<lib>.log`.
 """
 
 from __future__ import annotations
@@ -43,8 +44,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 

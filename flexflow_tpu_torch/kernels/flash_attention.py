@@ -12,9 +12,14 @@ What bounds them on an H100: at GPT-2 medium's shapes (8 x 16 heads x
 1024 x 64, bf16, causal) the forward moves ~68 MB and does ~17 GFLOP, so
 the card's bound is about even between its memory (20 us at 3.35 TB/s) and
 its bf16 tensor cores (17 us at 989 TFLOP/s); the backward's dQ does 3
-such causal products and dK/dV 4. These first kernels do their products as
-scalar f32 FMAs fed from shared memory and are bound by those instead;
-`wgmma` and TMA are later work.
+such causal products and dK/dV 4.
+
+Routes by dtype: in bfloat16 the forward and dK/dV run on the tensor cores
+(mma.sync m16n8k16 from bf16 tiles that cp.async double-buffers); they want
+16-byte aligned rows, which `_check_rows_aligned` holds the tensors to, and
+raise otherwise. In float32, and for dQ in both dtypes, the kernels do
+scalar f32 FMAs from shared memory: tensor cores give no float32 products
+at the 1e-4 the f32 checks hold them to.
 
 The gate is Hopper's: head_dim 64 or 128, f32 or bf16, every kernel's
 shared-memory tiles within the 227 KB a block may use, and sq == sk when
@@ -36,6 +41,7 @@ from flexflow_tpu_torch.kernels._build import load_library
 BLOCK_Q = 64
 BLOCK_K = 64
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
+TC_PAD = 8  # bf16 elements padding each tensor-core tile row (tc::PAD)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0       # forward kernel
@@ -43,14 +49,43 @@ launches_dq = 0    # backward dQ kernel
 launches_dkv = 0   # backward dK/dV kernel
 
 
-def smem_bytes(d: int) -> int:
+def tc_fwd_q_rows(d: int) -> int:
+    """q rows a bf16 forward block owns: 4 warps of two 16-row m-tiles at
+    head_dim 64, of one at 128 (tc_q_rows<D>)."""
+    return 128 if d == 64 else 64
+
+
+def fwd_smem_bytes(d: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of a forward block: bf16, the q tile and two
+    buffers each of k and v as bf16 rows padded by 8 elements
+    (tc_smem_bytes<D>); f32, q, k, v and the P tile as f32
+    (smem_floats<D>)."""
+    if dtype == torch.bfloat16:
+        return (tc_fwd_q_rows(d) + 4 * BLOCK_K) * (d + TC_PAD) * 2
+    return 4 * (BLOCK_Q * (d + 1) + BLOCK_K * (d + 1) + BLOCK_K * d
+                + BLOCK_Q * (BLOCK_K + 1))
+
+
+def dq_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of a dQ block, both dtypes (dq_smem_floats<D>)."""
+    return 4 * (4 * 64 * (d + 1) + BLOCK_Q * (BLOCK_K + 1))
+
+
+def dkv_smem_bytes(d: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of a dK/dV block: bf16, k and v and two
+    buffers each of q and dO as padded bf16 rows, plus two of lse and
+    delta (dkv_tc_smem_bytes<D>); f32, the scalar kernel's f32 tiles
+    (dkv_smem_floats<D>)."""
+    if dtype == torch.bfloat16:
+        return (2 * BLOCK_K + 4 * BLOCK_Q) * (d + TC_PAD) * 2 + 4 * BLOCK_Q * 4
+    return 4 * (4 * 64 * (d + 1) + 2 * BLOCK_K * (BLOCK_Q + 1) + 2 * BLOCK_Q)
+
+
+def smem_bytes(d: int, dtype: torch.dtype) -> int:
     """Dynamic shared memory of the largest of the three kernels' blocks
-    (mirrors smem_floats<D>, dq_smem_floats<D> and dkv_smem_floats<D>)."""
-    fwd = (BLOCK_Q * (d + 1) + BLOCK_K * (d + 1) + BLOCK_K * d
-           + BLOCK_Q * (BLOCK_K + 1))
-    dq = 4 * 64 * (d + 1) + BLOCK_Q * (BLOCK_K + 1)
-    dkv = 4 * 64 * (d + 1) + 2 * BLOCK_K * (BLOCK_Q + 1) + 2 * BLOCK_Q
-    return 4 * max(fwd, dq, dkv)
+    for this dtype."""
+    return max(fwd_smem_bytes(d, dtype), dq_smem_bytes(d),
+               dkv_smem_bytes(d, dtype))
 
 
 def flash_supported(sq: int, sk: int, d: int, dtype: torch.dtype,
@@ -60,7 +95,20 @@ def flash_supported(sq: int, sk: int, d: int, dtype: torch.dtype,
     return (d in (64, 128) and dtype in _DTYPE_CODE
             and (not causal or sq == sk) and sq > 0 and sk > 0
             and 0 < batch_heads <= 65535
-            and smem_bytes(d) <= SMEM_LIMIT)
+            and smem_bytes(d, dtype) <= SMEM_LIMIT)
+
+
+def _check_rows_aligned(*ts) -> None:
+    """The tensor-core kernels copy and store rows in 16-byte pieces: each
+    bf16 tensor must start on 16 bytes and step its batch, head and seq
+    dims in multiples of 8 elements. Raises ValueError otherwise (there is
+    no other route for such a tensor)."""
+    for t in ts:
+        if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
+            raise ValueError(
+                "flash kernel (bf16, tensor cores) needs 16-byte aligned "
+                f"rows: got data_ptr % 16 = {t.data_ptr() % 16}, strides "
+                f"{tuple(t.stride())} for shape {tuple(t.shape)}")
 
 
 def _fwd_plain(q, k, v, causal: bool, scale: float):
@@ -95,6 +143,8 @@ def _fwd_cuda(q, k, v, causal: bool, scale: float):
     for t in (q, k, v):
         if t.stride(-1) != 1:
             raise ValueError("flash kernel needs the head dim contiguous")
+    if q.dtype == torch.bfloat16:
+        _check_rows_aligned(q, k, v)
     # O in the layout of q, so the (b, s, h, d) entry gets (b, s, h, d) back
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq, 1), dtype=torch.float32, device=q.device)
@@ -210,6 +260,8 @@ def _dq_cuda(q, k, v, do, lse, delta, causal: bool, scale: float):
 def _dkv_cuda(q, k, v, do, lse, delta, causal: bool, scale: float):
     global launches_dkv
     b, h, sq, d = q.shape
+    if q.dtype == torch.bfloat16:
+        _check_rows_aligned(q, k, v, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     err = _bwd_fn("ff_flash_bwd_dkv", 8, 6)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),

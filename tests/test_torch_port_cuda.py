@@ -49,22 +49,90 @@ def _ulp_err(got, want):
                                               e - 1)).max())
 
 
+def _flash_bf16_o_bound(q, k, v, causal, scale):
+    """The largest |O - plain O| allowed, element by element, for the bf16
+    forward on (b, h, s, d) views. Both round each p_j to bf16 before P.V,
+    from exp(s - m) against other maxima (the kernel's running max, the
+    plain version's final one): each term p_j v_j / l carries a rounding
+    error of at most 2**-8 relative in each, with a standard deviation
+    below 2**-7 / sqrt(6) in their difference. Allowed: ten standard
+    deviations of that sum, capped at its worst case, plus 2 bf16 ulps of
+    |O| for O's own rounding."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        keep = torch.ones(s.shape[-2], s.shape[-1], dtype=torch.bool,
+                          device=s.device).tril()
+        s = s.masked_fill(~keep, float("-inf"))
+    p = torch.softmax(s, dim=-1)                     # p_j / l
+    vf = v.float()
+    o = p @ vf
+    rss = torch.sqrt((p * p) @ (vf * vf))
+    noise = torch.minimum(10 * 2 ** -7 / 6 ** 0.5 * rss, 2 ** -7 * (p @ vf.abs()))
+    _, e = torch.frexp(o.abs().clamp_min(torch.finfo(torch.float32).tiny))
+    return noise + 2 * torch.ldexp(torch.full_like(o, 2 ** -7), e - 1)
+
+
+# (sq, sk, causal): a ragged length (200), one row, an exact tile (64), a
+# tile and one row (65), the training length (1024), and sq != sk without
+# the mask: the bf16 kernel's ragged-tail, exact-tile and unmasked paths
+FLASH_SHAPES = [(n, n, causal) for n in (200, 1, 64, 65, 1024)
+                for causal in (False, True)] + [(200, 333, False)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
                                        (torch.float32, 1e-4)])
-@pytest.mark.parametrize("causal", [False, True])
-def test_flash_kernel_matches_plain_on_card(dtype, tol, causal):
+@pytest.mark.parametrize("sq,sk,causal", FLASH_SHAPES)
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_kernel_matches_plain_on_card(dtype, tol, sq, sk, causal, d):
+    """O and lse of the forward kernel (bf16: the tensor-core route, f32:
+    the scalar one) against the plain version, one launch per call: O
+    within `tol`, and in bf16 within its element-wise rounding bound; lse
+    (f32 sums of at most 1024 exponentials) within 1e-4."""
     dev = _cuda_or_skip()
     g = torch.Generator(device=dev).manual_seed(0)
-    q, k, v = (torch.randn((2, 200, 3, 64), generator=g, device=dev)
-               .to(dtype) for _ in range(3))
+    q, k, v = (torch.randn((2, n, 3, d), generator=g, device=dev).to(dtype)
+               for n in (sq, sk, sk))
+    scale = d ** -0.5
     before = flash_attention.launches
-    out = flash_attention.flash_attention_qkv(q, k, v, causal=causal)
+    out = flash_attention.flash_attention_qkv(q, k, v, causal=causal,
+                                              scale=scale)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
-    ref = flash_attention._fwd_plain(q.transpose(1, 2), k.transpose(1, 2),
-                                     v.transpose(1, 2), causal, 0.125)[0]
-    assert float((out.float() - ref.transpose(1, 2).float()).abs().max()) <= tol
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    ref, ref_lse = flash_attention._fwd_plain(qt, kt, vt, causal, scale)
+    err = (out.transpose(1, 2).float() - ref.float()).abs()
+    assert float(err.max()) <= tol
+    if dtype == torch.bfloat16:
+        bound = _flash_bf16_o_bound(qt, kt, vt, causal, scale)
+        assert float((err / bound).max()) <= 1.0
+    _, lse = flash_attention._fwd(qt, kt, vt, causal, scale)
+    torch.cuda.synchronize()
+    assert float((lse - ref_lse).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_flash_unaligned_bf16_raises_on_card():
+    """The bf16 route copies rows in 16-byte pieces: a view one element
+    off a 16-byte boundary raises ValueError before any launch, in the
+    forward and in dK/dV."""
+    dev = _cuda_or_skip()
+    shape = (2, 64, 3, 64)
+    n = 2 * 64 * 3 * 64
+    flat = torch.randn(n + 8, device=dev).to(torch.bfloat16)
+    bad = flat[1:1 + n].view(shape)
+    good = torch.randn(shape, device=dev).to(torch.bfloat16)
+    before = (flash_attention.launches, flash_attention.launches_dq,
+              flash_attention.launches_dkv)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention.flash_attention_qkv(bad, good, good, causal=True)
+    gt, bt = good.transpose(1, 2), bad.transpose(1, 2)
+    lse = torch.zeros((2, 3, 64, 1), device=dev)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention._dkv_cuda(gt, gt, gt, bt, lse, lse, True, 0.125)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention.launches_dq,
+            flash_attention.launches_dkv) == before
 
 
 @pytest.mark.cuda
@@ -123,14 +191,16 @@ def _rel_err(got, want) -> float:
                                        (torch.float32, 1e-4)])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("d", [64, 128])
-def test_flash_backward_kernels_match_plain_on_card(dtype, tol, causal, d):
+@pytest.mark.parametrize("s", [200, 64, 1024])
+def test_flash_backward_kernels_match_plain_on_card(dtype, tol, causal, d, s):
     """dQ and dK/dV against their plain versions at a ragged length (200
-    is not a multiple of the 64-row tiles), and the autograd Function's
-    gradients against `_bwd_plain`, one launch of each kernel per call."""
+    is not a multiple of the 64-row tiles), one exact tile and the training
+    length, and the autograd Function's gradients against `_bwd_plain`, one
+    launch of each kernel per call."""
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = _cuda_or_skip()
     g = torch.Generator(device=dev).manual_seed(1)
-    q, k, v, do = (torch.randn((2, 200, 3, d), generator=g, device=dev)
+    q, k, v, do = (torch.randn((2, s, 3, d), generator=g, device=dev)
                    .to(dtype).transpose(1, 2) for _ in range(4))
     scale = d ** -0.5
     o, lse = flash_attention._fwd(q, k, v, causal, scale)

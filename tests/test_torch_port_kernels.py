@@ -120,7 +120,45 @@ def test_kv_quantize_bitwise_equal_to_jax():
         float(ps.max()) / 2 + 1e-6
 
 
-def test_gates():
+# Shared memory per block of each route, from the kernels' tile layouts:
+# bf16 runs the forward and dK/dV on the tensor cores, whose tiles are bf16
+# rows padded by 8 elements (forward: a q tile of 128 rows at head_dim 64
+# and 64 at 128, plus two 64-row buffers each of k and v; dK/dV: k, v and
+# two buffers each of q and dO, plus two of lse and delta in f32); f32 runs
+# the scalar kernels' f32 tiles. dQ is the scalar kernel in both dtypes.
+def _route_smem(d, dtype):
+    if dtype == torch.bfloat16:
+        fwd = ({64: 128, 128: 64}[d] + 4 * 64) * (d + 8) * 2
+        dkv = (2 * 64 + 4 * 64) * (d + 8) * 2 + 4 * 64 * 4
+    else:
+        fwd = 4 * (64 * (d + 1) * 2 + 64 * d + 64 * 65)
+        dkv = 4 * (4 * 64 * (d + 1) + 2 * 64 * 65 + 2 * 64)
+    return fwd, 4 * (4 * 64 * (d + 1) + 64 * 65), dkv
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_gates(dtype, d, causal):
+    fwd, dq, dkv = _route_smem(d, dtype)
+    assert flash_attention.fwd_smem_bytes(d, dtype) == fwd
+    assert flash_attention.dq_smem_bytes(d) == dq
+    assert flash_attention.dkv_smem_bytes(d, dtype) == dkv
+    assert flash_attention.smem_bytes(d, dtype) == max(fwd, dq, dkv)
+    assert max(fwd, dq, dkv) <= flash_attention.SMEM_LIMIT
+    # every shape admitted before the tensor-core route still is
+    for sq in (1, 64, 65, 200, 1024):
+        assert flash_attention.flash_supported(sq, sq, d, dtype, causal=causal,
+                                               batch_heads=128)
+    assert flash_attention.flash_supported(200, 333, d, dtype)
+    assert not flash_attention.flash_supported(128, 256, d, dtype, causal=True)
+    assert not flash_attention.flash_supported(128, 128, 96, dtype,
+                                               causal=causal)
+    assert not flash_attention.flash_supported(128, 128, d, torch.float16,
+                                               causal=causal)
+    assert not flash_attention.flash_supported(128, 128, d, dtype,
+                                               causal=causal,
+                                               batch_heads=65536)
     assert flash_attention.flash_supported(1024, 1024, 64, torch.bfloat16,
                                            causal=True, batch_heads=128)
     assert flash_attention.flash_supported(256, 256, 128, torch.float32)
@@ -133,6 +171,22 @@ def test_gates():
     assert not dequant_attention.dequant_supported(9, 1056, 64, torch.float32)
     assert not dequant_attention.dequant_supported(1, 10 ** 6, 64,
                                                    torch.float32)
+
+
+def test_rows_aligned_check():
+    """The bf16 tensor-core route's layout rule: 16-byte aligned base and
+    batch/head/seq strides in multiples of 8 elements. The (b, s, h, d)
+    views the attention lowering passes pass; a view one element off, or
+    with a seq stride of 9 elements, raises."""
+    x = torch.zeros((2, 200, 3, 64), dtype=torch.bfloat16)
+    flash_attention._check_rows_aligned(x.transpose(1, 2), x[:, :64])
+    flat = torch.zeros(2 * 200 * 3 * 64 + 8, dtype=torch.bfloat16)
+    off = flat[1:1 + x.numel()].view(2, 200, 3, 64).transpose(1, 2)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention._check_rows_aligned(x.transpose(1, 2), off)
+    odd = torch.zeros((2, 3, 200, 9), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention._check_rows_aligned(odd)
 
 
 def test_wrappers_raise_off_cpu_and_cuda():
