@@ -8,8 +8,8 @@ Phases, each fatal on failure (nothing is caught to let the run exit 0):
    kernel of the serving and training paths built from
    flexflow_tpu_torch/csrc/ by one nvcc per source (five sources), all
    started together, with the build time, and the registers and spills
-   that ptxas reports for each kernel (the two bf16 tensor-core kernels,
-   flash forward and dK/dV, among them).
+   that ptxas reports for each kernel (the three bf16 tensor-core
+   kernels, flash forward, dQ and dK/dV, among them).
 2. Kernels against their plain PyTorch versions on the card, at the shapes
    the GPT-2 medium paths give them, in bf16 and in f32 (TF32 is off for
    every float32 product here, so f32 is compared at 1e-4): the flash
@@ -21,13 +21,17 @@ Phases, each fatal on failure (nothing is caught to let the run exit 0):
    f32), and the fused SGD with and without a momentum trace over the
    padded model's param set. Each kernel is timed with CUDA
    events (L2 flushed before every launch, the device held busy while the
-   host enqueues it) beside its plain version, one
+   host enqueues it; see `Timer`) beside its plain version, one
    library call computing the same function (timed here only; the port
-   never calls it) and its bound. The rows of the flash forward and dK/dV
-   also carry their achieved TFLOP/s, their share of the bound and their
+   never calls it) and its bound. Each optimizer kernel is timed in turns
+   with its library call, with the card's clocks read before and after,
+   and its row carries the median of the per-pair ratios
+   (`library_ratio`). The rows of the flash forward, dQ and dK/dV also
+   carry their achieved TFLOP/s, their share of the bound and their
    design. The forward's lse is held to the plain lse at 1e-4, and its
    bf16 O element by element to a bound on the rounding of P (see
-   `flash_bf16_o_bound`).
+   `flash_bf16_o_bound`); bf16 dQ is held element by element to a bound
+   on the rounding of dS (`_dq_bf16_bound` in the flash module).
 3. Serving: GPT-2 medium at full width and depth with random weights from
    the seed, bf16 compute, 8 slots, 16 requests of 32 new tokens, through
    `compile_serving` and `ContinuousBatchingScheduler`, once with the
@@ -98,11 +102,14 @@ BATCH, LR, TRAIN_STEPS, WARMUP_STEPS = 8, 1e-4, 10, 2
 # below GPT-2's true vocab of 50257
 PAD_TO, PAD_VOCAB, GPT2_VOCAB, SGD_LR = 128, 50304, 50257, 0.01
 PAGE, NEW_TOKENS, REQUESTS = 16, 32, 16
-# the design of the two kernels redesigned for the tensor cores
+# the design of the kernels redesigned for the tensor cores
 TC_DESIGN = {
     "flash_attention_fwd": "mma.sync m16n8k16 bf16, 2 m-tiles a warp, "
                            "cp.async x2 (K, V), bf16 smem padded rows, "
                            "P in registers",
+    "flash_attention_dq": "mma.sync m16n8k16 bf16, cp.async x2 (K, V), "
+                          "bf16 smem padded rows, Q and dO fragments held, "
+                          "dS in registers",
     "flash_attention_dkv": "mma.sync m16n8k16 bf16, cp.async x2 (Q, dO, "
                            "lse, delta), bf16 smem padded rows, P^T and "
                            "dS^T in registers"}
@@ -131,10 +138,11 @@ def card_line() -> str:
 class Timer:
     """Median milliseconds of one call, from CUDA events around each
     launch, with the L2 cache flushed before every launch (the serving
-    path finds each layer's inputs cold). The device is held busy (a ~1 ms
+    path finds each layer's inputs cold). The device is held busy (a
     spin) while the host enqueues the call, so that the events time the
-    device's work and not the host's launch overhead, which is as long as
-    a 0.1 ms kernel."""
+    device's work and not the host's: the spin lasts ~1 ms, or about twice
+    the host's enqueue of the call in the warm-up where that is longer (the
+    optimizer wrappers walk ~390 leaves in Python)."""
 
     HOLD_CYCLES = 2_000_000   # ~1 ms at the H100's clocks
 
@@ -142,21 +150,57 @@ class Timer:
         self.reps, self.warmup = reps, warmup
         self.flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
 
+    def hold_for(self, *fns) -> int:
+        """Warm up each call; the spin, in cycles, that covers twice the
+        median host enqueue of the slowest call."""
+        enqueue_ms = 0.0
+        for fn in fns:
+            times = []
+            for _ in range(self.warmup):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                times.append(1e3 * (time.perf_counter() - t0))
+            enqueue_ms = max(enqueue_ms, float(np.median(times)))
+        torch.cuda.synchronize()
+        return max(self.HOLD_CYCLES, int(2 * enqueue_ms * self.HOLD_CYCLES))
+
+    def once(self, fn, hold: int) -> float:
+        self.flush.zero_()
+        torch.cuda._sleep(hold)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b)
+
     def __call__(self, fn) -> float:
-        for _ in range(self.warmup):
-            fn()
-        times = []
-        for _ in range(self.reps):
-            self.flush.zero_()
-            torch.cuda._sleep(self.HOLD_CYCLES)
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return float(np.median(times))
+        hold = self.hold_for(fn)
+        return float(np.median([self.once(fn, hold)
+                                for _ in range(self.reps)]))
+
+    def alternate(self, kernel, library) -> dict:
+        """The kernel and its library call timed in turns (kernel, library,
+        kernel, ...), each with the same flush and spin: their medians and
+        the median of the per-pair ratios kernel / library."""
+        hold = self.hold_for(kernel, library)
+        pairs = [(self.once(kernel, hold), self.once(library, hold))
+                 for _ in range(self.reps)]
+        k, lib = np.array(pairs).T
+        return {"ms": float(np.median(k)), "library_ms": float(np.median(lib)),
+                "library_ratio": float(np.median(k / lib)),
+                "hold_cycles": hold}
+
+
+def clocks() -> str:
+    """The card's SM and memory clocks now (nvidia-smi)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
 
 
 def sync(dev: torch.device) -> None:
@@ -330,7 +374,8 @@ def rel_err(got, want) -> float:
 
 def check_flash_bwd(timer, gen):
     """dQ and dK/dV at the training shape, against their plain versions,
-    with the saved lse and delta of the forward."""
+    with the saved lse and delta of the forward; bf16 dQ also element by
+    element against `_dq_bf16_bound`."""
     from flexflow_tpu_torch.kernels import flash_attention as fa
 
     b, h, s, d = BATCH, HEADS, SEQ, HEAD_DIM
@@ -358,6 +403,23 @@ def check_flash_bwd(timer, gen):
             log(f"flash_attention_{name} {(b, s, h, d)} {dt} causal: max abs "
                 f"err {abs_err:.3e}, over max(1, max |plain|) {scaled:.3e} "
                 f"(tolerance {TOL[dt]})")
+        if dt == torch.bfloat16:
+            want = pairs["dq"][0][1].float()
+            dq_bound = fa._dq_bf16_bound(*args)
+            dq_elem = {
+                "dq_bound_share": float(((dq.float() - want).abs()
+                                         / dq_bound).max()),
+                "median_abs_plain": float(want.abs().median()),
+                "median_element_bound": float(dq_bound.median())}
+            del want, dq_bound
+            if not dq_elem["dq_bound_share"] <= 1.0:
+                fail("flash dq bf16: exceeds its element bound "
+                     f"{dq_elem['dq_bound_share']}x")
+            log(f"flash_attention_dq bf16: at most "
+                f"{dq_elem['dq_bound_share']:.3f} of its element-wise "
+                f"rounding bound; median bound "
+                f"{dq_elem['median_element_bound']:.3e}, median |plain| "
+                f"{dq_elem['median_abs_plain']:.3e}")
     ms = {"dq": timer(lambda: fa._dq_cuda(*args)),
           "dkv": timer(lambda: fa._dkv_cuda(*args))}
     plain_ms = {"dq": timer(lambda: fa._dq_plain(*args)),
@@ -389,8 +451,9 @@ def check_flash_bwd(timer, gen):
             "bound_by": bound_by, "library_ms": lib_ms,
             "library": "scaled_dot_product_attention backward (dQ, dK and "
                        "dV together)"}
-        if row["name"] in TC_DESIGN:
-            row.update(tc_fields(row["name"], flops, ms[name], bound_ms))
+        row.update(tc_fields(row["name"], flops, ms[name], bound_ms))
+        if name == "dq":
+            row.update(dq_elem)
         rows.append(row)
     return rows
 
@@ -408,6 +471,21 @@ def medium_param_specs(vocab_pad_to: int = 0):
     build_gpt2(model, gc, batch=BATCH)
     return [(l.name, w, spec) for l in topo_order(model.layers)
             for w, spec in sorted(l.weight_specs.items())]
+
+
+def against_library(timer, name: str, kernel, library) -> dict:
+    """`Timer.alternate` of an optimizer kernel and its library call, with
+    the card's SM and memory clocks read just before and just after (the
+    optimizer kernels' times move between runs more than the others')."""
+    before = clocks()
+    out = timer.alternate(kernel, library)
+    out["clocks_sm_mem"] = [before, clocks()]
+    log(f"{name}: {out['ms']:.4f} ms against the library's "
+        f"{out['library_ms']:.4f} ms, timed in turns, median ratio "
+        f"{out['library_ratio']:.3f}, spin {out['hold_cycles']} cycles; "
+        f"clocks (SM, memory) before {before}, after "
+        f"{out['clocks_sm_mem'][1]}")
+    return out
 
 
 def check_adam(timer, gen):
@@ -461,13 +539,14 @@ def check_adam(timer, gen):
     # timed: f32 moments, wd 0 (the training path's configuration)
     plan = fo.plan_for(AdamOptimizer(alpha=LR))
     mus, nus = leaves(1e-3), leaves(1e-6, positive=True)
-    ms = timer(lambda: fo._adam_cuda(plan, grads, mus, nus, params, 3))
     plain_ms = timer(lambda: fo._adam_plain(plan, grads, mus, nus, params, 3))
     lib_params = [p.clone() for p in params]
     for p, g in zip(lib_params, grads):
         p.grad = g
     opt = torch.optim.Adam(lib_params, lr=LR, fused=True)
-    lib_ms = timer(opt.step)
+    times = against_library(
+        timer, "fused_adam",
+        lambda: fo._adam_cuda(plan, grads, mus, nus, params, 3), opt.step)
     bound_ms, bound_by = bound(28.0 * n_params, 15.0 * n_params, F32_FLOPS)
     return {"name": "fused_adam", "route": "cuda",
             "source": "flexflow_tpu_torch/csrc/fused_optim.cu",
@@ -477,8 +556,8 @@ def check_adam(timer, gen):
             "max_abs_err": errs[("float32", 0.0)],
             "max_abs_err_by_config": {f"{k[0]} wd={k[1]}": v
                                       for k, v in errs.items()},
-            "tolerance": 1e-6, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "tolerance": 1e-6, **times, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "library": "torch.optim.Adam(fused=True).step"}
 
 
@@ -627,7 +706,6 @@ def check_sgd(timer, gen):
         kw = configs[cname]
         plan = fo.plan_for(SGDOptimizer(**kw))
         traces = leaves(1e-3) if plan["momentum"] else None
-        ms = timer(lambda: fo._sgd_cuda(plan, grads, traces, params))
         plain_ms = timer(lambda: fo._sgd_plain(plan, grads, traces, params))
         lib_params = [p.clone() for p in params]
         for p, g in zip(lib_params, grads):
@@ -642,7 +720,9 @@ def check_sgd(timer, gen):
             opt = torch.optim.SGD(lib_params, lr=SGD_LR, momentum=mom,
                                   foreach=True)
             lib = "torch.optim.SGD(foreach=True).step"
-        lib_ms = timer(opt.step)
+        times = against_library(
+            timer, name, lambda: fo._sgd_cuda(plan, grads, traces, params),
+            opt.step)
         del opt, lib_params, traces
         # g, p (and the trace) read once, p (and the trace) written once
         bound_ms, bound_by = bound(bytes_per * n_params, flops_per * n_params,
@@ -654,9 +734,9 @@ def check_sgd(timer, gen):
             "params": n_params, "leaves": len(params), "config": kw,
             "max_abs_err": max(v for c, v in errs.items()
                                if (c == "sgd") == (name == "fused_sgd_plain")),
-            "max_abs_err_by_config": errs, "tolerance": 1e-6, "ms": ms,
+            "max_abs_err_by_config": errs, "tolerance": 1e-6, **times,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib_ms, "library": lib})
+            "library": lib})
     return rows
 
 

@@ -13,18 +13,34 @@
 //
 // Routes, by dtype in the C entry points:
 //
-// - dQ, both dtypes: flash_dq_kernel, scalar f32 FMAs. 256 threads as 16 x
+// - dQ, float32: flash_dq_kernel, scalar f32 FMAs. 256 threads as 16 x
 //   16; thread (ty, tx) owns rows ty*4 .. ty*4+3 and columns tx + 16*j of
 //   each 64 x 64 score tile and the same rows of its 64 x D accumulator.
 //   Tiles sit in shared memory as f32 with a padded row stride (D + 1).
 //   One block per (64-row q tile, batch*head): q, dO, lse and delta are
 //   loaded once; a loop walks the 64-key k/v tiles (to the diagonal when
 //   causal) and accumulates dQ += dS.K in registers.
+// - dQ, bfloat16: flash_dq_tc_kernel, on the tensor cores (mma.sync
+//   m16n8k16, tc_bf16.cuh): dK/dV's structure with the loop over k tiles.
+//   One block of 4 warps per (64-row q tile, batch*head), each warp owning
+//   16 q rows; its Q and dO rows are A fragments (held in registers at
+//   head_dim 64, read again from shared memory each k tile at 128, where
+//   registers run out), its rows' lse and delta sit in registers. The loop
+//   over k tiles double-buffers K and V with cp.async: tile j+1 is in
+//   flight while tile j is in the tensor cores. S = Q.K^T and dP = dO.V^T
+//   come out as accumulator fragments (B by plain ldmatrix: keys run along
+//   the tiles' rows); P (by expf) and dS are formed there, dS rounded to
+//   bf16 and packed straight into A fragments for dQ += dS.K (B by
+//   transposed ldmatrix over the same K tile: keys are its k dimension).
+//   Only the diagonal tile and the ragged end are masked. Causal launches
+//   the q tiles with the most k tiles first. dQ is staged in the warp's
+//   own Q rows and written once, with 16-byte stores.
 // - dK/dV, float32: flash_dkv_kernel, the same scalar layout. One block per
 //   (64-key tile, batch*head); k and v stay in shared memory; a loop walks
 //   the q tiles from the diagonal to the end (all of them when not causal)
 //   and accumulates dV += round(P)^T.dO and dK += dS^T.q in registers.
-//   Tensor cores give no f32 products at the 1e-4 the f32 checks hold it to.
+//   Tensor cores give no f32 products at the 1e-4 the f32 checks hold
+//   both f32 kernels to.
 // - dK/dV, bfloat16: flash_dkv_tc_kernel, on the tensor cores (mma.sync
 //   m16n8k16, tc_bf16.cuh). One block of 4 warps per (64-key tile,
 //   batch*head), each warp owning 16 keys; its K and V rows are A
@@ -33,11 +49,11 @@
 //   tiles double-buffers Q, dO, lse and delta with cp.async: tile i+1 is in
 //   flight while tile i is in the tensor cores. S^T = K.Q^T and dP^T =
 //   V.dO^T come out as accumulator fragments; P^T and dS^T are formed
-//   there (P by expf, as dQ and the scalar kernel make it), rounded
-//   to bf16 and packed straight into A fragments for dV +=
-//   P^T.dO and dK += dS^T.Q (B by transposed ldmatrix). Only the diagonal
-//   tile and the ragged end are masked. dK and dV are staged in the warp's
-//   own K and V rows and written once, with 16-byte stores; no atomics.
+//   there (P by expf, as dQ makes it), rounded to bf16 and packed straight
+//   into A fragments for dV += P^T.dO and dK += dS^T.Q (B by transposed
+//   ldmatrix). Only the diagonal tile and the ragged end are masked. dK
+//   and dV are staged in the warp's own K and V rows and written once,
+//   with 16-byte stores; no atomics.
 //
 // Each output is written once; no reduction across blocks.
 //
@@ -45,7 +61,7 @@
 // heads x 1024 x 64, bf16, causal) dQ does 3 causal matmuls (25.8 GFLOP,
 // 0.026 ms at 989 TFLOP/s) and dK/dV 4 (34.4 GFLOP, 0.035 ms), against
 // ~85 MB of traffic (0.025 ms): about even, slightly operations bound. The
-// scalar kernels are bound by their FMAs from shared memory instead.
+// scalar f32 kernels are bound by their FMAs from shared memory instead.
 //
 // C interface (ctypes): each entry point returns cudaGetLastError().
 
@@ -62,34 +78,19 @@ constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr int NT = 256;  // 16 x 16 threads
 
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even
-}
-// x rounded to T and widened back: the value a T-typed product operand holds
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f32<T>(from_f32<T>(x));
-}
-
 struct Strides {
   long long b, h, s;  // element strides of the batch, head and sequence dims
 };
 
-// a 64-row tile of a (b, h, s, d) tensor into shared memory as f32, rows
-// past `n` zero-filled
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, Strides st, int r0,
+// a 64-row tile of a (b, h, s, d) f32 tensor into shared memory, rows past
+// `n` zero-filled
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, Strides st, int r0,
                                           int n) {
   for (int idx = threadIdx.x; idx < 64 * D; idx += NT) {
     const int r = idx / D, c = idx % D;
     const int gr = r0 + r;
-    dst[r * (D + 1) + c] = gr < n ? to_f32<T>(src[(long long)gr * st.s + c]) : 0.f;
+    dst[r * (D + 1) + c] = gr < n ? src[(long long)gr * st.s + c] : 0.f;
   }
 }
 
@@ -103,11 +104,11 @@ constexpr size_t dkv_smem_floats() {
   return 4 * (size_t)64 * (D + 1) + 2 * (size_t)BK * (BQ + 1) + 2 * (size_t)BQ;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT) flash_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dq, int H, int SQ, int SK,
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dq, int H, int SQ, int SK,
     Strides qs, Strides ks, Strides vs, Strides dos, Strides dqs, float scale, int causal) {
   constexpr int RS = D + 1, PS = BK + 1, DJ = D / 16;
   extern __shared__ float smem[];
@@ -122,11 +123,11 @@ __global__ void __launch_bounds__(NT) flash_dq_kernel(
   const int bh = blockIdx.y;
   const int bb = bh / H, hh = bh % H;
   const int q0 = blockIdx.x * BQ;
-  const T* kp = k + bb * ks.b + hh * ks.h;
-  const T* vp = v + bb * vs.b + hh * vs.h;
+  const float* kp = k + bb * ks.b + hh * ks.h;
+  const float* vp = v + bb * vs.b + hh * vs.h;
 
-  load_tile<T, D>(Qs, q + bb * qs.b + hh * qs.h, qs, q0, SQ);
-  load_tile<T, D>(dOs, dout + bb * dos.b + hh * dos.h, dos, q0, SQ);
+  load_tile<D>(Qs, q + bb * qs.b + hh * qs.h, qs, q0, SQ);
+  load_tile<D>(dOs, dout + bb * dos.b + hh * dos.h, dos, q0, SQ);
   float row_lse[4], row_delta[4], acc[4][DJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -142,8 +143,8 @@ __global__ void __launch_bounds__(NT) flash_dq_kernel(
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the previous tile's dS.K is done with Ks/dSs
-    load_tile<T, D>(Ks, kp, ks, k0, SK);
-    load_tile<T, D>(Vs, vp, vs, k0, SK);
+    load_tile<D>(Ks, kp, ks, k0, SK);
+    load_tile<D>(Vs, vp, vs, k0, SK);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -180,8 +181,7 @@ __global__ void __launch_bounds__(NT) flash_dq_kernel(
         const int col = k0 + tx + 16 * j;
         const bool keep = row < SQ && col < SK && (!causal || col <= row);
         const float p = keep ? expf(__fmul_rn(s[i][j], scale) - row_lse[i]) : 0.f;
-        dSs[(ty * 4 + i) * PS + tx + 16 * j] =
-            round_to<T>(p * (dp[i][j] - row_delta[i]) * scale);
+        dSs[(ty * 4 + i) * PS + tx + 16 * j] = p * (dp[i][j] - row_delta[i]) * scale;
       }
     }
     __syncthreads();
@@ -200,23 +200,23 @@ __global__ void __launch_bounds__(NT) flash_dq_kernel(
     }
   }
 
-  T* dqp = dq + bb * dqs.b + hh * dqs.h;
+  float* dqp = dq + bb * dqs.b + hh * dqs.h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     if (row < SQ) {
 #pragma unroll
       for (int j = 0; j < DJ; ++j)
-        dqp[(long long)row * dqs.s + tx + 16 * j] = from_f32<T>(acc[i][j]);
+        dqp[(long long)row * dqs.s + tx + 16 * j] = acc[i][j];
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT) flash_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int H,
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int H,
     int SQ, int SK, Strides qs, Strides ks, Strides vs, Strides dos, Strides dks,
     Strides dvs, float scale, int causal) {
   constexpr int RS = D + 1, PS = BQ + 1, DJ = D / 16;
@@ -235,11 +235,11 @@ __global__ void __launch_bounds__(NT) flash_dkv_kernel(
   const int bh = blockIdx.y;
   const int bb = bh / H, hh = bh % H;
   const int k0 = blockIdx.x * BK;
-  const T* qp = q + bb * qs.b + hh * qs.h;
-  const T* dop = dout + bb * dos.b + hh * dos.h;
+  const float* qp = q + bb * qs.b + hh * qs.h;
+  const float* dop = dout + bb * dos.b + hh * dos.h;
 
-  load_tile<T, D>(Ks, k + bb * ks.b + hh * ks.h, ks, k0, SK);
-  load_tile<T, D>(Vs, v + bb * vs.b + hh * vs.h, vs, k0, SK);
+  load_tile<D>(Ks, k + bb * ks.b + hh * ks.h, ks, k0, SK);
+  load_tile<D>(Vs, v + bb * vs.b + hh * vs.h, vs, k0, SK);
   float dk_acc[4][DJ], dv_acc[4][DJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -252,8 +252,8 @@ __global__ void __launch_bounds__(NT) flash_dkv_kernel(
   for (int qt = qt0; qt < nq; ++qt) {
     const int q0 = qt * BQ;
     __syncthreads();  // the previous tile's products are done with Qs/dOs/Ps/dSs
-    load_tile<T, D>(Qs, qp, qs, q0, SQ);
-    load_tile<T, D>(dOs, dop, dos, q0, SQ);
+    load_tile<D>(Qs, qp, qs, q0, SQ);
+    load_tile<D>(dOs, dop, dos, q0, SQ);
     if (tid < BQ) {
       const int row = q0 + tid;
       lse_s[tid] = row < SQ ? lse[(long long)bh * SQ + row] : 0.f;
@@ -297,8 +297,8 @@ __global__ void __launch_bounds__(NT) flash_dkv_kernel(
         const int row = q0 + qc;
         const bool keep = row < SQ && key < SK && (!causal || key <= row);
         const float p = keep ? expf(__fmul_rn(s[i][j], scale) - lse_s[qc]) : 0.f;
-        Ps[(ty * 4 + i) * PS + qc] = round_to<T>(p);
-        dSs[(ty * 4 + i) * PS + qc] = round_to<T>(p * (dp[i][j] - delta_s[qc]) * scale);
+        Ps[(ty * 4 + i) * PS + qc] = p;
+        dSs[(ty * 4 + i) * PS + qc] = p * (dp[i][j] - delta_s[qc]) * scale;
       }
     }
     __syncthreads();
@@ -326,23 +326,23 @@ __global__ void __launch_bounds__(NT) flash_dkv_kernel(
     }
   }
 
-  T* dkp = dk + bb * dks.b + hh * dks.h;
-  T* dvp = dv + bb * dvs.b + hh * dvs.h;
+  float* dkp = dk + bb * dks.b + hh * dks.h;
+  float* dvp = dv + bb * dvs.b + hh * dvs.h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int key = k0 + ty * 4 + i;
     if (key < SK) {
 #pragma unroll
       for (int j = 0; j < DJ; ++j) {
-        dkp[(long long)key * dks.s + tx + 16 * j] = from_f32<T>(dk_acc[i][j]);
-        dvp[(long long)key * dvs.s + tx + 16 * j] = from_f32<T>(dv_acc[i][j]);
+        dkp[(long long)key * dks.s + tx + 16 * j] = dk_acc[i][j];
+        dvp[(long long)key * dvs.s + tx + 16 * j] = dv_acc[i][j];
       }
     }
   }
 }
 
 // ------------------------------------------- bf16 tensor-core dK/dV route
-constexpr int TC_THREADS = 128;  // 4 warps x 16 keys
+constexpr int TC_THREADS = 128;  // 4 warps x 16 rows (keys for dK/dV, q rows for dQ)
 
 template <int D>
 constexpr size_t dkv_tc_smem_bytes() {  // K, V, (Q, dO) x 2 padded bf16 tiles, (lse, delta) x 2
@@ -510,40 +510,211 @@ __global__ void __launch_bounds__(TC_THREADS) flash_dkv_tc_kernel(
   tc::store_rows<D>(dv + bb * dvs.b + hh * dvs.h, dvs.s, Vs, warp * 16, krow, SK, lane);
 }
 
-template <typename T, int D>
+// --------------------------------------------- bf16 tensor-core dQ route
+template <int D>
+constexpr size_t dq_tc_smem_bytes() {  // Q, dO, (K, V) x 2 padded bf16 tiles
+  return (size_t)(2 * BQ + 4 * BK) * (D + tc::PAD) * sizeof(__nv_bfloat16);
+}
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS) flash_dq_tc_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ dq, int H, int SQ, int SK, Strides qs, Strides ks,
+    Strides vs, Strides dos, Strides dqs, float scale, int causal) {
+  static_assert(BQ == 64 && BK == 64, "4 warps x 16 q rows, 8 n-blocks of keys");
+  constexpr int RS = D + tc::PAD, KD = D / 16, ND = D / 8;
+  constexpr bool QDO_IN_REGS = D <= 64;  // at 128 the fragments would spill
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BQ][RS]
+  __nv_bfloat16* dOs = Qs + BQ * RS;                               // [BQ][RS]
+  __nv_bfloat16* Ks = dOs + BQ * RS;                               // [2][BK][RS]
+  __nv_bfloat16* Vs = Ks + 2 * BK * RS;                            // [2][BK][RS]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;  // batch*head fastest: the q tiles with the most k tiles first
+  const int bb = bh / H, hh = bh % H;
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * BQ;
+  const int wr = warp * 16;  // the warp's first row in the tile
+  const __nv_bfloat16* kp = k + bb * ks.b + hh * ks.h;
+  const __nv_bfloat16* vp = v + bb * vs.b + hh * vs.h;
+
+  // causal: keys past this tile's last row are masked for every row in it
+  const int k_end = causal ? min(SK, q0 + BQ) : SK;
+  const int nk = (k_end + BK - 1) / BK;
+
+  tc::load_tile_async<D, TC_THREADS>(Qs, q + bb * qs.b + hh * qs.h, qs.s, q0, SQ);
+  tc::load_tile_async<D, TC_THREADS>(dOs, dout + bb * dos.b + hh * dos.h, dos.s, q0, SQ);
+  tc::load_tile_async<D, TC_THREADS>(Ks, kp, ks.s, 0, SK);
+  tc::load_tile_async<D, TC_THREADS>(Vs, vp, vs.s, 0, SK);
+  tc::cp_async_commit();
+
+  // lse and delta of the lane's rows g and g + 8 (0 past SQ)
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + wr + g + 8 * i;
+    row_lse[i] = row < SQ ? lse[(long long)bh * SQ + row] : 0.f;
+    row_delta[i] = row < SQ ? delta[(long long)bh * SQ + row] : 0.f;
+  }
+  tc::cp_async_wait<0>();
+  __syncthreads();
+
+  uint32_t qf[QDO_IN_REGS ? KD : 1][4], dof[QDO_IN_REGS ? KD : 1][4];
+  if constexpr (QDO_IN_REGS) {
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      tc::ldmatrix_x4(qf[kd], tc::a16x16<RS>(Qs, wr, kd * 16, lane));
+      tc::ldmatrix_x4(dof[kd], tc::a16x16<RS>(dOs, wr, kd * 16, lane));
+    }
+  }
+
+  float acc[ND][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < nk) {  // tile kt+1 in flight while tile kt is computed
+      tc::load_tile_async<D, TC_THREADS>(Ks + (buf ^ 1) * BK * RS, kp, ks.s, (kt + 1) * BK, SK);
+      tc::load_tile_async<D, TC_THREADS>(Vs + (buf ^ 1) * BK * RS, vp, vs.s, (kt + 1) * BK, SK);
+    }
+    tc::cp_async_commit();
+    const __nv_bfloat16* Kb = Ks + buf * BK * RS;
+    const __nv_bfloat16* Vb = Vs + buf * BK * RS;
+
+    // S = Q.K^T and dP = dO.V^T: 16 q rows x 64 keys a warp
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      uint32_t qa[4], da[4];
+      if constexpr (QDO_IN_REGS) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kd][e], da[e] = dof[kd][e];
+      } else {
+        tc::ldmatrix_x4(qa, tc::a16x16<RS>(Qs, wr, kd * 16, lane));
+        tc::ldmatrix_x4(da, tc::a16x16<RS>(dOs, wr, kd * 16, lane));
+      }
+#pragma unroll
+      for (int nb2 = 0; nb2 < 4; ++nb2) {
+        uint32_t b[4];
+        tc::ldmatrix_x4(b, tc::b_rows<RS>(Kb, nb2 * 16, kd * 16, lane));
+        tc::mma_bf16(s[2 * nb2], qa, b[0], b[1]);
+        tc::mma_bf16(s[2 * nb2 + 1], qa, b[2], b[3]);
+        tc::ldmatrix_x4(b, tc::b_rows<RS>(Vb, nb2 * 16, kd * 16, lane));
+        tc::mma_bf16(dp[2 * nb2], da, b[0], b[1]);
+        tc::mma_bf16(dp[2 * nb2 + 1], da, b[2], b[3]);
+      }
+    }
+
+    // P and dS on the fragments: [nb][e] is q row q0 + wr + g + 8 (e / 2),
+    // key k0 + 8 nb + 2 t + e % 2
+    const int k0 = kt * BK;
+    const bool edge = (causal && k0 + BK - 1 > q0) || k0 + BK > SK;
+    uint32_t dsf[4][4];  // dS rounded to bf16: A fragments of 4 k-steps of 16 keys
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        bool keep = true;
+        if (edge) {
+          const int col = k0 + nb * 8 + 2 * t + (e & 1), row = q0 + wr + g + 8 * i;
+          keep = row < SQ && col < SK && (!causal || col <= row);
+        }
+        const float p = keep ? expf(__fmul_rn(s[nb][e], scale) - row_lse[i]) : 0.f;
+        ds[e] = p * (dp[nb][e] - row_delta[i]) * scale;
+      }
+      dsf[nb >> 1][(nb & 1) * 2] = tc::pack_bf16(ds[0], ds[1]);
+      dsf[nb >> 1][(nb & 1) * 2 + 1] = tc::pack_bf16(ds[2], ds[3]);
+    }
+
+    // dQ += dS.K, B from K by transposed ldmatrix
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+#pragma unroll
+      for (int nd2 = 0; nd2 < ND / 2; ++nd2) {
+        uint32_t b[4];
+        tc::ldmatrix_x4_trans(b, tc::b_trans<RS>(Kb, kc * 16, nd2 * 16, lane));
+        tc::mma_bf16(acc[2 * nd2], dsf[kc], b[0], b[1]);
+        tc::mma_bf16(acc[2 * nd2 + 1], dsf[kc], b[2], b[3]);
+      }
+    }
+    tc::cp_async_wait<0>();  // tile kt+1 has landed
+    __syncthreads();         // and every warp is done with buffer kt
+  }
+
+  // staged in this warp's own Q rows (only this warp reads them), then
+  // 16-byte stores of the rows below SQ
+  tc::stage_rows<D>(Qs, wr, acc, 1.f, 1.f, lane);
+  __syncwarp();
+  tc::store_rows<D>(dq + bb * dqs.b + hh * dqs.h, dqs.s, Qs, wr, q0 + wr, SQ, lane);
+}
+
+template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const float* lse, const float* delta, void* dq, int B, int H,
                       int SQ, int SK, Strides qs, Strides ks, Strides vs, Strides dos,
                       Strides dqs, float scale, int causal, cudaStream_t stream) {
   const size_t smem = dq_smem_floats<D>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_dq_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_dq_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((SQ + BQ - 1) / BQ, B * H);
-  flash_dq_kernel<T, D><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), H, SQ, SK, qs, ks,
-      vs, dos, dqs, scale, causal);
+  flash_dq_kernel<D><<<grid, NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta,
+      static_cast<float*>(dq), H, SQ, SK, qs, ks, vs, dos, dqs, scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
+cudaError_t launch_dq_tc(const void* q, const void* k, const void* v, const void* dout,
+                         const float* lse, const float* delta, void* dq, int B, int H,
+                         int SQ, int SK, Strides qs, Strides ks, Strides vs, Strides dos,
+                         Strides dqs, float scale, int causal, cudaStream_t stream) {
+  const size_t smem = dq_tc_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(flash_dq_tc_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (SQ + BQ - 1) / BQ);
+  using bf = __nv_bfloat16;
+  flash_dq_tc_kernel<D><<<grid, TC_THREADS, smem, stream>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
+      static_cast<const bf*>(dout), lse, delta, static_cast<bf*>(dq), H, SQ, SK, qs, ks, vs,
+      dos, dqs, scale, causal);
+  return cudaGetLastError();
+}
+
+template <int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const float* lse, const float* delta, void* dk, void* dv, int B,
                        int H, int SQ, int SK, Strides qs, Strides ks, Strides vs,
                        Strides dos, Strides dks, Strides dvs, float scale, int causal,
                        cudaStream_t stream) {
   const size_t smem = dkv_smem_floats<D>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_dkv_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_dkv_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((SK + BK - 1) / BK, B * H);
-  flash_dkv_kernel<T, D><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-      H, SQ, SK, qs, ks, vs, dos, dks, dvs, scale, causal);
+  flash_dkv_kernel<D><<<grid, NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta,
+      static_cast<float*>(dk), static_cast<float*>(dv), H, SQ, SK, qs, ks, vs, dos, dks, dvs,
+      scale, causal);
   return cudaGetLastError();
 }
 
@@ -569,10 +740,9 @@ cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v, const voi
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (dQ: the scalar kernel for both; dK/dV:
-// the scalar kernel for float32, the tensor-core kernel for bfloat16, which
-// wants 16-byte aligned rows: base pointers on 16 bytes, strides in
-// multiples of 8 elements; the Python wrapper checks). Strides are in
+// dtype: 0 = float32 (the scalar kernels), 1 = bfloat16 (the tensor-core
+// kernels, which want 16-byte aligned rows: base pointers on 16 bytes,
+// strides in multiples of 8 elements; the Python wrapper checks). Strides are in
 // elements, for the (batch, head, seq) dims of each tensor viewed as
 // (b, h, s, d) with the last dim contiguous. lse and delta are contiguous
 // (b, h, sq) float32.
@@ -591,17 +761,17 @@ extern "C" int ff_flash_bwd_dq(const void* q, const void* k, const void* v,
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   if (dtype == 0 && D == 64)
-    return (int)launch_dq<float, 64>(q, k, v, dout, l, dl, dq, B, H, SQ, SK, qs, ks, vs,
-                                     dos, dqs, scale, causal, st);
+    return (int)launch_dq<64>(q, k, v, dout, l, dl, dq, B, H, SQ, SK, qs, ks, vs, dos, dqs,
+                              scale, causal, st);
   if (dtype == 0 && D == 128)
-    return (int)launch_dq<float, 128>(q, k, v, dout, l, dl, dq, B, H, SQ, SK, qs, ks, vs,
-                                      dos, dqs, scale, causal, st);
+    return (int)launch_dq<128>(q, k, v, dout, l, dl, dq, B, H, SQ, SK, qs, ks, vs, dos, dqs,
+                               scale, causal, st);
   if (dtype == 1 && D == 64)
-    return (int)launch_dq<__nv_bfloat16, 64>(q, k, v, dout, l, dl, dq, B, H, SQ, SK, qs,
-                                             ks, vs, dos, dqs, scale, causal, st);
+    return (int)launch_dq_tc<64>(q, k, v, dout, l, dl, dq, B, H, SQ, SK, qs, ks, vs, dos, dqs,
+                                 scale, causal, st);
   if (dtype == 1 && D == 128)
-    return (int)launch_dq<__nv_bfloat16, 128>(q, k, v, dout, l, dl, dq, B, H, SQ, SK, qs,
-                                              ks, vs, dos, dqs, scale, causal, st);
+    return (int)launch_dq_tc<128>(q, k, v, dout, l, dl, dq, B, H, SQ, SK, qs, ks, vs, dos,
+                                  dqs, scale, causal, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -621,11 +791,11 @@ extern "C" int ff_flash_bwd_dkv(const void* q, const void* k, const void* v,
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   if (dtype == 0 && D == 64)
-    return (int)launch_dkv<float, 64>(q, k, v, dout, l, dl, dk, dv, B, H, SQ, SK, qs, ks,
-                                      vs, dos, dks, dvs, scale, causal, st);
+    return (int)launch_dkv<64>(q, k, v, dout, l, dl, dk, dv, B, H, SQ, SK, qs, ks, vs, dos,
+                               dks, dvs, scale, causal, st);
   if (dtype == 0 && D == 128)
-    return (int)launch_dkv<float, 128>(q, k, v, dout, l, dl, dk, dv, B, H, SQ, SK, qs, ks,
-                                       vs, dos, dks, dvs, scale, causal, st);
+    return (int)launch_dkv<128>(q, k, v, dout, l, dl, dk, dv, B, H, SQ, SK, qs, ks, vs, dos,
+                                dks, dvs, scale, causal, st);
   if (dtype == 1 && D == 64)
     return (int)launch_dkv_tc<64>(q, k, v, dout, l, dl, dk, dv, B, H, SQ, SK, qs, ks, vs, dos,
                                   dks, dvs, scale, causal, st);

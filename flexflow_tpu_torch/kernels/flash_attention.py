@@ -14,12 +14,13 @@ the card's bound is about even between its memory (20 us at 3.35 TB/s) and
 its bf16 tensor cores (17 us at 989 TFLOP/s); the backward's dQ does 3
 such causal products and dK/dV 4.
 
-Routes by dtype: in bfloat16 the forward and dK/dV run on the tensor cores
-(mma.sync m16n8k16 from bf16 tiles that cp.async double-buffers); they want
-16-byte aligned rows, which `_check_rows_aligned` holds the tensors to, and
-raise otherwise. In float32, and for dQ in both dtypes, the kernels do
-scalar f32 FMAs from shared memory: tensor cores give no float32 products
-at the 1e-4 the f32 checks hold them to.
+Routes by dtype: in bfloat16 all three kernels run on the tensor cores
+(mma.sync m16n8k16 from bf16 tiles that cp.async double-buffers: K and V
+for the forward and dQ, Q and dO for dK/dV); they want 16-byte aligned
+rows, which `_check_rows_aligned` holds the tensors to, and raise
+otherwise. dQ and dK/dV recompute P by `expf`, the forward by `__expf`.
+In float32 the kernels do scalar f32 FMAs from shared memory: tensor cores
+give no float32 products at the 1e-4 the f32 checks hold them to.
 
 The gate is Hopper's: head_dim 64 or 128, f32 or bf16, every kernel's
 shared-memory tiles within the 227 KB a block may use, and sq == sk when
@@ -66,8 +67,12 @@ def fwd_smem_bytes(d: int, dtype: torch.dtype) -> int:
                 + BLOCK_Q * (BLOCK_K + 1))
 
 
-def dq_smem_bytes(d: int) -> int:
-    """Dynamic shared memory of a dQ block, both dtypes (dq_smem_floats<D>)."""
+def dq_smem_bytes(d: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of a dQ block: bf16, q and dO and two buffers
+    each of k and v as padded bf16 rows (dq_tc_smem_bytes<D>); f32, the
+    scalar kernel's f32 tiles (dq_smem_floats<D>)."""
+    if dtype == torch.bfloat16:
+        return (2 * BLOCK_Q + 4 * BLOCK_K) * (d + TC_PAD) * 2
     return 4 * (4 * 64 * (d + 1) + BLOCK_Q * (BLOCK_K + 1))
 
 
@@ -84,7 +89,7 @@ def dkv_smem_bytes(d: int, dtype: torch.dtype) -> int:
 def smem_bytes(d: int, dtype: torch.dtype) -> int:
     """Dynamic shared memory of the largest of the three kernels' blocks
     for this dtype."""
-    return max(fwd_smem_bytes(d, dtype), dq_smem_bytes(d),
+    return max(fwd_smem_bytes(d, dtype), dq_smem_bytes(d, dtype),
                dkv_smem_bytes(d, dtype))
 
 
@@ -202,6 +207,56 @@ def _dq_plain(q, k, v, do, lse, delta, causal: bool, scale: float):
     return torch.einsum("bhqk,bhkd->bhqd", ds.float(), k.float()).to(q.dtype)
 
 
+def _dq_bf16_bound(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """The largest |dQ - plain dQ| allowed, element by element, on the
+    bf16 route: what the card's checks hold the tensor-core kernel to.
+    Both make dS_ij = P_ij (dP_ij - delta_i) scale in f32 from the same
+    lse and delta and round it to bf16 before dQ_ic = sum_j dS_ij K_jc, but
+    sum S, dP and dQ in other orders and take exp by another routine.
+    Allowed, the sum of:
+    - dS's f32 difference e_ij, carried as sum_j e_ij |K_jc|: S and dP are
+      sums of d exact products, d 2**-22 sum |products| apart (one
+      truncating ulp an add on each side); P is 2**-21 (2 + |S_ij scale| +
+      |lse_i|) apart besides (exp and the scaled exponent); dS's own
+      products 2**-21 |dS_ij|;
+    - dS's bf16 rounding: where the two f32 values straddle a rounding
+      boundary the bf16 values differ by one ulp, at most 2**-7 |dS_ij|;
+      modelled as two independent roundings (their difference's standard
+      deviation at most 2**-7 / sqrt(6) |dS_ij|): ten standard deviations
+      of the sum, 10 * 2**-7 / sqrt(6) * sqrt(sum_j (dS_ij K_jc)**2),
+      capped at its worst case 2**-7 sum_j |dS_ij K_jc|;
+    - the f32 sums over n keys, n 2**-22 sum_j |dS_ij K_jc|;
+    - 2 bf16 ulps of |dQ| for dQ's own rounding.
+    A key tile that a fault drops or adds moves dQ by about 8 such terms
+    where the bound allows about 1.5."""
+    d, n = q.shape[-1], k.shape[-2]
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    p = torch.exp(s - lse)
+    if causal:
+        keep = torch.ones(s.shape[-2], n, dtype=torch.bool,
+                          device=s.device).tril()
+        p = p.masked_fill(~keep, 0.0)
+    dpd = torch.einsum("bhqd,bhkd->bhqk", dof, vf) - delta
+    ds = (p * dpd * scale).to(q.dtype).float()
+    gamma = d * 2.0 ** -22
+    eps_p = (scale * gamma * torch.einsum("bhqd,bhkd->bhqk", qf.abs(),
+                                          kf.abs())
+             + 2.0 ** -21 * (2 + s.abs() + lse.abs()))
+    e = (scale * p * (gamma * torch.einsum("bhqd,bhkd->bhqk", dof.abs(),
+                                           vf.abs()) + dpd.abs() * eps_p)
+         + 2.0 ** -21 * ds.abs())
+    del s, p, dpd, eps_p
+    ka = kf.abs()
+    l1 = ds.abs() @ ka
+    noise = torch.minimum(10 * 2 ** -7 / 6 ** 0.5 * torch.sqrt(
+        (ds * ds) @ (kf * kf)), 2 ** -7 * l1)
+    dq = ds @ kf
+    _, x = torch.frexp(dq.abs().clamp_min(torch.finfo(torch.float32).tiny))
+    return (noise + e @ ka + n * 2.0 ** -22 * l1
+            + 2 * torch.ldexp(torch.full_like(dq, 2 ** -7), x - 1))
+
+
 def _dkv_plain(q, k, v, do, lse, delta, causal: bool, scale: float):
     """dK = dS^T.q and dV = round(P)^T.dO in plain PyTorch (the
     `_dkv_kernel` function); P is rounded to dO's dtype, dS to q's."""
@@ -245,6 +300,8 @@ def _strides(*ts):
 def _dq_cuda(q, k, v, do, lse, delta, causal: bool, scale: float):
     global launches_dq
     b, h, sq, d = q.shape
+    if q.dtype == torch.bfloat16:
+        _check_rows_aligned(q, k, v, do)
     dq = torch.empty_like(q)           # in q's layout
     err = _bwd_fn("ff_flash_bwd_dq", 7, 5)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),

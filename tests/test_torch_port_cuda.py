@@ -115,7 +115,7 @@ def test_flash_kernel_matches_plain_on_card(dtype, tol, sq, sk, causal, d):
 def test_flash_unaligned_bf16_raises_on_card():
     """The bf16 route copies rows in 16-byte pieces: a view one element
     off a 16-byte boundary raises ValueError before any launch, in the
-    forward and in dK/dV."""
+    forward, in dQ and in dK/dV."""
     dev = _cuda_or_skip()
     shape = (2, 64, 3, 64)
     n = 2 * 64 * 3 * 64
@@ -128,8 +128,9 @@ def test_flash_unaligned_bf16_raises_on_card():
         flash_attention.flash_attention_qkv(bad, good, good, causal=True)
     gt, bt = good.transpose(1, 2), bad.transpose(1, 2)
     lse = torch.zeros((2, 3, 64, 1), device=dev)
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        flash_attention._dkv_cuda(gt, gt, gt, bt, lse, lse, True, 0.125)
+    for bwd in (flash_attention._dq_cuda, flash_attention._dkv_cuda):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            bwd(gt, gt, gt, bt, lse, lse, True, 0.125)
     torch.cuda.synchronize()
     assert (flash_attention.launches, flash_attention.launches_dq,
             flash_attention.launches_dkv) == before
@@ -191,12 +192,13 @@ def _rel_err(got, want) -> float:
                                        (torch.float32, 1e-4)])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("s", [200, 64, 1024])
+@pytest.mark.parametrize("s", [1, 200, 64, 1024])
 def test_flash_backward_kernels_match_plain_on_card(dtype, tol, causal, d, s):
-    """dQ and dK/dV against their plain versions at a ragged length (200
-    is not a multiple of the 64-row tiles), one exact tile and the training
-    length, and the autograd Function's gradients against `_bwd_plain`, one
-    launch of each kernel per call."""
+    """dQ and dK/dV against their plain versions at one row, a ragged
+    length (200 is not a multiple of the 64-row tiles), one exact tile and
+    the training length, and the autograd Function's gradients against
+    `_bwd_plain`, one launch of each kernel per call. bf16 dQ is also held
+    element by element to its rounding bound (`_dq_bf16_bound`)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = _cuda_or_skip()
     g = torch.Generator(device=dev).manual_seed(1)
@@ -217,6 +219,11 @@ def test_flash_backward_kernels_match_plain_on_card(dtype, tol, causal, d, s):
                                           scale)
     for got, want in ((dq, rdq), (dk, rdk), (dv, rdv)):
         assert _rel_err(got, want) <= tol
+    if dtype == torch.bfloat16:
+        dq_bound = flash_attention._dq_bf16_bound(q, k, v, do, lse, delta,
+                                                  causal, scale)
+        err = (dq.float() - rdq.float()).abs()
+        assert float((err / dq_bound).max()) <= 1.0
 
     qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
@@ -228,6 +235,9 @@ def test_flash_backward_kernels_match_plain_on_card(dtype, tol, causal, d, s):
     ref = flash_attention._bwd_plain(q, k, v, o, lse, do, causal, scale)
     for got, want in zip(grads, ref):
         assert _rel_err(got.transpose(1, 2), want) <= tol
+    if dtype == torch.bfloat16:
+        err = (grads[0].transpose(1, 2).float() - ref[0].float()).abs()
+        assert float((err / dq_bound).max()) <= 1.0
 
 
 @pytest.mark.cuda
@@ -365,16 +375,19 @@ def test_fused_ce_kernels_match_plain_on_card(dtype, n, v):
                                 dict(lr=0.1, momentum=0.9, nesterov=True)])
 def test_fused_sgd_kernels_match_plain_on_card(kw):
     """Three steps of the one-launch SGD kernel (with a trace or without)
-    against its plain version over leaves of ragged sizes, one of them
+    against its plain version over leaves of ragged sizes, two of them
     misaligned (the scalar path), and a replaced param that must rebuild
-    the table: equal to 1e-6 (the same roundings, expected bit for
-    bit)."""
+    the table: equal to 1e-6 (the same roundings, expected bit for bit).
+    A leaf of 83539 elements fills two 32768-element chunks and leaves a
+    third of 18003, whose last 3 elements are the scalar tail after its
+    16-byte vectors; the leaf 8 bytes past an aligned address spans three
+    chunks on the scalar path."""
     from flexflow_tpu_torch import SGDOptimizer
     from flexflow_tpu_torch.kernels import fused_optim
 
     dev = _cuda_or_skip()
     rng = np.random.default_rng(8)
-    sizes = [(1,), (1001,), (64, 65), (3, 40000)]
+    sizes = [(1,), (1001,), (64, 65), (3, 40000), (83539,)]
     base = {f"l{i}": {"w": torch.from_numpy(
         rng.standard_normal(s).astype(np.float32)).to(dev)}
         for i, s in enumerate(sizes)}
@@ -386,6 +399,9 @@ def test_fused_sgd_kernels_match_plain_on_card(kw):
                   for l, ws in base.items()}
         params["odd"] = {"w": torch.zeros(5001, device=dev)[1:]}
         params["odd"]["w"].copy_(torch.arange(5000, device=dev) * 1e-3)
+        # 8 bytes past an aligned address, over three chunks
+        params["odd8"] = {"w": torch.zeros(70003, device=dev)[2:]}
+        params["odd8"]["w"].copy_(torch.arange(70001, device=dev) * 1e-5)
         trees.append((params, opt.init_state(params)))
     (pk, sk), (pp, sp) = trees
     counter = "launches_sgd" if kw.get("momentum") else "launches_sgd_plain"

@@ -121,19 +121,22 @@ def test_kv_quantize_bitwise_equal_to_jax():
 
 
 # Shared memory per block of each route, from the kernels' tile layouts:
-# bf16 runs the forward and dK/dV on the tensor cores, whose tiles are bf16
+# bf16 runs all three kernels on the tensor cores, whose tiles are bf16
 # rows padded by 8 elements (forward: a q tile of 128 rows at head_dim 64
-# and 64 at 128, plus two 64-row buffers each of k and v; dK/dV: k, v and
-# two buffers each of q and dO, plus two of lse and delta in f32); f32 runs
-# the scalar kernels' f32 tiles. dQ is the scalar kernel in both dtypes.
+# and 64 at 128, plus two 64-row buffers each of k and v; dQ: q and dO plus
+# two 64-row buffers each of k and v; dK/dV: k, v and two buffers each of q
+# and dO, plus two of lse and delta in f32); f32 runs the scalar kernels'
+# f32 tiles.
 def _route_smem(d, dtype):
     if dtype == torch.bfloat16:
         fwd = ({64: 128, 128: 64}[d] + 4 * 64) * (d + 8) * 2
+        dq = (2 * 64 + 4 * 64) * (d + 8) * 2
         dkv = (2 * 64 + 4 * 64) * (d + 8) * 2 + 4 * 64 * 4
     else:
         fwd = 4 * (64 * (d + 1) * 2 + 64 * d + 64 * 65)
+        dq = 4 * (4 * 64 * (d + 1) + 64 * 65)
         dkv = 4 * (4 * 64 * (d + 1) + 2 * 64 * 65 + 2 * 64)
-    return fwd, 4 * (4 * 64 * (d + 1) + 64 * 65), dkv
+    return fwd, dq, dkv
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -142,7 +145,8 @@ def _route_smem(d, dtype):
 def test_gates(dtype, d, causal):
     fwd, dq, dkv = _route_smem(d, dtype)
     assert flash_attention.fwd_smem_bytes(d, dtype) == fwd
-    assert flash_attention.dq_smem_bytes(d) == dq
+    assert flash_attention.dq_smem_bytes(d, dtype) == dq
+    assert dq <= flash_attention.SMEM_LIMIT
     assert flash_attention.dkv_smem_bytes(d, dtype) == dkv
     assert flash_attention.smem_bytes(d, dtype) == max(fwd, dq, dkv)
     assert max(fwd, dq, dkv) <= flash_attention.SMEM_LIMIT
@@ -273,6 +277,85 @@ def test_flash_function_grads_are_bwd_plain():
                                       0.125)
     for a, b in zip(got, want):
         assert torch.equal(a, t(b))
+
+
+def _dq_f64(q, k, v, do, lse, delta, causal: bool, scale: float,
+            keep=None):
+    """dQ as the bf16 route defines it (dS rounded to bf16 before dS.K,
+    dQ rounded once), with S, dP, P and both sums in float64: every f32
+    operation in another order, as the kernel has them. `keep` (sq, sk)
+    replaces the causal mask."""
+    s = q.double() @ k.double().transpose(-1, -2) * scale
+    p = torch.exp(s - lse.double())
+    if keep is None and causal:
+        keep = torch.ones(s.shape[-2:], dtype=torch.bool).tril()
+    if keep is not None:
+        p = p.masked_fill(~keep, 0.0)
+    dp = do.double() @ v.double().transpose(-1, -2)
+    ds = (p * (dp - delta.double()) * scale).to(torch.bfloat16)
+    return (ds.double() @ k.double()).to(torch.bfloat16)
+
+
+def _bwd_inputs(seq: int, causal: bool):
+    rng = np.random.default_rng(13)
+    q, k, v, do = (torch.from_numpy(_normal(rng, (1, 2, seq, 64)))
+                   .bfloat16() for _ in range(4))
+    o, lse = flash_attention._fwd(q, k, v, causal, 0.125)
+    return q, k, v, do, lse, flash_attention._delta(o, do), causal, 0.125
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("seq", [1, 64, 200, 1024])
+def test_dq_bf16_bound_admits_another_order(causal, seq):
+    """`_dq_bf16_bound`, the element-wise bound the card holds the bf16 dQ
+    kernel to, admits dQ made with every f32 operation in another order
+    (float64 here), also at one row, where dQ is all cancellation."""
+    args = _bwd_inputs(seq, causal)
+    want = flash_attention._dq_plain(*args).float()
+    bound = flash_attention._dq_bf16_bound(*args)
+    err = (_dq_f64(*args).float() - want).abs()
+    assert bool(torch.isfinite(bound).all())
+    assert float((err / bound).max()) <= 1.0
+
+
+@pytest.mark.parametrize("fault", ["diagonal key dropped",
+                                   "key past the diagonal",
+                                   "last key tile dropped",
+                                   "first key tile dropped"])
+def test_dq_bf16_bound_sees_late_tile_faults(fault):
+    """A causal-mask or tile fault confined to the last 64-row q tile of
+    1024, whose terms are ~1/1024 each, exceeds the bound there; the rows
+    it spares stay within it."""
+    args = _bwd_inputs(1024, True)
+    r, c = torch.arange(1024)[:, None], torch.arange(1024)[None, :]
+    late = r >= 1024 - 64
+    keep = torch.where(late, {
+        "diagonal key dropped": c < r,
+        "key past the diagonal": c <= r + 1,
+        "last key tile dropped": c < 1024 - 64,
+        "first key tile dropped": (c >= 64) & (c <= r)}[fault], c <= r)
+    want = flash_attention._dq_plain(*args).float()
+    bound = flash_attention._dq_bf16_bound(*args)
+    excess = (_dq_f64(*args, keep=keep).float() - want).abs() / bound
+    assert float(excess[..., -64:, :].max()) > 1.0
+    assert float(excess[..., :-64, :].max()) <= 1.0
+
+
+@pytest.mark.parametrize("wrapper", ["_dq_cuda", "_dkv_cuda"])
+def test_bf16_bwd_wrappers_check_rows_first(wrapper):
+    """Both backward wrappers check a bf16 tensor's rows before they load
+    a kernel or allocate: a view one element off 16 bytes raises
+    ValueError and counts no launch."""
+    good = torch.zeros((1, 2, 64, 64), dtype=torch.bfloat16)
+    flat = torch.zeros(good.numel() + 8, dtype=torch.bfloat16)
+    bad = flat[1:1 + good.numel()].view(good.shape)
+    lse = torch.zeros((1, 2, 64, 1))
+    before = (flash_attention.launches_dq, flash_attention.launches_dkv)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        getattr(flash_attention, wrapper)(good, good, good, bad, lse, lse,
+                                          True, 0.125)
+    assert (flash_attention.launches_dq, flash_attention.launches_dkv) == \
+        before
 
 
 # ------------------------------------------------------------ optimizers
