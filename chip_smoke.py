@@ -13,7 +13,9 @@ Phases, each fatal on failure (nothing is caught to let the run exit 0):
 2. Kernels against their plain PyTorch versions on the card, at the shapes
    the GPT-2 medium paths give them, in bf16 and in f32 (TF32 is off for
    every float32 product here, so f32 is compared at 1e-4): the flash
-   forward and the int8 dequant decode at the serving shapes, the flash
+   forward and the int8 dequant decode at the serving shapes (the decode
+   through the page table, over a pool of 8 x 66 + 1 pages of 16 under a
+   shuffled table, and through its gathered call), the flash
    backward's dQ and dK/dV at the training shape (8, 1024, 16, 64) causal,
    the fused Adam over GPT-2 medium's real param set (f32 and bf16
    moments, weight decay 0 and 0.01), the fused cross-entropy forward and
@@ -28,8 +30,10 @@ Phases, each fatal on failure (nothing is caught to let the run exit 0):
    and its row carries the median of the per-pair ratios
    (`library_ratio`). The rows of the flash forward, dQ and dK/dV also
    carry their achieved TFLOP/s, their share of the bound and their
-   design. The forward's lse is held to the plain lse at 1e-4, and its
-   bf16 O element by element to a bound on the rounding of P (see
+   design, the dequant decode's its share of the bound, its design and
+   the timer's floor for a call that small (one tiny kernel). The
+   forward's lse is held to the plain lse at 1e-4, and its bf16 O element
+   by element to a bound on the rounding of P (see
    `flash_bf16_o_bound`); bf16 dQ is held element by element to a bound
    on the rounding of dS (`_dq_bf16_bound` in the flash module).
 3. Serving: GPT-2 medium at full width and depth with random weights from
@@ -41,7 +45,10 @@ Phases, each fatal on failure (nothing is caught to let the run exit 0):
    prefill is repeated through the plain versions and compared.
 4. Where the time goes: after each run, torch.profiler over two prefills
    and 16 decode steps of that engine (8 slots busy): host wall time per
-   call, the device's busy time and idle share, the top kernels.
+   call, the device's busy time and idle share, the top kernels, and the
+   host's `aten::index` calls (gathers); the int8 decode step fails if it
+   gathers once a layer or more (on the host, or a gather kernel among the
+   top kernels).
 5. Training, through `FFModel.compile` and the `CompiledModel`:
    (a) gradient check: GPT-2 medium widths at 2 layers, one step through
        the kernels and one through the plain versions from the same
@@ -113,6 +120,11 @@ TC_DESIGN = {
     "flash_attention_dkv": "mma.sync m16n8k16 bf16, cp.async x2 (Q, dO, "
                            "lse, delta), bf16 smem padded rows, P^T and "
                            "dS^T in registers"}
+DEQUANT_DESIGN = ("split-K: grid (slot x head, 128-key chunk), 4 warps a "
+                  "block each on its own 32-key tile, page table read in "
+                  "the kernel, cp.async into per-warp buffers, f32 "
+                  "softmax, int8 widened by byte permute, warps merged in "
+                  "shared memory, chunks by the last block's atomic ticket")
 CTX = -(-(SEQ + NEW_TOKENS) // PAGE) * PAGE        # 1056 cached positions
 LSE_TOL = 1e-4   # the forward's lse: f32 sums of up to 1024 exponentials
 
@@ -314,54 +326,85 @@ def check_dequant(timer, gen, seed):
     from flexflow_tpu_torch.serving.kv_cache import kv_quantize
 
     b, s, h, d, L = SLOTS, 1, HEADS, HEAD_DIM, CTX
+    pages_per_slot = L // PAGE
     scale = d ** -0.5
-    kq, ks = kv_quantize(torch.randn((b, L, h, d), generator=gen,
-                                     device="cuda"))
-    vq, vs = kv_quantize(torch.randn((b, L, h, d), generator=gen,
-                                     device="cuda"))
+    pool = (b * pages_per_slot + 1, PAGE, h, d)
+    kq, ks = kv_quantize(torch.randn(pool, generator=gen, device="cuda"))
+    vq, vs = kv_quantize(torch.randn(pool, generator=gen, device="cuda"))
+    # a shuffled page table: every page but the scratch page 0 belongs to
+    # one slot, in an order drawn from the seed
+    rng = np.random.default_rng(seed)
+    ids = rng.permutation(np.arange(1, pool[0])).reshape(b, pages_per_slot)
+    table = torch.from_numpy(ids.astype(np.int32)).cuda()
     # cached extents as the serving run meets them: prompt 32..992 plus
     # up to 32 decoded tokens
-    pos_np = np.random.default_rng(seed).integers(32, SEQ, size=b)
+    pos_np = rng.integers(32, SEQ, size=b)
     pos = torch.from_numpy(pos_np.astype(np.int32)).cuda()
     errs = {}
     for dt in (torch.float32, torch.bfloat16):
         qh = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dt)
-        out = da.dequant_decode_attention(qh, kq, ks, vq, vs, pos, scale)
+        out = da.paged_dequant_decode_attention(qh, kq, ks, vq, vs, table,
+                                                pos, scale)
         torch.cuda.synchronize()
-        ref = da._plain(qh, kq, ks, vq, vs, pos, scale)
+        ref = da._paged_plain(qh, kq, ks, vq, vs, table, pos, scale)
         errs[dt] = float((out.float() - ref.float()).abs().max())
-        if not errs[dt] <= TOL[dt]:
-            fail(f"dequant {dt}: max err {errs[dt]} > {TOL[dt]}")
-        log(f"dequant_decode_attention q {tuple(qh.shape)} {dt} vs int8 "
-            f"context {tuple(kq.shape)}: max abs err {errs[dt]:.3e} "
+        # the gathered call: the same kernel with each context one page
+        gathered = [t[table.long()].reshape(b, L, *t.shape[2:])
+                    for t in (kq, ks, vq, vs)]
+        g_out = da.dequant_decode_attention(qh, *gathered, pos, scale)
+        torch.cuda.synchronize()
+        g_err = float((g_out.float() - da._plain(qh, *gathered, pos, scale)
+                       .float()).abs().max())
+        if not max(errs[dt], g_err) <= TOL[dt]:
+            fail(f"dequant {dt}: max err paged {errs[dt]} gathered {g_err} "
+                 f"> {TOL[dt]}")
+        log(f"paged_dequant_decode_attention q {tuple(qh.shape)} {dt} vs int8 "
+            f"pool {pool} under a shuffled table of {pages_per_slot} pages a "
+            f"slot: max abs err {errs[dt]:.3e}, gathered call {g_err:.3e} "
             f"(tolerance {TOL[dt]})")
-    ms = timer(lambda: da.dequant_decode_attention(qh, kq, ks, vq, vs, pos,
-                                                   scale))
-    plain_ms = timer(lambda: da._plain(qh, kq, ks, vq, vs, pos, scale))
+    ms = timer(lambda: da.paged_dequant_decode_attention(
+        qh, kq, ks, vq, vs, table, pos, scale))
+    plain_ms = timer(lambda: da._paged_plain(qh, kq, ks, vq, vs, table, pos,
+                                             scale))
     keep = (torch.arange(L, device="cuda")[None, :]
             <= pos.long()[:, None])[:, None, None, :]      # (b, 1, 1, L)
+    ptl = table.long()
 
     def library():
-        kf = (kq.float() * ks[..., None]).to(qh.dtype).transpose(1, 2)
-        vf = (vq.float() * vs[..., None]).to(qh.dtype).transpose(1, 2)
-        return F.scaled_dot_product_attention(qh.transpose(1, 2), kf, vf,
-                                              attn_mask=keep, scale=scale)
+        kf = (kq[ptl].reshape(b, L, h, d).float()
+              * ks[ptl].reshape(b, L, h)[..., None]).to(qh.dtype)
+        vf = (vq[ptl].reshape(b, L, h, d).float()
+              * vs[ptl].reshape(b, L, h)[..., None]).to(qh.dtype)
+        return F.scaled_dot_product_attention(
+            qh.transpose(1, 2), kf.transpose(1, 2), vf.transpose(1, 2),
+            attn_mask=keep, scale=scale)
     lib_ms = timer(library)
+    # what this timer reads for one launch of a kernel with no work to
+    # speak of: the floor under a call this small
+    one = torch.empty(1, device="cuda")
+    floor_ms = timer(lambda: one.zero_())
     # this run's data needs keys 0..pos+s-1 of each slot: int8 K and V
-    # values plus their f32 scales, the queries, the output and pos
-    keys = float((pos_np + s).sum())
-    nbytes = keys * h * (2 * d + 2 * 4) + 2 * b * s * h * d * 2 + 4 * b
-    bound_ms, bound_by = bound(nbytes, 4 * keys * h * s * d + 2 * keys * h * d,
-                               F32_FLOPS)
+    # values plus their f32 scales, the page ids that address them, the
+    # queries, the output and pos
+    keys = np.minimum(pos_np + s, L)
+    nbytes = (float(keys.sum()) * h * (2 * d + 2 * 4)
+              + 4 * float((-(-keys // PAGE)).sum())
+              + 2 * b * s * h * d * 2 + 4 * b)
+    bound_ms, bound_by = bound(nbytes, 4 * float(keys.sum()) * h * s * d
+                               + 2 * float(keys.sum()) * h * d, F32_FLOPS)
     return {"name": "dequant_decode_attention", "route": "cuda",
             "source": "flexflow_tpu_torch/csrc/dequant_attention.cu",
             "replaces": "flexflow_tpu/kernels/dequant_attention.py:69",
-            "shape": [b, s, h, d], "context": L, "dtype": "bfloat16",
+            "shape": [b, s, h, d], "context": L, "page": PAGE,
+            "pool_pages": pool[0], "dtype": "bfloat16",
             "max_abs_err": errs[torch.bfloat16],
             "max_abs_err_f32": errs[torch.float32],
             "tolerance": TOL[torch.bfloat16], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
-            "library": "dequantize + scaled_dot_product_attention"}
+            "library": "page gather + dequantize + "
+                       "scaled_dot_product_attention",
+            "bound_share": bound_ms / ms, "launch_floor_ms": floor_ms,
+            "design": DEQUANT_DESIGN}
 
 
 def rel_err(got, want) -> float:
@@ -752,7 +795,8 @@ class PlainKernels:
         from flexflow_tpu_torch.kernels import fused_ce as fc
         from flexflow_tpu_torch.kernels import fused_optim as fo
         self.counts = launch_counts()
-        swaps = [(fa, "_fwd_cuda", fa._fwd_plain), (da, "_cuda", da._plain),
+        swaps = [(fa, "_fwd_cuda", fa._fwd_plain),
+                 (da, "_cuda", da._paged_plain),
                  (fa, "_dq_cuda", fa._dq_plain),
                  (fa, "_dkv_cuda", fa._dkv_plain),
                  (fo, "_adam_cuda", fo._adam_plain),
@@ -887,8 +931,11 @@ def _device_profile(fn, reps: int, dev: torch.device) -> dict:
             fn()
         sync(dev)
         wall_us = 1e6 * (time.perf_counter() - t0)
-    kern = [e for e in prof.events()
+    events = prof.events()
+    kern = [e for e in events
             if e.device_type == torch.autograd.DeviceType.CUDA]
+    # gathers `pool[table]` (and any other advanced-index read) on the host
+    gathers = sum(e.name == "aten::index" for e in events)
     if not kern:
         return {"device": "not measured (the profiler saw no kernel)"}
     spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
@@ -914,6 +961,7 @@ def _device_profile(fn, reps: int, dev: torch.device) -> dict:
             "device_busy_ms_per_call": busy / reps / 1e3,
             "device_idle_share": 1.0 - busy / wall_us,
             "kernel_launches_per_call": len(kern) / reps,
+            "aten_index_per_call": gathers / reps,
             "top_kernels": [{"name": n[:80], "ms_per_call": t / reps / 1e3,
                              "launches_per_call": c / reps}
                             for n, (t, c) in top],
@@ -1327,6 +1375,9 @@ def main() -> None:
             log(f"{r['name']}: {r['tflops']:.1f} TFLOP/s, "
                 f"{100 * r['bound_share']:.1f}% of its bound "
                 f"({r['design']})")
+        elif "design" in r:
+            log(f"{r['name']}: {100 * r['bound_share']:.1f}% of its bound "
+                f"({r['design']})")
 
     # ---- 3. serve GPT-2 medium, compute-dtype KV then int8 KV
     gc = GPT2Config.medium()
@@ -1363,6 +1414,7 @@ def main() -> None:
                     f"device busy {prof['device_busy_ms_per_call']:.2f} ms, "
                     f"idle share {prof['device_idle_share']:.3f}, "
                     f"{prof['kernel_launches_per_call']:.0f} kernel launches"
+                    f", {prof['aten_index_per_call']:.0f} aten::index"
                     f", the port's kernels " + ", ".join(
                         f"{n} {k['ms_per_call']:.3f} ms"
                         for n, k in prof["port_kernels"].items()))
@@ -1376,6 +1428,15 @@ def main() -> None:
         fail(f"flash kernel not launched on the serving path: {flash_runs}")
     if deq_runs[1] <= 0 or deq_runs[0] != 0:
         fail(f"dequant kernel launches per run (auto, int8): {deq_runs}")
+    # the int8 decode step reads the pages through the table in the
+    # kernel: no per-layer gather, on the host (aten::index; one a step is
+    # left, the page ids of the cache writes) or among the top kernels
+    step = runs[1]["profile"]["decode_step"]
+    gathers = [k for k in step.get("top_kernels", [])
+               if "gather" in k["name"] and k["launches_per_call"] >= LAYERS]
+    if step.get("aten_index_per_call", 0) >= LAYERS or gathers:
+        fail(f"int8 decode step gathers: {step.get('aten_index_per_call')} "
+             f"aten::index a step, top kernels {gathers}")
     del params
     torch.cuda.empty_cache()
 

@@ -7,9 +7,12 @@ Two lowerings, as in the JAX package:
   (kernels/flash_attention.py) when fusion is on, the einsum path when it
   is off;
 - the paged decode path (serving): the step's K/V are scattered into the
-  cache pools, then attention runs over each slot's gathered pages. An
-  int8 cache runs the hand-written dequant kernel
-  (kernels/dequant_attention.py) when fusion is on.
+  cache pools (the write indices computed once a step, shared by the
+  layers), then attention runs over each slot's pages. An int8 cache runs
+  the hand-written dequant kernel (kernels/dequant_attention.py) when
+  fusion is on, which reads the pages through the page table itself; the
+  einsum paths (the compute-dtype cache, `--no-fusion`) gather each slot's
+  pages first, as the JAX lowering does.
 
 Unlike the JAX lowering, nothing here falls back to einsum: with fusion on
 the kernel wrapper is the one gate, and on a CUDA tensor it launches its
@@ -32,7 +35,7 @@ import torch
 
 from flexflow_tpu_torch.core.tensor import TensorSpec
 from flexflow_tpu_torch.kernels.dequant_attention import \
-    dequant_decode_attention
+    paged_dequant_decode_attention
 from flexflow_tpu_torch.kernels.flash_attention import flash_attention_qkv
 from flexflow_tpu_torch.ops.op_type import OperatorType
 from flexflow_tpu_torch.ops.registry import LoweringCtx, register_op
@@ -90,6 +93,25 @@ def _out_proj(weights, out, b, s, embed):
     return y
 
 
+def _decode_index(ctx: LoweringCtx, pt, pos, page: int, s: int):
+    """Where the step's tokens go in the cache: their positions t (slots,
+    s), page ids and offsets (positions past the slot's pages go to the
+    scratch page 0), and the page table as int64 for the gathers. Every
+    layer of a step computes the same, so the first computes it and the
+    others read it from `ctx.memo`."""
+    key = ("serve/decode_index", page, s)
+    if key not in ctx.memo:
+        ptl = pt.long()
+        t = pos.long()[:, None] + torch.arange(s, device=pos.device)[None, :]
+        pg = t // page
+        rows = torch.arange(pt.shape[0], device=pos.device)[:, None]
+        pageix = torch.where(pg < pt.shape[1],
+                             ptl[rows, pg.clamp(max=pt.shape[1] - 1)],
+                             torch.zeros_like(pg))
+        ctx.memo[key] = (t, pageix, t % page, ptl)
+    return ctx.memo[key]
+
+
 def _mha_decode_lower(layer: "Layer", inputs, weights, ctx: LoweringCtx):
     """Decode step(s) against the paged KV cache. Inputs are
     [slots, s, embed]; the cache is in ctx.state[layer.name] ({"k", "v"}
@@ -114,17 +136,10 @@ def _mha_decode_lower(layer: "Layer", inputs, weights, ctx: LoweringCtx):
     cache = ctx.state[layer.name]
     k_pool, v_pool = cache["k"], cache["v"]
     quantized = "k_scale" in cache
-    pt = ctx.state[PAGE_TABLE_KEY].long()
+    pt = ctx.state[PAGE_TABLE_KEY]
     pos = ctx.state[POS_KEY]
-    page = k_pool.shape[1]
     b, s = q.shape[0], q.shape[1]
-    t = pos.long()[:, None] + torch.arange(s, device=q.device)[None, :]
-    pg = t // page
-    in_range = pg < pt.shape[1]
-    rows = torch.arange(b, device=q.device)[:, None]
-    pageix = torch.where(in_range, pt[rows, pg.clamp(max=pt.shape[1] - 1)],
-                         torch.zeros_like(pg))
-    off = t % page
+    t, pageix, off, ptl = _decode_index(ctx, pt, pos, k_pool.shape[1], s)
     if quantized:
         qk, ksc = kv_quantize(kh)
         qv, vsc = kv_quantize(vh)
@@ -138,20 +153,21 @@ def _mha_decode_lower(layer: "Layer", inputs, weights, ctx: LoweringCtx):
     ctx.new_state[layer.name] = cache
 
     scale = 1.0 / math.sqrt(hd)
+    if quantized and ctx.enable_fusion:
+        # the kernel reads each slot's pages through the table itself
+        out = paged_dequant_decode_attention(
+            qh, k_pool, cache["k_scale"], v_pool, cache["v_scale"], pt, pos,
+            scale=scale)
+        return [_out_proj(weights, out, b, s, embed)]
+    # gather each slot's pages: [slots, L, h, (d)]
     if quantized:
-        # gather each slot's pages: [slots, L, h, (d)]
-        kq = k_pool[pt].reshape(b, -1, heads, hd)
-        vq = v_pool[pt].reshape(b, -1, heads, hd)
-        ks = cache["k_scale"][pt].reshape(b, -1, heads)
-        vs = cache["v_scale"][pt].reshape(b, -1, heads)
-        if ctx.enable_fusion:
-            out = dequant_decode_attention(qh, kq, ks, vq, vs, pos, scale=scale)
-            return [_out_proj(weights, out, b, s, embed)]
-        K = (kq.float() * ks[..., None]).to(dt)
-        V = (vq.float() * vs[..., None]).to(dt)
+        K = (k_pool[ptl].reshape(b, -1, heads, hd).float()
+             * cache["k_scale"][ptl].reshape(b, -1, heads)[..., None]).to(dt)
+        V = (v_pool[ptl].reshape(b, -1, heads, hd).float()
+             * cache["v_scale"][ptl].reshape(b, -1, heads)[..., None]).to(dt)
     else:
-        K = k_pool[pt].reshape(b, -1, heads, hd).to(dt)
-        V = v_pool[pt].reshape(b, -1, heads, hd).to(dt)
+        K = k_pool[ptl].reshape(b, -1, heads, hd).to(dt)
+        V = v_pool[ptl].reshape(b, -1, heads, hd).to(dt)
     logits = torch.einsum("bqhd,bkhd->bhqk", qh, K) * scale
     keep = (torch.arange(K.shape[1], device=q.device)[None, None, None, :]
             <= t[:, None, :, None])

@@ -33,6 +33,9 @@ class LoweringCtx:
     enable_fusion: bool = True
     # training (the train step) or inference (serving, eval, infer)
     training: bool = False
+    # what one run computes once and its layers share (the decode step's
+    # cache write indices)
+    memo: Dict[Any, Any] = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass

@@ -139,8 +139,10 @@ def test_flash_unaligned_bf16_raises_on_card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
                                        (torch.float32, 1e-4)])
-@pytest.mark.parametrize("s", [1, 3])
+@pytest.mark.parametrize("s", [1, 3, 8])
 def test_dequant_kernel_matches_plain_on_card(dtype, tol, s):
+    """The gathered call (the paged kernel with each slot's context as one
+    page of 160 keys, not a multiple of the 64-key chunks)."""
     dev = _cuda_or_skip()
     rng = np.random.default_rng(5)
     qh, kq, ks, vq, vs, pos = (torch.from_numpy(a).to(dev)
@@ -152,6 +154,60 @@ def test_dequant_kernel_matches_plain_on_card(dtype, tol, s):
     assert dequant_attention.launches == before + 1
     ref = dequant_attention._plain(qh, kq, ks, vq, vs, pos, 0.125)
     assert float((out.float() - ref.float()).abs().max()) <= tol
+
+
+def _paged_inputs(rng, s, dev, b, pages_per_slot, d, h=2, page=16):
+    """q, pools with the scratch page 0 (all random), a shuffled page table
+    with the scratch page past each slot's extent, and pos: the last b of
+    0, a window that crosses a page boundary, one that crosses the
+    kernel's chunk boundary and a slot whose last position is the table's
+    last, then values drawn from the seed."""
+    L = pages_per_slot * page
+    pages = b * pages_per_slot + 1
+    q = torch.from_numpy(rng.standard_normal((b, s, h, d)).astype(np.float32))
+    kq, ks = kv_quantize(torch.from_numpy(
+        rng.standard_normal((pages, page, h, d)).astype(np.float32)))
+    vq, vs = kv_quantize(torch.from_numpy(
+        rng.standard_normal((pages, page, h, d)).astype(np.float32)))
+    fixed = [0, page - 2, dequant_attention.CHUNK - 2, L - s]
+    drawn = rng.integers(0, L - s + 1, size=max(0, b - len(fixed)))
+    pos = np.array(fixed + list(drawn), np.int32)[-b:]
+    ids = rng.permutation(np.arange(1, pages)).reshape(b, pages_per_slot)
+    extent = -(-(pos + s) // page)
+    table = np.where(np.arange(pages_per_slot)[None] < extent[:, None], ids, 0)
+    return (q.to(dev), tuple(t.to(dev) for t in (kq, ks, vq, vs)),
+            torch.from_numpy(table.astype(np.int32)).to(dev),
+            torch.from_numpy(pos).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("s", [1, 3, 8])
+@pytest.mark.parametrize("b,pages_per_slot,d", [(6, 10, 64), (2, 256, 128)])
+def test_paged_dequant_kernel_matches_plain_on_card(dtype, tol, s, b,
+                                                    pages_per_slot, d):
+    """The paged kernel against its plain version (gather, then the plain
+    attention) under a shuffled page table, at 160 keys a slot and at 4096
+    keys of head_dim 128 (a context the single-block kernel refused). Two
+    launches back to back give the same bits, and leave every merge
+    counter at 0 for the next."""
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(10)
+    q, (kq, ks, vq, vs), table, pos = _paged_inputs(rng, s, dev, b,
+                                                    pages_per_slot, d)
+    q = q.to(dtype)
+    before = dequant_attention.launches
+    outs = [dequant_attention.paged_dequant_decode_attention(
+        q, kq, ks, vq, vs, table, pos) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert dequant_attention.launches == before + 2
+    assert torch.equal(outs[0], outs[1])
+    assert all(int(t.abs().sum()) == 0
+               for _, t in dequant_attention._buffers.values())
+    ref = dequant_attention._paged_plain(q, kq, ks, vq, vs, table, pos,
+                                         d ** -0.5)
+    assert float((outs[0].float() - ref.float()).abs().max()) <= tol
 
 
 @pytest.mark.cuda

@@ -139,9 +139,9 @@ def test_kv_cache_needs_a_device():
 @pytest.mark.parametrize("fusion", [True, False])
 def test_fusion_alone_picks_the_attention_route(monkeypatch, kv_dtype, fusion):
     """head_dim 16 is outside both kernels' gates, yet with fusion on the
-    prefill goes to the flash wrapper and the int8 decode to the dequant
-    wrapper (on a CUDA tensor they would raise, not turn to einsum); with
-    fusion off neither wrapper is called."""
+    prefill goes to the flash wrapper and the int8 decode to the paged
+    dequant wrapper (on a CUDA tensor they would raise, not turn to
+    einsum); with fusion off neither wrapper is called."""
     calls = {"flash": 0, "dequant": 0}
 
     def counted(key, fn):
@@ -152,9 +152,9 @@ def test_fusion_alone_picks_the_attention_route(monkeypatch, kv_dtype, fusion):
 
     monkeypatch.setattr(attention_ops, "flash_attention_qkv",
                         counted("flash", attention_ops.flash_attention_qkv))
-    monkeypatch.setattr(attention_ops, "dequant_decode_attention",
+    monkeypatch.setattr(attention_ops, "paged_dequant_decode_attention",
                         counted("dequant",
-                                attention_ops.dequant_decode_attention))
+                                attention_ops.paged_dequant_decode_attention))
     eng = compile_serving(_tiny_model(enable_fusion=fusion,
                                       kv_cache_dtype=kv_dtype), device="cpu")
     params = eng.init(seed=0)
@@ -171,3 +171,32 @@ def test_fusion_alone_picks_the_attention_route(monkeypatch, kv_dtype, fusion):
     assert bool(torch.isfinite(logits).all())
     assert calls == {"flash": int(fusion),
                      "dequant": int(fusion and kv_dtype == "int8")}
+
+
+def test_decode_write_indices_computed_once_a_step(monkeypatch):
+    """The cache write indices (positions, page ids, offsets) are the same
+    in every layer of a decode step: the first attention layer computes
+    them, the second reads them from the step's memo."""
+    seen = []
+    real = attention_ops._decode_index
+
+    def watched(ctx, pt, pos, page, s):
+        seen.append(("serve/decode_index", page, s) in ctx.memo)
+        return real(ctx, pt, pos, page, s)
+
+    monkeypatch.setattr(attention_ops, "_decode_index", watched)
+    model = FFModel(FFConfig(max_batch_slots=2, max_decode_len=4,
+                             kv_cache_dtype="int8"))
+    build_gpt2(model, GPT2Config(vocab=64, seq=16, d_model=32, heads=2,
+                                 layers=2), batch=2)
+    eng = compile_serving(model, device="cpu")
+    params = eng.init(seed=0)
+    eng.kv.admit(0, 5, 9)
+    eng.kv.push()
+    state = eng.kv.state
+    for _ in range(2):
+        logits, state = eng.decode_step(params, state, gpt2_step_inputs(
+            torch.ones((2, 1), dtype=torch.int32), state))
+    assert bool(torch.isfinite(logits).all())
+    assert seen == [False, True, False, True]
+

@@ -102,6 +102,62 @@ def test_dequant_plain_matches_jax(s):
     np.testing.assert_allclose(po.numpy(), np.asarray(jo), atol=ATOL_F32)
 
 
+PAGE, PAGES_PER_SLOT = 16, 5
+
+
+def _paged_inputs(rng, s, h=2, d=64):
+    """q, the int8 pools and scales as the KV cache holds them (4 slots'
+    worth of pages plus the scratch page 0, all of it random), a shuffled
+    page table that maps each slot's positions 0..pos+s-1 and holds the
+    scratch page 0 past them, and pos: 0, a window that crosses a page
+    boundary, a slot whose last position is the table's last, and one
+    drawn from the seed."""
+    b, L = 4, PAGES_PER_SLOT * PAGE
+    pages = b * PAGES_PER_SLOT + 1
+    q = _normal(rng, (b, s, h, d))
+    kq, ks = kv_quantize(torch.from_numpy(_normal(rng, (pages, PAGE, h, d))))
+    vq, vs = kv_quantize(torch.from_numpy(_normal(rng, (pages, PAGE, h, d))))
+    pos = np.array([0, PAGE - 2, L - s, rng.integers(0, L - s + 1)], np.int32)
+    ids = rng.permutation(np.arange(1, pages)).reshape(b, PAGES_PER_SLOT)
+    extent = -(-(pos + s) // PAGE)
+    table = np.where(np.arange(PAGES_PER_SLOT)[None] < extent[:, None], ids,
+                     0).astype(np.int32)
+    return (q, (kq, ks, vq, vs), torch.from_numpy(table),
+            torch.from_numpy(pos))
+
+
+@pytest.mark.parametrize("s", [1, 3, 8])
+def test_paged_plain_matches_jax(s):
+    """The paged call under a shuffled page table (scratch entries past
+    each slot's extent) against the JAX kernel fed the JAX lowering's
+    gather `pool[table]` of the same pools."""
+    q, (kq, ks, vq, vs), table, pos = _paged_inputs(np.random.default_rng(7), s)
+    b, _, h, d = q.shape
+    jt = jnp.asarray(table.numpy())
+    jo = jdequant.dequant_decode_attention(
+        jnp.asarray(q), jnp.asarray(kq.numpy())[jt].reshape(b, -1, h, d),
+        jnp.asarray(ks.numpy())[jt].reshape(b, -1, h),
+        jnp.asarray(vq.numpy())[jt].reshape(b, -1, h, d),
+        jnp.asarray(vs.numpy())[jt].reshape(b, -1, h), jnp.asarray(pos.numpy()))
+    po = dequant_attention.paged_dequant_decode_attention(
+        torch.from_numpy(q), kq, ks, vq, vs, table, pos)
+    assert po.shape == q.shape and po.dtype == torch.float32
+    np.testing.assert_allclose(po.numpy(), np.asarray(jo), atol=ATOL_F32)
+
+
+@pytest.mark.parametrize("s", [1, 8])
+def test_gathered_is_paged_with_identity_table(s):
+    """The gathered call is the paged one with each slot's context as one
+    page (page = L, table arange(slots)[:, None]): the same numbers."""
+    qh, kq, ks, vq, vs, pos = (torch.from_numpy(a) for a in
+                               _dequant_inputs(np.random.default_rng(8), s))
+    table = torch.arange(qh.shape[0], dtype=torch.int32)[:, None]
+    got = dequant_attention.dequant_decode_attention(qh, kq, ks, vq, vs, pos)
+    want = dequant_attention.paged_dequant_decode_attention(
+        qh, kq, ks, vq, vs, table, pos)
+    assert torch.equal(got, want)
+
+
 def test_kv_quantize_bitwise_equal_to_jax():
     rng = np.random.default_rng(4)
     x = _normal(rng, (4, 33, 2, 64)) * 3.0
@@ -173,8 +229,17 @@ def test_gates(dtype, d, causal):
     assert dequant_attention.dequant_supported(1, 1056, 64, torch.bfloat16)
     assert dequant_attention.dequant_supported(8, 1056, 128, torch.float32)
     assert not dequant_attention.dequant_supported(9, 1056, 64, torch.float32)
-    assert not dequant_attention.dequant_supported(1, 10 ** 6, 64,
-                                                   torch.float32)
+    assert not dequant_attention.dequant_supported(1, 1056, 96, torch.float32)
+    assert not dequant_attention.dequant_supported(1, 1056, 64, torch.float16)
+    # the split-K kernel's shared memory does not grow with the context
+    assert dequant_attention.dequant_supported(1, 10 ** 6, 64, torch.float32)
+    q, pools, table, pos = _paged_inputs(np.random.default_rng(9), 1)
+    with pytest.raises(ValueError, match="page table"):
+        dequant_attention.paged_dequant_decode_attention(
+            torch.from_numpy(q), *pools, table[:, None], pos)
+    with pytest.raises(ValueError, match="page table"):
+        dequant_attention.paged_dequant_decode_attention(
+            torch.from_numpy(q), *pools, table[1:], pos)
 
 
 def test_rows_aligned_check():
