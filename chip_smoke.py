@@ -76,6 +76,33 @@ Phases, each fatal on failure (nothing is caught to let the run exit 0):
        cross-entropy kernel and 2 of the trace-less SGD kernel, one table
        built;
    (h) torch.profiler over two steps of (f).
+6. GPT-2 medium at its published dropout of 0.1, the vocab padded to 128,
+   bf16, Adam(1e-4) (fused CE, fused Adam; the attention takes the einsum
+   path under dropout, as the JAX lowering does):
+   (a) 2 layers: every mask one step draws keeps within 5 sigma of the
+       binomial around 0.9; the same (key, layer) draws the same mask
+       twice; the next step's key another; remat "full" and "dots" on
+       every layer of the same model give the loss of remat off exactly
+       and its gradients within `REMAT_GRAD_TOL` (expected bitwise; the
+       count of bitwise-equal gradients is printed);
+   (b) full depth, 12 steps with remat off and 12 with `FFConfig(remat=
+       True)` ("full" on every layer), reported as 5b; each step launches
+       each CE kernel and Adam once and no flash kernel;
+   (c) full depth at dropout 0, 12 steps with remat off and 12 with remat
+       "full": the flash forward launches 48 times a step (the forward
+       and its recompute), dQ and dK/dV 24; the losses of the two runs
+       agree within `RUN_LOSS_RTOL`;
+   (d) `fit` at full width, `FIT_LAYERS` deep (the cut is printed),
+       through `prefetch_to_device`: an uninterrupted epoch of 6 updates;
+       the same fit with durable snapshots every 2 updates in a temporary
+       directory, sent SIGTERM from a callback after update 3, which must
+       raise `Preempted` with a committed snapshot of update 4; a freshly
+       compiled model restored with resume="auto", whose params and
+       moments must equal the snapshot bitwise and whose losses must
+       agree with the uninterrupted run's; then an explicit async save
+       (the snapshot ms on the caller thread, the write seconds after it
+       returned, the bytes) and its restore seconds. The directory is
+       removed at the end.
 
 The line before the last is `{"kernels": [...]}`; the last line is
 `{"ok": true, "device": {...}}`.
@@ -85,7 +112,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -1010,18 +1039,19 @@ def profile_engine(engine, params, prompts) -> dict:
 
 # --------------------------------------------------------------- training
 def gpt2_train_model(seed: int, layers: int, compute_dtype: str,
-                     optimizer=None, vocab_pad_to: int = 0):
-    """GPT-2 medium widths at `layers` deep, dropout 0, compiled for
+                     optimizer=None, vocab_pad_to: int = 0,
+                     dropout: float = 0.0, **cfg):
+    """GPT-2 medium widths at `layers` deep with `dropout`, compiled for
     training with `optimizer` (Adam(1e-4) when None) and sparse CE, the
-    lm_head padded to a multiple of `vocab_pad_to`, weights from the
-    seed."""
+    lm_head padded to a multiple of `vocab_pad_to`, weights from the seed,
+    `cfg` passed to FFConfig (remat=True, checkpoint knobs)."""
     from flexflow_tpu_torch import AdamOptimizer, FFConfig, FFModel
     from flexflow_tpu_torch.models import GPT2Config, build_gpt2
 
     gc = GPT2Config.medium()
-    gc.layers, gc.dropout, gc.vocab_pad_to = layers, 0.0, vocab_pad_to
+    gc.layers, gc.dropout, gc.vocab_pad_to = layers, dropout, vocab_pad_to
     model = FFModel(FFConfig(batch_size=BATCH, compute_dtype=compute_dtype,
-                             seed=seed))
+                             seed=seed, **cfg))
     build_gpt2(model, gc, batch=BATCH)
     cm = model.compile(optimizer or AdamOptimizer(alpha=LR),
                        "sparse_categorical_crossentropy", [])
@@ -1150,25 +1180,29 @@ def train_grad_check(seed: int, optimizer_fn=None, vocab_pad_to: int = 0,
 
 
 def train_full(seed: int, optimizer, vocab_pad_to: int, exact: dict,
-               tag: str) -> tuple:
+               tag: str, dropout: float = 0.0, **cfg) -> tuple:
     """GPT-2 medium at full depth: 2 warm-up and 10 timed steps on one
     batch, the launch counters zeroed before the 12 steps and read after.
     `exact` gives every kernel's launches per step (a kernel it does not
     name must not launch). The optimizer's pointer table must be built
-    in the first step and never again. Returns (summary, compiled model,
-    device inputs, label)."""
+    in the first step and never again. Step i draws its dropout from
+    fold_in(key(seed + 17), i), the key `fit` gives it. Returns (summary,
+    compiled model, device inputs, label)."""
+    from flexflow_tpu_torch import random as ff_random
     from flexflow_tpu_torch.kernels import fused_optim as fo
 
     gc, model, cm = gpt2_train_model(seed, LAYERS, "bfloat16", optimizer,
-                                     vocab_pad_to)
+                                     vocab_pad_to, dropout, **cfg)
     ids, pos, labels = train_batch(seed, gc.vocab)
     inputs = [torch.from_numpy(ids).cuda(), torch.from_numpy(pos).cuda()]
     label = torch.from_numpy(labels).cuda()
     losses = []
+    base = ff_random.key(seed + 17)
 
     def step():
         (cm.params, cm.opt_state, cm.state, loss, _) = cm.train_step(
-            cm.params, cm.opt_state, cm.state, inputs, label)
+            cm.params, cm.opt_state, cm.state, inputs, label,
+            ff_random.fold_in(base, len(losses)))
         losses.append(loss)
 
     torch.cuda.synchronize()
@@ -1199,7 +1233,8 @@ def train_full(seed: int, optimizer, vocab_pad_to: int, exact: dict,
     tokens = BATCH * SEQ
     summary = {
         "model": "gpt2-medium", "layers": LAYERS, "batch": BATCH, "seq": SEQ,
-        "vocab_pad_to": vocab_pad_to,
+        "vocab_pad_to": vocab_pad_to, "dropout": dropout,
+        "remat": sorted(set((cm.strategy.remat or {}).values())) or "off",
         "lm_head_columns": int(cm.params["lm_head"]["kernel"].shape[1]),
         "compute_dtype": "bfloat16",
         "optimizer": (f"{type(optimizer).__name__}({vars(optimizer)})"
@@ -1304,11 +1339,339 @@ def train_accum_fit(seed: int) -> dict:
     return out
 
 
-def profile_train(cm, inputs, label, tag: str) -> dict:
-    """torch.profiler over two train steps of `cm` on one batch."""
+# ------------------------------------------------------ training, phase 6
+DROPOUT = 0.1   # GPT-2's published dropout (GPT2Config's default)
+# 6a/6c, remat against remat off on one model: the forward (and so the
+# loss) is the same program, so the losses must be equal; the gradients
+# are expected bitwise (the same kernels recompute the same values) and
+# are held to a relative L2 of 1e-3, which a rounding of bf16 activations
+# the other way would already exceed; what was read is printed.
+REMAT_GRAD_TOL = 1e-3
+# 6c and 6d: losses of two runs of the same steps (remat against remat
+# off, resumed against uninterrupted), expected bitwise, held to 1e-3
+# relative
+RUN_LOSS_RTOL = 1e-3
+FIT_LAYERS = 4   # 6d's depth: the fit is interrupted, resumed and rerun
+
+
+class MaskLog:
+    """Wrap `LoweringCtx.dropout_mask` to keep every drawn mask's element
+    count and kept count (device scalars; no sync), and the masks of the
+    layers named in `keep_masks`."""
+
+    def __init__(self, keep_masks=()):
+        self.draws, self.masks, self.keep_masks = [], [], set(keep_masks)
+
+    def __enter__(self):
+        from flexflow_tpu_torch.ops.registry import LoweringCtx
+        self.cls, self.real = LoweringCtx, LoweringCtx.dropout_mask
+        log_ = self
+
+        def logged(ctx, layer, shape, keep, device):
+            m = log_.real(ctx, layer, shape, keep, device)
+            log_.draws.append((layer.name, m.numel(), m.sum(), keep))
+            if layer.name in log_.keep_masks:
+                log_.masks.append((layer.name, ctx.rng, m))
+            return m
+        LoweringCtx.dropout_mask = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.dropout_mask = self.real
+
+
+def keep_rate_check(draws) -> dict:
+    """Every mask's kept count against the binomial around keep: within
+    5 sigma, or the run fails."""
+    worst, rows = 0.0, []
+    for name, n, kept, keep in draws:
+        z = (float(kept) - n * keep) / (n * keep * (1 - keep)) ** 0.5
+        worst = max(worst, abs(z))
+        rows.append({"layer": name, "elements": n,
+                     "keep_rate": float(kept) / n, "z": z})
+    if not rows or worst > 5.0:
+        fail(f"dropout keep rates off the binomial (worst |z| {worst:.2f}): "
+             f"{rows[:8]}")
+    return {"masks": len(rows), "worst_abs_z": worst,
+            "keep_rates": sorted({round(r["keep_rate"], 5) for r in rows})}
+
+
+def grads_against(ref, got) -> dict:
+    """Loss equality and the gradients' relative L2 of two
+    `value_and_grads` results of one model, and how many gradients are
+    bitwise equal."""
+    rel = {f"{l}.{w}": l2_rel(got[3][l][w], ref[3][l][w])
+           for l in ref[3] for w in ref[3][l]}
+    same = sum(torch.equal(got[3][l][w], ref[3][l][w])
+               for l in ref[3] for w in ref[3][l])
+    return {"loss": float(got[0]), "loss_ref": float(ref[0]),
+            "loss_equal": float(got[0]) == float(ref[0]),
+            "grads_bitwise_equal": f"{same}/{len(rel)}",
+            "grad_rel_l2_max": max(rel.values())}
+
+
+def dropout_remat_check(seed: int) -> dict:
+    """6a: GPT-2 medium widths at 2 layers, b8, seq 1024, bf16, dropout
+    0.1, vocab padded to 128. One step's masks: keep rates within 5 sigma;
+    the same (key, layer) drawing the same mask twice; the next step's key
+    another mask. Remat "full" and "dots" on every layer of the same model:
+    the loss of remat off, the gradients within REMAT_GRAD_TOL."""
+    from flexflow_tpu_torch import random as ff_random
+    from flexflow_tpu_torch.ops.registry import LoweringCtx
+
+    gc, model, cm = gpt2_train_model(seed, 2, "bfloat16", None, PAD_TO,
+                                     DROPOUT)
+    ids, pos, labels = train_batch(seed + 4, GPT2_VOCAB)
+    inputs = [torch.from_numpy(ids).cuda(), torch.from_numpy(pos).cuda()]
+    label = torch.from_numpy(labels).cuda()
+    base = ff_random.key(seed + 17)
+    keys = [ff_random.fold_in(base, i) for i in range(2)]
+    runs = {}
+    with MaskLog(keep_masks=("embed_drop",)) as ml:
+        runs["off"] = cm.value_and_grads(cm.params, cm.state, inputs, label,
+                                         keys[0])
+        n_one_step = len(ml.draws)
+        cm.value_and_grads(cm.params, cm.state, inputs, label, keys[1])
+    rates = keep_rate_check(ml.draws[:n_one_step])
+    layer = model.get_layer_by_name("embed_drop")
+    ctx = LoweringCtx(training=True, rng=keys[0])
+    again = ctx.dropout_mask(layer, ml.masks[0][2].shape, 1 - DROPOUT,
+                             cm.device)
+    same_twice = bool(torch.equal(again, ml.masks[0][2]))
+    steps_differ = not torch.equal(ml.masks[0][2], ml.masks[1][2])
+    # the host's cost of a layer's generator (made anew at every draw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(1000):
+        ctx.rng_for(layer, cm.device)
+    gen_us = 1e3 * (time.perf_counter() - t0)
+    out = {"masks_one_step": rates, "same_key_same_mask": same_twice,
+           "next_step_other_mask": steps_differ,
+           "generator_host_us": gen_us}
+    log(f"[6a dropout] one step drew {rates['masks']} masks, worst |z| "
+        f"{rates['worst_abs_z']:.2f} (limit 5), keep rates "
+        f"{rates['keep_rates']}; same key twice equal: {same_twice}; "
+        f"next step's mask differs: {steps_differ}; a layer's generator "
+        f"costs the host {gen_us:.1f} us")
+    if not (same_twice and steps_differ):
+        fail(f"6a dropout masks: {out}")
+    for pol in ("full", "dots"):
+        cm.forward_fn.remat = {l.name: pol for l in model.layers}
+        got = cm.value_and_grads(cm.params, cm.state, inputs, label, keys[0])
+        out[f"remat_{pol}"] = r = grads_against(runs["off"], got)
+        log(f"[6a remat {pol}] loss {r['loss']:.6f} vs remat off "
+            f"{r['loss_ref']:.6f} (equal: {r['loss_equal']}), gradients "
+            f"bitwise equal {r['grads_bitwise_equal']}, worst relative L2 "
+            f"{r['grad_rel_l2_max']:.2e} (tolerance {REMAT_GRAD_TOL})")
+        if not (r["loss_equal"] and r["grad_rel_l2_max"] <= REMAT_GRAD_TOL):
+            fail(f"6a remat {pol} against remat off: {r}")
+        del got
+    cm.forward_fn.remat = {}
+    del cm, model, runs
+    collect_garbage()
+    torch.cuda.empty_cache()
+    return out
+
+
+def compare_runs(a: dict, b: dict, what: str) -> dict:
+    """Two train_full summaries of the same steps: their losses."""
+    la, lb = np.array(a["losses"]), np.array(b["losses"])
+    rel = float(np.max(np.abs(la - lb) / np.abs(lb)))
+    out = {"losses_equal": bool(np.array_equal(la, lb)),
+           "loss_rel_max": rel, "tolerance": RUN_LOSS_RTOL}
+    log(f"[{what}] losses equal: {out['losses_equal']}, worst relative "
+        f"difference {rel:.2e} (tolerance {RUN_LOSS_RTOL})")
+    if rel > RUN_LOSS_RTOL:
+        fail(f"{what}: losses {a['losses']} vs {b['losses']}")
+    return out
+
+
+def _tree_to_host(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_to_host(v) for k, v in tree.items()}
+    return tree.detach().cpu().clone() if isinstance(tree, torch.Tensor) \
+        else tree
+
+
+def _trees_bitwise(a, b) -> bool:
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_trees_bitwise(a[k], b[k]) for k in a)
+    if isinstance(a, torch.Tensor):
+        return a.shape == b.shape and bool(torch.equal(a, b.to(a.device)))
+    return a == b
+
+
+class StepLog:
+    """fit callback: every update's loss; with `kill_at`, SIGTERM to this
+    process after that many updates."""
+
+    def __init__(self, kill_at: int = 0):
+        self.losses, self.kill_at = [], kill_at
+
+    def on_batch_end(self, it, logs):
+        self.losses.append(logs["loss"])
+        if len(self.losses) == self.kill_at:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+
+def fit_model(seed: int, **cfg):
+    """6d's model, as a relaunched process builds it: the layer guids
+    (which the dropout keys fold in) numbered from the start again."""
+    from flexflow_tpu_torch import AdamOptimizer
+    from flexflow_tpu_torch.core.layer import Layer
+    from flexflow_tpu_torch.core.tensor import Tensor
+
+    Layer._next_guid[0], Tensor._next_guid[0] = 100, 1000
+    return gpt2_train_model(seed, FIT_LAYERS, "bfloat16",
+                            AdamOptimizer(alpha=LR), PAD_TO, DROPOUT, **cfg)
+
+
+def fit_preempt_resume(seed: int) -> dict:
+    """6d: `fit` at GPT-2 medium widths, FIT_LAYERS deep, dropout 0.1, the
+    vocab padded to 128, Adam: an uninterrupted epoch of 6 updates; the
+    same fit with durable snapshots every 2 updates, sent SIGTERM after
+    update 3 (it drains, commits a final snapshot and raises Preempted); a
+    freshly compiled model restored from it with resume="auto". The
+    restored params and moments must equal the snapshot bitwise, and the
+    resumed losses the uninterrupted run's. Then one explicit async save
+    and restore of the same state, timed."""
+    import shutil
+    import tempfile
+
+    from flexflow_tpu_torch.runtime import resilience as rz
+
+    ids, pos, labels = train_batch(seed + 5, GPT2_VOCAB, n=6 * BATCH)
+    x = [ids, pos]
+    root = tempfile.mkdtemp(prefix="ff_ckpt_")
+    out = {"layers": FIT_LAYERS, "cut": f"depth {LAYERS} -> {FIT_LAYERS}: "
+           "three models are built and each snapshot is written to disk",
+           "updates": 6}
+    try:
+        _, _, ref = fit_model(seed)
+        ref_log = StepLog()
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        ref.fit(x, labels, epochs=1, verbose=False, callbacks=[ref_log])
+        torch.cuda.synchronize()
+        out["uninterrupted"] = {"losses": ref_log.losses,
+                                "wall_s": time.perf_counter() - t0,
+                                "launches": launch_counts()}
+        want_launches = {n: 0 for n in out["uninterrupted"]["launches"]}
+        want_launches.update(fused_ce_fwd=6, fused_ce_bwd=6, fused_adam=6)
+        if out["uninterrupted"]["launches"] != want_launches or \
+                not all(np.isfinite(ref_log.losses)):
+            fail(f"6d uninterrupted fit: {out['uninterrupted']}, launches "
+                 f"expected {want_launches}")
+        ref_state = _tree_to_host({"p": ref.params, "o": ref.opt_state})
+        del ref
+        collect_garbage()
+        torch.cuda.empty_cache()
+
+        _, _, cm = fit_model(seed, checkpoint_dir=root,
+                             checkpoint_every_steps=2, keep_checkpoints=2)
+        kill = StepLog(kill_at=3)
+        zero_launch_counts()
+        try:
+            cm.fit(x, labels, epochs=1, verbose=False, callbacks=[kill])
+            fail("6d: the fit was sent SIGTERM and did not raise Preempted")
+        except rz.Preempted as e:
+            snap, code = e.checkpoint_path, e.code
+        torch.cuda.synchronize()
+        man = rz.load_manifest(snap)
+        saved = _tree_to_host({"p": cm.params, "o": cm.opt_state})
+        out["preempted"] = {"losses": kill.losses, "exit_code": code,
+                            "snapshot": os.path.basename(snap),
+                            "progress": {k: man["progress"][k] for k in
+                                         ("epoch", "step_in_epoch")},
+                            "committed": [os.path.basename(p) for _, p, _
+                                          in rz.committed_snapshots(root)],
+                            "launches": launch_counts()}
+        log(f"[6d fit] SIGTERM after update 3: Preempted (code {code}), "
+            f"snapshot {out['preempted']['snapshot']} at {out['preempted']['progress']}, "
+            f"committed {out['preempted']['committed']}")
+        # the signal lands in update 3's callback; update 4 drains
+        if code != 0 or man is None or man["step"] != 4 or \
+                kill.losses != ref_log.losses[:3] or \
+                snap != rz.latest_checkpoint(root):
+            fail(f"6d preemption: {out['preempted']}, manifest {man}")
+        del cm
+        collect_garbage()
+        torch.cuda.empty_cache()
+
+        _, _, cm2 = fit_model(seed, checkpoint_dir=root, keep_checkpoints=2)
+        t0 = time.perf_counter()
+        rz.restore_auto(cm2, "auto", root)
+        torch.cuda.synchronize()
+        out["restore_s"] = time.perf_counter() - t0
+        restored = _tree_to_host({"p": cm2.params, "o": cm2.opt_state})
+        out["restored_bitwise"] = _trees_bitwise(restored, saved)
+        del restored
+        res_log = StepLog()
+        zero_launch_counts()
+        hist = cm2.fit(x, labels, epochs=1, verbose=False, resume="auto",
+                       callbacks=[res_log])
+        cm2.wait_checkpoints()
+        torch.cuda.synchronize()
+        want = ref_log.losses[man["step"]:]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(res_log.losses, want))
+        out["resumed"] = {"losses": res_log.losses, "want": want,
+                          "losses_equal": res_log.losses == want,
+                          "loss_rel_max": rel, "tolerance": RUN_LOSS_RTOL,
+                          "history_loss": hist[0]["loss"],
+                          "launches": launch_counts()}
+        final = _tree_to_host({"p": cm2.params, "o": cm2.opt_state})
+        out["final_state_bitwise"] = _trees_bitwise(final, ref_state)
+        del final, ref_state, saved
+        log(f"[6d fit] restored params and moments bitwise equal to the "
+            f"snapshot: {out['restored_bitwise']} ({out['restore_s']:.2f} s "
+            f"restore); resumed losses {res_log.losses} vs uninterrupted "
+            f"{want}: equal {out['resumed']['losses_equal']}, worst relative "
+            f"{rel:.2e} (tolerance {RUN_LOSS_RTOL}); final state bitwise "
+            f"equal to the uninterrupted run's: {out['final_state_bitwise']}")
+        if not out["restored_bitwise"] or len(res_log.losses) != len(want) \
+                or rel > RUN_LOSS_RTOL:
+            fail(f"6d resume: {out}")
+        for name in ("fused_ce_fwd", "fused_ce_bwd", "fused_adam"):
+            if out["resumed"]["launches"][name] != len(want):
+                fail(f"6d resumed fit launches: {out['resumed']['launches']}")
+
+        # one explicit save of the state: the caller thread's snapshot,
+        # the background write, the bytes, the restore
+        path = os.path.join(root, "explicit")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cm2.save_checkpoint(path, block=False)
+        snap_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        cm2.wait_checkpoints()
+        write_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(d, f))
+                     for d, _, fs in os.walk(path) for f in fs)
+        t0 = time.perf_counter()
+        cm2.load_checkpoint(path)
+        torch.cuda.synchronize()
+        out["checkpoint"] = {"snapshot_ms_caller": snap_ms,
+                             "write_s_after_return": write_s,
+                             "bytes": nbytes,
+                             "restore_s": time.perf_counter() - t0}
+        log(f"[6d checkpoint] {nbytes / 2**30:.2f} GiB: snapshot on the "
+            f"caller thread {snap_ms:.0f} ms, write after it returned "
+            f"{write_s:.2f} s, restore {out['checkpoint']['restore_s']:.2f} s")
+        del cm2
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    collect_garbage()
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_train(cm, inputs, label, tag: str, rng=None) -> dict:
+    """torch.profiler over two train steps of `cm` on one batch (their
+    dropout drawn from `rng`)."""
     def step():
         (cm.params, cm.opt_state, cm.state, _, _) = cm.train_step(
-            cm.params, cm.opt_state, cm.state, inputs, label)
+            cm.params, cm.opt_state, cm.state, inputs, label, rng)
     prof = _device_profile(step, 2, cm.device)
     if "wall_ms_per_call" in prof:
         log(f"[{tag}] step: {prof['wall_ms_per_call']:.2f} ms wall, device "
@@ -1468,6 +1831,39 @@ def main() -> None:
     torch.cuda.empty_cache()
     sgd["accum_fit"] = train_accum_fit(args.seed)
 
+    # ---- 6. GPT-2 medium at its published dropout of 0.1, the vocab
+    # padded to 128, Adam: masks and remat (6a), full depth with remat off
+    # and "full" (6b: the einsum attention, no flash), remat "full" at
+    # dropout 0 (6c: flash twice a layer), fit with preemption and resume
+    # (6d)
+    from flexflow_tpu_torch import random as ff_random
+
+    ce_adam = dict(fused_ce_fwd=1, fused_ce_bwd=1, fused_adam=1)
+    drop = {"masks_remat": dropout_remat_check(args.seed)}
+    profiles = {}
+    for remat in (False, True):
+        tag = f"6b dropout remat {'full' if remat else 'off'}"
+        drop[tag], cm, inputs, label = train_full(
+            args.seed, None, PAD_TO, ce_adam, tag, DROPOUT, remat=remat)
+        profiles[tag] = profile_train(cm, inputs, label, tag,
+                                      rng=ff_random.key(args.seed))
+        del cm, inputs, label
+        torch.cuda.empty_cache()
+    for remat in (False, True):
+        tag = f"6c dropout 0 remat {'full' if remat else 'off'}"
+        exact = dict(ce_adam, flash_attention_fwd=(2 if remat else 1) * LAYERS,
+                     flash_attention_dq=LAYERS, flash_attention_dkv=LAYERS)
+        drop[tag], cm, inputs, label = train_full(
+            args.seed, None, PAD_TO, exact, tag, 0.0, remat=remat)
+        profiles[tag] = profile_train(cm, inputs, label, tag)
+        del cm, inputs, label
+        torch.cuda.empty_cache()
+    drop["profiles"] = profiles
+    drop["6c remat vs off"] = compare_runs(drop["6c dropout 0 remat full"],
+                                           drop["6c dropout 0 remat off"],
+                                           "6c remat full vs off")
+    drop["fit"] = fit_preempt_resume(args.seed)
+
     # launches on the main paths: both serving runs, the 12 Adam training
     # steps and the Adam fit epoch, the 12 padded-vocab SGD steps and the
     # accum_steps=2 fit epoch, each counted from 0 just before it ran
@@ -1476,6 +1872,13 @@ def main() -> None:
     paths["train_fit"] = train["fit"]["launches"]
     paths["train_sgd_padded_steps"] = sgd["full_depth"]["launches"]
     paths["train_accum_fit"] = sgd["accum_fit"]["launches"]
+    paths["train_dropout_steps"] = drop["6b dropout remat off"]["launches"]
+    paths["train_dropout_remat_steps"] = \
+        drop["6b dropout remat full"]["launches"]
+    paths["train_padded_adam_steps"] = drop["6c dropout 0 remat off"]["launches"]
+    paths["train_remat_steps"] = drop["6c dropout 0 remat full"]["launches"]
+    for run in ("uninterrupted", "preempted", "resumed"):
+        paths[f"train_dropout_fit_{run}"] = drop["fit"][run]["launches"]
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in paths.values())
         r["launches_by_path"] = {p: c[r["name"]] for p, c in paths.items()}
@@ -1483,6 +1886,7 @@ def main() -> None:
     log(json.dumps({"serve": runs}))
     log(json.dumps({"train": train}))
     log(json.dumps({"train_sgd_padded": sgd}))
+    log(json.dumps({"train_dropout": drop}))
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

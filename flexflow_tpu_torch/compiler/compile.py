@@ -4,9 +4,27 @@
 `compile_model(model, optimizer, loss_type, metrics)` builds the graph's
 forward (compiler/lowering.py) and returns a `CompiledModel` with
 `init`, `train_step`, `eval_step`, `infer`, `fit`, `evaluate`, `forward`,
-`get_weight` and `set_weight`, as the JAX package's. One device, no mesh:
-the strategy search, ZeRO, the fused multi-step dispatch, resilience,
-health and telemetry are not ported yet.
+`save_checkpoint`, `load_checkpoint`, `get_weight` and `set_weight`, as
+the JAX package's. One device, no mesh: the strategy search (and the
+remat search), ZeRO, pipelines, the fused multi-step dispatch, the retry
+policy, health and telemetry are not ported yet.
+
+The strategy is `import_strategy_file`'s (parallel/sharding.py) or an
+empty one-device strategy, saved to `export_strategy_file` when that is
+set; its `remat` map ({layer: "full" | "dots"}) reaches the lowering, and
+`cfg.remat` (the deprecated uniform alias) makes it "full" for every layer
+when the strategy has none.
+
+The rng is threaded as in JAX (`compile.py:593-701`): `train_step(...,
+rng)` hands the key to the forward's dropout draws (rng=None is allowed
+where nothing draws), the accumulating step gives microbatch j
+`fold_in(rng, j)`, and `fit` steps with `fold_in(key(seed + 17),
+iteration)`, where `_iteration` counts optimizer updates across fits.
+
+`fit` feeds the step through `runtime/dataloader.prefetch_to_device`
+(so does `evaluate`), and takes durable periodic checkpoints, a SIGTERM
+drain and `resume` through runtime/resilience.py (the JAX fit's,
+non-pipeline, without telemetry).
 
 Gradient accumulation is `compile.py:655-701`'s: with `accum_steps` N > 1
 (the config's, or `fit(accum_steps=N)`) the train step takes inputs and
@@ -41,6 +59,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from flexflow_tpu_torch import random as ff_random
 from flexflow_tpu_torch.compiler.lowering import build_forward
 from flexflow_tpu_torch.core.graph import topo_order
 from flexflow_tpu_torch.device import resolve_device, to_device
@@ -49,8 +68,25 @@ from flexflow_tpu_torch.kernels import fused_ce, fused_optim
 from flexflow_tpu_torch.losses import LossType, compute_loss
 from flexflow_tpu_torch.metrics import MetricsType, PerfMetrics, compute_metrics
 from flexflow_tpu_torch.optimizers import SGDOptimizer
+from flexflow_tpu_torch.parallel.sharding import Strategy
 from flexflow_tpu_torch.runtime.dataloader import (SingleDataLoader,
-                                                   group_microbatches)
+                                                   group_microbatches,
+                                                   prefetch_to_device)
+
+
+def _pick_strategy(cfg) -> Strategy:
+    if cfg.remat_search:
+        raise NotImplementedError(
+            "--remat-search: the per-layer remat search is not ported yet; "
+            "give a strategy file with a remat map (import_strategy_file) "
+            "or use --remat")
+    strategy = (Strategy.load(cfg.import_strategy_file)
+                if cfg.import_strategy_file
+                else Strategy(name="single_device"))
+    if strategy.pipeline:
+        raise NotImplementedError(
+            "pipeline strategies are not ported yet (one device)")
+    return strategy
 
 
 def compile_model(model, optimizer, loss_type, metrics: Sequence = (),
@@ -58,25 +94,37 @@ def compile_model(model, optimizer, loss_type, metrics: Sequence = (),
     """The training program of `model`'s graph, its output the last
     layer's first output (SGD at its default step size when no optimizer
     is given, as in JAX)."""
+    strategy = _pick_strategy(model.config)
+    if model.config.export_strategy_file:
+        strategy.save(model.config.export_strategy_file)
     return CompiledModel(model, optimizer or SGDOptimizer(),
                          LossType.from_any(loss_type),
                          [MetricsType.from_any(m) for m in metrics],
-                         model.layers[-1].outputs[:1], device=device)
+                         model.layers[-1].outputs[:1], device=device,
+                         strategy=strategy)
 
 
 class CompiledModel:
     def __init__(self, model, optimizer, loss_type: LossType,
-                 metrics: List[MetricsType], outputs, device=None):
+                 metrics: List[MetricsType], outputs, device=None,
+                 strategy: Optional[Strategy] = None):
         self.device = resolve_device(device)
         self.model = model
         self.cfg = model.config
         self.optimizer = optimizer
         self.loss_type = loss_type
         self.metrics = metrics
+        self.strategy = strategy or Strategy(name="single_device")
+        # --remat (deprecated alias): uniform "full" per-layer policy
+        if self.cfg.remat and not self.strategy.remat:
+            self.strategy.remat = {l.name: "full" for l in model.layers}
         self.forward_fn = build_forward(model.layers, model.input_tensors,
                                         outputs,
                                         compute_dtype=self.cfg.compute_dtype,
-                                        enable_fusion=self.cfg.enable_fusion)
+                                        enable_fusion=self.cfg.enable_fusion,
+                                        remat=self.strategy.remat)
+        # optimizer updates taken (the fit rng and checkpoints count them)
+        self._iteration = 0
         self.fused_loss_mode = str(self.cfg.fused_loss)
         fused_opt_mode = str(self.cfg.fused_optimizer)
         self.fopt_plan = None
@@ -150,15 +198,16 @@ class CompiledModel:
                                             params)
         return self.optimizer.update(grads, opt_state, params)
 
-    def value_and_grads(self, params, state, inputs, label):
-        """Forward in training mode, loss, and the gradient of every
-        floating param: (loss, logits, new_state, grads tree)."""
+    def value_and_grads(self, params, state, inputs, label, rng=None):
+        """Forward in training mode (its dropout drawn from `rng`), loss,
+        and the gradient of every floating param: (loss, logits,
+        new_state, grads tree)."""
         inputs = [to_device(x, self.device) for x in inputs]
         label = to_device(label, self.device)
         order = [(l, w) for l, ws in params.items() for w, t in ws.items()
                  if t.requires_grad]
         outs, new_state = self.forward_fn(params, state, inputs,
-                                          training=True)
+                                          training=True, rng=rng)
         logits = outs[0]
         loss = self._loss(logits, label)
         flat = torch.autograd.grad(loss, [params[l][w] for l, w in order])
@@ -174,21 +223,23 @@ class CompiledModel:
         with torch.no_grad():
             return compute_metrics(self.metrics, logits.float(), label)
 
-    def train_step(self, params, opt_state, state, inputs, label):
+    def train_step(self, params, opt_state, state, inputs, label, rng=None):
         """One optimizer update: `value_and_grads`, then the update, or
         with accum_steps N > 1 the accumulating step over the (N, ...)
-        microbatches of `inputs` and `label`. `params` and `opt_state` are
-        updated in place and returned with the new state, the loss and the
-        metrics (device scalars)."""
+        microbatches of `inputs` and `label`. `rng` is the step's key
+        (flexflow_tpu_torch/random.py; a model with dropout needs one).
+        `params` and `opt_state` are updated in place and returned with the
+        new state, the loss and the metrics (device scalars)."""
         if self._accum_steps > 1:
-            return self._accum_step(params, opt_state, state, inputs, label)
+            return self._accum_step(params, opt_state, state, inputs, label,
+                                    rng)
         label = to_device(label, self.device)
         loss, logits, new_state, grads = self.value_and_grads(
-            params, state, inputs, label)
+            params, state, inputs, label, rng)
         opt_state = self._apply_update(params, opt_state, grads)
         return params, opt_state, new_state, loss, self._metrics(logits, label)
 
-    def _accum_step(self, params, opt_state, state, inputs, label):
+    def _accum_step(self, params, opt_state, state, inputs, label, rng=None):
         n = self._accum_steps
         inputs = [to_device(x, self.device) for x in inputs]
         label = to_device(label, self.device)
@@ -201,8 +252,10 @@ class CompiledModel:
                 f"{tuple(label.shape)}")
         gsum = lsum = msum = None
         for j in range(n):
+            # microbatch j draws from fold_in(rng, j), as in JAX
             loss, logits, state, grads = self.value_and_grads(
-                params, state, [x[j] for x in inputs], label[j])
+                params, state, [x[j] for x in inputs], label[j],
+                None if rng is None else ff_random.fold_in(rng, j))
             mvals = self._metrics(logits, label[j])
             if gsum is None:
                 gsum, lsum, msum = grads, loss, mvals
@@ -244,15 +297,30 @@ class CompiledModel:
 
     # ------------------------------------------------------------- training
     def fit(self, x, y, batch_size: Optional[int] = None,
-            epochs: Optional[int] = None, verbose: bool = True,
+            epochs: Optional[int] = None, callbacks=None, verbose: bool = True,
             sync_every: Optional[int] = None,
-            accum_steps: Optional[int] = None):
-        """Train for `epochs` over (x, y), shuffled by the config's seed.
-        With accum_steps N > 1 (None = the config's value) every N
-        consecutive batches make one update. The loss stays on the device
-        and is read every `sync_every` updates (0 = at epoch end only).
-        Returns one summary dict per epoch; `step_stats` counts the fit's
-        dispatches (optimizer updates) and its mid-epoch host syncs."""
+            accum_steps: Optional[int] = None,
+            resume: Optional[str] = None,
+            checkpoint_dir: Optional[str] = None,
+            checkpoint_every_steps: Optional[int] = None,
+            checkpoint_every_secs: Optional[float] = None):
+        """Train for `epochs` over (x, y), shuffled by the config's seed,
+        the batches copied ahead by `prefetch_to_device`. With accum_steps
+        N > 1 (None = the config's value) every N consecutive batches make
+        one update. The loss stays on the device and is read every
+        `sync_every` updates (0 = at epoch end only); a callback with
+        `on_batch_end(iteration, logs)` reads it after every update.
+        `checkpoint_dir`, `checkpoint_every_steps`/`_secs` and `resume`
+        (None = the config's) take durable snapshots, drain on SIGTERM or
+        SIGINT (a final snapshot, then `Preempted`) and resume the same
+        trajectory (runtime/resilience.py). Returns one summary dict per
+        epoch; `step_stats` counts the fit's dispatches (optimizer updates)
+        and its mid-epoch host syncs."""
+        from flexflow_tpu_torch.runtime.checkpoint import warn_failed_writes
+        from flexflow_tpu_torch.runtime.resilience import (FitResilience,
+                                                           progress_dict,
+                                                           start_state)
+
         xs = x if isinstance(x, (list, tuple)) else [x]
         epochs = epochs or self.cfg.epochs
         sync = max(0, int(self.cfg.sync_every if sync_every is None
@@ -263,45 +331,111 @@ class CompiledModel:
         if self.params is None:
             self.init()
         batch_size = self._coerce_batch(batch_size or self.cfg.batch_size)
+        res = FitResilience.build(self, resume, checkpoint_dir,
+                                  checkpoint_every_steps,
+                                  checkpoint_every_secs)
+        progress = None
+        if res is not None:
+            res.set_effective(batch_size, accum)
+            progress = res.resume_now(verbose)
         loader = SingleDataLoader(xs, y, batch_size, shuffle=True,
                                   seed=self.cfg.seed)
+        base_rng = ff_random.key(self.cfg.seed + 17)
+        per_batch_cbs = [cb for cb in callbacks or []
+                         if hasattr(cb, "on_batch_end")]
+        if per_batch_cbs:
+            sync = 1  # the callbacks read every update's loss
         stats = self.step_stats = {"dispatches": 0, "host_syncs": 0}
-        history = []
-        for epoch in range(epochs):
-            pm, pml = PerfMetrics(), PerfMetrics()
-            nb = since_sync = ep_sync = 0
-            t0 = time.perf_counter()
-            for dx, dy in group_microbatches(loader.epoch(), accum):
-                (self.params, self.opt_state, self.state, loss,
-                 mvals) = self.train_step(self.params, self.opt_state,
-                                          self.state, dx, dy)
-                nb += 1
-                since_sync += 1
-                stats["dispatches"] += 1
-                pml.update_deferred(1, {"loss": loss})
-                pm.update_deferred(batch_size * accum, mvals)
-                if sync and since_sync >= sync:
-                    pml.materialize()
-                    pm.materialize()
-                    stats["host_syncs"] += 1
-                    ep_sync += 1
-                    since_sync = 0
-            # epoch end: the one read the loop cannot avoid (not counted
-            # as a mid-epoch host sync)
-            pml.materialize()
-            summ = pm.summary()
-            dt = time.perf_counter() - t0
-            summ["loss"] = pml.sums.get("loss", 0.0) / max(1, nb)
-            summ["epoch_time_s"] = dt
-            summ["samples_per_sec"] = pm.train_all / dt if dt > 0 else 0.0
-            summ["dispatches"] = float(nb)
-            summ["host_syncs"] = float(ep_sync)
-            history.append(summ)
-            if verbose:
-                ms = " ".join(f"{k}={v:.4f}" for k, v in summ.items()
-                              if k not in ("samples", "dispatches",
-                                           "host_syncs"))
-                print(f"[epoch {epoch}] {ms}")
+        start_epoch, skip_steps, history = start_state(progress)
+        if progress:
+            # the epochs before start_epoch drew their shuffles
+            loader.advance_epochs(start_epoch)
+        if res is not None:
+            res.install_guard()
+        try:
+            for epoch in range(start_epoch, epochs):
+                pm, pml = PerfMetrics(), PerfMetrics()
+                nb = since_sync = ep_sync = ep_disp = seed_samples = 0
+                t0 = time.perf_counter()
+                # resume mid-epoch: skip the accumulation groups consumed
+                # before the snapshot, and re-seed the epoch's sums so its
+                # summary covers the whole epoch
+                resuming = epoch == start_epoch and bool(progress)
+                batches = group_microbatches(loader.epoch(
+                    skip_batches=skip_steps * accum if resuming else 0),
+                    accum)
+                if resuming:
+                    nb = skip_steps
+                    pml.sums["loss"] = float(progress.get("loss_sum", 0.0))
+                    pml.train_all = nb
+                    pm.sums = {k: float(v) for k, v in
+                               (progress.get("metric_sums") or {}).items()}
+                    pm.train_all = seed_samples = int(
+                        progress.get("samples", 0))
+
+                def make_progress(_pml=pml, _pm=pm, _epoch=epoch):
+                    _pml.materialize()
+                    _pm.materialize()
+                    return progress_dict(_epoch, nb,
+                                         _pml.sums.get("loss", 0.0),
+                                         _pm.sums, _pm.train_all, history)
+
+                gen = prefetch_to_device(batches, self.device)
+                try:
+                    for dx, dy in gen:
+                        rng = ff_random.fold_in(base_rng, self._iteration)
+                        (self.params, self.opt_state, self.state, loss,
+                         mvals) = self.train_step(self.params,
+                                                  self.opt_state, self.state,
+                                                  dx, dy, rng)
+                        self._iteration += 1
+                        nb += 1
+                        since_sync += 1
+                        ep_disp += 1
+                        stats["dispatches"] += 1
+                        pml.update_deferred(1, {"loss": loss})
+                        pm.update_deferred(batch_size * accum, mvals)
+                        if sync and since_sync >= sync:
+                            pml.materialize()
+                            pm.materialize()
+                            stats["host_syncs"] += 1
+                            ep_sync += 1
+                            since_sync = 0
+                        if res is not None:
+                            res.maybe_checkpoint(make_progress)
+                        for cb in per_batch_cbs:
+                            cb.on_batch_end(self._iteration,
+                                            {"loss": float(loss)})
+                finally:
+                    gen.close()
+                # epoch end: the one read the loop cannot avoid (not
+                # counted as a mid-epoch host sync)
+                pml.materialize()
+                summ = pm.summary()
+                dt = time.perf_counter() - t0
+                summ["loss"] = pml.sums.get("loss", 0.0) / max(1, nb)
+                summ["epoch_time_s"] = dt
+                summ["samples_per_sec"] = ((pm.train_all - seed_samples) / dt
+                                           if dt > 0 else 0.0)
+                summ["dispatches"] = float(ep_disp)
+                summ["host_syncs"] = float(ep_sync)
+                history.append(summ)
+                if verbose:
+                    ms = " ".join(f"{k}={v:.4f}" for k, v in summ.items()
+                                  if k not in ("samples", "dispatches",
+                                               "host_syncs"))
+                    print(f"[epoch {epoch}] {ms}")
+                for cb in callbacks or []:
+                    if hasattr(cb, "on_epoch_end"):
+                        cb.on_epoch_end(epoch, summ)
+                if res is not None:
+                    res.epoch_end(epoch, history)
+            if res is not None:
+                res.final_save(epochs, history)
+        finally:
+            if res is not None:
+                res.guard.uninstall()
+        warn_failed_writes(verbose)
         return history
 
     def evaluate(self, x, y, batch_size: Optional[int] = None):
@@ -311,15 +445,43 @@ class CompiledModel:
         loader = SingleDataLoader(xs, y, batch_size, shuffle=False)
         pm, pml = PerfMetrics(), PerfMetrics()
         nb = 0
-        for dx, dy in loader.epoch():
-            loss, mvals = self.eval_step(self.params, self.state, dx, dy)
-            pm.update_deferred(batch_size, mvals)
-            pml.update_deferred(1, {"loss": loss})
-            nb += 1
+        gen = prefetch_to_device(loader.epoch(), self.device)
+        try:
+            for dx, dy in gen:
+                loss, mvals = self.eval_step(self.params, self.state, dx, dy)
+                pm.update_deferred(batch_size, mvals)
+                pml.update_deferred(1, {"loss": loss})
+                nb += 1
+        finally:
+            gen.close()
         pml.materialize()
         out = pm.summary()
         out["loss"] = pml.sums.get("loss", 0.0) / max(1, nb)
         return out
+
+    # ---------------------------------------------------------- checkpoints
+    def save_checkpoint(self, path: str, block: Optional[bool] = None) -> str:
+        """The full training state under `path` (runtime/checkpoint.py).
+        With cfg.async_checkpoint (the default) the host snapshot is taken
+        here and the write runs on a background thread; block=True writes
+        before returning."""
+        from flexflow_tpu_torch.runtime.checkpoint import save_checkpoint
+
+        if block is None:
+            block = not self.cfg.async_checkpoint
+        return save_checkpoint(self, path, block=block)
+
+    def wait_checkpoints(self) -> None:
+        """Join in-flight async checkpoint writes, re-raising their
+        errors."""
+        from flexflow_tpu_torch.runtime.checkpoint import wait_pending
+
+        wait_pending()
+
+    def load_checkpoint(self, path: str) -> None:
+        from flexflow_tpu_torch.runtime.checkpoint import restore_checkpoint
+
+        restore_checkpoint(self, path)
 
     def forward(self, *inputs):
         if self.params is None:

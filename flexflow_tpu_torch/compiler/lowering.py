@@ -4,9 +4,22 @@
 order on every call; PyTorch runs eagerly, so there is no trace and no
 mesh. `training` selects the train-step lowering, as the JAX forward's
 `training` argument does; the graph then runs under autograd and the
-gradients reach the f32 master params through the per-layer casts. There
-is no remat yet, and no dropout in training: a dropout of rate > 0 raises
-there (ops/norm_ops.py, ops/attention_ops.py). The mixed-precision policy
+gradients reach the f32 master params through the per-layer casts, and
+`rng` (a key of flexflow_tpu_torch/random.py) feeds the dropout draws.
+
+Per-layer rematerialization follows `remat` ({layer name: policy}, the
+strategy's map): "full" runs the layer's lowering under
+`torch.utils.checkpoint.checkpoint` (non-reentrant), which keeps only the
+layer's inputs and recomputes the rest in the backward; "dots" keeps the
+outputs of the matmuls (`mm`, `addmm`, `bmm`: what `@` and `einsum` lower
+to) through a selective-checkpoint policy, the counterpart of
+`jax.checkpoint_policies.checkpoint_dots`, and recomputes the elementwise
+rest. A checkpointed layer runs on a sub-context of its own, so its
+`new_state` comes back as an output and its recompute writes nothing
+outside; the recompute draws the same dropout mask (the layer's generator
+is made anew from the same key), so remat never changes the numbers. The
+hand-written kernels' autograd Functions rerun in the recompute, and their
+launches count again. The mixed-precision policy
 is the JAX package's: floating inputs and weights are cast to the compute
 dtype, except norm params (gamma/beta), whose lowerings compute the affine
 in f32.
@@ -14,10 +27,13 @@ in f32.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence
+import functools
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from flexflow_tpu_torch.core.graph import topo_order
 from flexflow_tpu_torch.core.layer import Layer
@@ -28,6 +44,31 @@ from flexflow_tpu_torch.ops.op_type import OperatorType
 from flexflow_tpu_torch.ops.registry import LoweringCtx
 
 NORM_TYPES = (OperatorType.LAYERNORM,)
+
+
+# the matmul ops whose outputs the "dots" policy saves
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+            torch.ops.aten.bmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+REMAT_POLICIES = ("full", "dots")
+
+
+def _checkpointed(fn: Callable, policy: str, *args):
+    """fn(*args) under non-reentrant checkpoint with `policy`'s saving."""
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    # the dropout draws come from generators made from the run's key, not
+    # from torch's global RNG, so its state need not be stashed
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False, **kw)
 
 
 def cast_dtype(compute_dtype: Optional[str]) -> Optional[torch.dtype]:
@@ -49,7 +90,8 @@ class GraphForward(nn.Module):
 
     def __init__(self, layers: Sequence[Layer], graph_inputs: Sequence[Tensor],
                  outputs: Sequence[Tensor], compute_dtype: Optional[str] = None,
-                 enable_fusion: bool = True):
+                 enable_fusion: bool = True,
+                 remat: Optional[Dict[str, str]] = None):
         super().__init__()
         self.order = topo_order(layers)
         self.graph_inputs = list(graph_inputs)
@@ -57,12 +99,33 @@ class GraphForward(nn.Module):
         self.cast_to = cast_dtype(compute_dtype)
         self.enable_fusion = enable_fusion
         self.exempt = cast_exempt(layers)
+        self.remat = {k: v for k, v in (remat or {}).items()
+                      if v in REMAT_POLICIES}
+        # test hook, handed to every LoweringCtx (registry.py)
+        self.mask_hook: Optional[Callable] = None
+
+    def _ctx(self, state, training, rng) -> LoweringCtx:
+        return LoweringCtx(state=state, enable_fusion=self.enable_fusion,
+                           training=training, rng=rng,
+                           mask_hook=self.mask_hook)
+
+    def _lower_checkpointed(self, layer: Layer, ins, w, ctx: LoweringCtx):
+        """One layer's lowering as a function of (ins, w) on a sub-context:
+        the outputs and the layer's new state come back; the recompute's
+        state is dropped with its sub-context."""
+        def one(l_ins, l_w):
+            sub = self._ctx(dict(ctx.state), ctx.training, ctx.rng)
+            outs = get_op_def(layer.op_type).lower(layer, l_ins, l_w, sub)
+            return outs, sub.new_state
+
+        outs, delta = _checkpointed(one, self.remat[layer.name], ins, w)
+        ctx.new_state.update(delta)
+        return outs
 
     def forward(self, params: Dict[str, Dict[str, torch.Tensor]],
                 state: Dict[str, Any], input_arrays: List[torch.Tensor],
-                training: bool = False):
-        ctx = LoweringCtx(state=dict(state), enable_fusion=self.enable_fusion,
-                          training=training)
+                training: bool = False, rng: Optional[int] = None):
+        ctx = self._ctx(dict(state), training, rng)
         cast_to = self.cast_to
         env: Dict[int, torch.Tensor] = {}
         for t, arr in zip(self.graph_inputs, input_arrays):
@@ -76,7 +139,10 @@ class GraphForward(nn.Module):
                 ex = self.exempt.get(layer.name, ())
                 w = {k: (v.to(cast_to) if k not in ex and v.is_floating_point()
                          else v) for k, v in w.items()}
-            outs = get_op_def(layer.op_type).lower(layer, ins, w, ctx)
+            if training and layer.name in self.remat:
+                outs = self._lower_checkpointed(layer, ins, w, ctx)
+            else:
+                outs = get_op_def(layer.op_type).lower(layer, ins, w, ctx)
             for t, o in zip(layer.outputs, outs):
                 env[t.guid] = o
         new_state = dict(state)
@@ -86,6 +152,8 @@ class GraphForward(nn.Module):
 
 def build_forward(layers: Sequence[Layer], graph_inputs: Sequence[Tensor],
                   outputs: Sequence[Tensor], compute_dtype: Optional[str] = None,
-                  enable_fusion: bool = True) -> GraphForward:
+                  enable_fusion: bool = True,
+                  remat: Optional[Dict[str, str]] = None) -> GraphForward:
     return GraphForward(layers, graph_inputs, outputs,
-                        compute_dtype=compute_dtype, enable_fusion=enable_fusion)
+                        compute_dtype=compute_dtype, enable_fusion=enable_fusion,
+                        remat=remat)

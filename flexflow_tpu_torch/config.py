@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 
 @dataclasses.dataclass
@@ -44,6 +44,63 @@ class FFConfig:
     #   fused_optimizer - fused optimizer update (kernels/fused_optim.py)
     fused_loss: str = "auto"
     fused_optimizer: str = "auto"
+    # strategy files (parallel/sharding.py; --import / --export): a file
+    # written by either package; one device applies its shardings as a
+    # one-device mesh does, and its remat map reaches the lowering
+    import_strategy_file: str = ""
+    export_strategy_file: str = ""
+    # rematerialization: --remat is the deprecated uniform alias (every
+    # layer "full"); --remat-search would search per-layer policies over
+    # --remat-policies (not ported: it raises at compile). The two flags
+    # contradict each other (see _check_remat_knobs).
+    remat: bool = False
+    remat_search: bool = False
+    remat_policies: str = "none,dots,full"
+    # checkpoints (runtime/checkpoint.py, runtime/resilience.py):
+    #   async_checkpoint — snapshot to host on the caller thread, write on
+    #     a background thread
+    #   checkpoint_dir — root of the durable `ckpt-<step>` snapshots ("" =
+    #     off); checkpoint_every_steps / checkpoint_every_secs — periodic
+    #     snapshots inside fit (both 0 = only the end-of-fit and
+    #     preemption snapshots)
+    #   resume — "" (fresh start), "auto" (the newest committed snapshot
+    #     under checkpoint_dir) or a path
+    #   keep_checkpoints — committed snapshots kept (<= 0 keeps all)
+    async_checkpoint: bool = True
+    checkpoint_dir: str = ""
+    checkpoint_every_steps: int = 0
+    checkpoint_every_secs: float = 0.0
+    resume: str = ""
+    keep_checkpoints: int = 3
+
+    REMAT_POLICY_NAMES = ("none", "dots", "full")
+
+    def __post_init__(self):
+        self._check_remat_knobs()
+
+    def _check_remat_knobs(self):
+        """--remat (uniform "full") and --remat-search (per-layer policies)
+        contradict each other: fail instead of letting one win."""
+        if self.remat and self.remat_search:
+            raise ValueError(
+                "--remat (deprecated: uniform 'full' remat) contradicts "
+                "--remat-search (per-layer searched remat); drop --remat "
+                "— the search's candidate set already includes 'full'")
+        bad = [pol for pol in self.remat_policy_list()
+               if pol not in self.REMAT_POLICY_NAMES]
+        if bad:
+            raise ValueError(
+                f"unknown remat policies {bad!r} in "
+                f"remat_policies={self.remat_policies!r} "
+                f"(choose from {', '.join(self.REMAT_POLICY_NAMES)})")
+
+    def remat_policy_list(self) -> Tuple[str, ...]:
+        """The per-layer policy candidates ("none" always among them)."""
+        pols = tuple(s.strip() for s in self.remat_policies.split(",")
+                     if s.strip())
+        if "none" not in pols:
+            pols = ("none",) + pols
+        return pols
 
     @staticmethod
     def build_parser() -> argparse.ArgumentParser:
@@ -67,6 +124,18 @@ class FFConfig:
                        choices=("auto", "on", "off"))
         p.add_argument("--fused-optimizer", type=str, default="auto",
                        choices=("auto", "on", "off"))
+        p.add_argument("--import", dest="import_file", type=str, default="")
+        p.add_argument("--export", dest="export_file", type=str, default="")
+        p.add_argument("--remat", action="store_true")
+        p.add_argument("--remat-search", action="store_true")
+        p.add_argument("--remat-policies", type=str, default="none,dots,full")
+        p.add_argument("--async-checkpoint",
+                       action=argparse.BooleanOptionalAction, default=True)
+        p.add_argument("--checkpoint-dir", type=str, default="")
+        p.add_argument("--checkpoint-every-steps", type=int, default=0)
+        p.add_argument("--checkpoint-every-secs", type=float, default=0.0)
+        p.add_argument("--resume", type=str, default="")
+        p.add_argument("--keep-checkpoints", type=int, default=3)
         return p
 
     @staticmethod
@@ -87,4 +156,15 @@ class FFConfig:
             accum_steps=args.accum_steps,
             fused_loss=args.fused_loss,
             fused_optimizer=args.fused_optimizer,
+            import_strategy_file=args.import_file,
+            export_strategy_file=args.export_file,
+            remat=args.remat,
+            remat_search=args.remat_search,
+            remat_policies=args.remat_policies,
+            async_checkpoint=args.async_checkpoint,
+            checkpoint_dir=args.checkpoint_dir,
+            checkpoint_every_steps=args.checkpoint_every_steps,
+            checkpoint_every_secs=args.checkpoint_every_secs,
+            resume=args.resume,
+            keep_checkpoints=args.keep_checkpoints,
         )

@@ -4,8 +4,9 @@ The builder methods append Layers to the frontend graph with the same op
 types, params and default names as the JAX package, so the same build
 script yields the same layer names, weight specs and topological order in
 both packages. Only the builders GPT-2 calls are ported so far.
-`compile`, `fit`, `eval`, `forward`, `get_weight` and `set_weight`
-delegate to the `CompiledModel` (compiler/compile.py), as in JAX.
+`compile`, `fit`, `eval`, `forward`, `save_checkpoint`,
+`load_checkpoint`, `get_weight` and `set_weight` delegate to the
+`CompiledModel` (compiler/compile.py), as in JAX.
 """
 
 from __future__ import annotations
@@ -71,17 +72,20 @@ class FFModel:
                             vdim: int = 0, dropout: float = 0.0,
                             bias: bool = True, add_bias_kv: bool = False,
                             add_zero_attn: bool = False, causal: bool = False,
-                            kernel_initializer=None, decode: bool = False,
-                            kv_out: bool = False,
+                            kernel_initializer=None, impl: str = "auto",
+                            decode: bool = False, kv_out: bool = False,
                             name=None) -> Tensor:
-        # decode: serving step reading/writing the paged KV cache through
-        # lowering state; kv_out: prefill variant exposing per-head K/V
+        # impl: "auto" (the flash kernel when fusion is on), "flash" (the
+        # kernel always) or "xla" (the einsum path); decode: serving step
+        # reading/writing the paged KV cache through lowering state;
+        # kv_out: prefill variant exposing per-head K/V
         return self._add_layer(
             OperatorType.MULTIHEAD_ATTENTION,
             {"embed_dim": int(embed_dim), "num_heads": int(num_heads),
              "kdim": kdim, "vdim": vdim, "dropout": dropout, "bias": bias,
              "add_bias_kv": add_bias_kv, "add_zero_attn": add_zero_attn,
-             "causal": causal, "decode": decode, "kv_out": kv_out},
+             "causal": causal, "impl": impl, "decode": decode,
+             "kv_out": kv_out},
             [query, key, value], name,
             {"wq": kernel_initializer, "wk": kernel_initializer,
              "wv": kernel_initializer, "wo": kernel_initializer})[0]
@@ -122,11 +126,29 @@ class FFModel:
 
     # ------------------------------------------------------------ training
     def fit(self, x, y, batch_size: Optional[int] = None,
-            epochs: Optional[int] = None, verbose: bool = True,
-            sync_every: Optional[int] = None):
-        """Train; `sync_every` overrides the config's for this call."""
-        return self.compiled.fit(x, y, batch_size=batch_size, epochs=epochs,
-                                 verbose=verbose, sync_every=sync_every)
+            epochs: Optional[int] = None, callbacks=None, verbose: bool = True,
+            sync_every: Optional[int] = None,
+            accum_steps: Optional[int] = None,
+            resume: Optional[str] = None,
+            checkpoint_dir: Optional[str] = None,
+            checkpoint_every_steps: Optional[int] = None,
+            checkpoint_every_secs: Optional[float] = None):
+        """Train (CompiledModel.fit); each keyword given overrides the
+        config's value for this call."""
+        return self.compiled.fit(
+            x, y, batch_size=batch_size, epochs=epochs, callbacks=callbacks,
+            verbose=verbose, sync_every=sync_every, accum_steps=accum_steps,
+            resume=resume, checkpoint_dir=checkpoint_dir,
+            checkpoint_every_steps=checkpoint_every_steps,
+            checkpoint_every_secs=checkpoint_every_secs)
+
+    def save_checkpoint(self, path: str, block: Optional[bool] = None) -> str:
+        """Full-state checkpoint (async by default: cfg.async_checkpoint);
+        see CompiledModel.save_checkpoint."""
+        return self.compiled.save_checkpoint(path, block=block)
+
+    def load_checkpoint(self, path: str) -> None:
+        self.compiled.load_checkpoint(path)
 
     def forward(self, *inputs):
         return self.compiled.forward(*inputs)

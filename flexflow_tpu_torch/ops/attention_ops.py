@@ -15,12 +15,14 @@ Two lowerings, as in the JAX package:
   pages first, as the JAX lowering does.
 
 Unlike the JAX lowering, nothing here falls back to einsum: with fusion on
-the kernel wrapper is the one gate, and on a CUDA tensor it launches its
-kernel or raises (a shape it does not cover, a build or launch error). Only
-`enable_fusion=False` (`--no-fusion`) selects the einsum paths. In training
-the flash path is differentiable through the backward kernels;
-attention-prob dropout is not ported, so a training step with dropout > 0
-raises rather than dropping nothing. The projections and the compute-dtype
+(or `impl="flash"`) the kernel wrapper is the one gate, and on a CUDA
+tensor it launches its kernel or raises (a shape it does not cover, a
+build or launch error). `enable_fusion=False` (`--no-fusion`) or
+`impl="xla"` selects the einsum paths. In training the flash path is
+differentiable through the backward kernels. Attention-prob dropout in
+training takes the einsum path, as in JAX (the kernel has no dropout): the
+mask, drawn from the layer's generator, is applied to the probs in their
+dtype, and `impl="flash"` with dropout raises. The projections and the compute-dtype
 decode einsum are plain `torch.matmul`/`torch.einsum`, as the JAX package
 leaves them to XLA. The cache pools are updated in place (the JAX lowering
 returns new pools); the updated pools are also returned in `new_state`.
@@ -37,6 +39,7 @@ from flexflow_tpu_torch.core.tensor import TensorSpec
 from flexflow_tpu_torch.kernels.dequant_attention import \
     paged_dequant_decode_attention
 from flexflow_tpu_torch.kernels.flash_attention import flash_attention_qkv
+from flexflow_tpu_torch.ops.norm_ops import apply_dropout
 from flexflow_tpu_torch.ops.op_type import OperatorType
 from flexflow_tpu_torch.ops.registry import LoweringCtx, register_op
 
@@ -193,15 +196,19 @@ def _mha_lower(layer: "Layer", inputs, weights, ctx: LoweringCtx):
         ctx.new_state[layer.name] = {"k": kh, "v": vh}
     qh = _split_heads(_proj(weights, q, "wq", "bq"), heads)
 
-    if ctx.training and p.get("dropout", 0.0) > 0.0:
-        raise NotImplementedError(
-            f"{layer.name}: attention-prob dropout (rate {p['dropout']}) in "
-            "training is not ported yet; build the model with dropout 0")
+    impl = p.get("impl", "auto")
+    # the flash kernel has no probs-dropout path: dropout in training takes
+    # the einsum path (or fails under impl="flash")
+    needs_dropout = ctx.training and p.get("dropout", 0.0) > 0.0
+    if impl == "flash" and needs_dropout:
+        raise NotImplementedError("impl='flash' does not support attention-prob "
+                                  "dropout; use dropout=0.0 or impl='xla'")
     causal = p.get("causal", False)
     scale = 1.0 / math.sqrt(embed // heads)
     b, sq = q.shape[0], q.shape[1]
     sk = kh.shape[1]
-    if ctx.enable_fusion:
+    if not needs_dropout and (impl == "flash"
+                              or (impl == "auto" and ctx.enable_fusion)):
         out = flash_attention_qkv(qh, kh, vh, causal=causal, scale=scale)
     else:
         logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh) * scale
@@ -210,6 +217,8 @@ def _mha_lower(layer: "Layer", inputs, weights, ctx: LoweringCtx):
                               device=q.device).tril(diagonal=sk - sq)
             logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
         probs = torch.softmax(logits, dim=-1)
+        if needs_dropout:
+            probs = apply_dropout(probs, layer, ctx, p["dropout"])
         out = torch.einsum("bhqk,bkhd->bqhd", probs, vh)
     return [_out_proj(weights, out, b, sq, embed)]
 

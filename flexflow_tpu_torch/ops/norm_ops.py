@@ -2,9 +2,10 @@
 
 Layer norm takes its statistics and its affine in f32 (eps 1e-5 by
 default) and casts back to the activation dtype, as the JAX lowering does.
-Dropout is the identity in inference and at rate 0; in training at a
-rate above 0 it raises, because its mask is not ported yet (it must never
-act as a silent identity there).
+Dropout is the identity in inference and at rate 0; in training it keeps
+each element with probability keep = 1 - rate, drawn as a bool mask from
+the layer's generator (`LoweringCtx.dropout_mask`), and returns
+where(mask, x / keep, 0) in x's dtype, as the JAX lowering does.
 """
 
 from __future__ import annotations
@@ -58,12 +59,20 @@ def _dropout_infer(layer: "Layer"):
     return [layer.inputs[0].spec]
 
 
+def apply_dropout(x, layer: "Layer", ctx, rate: float):
+    """where(mask, x / keep, 0) in x's dtype, the mask drawn for `layer`."""
+    keep = 1.0 - rate
+    mask = ctx.dropout_mask(layer, x.shape, keep, x.device)
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
 def _dropout_lower(layer: "Layer", inputs, weights, ctx):
-    if ctx.training and layer.params.get("rate", 0.0) > 0.0:
-        raise NotImplementedError(
-            f"{layer.name}: dropout (rate {layer.params['rate']}) in training "
-            "is not ported yet; build the model with dropout 0")
-    return [inputs[0]]
+    x = inputs[0]
+    rate = layer.params.get("rate", 0.5)
+    if not ctx.training or rate <= 0.0:
+        return [x]
+    return [apply_dropout(x, layer, ctx, rate)]
 
 
 register_op(OperatorType.DROPOUT, _dropout_infer, _dropout_lower)

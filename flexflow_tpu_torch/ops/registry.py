@@ -11,10 +11,11 @@ An op needs:
 from __future__ import annotations
 
 import dataclasses
-from typing import TYPE_CHECKING, Any, Callable, Dict, List
+from typing import TYPE_CHECKING, Any, Callable, Dict, List, Optional
 
 import torch
 
+from flexflow_tpu_torch import random as ff_random
 from flexflow_tpu_torch.core.tensor import TensorSpec
 from flexflow_tpu_torch.ops.op_type import OperatorType
 
@@ -36,6 +37,32 @@ class LoweringCtx:
     # what one run computes once and its layers share (the decode step's
     # cache write indices)
     memo: Dict[Any, Any] = dataclasses.field(default_factory=dict)
+    # the run's key (flexflow_tpu_torch/random.py), None when the caller
+    # gave none: the train step's dropout draws from it
+    rng: Optional[int] = None
+    # test hook: mask_hook(layer, rng, shape, keep) -> bool mask replaces
+    # the dropout draw (the tests feed the JAX package's masks through it)
+    mask_hook: Optional[Callable] = None
+
+    def rng_for(self, layer: "Layer", device) -> torch.Generator:
+        """A new generator on `device` from fold_in(rng, layer.guid): every
+        call draws the same numbers, so a rematerialized layer redraws its
+        mask."""
+        if self.rng is None:
+            raise ValueError(
+                f"layer {layer.name} needs an rng but none was provided")
+        return ff_random.generator(ff_random.fold_in(self.rng, layer.guid),
+                                   device)
+
+    def dropout_mask(self, layer: "Layer", shape, keep: float,
+                     device) -> torch.Tensor:
+        """The layer's keep mask: bool, True with probability `keep`."""
+        gen = self.rng_for(layer, device)  # raises without an rng
+        if self.mask_hook is not None:
+            return self.mask_hook(layer, self.rng, tuple(shape),
+                                  keep).to(device)
+        return torch.empty(tuple(shape), dtype=torch.bool,
+                           device=device).bernoulli_(keep, generator=gen)
 
 
 @dataclasses.dataclass

@@ -49,6 +49,11 @@ class Optimizer:
     def init_state(self, params: Tree) -> Dict[str, Any]:
         raise NotImplementedError
 
+    def moment_count(self) -> int:
+        """Per-param moment tensors the state carries (the checkpoint
+        fingerprint's optimizer schema)."""
+        return 2
+
     def update(self, grads: Tree, state: Dict[str, Any],
                params: Tree) -> Dict[str, Any]:
         raise NotImplementedError
@@ -64,6 +69,9 @@ class SGDOptimizer(Optimizer):
 
     def init_state(self, params: Tree) -> Dict[str, Any]:
         return {"trace": zeros_like_tree(params)} if self.momentum else {}
+
+    def moment_count(self) -> int:
+        return 1 if self.momentum else 0  # the momentum trace
 
     @torch.no_grad()
     def update(self, grads, state, params):

@@ -5,16 +5,29 @@ batch at a time, shuffled by `np.random.default_rng(seed)` exactly as the
 JAX package's loader shuffles, so both packages draw the same batches in
 the same order. Only full batches are drawn (the JAX loader's default).
 `group_microbatches` stacks N consecutive batches for gradient
-accumulation, as the JAX package's does. The JAX loader's native gather
-and prefetch thread are not ported: the caller moves each batch to the
-device.
+accumulation, as the JAX package's does. `epoch(skip_batches)` and
+`advance_epochs` are the resume cursor, with the JAX loader's rng
+consumption.
+
+`prefetch_to_device` overlaps the host-to-device copy of the next batches
+with the current step: a daemon thread copies each batch into pinned host
+memory, then to the device on a side CUDA stream, and records an event;
+the consumer's stream waits on that event, and each tensor is
+`record_stream`ed on the consumer's stream so the allocator does not hand
+its memory out again while the step still reads it. On the CPU the same
+thread and queue run without streams. The JAX loader's native gather and
+its fused multi-step prefetch (`prefetch_multi` with steps_per_dispatch >
+1) are not ported.
 """
 
 from __future__ import annotations
 
+import queue as queue_mod
+import threading
 from typing import Iterator, List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 
 class SingleDataLoader:
@@ -36,14 +49,25 @@ class SingleDataLoader:
     def num_batches(self) -> int:
         return self.num_samples // self.batch_size
 
-    def epoch(self) -> Iterator[Tuple[List[np.ndarray], np.ndarray]]:
-        """One pass, shuffled when `shuffle` (one permutation per epoch)."""
+    def epoch(self, skip_batches: int = 0,
+              ) -> Iterator[Tuple[List[np.ndarray], np.ndarray]]:
+        """One pass, shuffled when `shuffle` (one permutation per epoch).
+        `skip_batches` resumes mid-epoch: the full permutation is drawn (the
+        rng moves as in an epoch without a skip), and the leading batches
+        are never gathered."""
         order = np.arange(self.num_samples)
         if self.shuffle:
             self.rng.shuffle(order)
-        for b in range(self.num_batches):
+        for b in range(max(0, int(skip_batches)), self.num_batches):
             idx = order[b * self.batch_size:(b + 1) * self.batch_size]
             yield [x[idx] for x in self.xs], self.y[idx]
+
+    def advance_epochs(self, n: int) -> None:
+        """Move the shuffle rng past `n` epochs without touching the data,
+        as `epoch()` moves it (one shuffle an epoch)."""
+        for _ in range(max(0, int(n))):
+            if self.shuffle:
+                self.rng.shuffle(np.arange(self.num_samples))
 
 
 def _batch_shapes(xs, y):
@@ -68,3 +92,81 @@ def group_microbatches(it, n: int):
                     for i in range(len(buf[0][0]))],
                    np.stack([b[1] for b in buf]))
             buf = []
+
+
+# how long the consumer waits for the worker to end after it stops early
+PREFETCH_JOIN_S = 10.0
+
+
+def _as_tensor(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def prefetch_to_device(it, device, depth: int = 2):
+    """Yield the (inputs, label) batches of `it` as tensors on `device`,
+    copied `depth` batches ahead by a daemon thread (on CUDA: through
+    pinned memory, on a side stream; see the module docstring). An
+    exception in the worker reaches the consumer after the batches queued
+    ahead of it. When the consumer stops early (a `break`, an exception,
+    `close()`), the worker stops too and is joined."""
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    if cuda and device.index is None:
+        # the worker thread selects the device by index
+        device = torch.device("cuda", torch.cuda.current_device())
+    stream = torch.cuda.Stream(device) if cuda else None
+    q: "queue_mod.Queue" = queue_mod.Queue(maxsize=max(1, int(depth)))
+    stop = threading.Event()
+    done = object()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.05)
+                return True
+            except queue_mod.Full:
+                continue
+        return False
+
+    def move(xs, y):
+        host = [_as_tensor(a) for a in (*xs, y)]
+        if not cuda:
+            return host[:-1], host[-1], None
+        with torch.cuda.stream(stream):
+            dev = [h.pin_memory().to(device, non_blocking=True) for h in host]
+            ev = torch.cuda.Event()
+            ev.record(stream)
+        return dev[:-1], dev[-1], ev
+
+    def worker():
+        try:
+            if cuda:
+                torch.cuda.set_device(device)
+            for xs, y in it:
+                if not put(move(xs, y)):
+                    return
+            put(done)
+        except BaseException as e:  # forwarded to the consumer
+            put(e)
+
+    t = threading.Thread(target=worker, daemon=True, name="ff-prefetch")
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is done:
+                break
+            if isinstance(item, BaseException):
+                raise item
+            dx, dy, ev = item
+            if ev is not None:
+                cur = torch.cuda.current_stream(device)
+                cur.wait_event(ev)
+                for x in (*dx, dy):
+                    x.record_stream(cur)
+            yield dx, dy
+    finally:
+        stop.set()
+        t.join(PREFETCH_JOIN_S)

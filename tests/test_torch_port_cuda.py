@@ -351,11 +351,12 @@ def test_fused_adam_kernel_matches_plain_on_card(state_dtype, wd):
     assert sk["count"] == 3
 
 
-def _tiny_train_model(vocab=250, vocab_pad_to=0, **cfg):
+def _tiny_train_model(vocab=250, vocab_pad_to=0, dropout=0.0, layers=1,
+                      **cfg):
     """head_dim 64 and seq 64, inside the flash gate."""
     model = FFModel(FFConfig(batch_size=2, **cfg))
     build_gpt2(model, GPT2Config(vocab=vocab, seq=64, d_model=128, heads=2,
-                                 layers=1, dropout=0.0,
+                                 layers=layers, dropout=dropout,
                                  vocab_pad_to=vocab_pad_to), batch=2)
     return model
 
@@ -516,3 +517,115 @@ def test_padded_vocab_sgd_step_runs_fused_on_card():
         assert bool(torch.isfinite(loss))
         losses.append(float(loss))
     assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1])
+
+
+@pytest.mark.cuda
+def test_dropout_step_on_card():
+    """GPT-2 with dropout 0.1 (vocab padded to 128, bf16) on the card:
+    every mask of a step keeps within 5 sigma of 90%, the attention takes
+    the einsum path (no flash launch), and remat "full" and "dots" give
+    the loss of remat off and its gradients bitwise (the same kernels
+    recompute the same values from the same masks)."""
+    from flexflow_tpu_torch import AdamOptimizer
+    from flexflow_tpu_torch import random as ff_random
+    from flexflow_tpu_torch.kernels import fused_ce
+    from flexflow_tpu_torch.ops.registry import LoweringCtx
+
+    dev = _cuda_or_skip()
+    model = _tiny_train_model(250, 128, dropout=0.1, layers=2,
+                              compute_dtype="bfloat16")
+    cm = model.compile(AdamOptimizer(), device=dev)
+    cm.init(seed=0)
+    inputs, label = _batch(250)
+    key = ff_random.key(3)
+    draws = []
+    real = LoweringCtx.dropout_mask
+
+    def logged(ctx, layer, shape, keep, device):
+        m = real(ctx, layer, shape, keep, device)
+        assert m.dtype == torch.bool and m.device.type == "cuda"
+        draws.append((m.numel(), float(m.sum())))
+        return m
+
+    fwd0, ce0 = flash_attention.launches, fused_ce.launches_fwd
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(LoweringCtx, "dropout_mask", logged)
+        ref = cm.value_and_grads(cm.params, cm.state, inputs, label, key)
+    torch.cuda.synchronize()
+    assert len(draws) == 3      # embed_drop and the probs of 2 layers
+    for n, kept in draws:
+        assert abs(kept - 0.9 * n) <= 5 * (0.09 * n) ** 0.5
+    assert flash_attention.launches == fwd0
+    assert fused_ce.launches_fwd == ce0 + 1
+    for pol in ("full", "dots"):
+        cm.forward_fn.remat = {l.name: pol for l in model.layers}
+        got = cm.value_and_grads(cm.params, cm.state, inputs, label, key)
+        assert float(got[0]) == float(ref[0])
+        for l, ws in ref[3].items():
+            for w, g in ws.items():
+                assert torch.equal(got[3][l][w], g), (pol, l, w)
+
+
+@pytest.mark.cuda
+def test_remat_relaunches_flash_on_card():
+    """Remat "full" at dropout 0: the flash forward launches twice per
+    layer (the forward and its recompute), dQ and dK/dV once, and the
+    gradients equal those of remat off."""
+    from flexflow_tpu_torch import AdamOptimizer
+
+    dev = _cuda_or_skip()
+    model = _tiny_train_model(250, 128, layers=2, compute_dtype="bfloat16")
+    cm = model.compile(AdamOptimizer(), device=dev)
+    cm.init(seed=0)
+    inputs, label = _batch(250)
+    ref = cm.value_and_grads(cm.params, cm.state, inputs, label)
+    cm.forward_fn.remat = {l.name: "full" for l in model.layers}
+    before = (flash_attention.launches, flash_attention.launches_dq,
+              flash_attention.launches_dkv)
+    got = cm.value_and_grads(cm.params, cm.state, inputs, label)
+    torch.cuda.synchronize()
+    after = (flash_attention.launches, flash_attention.launches_dq,
+             flash_attention.launches_dkv)
+    assert [a - b for a, b in zip(after, before)] == [4, 2, 2]
+    assert float(got[0]) == float(ref[0])
+    for l, ws in ref[3].items():
+        for w, g in ws.items():
+            assert torch.equal(got[3][l][w], g), (l, w)
+
+
+@pytest.mark.cuda
+def test_prefetch_to_device_on_a_side_stream():
+    """prefetch_to_device on the card yields the plain loader's batches in
+    order, as CUDA tensors that a step on the current stream reads
+    correctly, and its thread ends after an early break."""
+    import threading
+    import time
+
+    from flexflow_tpu_torch.runtime.dataloader import (SingleDataLoader,
+                                                       prefetch_to_device)
+
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(3)
+    x = rng.integers(0, 1000, size=(64, 4096)).astype(np.int32)
+    y = rng.standard_normal((64, 16)).astype(np.float32)
+    want = list(SingleDataLoader([x], y, 8, seed=2).epoch())
+    gen = prefetch_to_device(SingleDataLoader([x], y, 8, seed=2).epoch(),
+                             dev, depth=2)
+    n = 0
+    for (dx, dy), (wx, wy) in zip(gen, want):
+        assert dx[0].device.type == "cuda" and dy.device.type == "cuda"
+        # read on the consumer's stream, at once
+        assert torch.equal((dx[0].long() * 2).cpu(),
+                           torch.from_numpy(wx[0]).long() * 2)
+        assert torch.equal(dy.cpu(), torch.from_numpy(wy))
+        n += 1
+    assert n == len(want) == 8
+    gen = prefetch_to_device(SingleDataLoader([x], y, 8, seed=2).epoch(), dev)
+    next(gen)
+    gen.close()
+    deadline = time.monotonic() + 20
+    while any(t.name == "ff-prefetch" and t.is_alive()
+              for t in threading.enumerate()) and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert not any(t.name == "ff-prefetch" and t.is_alive()
+                   for t in threading.enumerate())

@@ -354,26 +354,84 @@ def _small_batch():
             rng.integers(0, 64, size=(2, 16)).astype(np.int32))
 
 
+def _dropout_pair(fusion, impl=None):
+    """GPT-2 at the small widths with dropout 0.1 in both packages (f32,
+    Adam), the port on the JAX weights and fed the JAX masks; with `impl`,
+    one attention layer of that impl over a float input instead."""
+    cfgs = dict(batch_size=2, enable_fusion=fusion)
+    jm = JFFModel(JFFConfig(mesh_shape={"data": 1}, only_data_parallel=True,
+                            log_level="warning", **cfgs))
+    pm = FFModel(FFConfig(**cfgs))
+    for m, gc, build in ((jm, JGPT2Config, jbuild_gpt2),
+                         (pm, GPT2Config, build_gpt2)):
+        if impl is None:
+            build(m, gc(vocab=64, seq=16, d_model=32, heads=2, layers=1,
+                        dropout=0.1), batch=2)
+            continue
+        t = m.create_tensor([2, 16, 32], name="x")
+        t = m.multihead_attention(t, t, t, 32, 2, dropout=0.1, causal=True,
+                                  impl=impl)
+        m.dense(t, 64)
+    jcm = jm.compile(JAdamOptimizer(), "sparse_categorical_crossentropy", [])
+    jcm.init(seed=0)
+    pcm = pm.compile(AdamOptimizer(), device="cpu")
+    pcm.load_params(params_from_jax(jax.device_get(jcm.params)))
+    guid = {l.name: l.guid for l in jm.layers}
+    jkey = jax.random.PRNGKey(1)
+
+    def hook(layer, rng, shape, keep):
+        return torch.from_numpy(np.array(jax.random.bernoulli(
+            jax.random.fold_in(jkey, guid[layer.name]), keep, shape)))
+    pcm.forward_fn.mask_hook = hook
+    return jcm, pcm, jkey
+
+
 @pytest.mark.parametrize("fusion", [True, False])
 def test_dropout_in_training_raises(fusion):
-    """Dropout is not ported for training: a rate above 0 raises in the
-    train step (the dropout op, and the attention-prob dropout on both
-    attention routes) instead of acting as an identity; inference, and
-    training at rate 0, run."""
-    cm = _small_model(0.1, enable_fusion=fusion).compile(
-        AdamOptimizer(), device="cpu")
-    cm.init(seed=0)
+    """GPT-2 with dropout 0.1 trains in the port (with fusion on too: the
+    attention takes the einsum path under dropout, as in JAX). Fed the
+    masks JAX draws, one train step's loss and the gradients agree with
+    the JAX CompiledModel's in f32 (rtol 1e-5; gradients to 1e-4 relative
+    L2, the key bias `bk` left out: its gradient is rounding noise). What
+    still raises is what raises in JAX: `impl="flash"` with dropout."""
+    from flexflow_tpu.losses import compute_loss as jcompute_loss
+
+    from flexflow_tpu_torch import random as ff_random
+
+    jcm, pcm, jkey = _dropout_pair(fusion)
     inputs, labels = _small_batch()
-    with pytest.raises(NotImplementedError, match="dropout"):
-        cm.train_step(cm.params, cm.opt_state, cm.state, inputs, labels)
-    loss, _ = cm.eval_step(cm.params, cm.state, inputs, labels)
-    assert bool(torch.isfinite(loss))
-    cm0 = _small_model(0.0, enable_fusion=fusion).compile(
-        AdamOptimizer(), device="cpu")
-    cm0.init(seed=0)
-    *_, loss, _ = cm0.train_step(cm0.params, cm0.opt_state, cm0.state,
-                                 inputs, labels)
-    assert bool(torch.isfinite(loss))
+    pkey = ff_random.key(1)
+    _, _, _, g = pcm.value_and_grads(pcm.params, pcm.state, inputs, labels,
+                                     pkey)
+
+    def jloss(p):
+        outs, _ = jcm.forward_fn(p, jcm.state, [jnp.asarray(x) for x in inputs],
+                                 True, jkey)
+        return jcompute_loss(jcm.loss_type, outs[0].astype(jnp.float32),
+                             jnp.asarray(labels))
+    jg = jax.device_get(jax.jit(jax.grad(jloss))(jcm.params))
+    for layer, ws in g.items():
+        for w, t in ws.items():
+            want = np.asarray(jg[layer][w])
+            if w != ZERO_GRAD:
+                assert (np.linalg.norm(t.numpy() - want)
+                        <= 1e-4 * np.linalg.norm(want)), (layer, w)
+    (jcm.params, jcm.opt_state, jcm.state, jl, _) = jcm.train_step(
+        jcm.params, jcm.opt_state, jcm.state, inputs, labels, jkey)
+    (pcm.params, pcm.opt_state, pcm.state, pl, _) = pcm.train_step(
+        pcm.params, pcm.opt_state, pcm.state, inputs, labels, pkey)
+    assert np.isfinite(float(pl))
+    np.testing.assert_allclose(float(pl), float(jl), rtol=1e-5)
+    jcm, pcm, jkey = _dropout_pair(fusion, impl="flash")
+    x = np.random.default_rng(2).standard_normal((2, 16, 32)).astype(
+        np.float32)
+    with pytest.raises(NotImplementedError) as je:
+        jcm.train_step(jcm.params, jcm.opt_state, jcm.state, [x], labels,
+                       jkey)
+    with pytest.raises(NotImplementedError) as pe:
+        pcm.train_step(pcm.params, pcm.opt_state, pcm.state, [x], labels,
+                       pkey)
+    assert str(pe.value) == str(je.value)
 
 
 def test_weights_evaluate_and_forward():
