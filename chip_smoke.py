@@ -104,6 +104,40 @@ Phases, each fatal on failure (nothing is caught to let the run exit 0):
        returned, the bytes) and its restore seconds. The directory is
        removed at the end.
 
+7. The strategy search (`FFModel.compile` with `search_budget`,
+   search/, parallel/machine.py) on the H100 machine model, at GPT-2
+   medium b8 s1024 bf16 (dropout 0, Adam(1e-4)):
+   (a) `MachineSpec.detect()` on the card: chip, rates and the card's
+       memory size (it must be "h100"), beside a timed pinned
+       host-to-device copy (the measured `host_bw`);
+   (b) the bf16 GEMM sweep that sets the preset's `mxu_flop_overhead`
+       (the four projections) and `mxu_min_dim` (mlp_up at per-shard
+       widths 4096/dm, dm 1..64), printed beside the preset; then
+       `MeasuredCost` over every distinct op of the model at the
+       single-device layout and at each candidate of the 8-way `model`
+       axis: fwd and bwd ms, the analytic op time and their ratio; the
+       flash forward, dQ and dK/dV counters must rise while attention is
+       measured (a measurement that raises fails the phase);
+   (c) four compiles that search and export: one 8-GPU NVSwitch node
+       (`search_num_workers=8`) and two nodes over NDR
+       (`search_num_nodes=2`), each priced analytic and measured on this
+       card (`profiling`): compile seconds, DP expansions, the best cost
+       beside the data-parallel strategy's and the Megatron template's on
+       the same cost model, and the chosen candidates by kind; the best
+       must not cost more than data parallel, and each measured compile
+       must launch the flash kernels (counted from 0 around it). A fifth
+       compile of the first must hit the strategy cache with 0 DP
+       expansions and give the same strategy;
+   (d) the 5b model compiled with the one-node strategy imported
+       (`import_strategy_file`): 2 steps from the seed, with exact
+       launches (one device applies none of the shardings);
+   (e) the same model without the file: 5b's 12 steps, whose first 2
+       losses must equal (d)'s bitwise; `predicted_step_time()` analytic
+       and with 7b's measured costs beside the measured step ms, and
+       `memory_stats()`' predictions beside `max_memory_allocated`, with
+       their ratios (no threshold: the cost model's error on the card is
+       the finding).
+
 The line before the last is `{"kernels": [...]}`; the last line is
 `{"ok": true, "device": {...}}`.
 """
@@ -1687,6 +1721,359 @@ def profile_train(cm, inputs, label, tag: str, rng=None) -> dict:
     return prof
 
 
+# ------------------------------------------------------- phase 7: search
+# the search's budget (expansions) in 7c; GPT-2 medium's 24 blocks are
+# one segment shape, searched once and replayed
+SEARCH_BUDGET = 16
+# 7b: GPT-2 medium's four projection GEMMs at b8 x s1024 (M, K, N), and
+# the per-shard widths 4096 / dm of mlp_up that set mxu_min_dim
+PROJECTIONS = {"attn_qkv": (BATCH * SEQ, 1024, 1024),
+               "attn_out": (BATCH * SEQ, 1024, 1024),
+               "mlp_up": (BATCH * SEQ, 1024, 4096),
+               "mlp_down": (BATCH * SEQ, 4096, 1024)}
+SHARD_DEGREES = (1, 2, 4, 8, 16, 32, 64)
+MIN_DIM_SHARE = 0.9
+
+
+def gemm_sweep(timer, gen) -> dict:
+    """7b: the bf16 GEMMs that set the H100 preset's mxu_flop_overhead
+    (the dense peak over the median TFLOP/s of the four projections) and
+    mxu_min_dim (the narrowest mlp_up shard width keeping 90% of the
+    widest's TFLOP/s), timed by `Timer` (L2 flushed before each call)."""
+    def tflops(m, k, n):
+        a = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+        b = torch.randn(k, n, generator=gen, device="cuda").to(torch.bfloat16)
+        ms = timer(lambda: a @ b)
+        return ms, 2.0 * m * k * n / (ms * 1e-3) / 1e12
+
+    proj = {}
+    for name, (m, k, n) in PROJECTIONS.items():
+        ms, tf = tflops(m, k, n)
+        proj[name] = {"mkn": [m, k, n], "ms": ms, "tflops": tf}
+    median_tf = float(np.median([p["tflops"] for p in proj.values()]))
+    m, k, n = PROJECTIONS["mlp_up"]
+    widths = {}
+    for dm in SHARD_DEGREES:
+        ms, tf = tflops(m, k, n // dm)
+        widths[n // dm] = {"degree": dm, "ms": ms, "tflops": tf}
+    widest = widths[n]["tflops"]
+    min_dim = min(w for w, r in widths.items()
+                  if r["tflops"] >= MIN_DIM_SHARE * widest)
+    out = {"projections": proj, "median_tflops": median_tf,
+           "mxu_flop_overhead": BF16_FLOPS / (median_tf * 1e12),
+           "mlp_up_widths": widths, "mxu_min_dim": min_dim}
+    for name, p in proj.items():
+        log(f"[7b gemm] {name} {p['mkn']}: {p['ms']:.4f} ms, "
+            f"{p['tflops']:.1f} TFLOP/s")
+    for w, r in sorted(widths.items(), reverse=True):
+        log(f"[7b gemm] mlp_up width {w} (4096/{r['degree']}): "
+            f"{r['ms']:.4f} ms, {r['tflops']:.1f} TFLOP/s "
+            f"({100 * r['tflops'] / widest:.1f}% of the widest)")
+    log(f"[7b gemm] derived mxu_flop_overhead {out['mxu_flop_overhead']:.3f}"
+        f" (989 / {median_tf:.1f}), mxu_min_dim {min_dim}")
+    return out
+
+
+def host_copy_rate(nbytes: int = 1 << 28, reps: int = 5) -> float:
+    """7a: bytes/s of a pinned host-to-device copy of `nbytes`: the median
+    of `reps` copies timed with CUDA events, after one warm-up copy."""
+    src = torch.empty(nbytes, dtype=torch.uint8).pin_memory()
+    dst = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    dst.copy_(src, non_blocking=True)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        dst.copy_(src, non_blocking=True)
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1) / 1e3)
+    del src, dst
+    return nbytes / float(np.median(times))
+
+
+def search_model(seed: int, **cfg):
+    """GPT-2 medium as phase 5b trains it (b8, seq 1024, dropout 0, bf16),
+    built with `cfg` for FFConfig."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.models import GPT2Config, build_gpt2
+
+    gc = GPT2Config.medium()
+    gc.dropout = 0.0
+    model = FFModel(FFConfig(batch_size=BATCH, compute_dtype="bfloat16",
+                             seed=seed, **cfg))
+    build_gpt2(model, gc, batch=BATCH)
+    return model
+
+
+def measured_ops(seed: int, machine) -> tuple:
+    """7b: MeasuredCost over the distinct ops of GPT-2 medium b8 s1024 at
+    the single-device layout and at every candidate of the 8-way `model`
+    axis (search_num_workers=8), fwd and bwd against the analytic op
+    time. The flash counters must rise while attention is measured.
+    Returns (rows, the single-device MeasuredCost)."""
+    from flexflow_tpu_torch.compiler.compile import _search_machine
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.ops.op_type import OperatorType
+    from flexflow_tpu_torch.search import memo
+    from flexflow_tpu_torch.search.candidates import layer_candidates
+    from flexflow_tpu_torch.search.measure import MeasuredCost
+
+    model = search_model(seed, search_num_workers=8)
+    sm8 = _search_machine(model.config, machine)
+    distinct = {}
+    for layer in model.layers:
+        key = (layer.params_key(), memo.freeze_weight_specs(layer.weight_specs))
+        distinct.setdefault(key, layer)
+    mc1 = MeasuredCost(machine, cache_dir="", device="cuda")
+    mc8 = MeasuredCost(sm8, cache_dir="", device="cuda")
+    rows = []
+    for layer in distinct.values():
+        attn = layer.op_type is OperatorType.MULTIHEAD_ATTENTION
+        for mach, mc in ((machine, mc1), (sm8, mc8)):
+            for cand in layer_candidates(layer, mach, {BATCH}):
+                if cand.passthrough or (mach is sm8 and cand.name == "dp"):
+                    continue
+                c0 = (fa.launches, fa.launches_dq, fa.launches_dkv)
+                fwd, bwd = mc.op_times(layer, cand)
+                rose = [b - a for a, b in zip(
+                    c0, (fa.launches, fa.launches_dq, fa.launches_dkv))]
+                analytic = cand.op_time(layer, mach)
+                measured = mc.op_time(layer, cand)
+                row = {"op": layer.name, "candidate": cand.name,
+                       "machine": dict(mach.mesh_axes), "fwd_ms": 1e3 * fwd,
+                       "bwd_ms": 1e3 * bwd, "measured_ms": 1e3 * measured,
+                       "analytic_ms": 1e3 * analytic,
+                       "measured_over_analytic": measured / analytic}
+                if attn:
+                    row["flash_launches"] = rose
+                    if min(rose) <= 0:
+                        fail(f"7b: measuring {layer.name} {cand.name} "
+                             f"launched flash fwd/dq/dkv {rose} times")
+                rows.append(row)
+                log(f"[7b op] {layer.name} {cand.name} on "
+                    f"{row['machine']}: fwd {row['fwd_ms']:.4f} ms, bwd "
+                    f"{row['bwd_ms']:.4f} ms, measured {row['measured_ms']:.4f}"
+                    f" ms, analytic {row['analytic_ms']:.4f} ms, ratio "
+                    f"{row['measured_over_analytic']:.3f}"
+                    + (f", flash launches {rose}" if attn else ""))
+    return rows, mc1
+
+
+def searched_compile(seed: int, nodes: int, measured: bool, cache_dir: str,
+                     export: str, tag: str) -> dict:
+    """7c: one compile through FFModel.compile that searches a machine of
+    `nodes` x 8 H100s (search_num_workers=8), costs analytic or measured
+    on this card, exporting the strategy; the launch counters are set to
+    0 just before and read just after. Beside the search's best cost:
+    the data-parallel baseline's and the Megatron template's
+    (parallel/templates.py) on the same cost model, and the chosen
+    candidates tallied by kind."""
+    from collections import Counter
+
+    from flexflow_tpu_torch import AdamOptimizer
+    from flexflow_tpu_torch.compiler.compile import _search_machine
+    from flexflow_tpu_torch.parallel.default_strategy import \
+        data_parallel_strategy
+    from flexflow_tpu_torch.parallel.templates import megatron_strategy
+    from flexflow_tpu_torch.search.candidates import compiled_candidate
+    from flexflow_tpu_torch.search.dp import SEARCH_STATS
+    from flexflow_tpu_torch.search.measure import MeasuredCost
+    from flexflow_tpu_torch.search.optimize import strategy_cost
+
+    model = search_model(seed, search_budget=SEARCH_BUDGET,
+                         search_num_workers=8, search_num_nodes=nodes,
+                         profiling=measured, strategy_cache_dir=cache_dir,
+                         export_strategy_file=export)
+    opt = AdamOptimizer(alpha=LR)
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    e0 = SEARCH_STATS["expansions"]
+    t0 = time.perf_counter()
+    cm = model.compile(opt, "sparse_categorical_crossentropy", [])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    expansions = SEARCH_STATS["expansions"] - e0
+    st = cm.strategy
+    sm = _search_machine(model.config, cm.machine)
+    cost_fn = (MeasuredCost(sm, cache_dir=cache_dir, device="cuda",
+                            compute_dtype="bfloat16").op_time
+               if measured else None)
+    dp = strategy_cost(model, sm, data_parallel_strategy(model, sm),
+                       cost_fn=cost_fn, optimizer=opt)
+    meg = strategy_cost(model, sm, megatron_strategy(model, sm),
+                        cost_fn=cost_fn, optimizer=opt)
+    # the candidates the strategy takes on the search machine
+    tally = Counter(compiled_candidate(l, st, sm, {BATCH}).name.split(":")[0]
+                    for l in model.layers)
+    info = cm.search_cache_info or {}
+    out = {"machine": dict(sm.mesh_axes), "dcn_axes": list(sm.dcn_axes),
+           "measured": measured, "compile_s": wall,
+           "search_s": getattr(st, "_search_seconds", None),
+           "expansions": expansions, "cache_event": info.get("event"),
+           "best_cost_ms": 1e3 * st._predicted_cost,
+           "data_parallel_cost_ms": 1e3 * dp.cost,
+           "megatron_cost_ms": 1e3 * meg.cost,
+           "unity_baseline_cost_ms": (1e3 * st._search_stats.baseline_cost
+                                      if st._search_stats else None),
+           "chosen": dict(sorted(tally.items())), "strategy": st.name,
+           "launches": counts}
+    log(f"[{tag}] {out['machine']} {'measured' if measured else 'analytic'}"
+        f": compile {wall:.2f} s (search {out['search_s']}), "
+        f"{expansions} DP expansions, cache {out['cache_event']}, best "
+        f"{out['best_cost_ms']:.4f} ms, data parallel "
+        f"{out['data_parallel_cost_ms']:.4f} ms, Megatron "
+        f"{out['megatron_cost_ms']:.4f} ms, chosen {out['chosen']}, "
+        f"launches {counts}")
+    if not st._predicted_cost <= dp.cost:
+        fail(f"{tag}: best {st._predicted_cost} > data parallel {dp.cost}")
+    if measured and min(counts[n] for n in (
+            "flash_attention_fwd", "flash_attention_dq",
+            "flash_attention_dkv")) <= 0:
+        fail(f"{tag}: the measured search launched no flash kernel: {counts}")
+    del cm
+    return out
+
+
+def two_steps(seed: int, **cfg) -> tuple:
+    """7d: GPT-2 medium as 5b compiles it with `cfg`, 2 steps from seed 0
+    (the launch counters set to 0 just before, read just after)."""
+    from flexflow_tpu_torch import random as ff_random
+
+    gc, model, cm = gpt2_train_model(seed, LAYERS, "bfloat16", **cfg)
+    ids, pos, labels = train_batch(seed, gc.vocab)
+    inputs = [torch.from_numpy(ids).cuda(), torch.from_numpy(pos).cuda()]
+    label = torch.from_numpy(labels).cuda()
+    base = ff_random.key(seed + 17)
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    losses = []
+    for i in range(2):
+        (cm.params, cm.opt_state, cm.state, loss, _) = cm.train_step(
+            cm.params, cm.opt_state, cm.state, inputs, label,
+            ff_random.fold_in(base, i))
+        losses.append(loss)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    return [float(x) for x in losses], counts, cm
+
+
+def phase7(seed: int, timer, gen) -> dict:
+    """Phase 7: the strategy search on the H100 machine model (see the
+    module docstring)."""
+    import tempfile
+
+    from flexflow_tpu_torch.compiler.compile import resolve_machine
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.parallel.machine import CHIP_PRESETS, MachineSpec
+    from flexflow_tpu_torch.parallel.sharding import Strategy
+
+    out = {}
+    # ---- 7a: the machine
+    m = MachineSpec.detect()
+    host_bw = host_copy_rate()
+    out["machine"] = m.to_json()
+    out["host_bw_measured"] = host_bw
+    log(f"[7a] detect(): chip {m.chip}, mesh {m.mesh_axes}, flops "
+        f"{m.flops:.4g}, hbm_bw {m.hbm_bw:.4g}, hbm_bytes {m.hbm_bytes:.6g}, "
+        f"host_bw {m.host_bw:.6g} (preset), pinned H2D measured "
+        f"{host_bw:.6g}, link {m.ici_bw}, overlap_frac {m.overlap_frac} "
+        "(not measured)")
+    if m.chip != "h100":
+        fail(f"7a: detect() gave chip {m.chip!r}, expected 'h100'")
+    machine = resolve_machine(FFConfig())
+    # ---- 7b: GEMMs and measured op costs
+    out["gemm"] = gemm_sweep(timer, gen)
+    preset = CHIP_PRESETS["h100"]
+    log(f"[7b] preset mxu_flop_overhead {preset.mxu_flop_overhead}, "
+        f"mxu_min_dim {preset.mxu_min_dim}")
+    out["ops"], mc1 = measured_ops(seed, machine)
+    torch.cuda.empty_cache()
+    # ---- 7c: searches, analytic and measured, 1 and 2 nodes; the cache
+    with tempfile.TemporaryDirectory(prefix="ff_search_") as tmp:
+        one_node = os.path.join(tmp, "one_node.json")
+        out["searches"] = []
+        for nodes in (1, 2):
+            for measured in (False, True):
+                path = one_node if (nodes, measured) == (1, False) else \
+                    os.path.join(tmp, f"n{nodes}_{int(measured)}.json")
+                out["searches"].append(searched_compile(
+                    seed, nodes, measured, tmp, path,
+                    f"7c {nodes} node(s)"))
+        again = searched_compile(seed, 1, False, tmp,
+                                 os.path.join(tmp, "again.json"),
+                                 "7c cache")
+        out["cache_hit"] = again
+        if again["cache_event"] != "hit" or again["expansions"] != 0:
+            fail(f"7c: the second compile was a cache "
+                 f"{again['cache_event']} with {again['expansions']} "
+                 "expansions, expected a hit with 0")
+        if Strategy.load(os.path.join(tmp, "again.json")).to_json() != \
+                Strategy.load(one_node).to_json():
+            fail("7c: the cache hit's strategy differs from the search's")
+        # ---- 7d: export -> import on the card
+        collect_garbage()
+        torch.cuda.empty_cache()
+        with_file, counts, cm = two_steps(seed,
+                                          import_strategy_file=one_node)
+        out["import"] = {"strategy": cm.strategy.name, "losses": with_file,
+                         "launches": counts,
+                         "remat": cm.strategy.remat or {}}
+    del cm
+    want = {n: 0 for n in counts}
+    want.update(flash_attention_fwd=2 * LAYERS, flash_attention_dq=2 * LAYERS,
+                flash_attention_dkv=2 * LAYERS, fused_adam=2)
+    log(f"[7d] imported {out['import']['strategy']}: losses {with_file}, "
+        f"launches {counts}")
+    if counts != want or not all(np.isfinite(with_file)):
+        fail(f"7d: launches {counts} (expected {want}), losses {with_file}")
+    # ---- 7e: the same model without the file: 5b's 12 steps, then the
+    # prediction beside the measurement
+    flash = {"flash_attention_fwd": LAYERS, "flash_attention_dq": LAYERS,
+             "flash_attention_dkv": LAYERS}
+    summary, cm, inputs, label = train_full(
+        seed, None, 0, dict(flash, fused_adam=1), "7e no file")
+    if summary["losses"][:2] != with_file:
+        fail(f"7d: losses with the imported strategy {with_file} differ "
+             f"from those without {summary['losses'][:2]}")
+    mem = cm.memory_stats()
+    pred = {"analytic_ms": 1e3 * cm.predicted_step_time(),
+            "measured_ms": 1e3 * cm.predicted_step_time(cost_fn=mc1.op_time)}
+    step = summary["step_ms_median"]
+    out["prediction"] = {
+        "step_ms": step, "step_ms_windows": summary["step_ms_windows"],
+        "predicted_ms": pred,
+        "analytic_over_step": pred["analytic_ms"] / step,
+        "measured_over_step": pred["measured_ms"] / step,
+        "memory": mem,
+        "predicted_peak_over_allocated":
+            mem["predicted_peak_bytes"] / mem["max_memory_allocated_bytes"],
+        "predicted_weight_state_over_allocated":
+            mem["predicted_weight_state_bytes"]
+            / mem["max_memory_allocated_bytes"],
+        "launches": summary["launches"], "losses": summary["losses"]}
+    log(f"[7e] step {step:.2f} ms (windows "
+        f"{', '.join(f'{w:.2f}' for w in summary['step_ms_windows'])}); "
+        f"predicted_step_time analytic {pred['analytic_ms']:.2f} ms "
+        f"(x{out['prediction']['analytic_over_step']:.3f}), measured costs "
+        f"{pred['measured_ms']:.2f} ms "
+        f"(x{out['prediction']['measured_over_step']:.3f})")
+    log(f"[7e] memory_stats: predicted weight state "
+        f"{mem['predicted_weight_state_bytes'] / 2**30:.2f} GiB, predicted "
+        f"peak {mem['predicted_peak_bytes'] / 2**30:.2f} GiB, "
+        f"max_memory_allocated {mem['max_memory_allocated_bytes'] / 2**30:.2f}"
+        f" GiB (x{out['prediction']['predicted_peak_over_allocated']:.3f}); "
+        f"params {mem['actual_param_bytes_per_device'] / 2**30:.2f} GiB, "
+        f"moments {mem['actual_opt_state_bytes_per_device'] / 2**30:.2f} GiB")
+    del cm, inputs, label
+    collect_garbage()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1864,6 +2251,9 @@ def main() -> None:
                                            "6c remat full vs off")
     drop["fit"] = fit_preempt_resume(args.seed)
 
+    # ---- 7. the strategy search on the H100 machine model
+    search = phase7(args.seed, timer, gen)
+
     # launches on the main paths: both serving runs, the 12 Adam training
     # steps and the Adam fit epoch, the 12 padded-vocab SGD steps and the
     # accum_steps=2 fit epoch, each counted from 0 just before it ran
@@ -1879,6 +2269,12 @@ def main() -> None:
     paths["train_remat_steps"] = drop["6c dropout 0 remat full"]["launches"]
     for run in ("uninterrupted", "preempted", "resumed"):
         paths[f"train_dropout_fit_{run}"] = drop["fit"][run]["launches"]
+    for r in search["searches"]:
+        if r["measured"]:
+            paths[f"search_measured_{r['machine']['data']}_node"] = \
+                r["launches"]
+    paths["train_searched_strategy_steps"] = search["import"]["launches"]
+    paths["train_unsearched_steps"] = search["prediction"]["launches"]
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in paths.values())
         r["launches_by_path"] = {p: c[r["name"]] for p, c in paths.items()}
@@ -1887,6 +2283,7 @@ def main() -> None:
     log(json.dumps({"train": train}))
     log(json.dumps({"train_sgd_padded": sgd}))
     log(json.dumps({"train_dropout": drop}))
+    log(json.dumps({"search": search}))
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

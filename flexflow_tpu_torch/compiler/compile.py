@@ -5,15 +5,26 @@
 forward (compiler/lowering.py) and returns a `CompiledModel` with
 `init`, `train_step`, `eval_step`, `infer`, `fit`, `evaluate`, `forward`,
 `save_checkpoint`, `load_checkpoint`, `get_weight` and `set_weight`, as
-the JAX package's. One device, no mesh: the strategy search (and the
-remat search), ZeRO, pipelines, the fused multi-step dispatch, the retry
-policy, health and telemetry are not ported yet.
+the JAX package's. It runs on one device: ZeRO, pipelines, the fused
+multi-step dispatch, the retry policy, health and telemetry are not
+ported yet.
 
-The strategy is `import_strategy_file`'s (parallel/sharding.py) or an
-empty one-device strategy, saved to `export_strategy_file` when that is
-set; its `remat` map ({layer: "full" | "dots"}) reaches the lowering, and
-`cfg.remat` (the deprecated uniform alias) makes it "full" for every layer
-when the strategy has none.
+The strategy is chosen as in JAX (`_pick_strategy`): a strategy file
+(`import_strategy_file`), else the Unity search (search/) of the search
+machine when `search_budget > 0` and that machine has more than one device
+(`search_num_nodes` / `search_num_workers` describe one larger than the
+real machine), else the data-parallel strategy; it is saved to
+`export_strategy_file` when that is set. The machine is
+`machine_model_file`'s or the one device the compile runs on
+(`resolve_machine`); a machine file of more than one device raises, as
+the port executes on one. On one
+device the shardings are carried and none is applied, as a one-device
+mesh applies none in JAX; the strategy's `remat` map ({layer: "full" |
+"dots"}, searched per layer with `remat_search`) reaches the lowering,
+and `cfg.remat` (the deprecated uniform alias) makes it "full" for every
+layer when the strategy has none. `predicted_step_time()` and
+`memory_stats()` put the cost model's predictions beside what the device
+measures.
 
 The rng is threaded as in JAX (`compile.py:593-701`): `train_step(...,
 rng)` hands the key to the forward's dropout draws (rng=None is allowed
@@ -68,24 +79,78 @@ from flexflow_tpu_torch.kernels import fused_ce, fused_optim
 from flexflow_tpu_torch.losses import LossType, compute_loss
 from flexflow_tpu_torch.metrics import MetricsType, PerfMetrics, compute_metrics
 from flexflow_tpu_torch.optimizers import SGDOptimizer
+from flexflow_tpu_torch.parallel.default_strategy import data_parallel_strategy
+from flexflow_tpu_torch.parallel.machine import MachineSpec
 from flexflow_tpu_torch.parallel.sharding import Strategy
 from flexflow_tpu_torch.runtime.dataloader import (SingleDataLoader,
                                                    group_microbatches,
                                                    prefetch_to_device)
 
 
-def _pick_strategy(cfg) -> Strategy:
-    if cfg.remat_search:
+def resolve_machine(cfg, device=None) -> MachineSpec:
+    """The machine a compile runs on: `machine_model_file`'s, else the one
+    device it executes on (`MachineSpec.detect`, parallel/machine.py). The
+    port executes on one device: a machine file of more than one raises."""
+    if not cfg.machine_model_file:
+        return MachineSpec.detect(device=device)
+    machine = MachineSpec.from_file(cfg.machine_model_file)
+    if machine.num_devices > 1:
         raise NotImplementedError(
-            "--remat-search: the per-layer remat search is not ported yet; "
-            "give a strategy file with a remat map (import_strategy_file) "
-            "or use --remat")
-    strategy = (Strategy.load(cfg.import_strategy_file)
-                if cfg.import_strategy_file
-                else Strategy(name="single_device"))
+            f"machine {dict(machine.mesh_axes)} has {machine.num_devices} "
+            "devices: the port executes on one (multi-GPU execution is "
+            "ROADMAP Queue 1 item 7); search a larger machine with "
+            "search_num_nodes / search_num_workers and export_strategy_file")
+    return machine
+
+
+def _search_machine(cfg, machine: MachineSpec) -> MachineSpec:
+    """--search-num-nodes / --search-num-workers (reference config.h:
+    154-155): search strategies for a machine LARGER than the real one
+    (with --export, so big-machine strategies are found on a small host).
+    Nodes map to a data axis across the network, workers to the
+    intra-node model axis."""
+    if not cfg.search_num_nodes and not cfg.search_num_workers:
+        return machine
+    nodes = max(1, cfg.search_num_nodes)
+    workers = max(1, cfg.search_num_workers)
+    axes = {"data": nodes, "model": workers}
+    return MachineSpec(mesh_axes=axes, chip=machine.chip,
+                       dcn_axes=("data",) if nodes > 1 else ())
+
+
+def _pick_strategy(model, machine: MachineSpec, optimizer=None,
+                   device=None) -> Strategy:
+    """A strategy file, else a search of the search machine, else data
+    parallel (JAX's order). No fallback: a search that fails raises."""
+    cfg = model.config
+    if cfg.pipeline_stages > 1:
+        raise NotImplementedError(
+            "pipeline_stages > 1: pipelined compiles are not ported yet "
+            "(ROADMAP Queue 1 item 9: the pipeline and its cut search)")
+    if cfg.import_strategy_file:
+        strategy = Strategy.load(cfg.import_strategy_file)
+    else:
+        sm = _search_machine(cfg, machine)
+        if sm is not machine and sm.mesh_axes != machine.mesh_axes \
+                and not cfg.export_strategy_file:
+            warnings.warn(
+                f"searching for machine {sm.mesh_axes} but executing on "
+                f"{machine.mesh_axes}: shardings that don't fit the real mesh "
+                "degrade to replicated — --search-num-nodes/"
+                "--search-num-workers are meant to be paired with --export")
+        if cfg.search_budget > 0 and not cfg.only_data_parallel \
+                and sm.num_devices > 1:
+            from flexflow_tpu_torch.search.optimize import graph_optimize
+
+            # the optimizer rides along so the search's memory model can
+            # price its moments (count and state dtype)
+            strategy = graph_optimize(model, sm, optimizer=optimizer,
+                                      measure_device=device)
+        else:
+            strategy = data_parallel_strategy(model, machine)
     if strategy.pipeline:
         raise NotImplementedError(
-            "pipeline strategies are not ported yet (one device)")
+            "pipeline strategies are not ported yet (ROADMAP Queue 1 item 9)")
     return strategy
 
 
@@ -94,27 +159,34 @@ def compile_model(model, optimizer, loss_type, metrics: Sequence = (),
     """The training program of `model`'s graph, its output the last
     layer's first output (SGD at its default step size when no optimizer
     is given, as in JAX)."""
-    strategy = _pick_strategy(model.config)
+    device = resolve_device(device)
+    optimizer = optimizer or SGDOptimizer()
+    machine = resolve_machine(model.config, device)
+    strategy = _pick_strategy(model, machine, optimizer, device)
     if model.config.export_strategy_file:
         strategy.save(model.config.export_strategy_file)
-    return CompiledModel(model, optimizer or SGDOptimizer(),
-                         LossType.from_any(loss_type),
+    return CompiledModel(model, optimizer, LossType.from_any(loss_type),
                          [MetricsType.from_any(m) for m in metrics],
                          model.layers[-1].outputs[:1], device=device,
-                         strategy=strategy)
+                         strategy=strategy, machine=machine)
 
 
 class CompiledModel:
     def __init__(self, model, optimizer, loss_type: LossType,
                  metrics: List[MetricsType], outputs, device=None,
-                 strategy: Optional[Strategy] = None):
+                 strategy: Optional[Strategy] = None,
+                 machine: Optional[MachineSpec] = None):
         self.device = resolve_device(device)
         self.model = model
         self.cfg = model.config
         self.optimizer = optimizer
         self.loss_type = loss_type
         self.metrics = metrics
-        self.strategy = strategy or Strategy(name="single_device")
+        # the machine the cost model prices this compile on (one device)
+        self.machine = machine or resolve_machine(self.cfg, self.device)
+        self.strategy = strategy or data_parallel_strategy(model, self.machine)
+        # this compile's strategy-cache event (None when nothing searched)
+        self.search_cache_info = getattr(self.strategy, "_cache_info", None)
         # --remat (deprecated alias): uniform "full" per-layer policy
         if self.cfg.remat and not self.strategy.remat:
             self.strategy.remat = {l.name: "full" for l in model.layers}
@@ -500,3 +572,96 @@ class CompiledModel:
         self.params[layer_name][wname] = self._place(
             np.asarray(value), layer.weight_specs[wname],
             f"{layer_name}.{wname}")
+
+    # ------------------------------------------------------------ cost model
+    def _candidate_for(self, layer):
+        """The sharding candidate matching the compiled strategy's weight
+        layout for this layer (candidates.compiled_candidate)."""
+        from flexflow_tpu_torch.search.candidates import compiled_candidate
+
+        batch_sizes = {t.shape[0] for t in self.model.input_tensors
+                       if t.ndim > 0}
+        return compiled_candidate(layer, self.strategy, self.machine,
+                                  batch_sizes)
+
+    def memory_stats(self) -> dict:
+        """Per-device memory: what the cost model PREDICTS for this
+        compile's strategy and optimizer (params + grads + moments, and the
+        search's peak with the live activations) next to what the device
+        holds (the params' and moments' bytes, and on a CUDA device
+        `torch.cuda.max_memory_allocated` since the last
+        `reset_peak_memory_stats`)."""
+        from flexflow_tpu_torch.search import cost_model as cmod
+        from flexflow_tpu_torch.search.optimize import strategy_cost
+
+        opt_mem = cmod.opt_mem_spec(self.optimizer, self.cfg, self.machine)
+        pred_w = pred_opt = 0
+        for layer in self.model.layers:
+            if not layer.weight_specs:
+                continue
+            cand = self._candidate_for(layer)
+            pred_w += cand.weight_mem_bytes(layer, self.machine, opt_mem)
+            for w, spec in layer.weight_specs.items():
+                dims = cand.weight_dims.get(w, [])
+                elems = cmod.shard_bytes(spec, dims, self.machine) \
+                    // max(1, spec.dtype.itemsize)
+                pred_opt += (opt_mem.moments * elems * opt_mem.state_itemsize
+                             // cmod.zero_divisor(spec, dims, self.machine,
+                                                  opt_mem.zero_axes))
+
+        def tree_bytes(tree):
+            return sum(t.numel() * t.element_size()
+                       for ws in (tree or {}).values() for t in ws.values())
+
+        moments = 0
+        for k, v in (self.opt_state or {}).items():
+            if isinstance(v, dict):
+                moments += tree_bytes(v)
+        peak = (torch.cuda.max_memory_allocated(self.device)
+                if self.device.type == "cuda" else None)
+        return {
+            "zero_sharding": "off",
+            "data_axis_degree": 1,
+            "predicted_weight_state_bytes": int(pred_w),
+            "predicted_opt_state_bytes": int(pred_opt),
+            "predicted_peak_bytes": int(strategy_cost(
+                self.model, self.machine, self.strategy,
+                optimizer=self.optimizer).mem_bytes),
+            "actual_param_bytes_per_device": tree_bytes(self.params),
+            "actual_opt_state_bytes_per_device": moments,
+            "max_memory_allocated_bytes": peak,
+        }
+
+    def search_cache_stats(self) -> dict:
+        """Search fast-path observability: this compile's strategy-cache
+        event, the process-wide cache counters, the memoized-costing hit
+        rates and the DP work counters."""
+        from flexflow_tpu_torch.search import memo
+        from flexflow_tpu_torch.search import strategy_cache as sc
+        from flexflow_tpu_torch.search.dp import SEARCH_STATS
+
+        return {
+            "strategy_cache": dict(sc.STATS.as_dict(),
+                                   this_compile=self.search_cache_info),
+            "memo": memo.stats(),
+            "dp": dict(SEARCH_STATS),
+        }
+
+    def predicted_step_time(self, cost_fn=None) -> Optional[float]:
+        """The cost model's per-update time for this compile: the search's
+        own best cost when the strategy came out of graph_optimize (or its
+        cache), else the additive sum of the compiled candidates' op times
+        — analytic, or `cost_fn(layer, cand)`'s (a MeasuredCost's op_time)
+        when given. Scaled by accum_steps (one update is N microbatch
+        passes)."""
+        accum = max(1, int(self._accum_steps))
+        pc = getattr(self.strategy, "_predicted_cost", None)
+        if pc and cost_fn is None:
+            return float(pc) * accum
+        total = 0.0
+        for layer in self.model.layers:
+            cand = self._candidate_for(layer)
+            if not cand.passthrough:
+                total += (cost_fn(layer, cand) if cost_fn is not None
+                          else cand.op_time(layer, self.machine))
+        return total * accum if total > 0 else None

@@ -19,6 +19,35 @@ class FFConfig:
     batch_size: int = 64
     seq_length: int = 0
     seed: int = 0
+    # the strategy search (search/; --budget, --alpha, ...): compile
+    # searches when search_budget > 0 and the search machine has more than
+    # one device. search_num_nodes / search_num_workers describe a machine
+    # larger than the real one (nodes on a "data" axis across the network,
+    # workers on a "model" axis inside a node), meant to be paired with
+    # --export; machine_model_file describes the machine outright.
+    search_budget: int = 0
+    search_alpha: float = 1.05
+    only_data_parallel: bool = False
+    enable_parameter_parallel: bool = True
+    enable_attribute_parallel: bool = True
+    base_optimize_threshold: int = 10
+    search_num_nodes: int = 0
+    search_num_workers: int = 0
+    memory_search: bool = False
+    substitution_json: str = ""
+    # persistent strategy cache (search/strategy_cache.py): a warm compile
+    # of an unchanged (graph, machine, knobs, calibration) skips the search.
+    # dir "" -> $FF_STRATEGY_CACHE_DIR or ~/.cache/flexflow_tpu_torch/strategy
+    strategy_cache: bool = True
+    strategy_cache_dir: str = ""
+    # "additive" (the only one ported; "taskgraph" and "learned" raise)
+    simulator_mode: str = "additive"
+    machine_model_file: str = ""
+    # --profiling: the search prices ops by timing them on the device
+    # (search/measure.py)
+    profiling: bool = False
+    # pipeline parallelism is not ported: > 1 raises at compile
+    pipeline_stages: int = 1
     # --fusion: False keeps the hand-written attention kernels off (the
     # plain PyTorch attention runs instead)
     enable_fusion: bool = True
@@ -50,8 +79,9 @@ class FFConfig:
     import_strategy_file: str = ""
     export_strategy_file: str = ""
     # rematerialization: --remat is the deprecated uniform alias (every
-    # layer "full"); --remat-search would search per-layer policies over
-    # --remat-policies (not ported: it raises at compile). The two flags
+    # layer "full"); --remat-search makes the search choose a policy per
+    # layer from --remat-policies (on a one-device machine nothing is
+    # searched and no layer is rematerialized, as in JAX). The two flags
     # contradict each other (see _check_remat_knobs).
     remat: bool = False
     remat_search: bool = False
@@ -109,6 +139,28 @@ class FFConfig:
         p.add_argument("-b", "--batch-size", type=int, default=64)
         p.add_argument("--seq-length", type=int, default=0)
         p.add_argument("--seed", type=int, default=0)
+        p.add_argument("--budget", "--search-budget", dest="budget", type=int,
+                       default=0)
+        p.add_argument("--alpha", "--search-alpha", dest="alpha", type=float,
+                       default=1.05)
+        p.add_argument("--only-data-parallel", action="store_true")
+        p.add_argument("--enable-parameter-parallel",
+                       action=argparse.BooleanOptionalAction, default=True)
+        p.add_argument("--enable-attribute-parallel",
+                       action=argparse.BooleanOptionalAction, default=True)
+        p.add_argument("--base-optimize-threshold", type=int, default=10)
+        p.add_argument("--search-num-nodes", type=int, default=0)
+        p.add_argument("--search-num-workers", type=int, default=0)
+        p.add_argument("--memory-search", action="store_true")
+        p.add_argument("--substitution-json", type=str, default="")
+        p.add_argument("--strategy-cache", action=argparse.BooleanOptionalAction,
+                       default=True)
+        p.add_argument("--strategy-cache-dir", type=str, default="")
+        p.add_argument("--simulator-mode", type=str, default="additive",
+                       choices=("additive", "learned", "taskgraph"))
+        p.add_argument("--machine-model-file", type=str, default="")
+        p.add_argument("--profiling", action="store_true")
+        p.add_argument("--pipeline-stages", type=int, default=1)
         p.add_argument("--fusion", dest="fusion", action="store_true",
                        default=True)
         p.add_argument("--no-fusion", dest="fusion", action="store_false")
@@ -146,6 +198,22 @@ class FFConfig:
             batch_size=args.batch_size,
             seq_length=args.seq_length,
             seed=args.seed,
+            search_budget=args.budget,
+            search_alpha=args.alpha,
+            only_data_parallel=args.only_data_parallel,
+            enable_parameter_parallel=args.enable_parameter_parallel,
+            enable_attribute_parallel=args.enable_attribute_parallel,
+            base_optimize_threshold=args.base_optimize_threshold,
+            search_num_nodes=args.search_num_nodes,
+            search_num_workers=args.search_num_workers,
+            memory_search=args.memory_search,
+            substitution_json=args.substitution_json,
+            strategy_cache=args.strategy_cache,
+            strategy_cache_dir=args.strategy_cache_dir,
+            simulator_mode=args.simulator_mode,
+            machine_model_file=args.machine_model_file,
+            profiling=args.profiling,
+            pipeline_stages=args.pipeline_stages,
             enable_fusion=args.fusion,
             compute_dtype=args.compute_dtype,
             max_decode_len=args.max_decode_len,

@@ -2,14 +2,26 @@
 
 A Layer records its op type, a params dict, its input tensors and the
 output tensors it produces; shape inference fills `weight_specs`.
+`params_key()` is its hashable identity (op type, params, input specs),
+the key the search's memo tables and measured-cost store intern by.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from flexflow_tpu_torch.core.tensor import Tensor, TensorSpec
 from flexflow_tpu_torch.ops.op_type import OperatorType
+
+
+def _freeze(v):
+    if isinstance(v, dict):
+        return tuple(sorted((k, _freeze(x)) for k, x in v.items()))
+    if isinstance(v, (list, tuple)):
+        return tuple(_freeze(x) for x in v)
+    if hasattr(v, "tobytes") and hasattr(v, "shape"):  # ndarray constants
+        return (tuple(v.shape), str(getattr(v, "dtype", "")), v.tobytes())
+    return v
 
 
 class Layer:
@@ -28,9 +40,18 @@ class Layer:
 
     def add_output(self, spec: TensorSpec, idx: int = 0,
                    name: Optional[str] = None) -> Tensor:
-        t = Tensor(spec, owner=self, name=name or f"{self.name}:out{idx}")
+        t = Tensor(spec, owner=self, owner_idx=idx,
+                   name=name or f"{self.name}:out{idx}")
         self.outputs.append(t)
         return t
+
+    def params_key(self) -> Tuple:
+        """Hashable identity: op type + params + input specs."""
+        return (
+            self.op_type,
+            _freeze(self.params),
+            tuple((i.spec.shape, i.spec.dtype) for i in self.inputs),
+        )
 
     def __repr__(self):
         ins = ", ".join(str(list(i.shape)) for i in self.inputs)

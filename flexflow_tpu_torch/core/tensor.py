@@ -8,6 +8,7 @@ runs the graph (compiler/lowering.py).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 from flexflow_tpu_torch.dtype import DataType
@@ -29,6 +30,14 @@ class TensorSpec:
     def ndim(self) -> int:
         return len(self.shape)
 
+    @property
+    def num_elements(self) -> int:
+        return math.prod(self.shape) if self.shape else 1
+
+    @property
+    def size_bytes(self) -> int:
+        return self.num_elements * self.dtype.itemsize
+
     def with_shape(self, shape) -> "TensorSpec":
         return TensorSpec(tuple(shape), self.dtype)
 
@@ -38,14 +47,16 @@ class TensorSpec:
 
 class Tensor:
     """Symbolic value in the layer graph. `owner` is the producing Layer
-    (None for graph inputs from FFModel.create_tensor)."""
+    (None for graph inputs from FFModel.create_tensor), `owner_idx` its
+    output slot."""
 
     _next_guid = [1000]
 
-    def __init__(self, spec: TensorSpec, owner=None,
+    def __init__(self, spec: TensorSpec, owner=None, owner_idx: int = 0,
                  name: Optional[str] = None):
         self.spec = spec
         self.owner = owner
+        self.owner_idx = owner_idx
         self.guid = Tensor._next_guid[0]
         Tensor._next_guid[0] += 1
         self.name = name or f"tensor_{self.guid}"

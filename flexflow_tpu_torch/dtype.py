@@ -25,6 +25,10 @@ class DataType(enum.Enum):
     def torch_dtype(self) -> torch.dtype:
         return _TORCH[self]
 
+    @property
+    def itemsize(self) -> int:
+        return _TORCH[self].itemsize
+
     @staticmethod
     def from_any(x) -> "DataType":
         if isinstance(x, DataType):

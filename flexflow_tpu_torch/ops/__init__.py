@@ -5,6 +5,7 @@ from flexflow_tpu_torch.ops.registry import (  # noqa: F401
     LoweringCtx,
     OpDef,
     get_op_def,
+    io_bytes,
     register_op,
 )
 
@@ -16,4 +17,5 @@ from flexflow_tpu_torch.ops import (  # noqa: F401
     elementwise,
     embed_ops,
     norm_ops,
+    parallel_ops,
 )

@@ -223,4 +223,14 @@ def _mha_lower(layer: "Layer", inputs, weights, ctx: LoweringCtx):
     return [_out_proj(weights, out, b, sq, embed)]
 
 
-register_op(OperatorType.MULTIHEAD_ATTENTION, _mha_infer, _mha_lower)
+def _mha_flops(layer: "Layer"):
+    q, k = layer.inputs[0].spec, layer.inputs[1].spec
+    b, sq, e = q.shape
+    sk = k.shape[1]
+    proj = 2.0 * b * (3 * sq + sq) * e * e  # q,k,v,o projections (sq ~ sk)
+    attn = 2.0 * b * sq * sk * e * 2  # qk^T and att@v
+    return proj + attn
+
+
+register_op(OperatorType.MULTIHEAD_ATTENTION, _mha_infer, _mha_lower,
+            _mha_flops)

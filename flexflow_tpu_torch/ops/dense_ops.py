@@ -34,4 +34,9 @@ def _linear_lower(layer: "Layer", inputs, weights, ctx):
     return [apply_activation(layer.params.get("activation"), y)]
 
 
-register_op(OperatorType.LINEAR, _linear_infer, _linear_lower)
+def _linear_flops(layer: "Layer"):
+    x = layer.inputs[0].spec
+    return 2.0 * x.num_elements * layer.params["out_dim"]
+
+
+register_op(OperatorType.LINEAR, _linear_infer, _linear_lower, _linear_flops)

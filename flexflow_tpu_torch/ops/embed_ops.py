@@ -44,4 +44,8 @@ def _emb_lower(layer: "Layer", inputs, weights, ctx):
     return [y]
 
 
-register_op(OperatorType.EMBEDDING, _emb_infer, _emb_lower)
+def _emb_flops(layer: "Layer"):
+    return float(layer.outputs[0].spec.num_elements)
+
+
+register_op(OperatorType.EMBEDDING, _emb_infer, _emb_lower, _emb_flops)

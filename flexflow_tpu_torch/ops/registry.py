@@ -1,11 +1,14 @@
-"""Op registry: shape inference + PyTorch lowering per OperatorType
-(counterpart: flexflow_tpu/ops/registry.py).
+"""Op registry: shape inference + PyTorch lowering + cost facts per
+OperatorType (counterpart: flexflow_tpu/ops/registry.py).
 
 An op needs:
 
 - ``infer(layer)`` — output TensorSpecs (and fills layer.weight_specs);
 - ``lower(layer, inputs, weights, ctx)`` — a function on tensors that
-  returns the layer's outputs.
+  returns the layer's outputs;
+- ``flops(layer)`` (optional) — forward FLOPs for the search's cost model
+  (search/cost_model.py); without it an op counts one operation per
+  output element, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -70,13 +73,20 @@ class OpDef:
     infer: Callable[["Layer"], List[TensorSpec]]
     lower: Callable[["Layer", List[torch.Tensor], Dict[str, torch.Tensor],
                      LoweringCtx], List[torch.Tensor]]
+    flops: Optional[Callable[["Layer"], float]] = None  # per forward pass
+
+    def flop_count(self, layer: "Layer") -> float:
+        if self.flops is not None:
+            return float(self.flops(layer))
+        # default: one vector op per output element
+        return float(sum(o.spec.num_elements for o in layer.outputs))
 
 
 _REGISTRY: Dict[OperatorType, OpDef] = {}
 
 
-def register_op(op_type: OperatorType, infer, lower) -> OpDef:
-    d = OpDef(infer=infer, lower=lower)
+def register_op(op_type: OperatorType, infer, lower, flops=None) -> OpDef:
+    d = OpDef(infer=infer, lower=lower, flops=flops)
     _REGISTRY[op_type] = d
     return d
 
@@ -85,3 +95,12 @@ def get_op_def(op_type: OperatorType) -> OpDef:
     if op_type not in _REGISTRY:
         raise NotImplementedError(f"no OpDef registered for {op_type}")
     return _REGISTRY[op_type]
+
+
+def io_bytes(layer: "Layer") -> int:
+    """Bytes moved through memory for one forward pass (inputs + weights +
+    outputs)."""
+    n = sum(i.spec.size_bytes for i in layer.inputs)
+    n += sum(s.size_bytes for s in layer.weight_specs.values())
+    n += sum(o.spec.size_bytes for o in layer.outputs)
+    return n

@@ -51,8 +51,13 @@ class Optimizer:
 
     def moment_count(self) -> int:
         """Per-param moment tensors the state carries (the checkpoint
-        fingerprint's optimizer schema)."""
+        fingerprint's optimizer schema, and the search's memory model)."""
         return 2
+
+    def moment_itemsize(self) -> int:
+        """Bytes per element of a stored moment (the search's memory
+        model, search/cost_model.py OptMemSpec)."""
+        return 4
 
     def update(self, grads: Tree, state: Dict[str, Any],
                params: Tree) -> Dict[str, Any]:
@@ -113,6 +118,9 @@ class AdamOptimizer(Optimizer):
             raise ValueError(f"state_dtype={self.state_dtype!r} not supported "
                              f"(choose from {tuple(self._STATE_DTYPES)})")
         return self._STATE_DTYPES[sd]
+
+    def moment_itemsize(self) -> int:
+        return self.moment_dtype().itemsize
 
     def init_state(self, params: Tree) -> Dict[str, Any]:
         md = self.moment_dtype()

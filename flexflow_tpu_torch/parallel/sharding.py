@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 # One dim's assignment: None (replicated), "axis", or a tuple of axes.
 DimSharding = Union[None, str, Tuple[str, ...]]
@@ -31,6 +31,16 @@ def _norm_dim(d) -> DimSharding:
         return d
     t = tuple(d)
     return t[0] if len(t) == 1 else t
+
+
+def used_axes(dims: Sequence[DimSharding]) -> List[str]:
+    """The mesh axes a dim list shards over, in dim order."""
+    out: List[str] = []
+    for d in dims:
+        if d is None:
+            continue
+        out.extend([d] if isinstance(d, str) else list(d))
+    return out
 
 
 @dataclasses.dataclass

@@ -629,3 +629,30 @@ def test_prefetch_to_device_on_a_side_stream():
         time.sleep(0.01)
     assert not any(t.name == "ff-prefetch" and t.is_alive()
                    for t in threading.enumerate())
+
+
+@pytest.mark.cuda
+def test_detect_and_measured_dense_op_on_card(tmp_path):
+    """detect() names an H100 "h100" with the card's own memory, as one
+    device; MeasuredCost times a dense op on the card (bf16, CUDA events)
+    with positive forward and backward, and its store reloads."""
+    from flexflow_tpu_torch.parallel.machine import MachineSpec
+    from flexflow_tpu_torch.search.candidates import layer_candidates
+    from flexflow_tpu_torch.search.measure import MeasuredCost
+
+    _cuda_or_skip()
+    m = MachineSpec.detect()
+    assert m.chip == "h100", torch.cuda.get_device_name(0)
+    assert m.hbm_bytes == torch.cuda.get_device_properties(0).total_memory
+    assert m.mesh_axes == {"data": 1}
+    model = FFModel(FFConfig(batch_size=8))
+    x = model.create_tensor([8, 1024, 1024], name="x")
+    model.dense(x, 4096, activation="gelu", name="up")
+    layer = model.layers[0]
+    mach = MachineSpec(mesh_axes={"data": 1})
+    (cand,) = layer_candidates(layer, mach, {8})
+    mc = MeasuredCost(mach, cache_dir=str(tmp_path), device="cuda")
+    fwd, bwd = mc.op_times(layer, cand)
+    assert fwd > 0 and bwd > 0
+    again = MeasuredCost(mach, cache_dir=str(tmp_path), device="cuda")
+    assert again.op_times(layer, cand) == (fwd, bwd)
