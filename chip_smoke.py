@@ -15,7 +15,8 @@ Phases, each fatal on failure (nothing is caught to let the run exit 0):
    every float32 product here, so f32 is compared at 1e-4): the flash
    forward and the int8 dequant decode at the serving shapes (the decode
    through the page table, over a pool of 8 x 66 + 1 pages of 16 under a
-   shuffled table, and through its gathered call), the flash
+   shuffled table, and through its gathered call; and at the speculative
+   verify pass's 5 query rows, timed with its bound), the flash
    backward's dQ and dK/dV at the training shape (8, 1024, 16, 64) causal,
    the fused Adam over GPT-2 medium's real param set (f32 and bf16
    moments, weight decay 0 and 0.01), the fused cross-entropy forward and
@@ -138,6 +139,39 @@ Phases, each fatal on failure (nothing is caught to let the run exit 0):
        their ratios (no threshold: the cost model's error on the card is
        the finding).
 
+8. Speculative serving and SLO-aware admission, run right after phase 4
+   on phase 3's weights, prompts and greedy streams (32 new tokens):
+   (a-d) four legs at K=4, {int8, compute-dtype KV} x {GPT-2 small as the
+       draft, from seed + 1; the self-draft, GPT-2 medium carrying the
+       target's params}. Each serves, measures the decode-verify gap
+       (the largest |decode - verify| logit difference, teacher-forced on
+       the plain and the speculative streams from fresh prefills, the
+       verify pass taking K+1 of their tokens at a time), then holds its
+       streams
+       against phase 3's: a request may diverge only where a fresh prefill
+       of its prompt and shared prefix puts the two candidate tokens'
+       logits closer than twice the gap, and every such divergence is
+       printed. Launches are exact (counted from 0 around the run): the
+       flash forward once per target and draft layer an admission wave;
+       with int8, the dequant decode K x L_draft times at 1 row and
+       L_target times at K+1 rows a round.
+       Both caches get every page back, `memory_stats()` predicts both
+       caches' bytes exactly, the self-draft accepts at least 0.9 of its
+       drafts, and each leg prints tokens/s, TTFT p50/p99, the time per
+       committed token p50, rounds, host syncs and the acceptance rate;
+       torch.profiler over 4 rounds of the int8 GPT-2 small leg gives the
+       round's device busy time, idle share and launches;
+   (gate) int8 at K=7 (8 query rows) serves one wave as a leg does, and
+       K=8 raises at compile time;
+   (e) the int8 engine without a draft serves the 16 prompts as an
+       open-loop trace (exponential gaps of 40 ms, priorities 0/1/2) with
+       `serve_queue_cap=4`, `prefill_chunk_tokens=2048` and SLO objectives,
+       printing the sheds by reason and the SLO report;
+   (f) the same engine serves 4 requests under a 2 ms decode watchdog,
+       which evicts the longest-resident slot at every sync.
+   In (e) and (f) every request ends exactly once and every page comes
+   back.
+
 The line before the last is `{"kernels": [...]}`; the last line is
 `{"ok": true, "device": {...}}`.
 """
@@ -172,6 +206,11 @@ BATCH, LR, TRAIN_STEPS, WARMUP_STEPS = 8, 1e-4, 10, 2
 # below GPT-2's true vocab of 50257
 PAD_TO, PAD_VOCAB, GPT2_VOCAB, SGD_LR = 128, 50304, 50257, 0.01
 PAGE, NEW_TOKENS, REQUESTS = 16, 32, 16
+# phase 8: drafted tokens a round in the four legs, and in the gate leg
+# (8 query rows: the dequant kernel's gate); 8e/8f's admission knobs
+SPEC_K, SPEC_K_GATE = 4, 7
+SLO_SPEC = "ttft_p99_ms=500,availability=0.99"
+QUEUE_CAP, PREFILL_CHUNK, WATCHDOG_MS = 4, 2048, 2.0
 # the design of the kernels redesigned for the tensor cores
 TC_DESIGN = {
     "flash_attention_fwd": "mma.sync m16n8k16 bf16, 2 m-tiles a warp, "
@@ -425,36 +464,65 @@ def check_dequant(timer, gen, seed):
             f"pool {pool} under a shuffled table of {pages_per_slot} pages a "
             f"slot: max abs err {errs[dt]:.3e}, gathered call {g_err:.3e} "
             f"(tolerance {TOL[dt]})")
-    ms = timer(lambda: da.paged_dequant_decode_attention(
-        qh, kq, ks, vq, vs, table, pos, scale))
-    plain_ms = timer(lambda: da._paged_plain(qh, kq, ks, vq, vs, table, pos,
-                                             scale))
-    keep = (torch.arange(L, device="cuda")[None, :]
-            <= pos.long()[:, None])[:, None, None, :]      # (b, 1, 1, L)
     ptl = table.long()
 
-    def library():
-        kf = (kq[ptl].reshape(b, L, h, d).float()
-              * ks[ptl].reshape(b, L, h)[..., None]).to(qh.dtype)
-        vf = (vq[ptl].reshape(b, L, h, d).float()
-              * vs[ptl].reshape(b, L, h)[..., None]).to(qh.dtype)
-        return F.scaled_dot_product_attention(
-            qh.transpose(1, 2), kf.transpose(1, 2), vf.transpose(1, 2),
-            attn_mask=keep, scale=scale)
-    lib_ms = timer(library)
+    def timed(qh):
+        """The kernel, its plain version and the library call on `qh`
+        (s query rows, bf16), and the bound of this run's data."""
+        s = qh.shape[1]
+        ms = timer(lambda: da.paged_dequant_decode_attention(
+            qh, kq, ks, vq, vs, table, pos, scale))
+        plain_ms = timer(lambda: da._paged_plain(qh, kq, ks, vq, vs, table,
+                                                 pos, scale))
+        row = torch.arange(s, device="cuda")[:, None]
+        keep = (torch.arange(L, device="cuda")[None, None, :]
+                <= pos.long()[:, None, None] + row[None])[:, None]  # (b,1,s,L)
+
+        def library():
+            kf = (kq[ptl].reshape(b, L, h, d).float()
+                  * ks[ptl].reshape(b, L, h)[..., None]).to(qh.dtype)
+            vf = (vq[ptl].reshape(b, L, h, d).float()
+                  * vs[ptl].reshape(b, L, h)[..., None]).to(qh.dtype)
+            return F.scaled_dot_product_attention(
+                qh.transpose(1, 2), kf.transpose(1, 2), vf.transpose(1, 2),
+                attn_mask=keep, scale=scale)
+        lib_ms = timer(library)
+        # this run's data needs keys 0..pos+s-1 of each slot: int8 K and V
+        # values plus their f32 scales, the page ids that address them,
+        # the queries, the output and pos
+        keys = np.minimum(pos_np + s, L)
+        nbytes = (float(keys.sum()) * h * (2 * d + 2 * 4)
+                  + 4 * float((-(-keys // PAGE)).sum())
+                  + 2 * b * s * h * d * 2 + 4 * b)
+        bound_ms, bound_by = bound(nbytes, 4 * float(keys.sum()) * h * s * d
+                                   + 2 * float(keys.sum()) * h * d, F32_FLOPS)
+        return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "bound_share": bound_ms / ms}
+
+    one_row = timed(qh)
+    # the speculative verify pass: K+1 query rows at K=4
+    qv = torch.randn((b, SPEC_K + 1, h, d), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    out = da.paged_dequant_decode_attention(qv, kq, ks, vq, vs, table, pos,
+                                            scale)
+    torch.cuda.synchronize()
+    v_err = float((out.float() - da._paged_plain(qv, kq, ks, vq, vs, table,
+                                                 pos, scale).float())
+                  .abs().max())
+    if not v_err <= TOL[torch.bfloat16]:
+        fail(f"dequant bf16 at {SPEC_K + 1} rows: max err {v_err}")
+    verify = {"shape": list(qv.shape), "max_abs_err": v_err, **timed(qv)}
+    log(f"paged_dequant_decode_attention q {tuple(qv.shape)} bf16 (the "
+        f"verify pass): max abs err {v_err:.3e}, {verify['ms']:.4f} ms, "
+        f"bound {verify['bound_ms']:.4f} ms")
     # what this timer reads for one launch of a kernel with no work to
     # speak of: the floor under a call this small
     one = torch.empty(1, device="cuda")
     floor_ms = timer(lambda: one.zero_())
-    # this run's data needs keys 0..pos+s-1 of each slot: int8 K and V
-    # values plus their f32 scales, the page ids that address them, the
-    # queries, the output and pos
-    keys = np.minimum(pos_np + s, L)
-    nbytes = (float(keys.sum()) * h * (2 * d + 2 * 4)
-              + 4 * float((-(-keys // PAGE)).sum())
-              + 2 * b * s * h * d * 2 + 4 * b)
-    bound_ms, bound_by = bound(nbytes, 4 * float(keys.sum()) * h * s * d
-                               + 2 * float(keys.sum()) * h * d, F32_FLOPS)
+    ms, plain_ms, lib_ms = (one_row[k] for k in ("ms", "plain_ms",
+                                                 "library_ms"))
+    bound_ms, bound_by = one_row["bound_ms"], one_row["bound_by"]
     return {"name": "dequant_decode_attention", "route": "cuda",
             "source": "flexflow_tpu_torch/csrc/dequant_attention.cu",
             "replaces": "flexflow_tpu/kernels/dequant_attention.py:69",
@@ -467,7 +535,7 @@ def check_dequant(timer, gen, seed):
             "library": "page gather + dequantize + "
                        "scaled_dot_product_attention",
             "bound_share": bound_ms / ms, "launch_floor_ms": floor_ms,
-            "design": DEQUANT_DESIGN}
+            "design": DEQUANT_DESIGN, "verify_shape": verify}
 
 
 def rel_err(got, want) -> float:
@@ -904,13 +972,15 @@ def zero_launch_counts() -> None:
     from flexflow_tpu_torch.kernels import fused_optim as fo
     fa.launches = fa.launches_dq = fa.launches_dkv = 0
     da.launches = fo.launches = 0
+    da.launches_by_rows.clear()
     fc.launches_fwd = fc.launches_bwd = 0
     fo.launches_sgd = fo.launches_sgd_plain = 0
 
 
 def serve(engine, params, prompts, label: str):
     """One scheduler run over `prompts`, with every launch counter set to
-    0 just before it; returns the summary (counts read just after)."""
+    0 just before it; returns the summary (counts read just after) and
+    the greedy streams (rid -> tokens)."""
     from flexflow_tpu_torch.serving import (ContinuousBatchingScheduler,
                                             Request, gpt2_prompt_inputs,
                                             gpt2_step_inputs)
@@ -976,7 +1046,8 @@ def serve(engine, params, prompts, label: str):
             "decode_step_p50_ms": 1e3 * float(np.median(sched.step_times)),
             "prefills": sched.prefills, "decode_steps": sched.decode_steps,
             "launches": counts, "first_prefill_max_err_vs_plain": err,
-            "logit_abs_max": float(got.abs().max())}
+            "logit_abs_max": float(got.abs().max())}, \
+        {r.rid: list(r.tokens) for r in done}
 
 
 def _device_profile(fn, reps: int, dev: torch.device) -> dict:
@@ -1068,6 +1139,451 @@ def profile_engine(engine, params, prompts) -> dict:
     for s in range(slots):
         kv.evict(s)
     kv.push()
+    return out
+
+
+# ------------------------------------------ phase 8: speculative serving
+def verify_gap(engine, params, prompts, runs: list, k: int) -> float:
+    """The largest |decode - verify| logit difference, teacher-forced on
+    every stream in `runs` (dicts rid -> tokens: the plain run's and the
+    speculative run's), independent of the speculative run's own state:
+    for each wave of prompts, the plain decode program takes each
+    stream's tokens one step at a time; then the positions roll back to
+    the prompts and the verify program takes the same tokens K+1 at a
+    time, each pass from where the last ended."""
+    return max(_verify_gap(engine, params, prompts, run, k) for run in runs)
+
+
+def _verify_gap(engine, params, prompts, run: dict, k: int) -> float:
+    from flexflow_tpu_torch.serving import gpt2_prompt_inputs, gpt2_step_inputs
+
+    kv, slots, dev = engine.kv, engine.slots, engine.device
+    seq = int(engine.prefill_model.input_tensors[0].spec.shape[1])
+    n = min(len(t) for t in run.values()) // (k + 1) * (k + 1)
+    rids, gap = sorted(run), 0.0
+    for lo in range(0, len(rids), slots):
+        wave = rids[lo:lo + slots]
+        ids = np.zeros((slots, seq), np.int32)
+        lengths = np.zeros((slots,), np.int32)
+        toks = np.zeros((slots, n), np.int32)
+        for s, rid in enumerate(wave):
+            p = prompts[rid]
+            ids[s, :len(p)], lengths[s] = p, len(p)
+            toks[s] = run[rid][:n]
+            kv.admit(s, len(p), len(p) + n + 2)
+        kv.push()
+        with torch.no_grad():
+            _, kv_state = engine.prefill(params,
+                                         gpt2_prompt_inputs(ids, lengths))
+        kv.commit_prefill(kv_state, np.arange(slots, dtype=np.int32), lengths)
+        tok = torch.from_numpy(toks).to(dev)
+        state, dec = kv.state, []
+        for i in range(n):
+            logits, state = engine.decode_step(
+                params, state, gpt2_step_inputs(tok[:, i:i + 1], state))
+            dec.append(logits[:, 0].float())
+        kv.adopt(state)
+        kv.push()                           # back to the prompt extent
+        state, ver = kv.state, []
+        for i in range(0, n, k + 1):
+            logits, state = engine.verify_step(
+                params, state, gpt2_step_inputs(tok[:, i:i + k + 1], state))
+            ver.append(logits.float())
+        kv.adopt(state)
+        rows = torch.arange(len(wave), device=dev)
+        gap = max(gap, float((torch.stack(dec, 1)[rows]
+                              - torch.cat(ver, 1)[rows]).abs().max()))
+        for s in range(slots):
+            kv.evict(s)
+        kv.push()
+    return gap
+
+
+def divergences(engine, params, prompts, base: dict, got: dict,
+                gap: float) -> list:
+    """Where speculative streams differ from the plain ones. At a request's
+    first differing token, a fresh prefill of its prompt and the shared
+    prefix gives the two candidate tokens' logits; the divergence is
+    admitted if they are closer than 2 x `gap` (the verify program rounds
+    its GEMMs at M = slots x (K+1), the decode program at M = slots, and
+    a near tie can fall either way). Returns one record a diverging
+    request, with "admitted"; a stream that differs in length is never
+    admitted."""
+    from flexflow_tpu_torch.serving import gpt2_prompt_inputs
+
+    slots = engine.slots
+    seq = int(engine.prefill_model.input_tensors[0].spec.shape[1])
+    out = []
+    for rid, want in sorted(base.items()):
+        have = got[rid]
+        if have == want:
+            continue
+        i = next((j for j, (a, b) in enumerate(zip(have, want)) if a != b),
+                 None)
+        if i is None:
+            out.append({"rid": rid, "tokens": len(have),
+                        "plain_tokens": len(want), "admitted": False})
+            continue
+        ctx = list(prompts[rid]) + want[:i]
+        ids = np.zeros((slots, seq), np.int32)
+        lengths = np.zeros((slots,), np.int32)
+        ids[0, :len(ctx)], lengths[0] = ctx, len(ctx)
+        with torch.no_grad():
+            logits, _ = engine.prefill(params,
+                                       gpt2_prompt_inputs(ids, lengths))
+        row = logits[0, len(ctx) - 1].float()
+        diff = abs(float(row[have[i]] - row[want[i]]))
+        out.append({"rid": rid, "token": i, "spec": have[i],
+                    "plain": want[i], "logit_diff": diff, "limit": 2 * gap,
+                    "admitted": diff < 2 * gap})
+    return out
+
+
+def spec_engine(gc, cfg_kw: dict, params, draft: str, k: int, seed: int):
+    """GPT-2 medium with a draft, compiled for K drafted tokens: "small" is
+    GPT-2 small from `seed + 1`, "self" GPT-2 medium carrying the target's
+    params."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.models import GPT2Config, build_gpt2
+    from flexflow_tpu_torch.serving import compile_serving
+
+    models = []
+    for g in (gc, GPT2Config.small() if draft == "small" else gc):
+        m = FFModel(FFConfig(**cfg_kw))
+        build_gpt2(m, g, batch=SLOTS)
+        models.append(m)
+    engine = compile_serving(models[0], draft=models[1], spec_tokens=k)
+    engine.load_params(params)
+    if draft == "small":
+        engine.draft.init(seed=seed + 1)
+    else:
+        engine.draft.load_params(params)
+    return engine
+
+
+def spec_serve(engine, prompts, label: str, **sched_kw):
+    """One speculative scheduler run with every launch counter set to 0
+    just before it; the counts (and the dequant decode's by query rows)
+    read just after."""
+    from flexflow_tpu_torch.kernels import dequant_attention as da
+    from flexflow_tpu_torch.serving import (ContinuousBatchingScheduler,
+                                            Request, gpt2_prompt_inputs,
+                                            gpt2_step_inputs)
+
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS)
+            for i, p in enumerate(prompts)]
+    sched = ContinuousBatchingScheduler(engine, engine.params,
+                                        gpt2_prompt_inputs, gpt2_step_inputs,
+                                        **sched_kw)
+    sync(engine.device)
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    done = sched.run(reqs)
+    sync(engine.device)
+    wall = time.perf_counter() - t0
+    counts, rows = launch_counts(), dict(da.launches_by_rows)
+    if len(done) != len(prompts) or sched.shed or sched.failed:
+        fail(f"{label}: {len(done)} of {len(prompts)} requests completed")
+    return sched, done, wall, counts, rows
+
+
+def check_spec_launches(sched, counts: dict, rows: dict, k: int,
+                        l_target: int, l_draft: int, int8: bool,
+                        label: str) -> dict:
+    """Exact launches: each admission wave runs the flash forward once per
+    target and draft layer; each int8 round runs the dequant decode K x
+    L_draft times at 1 row (the draft steps) and L_target times at K+1
+    rows (the verify pass); nothing else launches."""
+    rounds = sched.stats["spec_rounds"]
+    want = {name: 0 for name in counts}
+    want["flash_attention_fwd"] = sched.prefills * (l_target + l_draft)
+    want_rows = {}
+    if int8:
+        want_rows = {1: rounds * k * l_draft, k + 1: rounds * l_target}
+        want["dequant_decode_attention"] = sum(want_rows.values())
+    if counts != want or rows != want_rows:
+        fail(f"{label}: launches {counts} by rows {rows}, want {want} by "
+             f"rows {want_rows} ({sched.prefills} waves, {rounds} rounds)")
+    return {"rounds": rounds, "waves": sched.prefills,
+            "dequant_by_rows": {str(r): n for r, n in rows.items()}}
+
+
+def check_pages_and_memory(engine, label: str) -> dict:
+    """Every page back on both free lists; memory_stats() predicted equals
+    actual for both caches."""
+    pages_back(engine.kv, f"{label} target cache")
+    pages_back(engine.draft.kv, f"{label} draft cache")
+    mem = engine.memory_stats()
+    for pre in ("", "draft_"):
+        if mem[f"{pre}predicted_kv_cache_bytes"] != \
+                mem[f"{pre}actual_kv_cache_bytes"]:
+            fail(f"{label}: {pre}KV cache predicted "
+                 f"{mem[pre + 'predicted_kv_cache_bytes']} != actual "
+                 f"{mem[pre + 'actual_kv_cache_bytes']}")
+    return mem
+
+
+def spec_leg(gc, cfg_kw: dict, params, prompts, base: dict, draft: str,
+             k: int, seed: int, label: str) -> tuple:
+    """One speculative leg: the decode-verify gap, a warm-up, the counted
+    run, its launches, pages, streams and metrics."""
+    engine = spec_engine(gc, cfg_kw, params, draft, k, seed)
+    int8 = engine.kv_quantized
+    spec_serve(engine, [p[:32] for p in prompts[:2]], f"{label} warm-up")
+    sched, done, wall, counts, rows = spec_serve(engine, prompts, label)
+    l_draft = len(engine.draft.attn_layers)
+    launches = check_spec_launches(sched, counts, rows, k, LAYERS, l_draft,
+                                   int8, label)
+    mem = check_pages_and_memory(engine, label)
+    got = {r.rid: list(r.tokens) for r in done}
+    # measured before the streams are compared
+    gap = verify_gap(engine, params, prompts, [base, got], k)
+    diverged = divergences(engine, params, prompts, base, got, gap)
+    for d in diverged:
+        if not d["admitted"]:
+            fail(f"{label}: a divergence the rule does not admit: {d}")
+        log(f"[{label}] admitted divergence: {d}")
+    st = sched.stats
+    accept = st["spec_accepted_tokens"] / st["spec_drafted_tokens"]
+    ttft = np.array([r.ttft_s for r in done])
+    tokens = sum(len(r.tokens) for r in done)
+    out = {"leg": label, "draft": draft, "spec_tokens": k,
+           "kv_cache_dtype": "int8" if int8 else "auto",
+           "draft_layers": l_draft, "requests": len(done), "tokens": tokens,
+           "wall_s": wall, "tokens_per_s": tokens / wall,
+           "ttft_p50_ms": 1e3 * float(np.percentile(ttft, 50)),
+           "ttft_p99_ms": 1e3 * float(np.percentile(ttft, 99)),
+           "per_committed_token_p50_ms": 1e3 * float(np.median(
+               sched.step_times)),
+           "host_syncs": sched.materializations + sched.prefills,
+           "round_syncs": sched.materializations,
+           "accept_rate": accept, "accept_ema": sched._accept_ema,
+           "decode_verify_gap": gap, "divergences": diverged,
+           "streams_equal": len(got) - len(diverged),
+           "overdecode_tokens": st["overdecode_tokens"],
+           "launches": counts, **launches,
+           "kv_cache_bytes": mem["actual_kv_cache_bytes"],
+           "draft_kv_cache_bytes": mem["draft_actual_kv_cache_bytes"]}
+    if out["round_syncs"] != launches["rounds"]:
+        fail(f"{label}: {out['round_syncs']} round syncs for "
+             f"{launches['rounds']} rounds")
+    log(f"[{label}] {out['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+        f"{out['ttft_p50_ms']:.1f} ms p99 {out['ttft_p99_ms']:.1f} ms, "
+        f"per committed token p50 {out['per_committed_token_p50_ms']:.2f} "
+        f"ms, {launches['rounds']} rounds, {out['host_syncs']} host syncs, "
+        f"acceptance {accept:.3f}, decode-verify gap {gap:.4f}, "
+        f"{len(diverged)} admitted divergences, launches {counts} "
+        f"by rows {launches['dequant_by_rows']}")
+    return out, engine
+
+
+def profile_spec(engine, params, prompts, k: int) -> dict:
+    """Where a speculative round spends its time: the first wave's prompts
+    prefilled into every slot of both caches, then rounds over all slots
+    under the profiler (the positions advance by the round's own K+1 and
+    K: no acceptance is applied)."""
+    from flexflow_tpu_torch.serving import gpt2_prompt_inputs, gpt2_step_inputs
+
+    slots, dev = engine.slots, engine.device
+    seq = int(engine.prefill_model.input_tensors[0].spec.shape[1])
+    ids = np.zeros((slots, seq), np.int32)
+    lengths = np.zeros((slots,), np.int32)
+    rounds = 4
+    for s, p in enumerate(prompts[:slots]):
+        ids[s, :len(p)], lengths[s] = p, len(p)
+        for kv in (engine.kv, engine.draft.kv):
+            kv.admit(s, len(p), len(p) + (k + 1) * rounds)
+    for e, prm in ((engine, params), (engine.draft, engine.draft.params)):
+        e.kv.push()
+        _, kv_state = e.prefill(prm, gpt2_prompt_inputs(ids, lengths))
+        e.kv.commit_prefill(kv_state, np.arange(slots, dtype=np.int32),
+                            lengths)
+    box = {"t": engine.kv.state, "d": engine.draft.kv.state,
+           "last": torch.ones((slots, 1), dtype=torch.int32, device=dev)}
+
+    def one_round():
+        t_pred, _, box["t"], box["d"] = engine.spec_round_step(
+            params, engine.draft.params, box["t"], box["d"], box["last"],
+            gpt2_step_inputs)
+        box["last"] = t_pred[:, :1].contiguous()
+    prof = _device_profile(one_round, rounds, dev)
+    for kv, st in ((engine.kv, box["t"]), (engine.draft.kv, box["d"])):
+        kv.adopt(st)
+        for s in range(slots):
+            kv.evict(s)
+        kv.push()
+    return prof
+
+
+def slo_trace_leg(engine, prompts, seed: int) -> dict:
+    """8e: the int8 engine without a draft serves the prompts as an
+    open-loop trace (exponential gaps of 40 ms from the seed, priorities
+    0/1/2) under a queue cap, chunked admission and SLO objectives."""
+    from flexflow_tpu_torch.serving import (ContinuousBatchingScheduler,
+                                            Request, gpt2_prompt_inputs,
+                                            gpt2_step_inputs)
+
+    rng = np.random.default_rng(seed + 8)
+    arrivals = np.cumsum(rng.exponential(0.040, size=len(prompts)))
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS,
+                    arrival_s=float(arrivals[i]), priority=i % 3)
+            for i, p in enumerate(prompts)]
+    sched = ContinuousBatchingScheduler(
+        engine, engine.params, gpt2_prompt_inputs, gpt2_step_inputs,
+        prefill_chunk_tokens=PREFILL_CHUNK)
+    sync(engine.device)
+    zero_launch_counts()
+    done = sched.run(reqs)
+    sync(engine.device)
+    counts = launch_counts()
+    ends_once(sched, len(prompts), "8e")
+    pages_back(engine.kv, "8e")
+    waves = sorted({r.admit_s for r in done})
+    shed = {k[len("shed_"):]: v for k, v in sched.stats.items()
+            if k.startswith("shed_")}
+    out = {"requests": len(reqs), "completed": len(done),
+           "shed_by_reason": shed, "failed": len(sched.failed),
+           "waves": len(waves), "prefills": sched.prefills,
+           "ttft_p99_ms": (1e3 * float(np.percentile(
+               [r.ttft_s for r in done], 99)) if done else None),
+           "slo": engine.slo.report(), "launches": counts}
+    log(f"[8e] {len(done)} of {len(reqs)} done, shed by reason {shed}, "
+        f"{out['waves']} admission waves, SLO report {out['slo']}")
+    return out
+
+
+def watchdog_leg(engine, prompts) -> dict:
+    """8f: 4 requests under a decode watchdog of 2 ms, which every
+    host-bound decode window exceeds: each sync evicts the slot with the
+    most tokens (ties to the lowest slot) as "timeout"."""
+    from flexflow_tpu_torch.serving import (ContinuousBatchingScheduler,
+                                            Request, gpt2_prompt_inputs,
+                                            gpt2_step_inputs)
+
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS)
+            for i, p in enumerate(prompts[:4])]
+    sched = ContinuousBatchingScheduler(
+        engine, engine.params, gpt2_prompt_inputs, gpt2_step_inputs,
+        decode_timeout_ms=WATCHDOG_MS)
+    picks = []
+    pick = sched._pick_wedged
+
+    def watched(active):
+        slot = pick(active)
+        most = max(len(r.tokens) for r in active.values())
+        if slot != min(s for s, r in active.items() if len(r.tokens) == most):
+            fail(f"8f: the watchdog picked slot {slot} of "
+                 f"{ {s: len(r.tokens) for s, r in active.items()} }")
+        picks.append({"rid": active[slot].rid, "slot": slot,
+                      "tokens": len(active[slot].tokens),
+                      "active": len(active)})
+        return slot
+    sched._pick_wedged = watched
+    sync(engine.device)
+    zero_launch_counts()
+    sched.run(reqs)
+    sync(engine.device)
+    counts = launch_counts()
+    ends_once(sched, len(reqs), "8f")
+    pages_back(engine.kv, "8f")
+    if [r.rid for r in sched.failed] != [p["rid"] for p in picks] or \
+            {r.outcome for r in sched.failed} != {"timeout"} or not picks:
+        fail(f"8f: timeouts {[(r.rid, r.outcome) for r in sched.failed]}, "
+             f"picks {picks}")
+    out = {"evictions": picks, "decode_timeouts":
+           sched.stats["decode_timeouts"], "completed": len(sched.completed),
+           "timeouts": len(sched.failed), "launches": counts}
+    log(f"[8f] watchdog {WATCHDOG_MS} ms: evicted {picks}, "
+        f"{len(sched.completed)} completed")
+    return out
+
+
+def ends_once(sched, n: int, label: str) -> None:
+    """Each request ended exactly once, as done, shed, failed or timeout."""
+    ends = sorted(r.rid for r in sched.completed + sched.shed + sched.failed)
+    outcomes = {r.outcome for r in sched.completed + sched.shed + sched.failed}
+    if ends != list(range(n)) or not outcomes <= {"done", "shed", "failed",
+                                                  "timeout"}:
+        fail(f"{label}: requests ended {ends}, outcomes {outcomes}")
+
+
+def pages_back(kv, label: str) -> None:
+    if sorted(kv.free_pages) != list(range(1, kv.capacity_pages() + 1)):
+        fail(f"{label}: {kv.capacity_pages() - len(kv.free_pages)} pages "
+             "not returned")
+
+
+def phase8(gc, params, prompts, streams: dict, seed: int) -> dict:
+    """Speculative serving on phase 3's weights, prompts and streams (by
+    KV dtype, rid -> tokens): four legs,
+    {int8, compute-dtype KV} x {GPT-2 small draft, self-draft}, at K=4;
+    a profile of the int8 GPT-2 small leg; the gate leg (K=7 serves one
+    wave, K=8 raises at compile time); then the admission legs 8e, 8f."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.models import build_gpt2
+    from flexflow_tpu_torch.serving import compile_serving
+
+    out = {"legs": []}
+    for kv in ("int8", "auto"):
+        cfg_kw = dict(seed=seed, compute_dtype="bfloat16",
+                      max_batch_slots=SLOTS, kv_page_size=PAGE,
+                      max_decode_len=NEW_TOKENS, kv_cache_dtype=kv)
+        for draft in ("small", "self"):
+            label = f"8 spec {kv} {draft}"
+            leg, engine = spec_leg(gc, cfg_kw, params, prompts, streams[kv],
+                                   draft, SPEC_K, seed, label)
+            if draft == "self" and leg["accept_rate"] < 0.9:
+                fail(f"{label}: the self-draft accepts {leg['accept_rate']}")
+            if kv == "int8" and draft == "small":
+                prof = profile_spec(engine, params, prompts, SPEC_K)
+                out["profile"] = prof
+                if "wall_ms_per_call" in prof:
+                    log(f"[{label}] round: {prof['wall_ms_per_call']:.2f} ms "
+                        f"wall, device busy "
+                        f"{prof['device_busy_ms_per_call']:.2f} ms, idle "
+                        f"share {prof['device_idle_share']:.3f}, "
+                        f"{prof['kernel_launches_per_call']:.0f} launches a "
+                        "round, the port's kernels " + ", ".join(
+                            f"{n} {v['ms_per_call']:.3f} ms "
+                            f"x{v['launches_per_call']:.0f}"
+                            for n, v in prof["port_kernels"].items()))
+            out["legs"].append(leg)
+            del engine
+            collect_garbage()
+            torch.cuda.empty_cache()
+    # the gate: 8 query rows serve one wave, 9 are refused at compile time
+    cfg_kw = dict(seed=seed, compute_dtype="bfloat16", max_batch_slots=SLOTS,
+                  kv_page_size=PAGE, max_decode_len=NEW_TOKENS,
+                  kv_cache_dtype="int8")
+    wave = prompts[:SLOTS]
+    gate, engine = spec_leg(gc, cfg_kw, params, wave,
+                            {i: streams["int8"][i] for i in range(SLOTS)},
+                            "small", SPEC_K_GATE, seed,
+                            f"8 gate int8 K={SPEC_K_GATE}")
+    out["gate"] = gate
+    del engine
+    try:
+        spec_engine(gc, cfg_kw, params, "small", SPEC_K_GATE + 1, seed)
+    except ValueError as e:
+        if "MAX_QUERY_ROWS" not in str(e):
+            fail(f"K={SPEC_K_GATE + 1} raised another error: {e}")
+        out["gate"]["k_plus_one_refused"] = str(e)
+        log(f"[8 gate] K={SPEC_K_GATE + 1} refused at compile time: {e}")
+    else:
+        fail(f"K={SPEC_K_GATE + 1} with an int8 cache compiled")
+    collect_garbage()
+    torch.cuda.empty_cache()
+    # 8e/8f: the int8 engine without a draft, with SLO objectives
+    model = FFModel(FFConfig(**cfg_kw, serve_slo=SLO_SPEC,
+                             serve_queue_cap=QUEUE_CAP))
+    build_gpt2(model, gc, batch=SLOTS)
+    engine = compile_serving(model)
+    engine.load_params(params)
+    out["slo_trace"] = slo_trace_leg(engine, prompts, seed)
+    out["watchdog"] = watchdog_leg(engine, prompts)
+    del engine, model
+    collect_garbage()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2135,7 +2651,7 @@ def main() -> None:
     prompts = [[int(t) for t in rng.integers(0, gc.vocab, size=n)]
                for n in rng.integers(32, 993, size=REQUESTS)]
     warm = [p[:32] for p in prompts[:2]]
-    runs, params = [], None
+    runs, streams, params = [], {}, None
     for kv in ("auto", "int8"):
         cfg = FFConfig(seed=args.seed, compute_dtype="bfloat16",
                        max_batch_slots=SLOTS, kv_page_size=PAGE,
@@ -2152,7 +2668,7 @@ def main() -> None:
             f"KV cache {engine.memory_stats()['actual_kv_cache_bytes'] / 2**20:.0f}"
             f" MiB, set up in {time.perf_counter() - t0:.1f} s")
         serve(engine, params, warm, f"{kv} warm-up")
-        run = serve(engine, params, prompts, kv)
+        run, streams[kv] = serve(engine, params, prompts, kv)
         log(f"[{kv}] {run['tokens_per_s']:.1f} tokens/s, TTFT p50 "
             f"{run['ttft_p50_ms']:.1f} ms p99 {run['ttft_p99_ms']:.1f} ms, "
             f"decode step p50 {run['decode_step_p50_ms']:.2f} ms, "
@@ -2187,6 +2703,10 @@ def main() -> None:
     if step.get("aten_index_per_call", 0) >= LAYERS or gathers:
         fail(f"int8 decode step gathers: {step.get('aten_index_per_call')} "
              f"aten::index a step, top kernels {gathers}")
+
+    # ---- 8. speculative serving and SLO-aware admission, on phase 3's
+    # weights, prompts and streams
+    spec = phase8(gc, params, prompts, streams, args.seed)
     del params
     torch.cuda.empty_cache()
 
@@ -2275,15 +2795,25 @@ def main() -> None:
                 r["launches"]
     paths["train_searched_strategy_steps"] = search["import"]["launches"]
     paths["train_unsearched_steps"] = search["prediction"]["launches"]
+    for leg in spec["legs"] + [spec["gate"]]:
+        paths[leg["leg"].replace(" ", "_").replace("=", "")] = leg["launches"]
+    paths["serve_slo_trace"] = spec["slo_trace"]["launches"]
+    paths["serve_watchdog"] = spec["watchdog"]["launches"]
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in paths.values())
         r["launches_by_path"] = {p: c[r["name"]] for p, c in paths.items()}
+        if r["name"] == "dequant_decode_attention":
+            r["launches_by_rows_by_path"] = {
+                leg["leg"]: leg["dequant_by_rows"]
+                for leg in spec["legs"] + [spec["gate"]]
+                if leg["kv_cache_dtype"] == "int8"}
         r["card"] = card
     log(json.dumps({"serve": runs}))
     log(json.dumps({"train": train}))
     log(json.dumps({"train_sgd_padded": sgd}))
     log(json.dumps({"train_dropout": drop}))
     log(json.dumps({"search": search}))
+    log(json.dumps({"spec": spec}))
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

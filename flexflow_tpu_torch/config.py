@@ -60,6 +60,31 @@ class FFConfig:
     #                    compute_dtype, "bf16" forces bf16 pools, "int8"
     #                    stores int8 pools with per-(entry, head) f32 scales
     kv_cache_dtype: str = "auto"
+    # speculative decoding and SLO-aware admission (serving/engine.py,
+    # serving/scheduler.py):
+    #   serve_draft_model       - a JSON file of GPT2Config overrides for
+    #                             the draft model ("" = no speculation;
+    #                             callers may pass draft= instead)
+    #   serve_spec_tokens       - tokens the draft proposes per slot per
+    #                             round before one verify pass (0 = off)
+    #   serve_ttft_budget_ms    - shed a waiter whose wait plus the EMA
+    #                             prefill time exceeds this (0 = no budget)
+    #   serve_queue_cap         - waiting requests before the least urgent
+    #                             one is shed (0 = unbounded)
+    #   serve_decode_timeout_ms - decode watchdog: a window slower than this
+    #                             per step evicts the longest-resident slot
+    #                             (0 = off)
+    #   serve_slo               - SLO objectives, e.g. "ttft_p99_ms=25,
+    #                             availability=0.999" (health.parse_slo)
+    #   serve_max_context       - prompt + decode budget ceiling; arrivals
+    #                             over it shed as over_max_context (0 = none)
+    serve_draft_model: str = ""
+    serve_spec_tokens: int = 0
+    serve_ttft_budget_ms: float = 0.0
+    serve_queue_cap: int = 0
+    serve_decode_timeout_ms: float = 0.0
+    serve_slo: str = ""
+    serve_max_context: int = 0
     # training loop (compiler/compile.py): fit reads the loss to the host
     # every sync_every updates (0 = at epoch end only); accum_steps N > 1
     # makes every update one over N microbatches (fit(accum_steps=)
@@ -107,6 +132,10 @@ class FFConfig:
 
     def __post_init__(self):
         self._check_remat_knobs()
+        if self.serve_slo:
+            # fail at config build, not mid-serve
+            from flexflow_tpu_torch.health import parse_slo
+            parse_slo(self.serve_slo)
 
     def _check_remat_knobs(self):
         """--remat (uniform "full") and --remat-search (per-layer policies)
@@ -170,6 +199,15 @@ class FFConfig:
         p.add_argument("--max-batch-slots", type=int, default=8)
         p.add_argument("--kv-cache-dtype", type=str, default="auto",
                        choices=("auto", "bf16", "int8"))
+        p.add_argument("--serve-ttft-budget-ms", type=float, default=0.0)
+        p.add_argument("--serve-queue-cap", type=int, default=0)
+        p.add_argument("--serve-decode-timeout-ms", type=float, default=0.0)
+        p.add_argument("--serve-draft-model", type=str, default="")
+        p.add_argument("--serve-spec-tokens", type=int, default=0)
+        p.add_argument("--serve-slo", type=str, default="",
+                       help='SLO objectives, e.g. "ttft_p99_ms=25,'
+                            'per_token_p99_ms=10,availability=0.999"')
+        p.add_argument("--serve-max-context", type=int, default=0)
         p.add_argument("--sync-every", type=int, default=0)
         p.add_argument("--accum-steps", type=int, default=1)
         p.add_argument("--fused-loss", type=str, default="auto",
@@ -220,6 +258,13 @@ class FFConfig:
             kv_page_size=args.kv_page_size,
             max_batch_slots=args.max_batch_slots,
             kv_cache_dtype=args.kv_cache_dtype,
+            serve_draft_model=args.serve_draft_model,
+            serve_spec_tokens=args.serve_spec_tokens,
+            serve_ttft_budget_ms=args.serve_ttft_budget_ms,
+            serve_queue_cap=args.serve_queue_cap,
+            serve_decode_timeout_ms=args.serve_decode_timeout_ms,
+            serve_slo=args.serve_slo,
+            serve_max_context=args.serve_max_context,
             sync_every=args.sync_every,
             accum_steps=args.accum_steps,
             fused_loss=args.fused_loss,

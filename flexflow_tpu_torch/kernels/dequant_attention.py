@@ -33,7 +33,8 @@ The gate is Hopper's: 1..8 query rows, head_dim 64 or 128, f32 or bf16
 queries, a context of at most 65535 chunks (8.4 M keys); shared memory
 does not grow with the context. The wrappers run the plain versions only
 for tensors on the CPU; for CUDA tensors they launch the kernel or raise.
-`launches` counts kernel launches.
+`launches` counts kernel launches, and `launches_by_rows` the same by
+query rows (1 in a decode step, K+1 in a speculative verify pass).
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ MAX_CHUNKS = 65535  # the chunks run along the grid's y
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
+launches_by_rows: dict = {}   # query rows -> launches
 # per (device, stream, slots x heads, chunks, rows, head_dim): the f32
 # workspace of the chunks' partials and the merge counters, which every
 # launch leaves at 0; launches on one stream run in order, so they share
@@ -140,6 +142,7 @@ def _cuda(qh, k_pool, k_scale, v_pool, v_scale, page_table, pos,
     if err != 0:
         raise RuntimeError(f"dequant_attention kernel launch failed: CUDA error {err}")
     launches += 1
+    launches_by_rows[s] = launches_by_rows.get(s, 0) + 1
     return out
 
 

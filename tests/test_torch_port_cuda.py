@@ -656,3 +656,73 @@ def test_detect_and_measured_dense_op_on_card(tmp_path):
     assert fwd > 0 and bwd > 0
     again = MeasuredCost(mach, cache_dir=str(tmp_path), device="cuda")
     assert again.op_times(layer, cand) == (fwd, bwd)
+
+
+@pytest.mark.cuda
+def test_speculative_round_int8_on_card():
+    """A two-layer GPT-2 medium-width target with a two-layer GPT-2
+    small-width draft, int8 KV, K=4: every round launches the dequant
+    decode K x 2 times at 1 row and 2 times at 5 rows, each admission wave
+    the flash forward 2 + 2 times; the streams equal the plain engine's
+    under chip_smoke's divergence rule (a stream may differ only where a
+    fresh prefill puts the two candidates closer than twice the
+    teacher-forced decode-verify gap). In f32 (TF32 off) the two programs
+    differ by f32 rounding alone, so the rule is sharp: a stale cache read
+    would diverge far outside it. (In bf16 at this depth the decode
+    program can tie two candidates exactly where the prefill, which
+    attends the unquantized K/V, puts them 2 ulps apart: the rule's limit
+    for int8, which chip_smoke meets at full depth with its margin.)"""
+    from chip_smoke import divergences, verify_gap
+    from flexflow_tpu_torch.serving import (ContinuousBatchingScheduler,
+                                            Request, gpt2_step_inputs)
+
+    _cuda_or_skip()
+    k, new = 4, 16
+    target = GPT2Config(d_model=1024, heads=16, layers=2, dropout=0.0)
+    draft = GPT2Config(d_model=768, heads=12, layers=2, dropout=0.0)
+
+    def model(g):
+        m = FFModel(FFConfig(max_batch_slots=8, max_decode_len=new,
+                             kv_cache_dtype="int8"))
+        build_gpt2(m, g, batch=8)
+        return m
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        plain = compile_serving(model(target))
+        params = plain.init(seed=0)
+        spec = compile_serving(model(target), draft=model(draft),
+                               spec_tokens=k)
+        spec.load_params(params)
+        spec.draft.init(seed=1)
+        rng = np.random.default_rng(0)
+        prompts = [[int(t) for t in rng.integers(0, target.vocab, size=n)]
+                   for n in rng.integers(32, 300, size=8)]
+
+        def run(eng):
+            sched = ContinuousBatchingScheduler(eng, eng.params,
+                                                gpt2_prompt_inputs,
+                                                gpt2_step_inputs)
+            done = sched.run([Request(rid=i, prompt=p, max_new_tokens=new)
+                              for i, p in enumerate(prompts)])
+            return {r.rid: list(r.tokens) for r in done}, sched
+
+        base, _ = run(plain)
+        flash_attention.launches = 0
+        dequant_attention.launches_by_rows.clear()
+        got, sched = run(spec)
+        torch.cuda.synchronize()
+        rounds = sched.stats["spec_rounds"]
+        assert dequant_attention.launches_by_rows == {1: rounds * k * 2,
+                                                      k + 1: rounds * 2}
+        assert flash_attention.launches == sched.prefills * 4
+        assert sched.materializations == rounds
+        assert len(got) == len(prompts)
+        gap = verify_gap(spec, params, prompts, [base, got], k)
+        bad = [d for d in divergences(spec, params, prompts, base, got, gap)
+               if not d["admitted"]]
+        assert bad == [], (gap, bad)
+        for kv in (spec.kv, spec.draft.kv):
+            assert len(kv.free_pages) == kv.capacity_pages()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32

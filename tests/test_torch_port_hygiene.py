@@ -200,3 +200,77 @@ def test_decode_write_indices_computed_once_a_step(monkeypatch):
     assert bool(torch.isfinite(logits).all())
     assert seen == [False, True, False, True]
 
+
+
+_IMPORT_EACH = r"""
+import importlib, sys
+bad = {}
+for n in sys.argv[1:]:
+    importlib.import_module(n)
+    bad[n] = sorted(m for m in sys.modules
+                    if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                    or m == "flexflow_tpu" or m.startswith("flexflow_tpu."))
+print(bad)
+"""
+
+SPEC_MODULES = ("flexflow_tpu_torch.health",
+                "flexflow_tpu_torch.serving.reqtrace",
+                "flexflow_tpu_torch.serving.fleet",
+                "flexflow_tpu_torch.serving.scheduler",
+                "flexflow_tpu_torch.serving.engine")
+
+
+def test_speculation_and_admission_modules_load_no_jax():
+    """The SLO, terminal-record, admission, scheduler and engine modules,
+    each imported in turn into a fresh interpreter, load neither JAX nor
+    the JAX package."""
+    out = subprocess.run([sys.executable, "-c", _IMPORT_EACH, *SPEC_MODULES],
+                         cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == str({n: [] for n in SPEC_MODULES})
+
+
+def test_speculative_entry_point_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for dev in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            compile_serving(_tiny_model(), draft=_tiny_model(), spec_tokens=2,
+                            device=dev)
+    eng = compile_serving(_tiny_model(), draft=_tiny_model(), spec_tokens=2,
+                          device="cpu")
+    assert eng.device.type == eng.draft.device.type == "cpu"
+    assert eng.draft.kv.device.type == "cpu"
+
+
+def test_verify_pass_takes_the_dequant_wrapper_at_k_plus_1_rows(monkeypatch):
+    """With an int8 cache and fusion on, a speculative round reaches the
+    paged dequant wrapper with 1 query row per draft layer step and K+1
+    rows per target layer (on a CUDA tensor: the kernel, or a raise); on
+    CPU tensors it counts no launch."""
+    rows = []
+    real = attention_ops.paged_dequant_decode_attention
+
+    def counted(qh, *a, **kw):
+        rows.append(int(qh.shape[1]))
+        return real(qh, *a, **kw)
+
+    monkeypatch.setattr(attention_ops, "paged_dequant_decode_attention",
+                        counted)
+    k = 3
+    eng = compile_serving(_tiny_model(kv_cache_dtype="int8"),
+                          draft=_tiny_model(kv_cache_dtype="int8"),
+                          spec_tokens=k, device="cpu")
+    params = eng.init(seed=0)
+    eng.draft.init(seed=1)
+    for kv in (eng.kv, eng.draft.kv):
+        kv.admit(0, 5, 5 + 4 + 4 + k)
+        kv.push()
+    last = torch.ones((2, 1), dtype=torch.int32)
+    t_pred, ver_in, state, dstate = eng.spec_round_step(
+        params, eng.draft.params, eng.kv.state, eng.draft.kv.state, last,
+        gpt2_step_inputs)
+    assert tuple(t_pred.shape) == tuple(ver_in.shape) == (2, k + 1)
+    assert rows == [1] * k + [k + 1]        # one layer in each model
+    assert dequant_attention.launches_by_rows == {}
+    assert state["serve/pos"].tolist() == [5 + k + 1, 0]
+    assert dstate["serve/pos"].tolist() == [5 + k, 0]
