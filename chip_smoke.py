@@ -36,7 +36,10 @@ Phases, each fatal on failure (nothing is caught to let the run exit 0):
    forward's lse is held to the plain lse at 1e-4, and its bf16 O element
    by element to a bound on the rounding of P (see
    `flash_bf16_o_bound`); bf16 dQ is held element by element to a bound
-   on the rounding of dS (`_dq_bf16_bound` in the flash module).
+   on the rounding of dS (`_dq_bf16_bound` in the flash module). The
+   flash forward, dQ and dK/dV are also held and timed without the mask
+   at BERT-base's attention shape (8, 512, 12, 64), beside SDPA with
+   is_causal=False (the `_noncausal` rows).
 3. Serving: GPT-2 medium at full width and depth with random weights from
    the seed, bf16 compute, 8 slots, 16 requests of 32 new tokens, through
    `compile_serving` and `ContinuousBatchingScheduler`, once with the
@@ -171,6 +174,38 @@ Phases, each fatal on failure (nothing is caught to let the run exit 0):
        which evicts the longest-resident slot at every sync.
    In (e) and (f) every request ends exactly once and every page comes
    back.
+
+9. The JAX bench's other training workloads, run after phase 7, each
+   built by the port's builders at full width and trained in bf16 compute
+   over f32 master weights through `FFModel.compile` and `train_step`,
+   with cuDNN's autotuner on for the phase (`cudnn.benchmark`):
+   (f, g) gradient checks as 5a's, one step through the kernels and one
+       through the plain versions from the same params, in f32 and bf16:
+       ResNet-50's widths at 2 blocks under SGD(0.025, momentum 0.9,
+       weight decay 1e-4) (the fused SGD over a conv/BN param set; 5e's
+       tolerances) and BERT-base's at 2 layers, dropout 0 (the flash
+       kernels non-causal inside a model, and Adam), whose relu FFN
+       takes the wider `GRAD_TOL_RELU`;
+   (a) ResNet-50 (build_resnet50's defaults: b64, 3x224x224, 1000
+       classes) under that SGD; then one `fit` epoch of 4 batches with
+       the accuracy metric through the prefetching loader, and
+       `evaluate`, which must read the running stats (moved from 0 and 1,
+       finite; evaluating without them gives another loss);
+   (b) ResNeXt-50 32x4d as bench.py builds it (b64, groups 32, width 128,
+       no residual), Adam(1e-4);
+   (c) BERT-base as bench.py builds it (b8, seq 512, vocab 30522, 12
+       layers) at its blocks' dropout of 0.1, Adam(1e-4): the attention
+       takes the einsum path, no flash launch;
+   (d) the same at dropout 0: the flash forward, dQ and dK/dV once a
+       layer a step, non-causal;
+   (e) DLRM as bench.py builds it (b4096, 8 tables of 100,000 x 64,
+       sum-pooled, MSE on f32 labels), Adam(1e-4), one dispatch a step.
+   Each leg: 2 warm-up and 10 timed steps on one batch, reported as 5b
+   with MFU by the port's count (3 x the registry's forward flops a step
+   over 989 TFLOP/s), exact launches per step (the fused SGD or Adam
+   once, and in (d) the flash kernels once a layer), every loss finite;
+   then torch.profiler over one step (busy ms, idle share, launches, top
+   kernels). The phase logs its wall time.
 
 The line before the last is `{"kernels": [...]}`; the last line is
 `{"ok": true, "device": {...}}`.
@@ -370,48 +405,60 @@ def flash_bf16_o_bound(q, k, v, causal: bool, scale: float):
 
 
 # ---------------------------------------------------------------- kernels
-def check_flash(timer, gen):
+def row_name(name: str, causal: bool) -> str:
+    """A flash row's name: the kernel's, `_noncausal` added without the
+    mask (the launch counter stays the kernel's, `counter`)."""
+    return name if causal else f"{name}_noncausal"
+
+
+def check_flash(timer, gen, shape=(SLOTS, SEQ, HEADS, HEAD_DIM),
+                causal=True):
+    """The flash forward at `shape` (b, s, h, d), causal or not, against
+    its plain version in f32 and bf16, timed beside SDPA."""
     from flexflow_tpu_torch.kernels import flash_attention as fa
 
-    b, h, s, d = SLOTS, HEADS, SEQ, HEAD_DIM
+    b, s, h, d = shape
     scale = d ** -0.5
+    mask = "causal" if causal else "non-causal"
     errs, lse_errs = {}, {}
     for dt in (torch.float32, torch.bfloat16):
         q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda")
                    .to(dt) for _ in range(3))
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))   # (b, h, s, d)
-        out, lse = fa._fwd(qt, kt, vt, True, scale)
+        out, lse = fa._fwd(qt, kt, vt, causal, scale)
         torch.cuda.synchronize()
-        ref, ref_lse = fa._fwd_plain(qt, kt, vt, True, scale)
+        ref, ref_lse = fa._fwd_plain(qt, kt, vt, causal, scale)
         errs[dt] = float((out.float() - ref.float()).abs().max())
         lse_errs[dt] = float((lse - ref_lse).abs().max())
         if not errs[dt] <= TOL[dt]:
-            fail(f"flash {dt}: max err {errs[dt]} > {TOL[dt]}")
+            fail(f"flash {mask} {dt}: max err {errs[dt]} > {TOL[dt]}")
         if not lse_errs[dt] <= LSE_TOL:
-            fail(f"flash {dt}: lse err {lse_errs[dt]} > {LSE_TOL}")
-        log(f"flash_attention {tuple(q.shape)} {dt} causal: max abs err "
+            fail(f"flash {mask} {dt}: lse err {lse_errs[dt]} > {LSE_TOL}")
+        log(f"flash_attention {tuple(q.shape)} {dt} {mask}: max abs err "
             f"{errs[dt]:.3e} (tolerance {TOL[dt]}), lse {lse_errs[dt]:.3e} "
             f"(tolerance {LSE_TOL})")
         if dt == torch.bfloat16:
             excess = float(((out.float() - ref.float()).abs()
-                            / flash_bf16_o_bound(qt, kt, vt, True, scale))
+                            / flash_bf16_o_bound(qt, kt, vt, causal, scale))
                            .max())
             if not excess <= 1.0:
-                fail(f"flash bf16: O exceeds its element bound {excess}x")
-            log(f"flash_attention bf16: O at most {excess:.3f} of its "
-                "element-wise rounding bound")
-    ms = timer(lambda: fa.flash_attention_qkv(q, k, v, causal=True,
+                fail(f"flash {mask} bf16: O exceeds its element bound "
+                     f"{excess}x")
+            log(f"flash_attention {mask} bf16: O at most {excess:.3f} of "
+                "its element-wise rounding bound")
+    ms = timer(lambda: fa.flash_attention_qkv(q, k, v, causal=causal,
                                               scale=scale))
-    plain_ms = timer(lambda: fa._fwd_plain(qt, kt, vt, True, scale))
+    plain_ms = timer(lambda: fa._fwd_plain(qt, kt, vt, causal, scale))
     lib_ms = timer(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, scale=scale))
+        qt, kt, vt, is_causal=causal, scale=scale))
     n = b * h * s * d
-    flops = 4 * b * h * d * s * (s + 1) / 2
+    flops = 4 * b * h * d * s * ((s + 1) / 2 if causal else s)
     bound_ms, bound_by = bound(4 * n * 2 + b * h * s * 4, flops, BF16_FLOPS)
-    return {"name": "flash_attention_fwd", "route": "cuda",
+    return {"name": row_name("flash_attention_fwd", causal),
+            "counter": "flash_attention_fwd", "route": "cuda",
             "source": "flexflow_tpu_torch/csrc/flash_attention.cu",
             "replaces": "flexflow_tpu/kernels/flash_attention.py:151",
-            "shape": [b, s, h, d], "dtype": "bfloat16", "causal": True,
+            "shape": [b, s, h, d], "dtype": "bfloat16", "causal": causal,
             "max_abs_err": errs[torch.bfloat16],
             "max_abs_err_f32": errs[torch.float32],
             "tolerance": TOL[torch.bfloat16], "o_bound_share": excess,
@@ -546,22 +593,25 @@ def rel_err(got, want) -> float:
                  / max(1.0, float(want.abs().max())))
 
 
-def check_flash_bwd(timer, gen):
-    """dQ and dK/dV at the training shape, against their plain versions,
-    with the saved lse and delta of the forward; bf16 dQ also element by
-    element against `_dq_bf16_bound`."""
+def check_flash_bwd(timer, gen, shape=(BATCH, SEQ, HEADS, HEAD_DIM),
+                    causal=True):
+    """dQ and dK/dV at `shape` (b, s, h, d; GPT-2 medium's training shape
+    by default), causal or not, against their plain versions, with the
+    saved lse and delta of the forward; bf16 dQ also element by element
+    against `_dq_bf16_bound`."""
     from flexflow_tpu_torch.kernels import flash_attention as fa
 
-    b, h, s, d = BATCH, HEADS, SEQ, HEAD_DIM
+    b, s, h, d = shape
     scale = d ** -0.5
+    mask = "causal" if causal else "non-causal"
     errs = {"dq": {}, "dkv": {}}
     for dt in (torch.float32, torch.bfloat16):
         # (b, s, h, d) storage viewed as (b, h, s, d), as the lowering has it
         q, k, v, do = (torch.randn((b, s, h, d), generator=gen, device="cuda")
                        .to(dt).transpose(1, 2) for _ in range(4))
-        o, lse = fa._fwd(q, k, v, True, scale)
+        o, lse = fa._fwd(q, k, v, causal, scale)
         delta = fa._delta(o, do).contiguous()
-        args = (q, k, v, do, lse, delta, True, scale)
+        args = (q, k, v, do, lse, delta, causal, scale)
         dq = fa._dq_cuda(*args)
         dk, dv = fa._dkv_cuda(*args)
         torch.cuda.synchronize()
@@ -573,8 +623,8 @@ def check_flash_bwd(timer, gen):
             scaled = max(rel_err(a, r) for a, r in outs)
             errs[name][dt] = abs_err
             if not scaled <= TOL[dt]:
-                fail(f"flash {name} {dt}: error {scaled} > {TOL[dt]}")
-            log(f"flash_attention_{name} {(b, s, h, d)} {dt} causal: max abs "
+                fail(f"flash {name} {mask} {dt}: error {scaled} > {TOL[dt]}")
+            log(f"flash_attention_{name} {(b, s, h, d)} {dt} {mask}: max abs "
                 f"err {abs_err:.3e}, over max(1, max |plain|) {scaled:.3e} "
                 f"(tolerance {TOL[dt]})")
         if dt == torch.bfloat16:
@@ -587,9 +637,9 @@ def check_flash_bwd(timer, gen):
                 "median_element_bound": float(dq_bound.median())}
             del want, dq_bound
             if not dq_elem["dq_bound_share"] <= 1.0:
-                fail("flash dq bf16: exceeds its element bound "
+                fail(f"flash dq {mask} bf16: exceeds its element bound "
                      f"{dq_elem['dq_bound_share']}x")
-            log(f"flash_attention_dq bf16: at most "
+            log(f"flash_attention_dq {mask} bf16: at most "
                 f"{dq_elem['dq_bound_share']:.3f} of its element-wise "
                 f"rounding bound; median bound "
                 f"{dq_elem['median_element_bound']:.3e}, median |plain| "
@@ -599,12 +649,12 @@ def check_flash_bwd(timer, gen):
     plain_ms = {"dq": timer(lambda: fa._dq_plain(*args)),
                 "dkv": timer(lambda: fa._dkv_plain(*args))}
     qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
-    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
                                          scale=scale)
     lib_ms = timer(lambda: torch.autograd.grad(out, (qs, ks, vs), do,
                                                retain_graph=True))
     n = b * h * s * d
-    pairs = b * h * s * (s + 1) / 2        # causal (q, k) pairs
+    pairs = b * h * s * ((s + 1) / 2 if causal else s)   # (q, k) pairs
     rows = []
     for name, n_out, matmuls, src_line in (("dq", 1, 3, 274),
                                            ("dkv", 2, 4, 284)):
@@ -613,10 +663,11 @@ def check_flash_bwd(timer, gen):
         flops = matmuls * 2 * pairs * d
         bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS)
         row = {
-            "name": f"flash_attention_{name}", "route": "cuda",
+            "name": row_name(f"flash_attention_{name}", causal),
+            "counter": f"flash_attention_{name}", "route": "cuda",
             "source": "flexflow_tpu_torch/csrc/flash_attention_bwd.cu",
             "replaces": f"flexflow_tpu/kernels/flash_attention.py:{src_line}",
-            "shape": [b, s, h, d], "dtype": "bfloat16", "causal": True,
+            "shape": [b, s, h, d], "dtype": "bfloat16", "causal": causal,
             "max_abs_err": errs[name][torch.bfloat16],
             "max_abs_err_f32": errs[name][torch.float32],
             "tolerance": TOL[torch.bfloat16],
@@ -625,7 +676,7 @@ def check_flash_bwd(timer, gen):
             "bound_by": bound_by, "library_ms": lib_ms,
             "library": "scaled_dot_product_attention backward (dQ, dK and "
                        "dV together)"}
-        row.update(tc_fields(row["name"], flops, ms[name], bound_ms))
+        row.update(tc_fields(row["counter"], flops, ms[name], bound_ms))
         if name == "dq":
             row.update(dq_elem)
         rows.append(row)
@@ -1639,6 +1690,18 @@ GRAD_TOL = {"float32": {"loss": 1e-5, "grad": 1e-4, "update": 1e-3},
 # gradient's tolerance.
 GRAD_TOL_SGD = {dt: dict(tol, update=tol["grad"])
                 for dt, tol in GRAD_TOL.items()}
+# (9g), BERT: its FFN is relu where GPT-2's is gelu. The flash forward's
+# last bits (f32 ~4e-7 from the plain version's) move the relu units whose
+# pre-activation lies that close to 0 to the other side, and their whole
+# gradient rows change with them: a gradient's relative L2 then grows as
+# the square root of the share of flipped units, not with the rounding
+# (read on an H100 80GB HBM3 at 700 W: 6.3e-4 in f32, bf16 4.5e-2,
+# where GPT-2 stays below 1e-4), and Adam's first step (~ -lr sign(g))
+# turns each flipped gradient sign into 2 lr. Held at f32: gradient
+# 2e-3, update 0.15 (a share of 0.6% of signs flipped); bf16: gradient
+# 0.1, update 5a's 0.3.
+GRAD_TOL_RELU = {"float32": {"loss": 1e-5, "grad": 2e-3, "update": 0.15},
+                 "bfloat16": {"loss": 1e-2, "grad": 1e-1, "update": 3e-1}}
 
 
 def sgd_param_excess(p_k, p_p, d_k, d_p) -> float:
@@ -1655,23 +1718,37 @@ def sgd_param_excess(p_k, p_p, d_k, d_p) -> float:
 
 def train_grad_check(seed: int, optimizer_fn=None, vocab_pad_to: int = 0,
                      tols=GRAD_TOL, tag: str = "train") -> dict:
+    """`grad_check` at GPT-2 medium widths and 2 layers, with the optimizer
+    `optimizer_fn()` (Adam(1e-4) when None). The key bias `bk` is left out
+    of the gradient and update checks: its gradient is zero in exact
+    arithmetic (the softmax cancels it), so both runs hold rounding noise
+    there."""
+    from flexflow_tpu_torch.models import GPT2Config
+
+    gc = GPT2Config.medium()
+    ids, pos, labels = train_batch(seed + 1, gc.vocab)
+    inputs = [torch.from_numpy(ids).cuda(), torch.from_numpy(pos).cuda()]
+    label = torch.from_numpy(labels).cuda()
+
+    def make(dt):
+        return gpt2_train_model(seed, 2, dt, optimizer_fn() if optimizer_fn
+                                else None, vocab_pad_to)[2]
+    return grad_check(make, inputs, label, tols, tag, "2 layers",
+                      skip=("bk",))
+
+
+def grad_check(make, inputs, label, tols, tag: str, depth: str,
+               skip=()) -> dict:
     """One step through the kernels and one through the plain versions,
-    from the same params, at GPT-2 medium widths and 2 layers, with the
-    optimizer `optimizer_fn()` (Adam(1e-4) when None). The key bias `bk`
-    is left out of the gradient and update checks: its gradient is zero in
-    exact arithmetic (the softmax cancels it), so both runs hold rounding
-    noise there. Under SGD with momentum (no weight decay) the update is
-    -lr t' from the stored trace, and every updated param is held to
-    `sgd_param_excess`."""
+    from the same params and state, of the model `make(dtype)` compiles,
+    in f32 and bf16: the loss, every gradient and every updated param.
+    Weights named in `skip` are left out of the gradient and update
+    checks. Under SGD with momentum the update is -lr t' from the stored
+    trace, and every updated param is held to `sgd_param_excess`."""
     out = {}
     for dt in ("float32", "bfloat16"):
-        gc, _, cm = gpt2_train_model(
-            seed, 2, dt, optimizer_fn() if optimizer_fn else None,
-            vocab_pad_to)
+        cm = make(dt)
         sgd_lr = (cm.optimizer.lr if "trace" in cm.opt_state else None)
-        ids, pos, labels = train_batch(seed + 1, gc.vocab)
-        inputs = [torch.from_numpy(ids).cuda(), torch.from_numpy(pos).cuda()]
-        label = torch.from_numpy(labels).cuda()
         p0 = {l: {w: t.detach().clone() for w, t in ws.items()}
               for l, ws in cm.params.items()}
         loss_k, _, _, g_k = cm.value_and_grads(cm.params, cm.state, inputs,
@@ -1680,7 +1757,7 @@ def train_grad_check(seed: int, optimizer_fn=None, vocab_pad_to: int = 0,
             loss_p, _, _, g_p = cm.value_and_grads(cm.params, cm.state,
                                                    inputs, label)
         grad_err = max(l2_rel(g_k[l][w], g_p[l][w])
-                       for l in g_k for w in g_k[l] if w != "bk")
+                       for l in g_k for w in g_k[l] if w not in skip)
         updated, after = [], []
         for plain in (False, True):
             cm.load_params(p0)
@@ -1698,7 +1775,7 @@ def train_grad_check(seed: int, optimizer_fn=None, vocab_pad_to: int = 0,
                                 for w, t in ws.items()}
                             for l, ws in after[-1].items()})
         upd_err = max(l2_rel(updated[0][l][w], updated[1][l][w])
-                      for l in p0 for w in p0[l] if w != "bk")
+                      for l in p0 for w in p0[l] if w not in skip)
         loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
         tol = tols[dt]
         out[dt] = {"loss_kernels": float(loss_k), "loss_plain": float(loss_p),
@@ -1717,12 +1794,12 @@ def train_grad_check(seed: int, optimizer_fn=None, vocab_pad_to: int = 0,
             ok = ok and out[dt]["param_excess_max"] <= 0.0
             excess = (f", params' worst excess over the rounding bound "
                       f"{out[dt]['param_excess_max']:.2e} (tolerance 0)")
-        log(f"[{tag} {dt}, 2 layers] loss {float(loss_k):.6f} vs plain "
+        log(f"[{tag} {dt}, {depth}] loss {float(loss_k):.6f} vs plain "
             f"{float(loss_p):.6f} (rel {loss_err:.2e}), worst gradient rel L2 "
             f"{grad_err:.2e}, worst update ({out[dt]['update_read_as']}) rel "
             f"L2 {upd_err:.2e}{excess} (tolerances {tol})")
         if not ok:
-            fail(f"training step through the kernels vs plain ({dt}): "
+            fail(f"{tag}: training step through the kernels vs plain ({dt}): "
                  f"{out[dt]}")
         del cm, g_k, g_p, updated, after, p0
         torch.cuda.empty_cache()
@@ -2216,13 +2293,14 @@ def fit_preempt_resume(seed: int) -> dict:
     return out
 
 
-def profile_train(cm, inputs, label, tag: str, rng=None) -> dict:
-    """torch.profiler over two train steps of `cm` on one batch (their
+def profile_train(cm, inputs, label, tag: str, rng=None,
+                  reps: int = 2) -> dict:
+    """torch.profiler over `reps` train steps of `cm` on one batch (their
     dropout drawn from `rng`)."""
     def step():
         (cm.params, cm.opt_state, cm.state, _, _) = cm.train_step(
             cm.params, cm.opt_state, cm.state, inputs, label, rng)
-    prof = _device_profile(step, 2, cm.device)
+    prof = _device_profile(step, reps, cm.device)
     if "wall_ms_per_call" in prof:
         log(f"[{tag}] step: {prof['wall_ms_per_call']:.2f} ms wall, device "
             f"busy {prof['device_busy_ms_per_call']:.2f} ms, idle share "
@@ -2590,6 +2668,302 @@ def phase7(seed: int, timer, gen) -> dict:
     return out
 
 
+# ------------------------------------ phase 9: the bench's other workloads
+# bench.py's sizes (`_bench_resnext`, `_bench_bert`, `_bench_dlrm`) and
+# build_resnet50's defaults (BASELINE.md config #2), bf16 compute over f32
+# master weights; ResNet-50 under SGD at Goyal et al.'s 0.1 x batch / 256
+IMAGE_BATCH, IMAGE_HW, CLASSES = 64, 224, 1000
+BERT_BATCH, BERT_SEQ, BERT_VOCAB, BERT_LAYERS = 8, 512, 30522, 12
+DLRM_BATCH, DLRM_TABLES = 4096, (100_000,) * 8
+RESNET_SGD = dict(lr=0.1 * IMAGE_BATCH / 256, momentum=0.9,
+                  weight_decay=1e-4)
+P9_FIT_BATCHES = 4
+
+
+def resnet50_blocks(model, blocks: int):
+    """ResNet-50's stem, its first `blocks` bottleneck blocks (stage 0,
+    width 64) and its head: the gradient check's cut of build_resnet50."""
+    from flexflow_tpu_torch.models import build_resnet_block
+
+    x = model.create_tensor([IMAGE_BATCH, 3, IMAGE_HW, IMAGE_HW],
+                            name="image")
+    t = model.conv2d(x, 64, 7, 7, 2, 2, 3, 3, name="stem", use_bias=False)
+    t = model.batch_norm(t, relu=True, name="stem_bn")
+    t = model.pool2d(t, 3, 3, 2, 2, 1, 1, name="stem_pool")
+    for bi in range(blocks):
+        t = build_resnet_block(model, t, 64, 1, f"s0b{bi}", project=bi == 0)
+    t = model.mean(t, axes=[2, 3], name="gap")
+    model.dense(t, CLASSES, name="fc")
+
+
+def p9_batch(which: str, seed: int, n: int = 0):
+    """Inputs and labels as bench.py draws them (numpy, on the host); `n`
+    samples (default: one batch)."""
+    rng = np.random.default_rng(seed)
+    if which in ("resnet50", "resnext50"):
+        n = n or IMAGE_BATCH
+        x = rng.normal(size=(n, 3, IMAGE_HW, IMAGE_HW),
+                       scale=0.5).astype(np.float32)
+        return [x], rng.integers(0, CLASSES, size=(n,)).astype(np.int32)
+    if which == "bert":
+        ids = rng.integers(0, BERT_VOCAB, size=(BERT_BATCH, BERT_SEQ))
+        pos = np.tile(np.arange(BERT_SEQ), (BERT_BATCH, 1))
+        labels = rng.integers(0, BERT_VOCAB, size=(BERT_BATCH, BERT_SEQ))
+        return ([ids.astype(np.int32), pos.astype(np.int32)],
+                labels.astype(np.int32))
+    dense = rng.normal(size=(DLRM_BATCH, 13)).astype(np.float32)
+    sparse = [rng.integers(0, t, size=(DLRM_BATCH, 1)).astype(np.int32)
+              for t in DLRM_TABLES]
+    return ([dense] + sparse,
+            rng.uniform(size=(DLRM_BATCH, 1)).astype(np.float32))
+
+
+def p9_model(which: str, compute_dtype: str, seed: int, depth: int = 0,
+             dropout: float = 0.0, metrics=()):
+    """(compiled model, forward flops by the registry's count, batch) of
+    `which` at full width, built by the port's builders; `depth` cuts
+    ResNet-50 to that many blocks and BERT to that many layers."""
+    from flexflow_tpu_torch import (AdamOptimizer, FFConfig, FFModel,
+                                    SGDOptimizer)
+    from flexflow_tpu_torch import models
+    from flexflow_tpu_torch.ops import get_op_def
+
+    batch = {"bert": BERT_BATCH, "dlrm": DLRM_BATCH}.get(which, IMAGE_BATCH)
+    model = FFModel(FFConfig(batch_size=batch, compute_dtype=compute_dtype,
+                             seed=seed))
+    opt, loss = AdamOptimizer(alpha=LR), "sparse_categorical_crossentropy"
+    if which == "resnet50":
+        if depth:
+            resnet50_blocks(model, depth)
+        else:
+            models.build_resnet50(model, batch=batch, in_hw=IMAGE_HW,
+                                  classes=CLASSES)
+        opt = SGDOptimizer(**RESNET_SGD)
+    elif which == "resnext50":
+        # bench.py's build: groups 32, width 128, has_residual=False
+        models.build_resnext50(model, batch=batch, in_hw=IMAGE_HW,
+                               classes=CLASSES)
+    elif which == "bert":
+        models.build_bert(model, batch=batch, seq=BERT_SEQ, vocab=BERT_VOCAB,
+                          layers=depth or BERT_LAYERS, dropout=dropout)
+    else:
+        models.build_dlrm(model, batch=batch, embedding_tables=DLRM_TABLES,
+                          embedding_dim=64)
+        loss = "mean_squared_error"
+    cm = model.compile(opt, loss, list(metrics))
+    cm.init(seed=seed)
+    flops = sum(get_op_def(l.op_type).flop_count(l) for l in model.layers)
+    return cm, flops, batch
+
+
+def on_card(xs, y):
+    return [torch.from_numpy(a).cuda() for a in xs], torch.from_numpy(y).cuda()
+
+
+def p9_leg(tag: str, which: str, exact: dict, seed: int,
+           dropout: float = 0.0, metrics=()) -> tuple:
+    """One leg of phase 9: 2 warm-up and 10 timed steps on one batch, the
+    launch counters zeroed before the 12 steps and read after (`exact`
+    gives each kernel's launches per step; a kernel it does not name must
+    not launch), the optimizer's table built in the first step only,
+    every loss finite; then torch.profiler over one step. Step i draws
+    its dropout from fold_in(key(seed + 17), i). Returns (summary,
+    compiled model, device inputs, label)."""
+    from flexflow_tpu_torch import random as ff_random
+    from flexflow_tpu_torch.kernels import fused_optim as fo
+
+    collect_garbage()
+    torch.cuda.empty_cache()
+    cm, flops, batch = p9_model(which, "bfloat16", seed, dropout=dropout,
+                                metrics=metrics)
+    inputs, label = on_card(*p9_batch(which, seed))
+    losses = []
+    base = ff_random.key(seed + 17)
+
+    def step():
+        (cm.params, cm.opt_state, cm.state, loss, _) = cm.train_step(
+            cm.params, cm.opt_state, cm.state, inputs, label,
+            ff_random.fold_in(base, len(losses)))
+        losses.append(loss)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    builds0 = fo.table_builds
+    t0 = time.perf_counter()
+    for _ in range(WARMUP_STEPS):
+        step()
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    builds = [fo.table_builds - builds0]
+    windows = []
+    for _ in range(TRAIN_STEPS // 2):
+        t0 = time.perf_counter()
+        step()
+        step()
+        torch.cuda.synchronize()
+        windows.append((time.perf_counter() - t0) / 2)
+    counts = launch_counts()
+    builds.append(fo.table_builds - builds0 - builds[0])
+    steps = WARMUP_STEPS + TRAIN_STEPS
+    loss_vals = [float(x) for x in losses]
+    step_s = float(np.median(windows))
+    summary = {
+        "model": which, "batch": batch, "dropout": dropout,
+        "compute_dtype": "bfloat16", "optimizer": type(cm.optimizer).__name__,
+        "optimizer_args": {k: v for k, v in vars(cm.optimizer).items()
+                           if isinstance(v, (int, float, str))},
+        "loss": cm.loss_type.value, "layers": len(cm.model.layers),
+        "params": sum(t.numel() for ws in cm.params.values()
+                      for t in ws.values()),
+        "forward_gflop": flops / 1e9, "steps": steps,
+        "warmup_s": warmup_s, "step_ms_median": 1e3 * step_s,
+        "step_ms_windows": [1e3 * w for w in windows],
+        "samples_per_s": batch / step_s,
+        "mfu_port_count": 3 * flops / step_s / BF16_FLOPS,
+        "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "losses": loss_vals, "loss_fell": loss_vals[-1] < loss_vals[0],
+        "launches": counts, "table_builds_warmup_timed": builds,
+        "cudnn_benchmark": torch.backends.cudnn.benchmark}
+    log(f"[{tag}] {which} b{batch}: step {summary['step_ms_median']:.2f} ms "
+        f"(windows {', '.join(f'{w:.2f}' for w in summary['step_ms_windows'])}"
+        f"; warm-up {warmup_s:.1f} s), {summary['samples_per_s']:.1f} "
+        f"samples/s, MFU by the port's count (3 x the registry's forward "
+        f"{flops / 1e9:.1f} GFLOP a step) {100 * summary['mfu_port_count']:.2f}"
+        f"%, peak {summary['max_memory_allocated_gib']:.2f} GiB, "
+        f"{summary['params']} params")
+    log(f"[{tag}] losses {' '.join(f'{x:.4f}' for x in loss_vals)}")
+    log(f"[{tag}] launches over {steps} steps: {counts}; optimizer table "
+        f"builds in the warm-up and timed steps: {builds}")
+    if not all(np.isfinite(loss_vals)):
+        fail(f"{tag}: non-finite training loss: {loss_vals}")
+    want = {name: exact.get(name, 0) * steps for name in counts}
+    if counts != want:
+        fail(f"{tag}: launches over {steps} steps {counts}, expected {want}")
+    if builds != [1, 0]:
+        fail(f"{tag}: the optimizer's pointer table was built {builds} "
+             f"times in the warm-up and timed steps, expected [1, 0]")
+    summary["profile"] = profile_train(cm, inputs, label, tag,
+                                       rng=ff_random.key(seed), reps=1)
+    return summary, cm, inputs, label
+
+
+def p9_fit_evaluate(cm, seed: int) -> dict:
+    """(9a) one fit epoch of P9_FIT_BATCHES batches with the accuracy
+    metric through the prefetching loader, the launch counters zeroed
+    just before it; then `evaluate` over the same samples, which must
+    read the running stats: they moved away from 0 and 1 and are finite,
+    and evaluating without them gives another loss."""
+    from flexflow_tpu_torch.kernels import fused_optim as fo
+
+    xs, y = p9_batch("resnet50", seed + 2, n=P9_FIT_BATCHES * IMAGE_BATCH)
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    builds0 = fo.table_builds
+    t0 = time.perf_counter()
+    hist = cm.fit(xs, y, epochs=1, verbose=False, sync_every=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    want = {name: 0 for name in counts}
+    want["fused_sgd"] = P9_FIT_BATCHES
+    stats = dict(cm.state)
+    means = [v for k, v in stats.items() if k.endswith("/mean")]
+    vars_ = [v for k, v in stats.items() if k.endswith("/var")]
+    moved = {
+        "bn_layers": len(means),
+        "finite": bool(all(torch.isfinite(v).all() for v in stats.values())),
+        "mean_abs_max_min": min(float(v.abs().max()) for v in means),
+        "var_minus_1_abs_max_min": min(float((v - 1).abs().max())
+                                       for v in vars_)}
+    t0 = time.perf_counter()
+    ev = cm.evaluate(xs, y)
+    eval_s = time.perf_counter() - t0
+    cm.state = {}
+    ev_without = cm.evaluate(xs, y)
+    cm.state = stats
+    out = {"history": hist, "step_stats": dict(cm.step_stats), "wall_s": wall,
+           "launches": counts, "table_builds": fo.table_builds - builds0,
+           "running_stats": moved, "evaluate": ev, "evaluate_s": eval_s,
+           "evaluate_without_stats": ev_without}
+    log(f"[9a fit] loss {hist[0]['loss']:.4f}, accuracy "
+        f"{hist[0]['accuracy']:.4f}, {hist[0]['samples_per_sec']:.1f} "
+        f"samples/s, step_stats {cm.step_stats}, launches {counts}, table "
+        f"builds {out['table_builds']}")
+    log(f"[9a evaluate] loss {ev['loss']:.4f}, accuracy {ev['accuracy']:.4f} "
+        f"in {eval_s:.2f} s; without the running stats loss "
+        f"{ev_without['loss']:.4f}; stats {moved}")
+    if not np.isfinite(hist[0]["loss"]):
+        fail(f"9a fit: non-finite loss {out}")
+    if cm.step_stats != {"dispatches": P9_FIT_BATCHES, "host_syncs": 0} \
+            or out["table_builds"] != 0 or counts != want:
+        fail(f"9a fit: {out}")
+    if not (moved["finite"] and moved["bn_layers"] == 53
+            and moved["mean_abs_max_min"] > 0
+            and moved["var_minus_1_abs_max_min"] > 0):
+        fail(f"9a: the running stats did not move or are not finite: {moved}")
+    if ev_without["loss"] == ev["loss"]:
+        fail("9a evaluate: the loss does not depend on the running stats")
+    return out
+
+
+def model_grad_check(which: str, seed: int, depth: int) -> dict:
+    """(9f, 9g) `grad_check` of ResNet-50's widths at `depth` blocks (SGD
+    with momentum and weight decay: #9 over a conv/BN param set; 5e's
+    tolerances) or BERT-base's at `depth` layers, dropout 0 (#1-#3
+    non-causal inside a model, and #7; `GRAD_TOL_RELU`), in f32 and bf16.
+    The kernels of the model must have launched in the run through them."""
+    xs, y = p9_batch(which, seed + 1)
+    inputs, label = on_card(xs, y)
+    zero_launch_counts()
+    out = grad_check(lambda dt: p9_model(which, dt, seed, depth=depth)[0],
+                     inputs, label,
+                     GRAD_TOL_SGD if which == "resnet50" else GRAD_TOL_RELU,
+                     f"9 grad check {which}", f"{depth} "
+                     f"{'blocks' if which == 'resnet50' else 'layers'}",
+                     skip=("bk",))
+    counts = launch_counts()
+    names = (("fused_sgd",) if which == "resnet50" else
+             ("flash_attention_fwd", "flash_attention_dq",
+              "flash_attention_dkv", "fused_adam"))
+    if min(counts[n] for n in names) <= 0:
+        fail(f"9 grad check {which}: kernels not launched: {counts}")
+    out["launches"] = counts
+    return out
+
+
+def phase9(seed: int) -> dict:
+    """The JAX bench's other training workloads on the card, each at full
+    width through FFModel.compile -> train_step (and fit for ResNet-50),
+    with cuDNN's autotuner on (`cudnn.benchmark`: the warm-up steps take
+    its search); the gradient checks of two cut models first."""
+    t0 = time.perf_counter()
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    out = {"grad_check": {"resnet50": model_grad_check("resnet50", seed, 2),
+                          "bert": model_grad_check("bert", seed, 2)}}
+    flash = {"flash_attention_fwd": BERT_LAYERS,
+             "flash_attention_dq": BERT_LAYERS,
+             "flash_attention_dkv": BERT_LAYERS}
+    legs = [("9a", "resnet50", {"fused_sgd": 1}, 0.0, ("accuracy",)),
+            ("9b", "resnext50", {"fused_adam": 1}, 0.0, ()),
+            ("9c", "bert", {"fused_adam": 1}, 0.1, ()),
+            ("9d", "bert", dict(flash, fused_adam=1), 0.0, ()),
+            ("9e", "dlrm", {"fused_adam": 1}, 0.0, ())]
+    for tag, which, exact, dropout, metrics in legs:
+        out[tag], cm, inputs, label = p9_leg(tag, which, exact, seed,
+                                             dropout, metrics)
+        if tag == "9a":
+            out["9a_fit"] = p9_fit_evaluate(cm, seed)
+        del cm, inputs, label
+    collect_garbage()
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.benchmark = bench
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[phase 9] {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2631,13 +3005,18 @@ def main() -> None:
     rows = [check_flash(timer, gen), *check_flash_bwd(timer, gen),
             check_dequant(timer, gen, args.seed), check_adam(timer, gen)]
     torch.cuda.empty_cache()
+    # BERT-base's attention (phase 9d): (8, 512, 12, 64), no mask
+    bert_attn = (BERT_BATCH, BERT_SEQ, 12, HEAD_DIM)
+    rows += [check_flash(timer, gen, bert_attn, causal=False),
+             *check_flash_bwd(timer, gen, bert_attn, causal=False)]
+    torch.cuda.empty_cache()
     rows += [*check_fused_ce(timer, gen), *check_sgd(timer, gen)]
     torch.cuda.empty_cache()
     for r in rows:
         log(f"{r['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']})")
-        if r["name"] in TC_DESIGN:
+        if r.get("counter") in TC_DESIGN:
             log(f"{r['name']}: {r['tflops']:.1f} TFLOP/s, "
                 f"{100 * r['bound_share']:.1f}% of its bound "
                 f"({r['design']})")
@@ -2774,6 +3153,9 @@ def main() -> None:
     # ---- 7. the strategy search on the H100 machine model
     search = phase7(args.seed, timer, gen)
 
+    # ---- 9. ResNet-50, ResNeXt-50, BERT-base and DLRM
+    bench = phase9(args.seed)
+
     # launches on the main paths: both serving runs, the 12 Adam training
     # steps and the Adam fit epoch, the 12 padded-vocab SGD steps and the
     # accum_steps=2 fit epoch, each counted from 0 just before it ran
@@ -2799,9 +3181,22 @@ def main() -> None:
         paths[leg["leg"].replace(" ", "_").replace("=", "")] = leg["launches"]
     paths["serve_slo_trace"] = spec["slo_trace"]["launches"]
     paths["serve_watchdog"] = spec["watchdog"]["launches"]
+    # phase 9's paths; the flash kernels run there without the mask (BERT),
+    # everywhere else with it (GPT-2): the non-causal rows count phase 9's
+    # launches, the causal rows the others'
+    paths9 = {"train_resnet50_steps": bench["9a"]["launches"],
+              "train_resnet50_fit": bench["9a_fit"]["launches"],
+              "train_resnext50_steps": bench["9b"]["launches"],
+              "train_bert_dropout_steps": bench["9c"]["launches"],
+              "train_bert_steps": bench["9d"]["launches"],
+              "train_dlrm_steps": bench["9e"]["launches"]}
     for r in rows:
-        r["launches"] = sum(c[r["name"]] for c in paths.values())
-        r["launches_by_path"] = {p: c[r["name"]] for p, c in paths.items()}
+        causal = r.get("causal")
+        counted = (paths if causal else paths9 if causal is False
+                   else {**paths, **paths9})
+        key = r.get("counter", r["name"])
+        r["launches"] = sum(c[key] for c in counted.values())
+        r["launches_by_path"] = {p: c[key] for p, c in counted.items()}
         if r["name"] == "dequant_decode_attention":
             r["launches_by_rows_by_path"] = {
                 leg["leg"]: leg["dequant_by_rows"]
@@ -2814,6 +3209,7 @@ def main() -> None:
     log(json.dumps({"train_dropout": drop}))
     log(json.dumps({"search": search}))
     log(json.dumps({"spec": spec}))
+    log(json.dumps({"bench_workloads": bench}))
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -45,6 +45,15 @@ applies ONE optimizer update; loss and metrics are the microbatch sums
 times 1 / N. `fit` groups N consecutive loader batches per update
 (`runtime/dataloader.group_microbatches`).
 
+The non-trainable state (`cm.state`: the batch-norm running stats,
+`{layer}/mean` and `{layer}/var`) is threaded as in JAX: `train_step`
+returns the forward's new state, the accumulating step feeds microbatch
+j's state to microbatch j+1, `fit` keeps the last step's, and
+`eval_step`, `infer` and `evaluate` read it (inference mode). `init` and
+`load_params` start it empty; `convert.state_from_jax` carries the JAX
+package's across. Labels are what the loss takes: int ids for the
+cross-entropies, float targets for MSE (e.g. DLRM's `(b, 1)` f32 clicks).
+
 Params are f32 master weights; the lowering casts them to the compute
 dtype per layer, so their gradients come back in f32, as in JAX. The
 optimizer updates params and moments IN PLACE: that is the port's analog

@@ -43,7 +43,7 @@ from flexflow_tpu_torch.ops import get_op_def
 from flexflow_tpu_torch.ops.op_type import OperatorType
 from flexflow_tpu_torch.ops.registry import LoweringCtx
 
-NORM_TYPES = (OperatorType.LAYERNORM,)
+NORM_TYPES = (OperatorType.LAYERNORM, OperatorType.BATCHNORM)
 
 
 # the matmul ops whose outputs the "dots" policy saves
@@ -104,17 +104,19 @@ class GraphForward(nn.Module):
         # test hook, handed to every LoweringCtx (registry.py)
         self.mask_hook: Optional[Callable] = None
 
-    def _ctx(self, state, training, rng) -> LoweringCtx:
+    def _ctx(self, state, training, rng, device) -> LoweringCtx:
         return LoweringCtx(state=state, enable_fusion=self.enable_fusion,
                            training=training, rng=rng,
-                           mask_hook=self.mask_hook)
+                           mask_hook=self.mask_hook, device=device,
+                           compute_dtype=self.cast_to)
 
     def _lower_checkpointed(self, layer: Layer, ins, w, ctx: LoweringCtx):
         """One layer's lowering as a function of (ins, w) on a sub-context:
         the outputs and the layer's new state come back; the recompute's
         state is dropped with its sub-context."""
         def one(l_ins, l_w):
-            sub = self._ctx(dict(ctx.state), ctx.training, ctx.rng)
+            sub = self._ctx(dict(ctx.state), ctx.training, ctx.rng,
+                            ctx.device)
             outs = get_op_def(layer.op_type).lower(layer, l_ins, l_w, sub)
             return outs, sub.new_state
 
@@ -125,7 +127,8 @@ class GraphForward(nn.Module):
     def forward(self, params: Dict[str, Dict[str, torch.Tensor]],
                 state: Dict[str, Any], input_arrays: List[torch.Tensor],
                 training: bool = False, rng: Optional[int] = None):
-        ctx = self._ctx(dict(state), training, rng)
+        device = input_arrays[0].device if input_arrays else None
+        ctx = self._ctx(dict(state), training, rng, device)
         cast_to = self.cast_to
         env: Dict[int, torch.Tensor] = {}
         for t, arr in zip(self.graph_inputs, input_arrays):

@@ -12,6 +12,9 @@ The layouts are already the same in both packages (dense `kernel` is
 `{"trace"}`, and a state with neither (plain SGD) becomes `{}`. It reads
 the optax nodes by their fields, so it needs neither optax nor JAX.
 
+`state_from_jax(state)` carries the non-trainable state across (the
+batch-norm running stats, `{layer}/mean` and `{layer}/var`).
+
 `params_to_numpy(tree)` is the way back: float32 numpy arrays.
 """
 
@@ -42,6 +45,16 @@ def params_from_jax(tree: Mapping[str, Mapping[str, np.ndarray]],
     return {layer: {name: _to_torch(arr, device, dtype)
                     for name, arr in weights.items()}
             for layer, weights in tree.items()}
+
+
+def state_from_jax(state: Mapping[str, Any], device="cpu"
+                   ) -> Dict[str, torch.Tensor]:
+    """The JAX CompiledModel's non-trainable state (after
+    `jax.device_get`), a flat `{key: array}` such as the batch-norm
+    running stats `{layer}/mean` and `{layer}/var`, as the port's
+    `CompiledModel.state`: f32 tensors on `device` (other arrays keep
+    their type)."""
+    return {k: _to_torch(v, device, None) for k, v in state.items()}
 
 
 def _find(state, fields):

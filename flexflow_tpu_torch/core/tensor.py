@@ -41,6 +41,9 @@ class TensorSpec:
     def with_shape(self, shape) -> "TensorSpec":
         return TensorSpec(tuple(shape), self.dtype)
 
+    def with_dtype(self, dtype: DataType) -> "TensorSpec":
+        return TensorSpec(self.shape, dtype)
+
     def __repr__(self):
         return f"{self.dtype.value}{list(self.shape)}"
 

@@ -2,10 +2,10 @@
 
 Metrics are PyTorch expressions computed on the device inside the step;
 `PerfMetrics` accumulates them. `MetricsType` names every metric of the
-JAX package; accuracy and sparse cross-entropy, the ones `fit` reports for
-a language model, are ported. Deferred mode keeps the step's device
-scalars queued and reads them to the host only at `materialize()` (in one
-transfer), so the training loop never waits on the device for a metric.
+JAX package, each computed as the JAX package computes it. Deferred mode
+keeps the step's device scalars queued and reads them to the host only
+at `materialize()` (in one transfer), so the training loop never waits
+on the device for a metric.
 """
 
 from __future__ import annotations
@@ -15,7 +15,8 @@ import enum
 from typing import Dict, List, Sequence
 
 import torch
-import torch.nn.functional as F
+
+from flexflow_tpu_torch.losses import LossType, compute_loss
 
 
 class MetricsType(enum.Enum):
@@ -100,18 +101,32 @@ class PerfMetrics:
 
 def compute_metrics(metric_types: Sequence[MetricsType], logits: torch.Tensor,
                     labels: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """Device scalars, one per metric; `logits` in f32, `labels` int ids.
-    Accuracy and sparse cross-entropy are ported; the others raise."""
+    """Device scalars, one per metric; `logits` in f32, `labels` int ids
+    or dense targets. Accuracy compares argmaxes: of the labels too when
+    they have the logits' shape (one-hot), else the labels as ids."""
     out: Dict[str, torch.Tensor] = {}
     for mt in metric_types:
         mt = MetricsType.from_any(mt)
         if mt is MetricsType.ACCURACY:
             pred = logits.argmax(-1)
-            out["accuracy"] = (pred == labels.reshape(pred.shape)).float().mean()
+            if labels.shape == logits.shape:
+                true = labels.argmax(-1)
+            else:
+                true = labels.reshape(pred.shape).to(pred.dtype)
+            out["accuracy"] = (pred == true).float().mean()
+        elif mt is MetricsType.CATEGORICAL_CROSSENTROPY:
+            out["categorical_crossentropy"] = compute_loss(
+                LossType.CATEGORICAL_CROSSENTROPY, logits, labels)
         elif mt is MetricsType.SPARSE_CATEGORICAL_CROSSENTROPY:
-            v = logits.shape[-1]
-            out["sparse_categorical_crossentropy"] = F.cross_entropy(
-                logits.reshape(-1, v), labels.reshape(-1).long())
+            out["sparse_categorical_crossentropy"] = compute_loss(
+                LossType.SPARSE_CATEGORICAL_CROSSENTROPY, logits, labels)
         else:
-            raise NotImplementedError(f"metric {mt.value} is not ported yet")
+            err = logits - labels.to(logits.dtype)
+            if mt is MetricsType.MEAN_SQUARED_ERROR:
+                out["mean_squared_error"] = torch.square(err).mean()
+            elif mt is MetricsType.ROOT_MEAN_SQUARED_ERROR:
+                out["root_mean_squared_error"] = torch.sqrt(
+                    torch.square(err).mean())
+            else:
+                out["mean_absolute_error"] = err.abs().mean()
     return out

@@ -1,3 +1,11 @@
-"""Model builders."""
+"""Model builders (counterpart: flexflow_tpu/models/): the ported ones."""
 
+from flexflow_tpu_torch.models.bert import build_bert  # noqa: F401
+from flexflow_tpu_torch.models.dlrm import build_dlrm  # noqa: F401
 from flexflow_tpu_torch.models.gpt2 import GPT2Config, build_gpt2  # noqa: F401
+from flexflow_tpu_torch.models.resnet import (  # noqa: F401
+    build_resnet50, build_resnet_block)
+from flexflow_tpu_torch.models.resnext import (  # noqa: F401
+    build_resnext50, resnext_block)
+from flexflow_tpu_torch.models.transformer import (  # noqa: F401
+    build_transformer, transformer_block)

@@ -13,9 +13,12 @@ from flexflow_tpu_torch.ops.registry import (  # noqa: F401
 from flexflow_tpu_torch.ops import (  # noqa: F401
     activations,
     attention_ops,
+    conv_ops,
     dense_ops,
     elementwise,
     embed_ops,
     norm_ops,
     parallel_ops,
+    reduce_ops,
+    shape_ops,
 )

@@ -1,4 +1,5 @@
-"""LayerNorm and Dropout (counterpart: flexflow_tpu/ops/norm_ops.py).
+"""LayerNorm, softmax, log_softmax and Dropout (counterpart:
+flexflow_tpu/ops/norm_ops.py).
 
 Layer norm takes its statistics and its affine in f32 (eps 1e-5 by
 default) and casts back to the activation dtype, as the JAX lowering does.
@@ -53,6 +54,20 @@ def _ln_lower(layer: "Layer", inputs, weights, ctx):
 
 
 register_op(OperatorType.LAYERNORM, _ln_infer, _ln_lower)
+
+
+def _softmax_infer(layer: "Layer"):
+    return [layer.inputs[0].spec]
+
+
+def _softmax_lower(layer: "Layer", inputs, weights, ctx):
+    fn = (torch.log_softmax if layer.op_type is OperatorType.LOG_SOFTMAX
+          else torch.softmax)
+    return [fn(inputs[0], dim=layer.params.get("axis", -1))]
+
+
+register_op(OperatorType.SOFTMAX, _softmax_infer, _softmax_lower)
+register_op(OperatorType.LOG_SOFTMAX, _softmax_infer, _softmax_lower)
 
 
 def _dropout_infer(layer: "Layer"):

@@ -30,11 +30,16 @@ if TYPE_CHECKING:
 class LoweringCtx:
     """Per-run context threaded through op lowerings."""
 
-    # non-trainable state (the paged KV cache) in, updated state out
+    # non-trainable state (the paged KV cache, batch-norm running stats)
+    # in, updated state out
     state: Dict[str, Any] = dataclasses.field(default_factory=dict)
     new_state: Dict[str, Any] = dataclasses.field(default_factory=dict)
     # --fusion: False keeps the hand-written attention kernels off
     enable_fusion: bool = True
+    # the run's device (where a lowering without inputs, a constant,
+    # makes its tensor) and the mixed policy's compute dtype (None: f32)
+    device: Optional[torch.device] = None
+    compute_dtype: Optional[torch.dtype] = None
     # training (the train step) or inference (serving, eval, infer)
     training: bool = False
     # what one run computes once and its layers share (the decode step's

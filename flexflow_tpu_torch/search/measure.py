@@ -251,7 +251,8 @@ class MeasuredCost:
         lower = get_op_def(layer.op_type).lower
 
         def apply():
-            return lower(local, ins, weights, LoweringCtx(training=False))
+            return lower(local, ins, weights, LoweringCtx(
+                training=False, device=dev, compute_dtype=cast_to))
 
         def run_fwd():
             with torch.no_grad():

@@ -726,3 +726,100 @@ def test_speculative_round_int8_on_card():
             assert len(kv.free_pages) == kv.capacity_pages()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+def test_flash_non_causal_at_bert_heads_on_card(dtype, tol):
+    """BERT-base's attention without the mask, at (2, 512, 12, 64): the
+    forward's O (bf16: within its element-wise rounding bound) and lse,
+    and dQ and dK/dV (bf16 dQ within `_dq_bf16_bound`), against their
+    plain versions, one launch of each kernel per call."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = _cuda_or_skip()
+    g = torch.Generator(device=dev).manual_seed(2)
+    q, k, v, do = (torch.randn((2, 512, 12, 64), generator=g, device=dev)
+                   .to(dtype).transpose(1, 2) for _ in range(4))
+    scale = 64 ** -0.5
+    n = (flash_attention.launches, flash_attention.launches_dq,
+         flash_attention.launches_dkv)
+    o, lse = flash_attention._fwd(q, k, v, False, scale)
+    delta = flash_attention._delta(o, do).contiguous()
+    args = (q, k, v, do, lse, delta, False, scale)
+    dq = flash_attention._dq_cuda(*args)
+    dk, dv = flash_attention._dkv_cuda(*args)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention.launches_dq,
+            flash_attention.launches_dkv) == (n[0] + 1, n[1] + 1, n[2] + 1)
+    ref, ref_lse = flash_attention._fwd_plain(q, k, v, False, scale)
+    err = (o.float() - ref.float()).abs()
+    assert float(err.max()) <= tol
+    assert float((lse - ref_lse).abs().max()) <= 1e-4
+    rdq = flash_attention._dq_plain(*args)
+    rdk, rdv = flash_attention._dkv_plain(*args)
+    for got, want in ((dq, rdq), (dk, rdk), (dv, rdv)):
+        assert _rel_err(got, want) <= tol
+    if dtype == torch.bfloat16:
+        bound = _flash_bf16_o_bound(q, k, v, False, scale)
+        assert float((err / bound).max()) <= 1.0
+        dq_bound = flash_attention._dq_bf16_bound(*args)
+        assert float(((dq.float() - rdq.float()).abs() / dq_bound).max()) \
+            <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which,depth", [("resnet50", 2), ("bert", 2)])
+def test_model_step_kernels_match_plain_on_card(which, depth):
+    """chip_smoke's phase-9 gradient checks: ResNet-50's widths at 2 blocks
+    under SGD with momentum and weight decay, BERT-base's at 2 layers with
+    dropout 0; one step through the kernels and one through the plain
+    versions from the same params, in f32 (TF32 off) and bf16: loss,
+    gradients and updated params within 5e's tolerances (ResNet) or
+    `GRAD_TOL_RELU` (BERT's relu FFN), and the kernels launched."""
+    from chip_smoke import model_grad_check
+
+    _cuda_or_skip()
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        out = model_grad_check(which, 0, depth)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    assert set(out) == {"float32", "bfloat16", "launches"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", [1, 32])
+def test_f32_conv_without_tf32_on_card(groups):
+    """The conv lowering in f32 on the card with cuDNN's TF32 off, against
+    the same lowering in f64 on the CPU: within 1e-5 of the output's
+    largest value (TF32's 10-bit mantissa would miss by ~1e-3); grouped at
+    ResNeXt's cardinality too."""
+    from flexflow_tpu_torch.ops.registry import LoweringCtx, get_op_def
+
+    dev = _cuda_or_skip()
+    m = FFModel(FFConfig())
+    x = m.create_tensor([4, 128, 28, 28])
+    m.conv2d(x, 128, 3, 3, 1, 1, 1, 1, groups=groups)
+    layer = m.layers[-1]
+    rng = np.random.default_rng(3)
+    xs = torch.from_numpy(rng.standard_normal((4, 128, 28, 28)))
+    ws = {w: torch.from_numpy(rng.standard_normal(s.shape))
+          for w, s in layer.weight_specs.items()}
+    lower = get_op_def(layer.op_type).lower
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got = lower(layer, [xs.float().to(dev)],
+                    {w: t.float().to(dev) for w, t in ws.items()},
+                    LoweringCtx(device=dev))[0]
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    want = lower(layer, [xs], ws, LoweringCtx(device=torch.device("cpu")))[0]
+    err = float((got.double().cpu() - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max())

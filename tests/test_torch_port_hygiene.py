@@ -274,3 +274,47 @@ def test_verify_pass_takes_the_dequant_wrapper_at_k_plus_1_rows(monkeypatch):
     assert dequant_attention.launches_by_rows == {}
     assert state["serve/pos"].tolist() == [5 + k + 1, 0]
     assert dstate["serve/pos"].tolist() == [5 + k, 0]
+
+
+ZOO_MODULES = ("flexflow_tpu_torch.ops.conv_ops",
+               "flexflow_tpu_torch.ops.reduce_ops",
+               "flexflow_tpu_torch.ops.shape_ops",
+               "flexflow_tpu_torch.ops.elementwise",
+               "flexflow_tpu_torch.models.resnet",
+               "flexflow_tpu_torch.models.resnext",
+               "flexflow_tpu_torch.models.bert",
+               "flexflow_tpu_torch.models.dlrm")
+
+
+def test_model_zoo_modules_load_no_jax():
+    """The conv, reduce, shape and elementwise ops and the ResNet,
+    ResNeXt, BERT and DLRM builders, each imported in turn into a fresh
+    interpreter, load neither JAX nor the JAX package."""
+    out = subprocess.run([sys.executable, "-c", _IMPORT_EACH, *ZOO_MODULES],
+                         cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == str({n: [] for n in ZOO_MODULES})
+
+
+def test_model_zoo_compile_raises_without_cuda(monkeypatch):
+    """A ResNet block compiles for the GPU unless the caller passes
+    device="cpu"; on the CPU its step runs and its BN state is CPU f32."""
+    from flexflow_tpu_torch.models import build_resnet_block
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    m = FFModel(FFConfig(batch_size=2))
+    x = m.create_tensor([2, 8, 8, 8])
+    build_resnet_block(m, x, 2, 1, "b", project=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        m.compile(SGDOptimizer(), "mean_squared_error", [])
+    cm = m.compile(SGDOptimizer(), "mean_squared_error", [], device="cpu")
+    cm.init(seed=0)
+    y = np.zeros((2, 8, 8, 8), np.float32)
+    *_, loss, _ = cm.train_step(cm.params, cm.opt_state, cm.state,
+                                [np.ones((2, 8, 8, 8), np.float32)], y)
+    state = cm.train_step(cm.params, cm.opt_state, cm.state,
+                          [np.ones((2, 8, 8, 8), np.float32)], y)[2]
+    assert bool(torch.isfinite(loss))
+    assert len(state) == 8 and all(t.device.type == "cpu"
+                                   and t.dtype == torch.float32
+                                   for t in state.values())

@@ -368,10 +368,12 @@ def _dropout_pair(fusion, impl=None):
             build(m, gc(vocab=64, seq=16, d_model=32, heads=2, layers=1,
                         dropout=0.1), batch=2)
             continue
+        # named layers: default names carry each package's process-wide
+        # guid counter, which other test files in the process move apart
         t = m.create_tensor([2, 16, 32], name="x")
         t = m.multihead_attention(t, t, t, 32, 2, dropout=0.1, causal=True,
-                                  impl=impl)
-        m.dense(t, 64)
+                                  impl=impl, name="mha")
+        m.dense(t, 64, name="head")
     jcm = jm.compile(JAdamOptimizer(), "sparse_categorical_crossentropy", [])
     jcm.init(seed=0)
     pcm = pm.compile(AdamOptimizer(), device="cpu")
@@ -467,9 +469,10 @@ def test_weights_evaluate_and_forward():
 
 
 def test_metrics_and_deferred_sums_match_jax():
-    """compute_metrics (accuracy, sparse CE) and PerfMetrics' deferred
-    sums, folded on the device every 3 updates, against the JAX package's
-    (the same f32 device terms, summed on the host in float64)."""
+    """compute_metrics (accuracy, sparse CE, and MSE, RMSE and MAE against
+    dense targets) and PerfMetrics' deferred sums, folded on the device
+    every 3 updates, against the JAX package's (the same f32 device terms,
+    summed on the host in float64)."""
     rng = np.random.default_rng(5)
     logits = rng.standard_normal((4, 16, 50)).astype(np.float32)
     labels = rng.integers(0, 50, size=(4, 16)).astype(np.int32)
@@ -480,9 +483,15 @@ def test_metrics_and_deferred_sums_match_jax():
     want = jcompute_metrics(names, jnp.asarray(logits), jnp.asarray(labels))
     for k in names:
         np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="mean_squared_error"):
-        compute_metrics(["mean_squared_error"], torch.from_numpy(logits),
-                        torch.from_numpy(labels))
+    # the regression metrics against dense targets of the logits' shape
+    dense = rng.standard_normal(logits.shape).astype(np.float32)
+    reg = ["mean_squared_error", "root_mean_squared_error",
+           "mean_absolute_error"]
+    got = compute_metrics(reg, torch.from_numpy(logits),
+                          torch.from_numpy(dense))
+    want = jcompute_metrics(reg, jnp.asarray(logits), jnp.asarray(dense))
+    for k in reg:
+        np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-6)
     pm, jpm = PerfMetrics(fold_after=3), JPerfMetrics(fold_after=3)
     for i in range(7):
         v = rng.standard_normal(2).astype(np.float32)
