@@ -207,6 +207,30 @@ Phases, each fatal on failure (nothing is caught to let the run exit 0):
    then torch.profiler over one step (busy ms, idle share, launches, top
    kernels). The phase logs its wall time.
 
+10. The K-step CUDA graph (`make_multi_step(K)`: K train steps captured
+    once, one replay a dispatch), on the models phases 5 and 9 compiled
+    and tuned, right after each: 5b and 5f (GPT-2 medium, Adam; padded
+    vocab, SGD with momentum), 9a-9e; K is 4, DLRM's 20 (`graph_leg`):
+    (a) from one snapshot, 2K eager steps twice and 2 dispatches on the
+        same batches and keys: bitwise equal where the eager runs are,
+        else within their difference (printed); on 9c (dropout 0.1) one
+        batch group dispatched at i0 and at i0 + K gives two losses;
+    (b) torch.profiler: one cudaGraphLaunch a dispatch, the port's
+        kernels replayed with the counts of K eager steps. The launch
+        counters count a kernel where the graph captures it (the
+        warm-up step and the K captured steps), never at a replay: the
+        profile is what shows the replayed kernels;
+    (c) step ms eager against graph in turns, the graph's busy ms and
+        idle share, capture seconds and the graph pool's bytes beside
+        `max_memory_allocated`;
+    (d) one fit epoch of 2K + 1 batches, steps_per_dispatch=K,
+        sync_every=0, dispatch_ahead 2: step_stats as JAX counts them
+        (3 dispatches, 2K fused steps, 0 host syncs, 1 barrier), no new
+        capture;
+    (e) on 9e, the same fit under the fault plan `fit/dispatch@3*1`:
+        one retry, and the params of (d).
+    A capture that fails raises: nothing falls back to eager steps.
+
 The line before the last is `{"kernels": [...]}`; the last line is
 `{"ok": true, "device": {...}}`.
 """
@@ -742,7 +766,7 @@ def check_adam(timer, gen):
             for fn in (fo._adam_cuda, fo._adam_plain):
                 ps = [p.clone() for p in params]
                 ms_, ns_ = [m.clone() for m in mus], [v.clone() for v in nus]
-                fn(plan, grads, ms_, ns_, ps, 3)
+                fn(plan, grads, ms_, ns_, ps, fo.adam_scalars(plan, 3, "cuda"))
                 runs.append((ps, ms_, ns_))
             torch.cuda.synchronize()
             (pk, mk, nk), (pp, mp, np_) = runs
@@ -764,15 +788,39 @@ def check_adam(timer, gen):
     # timed: f32 moments, wd 0 (the training path's configuration)
     plan = fo.plan_for(AdamOptimizer(alpha=LR))
     mus, nus = leaves(1e-3), leaves(1e-6, positive=True)
-    plain_ms = timer(lambda: fo._adam_plain(plan, grads, mus, nus, params, 3))
+    sc = fo.adam_scalars(plan, 3, "cuda")
+    plain_ms = timer(lambda: fo._adam_plain(plan, grads, mus, nus, params, sc))
     lib_params = [p.clone() for p in params]
     for p, g in zip(lib_params, grads):
         p.grad = g
     opt = torch.optim.Adam(lib_params, lr=LR, fused=True)
     times = against_library(
         timer, "fused_adam",
-        lambda: fo._adam_cuda(plan, grads, mus, nus, params, 3), opt.step)
+        lambda: fo._adam_cuda(plan, grads, mus, nus, params, sc), opt.step)
     bound_ms, bound_by = bound(28.0 * n_params, 15.0 * n_params, F32_FLOPS)
+    # the update's device scalars (since PR 11): count += 1 and the f32
+    # bias corrections 1 - b**count, which the kernel reads from the
+    # device; their device time, and their values against numpy's f32
+    # values (optimizers.bias_corrections) at every count to 10000
+    from flexflow_tpu_torch.optimizers import (bias_corrections,
+                                               device_bias_corrections)
+    count = torch.zeros((), dtype=torch.int32, device="cuda")
+    bases = {}
+    scalars_ms = timer(lambda: device_bias_corrections(
+        0.9, 0.999, count.add_(1), bases))
+    counts = torch.arange(1, 10001, dtype=torch.int32, device="cuda")
+    dev_bc = (1 - torch.pow(torch.tensor([0.9, 0.999], device="cuda")[None],
+                            counts.float()[:, None])).cpu().numpy()
+    ref_bc = np.array([bias_corrections(0.9, 0.999, c)
+                       for c in range(1, 10001)], dtype=np.float32)
+    bc_ulps = np.abs(dev_bc.view(np.int32).astype(np.int64)
+                     - ref_bc.view(np.int32).astype(np.int64))
+    bc = {"counts": 10000, "mismatched_counts": int((bc_ulps > 0).any(1).sum()),
+          "max_ulps": int(bc_ulps.max()), "scalars_ms": scalars_ms}
+    log(f"fused_adam device scalars: {scalars_ms:.4f} ms a step; bias "
+        f"corrections against numpy f32 at counts 1..10000: "
+        f"{bc['mismatched_counts']} counts differ, at most {bc['max_ulps']} "
+        "ulp")
     return {"name": "fused_adam", "route": "cuda",
             "source": "flexflow_tpu_torch/csrc/fused_optim.cu",
             "replaces": "flexflow_tpu/kernels/fused_optim.py:140",
@@ -783,6 +831,7 @@ def check_adam(timer, gen):
                                       for k, v in errs.items()},
             "tolerance": 1e-6, **times, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "device_scalars": bc,
             "library": "torch.optim.Adam(fused=True).step"}
 
 
@@ -1121,6 +1170,8 @@ def _device_profile(fn, reps: int, dev: torch.device) -> dict:
             if e.device_type == torch.autograd.DeviceType.CUDA]
     # gathers `pool[table]` (and any other advanced-index read) on the host
     gathers = sum(e.name == "aten::index" for e in events)
+    # CUDA graph replays (the runtime call, on the host)
+    graph_launches = sum(e.name == "cudaGraphLaunch" for e in events)
     if not kern:
         return {"device": "not measured (the profiler saw no kernel)"}
     spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
@@ -1147,6 +1198,7 @@ def _device_profile(fn, reps: int, dev: torch.device) -> dict:
             "device_idle_share": 1.0 - busy / wall_us,
             "kernel_launches_per_call": len(kern) / reps,
             "aten_index_per_call": gathers / reps,
+            "graph_launches_per_call": graph_launches / reps,
             "top_kernels": [{"name": n[:80], "ms_per_call": t / reps / 1e3,
                              "launches_per_call": c / reps}
                             for n, (t, c) in top],
@@ -1918,7 +1970,8 @@ def train_fit(cm, vocab: int, seed: int) -> dict:
         f"{cm.step_stats}, launches {counts}, optimizer table builds "
         f"{out['table_builds']}")
     if not np.isfinite(hist[0]["loss"]) or cm.step_stats != {
-            "dispatches": 4, "host_syncs": 0} or out["table_builds"] != 0:
+            "dispatches": 4, "host_syncs": 0, "barriers": 0,
+            "fused_steps": 0} or out["table_builds"] != 0:
         fail(f"fit epoch: {out}")
     if min(counts[n] for n in ("flash_attention_fwd", "flash_attention_dq",
                                "flash_attention_dkv", "fused_adam")) <= 0:
@@ -1959,7 +2012,8 @@ def train_accum_fit(seed: int) -> dict:
         f"{cm.step_stats}, launches {counts}, optimizer table builds "
         f"{out['table_builds']}")
     if not np.isfinite(hist[0]["loss"]) or cm.step_stats != {
-            "dispatches": 2, "host_syncs": 0} or out["table_builds"] != 1:
+            "dispatches": 2, "host_syncs": 0, "barriers": 0,
+            "fused_steps": 0} or out["table_builds"] != 1:
         fail(f"accum_steps=2 fit epoch: {out}")
     if counts != want:
         fail(f"accum_steps=2 fit epoch: launches {counts}, expected {want}")
@@ -2066,21 +2120,34 @@ def dropout_remat_check(seed: int) -> dict:
                              cm.device)
     same_twice = bool(torch.equal(again, ml.masks[0][2]))
     steps_differ = not torch.equal(ml.masks[0][2], ml.masks[1][2])
-    # the host's cost of a layer's generator (made anew at every draw)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(1000):
-        ctx.rng_for(layer, cm.device)
-    gen_us = 1e3 * (time.perf_counter() - t0)
+    # the mask of the attention probs (b8, 16 heads, 1024 x 1024) drawn
+    # from the host key and from its device copy: bitwise equal; and its
+    # device time (CUDA events, median of 5)
+    probs = (BATCH, 16, SEQ, SEQ)
+    dkey = ff_random.device_key(keys[0], cm.device)
+    host_dev_equal = bool(torch.equal(
+        ff_random.bernoulli_mask(keys[0], probs, 1 - DROPOUT, cm.device),
+        ff_random.bernoulli_mask(dkey, probs, 1 - DROPOUT, cm.device)))
+    times = []
+    for _ in range(5):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        ff_random.bernoulli_mask(dkey, probs, 1 - DROPOUT, cm.device)
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    mask_ms = float(np.median(times))
     out = {"masks_one_step": rates, "same_key_same_mask": same_twice,
            "next_step_other_mask": steps_differ,
-           "generator_host_us": gen_us}
+           "host_and_device_key_same_mask": host_dev_equal,
+           "probs_mask_ms": mask_ms}
     log(f"[6a dropout] one step drew {rates['masks']} masks, worst |z| "
         f"{rates['worst_abs_z']:.2f} (limit 5), keep rates "
         f"{rates['keep_rates']}; same key twice equal: {same_twice}; "
-        f"next step's mask differs: {steps_differ}; a layer's generator "
-        f"costs the host {gen_us:.1f} us")
-    if not (same_twice and steps_differ):
+        f"next step's mask differs: {steps_differ}; host and device key "
+        f"draw the same mask: {host_dev_equal}; the probs' mask {probs} "
+        f"takes {mask_ms:.3f} ms on the card")
+    if not (same_twice and steps_differ and host_dev_equal):
         fail(f"6a dropout masks: {out}")
     for pol in ("full", "dots"):
         cm.forward_fn.remat = {l.name: pol for l in model.layers}
@@ -2718,6 +2785,15 @@ def p9_batch(which: str, seed: int, n: int = 0):
             rng.uniform(size=(DLRM_BATCH, 1)).astype(np.float32))
 
 
+def p9_batches(which: str, seed: int, batches: int):
+    """`batches` batches of `p9_batch` (seeds seed, seed + 1, ...), one
+    after the other in one array per input."""
+    parts = [p9_batch(which, seed + i) for i in range(batches)]
+    xs = [np.concatenate([p[0][j] for p in parts])
+          for j in range(len(parts[0][0]))]
+    return xs, np.concatenate([p[1] for p in parts])
+
+
 def p9_model(which: str, compute_dtype: str, seed: int, depth: int = 0,
              dropout: float = 0.0, metrics=()):
     """(compiled model, forward flops by the registry's count, batch) of
@@ -2895,7 +2971,8 @@ def p9_fit_evaluate(cm, seed: int) -> dict:
         f"{ev_without['loss']:.4f}; stats {moved}")
     if not np.isfinite(hist[0]["loss"]):
         fail(f"9a fit: non-finite loss {out}")
-    if cm.step_stats != {"dispatches": P9_FIT_BATCHES, "host_syncs": 0} \
+    if cm.step_stats != {"dispatches": P9_FIT_BATCHES, "host_syncs": 0,
+                         "barriers": 0, "fused_steps": 0} \
             or out["table_builds"] != 0 or counts != want:
         fail(f"9a fit: {out}")
     if not (moved["finite"] and moved["bn_layers"] == 53
@@ -2941,7 +3018,8 @@ def phase9(seed: int) -> dict:
     bench = torch.backends.cudnn.benchmark
     torch.backends.cudnn.benchmark = True
     out = {"grad_check": {"resnet50": model_grad_check("resnet50", seed, 2),
-                          "bert": model_grad_check("bert", seed, 2)}}
+                          "bert": model_grad_check("bert", seed, 2)},
+           "graph": {}}
     flash = {"flash_attention_fwd": BERT_LAYERS,
              "flash_attention_dq": BERT_LAYERS,
              "flash_attention_dkv": BERT_LAYERS}
@@ -2955,12 +3033,262 @@ def phase9(seed: int) -> dict:
                                              dropout, metrics)
         if tag == "9a":
             out["9a_fit"] = p9_fit_evaluate(cm, seed)
+        # phase 10 on this model: the K-step CUDA graph
+        out["graph"][tag] = graph_leg(
+            tag, cm, lambda n, s_, w=which: p9_batches(w, s_, n),
+            DLRM_GRAPH_K if which == "dlrm" else GRAPH_K, seed,
+            dropout_check=dropout > 0, fault=which == "dlrm")
         del cm, inputs, label
     collect_garbage()
     torch.cuda.empty_cache()
     torch.backends.cudnn.benchmark = bench
     out["wall_s"] = time.perf_counter() - t0
     log(f"[phase 9] {out['wall_s']:.1f} s")
+    return out
+
+
+# ------------------------------------------- phase 10: the K-step CUDA graph
+GRAPH_K, DLRM_GRAPH_K = 4, 20
+GRAPH_FAULT = "fit/dispatch@3*1"
+
+
+def _tree_copy(tree):
+    return {k: _tree_copy(v) if isinstance(v, dict) else
+            (v.detach().clone() if isinstance(v, torch.Tensor) else v)
+            for k, v in tree.items()}
+
+
+@torch.no_grad()
+def _tree_copy_into(live, saved) -> None:
+    for k, v in saved.items():
+        if isinstance(v, dict):
+            _tree_copy_into(live[k], v)
+        else:
+            live[k].copy_(v)
+
+
+def _snapshot(cm):
+    return (_tree_copy(cm.params), _tree_copy(cm.opt_state),
+            _tree_copy(cm.state), cm._iteration)
+
+
+def _restore(cm, snap) -> None:
+    """The snapshot copied into the live tensors (the captured graph's
+    buffers stay), the state as new tensors (a dispatch copies them in)."""
+    params, opt_state, state, it = snap
+    _tree_copy_into(cm.params, params)
+    _tree_copy_into(cm.opt_state, opt_state)
+    cm.state = _tree_copy(state)
+    cm._iteration = it
+
+
+def _tree_diff(a, b) -> float:
+    """max |a - b| over the float leaves of two param trees."""
+    return max(float((a[l][w].detach().float() - b[l][w].detach().float())
+                     .abs().max()) for l in a for w in a[l])
+
+
+def graph_leg(tag: str, cm, host_data, k: int, seed: int,
+              dropout_check: bool = False, fault: bool = False) -> dict:
+    """Phase 10 for one compiled model (`cm`, already stepped and tuned by
+    its phase): `make_multi_step(k)` as one CUDA graph of k train steps.
+    (a) from one snapshot, 2k eager steps twice and 2 graph dispatches on
+    the same batches and keys (fold_in(base, i0 + i)): bitwise equal where
+    the two eager runs are, else within their difference; with dropout,
+    the same batch dispatched at i0 and at i0 + k gives two losses (other
+    masks). The launch counters are zeroed before the graph's first call
+    and read after its two dispatches: a kernel launch counts where it is
+    captured (the warm-up step and the k captured ones), never at a
+    replay. (b) torch.profiler: one cudaGraphLaunch per dispatch, the
+    port's kernels replayed with the counts of k eager steps. (c) step ms
+    eager against graph, the graph's busy ms and idle share, capture
+    seconds, the graph pool's bytes beside max_memory_allocated. (d) one
+    fit epoch of 2k + 1 batches with steps_per_dispatch=k, sync_every=0
+    and dispatch_ahead 2: 3 dispatches (2 replays, 1 single step), 2k
+    fused steps, 0 host syncs, 1 barrier, no new capture. (e) with
+    `fault`, the same fit under the plan `GRAPH_FAULT`: one retry, and
+    the params of (d)."""
+    from flexflow_tpu_torch import random as ff_random
+    from flexflow_tpu_torch.compiler import graph_steps
+    from flexflow_tpu_torch.kernels import fused_optim as fo
+    from flexflow_tpu_torch.runtime import faults
+
+    t_leg = time.perf_counter()
+    base = ff_random.key(seed + 17)
+    xs_h, y_h = host_data(2 * k, seed + 31)
+    xs = [torch.from_numpy(a.reshape(2, k, -1, *a.shape[1:])).cuda()
+          for a in xs_h]
+    y = torch.from_numpy(y_h.reshape(2, k, -1, *y_h.shape[1:])).cuda()
+    torch.cuda.synchronize()
+    snap = _snapshot(cm)
+    it0 = snap[3]
+
+    def eager_steps(d):
+        losses = []
+        for i in range(k):
+            (cm.params, cm.opt_state, cm.state, loss, _) = cm.train_step(
+                cm.params, cm.opt_state, cm.state, [x[d, i] for x in xs],
+                y[d, i], ff_random.fold_in(base, it0 + d * k + i))
+            losses.append(loss)
+        s_ = losses[0]
+        for l_ in losses[1:]:
+            s_ = s_ + l_
+        return s_ / k
+
+    def dispatch(d, i0=None):
+        (cm.params, cm.opt_state, cm.state, loss, _) = multi(
+            cm.params, cm.opt_state, cm.state, [x[d] for x in xs], y[d],
+            base, it0 + d * k if i0 is None else i0)
+        return loss
+
+    # (a)
+    eager = []
+    for _ in range(2):
+        _restore(cm, snap)
+        means = [float(eager_steps(d)) for d in range(2)]
+        eager.append((means, _tree_copy(cm.params)))
+    run_to_run = _tree_diff(eager[0][1], eager[1][1])
+    eager_bitwise = run_to_run == 0 and eager[0][0] == eager[1][0]
+    _restore(cm, snap)
+    torch.cuda.synchronize()
+    caps0 = graph_steps.captures
+    zero_launch_counts()
+    builds0 = fo.table_builds
+    multi = cm._get_multi(k)
+    graph_means = [float(dispatch(d)) for d in range(2)]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    graph_diff = _tree_diff(cm.params, eager[0][1])
+    out = {"k": k, "eager_means": eager[0][0], "eager_means_again":
+           eager[1][0], "graph_means": graph_means,
+           "eager_run_to_run_max_abs": run_to_run,
+           "eager_bitwise_reproducible": eager_bitwise,
+           "graph_vs_eager_max_abs": graph_diff,
+           "graph_bitwise_equal": graph_diff == 0
+           and graph_means == eager[0][0],
+           "captures": graph_steps.captures - caps0,
+           "capture_s": multi.capture_s, "graph_pool_bytes": multi.pool_bytes,
+           "launches": counts, "table_builds": fo.table_builds - builds0}
+    del eager
+    log(f"[10 {tag}] K={k}: eager means {out['eager_means']} (again "
+        f"{out['eager_means_again']}, run to run max |dp| {run_to_run:.3e})"
+        f", graph {graph_means}, graph vs eager max |dp| {graph_diff:.3e}, "
+        f"bitwise {out['graph_bitwise_equal']}; capture {multi.capture_s:.2f}"
+        f" s, pool {multi.pool_bytes / 2**20:.0f} MiB; launches counted at "
+        f"the capture {counts}")
+    if out["captures"] != 1 or out["table_builds"]:
+        fail(f"10 {tag}: {out['captures']} captures, {out['table_builds']} "
+             "optimizer table builds (expected 1 and 0)")
+    if eager_bitwise and not out["graph_bitwise_equal"]:
+        fail(f"10 {tag}: eager steps are bitwise reproducible but the graph "
+             f"differs: {out}")
+    if not eager_bitwise and graph_diff > run_to_run:
+        fail(f"10 {tag}: graph vs eager {graph_diff} beyond the eager "
+             f"run-to-run difference {run_to_run}")
+    if not all(np.isfinite(graph_means)):
+        fail(f"10 {tag}: non-finite graph loss {graph_means}")
+    if dropout_check:
+        _restore(cm, snap)
+        a = float(dispatch(0))
+        _restore(cm, snap)
+        b = float(dispatch(0, it0 + k))
+        out["same_batch_i0_vs_i0_plus_k"] = [a, b]
+        log(f"[10 {tag}] one batch group at i0 and at i0 + {k}: mean loss "
+            f"{a:.6f} and {b:.6f} (other dropout masks)")
+        if a == b:
+            fail(f"10 {tag}: two dispatches drew the same masks")
+    # (b)
+    prof_g = _device_profile(lambda: dispatch(0), 2, cm.device)
+    prof_e = _device_profile(lambda: eager_steps(0), 1, cm.device)
+    out["profile_graph"], out["profile_eager_k_steps"] = prof_g, prof_e
+    if "wall_ms_per_call" in prof_g and "wall_ms_per_call" in prof_e:
+        pg = {n: v["launches_per_call"]
+              for n, v in prof_g["port_kernels"].items()}
+        pe = {n: v["launches_per_call"]
+              for n, v in prof_e["port_kernels"].items()}
+        log(f"[10 {tag}] profile: {prof_g['graph_launches_per_call']:.0f} "
+            f"cudaGraphLaunch a dispatch, {prof_g['kernel_launches_per_call']:.0f}"
+            f" kernels replayed (eager {k} steps: "
+            f"{prof_e['kernel_launches_per_call']:.0f}), the port's kernels "
+            f"{pg} (eager {pe}); graph busy "
+            f"{prof_g['device_busy_ms_per_call'] / k:.2f} ms a step, idle "
+            f"{prof_g['device_idle_share']:.3f} (eager busy "
+            f"{prof_e['device_busy_ms_per_call'] / k:.2f} ms, idle "
+            f"{prof_e['device_idle_share']:.3f})")
+        if prof_g["graph_launches_per_call"] != 1 or pg != pe or not pg:
+            fail(f"10 {tag}: graph launches "
+                 f"{prof_g['graph_launches_per_call']} a dispatch, replayed "
+                 f"port kernels {pg} against eager {pe}")
+    else:
+        fail(f"10 {tag}: the profiler saw no kernel")
+    # (c)
+    torch.cuda.synchronize()
+    collect_garbage()
+    torch.cuda.reset_peak_memory_stats()
+    timed = {}
+    for name, fn in (("eager", eager_steps), ("graph", dispatch),
+                     ("graph_again", dispatch), ("eager_again", eager_steps)):
+        t0 = time.perf_counter()
+        for d in range(2):
+            fn(d)
+        torch.cuda.synchronize()
+        timed[name] = 1e3 * (time.perf_counter() - t0) / (2 * k)
+    out["step_ms"] = timed
+    out["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[10 {tag}] step ms (eager, graph, graph, eager): "
+        + ", ".join(f"{v:.3f}" for v in timed.values())
+        + f"; max_memory_allocated {out['max_memory_allocated_gib']:.2f} GiB, "
+        f"graph pool {multi.pool_bytes / 2**30:.2f} GiB")
+    # (d)
+    fx, fy = host_data(2 * k + 1, seed + 37)
+    ahead = cm.cfg.dispatch_ahead
+    cm.cfg.dispatch_ahead = 2
+
+    def fit_once():
+        _restore(cm, snap)
+        zero_launch_counts()
+        caps = graph_steps.captures
+        t0 = time.perf_counter()
+        hist = cm.fit(fx, fy, epochs=1, verbose=False, sync_every=0,
+                      steps_per_dispatch=k)
+        torch.cuda.synchronize()
+        return {"history": hist, "step_stats": dict(cm.step_stats),
+                "wall_s": time.perf_counter() - t0,
+                "launches": launch_counts(),
+                "captures": graph_steps.captures - caps}
+
+    try:
+        out["fit"] = fit = fit_once()
+        fit_params = _tree_copy(cm.params)
+        want = {"dispatches": 3, "host_syncs": 0, "barriers": 1,
+                "fused_steps": 2 * k}
+        log(f"[10 {tag} fit] {2 * k + 1} batches: step_stats "
+            f"{fit['step_stats']} (JAX counts {want}), loss "
+            f"{fit['history'][0]['loss']:.4f}, "
+            f"{fit['history'][0]['samples_per_sec']:.1f} samples/s")
+        if fit["step_stats"] != want or fit["captures"] or \
+                not np.isfinite(fit["history"][0]["loss"]):
+            fail(f"10 {tag} fit: {fit}")
+        # (e)
+        if fault:
+            faults.configure(GRAPH_FAULT)
+            try:
+                out["fit_fault"] = ff = fit_once()
+                ff["fired"] = faults.fired()
+            finally:
+                faults.clear()
+            ff["params_vs_clean_max_abs"] = d_ = _tree_diff(cm.params,
+                                                            fit_params)
+            log(f"[10 {tag} fault] plan {GRAPH_FAULT}: fired {ff['fired']}, "
+                f"step_stats {ff['step_stats']}, params against the fit "
+                f"without the plan max |dp| {d_:.3e}")
+            if ff["fired"] != {"fit/dispatch": 1} or \
+                    ff["step_stats"] != want or \
+                    d_ > (0.0 if eager_bitwise else run_to_run):
+                fail(f"10 {tag} fault: {ff}")
+    finally:
+        cm.cfg.dispatch_ahead = ahead
+    out["wall_s"] = time.perf_counter() - t_leg
     return out
 
 
@@ -3097,6 +3425,16 @@ def main() -> None:
         args.seed, None, 0, dict(flash, fused_adam=1), "train full depth")
     train["fit"] = train_fit(cm, gc.vocab, args.seed)
     train["profile"] = profile_train(cm, inputs, label, "train")
+
+    def gpt2_data(vocab):
+        def make(n, seed):
+            ids, pos, labels = train_batch(seed, vocab, n * BATCH)
+            return [ids, pos], labels
+        return make
+
+    # ---- 10 (5b): the K-step CUDA graph on this model
+    graph = {"5b": graph_leg("5b", cm, gpt2_data(gc.vocab), GRAPH_K,
+                             args.seed)}
     del cm, inputs, label
     torch.cuda.empty_cache()
 
@@ -3113,6 +3451,8 @@ def main() -> None:
         dict(flash, fused_ce_fwd=1, fused_ce_bwd=1, fused_sgd=1),
         f"{tag} full depth")
     sgd["profile"] = profile_train(cm, inputs, label, tag)
+    graph["5f"] = graph_leg("5f", cm, gpt2_data(GPT2_VOCAB), GRAPH_K,
+                            args.seed)
     del cm, inputs, label
     torch.cuda.empty_cache()
     sgd["accum_fit"] = train_accum_fit(args.seed)
@@ -3153,8 +3493,16 @@ def main() -> None:
     # ---- 7. the strategy search on the H100 machine model
     search = phase7(args.seed, timer, gen)
 
-    # ---- 9. ResNet-50, ResNeXt-50, BERT-base and DLRM
+    # ---- 9. ResNet-50, ResNeXt-50, BERT-base and DLRM (with phase 10's
+    # graph legs on each)
     bench = phase9(args.seed)
+    graph.update(bench.pop("graph"))
+    log("[phase 10] " + ", ".join(
+        f"{t}: eager {g['step_ms']['eager']:.2f} / graph "
+        f"{g['step_ms']['graph']:.2f} ms a step, idle "
+        f"{g['profile_eager_k_steps']['device_idle_share']:.3f} -> "
+        f"{g['profile_graph']['device_idle_share']:.3f}"
+        for t, g in graph.items()))
 
     # launches on the main paths: both serving runs, the 12 Adam training
     # steps and the Adam fit epoch, the 12 padded-vocab SGD steps and the
@@ -3190,6 +3538,12 @@ def main() -> None:
               "train_bert_dropout_steps": bench["9c"]["launches"],
               "train_bert_steps": bench["9d"]["launches"],
               "train_dlrm_steps": bench["9e"]["launches"]}
+    # phase 10: each graph's capture (its launches count there) and its
+    # fit epoch; GPT-2's legs mask the flash kernels, phase 9's do not
+    for t, g in graph.items():
+        into = paths if t in ("5b", "5f") else paths9
+        into[f"graph_{t}_capture"] = g["launches"]
+        into[f"graph_{t}_fit"] = g["fit"]["launches"]
     for r in rows:
         causal = r.get("causal")
         counted = (paths if causal else paths9 if causal is False
@@ -3210,6 +3564,7 @@ def main() -> None:
     log(json.dumps({"search": search}))
     log(json.dumps({"spec": spec}))
     log(json.dumps({"bench_workloads": bench}))
+    log(json.dumps({"graph": graph}))
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

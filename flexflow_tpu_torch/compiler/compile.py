@@ -4,10 +4,9 @@
 `compile_model(model, optimizer, loss_type, metrics)` builds the graph's
 forward (compiler/lowering.py) and returns a `CompiledModel` with
 `init`, `train_step`, `eval_step`, `infer`, `fit`, `evaluate`, `forward`,
-`save_checkpoint`, `load_checkpoint`, `get_weight` and `set_weight`, as
-the JAX package's. It runs on one device: ZeRO, pipelines, the fused
-multi-step dispatch, the retry policy, health and telemetry are not
-ported yet.
+`save_checkpoint`, `load_checkpoint`, `get_weight`, `set_weight` and
+`make_multi_step`, as the JAX package's. It runs on one device: ZeRO,
+pipelines, health and telemetry are not ported yet.
 
 The strategy is chosen as in JAX (`_pick_strategy`): a strategy file
 (`import_strategy_file`), else the Unity search (search/) of the search
@@ -32,10 +31,22 @@ where nothing draws), the accumulating step gives microbatch j
 `fold_in(rng, j)`, and `fit` steps with `fold_in(key(seed + 17),
 iteration)`, where `_iteration` counts optimizer updates across fits.
 
-`fit` feeds the step through `runtime/dataloader.prefetch_to_device`
-(so does `evaluate`), and takes durable periodic checkpoints, a SIGTERM
-drain and `resume` through runtime/resilience.py (the JAX fit's,
-non-pipeline, without telemetry).
+`fit` is the JAX fit's dispatch loop (`_fit_epochs`, non-pipeline,
+without telemetry or health): `steps_per_dispatch` K > 1 runs K updates
+as ONE dispatch of `make_multi_step(K)` over groups of K batches stacked
+by `runtime/dataloader.prefetch_multi` (the epoch's tail goes singly);
+on the card that dispatch is one replay of a CUDA graph of the K steps
+(compiler/graph_steps.py), on the CPU the same K steps run eagerly.
+Step i of a dispatch at iteration i0 draws from fold_in(base, i0 + i),
+as K single dispatches do. A per-batch callback (`on_batch_end`) forces
+K = 1 and a host sync after every update. When no sync falls on a
+dispatch, every `dispatch_ahead`-th dispatch waits for the device (a
+barrier, no host read). Before each dispatch, the `fit/dispatch` fault
+site is checked once per global step the dispatch covers, under the
+retry policy, and `health/nonfinite` may NaN-poison the first param
+(runtime/faults.py). `fit` takes durable periodic checkpoints, a SIGTERM
+drain and `resume` through runtime/resilience.py; `evaluate` feeds
+through `prefetch_to_device` with the same barrier.
 
 Gradient accumulation is `compile.py:655-701`'s: with `accum_steps` N > 1
 (the config's, or `fit(accum_steps=N)`) the train step takes inputs and
@@ -93,6 +104,7 @@ from flexflow_tpu_torch.parallel.machine import MachineSpec
 from flexflow_tpu_torch.parallel.sharding import Strategy
 from flexflow_tpu_torch.runtime.dataloader import (SingleDataLoader,
                                                    group_microbatches,
+                                                   prefetch_multi,
                                                    prefetch_to_device)
 
 
@@ -166,10 +178,15 @@ def _pick_strategy(model, machine: MachineSpec, optimizer=None,
 def compile_model(model, optimizer, loss_type, metrics: Sequence = (),
                   device=None) -> "CompiledModel":
     """The training program of `model`'s graph, its output the last
-    layer's first output (SGD at its default step size when no optimizer
-    is given, as in JAX)."""
+    layer's first output (SGD at the config's `learning_rate` when no
+    optimizer is given, as in JAX). The config's `fault_plan` arms the
+    fault injector (runtime/faults.py), as the JAX compile does."""
     device = resolve_device(device)
-    optimizer = optimizer or SGDOptimizer()
+    if model.config.fault_plan:
+        from flexflow_tpu_torch.runtime import faults
+
+        faults.configure(model.config.fault_plan)
+    optimizer = optimizer or SGDOptimizer(lr=model.config.learning_rate)
     machine = resolve_machine(model.config, device)
     strategy = _pick_strategy(model, machine, optimizer, device)
     if model.config.export_strategy_file:
@@ -219,8 +236,10 @@ class CompiledModel:
         # microbatches per optimizer update (cfg default; a fit call may
         # override it, and the next fit without one goes back to cfg's)
         self._accum_steps = max(1, int(self.cfg.accum_steps))
-        # dispatches (optimizer updates) / host_syncs of the last fit
+        # the last fit's dispatches, host_syncs, barriers and fused_steps
         self.step_stats: Dict[str, int] = {}
+        # make_multi_step(K) per K, cleared when accum_steps changes
+        self._multi_cache: Dict[int, Any] = {}
         self.params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
         self.state: Dict[str, Any] = {}
         self.opt_state: Optional[Dict[str, Any]] = None
@@ -354,6 +373,58 @@ class CompiledModel:
         return (params, opt_state, state, lsum * inv,
                 {k: v * inv for k, v in msum.items()})
 
+    def _run_steps(self, n: int, params, opt_state, state, inputs, labels,
+                   rng, i0=0):
+        """n train steps over the stacked (n, ...) `inputs` and `labels`,
+        step i keyed fold_in(rng, i0 + i); the mean loss and metrics, the
+        sums taken in step order, as the JAX multi-step's. `rng` and `i0`
+        may be host ints or device int64 scalars."""
+        lsum, msum = None, {}
+        for i in range(n):
+            params, opt_state, state, loss, mv = self.train_step(
+                params, opt_state, state, [x[i] for x in inputs], labels[i],
+                None if rng is None else ff_random.fold_in(rng, i0 + i))
+            if lsum is None:
+                lsum, msum = loss, mv
+            else:
+                lsum = lsum + loss
+                msum = {k: msum[k] + v for k, v in mv.items()}
+        return (params, opt_state, state, lsum / n,
+                {k: v / n for k, v in msum.items()})
+
+    def make_multi_step(self, n: int):
+        """n train steps as one dispatch (JAX `make_multi_step`): returns
+        fn(params, opt_state, state, stacked_inputs, stacked_labels, rng,
+        i0=0) -> (params, opt_state, state, mean_loss, mean_metrics), the
+        stacked tensors with a leading n dim, step i keyed fold_in(rng,
+        i0 + i) (`rng` = fit's base key gives the rng stream of n single
+        steps at iterations i0 .. i0 + n - 1). On the card it is one CUDA
+        graph of the n steps, captured at the first call and replayed at
+        every call (compiler/graph_steps.py); on the CPU the n steps run
+        eagerly. Params and the optimizer state are updated in place, as
+        by `train_step`: write the returned trees back."""
+        n = int(n)
+        if n < 1:
+            raise ValueError(f"make_multi_step: n={n}, need n >= 1")
+        if self.device.type == "cuda":
+            from flexflow_tpu_torch.compiler.graph_steps import GraphedSteps
+
+            return GraphedSteps(self, n)
+
+        def multi(params, opt_state, state, inputs, labels, rng, i0=0):
+            return self._run_steps(n, params, opt_state, state, inputs,
+                                   labels, rng, i0)
+        return multi
+
+    def _get_multi(self, k: int):
+        """make_multi_step(k), one per width per accumulation setting
+        (fit clears the cache when accum_steps changes, as JAX rebuilds
+        its steps)."""
+        fn = self._multi_cache.get(k)
+        if fn is None:
+            fn = self._multi_cache[k] = self.make_multi_step(k)
+        return fn
+
     @torch.no_grad()
     def eval_step(self, params, state, inputs, label):
         inputs = [to_device(x, self.device) for x in inputs]
@@ -380,35 +451,45 @@ class CompiledModel:
     def fit(self, x, y, batch_size: Optional[int] = None,
             epochs: Optional[int] = None, callbacks=None, verbose: bool = True,
             sync_every: Optional[int] = None,
+            steps_per_dispatch: Optional[int] = None,
             accum_steps: Optional[int] = None,
             resume: Optional[str] = None,
             checkpoint_dir: Optional[str] = None,
             checkpoint_every_steps: Optional[int] = None,
             checkpoint_every_secs: Optional[float] = None):
         """Train for `epochs` over (x, y), shuffled by the config's seed,
-        the batches copied ahead by `prefetch_to_device`. With accum_steps
-        N > 1 (None = the config's value) every N consecutive batches make
-        one update. The loss stays on the device and is read every
-        `sync_every` updates (0 = at epoch end only); a callback with
-        `on_batch_end(iteration, logs)` reads it after every update.
-        `checkpoint_dir`, `checkpoint_every_steps`/`_secs` and `resume`
-        (None = the config's) take durable snapshots, drain on SIGTERM or
-        SIGINT (a final snapshot, then `Preempted`) and resume the same
-        trajectory (runtime/resilience.py). Returns one summary dict per
-        epoch; `step_stats` counts the fit's dispatches (optimizer updates)
-        and its mid-epoch host syncs."""
+        the batches copied ahead by `prefetch_multi`. With accum_steps
+        N > 1 every N consecutive batches make one update; with
+        steps_per_dispatch K > 1 every K updates make one dispatch of
+        `make_multi_step(K)` (None = the config's values). The loss stays
+        on the device and is read every `sync_every` updates (0 = at epoch
+        end only); a callback with `on_batch_end(iteration, logs)` reads it
+        after every update and forces K = 1. `checkpoint_dir`,
+        `checkpoint_every_steps`/`_secs` and `resume` (None = the
+        config's) take durable snapshots, drain on SIGTERM or SIGINT (a
+        final snapshot, then `Preempted`) and resume the same trajectory
+        (runtime/resilience.py). Returns one summary dict per epoch;
+        `step_stats` counts the fit's dispatches, mid-epoch host syncs,
+        barriers and fused steps."""
+        from flexflow_tpu_torch.runtime import faults
         from flexflow_tpu_torch.runtime.checkpoint import warn_failed_writes
         from flexflow_tpu_torch.runtime.resilience import (FitResilience,
+                                                           RetryPolicy,
                                                            progress_dict,
+                                                           run_resilient,
                                                            start_state)
 
         xs = x if isinstance(x, (list, tuple)) else [x]
         epochs = epochs or self.cfg.epochs
-        sync = max(0, int(self.cfg.sync_every if sync_every is None
-                          else sync_every))
-        self._accum_steps = max(1, int(self.cfg.accum_steps if accum_steps
-                                       is None else accum_steps))
-        accum = self._accum_steps
+        sync_every = self.cfg.sync_every if sync_every is None else sync_every
+        if steps_per_dispatch is None:
+            steps_per_dispatch = self.cfg.steps_per_dispatch
+        accum = max(1, int(self.cfg.accum_steps if accum_steps is None
+                           else accum_steps))
+        if accum != self._accum_steps:
+            # the multi-step programs were built for the old width
+            self._multi_cache.clear()
+        self._accum_steps = accum
         if self.params is None:
             self.init()
         batch_size = self._coerce_batch(batch_size or self.cfg.batch_size)
@@ -419,22 +500,30 @@ class CompiledModel:
         if res is not None:
             res.set_effective(batch_size, accum)
             progress = res.resume_now(verbose)
+        policy = res.policy if res is not None \
+            else RetryPolicy.from_config(self.cfg)
         loader = SingleDataLoader(xs, y, batch_size, shuffle=True,
                                   seed=self.cfg.seed)
         base_rng = ff_random.key(self.cfg.seed + 17)
         per_batch_cbs = [cb for cb in callbacks or []
                          if hasattr(cb, "on_batch_end")]
-        if per_batch_cbs:
-            sync = 1  # the callbacks read every update's loss
-        stats = self.step_stats = {"dispatches": 0, "host_syncs": 0}
+        ahead = max(1, int(self.cfg.dispatch_ahead))
+        stats = self.step_stats = {"dispatches": 0, "host_syncs": 0,
+                                   "barriers": 0, "fused_steps": 0}
         start_epoch, skip_steps, history = start_state(progress)
         if progress:
             # the epochs before start_epoch drew their shuffles
             loader.advance_epochs(start_epoch)
+        faults_on = faults.active()
         if res is not None:
             res.install_guard()
         try:
             for epoch in range(start_epoch, epochs):
+                k = max(1, int(steps_per_dispatch))
+                sync = max(0, int(sync_every))
+                if per_batch_cbs:
+                    k, sync = 1, 1  # the callbacks read every update's loss
+                multi = self._get_multi(k) if k > 1 else None
                 pm, pml = PerfMetrics(), PerfMetrics()
                 nb = since_sync = ep_sync = ep_disp = seed_samples = 0
                 t0 = time.perf_counter()
@@ -449,7 +538,7 @@ class CompiledModel:
                     nb = skip_steps
                     pml.sums["loss"] = float(progress.get("loss_sum", 0.0))
                     pml.train_all = nb
-                    pm.sums = {k: float(v) for k, v in
+                    pm.sums = {mk: float(v) for mk, v in
                                (progress.get("metric_sums") or {}).items()}
                     pm.train_all = seed_samples = int(
                         progress.get("samples", 0))
@@ -461,27 +550,52 @@ class CompiledModel:
                                          _pml.sums.get("loss", 0.0),
                                          _pm.sums, _pm.train_all, history)
 
-                gen = prefetch_to_device(batches, self.device)
+                gen = prefetch_multi(batches, k, self.device,
+                                     retry_policy=policy)
                 try:
-                    for dx, dy in gen:
-                        rng = ff_random.fold_in(base_rng, self._iteration)
-                        (self.params, self.opt_state, self.state, loss,
-                         mvals) = self.train_step(self.params,
-                                                  self.opt_state, self.state,
-                                                  dx, dy, rng)
-                        self._iteration += 1
-                        nb += 1
-                        since_sync += 1
+                    for kind, dx, dy in gen:
+                        steps = k if kind == "k" else 1
+                        if faults_on:
+                            # one admission check per global step the
+                            # dispatch covers, before anything runs
+                            for s in range(self._iteration + 1,
+                                           self._iteration + 1 + steps):
+                                run_resilient("fit/dispatch", lambda: None,
+                                              policy, index=s)
+                                if faults.poison("health/nonfinite", index=s):
+                                    self._poison_first_param()
+                        if kind == "k":
+                            (self.params, self.opt_state, self.state, loss,
+                             mvals) = multi(self.params, self.opt_state,
+                                            self.state, dx, dy, base_rng,
+                                            self._iteration)
+                            stats["fused_steps"] += k
+                        else:
+                            rng = ff_random.fold_in(base_rng, self._iteration)
+                            (self.params, self.opt_state, self.state, loss,
+                             mvals) = self.train_step(
+                                self.params, self.opt_state, self.state, dx,
+                                dy, rng)
+                        self._iteration += steps
+                        nb += steps
+                        since_sync += steps
                         ep_disp += 1
                         stats["dispatches"] += 1
-                        pml.update_deferred(1, {"loss": loss})
-                        pm.update_deferred(batch_size * accum, mvals)
+                        pml.update_deferred(steps, {"loss": loss})
+                        pm.update_deferred(batch_size * accum * steps, mvals)
                         if sync and since_sync >= sync:
                             pml.materialize()
                             pm.materialize()
                             stats["host_syncs"] += 1
                             ep_sync += 1
                             since_sync = 0
+                        elif ep_disp % ahead == 0:
+                            # bounded dispatch-ahead: wait for the device,
+                            # read nothing
+                            if self.device.type == "cuda":
+                                torch.cuda.current_stream(
+                                    self.device).synchronize()
+                            stats["barriers"] += 1
                         if res is not None:
                             res.maybe_checkpoint(make_progress)
                         for cb in per_batch_cbs:
@@ -502,9 +616,9 @@ class CompiledModel:
                 summ["host_syncs"] = float(ep_sync)
                 history.append(summ)
                 if verbose:
-                    ms = " ".join(f"{k}={v:.4f}" for k, v in summ.items()
-                                  if k not in ("samples", "dispatches",
-                                               "host_syncs"))
+                    ms = " ".join(f"{mk}={v:.4f}" for mk, v in summ.items()
+                                  if mk not in ("samples", "dispatches",
+                                                "host_syncs"))
                     print(f"[epoch {epoch}] {ms}")
                 for cb in callbacks or []:
                     if hasattr(cb, "on_epoch_end"):
@@ -519,12 +633,22 @@ class CompiledModel:
         warn_failed_writes(verbose)
         return history
 
+    @torch.no_grad()
+    def _poison_first_param(self) -> None:
+        """health/nonfinite: NaN into the first param leaf (JAX's tree
+        order: layer names, then weight names, sorted), in place."""
+        layer = sorted(self.params)[0]
+        w = sorted(self.params[layer])[0]
+        self.params[layer][w].mul_(float("nan"))
+
     def evaluate(self, x, y, batch_size: Optional[int] = None):
-        """Loss and metrics over (x, y) in order, full batches only."""
+        """Loss and metrics over (x, y) in order, full batches only; the
+        host waits for the device every `dispatch_ahead` batches."""
         xs = x if isinstance(x, (list, tuple)) else [x]
         batch_size = self._coerce_batch(batch_size)
         loader = SingleDataLoader(xs, y, batch_size, shuffle=False)
         pm, pml = PerfMetrics(), PerfMetrics()
+        ahead = max(1, int(self.cfg.dispatch_ahead))
         nb = 0
         gen = prefetch_to_device(loader.epoch(), self.device)
         try:
@@ -533,6 +657,9 @@ class CompiledModel:
                 pm.update_deferred(batch_size, mvals)
                 pml.update_deferred(1, {"loss": loss})
                 nb += 1
+                if nb % ahead == 0 and self.device.type == "cuda":
+                    # bounded dispatch-ahead, as in fit
+                    torch.cuda.current_stream(self.device).synchronize()
         finally:
             gen.close()
         pml.materialize()

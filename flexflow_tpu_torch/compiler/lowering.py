@@ -5,7 +5,8 @@ order on every call; PyTorch runs eagerly, so there is no trace and no
 mesh. `training` selects the train-step lowering, as the JAX forward's
 `training` argument does; the graph then runs under autograd and the
 gradients reach the f32 master params through the per-layer casts, and
-`rng` (a key of flexflow_tpu_torch/random.py) feeds the dropout draws.
+`rng` (a key of flexflow_tpu_torch/random.py, host or device) feeds the
+dropout draws.
 
 Per-layer rematerialization follows `remat` ({layer name: policy}, the
 strategy's map): "full" runs the layer's lowering under
@@ -16,8 +17,8 @@ to) through a selective-checkpoint policy, the counterpart of
 `jax.checkpoint_policies.checkpoint_dots`, and recomputes the elementwise
 rest. A checkpointed layer runs on a sub-context of its own, so its
 `new_state` comes back as an output and its recompute writes nothing
-outside; the recompute draws the same dropout mask (the layer's generator
-is made anew from the same key), so remat never changes the numbers. The
+outside; the recompute draws the same dropout mask (a hash of the layer's
+key), so remat never changes the numbers. The
 hand-written kernels' autograd Functions rerun in the recompute, and their
 launches count again. The mixed-precision policy
 is the JAX package's: floating inputs and weights are cast to the compute
@@ -65,8 +66,8 @@ def _checkpointed(fn: Callable, policy: str, *args):
     if policy == "dots":
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _save_dots)
-    # the dropout draws come from generators made from the run's key, not
-    # from torch's global RNG, so its state need not be stashed
+    # the dropout masks are hashes of the run's key, not draws from
+    # torch's global RNG, so its state need not be stashed
     return checkpoint(fn, *args, use_reentrant=False,
                       preserve_rng_state=False, **kw)
 
@@ -103,12 +104,14 @@ class GraphForward(nn.Module):
                       if v in REMAT_POLICIES}
         # test hook, handed to every LoweringCtx (registry.py)
         self.mask_hook: Optional[Callable] = None
+        # the lowerings' per-forward cache (LoweringCtx.cache)
+        self.cache: Dict[Any, Any] = {}
 
     def _ctx(self, state, training, rng, device) -> LoweringCtx:
         return LoweringCtx(state=state, enable_fusion=self.enable_fusion,
                            training=training, rng=rng,
                            mask_hook=self.mask_hook, device=device,
-                           compute_dtype=self.cast_to)
+                           compute_dtype=self.cast_to, cache=self.cache)
 
     def _lower_checkpointed(self, layer: Layer, ins, w, ctx: LoweringCtx):
         """One layer's lowering as a function of (ins, w) on a sub-context:
@@ -126,7 +129,7 @@ class GraphForward(nn.Module):
 
     def forward(self, params: Dict[str, Dict[str, torch.Tensor]],
                 state: Dict[str, Any], input_arrays: List[torch.Tensor],
-                training: bool = False, rng: Optional[int] = None):
+                training: bool = False, rng=None):
         device = input_arrays[0].device if input_arrays else None
         ctx = self._ctx(dict(state), training, rng, device)
         cast_to = self.cast_to

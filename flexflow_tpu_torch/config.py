@@ -1,9 +1,14 @@
 """Run configuration (counterpart: flexflow_tpu/config.py).
 
-Only the fields the serving and training slices read are here; their
-names, defaults and command-line flags match the JAX package's `FFConfig`,
-so a command line that configures one package configures the other the
-same way.
+Only the fields the ported slices read are here; their names, defaults
+and command-line flags match the JAX package's `FFConfig`, so a command
+line that configures one package configures the other the same way.
+
+The parser knows every option string of the JAX parser, with the same
+choices. A flag whose feature is not ported yet (`_UNPORTED`) parses, and
+`parse_args` raises `NotImplementedError` naming its ROADMAP Queue 1 item
+when the command line sets it; flags that neither package knows are
+ignored, as in JAX.
 """
 
 from __future__ import annotations
@@ -17,6 +22,11 @@ from typing import List, Optional, Tuple
 class FFConfig:
     epochs: int = 1
     batch_size: int = 64
+    # the compile's default optimizer is SGD(lr=learning_rate), as in JAX;
+    # weight_decay and iterations are carried for the frontends
+    learning_rate: float = 0.01
+    weight_decay: float = 1e-4
+    iterations: int = 0  # 0 = derive from dataset size
     seq_length: int = 0
     seed: int = 0
     # the strategy search (search/; --budget, --alpha, ...): compile
@@ -88,9 +98,15 @@ class FFConfig:
     # training loop (compiler/compile.py): fit reads the loss to the host
     # every sync_every updates (0 = at epoch end only); accum_steps N > 1
     # makes every update one over N microbatches (fit(accum_steps=)
-    # overrides it per call)
+    # overrides it per call); steps_per_dispatch K > 1 runs K updates as
+    # one dispatch (make_multi_step: one CUDA graph of K steps on the
+    # card), forced to 1 under per-batch callbacks; dispatch_ahead is the
+    # number of dispatches after which fit waits for the device (a
+    # barrier, no host read) when no sync falls there
     sync_every: int = 0
     accum_steps: int = 1
+    steps_per_dispatch: int = 1
+    dispatch_ahead: int = 32
     # fused kernels of the train step: "auto" takes the kernel where the
     # gate admits the shape and fusion is on, "on" forces it (raising where
     # it does not qualify), "off" never fuses.
@@ -127,6 +143,15 @@ class FFConfig:
     checkpoint_every_secs: float = 0.0
     resume: str = ""
     keep_checkpoints: int = 3
+    # transient-fault retries (runtime/resilience.RetryPolicy.from_config):
+    # total attempts and the first backoff, around loader transfers,
+    # checkpoint writes, fit dispatches and the serving dispatches
+    retry_attempts: int = 3
+    retry_base_delay: float = 0.05
+    # deterministic fault injection (runtime/faults.py grammar, e.g.
+    # "dataloader/transfer@3*2,checkpoint/write@1!"); also FF_FAULT_PLAN.
+    # compile arms it.
+    fault_plan: str = ""
 
     REMAT_POLICY_NAMES = ("none", "dots", "full")
 
@@ -163,11 +188,25 @@ class FFConfig:
 
     @staticmethod
     def build_parser() -> argparse.ArgumentParser:
+        """Every option string of the JAX package's parser, with its
+        choices. The unported ones (`_UNPORTED`) have no default: they
+        appear in the parsed namespace only when the command line sets
+        them, and `parse_args` then raises."""
         p = argparse.ArgumentParser("flexflow_tpu_torch", allow_abbrev=False)
+        U = argparse.SUPPRESS
         p.add_argument("-e", "--epochs", type=int, default=1)
         p.add_argument("-b", "--batch-size", type=int, default=64)
+        p.add_argument("--lr", "--learning-rate", dest="lr", type=float,
+                       default=0.01)
+        p.add_argument("--wd", "--weight-decay", dest="wd", type=float,
+                       default=1e-4)
+        p.add_argument("--iterations", type=int, default=0)
         p.add_argument("--seq-length", type=int, default=0)
         p.add_argument("--seed", type=int, default=0)
+        p.add_argument("--mesh", type=str, default=U)
+        p.add_argument("--nodes", type=int, default=U)
+        p.add_argument("-ll:tpu", "--workers-per-node", dest="workers",
+                       type=int, default=U)
         p.add_argument("--budget", "--search-budget", dest="budget", type=int,
                        default=0)
         p.add_argument("--alpha", "--search-alpha", dest="alpha", type=float,
@@ -180,6 +219,8 @@ class FFConfig:
         p.add_argument("--base-optimize-threshold", type=int, default=10)
         p.add_argument("--search-num-nodes", type=int, default=0)
         p.add_argument("--search-num-workers", type=int, default=0)
+        p.add_argument("--import", dest="import_file", type=str, default="")
+        p.add_argument("--export", dest="export_file", type=str, default="")
         p.add_argument("--memory-search", action="store_true")
         p.add_argument("--substitution-json", type=str, default="")
         p.add_argument("--strategy-cache", action=argparse.BooleanOptionalAction,
@@ -187,38 +228,15 @@ class FFConfig:
         p.add_argument("--strategy-cache-dir", type=str, default="")
         p.add_argument("--simulator-mode", type=str, default="additive",
                        choices=("additive", "learned", "taskgraph"))
+        p.add_argument("--simulator-segment-size", type=int, default=U)
+        p.add_argument("--simulator-topk", type=int, default=U)
+        p.add_argument("--cost-model-path", type=str, default=U)
+        p.add_argument("--auto-refit", action="store_true", default=U)
+        p.add_argument("--simulator-trace", type=str, default=U)
         p.add_argument("--machine-model-file", type=str, default="")
-        p.add_argument("--profiling", action="store_true")
-        p.add_argument("--pipeline-stages", type=int, default=1)
-        p.add_argument("--fusion", dest="fusion", action="store_true",
-                       default=True)
-        p.add_argument("--no-fusion", dest="fusion", action="store_false")
-        p.add_argument("--compute-dtype", type=str, default="float32")
-        p.add_argument("--max-decode-len", type=int, default=0)
-        p.add_argument("--kv-page-size", type=int, default=16)
-        p.add_argument("--max-batch-slots", type=int, default=8)
-        p.add_argument("--kv-cache-dtype", type=str, default="auto",
-                       choices=("auto", "bf16", "int8"))
-        p.add_argument("--serve-ttft-budget-ms", type=float, default=0.0)
-        p.add_argument("--serve-queue-cap", type=int, default=0)
-        p.add_argument("--serve-decode-timeout-ms", type=float, default=0.0)
-        p.add_argument("--serve-draft-model", type=str, default="")
-        p.add_argument("--serve-spec-tokens", type=int, default=0)
-        p.add_argument("--serve-slo", type=str, default="",
-                       help='SLO objectives, e.g. "ttft_p99_ms=25,'
-                            'per_token_p99_ms=10,availability=0.999"')
-        p.add_argument("--serve-max-context", type=int, default=0)
         p.add_argument("--sync-every", type=int, default=0)
-        p.add_argument("--accum-steps", type=int, default=1)
-        p.add_argument("--fused-loss", type=str, default="auto",
-                       choices=("auto", "on", "off"))
-        p.add_argument("--fused-optimizer", type=str, default="auto",
-                       choices=("auto", "on", "off"))
-        p.add_argument("--import", dest="import_file", type=str, default="")
-        p.add_argument("--export", dest="export_file", type=str, default="")
-        p.add_argument("--remat", action="store_true")
-        p.add_argument("--remat-search", action="store_true")
-        p.add_argument("--remat-policies", type=str, default="none,dots,full")
+        p.add_argument("--steps-per-dispatch", type=int, default=1)
+        p.add_argument("--dispatch-ahead", type=int, default=32)
         p.add_argument("--async-checkpoint",
                        action=argparse.BooleanOptionalAction, default=True)
         p.add_argument("--checkpoint-dir", type=str, default="")
@@ -226,14 +244,87 @@ class FFConfig:
         p.add_argument("--checkpoint-every-secs", type=float, default=0.0)
         p.add_argument("--resume", type=str, default="")
         p.add_argument("--keep-checkpoints", type=int, default=3)
+        p.add_argument("--retry-attempts", type=int, default=3)
+        p.add_argument("--retry-base-delay", type=float, default=0.05)
+        p.add_argument("--fault-plan", type=str, default="")
+        p.add_argument("--zero-sharding", type=str, default=U,
+                       choices=("off", "zero1", "zero2"))
+        p.add_argument("--accum-steps", type=int, default=1)
+        p.add_argument("--pipeline-stages", type=int, default=1)
+        p.add_argument("--pipeline-schedule", type=str, default=U,
+                       choices=("gpipe", "1f1b"))
+        p.add_argument("--fusion", dest="fusion", action="store_true",
+                       default=True)
+        p.add_argument("--no-fusion", dest="fusion", action="store_false")
+        p.add_argument("--profiling", action="store_true")
+        p.add_argument("--profile-dir", type=str, default=U)
+        p.add_argument("--profile-ops", action="store_true", default=U)
+        p.add_argument("--telemetry-dir", type=str, default=U)
+        p.add_argument("--telemetry-max-mb", type=float, default=U)
+        p.add_argument("--health-sentinels",
+                       action=argparse.BooleanOptionalAction, default=U)
+        p.add_argument("--halt-on-nonfinite", action="store_true", default=U)
+        p.add_argument("--compute-dtype", type=str, default="float32")
+        p.add_argument("--remat", action="store_true")
+        p.add_argument("--remat-search", action="store_true")
+        p.add_argument("--remat-policies", type=str, default="none,dots,full")
+        p.add_argument("--fused-loss", type=str, default="auto",
+                       choices=("auto", "on", "off"))
+        p.add_argument("--fused-optimizer", type=str, default="auto",
+                       choices=("auto", "on", "off"))
+        p.add_argument("--compgraph", dest="export_dot", type=str, default=U)
+        p.add_argument("--include-costs-dot-graph", action="store_true",
+                       default=U)
+        p.add_argument("--serve", action="store_true", default=U)
+        p.add_argument("--max-decode-len", type=int, default=0)
+        p.add_argument("--kv-page-size", type=int, default=16)
+        p.add_argument("--max-batch-slots", type=int, default=8)
+        p.add_argument("--serve-objective", type=str, default=U,
+                       choices=("latency", "throughput"))
+        p.add_argument("--serve-watch-dir", type=str, default=U)
+        p.add_argument("--serve-ttft-budget-ms", type=float, default=0.0)
+        p.add_argument("--serve-queue-cap", type=int, default=0)
+        p.add_argument("--serve-decode-timeout-ms", type=float, default=0.0)
+        p.add_argument("--serve-draft-model", type=str, default="")
+        p.add_argument("--serve-spec-tokens", type=int, default=0)
+        p.add_argument("--kv-cache-dtype", type=str, default="auto",
+                       choices=("auto", "bf16", "int8"))
+        p.add_argument("--serve-slo", type=str, default="",
+                       help='SLO objectives, e.g. "ttft_p99_ms=25,'
+                            'per_token_p99_ms=10,availability=0.999"')
+        p.add_argument("--serve-reqtrace",
+                       action=argparse.BooleanOptionalAction, default=U)
+        p.add_argument("--kv-host-pages", type=int, default=U)
+        p.add_argument("--kv-prefetch-ahead", type=int, default=U)
+        p.add_argument("--serve-max-context", type=int, default=0)
+        p.add_argument("--serve-replicas", type=int, default=U)
+        p.add_argument("--serve-fleet-topology", type=str, default=U,
+                       choices=("colocated", "disagg"))
+        p.add_argument("--serve-prefill-replicas", type=int, default=U)
+        p.add_argument("--serve-router", type=str, default=U,
+                       choices=("least_loaded", "round_robin"))
+        p.add_argument("--serve-rollout-burn-max", type=float, default=U)
+        p.add_argument("--serve-trace-out", type=str, default=U)
+        p.add_argument("--twin-trace", type=str, default=U)
+        p.add_argument("--twin-replicas", type=int, default=U)
+        p.add_argument("--twin-out", type=str, default=U)
         return p
 
     @staticmethod
     def parse_args(argv: Optional[List[str]] = None) -> "FFConfig":
-        args, _ = FFConfig.build_parser().parse_known_args(argv)
+        args, _unknown = FFConfig.build_parser().parse_known_args(argv)
+        given = sorted(d for d in _UNPORTED if hasattr(args, d))
+        if given:
+            raise NotImplementedError(
+                "not ported yet: " + "; ".join(
+                    f"{_UNPORTED[d][0]} (ROADMAP Queue 1 item "
+                    f"{_UNPORTED[d][1]})" for d in given))
         return FFConfig(
             epochs=args.epochs,
             batch_size=args.batch_size,
+            learning_rate=args.lr,
+            weight_decay=args.wd,
+            iterations=args.iterations,
             seq_length=args.seq_length,
             seed=args.seed,
             search_budget=args.budget,
@@ -267,6 +358,8 @@ class FFConfig:
             serve_max_context=args.serve_max_context,
             sync_every=args.sync_every,
             accum_steps=args.accum_steps,
+            steps_per_dispatch=args.steps_per_dispatch,
+            dispatch_ahead=args.dispatch_ahead,
             fused_loss=args.fused_loss,
             fused_optimizer=args.fused_optimizer,
             import_strategy_file=args.import_file,
@@ -280,4 +373,43 @@ class FFConfig:
             checkpoint_every_secs=args.checkpoint_every_secs,
             resume=args.resume,
             keep_checkpoints=args.keep_checkpoints,
+            retry_attempts=args.retry_attempts,
+            retry_base_delay=args.retry_base_delay,
+            fault_plan=args.fault_plan,
         )
+
+
+# The JAX parser's flags whose features the port has not yet: argparse
+# dest -> (flag, ROADMAP Queue 1 item that ports it)
+_UNPORTED = {
+    "mesh": ("--mesh", 9), "nodes": ("--nodes", 9),
+    "workers": ("--workers-per-node", 9),
+    "zero_sharding": ("--zero-sharding", 9),
+    "pipeline_schedule": ("--pipeline-schedule", 9),
+    "serve_objective": ("--serve-objective", 9),
+    "simulator_segment_size": ("--simulator-segment-size", 8),
+    "simulator_topk": ("--simulator-topk", 8),
+    "cost_model_path": ("--cost-model-path", 8),
+    "auto_refit": ("--auto-refit", 8),
+    "simulator_trace": ("--simulator-trace", 8),
+    "profile_dir": ("--profile-dir", 4), "profile_ops": ("--profile-ops", 4),
+    "telemetry_dir": ("--telemetry-dir", 4),
+    "telemetry_max_mb": ("--telemetry-max-mb", 4),
+    "health_sentinels": ("--health-sentinels", 4),
+    "halt_on_nonfinite": ("--halt-on-nonfinite", 4),
+    "export_dot": ("--compgraph", 6),
+    "include_costs_dot_graph": ("--include-costs-dot-graph", 6),
+    "serve": ("--serve", 7),
+    "serve_watch_dir": ("--serve-watch-dir", 5),
+    "serve_reqtrace": ("--serve-reqtrace", 5),
+    "kv_host_pages": ("--kv-host-pages", 5),
+    "kv_prefetch_ahead": ("--kv-prefetch-ahead", 5),
+    "serve_replicas": ("--serve-replicas", 5),
+    "serve_fleet_topology": ("--serve-fleet-topology", 5),
+    "serve_prefill_replicas": ("--serve-prefill-replicas", 5),
+    "serve_router": ("--serve-router", 5),
+    "serve_rollout_burn_max": ("--serve-rollout-burn-max", 5),
+    "serve_trace_out": ("--serve-trace-out", 5),
+    "twin_trace": ("--twin-trace", 5), "twin_replicas": ("--twin-replicas", 5),
+    "twin_out": ("--twin-out", 5),
+}

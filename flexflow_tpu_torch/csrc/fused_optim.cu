@@ -13,7 +13,10 @@
 //         p'  = p + (-lr u)
 //
 //       with bc1 = 1 - b1**count and bc2 = 1 - b2**count computed by the
-//       caller in f32.
+//       caller in f32 ON THE DEVICE: the kernel reads them from a (2,) f32
+//       array `sc`, as the TPU kernel takes its scalars as an array. So a
+//       CUDA graph that captures the step replays each step's own
+//       corrections (a host float would be baked into the graph).
 //   `_sgd_leaf` -> `_sgd_kernel` (momentum trace t, f32) and
 //       `_sgd_plain_kernel` (no trace):
 //
@@ -56,7 +59,7 @@ namespace {
 constexpr int NT = 256;
 
 struct AdamArgs {
-  float lr, b1, omb1, b2, omb2, eps, wd, bc1, bc2;
+  float lr, b1, omb1, b2, omb2, eps, wd;
 };
 
 // one table entry: the leaf's index into gptrs, the chunk's element offset
@@ -84,11 +87,11 @@ template <> __device__ __forceinline__ __nv_bfloat16 st<__nv_bfloat16>(float x) 
 // the per-element update; mu/nu come in and go out as f32. Every product
 // and sum is rounded on its own (no FMA contraction), as the plain version's
 // separate PyTorch ops round them.
-__device__ __forceinline__ void adam_elem(const AdamArgs& a, float g, float& mu, float& nu,
-                                          float& p) {
+__device__ __forceinline__ void adam_elem(const AdamArgs& a, float bc1, float bc2, float g,
+                                          float& mu, float& nu, float& p) {
   mu = __fadd_rn(__fmul_rn(a.b1, mu), __fmul_rn(a.omb1, g));
   nu = __fadd_rn(__fmul_rn(a.b2, nu), __fmul_rn(__fmul_rn(a.omb2, g), g));
-  float u = __fdiv_rn(__fdiv_rn(mu, a.bc1), __fadd_rn(__fsqrt_rn(__fdiv_rn(nu, a.bc2)), a.eps));
+  float u = __fdiv_rn(__fdiv_rn(mu, bc1), __fadd_rn(__fsqrt_rn(__fdiv_rn(nu, bc2)), a.eps));
   if (a.wd != 0.f) u = __fadd_rn(u, __fmul_rn(a.wd, p));
   p = __fadd_rn(p, __fmul_rn(-a.lr, u));
 }
@@ -126,8 +129,9 @@ __device__ __forceinline__ void store4<__nv_bfloat16>(__nv_bfloat16* x, const fl
 template <typename M>
 __global__ void __launch_bounds__(NT) adam_kernel(const Chunk* __restrict__ table,
                                                   const long long* __restrict__ gptrs,
-                                                  AdamArgs a) {
+                                                  const float* __restrict__ sc, AdamArgs a) {
   const Chunk c = table[blockIdx.x];
+  const float bc1 = sc[0], bc2 = sc[1];
   const float* g = grad_ptr(gptrs, c.leaf, c.off);
   M* mu = reinterpret_cast<M*>(c.mu);
   M* nu = reinterpret_cast<M*>(c.nu);
@@ -145,7 +149,7 @@ __global__ void __launch_bounds__(NT) adam_kernel(const Chunk* __restrict__ tabl
       load4<M>(nu + i, vv);
       load4<float>(p + i, pv);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) adam_elem(a, gv[j], mv[j], vv[j], pv[j]);
+      for (int j = 0; j < 4; ++j) adam_elem(a, bc1, bc2, gv[j], mv[j], vv[j], pv[j]);
       store4<M>(mu + i, mv);
       store4<M>(nu + i, vv);
       store4<float>(p + i, pv);
@@ -154,7 +158,7 @@ __global__ void __launch_bounds__(NT) adam_kernel(const Chunk* __restrict__ tabl
   }
   for (long long i = i0 + threadIdx.x; i < n; i += NT) {
     float m = ld<M>(mu + i), v = ld<M>(nu + i), pv = p[i];
-    adam_elem(a, g[i], m, v, pv);
+    adam_elem(a, bc1, bc2, g[i], m, v, pv);
     mu[i] = st<M>(m);
     nu[i] = st<M>(v);
     p[i] = pv;
@@ -253,21 +257,23 @@ __global__ void __launch_bounds__(NT) sgd_plain_kernel(const PlainChunk* __restr
 }  // namespace
 
 // table: n_chunks entries of 6 int64 (leaf, off, mu, nu, p, n) in device
-// memory; gptrs: one int64 gradient base pointer per leaf, in device memory.
+// memory; gptrs: one int64 gradient base pointer per leaf, in device memory;
+// sc: the f32 bias corrections (bc1, bc2), in device memory.
 // g and p are float32, mu and nu are float32 (moment_dtype 0) or bfloat16
 // (moment_dtype 1).
 extern "C" int ff_adam(const void* table, const void* gptrs, int n_chunks, int moment_dtype,
                        float lr, float b1, float omb1, float b2, float omb2, float eps, float wd,
-                       float bc1, float bc2, void* stream) {
+                       const void* sc, void* stream) {
   if (n_chunks <= 0) return (int)cudaErrorInvalidValue;
-  const AdamArgs a{lr, b1, omb1, b2, omb2, eps, wd, bc1, bc2};
+  const AdamArgs a{lr, b1, omb1, b2, omb2, eps, wd};
+  const float* scf = static_cast<const float*>(sc);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Chunk* t = static_cast<const Chunk*>(table);
   const long long* gp = static_cast<const long long*>(gptrs);
   if (moment_dtype == 0)
-    adam_kernel<float><<<n_chunks, NT, 0, st>>>(t, gp, a);
+    adam_kernel<float><<<n_chunks, NT, 0, st>>>(t, gp, scf, a);
   else if (moment_dtype == 1)
-    adam_kernel<__nv_bfloat16><<<n_chunks, NT, 0, st>>>(t, gp, a);
+    adam_kernel<__nv_bfloat16><<<n_chunks, NT, 0, st>>>(t, gp, scf, a);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -23,7 +23,21 @@ same (they are updated in place; a replaced param, e.g. by `set_weight`,
 changes its pointer and rebuilds the table). Autograd hands back new
 gradient tensors every step, so the gradients' base pointers go to the
 kernel apart, one int64 per leaf copied each step. Adam and SGD keep
-their tables apart, per plan.
+their tables apart, per plan. Adam's scalars come from the device: the
+count is a device int32 that the step increments, and the kernel reads
+the (2,) f32 bias corrections computed from it
+(`optimizers.device_bias_corrections`), the same route eagerly and in a
+graph.
+
+Inside a CUDA graph capture (compiler/compile.py `make_multi_step`) a
+step may copy nothing from the host: the params' table must already be
+built (a rebuild raises), and the gradients, which come from the graph's
+pool at addresses fixed for every replay, take their pointers from
+device buffers that the capture's owner allocated BEFORE the capture
+(`begin_capture`) and `fill_captured()` writes once it has ended. A
+buffer allocated inside the capture could reuse the memory of a tensor
+the capture freed earlier, and the replay would overwrite the pointers
+with that tensor's values.
 
 `plan_for` recognises the port's optimizers as the JAX one does.
 `launches` counts Adam launches, `launches_sgd` SGD launches with a trace
@@ -41,7 +55,8 @@ import torch
 
 from flexflow_tpu_torch.kernels._build import load_library
 from flexflow_tpu_torch.optimizers import (AdamOptimizer, SGDOptimizer,
-                                           bias_corrections)
+                                           device_bias_corrections,
+                                           step_count)
 
 CHUNK = 32768   # elements of one table entry (one block)
 _MOMENT_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -70,15 +85,15 @@ def plan_for(optimizer) -> Optional[Dict[str, Any]]:
 
 # --------------------------------------------------------------------- Adam
 @torch.no_grad()
-def _adam_plain(plan, gs: List[torch.Tensor], mus, nus, ps, count: int):
+def _adam_plain(plan, gs: List[torch.Tensor], mus, nus, ps,
+                sc: torch.Tensor):
     """The kernel's function in plain PyTorch, leaf by leaf, each product
-    and sum rounded on its own as the kernel rounds them."""
-    bc1, bc2 = bias_corrections(plan["b1"], plan["b2"], count)
+    and sum rounded on its own as the kernel rounds them; `sc` holds the
+    f32 bias corrections (bc1, bc2) as the kernel reads them."""
     b1, b2, lr, wd = plan["b1"], plan["b2"], plan["lr"], plan["wd"]
+    # 0-dim tensors: a true division, as the kernel's
+    t1, t2 = sc[0], sc[1]
     for g, mu, nu, p in zip(gs, mus, nus, ps):
-        # 0-dim device tensors: a true division, as the kernel's
-        t1 = torch.tensor(bc1, dtype=torch.float32, device=p.device)
-        t2 = torch.tensor(bc2, dtype=torch.float32, device=p.device)
         g = g.float()
         mu_n = b1 * mu.float() + (1 - b1) * g
         nu_n = b2 * nu.float() + ((1 - b2) * g) * g
@@ -90,13 +105,22 @@ def _adam_plain(plan, gs: List[torch.Tensor], mus, nus, ps, count: int):
         nu.copy_(nu_n)
 
 
+def adam_scalars(plan, count: int, device) -> torch.Tensor:
+    """The (2,) f32 bias corrections of update `count` on `device`, as a
+    step computes them: the `sc` argument of `_adam_cuda`/`_adam_plain`
+    when they are called directly."""
+    c = torch.tensor(int(count), dtype=torch.int32).to(device)
+    return device_bias_corrections(plan["b1"], plan["b2"], c,
+                                   plan.setdefault("_bases", {}))
+
+
 def _adam_fn():
     fn = load_library("fused_optim").ff_adam
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                        ctypes.c_int] + [ctypes.c_float] * 9
-                       + [ctypes.c_void_p])
+                        ctypes.c_int] + [ctypes.c_float] * 7
+                       + [ctypes.c_void_p] * 2)
     return fn
 
 
@@ -134,20 +158,58 @@ def _cached_table(plan, slot: str, columns, device) -> torch.Tensor:
                 for leaves in zip(*columns))
     cached = plan.get(slot)
     if cached is None or cached[0] != key:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "fused optimizer: its pointer table would be rebuilt inside "
+                "a CUDA graph capture (a param or moment moved); run a "
+                "step before capturing")
         cached = plan[slot] = (key, _chunk_table(columns, device))
         table_builds += 1
     return cached[1]
 
 
-def _grad_ptrs(gs, device) -> torch.Tensor:
+def begin_capture(plan, updates: int, leaves: int, device) -> None:
+    """Before a graph capture of `updates` fused updates over `leaves`
+    params: their gradient-pointer buffers, allocated outside the graph's
+    pool."""
+    plan["_capture_free"] = [torch.empty(leaves, dtype=torch.int64,
+                                         device=device)
+                             for _ in range(updates)]
+    plan["_captured"] = []
+
+
+def fill_captured(plan) -> List[torch.Tensor]:
+    """After the capture: write each captured update's gradient pointers
+    into its buffer; returns the buffers, which the graph's owner keeps
+    alive."""
+    bufs = []
+    for buf, ptrs in plan.pop("_captured", []):
+        buf.copy_(torch.from_numpy(ptrs))
+        bufs.append(buf)
+    plan.pop("_capture_free", None)
+    return bufs
+
+
+def _grad_ptrs(plan, gs, device) -> torch.Tensor:
     """The gradients' base pointers, one int64 per leaf, on the device:
     autograd returns new gradient tensors every step, so these go to the
-    kernel apart from the cached table."""
-    return _to_device(np.array([g.data_ptr() for g in gs], dtype=np.int64),
-                      device)
+    kernel apart from the cached table. Inside a capture the next buffer
+    of `begin_capture` is filled after it ends."""
+    ptrs = np.array([g.data_ptr() for g in gs], dtype=np.int64)
+    if torch.cuda.is_current_stream_capturing():
+        free = plan.get("_capture_free")
+        if not free or free[0].numel() != len(gs):
+            raise RuntimeError(
+                "fused optimizer inside a CUDA graph capture without its "
+                "gradient-pointer buffers (begin_capture): capture the "
+                "train step through make_multi_step")
+        buf = free.pop(0)
+        plan["_captured"].append((buf, ptrs))
+        return buf
+    return _to_device(ptrs, device)
 
 
-def _adam_cuda(plan, gs, mus, nus, ps, count: int):
+def _adam_cuda(plan, gs, mus, nus, ps, sc: torch.Tensor):
     global launches
     md = plan["state_dtype"]
     dev = ps[0].device
@@ -163,14 +225,18 @@ def _adam_cuda(plan, gs, mus, nus, ps, count: int):
                 f"{tuple(p.shape)}, g {g.dtype} {tuple(g.shape)}, moments "
                 f"{mu.dtype}/{nu.dtype}; fused_optimizer='off' runs the "
                 "unfused update")
+    if not (sc.shape == (2,) and sc.dtype == torch.float32
+            and sc.device == dev and sc.is_contiguous()):
+        raise ValueError(f"fused Adam kernel reads (2,) f32 bias corrections "
+                         f"on {dev}; got {sc.dtype} {tuple(sc.shape)} on "
+                         f"{sc.device}")
     table = _cached_table(plan, "_adam_table", (mus, nus, ps), dev)
-    gptrs = _grad_ptrs(gs, dev)
-    bc1, bc2 = bias_corrections(plan["b1"], plan["b2"], count)
+    gptrs = _grad_ptrs(plan, gs, dev)
     b1, b2 = plan["b1"], plan["b2"]
     err = _adam_fn()(table.data_ptr(), gptrs.data_ptr(), table.shape[0],
                      _MOMENT_CODE[md],
                      plan["lr"], b1, 1 - b1, b2, 1 - b2, plan["eps"],
-                     plan["wd"], bc1, bc2,
+                     plan["wd"], sc.data_ptr(),
                      torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused Adam kernel launch failed: CUDA error {err}")
@@ -224,7 +290,7 @@ def _sgd_cuda(plan, gs, traces, ps):
                 "fused_optimizer='off' runs the unfused update")
     columns = (ps,) if traces is None else (traces, ps)
     table = _cached_table(plan, "_sgd_table", columns, dev)
-    gptrs = _grad_ptrs(gs, dev)
+    gptrs = _grad_ptrs(plan, gs, dev)
     err = _sgd_fn()(table.data_ptr(), gptrs.data_ptr(), table.shape[0],
                     int(traces is not None),
                     int(plan["nesterov"]), plan["lr"], plan["momentum"],
@@ -244,20 +310,23 @@ def _leaves(tree, order):
 
 def fused_update(plan: Dict[str, Any], grads, state: Dict[str, Any],
                  params) -> Dict[str, Any]:
-    """The optimizer step over `{layer: {weight: tensor}}` trees: params
-    and moments are written in place; returns the new state. CPU tensors
-    take the plain versions, CUDA tensors the kernels."""
+    """The optimizer step over `{layer: {weight: tensor}}` trees: params,
+    moments and Adam's device count are written in place; returns the
+    state. CPU tensors take the plain versions, CUDA tensors the
+    kernels."""
     order = [(l, w) for l, ws in params.items() for w in ws]
     ps, gs = _leaves(params, order), _leaves(grads, order)
     dev = ps[0].device.type
     if dev not in ("cpu", "cuda"):
         raise ValueError(f"fused optimizer runs on cuda or cpu, not {dev}")
     if plan["kind"] == "adam":
-        count = state["count"] + 1
+        count = step_count(state, ps[0].device).add_(1)
+        sc = device_bias_corrections(plan["b1"], plan["b2"], count,
+                                     plan.setdefault("_bases", {}))
         fn = _adam_plain if dev == "cpu" else _adam_cuda
         fn(plan, gs, _leaves(state["mu"], order), _leaves(state["nu"], order),
-           ps, count)
-        return dict(state, count=count)
+           ps, sc)
+        return state
     if plan["kind"] == "sgd":
         traces = (_leaves(state["trace"], order) if plan["momentum"]
                   else None)

@@ -4,7 +4,8 @@ A loss is a scalar PyTorch expression of the model's output; autograd
 derives its gradient. Callers pass f32 logits, as the train step does.
 Every loss of the JAX package is here, with the same means: sparse
 cross-entropy is logsumexp minus the label's logit
-(`optax.softmax_cross_entropy_with_integer_labels`), categorical
+(`optax.softmax_cross_entropy_with_integer_labels`), the label's entry
+taken by JAX's index rules (`_take_label`), categorical
 cross-entropy -sum(labels * log_softmax) over the last dim
 (`optax.softmax_cross_entropy`), both averaged over every row; with
 `from_logits=False` the output is taken as probabilities, clipped at
@@ -18,7 +19,6 @@ from __future__ import annotations
 import enum
 
 import torch
-import torch.nn.functional as F
 
 
 class LossType(enum.Enum):
@@ -35,18 +35,30 @@ class LossType(enum.Enum):
         return LossType(str(x))
 
 
+def _take_label(x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """x[..., label] as `jnp.take_along_axis` takes it: a negative label
+    counts from the end, and one outside [-v, v) reads NaN. No host sync
+    and no device assert on any label."""
+    v = x.shape[-1]
+    idx = torch.where(labels < 0, labels + v, labels)
+    ok = (idx >= 0) & (idx < v)
+    got = torch.gather(x, -1, idx.clamp(0, v - 1)[..., None])[..., 0]
+    return torch.where(ok, got, torch.full((), float("nan"), dtype=x.dtype,
+                                           device=x.device))
+
+
 def compute_loss(loss_type, logits: torch.Tensor, labels: torch.Tensor,
                  from_logits: bool = True) -> torch.Tensor:
     """logits: the model's output; labels: int ids (sparse) or dense
     targets. Every loss is a mean over all elements, as in JAX."""
     lt = LossType.from_any(loss_type)
     if lt is LossType.SPARSE_CATEGORICAL_CROSSENTROPY:
-        v = logits.shape[-1]
         labels = labels.reshape(logits.shape[:-1]).long()
         if from_logits:
-            return F.cross_entropy(logits.reshape(-1, v), labels.reshape(-1))
+            return (torch.logsumexp(logits, dim=-1)
+                    - _take_label(logits, labels)).mean()
         logp = torch.log(torch.clamp(logits, min=1e-12))
-        return -torch.gather(logp, -1, labels[..., None]).mean()
+        return -_take_label(logp, labels).mean()
     if lt is LossType.CATEGORICAL_CROSSENTROPY:
         labels = labels.to(logits.dtype)
         logp = (torch.log_softmax(logits, dim=-1) if from_logits

@@ -44,7 +44,9 @@ class PerfMetrics:
     `materialize()` then reads every chunk and queued value in one transfer
     and sums them on the host in float64, chunks first, then the queue in
     order: the same terms in the same order as the JAX package's
-    `PerfMetrics`.
+    `PerfMetrics`. A queued value must not be overwritten before it is
+    read: the K-step CUDA graph hands over copies of its static outputs
+    (compiler/graph_steps.py), never the outputs the next replay writes.
     """
 
     train_all: int = 0

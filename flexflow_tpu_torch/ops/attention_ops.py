@@ -21,7 +21,7 @@ build or launch error). `enable_fusion=False` (`--no-fusion`) or
 `impl="xla"` selects the einsum paths. In training the flash path is
 differentiable through the backward kernels. Attention-prob dropout in
 training takes the einsum path, as in JAX (the kernel has no dropout): the
-mask, drawn from the layer's generator, is applied to the probs in their
+mask, drawn from the layer's key, is applied to the probs in their
 dtype, and `impl="flash"` with dropout raises. The projections and the compute-dtype
 decode einsum are plain `torch.matmul`/`torch.einsum`, as the JAX package
 leaves them to XLA. The cache pools are updated in place (the JAX lowering

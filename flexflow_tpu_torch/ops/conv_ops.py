@@ -161,4 +161,13 @@ def _bn_lower(layer: "Layer", inputs, weights, ctx):
     return [y.to(x.dtype)]
 
 
-register_op(OperatorType.BATCHNORM, _bn_infer, _bn_lower)
+def _bn_init_state(layer: "Layer", device):
+    """The running stats as the lowering takes a missing key: mean 0,
+    var 1, f32."""
+    c = layer.inputs[0].spec.shape[1]
+    return {f"{layer.name}/mean": torch.zeros(c, device=device),
+            f"{layer.name}/var": torch.ones(c, device=device)}
+
+
+register_op(OperatorType.BATCHNORM, _bn_infer, _bn_lower,
+            init_state=_bn_init_state)

@@ -5,7 +5,7 @@ Layer norm takes its statistics and its affine in f32 (eps 1e-5 by
 default) and casts back to the activation dtype, as the JAX lowering does.
 Dropout is the identity in inference and at rate 0; in training it keeps
 each element with probability keep = 1 - rate, drawn as a bool mask from
-the layer's generator (`LoweringCtx.dropout_mask`), and returns
+the layer's key (`LoweringCtx.dropout_mask`), and returns
 where(mask, x / keep, 0) in x's dtype, as the JAX lowering does.
 """
 

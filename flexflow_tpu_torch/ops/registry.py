@@ -8,7 +8,12 @@ An op needs:
   returns the layer's outputs;
 - ``flops(layer)`` (optional) — forward FLOPs for the search's cost model
   (search/cost_model.py); without it an op counts one operation per
-  output element, as in the JAX package.
+  output element, as in the JAX package;
+- ``init_state(layer, device)`` (optional) — the non-trainable state the
+  train step writes, as the values its lowering reads in its place while
+  the key is missing (batch norm's running stats). A captured train step
+  reads and writes fixed buffers, so it fills them first
+  (compiler/compile.py).
 """
 
 from __future__ import annotations
@@ -45,32 +50,35 @@ class LoweringCtx:
     # what one run computes once and its layers share (the decode step's
     # cache write indices)
     memo: Dict[Any, Any] = dataclasses.field(default_factory=dict)
-    # the run's key (flexflow_tpu_torch/random.py), None when the caller
-    # gave none: the train step's dropout draws from it
-    rng: Optional[int] = None
+    # the run's key (flexflow_tpu_torch/random.py: a host int, or a
+    # device key inside a captured graph), None when the caller gave none:
+    # the train step's dropout draws from it
+    rng: Any = None
     # test hook: mask_hook(layer, rng, shape, keep) -> bool mask replaces
     # the dropout draw (the tests feed the JAX package's masks through it)
     mask_hook: Optional[Callable] = None
+    # what a lowering builds once for the life of the forward and reads
+    # on every run (the constants' device tensors), keyed by the lowering
+    cache: Dict[Any, Any] = dataclasses.field(default_factory=dict)
 
-    def rng_for(self, layer: "Layer", device) -> torch.Generator:
-        """A new generator on `device` from fold_in(rng, layer.guid): every
-        call draws the same numbers, so a rematerialized layer redraws its
-        mask."""
+    def layer_key(self, layer: "Layer"):
+        """fold_in(rng, layer.guid), a host or a device key as the rng is:
+        every call gives the same key, so a rematerialized layer redraws
+        its mask."""
         if self.rng is None:
             raise ValueError(
                 f"layer {layer.name} needs an rng but none was provided")
-        return ff_random.generator(ff_random.fold_in(self.rng, layer.guid),
-                                   device)
+        return ff_random.fold_in(self.rng, layer.guid)
 
     def dropout_mask(self, layer: "Layer", shape, keep: float,
                      device) -> torch.Tensor:
-        """The layer's keep mask: bool, True with probability `keep`."""
-        gen = self.rng_for(layer, device)  # raises without an rng
+        """The layer's keep mask: bool, True with probability `keep`
+        (`random.bernoulli_mask` of the layer's key)."""
+        k = self.layer_key(layer)  # raises without an rng
         if self.mask_hook is not None:
             return self.mask_hook(layer, self.rng, tuple(shape),
                                   keep).to(device)
-        return torch.empty(tuple(shape), dtype=torch.bool,
-                           device=device).bernoulli_(keep, generator=gen)
+        return ff_random.bernoulli_mask(k, tuple(shape), keep, device)
 
 
 @dataclasses.dataclass
@@ -79,6 +87,8 @@ class OpDef:
     lower: Callable[["Layer", List[torch.Tensor], Dict[str, torch.Tensor],
                      LoweringCtx], List[torch.Tensor]]
     flops: Optional[Callable[["Layer"], float]] = None  # per forward pass
+    init_state: Optional[Callable[["Layer", Any], Dict[str, torch.Tensor]]] \
+        = None
 
     def flop_count(self, layer: "Layer") -> float:
         if self.flops is not None:
@@ -90,8 +100,9 @@ class OpDef:
 _REGISTRY: Dict[OperatorType, OpDef] = {}
 
 
-def register_op(op_type: OperatorType, infer, lower, flops=None) -> OpDef:
-    d = OpDef(infer=infer, lower=lower, flops=flops)
+def register_op(op_type: OperatorType, infer, lower, flops=None,
+                init_state=None) -> OpDef:
+    d = OpDef(infer=infer, lower=lower, flops=flops, init_state=init_state)
     _REGISTRY[op_type] = d
     return d
 

@@ -170,11 +170,18 @@ _NARROW = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32,
 
 
 def _constant_lower(layer: "Layer", inputs, weights, ctx):
-    v = np.asarray(layer.params["value"])
-    v = v.astype(_NARROW.get(v.dtype, v.dtype))
-    t = torch.from_numpy(np.ascontiguousarray(v)).to(ctx.device)
-    if ctx.compute_dtype is not None and t.is_floating_point():
-        t = t.to(ctx.compute_dtype)
+    """The value's device tensor, copied from the host once per forward,
+    device and dtype (`ctx.cache`): a train step copies nothing from the
+    host, so a CUDA graph can capture it."""
+    ck = ("constant", layer.guid, ctx.device, ctx.compute_dtype)
+    t = ctx.cache.get(ck)
+    if t is None:
+        v = np.asarray(layer.params["value"])
+        v = v.astype(_NARROW.get(v.dtype, v.dtype))
+        t = torch.from_numpy(np.ascontiguousarray(v)).to(ctx.device)
+        if ctx.compute_dtype is not None and t.is_floating_point():
+            t = t.to(ctx.compute_dtype)
+        ctx.cache[ck] = t
     return [t]
 
 
@@ -198,7 +205,9 @@ def _masked_fill_infer(layer: "Layer"):
 
 def _masked_fill_lower(layer: "Layer", inputs, weights, ctx):
     x, mask = inputs
-    fill = torch.tensor(layer.params["value"], dtype=x.dtype, device=x.device)
+    # a fill kernel, not a host-to-device copy
+    fill = torch.full((), layer.params["value"], dtype=x.dtype,
+                      device=x.device)
     return [torch.where(mask.bool(), fill, x)]
 
 

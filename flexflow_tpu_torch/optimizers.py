@@ -18,9 +18,16 @@ This is the unfused update (`fused_optimizer="off"`); the fused path
 (kernels/fused_optim.py) computes the same function in one kernel.
 
 Trees are `{layer: {weight: tensor}}`. An optimizer state is a dict:
-Adam `{"count": int, "mu": tree, "nu": tree}`, SGD with momentum
-`{"trace": tree}`, plain SGD `{}`. `update` writes the params and the
-moments in place and returns the new state.
+Adam `{"count": tensor, "mu": tree, "nu": tree}`, SGD with momentum
+`{"trace": tree}`, plain SGD `{}`. `update` writes the params, the
+moments and Adam's count in place and returns the state.
+
+Adam's count lives on the device (a 0-dim int32, JAX's type) and the
+bias corrections 1 - b**count are computed there in f32
+(`device_bias_corrections`): the host reads nothing and copies nothing
+in a step, so a CUDA graph of K steps replays each step's own
+corrections. `bias_corrections` is the host's numpy reference of the
+same f32 values.
 """
 
 from __future__ import annotations
@@ -43,6 +50,29 @@ def bias_corrections(b1: float, b2: float, count: int):
     c = np.float32(count)
     one = np.float32(1.0)
     return (float(one - np.float32(b1) ** c), float(one - np.float32(b2) ** c))
+
+
+def step_count(state: Dict[str, Any], device) -> torch.Tensor:
+    """Adam's count as a 0-dim int32 on `device`, put there once (a state
+    carried from elsewhere may hold an int)."""
+    c = state["count"]
+    if not isinstance(c, torch.Tensor) or c.device != torch.device(device):
+        c = torch.tensor(int(c), dtype=torch.int32, device=device)
+        state["count"] = c
+    return c
+
+
+def device_bias_corrections(b1: float, b2: float, count: torch.Tensor,
+                            cache: Dict[Any, torch.Tensor]) -> torch.Tensor:
+    """(1 - b1**count, 1 - b2**count) as a (2,) f32 on the count's device:
+    f32 pow of the f32 betas, then an f32 subtraction, as
+    `bias_corrections`. `cache` keeps the betas' device tensor (made once,
+    outside any graph capture)."""
+    bases = cache.get(count.device)
+    if bases is None:
+        bases = cache[count.device] = torch.tensor(
+            [b1, b2], dtype=torch.float32).to(count.device)
+    return 1 - torch.pow(bases, count.float())
 
 
 class Optimizer:
@@ -111,6 +141,7 @@ class AdamOptimizer(Optimizer):
         self.weight_decay = weight_decay
         self.epsilon = epsilon
         self.state_dtype = state_dtype
+        self._bases: Dict[Any, torch.Tensor] = {}  # device_bias_corrections
 
     def moment_dtype(self) -> torch.dtype:
         sd = self.state_dtype or "float32"
@@ -124,14 +155,19 @@ class AdamOptimizer(Optimizer):
 
     def init_state(self, params: Tree) -> Dict[str, Any]:
         md = self.moment_dtype()
-        return {"count": 0, "mu": zeros_like_tree(params, md),
+        dev = next((t.device for ws in params.values() for t in ws.values()),
+                   torch.device("cpu"))
+        return {"count": torch.zeros((), dtype=torch.int32, device=dev),
+                "mu": zeros_like_tree(params, md),
                 "nu": zeros_like_tree(params, md)}
 
     @torch.no_grad()
     def update(self, grads, state, params):
         b1, b2, eps = self.beta1, self.beta2, self.epsilon
-        count = state["count"] + 1
-        bc1, bc2 = bias_corrections(b1, b2, count)
+        dev = next(t.device for ws in params.values() for t in ws.values())
+        count = step_count(state, dev).add_(1)
+        sc = device_bias_corrections(b1, b2, count, self._bases)
+        bc1, bc2 = sc[0], sc[1]
         for l, ws in params.items():
             for w, p in ws.items():
                 g = grads[l][w].float()
@@ -144,4 +180,4 @@ class AdamOptimizer(Optimizer):
                 p.add_(u * -self.alpha)
                 mu_s.copy_(mu)
                 nu_s.copy_(nu)
-        return dict(state, count=count)
+        return state

@@ -307,12 +307,18 @@ def _write_tree(path: str, host_tree: Dict[str, Any],
         os.fsync(f.fileno())
 
 
-def save_checkpoint(cm, path: str, block: bool = True, commit=None) -> str:
+def save_checkpoint(cm, path: str, block: bool = True, commit=None,
+                    retry_policy=None) -> str:
     """Persist a CompiledModel's training state (params, optimizer state,
     non-trainable state, iteration, strategy) under `path`. With
     block=False the host snapshot is taken here and the write runs on a
     background thread; `commit` (the durable snapshots' rename) runs after
-    the write, on whichever thread wrote."""
+    the write, on whichever thread wrote. The write and the commit run as
+    ONE `checkpoint/write` operation under `retry_policy` (one fault index
+    a save): a transient fault in the commit retries both halves, and the
+    commit does nothing once its rename has landed."""
+    from flexflow_tpu_torch.runtime.resilience import run_resilient
+
     path = _ckpt_dir(path)
     wait_pending(path)  # never two writers on one directory
     meta = {
@@ -325,9 +331,12 @@ def save_checkpoint(cm, path: str, block: bool = True, commit=None) -> str:
                       "state": cm.state})
 
     def write_and_commit():
-        _write_tree(path, host, meta)
-        if commit is not None:
-            commit()
+        def once():
+            _write_tree(path, host, meta)
+            if commit is not None:
+                commit()
+
+        run_resilient("checkpoint/write", once, retry_policy)
 
     if block:
         write_and_commit()

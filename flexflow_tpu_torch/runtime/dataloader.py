@@ -9,15 +9,19 @@ accumulation, as the JAX package's does. `epoch(skip_batches)` and
 `advance_epochs` are the resume cursor, with the JAX loader's rng
 consumption.
 
-`prefetch_to_device` overlaps the host-to-device copy of the next batches
-with the current step: a daemon thread copies each batch into pinned host
-memory, then to the device on a side CUDA stream, and records an event;
-the consumer's stream waits on that event, and each tensor is
+`prefetch_multi` overlaps the host-to-device copy of the next batches
+with the current step, and feeds the fused K-step dispatch
+(`CompiledModel.make_multi_step`): a daemon thread stacks K consecutive
+batches into (K, ...) arrays, copies each group into pinned host memory,
+then to the device on a side CUDA stream, and records an event; the
+consumer's stream waits on that event, and each tensor is
 `record_stream`ed on the consumer's stream so the allocator does not hand
-its memory out again while the step still reads it. On the CPU the same
-thread and queue run without streams. The JAX loader's native gather and
-its fused multi-step prefetch (`prefetch_multi` with steps_per_dispatch >
-1) are not ported.
+its memory out again while the step still reads it. Groups are tagged
+"k"; the epoch's tail and the batches of a group broken by a ragged batch
+go singly, tagged "1". Every copy runs as one `dataloader/transfer`
+operation under the retry policy (runtime/resilience.py). On the CPU the
+same thread and queue run without streams. `prefetch_to_device` is its
+k = 1 case, as in JAX. The JAX loader's native gather is not ported.
 """
 
 from __future__ import annotations
@@ -104,13 +108,31 @@ def _as_tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-def prefetch_to_device(it, device, depth: int = 2):
+def prefetch_to_device(it, device, depth: int = 2, retry_policy=None):
     """Yield the (inputs, label) batches of `it` as tensors on `device`,
-    copied `depth` batches ahead by a daemon thread (on CUDA: through
-    pinned memory, on a side stream; see the module docstring). An
-    exception in the worker reaches the consumer after the batches queued
-    ahead of it. When the consumer stops early (a `break`, an exception,
-    `close()`), the worker stops too and is joined."""
+    copied `depth` batches ahead: `prefetch_multi` at k = 1, untagged."""
+    gen = prefetch_multi(it, 1, device, depth=depth,
+                         retry_policy=retry_policy)
+    try:
+        for _kind, dx, dy in gen:
+            yield dx, dy
+    finally:
+        gen.close()
+
+
+def prefetch_multi(it, k: int, device, depth: int = 2, retry_policy=None):
+    """Yield ("k", dx, dy) for each group of `k` consecutive batches of
+    `it`, stacked to (k, ...) and copied to `device` as one transfer, and
+    ("1", dx, dy) for the batches that go singly: the epoch's tail (fewer
+    than k left), and a partial group flushed when a batch of another
+    shape arrives. With k <= 1 every batch goes singly. A daemon thread
+    copies `depth` items ahead (see the module docstring); each copy is a
+    `dataloader/transfer` operation under `retry_policy`. An exception in
+    the worker reaches the consumer after the items queued ahead of it.
+    When the consumer stops early (a `break`, an exception, `close()`),
+    the worker stops too and is joined."""
+    from flexflow_tpu_torch.runtime.resilience import run_resilient
+
     device = torch.device(device)
     cuda = device.type == "cuda"
     if cuda and device.index is None:
@@ -130,22 +152,47 @@ def prefetch_to_device(it, device, depth: int = 2):
                 continue
         return False
 
-    def move(xs, y):
-        host = [_as_tensor(a) for a in (*xs, y)]
-        if not cuda:
-            return host[:-1], host[-1], None
-        with torch.cuda.stream(stream):
-            dev = [h.pin_memory().to(device, non_blocking=True) for h in host]
-            ev = torch.cuda.Event()
-            ev.record(stream)
-        return dev[:-1], dev[-1], ev
+    def move(kind, xs, y):
+        def once():
+            host = [_as_tensor(a) for a in (*xs, y)]
+            if not cuda:
+                return host[:-1], host[-1], None
+            with torch.cuda.stream(stream):
+                dev = [h.pin_memory().to(device, non_blocking=True)
+                       for h in host]
+                ev = torch.cuda.Event()
+                ev.record(stream)
+            return dev[:-1], dev[-1], ev
+
+        return (kind,) + run_resilient("dataloader/transfer", once,
+                                       retry_policy)
 
     def worker():
         try:
             if cuda:
                 torch.cuda.set_device(device)
+            buf: List = []
             for xs, y in it:
-                if not put(move(xs, y)):
+                if k <= 1:
+                    if not put(move("1", xs, y)):
+                        return
+                    continue
+                if buf and _batch_shapes(xs, y) != _batch_shapes(*buf[0]):
+                    # a ragged batch: the partial group goes singly
+                    for bxs, by in buf:
+                        if not put(move("1", bxs, by)):
+                            return
+                    buf = []
+                buf.append((xs, y))
+                if len(buf) == k:
+                    sx = [np.stack([b[0][i] for b in buf])
+                          for i in range(len(buf[0][0]))]
+                    sy = np.stack([b[1] for b in buf])
+                    buf = []
+                    if not put(move("k", sx, sy)):
+                        return
+            for xs, y in buf:  # the tail: fewer than k batches left
+                if not put(move("1", xs, y)):
                     return
             put(done)
         except BaseException as e:  # forwarded to the consumer
@@ -160,13 +207,13 @@ def prefetch_to_device(it, device, depth: int = 2):
                 break
             if isinstance(item, BaseException):
                 raise item
-            dx, dy, ev = item
+            kind, dx, dy, ev = item
             if ev is not None:
                 cur = torch.cuda.current_stream(device)
                 cur.wait_event(ev)
                 for x in (*dx, dy):
                     x.record_stream(cur)
-            yield dx, dy
+            yield kind, dx, dy
     finally:
         stop.set()
         t.join(PREFETCH_JOIN_S)

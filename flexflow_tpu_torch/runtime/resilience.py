@@ -17,9 +17,14 @@ flexflow_tpu/runtime/resilience.py, its non-pipeline part).
   step in epoch, loss and metric sums, history), so that
   `fit(resume="auto")` continues the same trajectory.
 
-The retry policy around transfers and writes (`RetryPolicy`,
-`run_resilient`) and fault injection (`runtime/faults.py`) are not ported:
-`save_durable` calls the write directly.
+- Retries: `run_resilient(site, fn, policy)` checks the site's armed
+  fault (runtime/faults.py) and runs `fn` under a bounded number of
+  attempts with exponential backoff and a seeded jitter
+  (`RetryPolicy`); a failure past the budget escalates to the caller.
+  It wraps loader transfers, checkpoint writes (write and commit), fit's
+  dispatch admission and the serving dispatches. The JAX package's
+  telemetry `retry`/`error` events wait for the port's telemetry
+  (ROADMAP Queue 1 item 4); the retries are logged as JAX logs them.
 """
 
 from __future__ import annotations
@@ -29,8 +34,14 @@ import logging
 import os
 import shutil
 import signal
+import threading
 import time
+from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from flexflow_tpu_torch.runtime import faults
 
 MANIFEST = "MANIFEST.json"
 _LOG = logging.getLogger("flexflow_tpu_torch")
@@ -50,6 +61,75 @@ class Preempted(SystemExit):
     def __str__(self) -> str:
         return (f"training preempted by signal {self.signum}; final "
                 f"snapshot: {self.checkpoint_path or '<none>'}")
+
+
+# ------------------------------------------------------------------- retries
+@dataclass
+class RetryPolicy:
+    """Bounded exponential backoff with jitter. `attempts` counts all
+    tries; the jitter's rng is seeded, so a fault plan replays the same
+    schedule."""
+
+    attempts: int = 3
+    base_delay: float = 0.05
+    max_delay: float = 2.0
+    jitter: float = 0.25
+    seed: int = 0
+    # what may be transient: RuntimeError (CUDA and injected faults),
+    # filesystem and socket errors. A ValueError or TypeError is a
+    # program's fault and surfaces at once.
+    retryable: tuple = (RuntimeError, OSError, ConnectionError, TimeoutError)
+
+    def __post_init__(self):
+        self._rng = np.random.default_rng(self.seed)
+        self._lock = threading.Lock()
+
+    @staticmethod
+    def from_config(cfg) -> "RetryPolicy":
+        """The config's policy. The jitter's seed mixes in the pid, so the
+        processes of one run (which share cfg.seed) do not retry in step;
+        a test that needs a replayable schedule builds
+        RetryPolicy(seed=...) itself."""
+        return RetryPolicy(
+            attempts=max(1, int(getattr(cfg, "retry_attempts", 3))),
+            base_delay=float(getattr(cfg, "retry_base_delay", 0.05)),
+            seed=int(getattr(cfg, "seed", 0)) ^ (os.getpid() << 8))
+
+    def delay(self, attempt: int) -> float:
+        d = min(self.max_delay, self.base_delay * (2.0 ** max(0, attempt - 1)))
+        with self._lock:
+            j = 1.0 + self.jitter * (2.0 * float(self._rng.random()) - 1.0)
+        return max(0.0, d * j)
+
+
+DEFAULT_POLICY = RetryPolicy()
+
+
+def run_resilient(site: str, fn, policy: Optional[RetryPolicy] = None,
+                  index: Optional[int] = None):
+    """faults.check(site), then fn(), under the retry policy. The check
+    runs before fn on every attempt, at the same operation index, so a
+    retry redoes the same work; a failure past the budget is raised."""
+    pol = policy or DEFAULT_POLICY
+    attempt = 0
+    fault_idx = index
+    while True:
+        try:
+            if faults.active():
+                if fault_idx is None:
+                    fault_idx = faults.next_index(site)
+                faults.check(site, index=fault_idx)
+            return fn()
+        except pol.retryable as e:
+            attempt += 1
+            if attempt >= max(1, pol.attempts):
+                _LOG.warning("%s failed after %d attempts: %r", site,
+                             attempt, e)
+                raise
+            d = pol.delay(attempt)
+            _LOG.warning("transient failure at %s (attempt %d/%d, retrying "
+                         "in %.3fs): %s", site, attempt, pol.attempts, d, e)
+            time.sleep(d)
 
 
 # -------------------------------------------------------- durable checkpoints
@@ -170,10 +250,13 @@ def effective_config(model, batch_size: Optional[int] = None,
 
 def save_durable(model, root: str, progress: Optional[Dict[str, Any]] = None,
                  block: Optional[bool] = None, keep: int = 0,
-                 config: Optional[Dict[str, int]] = None) -> str:
+                 config: Optional[Dict[str, int]] = None,
+                 policy: Optional[RetryPolicy] = None) -> str:
     """Atomic-commit durable snapshot of a CompiledModel into `root`.
     Returns the committed path (with block=False the commit is pending
-    until `wait_pending()` or the exit drain joins the writer)."""
+    until `wait_pending()` or the exit drain joins the writer). The write
+    and the commit run as one `checkpoint/write` operation under
+    `policy`."""
     from flexflow_tpu_torch.runtime import checkpoint as ck
 
     root = os.path.abspath(root)
@@ -197,6 +280,8 @@ def save_durable(model, root: str, progress: Optional[Dict[str, Any]] = None,
     }
 
     def commit():
+        if not os.path.isdir(tmp) and os.path.isdir(final):
+            return  # a retry after the rename landed: already committed
         mpath = os.path.join(tmp, MANIFEST)
         with open(mpath, "w") as f:
             json.dump(manifest, f, default=float)
@@ -218,7 +303,8 @@ def save_durable(model, root: str, progress: Optional[Dict[str, Any]] = None,
 
     if block is None:
         block = not getattr(model.cfg, "async_checkpoint", True)
-    ck.save_checkpoint(model, tmp, block=block, commit=commit)
+    ck.save_checkpoint(model, tmp, block=block, commit=commit,
+                       retry_policy=policy)
     return final
 
 
@@ -357,8 +443,10 @@ class FitResilience:
     call; None when neither a checkpoint root nor a resume is set."""
 
     def __init__(self, model, root: str, every_steps: int, every_secs: float,
-                 resume: str, keep: int):
+                 resume: str, keep: int, policy: Optional[RetryPolicy] = None):
         self.model = model
+        # the retry policy of the fit's transfers, writes and dispatches
+        self.policy = policy or RetryPolicy.from_config(model.cfg)
         self.root = os.path.abspath(root) if root else ""
         self.every_steps = max(0, int(every_steps))
         self.every_secs = max(0.0, float(every_secs))
@@ -381,7 +469,8 @@ class FitResilience:
         if not root and not resume:
             return None
         return FitResilience(model, root or "", es or 0, esec or 0.0,
-                             resume, getattr(cfg, "keep_checkpoints", 3))
+                             resume, getattr(cfg, "keep_checkpoints", 3),
+                             RetryPolicy.from_config(cfg))
 
     def set_effective(self, batch_size: Optional[int],
                       accum_steps: Optional[int]) -> None:
@@ -418,7 +507,8 @@ class FitResilience:
     def save(self, progress: Dict[str, Any],
              block: Optional[bool] = None) -> str:
         path = save_durable(self.model, self.root, progress, block=block,
-                            keep=self.keep, config=self.effective or None)
+                            keep=self.keep, config=self.effective or None,
+                            policy=self.policy)
         self._last_iter = int(self.model._iteration)
         self._last_time = time.monotonic()
         return path
@@ -458,6 +548,10 @@ class FitResilience:
         stored history instead of training the last epoch again."""
         if self.root:
             self.save(progress_dict(epochs, 0, 0.0, {}, 0, history))
+
+    @property
+    def preempt_requested(self) -> bool:
+        return self.guard.requested
 
     def preempt_now(self, progress: Dict[str, Any]):
         """The final snapshot (synchronous: the process is about to exit)

@@ -38,16 +38,27 @@ Policy, as in the JAX package:
   reservation grows by K, and the draft's cache mirrors every admit,
   prefill and evict of the target's.
 
+- FAULTS: KV admission, prefill and decode dispatch run under
+  `run_resilient` with the scheduler's retry policy (`retry_policy=`, or
+  the config's `RetryPolicy.from_config`) as the fault sites
+  `serve/kv_admit`, `serve/prefill` and `serve/decode_step`
+  (runtime/faults.py). A transient fault costs a retry; a permanent one
+  fails only what it hit, outcome "failed": a kv_admit escalation that
+  request, a prefill escalation the batch being admitted (its pages
+  freed), a decode escalation the wedged slot (the window dispatched
+  before it is drained first). The engine keeps serving in every case.
+
 Every outcome ends in one terminal record (`reqtrace.terminal_record`),
-which the engine's SLO tracker classifies. Not ported yet: fault retries
-(`run_resilient`; a fault raises out of `run`), request tracing, the host
-KV tier, hot-swap and the fleet hooks. The constructor raises
-`NotImplementedError` where a caller asks for them.
+which the engine's SLO tracker classifies. Not ported yet: request
+tracing, the host KV tier, hot-swap (`serve/param_swap`) and the fleet
+hooks. The constructor raises `NotImplementedError` where a caller asks
+for them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import time
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional
@@ -55,11 +66,13 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from flexflow_tpu_torch.runtime.resilience import RetryPolicy, run_resilient
 from flexflow_tpu_torch.serving.kv_cache import POS_KEY, KVPoolExhausted
 from flexflow_tpu_torch.serving.reqtrace import terminal_record
 
 # decode steps dispatched between two host syncs (the JAX default)
 DISPATCH_AHEAD = 4
+_LOG = logging.getLogger("flexflow_tpu_torch")
 
 
 @dataclasses.dataclass
@@ -76,7 +89,7 @@ class Request:
     admit_s: Optional[float] = None  # prefill dispatch (queue wait ends)
     finish_s: Optional[float] = None
     slot: Optional[int] = None
-    outcome: str = ""             # "done" | "shed" | "timeout"
+    outcome: str = ""             # "done" | "shed" | "timeout" | "failed"
     shed_reason: str = ""
 
 
@@ -108,11 +121,9 @@ class ContinuousBatchingScheduler:
                  queue_cap: Optional[int] = None,
                  decode_timeout_ms: Optional[float] = None,
                  prefill_chunk_tokens: int = 0,
-                 retry_policy=None, reqtrace: Optional[bool] = None,
+                 retry_policy: Optional[RetryPolicy] = None,
+                 reqtrace: Optional[bool] = None,
                  handoff: Optional[Callable] = None):
-        if retry_policy is not None:
-            raise NotImplementedError("retry_policy: fault retries "
-                                      "(run_resilient) are not ported yet")
         if reqtrace:
             raise NotImplementedError("reqtrace: request tracing is not "
                                       "ported yet")
@@ -142,6 +153,8 @@ class ContinuousBatchingScheduler:
             else getattr(cfg, "serve_decode_timeout_ms", 0.0))
         self.prefill_chunk_tokens = max(0, int(prefill_chunk_tokens))
         self.max_context = int(getattr(cfg, "serve_max_context", 0) or 0)
+        self.retry_policy = (retry_policy if retry_policy is not None
+                             else RetryPolicy.from_config(cfg))
         self.completed: List[Request] = []
         self.shed: List[Request] = []
         self.failed: List[Request] = []
@@ -199,16 +212,19 @@ class ContinuousBatchingScheduler:
         self.stats["shed_" + reason] += 1
         self._terminal(req, now_s, reason)
 
-    def _fail(self, req: Request, now_s: float) -> None:
-        """A request the watchdog evicted: outcome "timeout". (The JAX
-        scheduler also fails requests on faults, as "failed"; here a fault
-        raises out of `run`.)"""
-        req.outcome = "timeout"
+    def _fail(self, req: Request, outcome: str, now_s: float,
+              err: Optional[BaseException] = None) -> None:
+        """A request the watchdog evicted (outcome "timeout") or a fault
+        failed ("failed", `err` logged)."""
+        if err is not None:
+            _LOG.warning("request %d failed: %r", req.rid, err)
+        req.outcome = outcome
         req.finish_s = now_s
         req.slot = None
         self.failed.append(req)
         self.stats["failed"] += 1
-        self._terminal(req, now_s, "decode_timeout")
+        self._terminal(req, now_s,
+                       "decode_timeout" if outcome == "timeout" else "error")
 
     def _enqueue(self, req: Request, waiting: List[Request],
                  now_s: float) -> None:
@@ -234,7 +250,9 @@ class ContinuousBatchingScheduler:
         return max(active.items(),
                    key=lambda it: (len(it[1].tokens), -it[0]))[0]
 
-    def _evict_wedged(self, active: Dict[int, Request], now_s: float) -> None:
+    def _evict_wedged(self, active: Dict[int, Request], outcome: str,
+                      now_s: float,
+                      err: Optional[BaseException] = None) -> None:
         slot = self._pick_wedged(active)
         req = active.pop(slot)
         self.kv.evict(slot)
@@ -243,7 +261,7 @@ class ContinuousBatchingScheduler:
             self.draft.kv.evict(slot)
             self.draft.kv.push()
         self.stats["evicted_wedged"] += 1
-        self._fail(req, now_s)
+        self._fail(req, outcome, now_s, err)
 
     # ------------------------------------------------------------ admission
     def _admit(self, waiting: List[Request], active: Dict[int, Request],
@@ -271,9 +289,17 @@ class ContinuousBatchingScheduler:
                 break  # page backpressure: keep queued
             slot = free[0]
             try:
-                self.kv.admit(slot, len(req.prompt), need)
+                run_resilient(
+                    "serve/kv_admit",
+                    lambda s=slot, r=req, n=need:
+                        self.kv.admit(s, len(r.prompt), n),
+                    policy=self.retry_policy)
             except KVPoolExhausted:
                 break
+            except Exception as e:  # noqa: BLE001 - an escalated fault:
+                waiting.pop(0)  # this request fails, the rest stay queued
+                self._fail(req, "failed", self._now(), e)
+                continue
             if self._spec:
                 try:  # mirror the reservation in the draft's cache
                     self.draft.kv.admit(slot, len(req.prompt), need)
@@ -297,14 +323,29 @@ class ContinuousBatchingScheduler:
             lengths[req.slot] = n
         all_slots = np.arange(self.slots, dtype=np.int32)
         t_pre = time.perf_counter()
-        logits, kv_state = self.engine.prefill(
-            self.params, self.prompt_inputs_fn(ids, lengths))
+        try:
+            logits, kv_state = run_resilient(
+                "serve/prefill",
+                lambda: self.engine.prefill(
+                    self.params, self.prompt_inputs_fn(ids, lengths)),
+                policy=self.retry_policy)
+        except Exception as e:  # noqa: BLE001 - an escalated fault fails
+            self._fail_batch(batch, e)  # only the batch being admitted
+            return False
         self.kv.commit_prefill(kv_state, all_slots, lengths)
         if self._spec:
             # the draft prefills the same prompt batch into its own cache:
             # from here the two caches' positions move together
-            _, dkv_state = self.draft.prefill(
-                self.draft.params, self.prompt_inputs_fn(ids, lengths))
+            try:
+                _, dkv_state = run_resilient(
+                    "serve/prefill",
+                    lambda: self.draft.prefill(
+                        self.draft.params, self.prompt_inputs_fn(ids,
+                                                                 lengths)),
+                    policy=self.retry_policy)
+            except Exception as e:  # noqa: BLE001
+                self._fail_batch(batch, e)
+                return False
             self.draft.kv.commit_prefill(dkv_state, all_slots, lengths)
         self.prefills += 1
         # first token: argmax at each row's last real position, taken on
@@ -324,6 +365,18 @@ class ContinuousBatchingScheduler:
             next_host[req.slot, 0] = first
             active[req.slot] = req
         return True
+
+    def _fail_batch(self, batch: List[Request], err: BaseException) -> None:
+        """A prefill that escalated: its requests fail and their pages (in
+        both caches) come back."""
+        for req in batch:
+            self.kv.evict(req.slot)
+            if self._spec:
+                self.draft.kv.evict(req.slot)
+            self._fail(req, "failed", self._now(), err)
+        self.kv.push()
+        if self._spec:
+            self.draft.kv.push()
 
     # ------------------------------------------------------------- finish
     def _finish(self, req: Request, now_s: float) -> None:
@@ -363,7 +416,7 @@ class ContinuousBatchingScheduler:
         if self.decode_timeout_ms and active and \
                 1e3 * per_step_s > self.decode_timeout_ms:
             self.stats["decode_timeouts"] += 1
-            self._evict_wedged(active, self._now())
+            self._evict_wedged(active, "timeout", self._now())
 
     def _materialize(self, window_toks: List[torch.Tensor], state,
                      active: Dict[int, Request], window_t0: float) -> np.ndarray:
@@ -471,8 +524,8 @@ class ContinuousBatchingScheduler:
     def run(self, requests: List[Request]) -> List[Request]:
         """Serve `requests` (arrival_s offsets define the open-loop trace)
         to completion; returns the COMPLETED ones with tokens and latency
-        fields filled. Shed requests land in `self.shed`, timed-out ones in
-        `self.failed`, each with its outcome and reason."""
+        fields filled. Shed requests land in `self.shed`, timed-out and
+        failed ones in `self.failed`, each with its outcome and reason."""
         self._t0 = time.perf_counter()
         queue = deque(sorted(requests, key=lambda r: (r.arrival_s, r.rid)))
         waiting: List[Request] = []
@@ -510,12 +563,37 @@ class ContinuousBatchingScheduler:
                 continue
             if self._spec:
                 # a round is its own sync point: no dispatch-ahead window
-                next_host = self._spec_round(active, next_host)
+                try:
+                    next_host = run_resilient(
+                        "serve/decode_step",
+                        lambda nh=next_host: self._spec_round(active, nh),
+                        policy=self.retry_policy)
+                except Exception as e:  # noqa: BLE001 - a permanent fault
+                    if active:
+                        self._evict_wedged(active, "failed", self._now(), e)
                 state = self.kv.state
                 next_dev = torch.from_numpy(next_host).to(self.device)
                 continue
             inputs = self.step_inputs_fn(next_dev, state)
-            logits, state = self.engine.decode_step(self.params, state, inputs)
+            try:
+                logits, state = run_resilient(
+                    "serve/decode_step",
+                    lambda s=state, ins=inputs:
+                        self.engine.decode_step(self.params, s, ins),
+                    policy=self.retry_policy)
+            except Exception as e:  # noqa: BLE001 - a permanent decode
+                # fault: drain what was dispatched, then evict the wedged
+                # slot; every other slot keeps serving
+                if window_toks:
+                    next_host = self._materialize(window_toks, state, active,
+                                                  window_t0)
+                    window_toks = []
+                if active:
+                    self._evict_wedged(active, "failed", self._now(), e)
+                state = self.kv.state
+                next_dev = torch.from_numpy(next_host).to(self.device)
+                window_t0 = time.perf_counter()
+                continue
             next_dev = torch.argmax(logits[:, -1, :], dim=-1).to(
                 torch.int32)[:, None]
             window_toks.append(next_dev)

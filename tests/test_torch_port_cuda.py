@@ -342,7 +342,8 @@ def test_fused_adam_kernel_matches_plain_on_card(state_dtype, wd):
         gs = [grads[l]["w"] for l in pp]
         fused_optim._adam_plain(plan, gs, [sp["mu"][l]["w"] for l in pp],
                                 [sp["nu"][l]["w"] for l in pp],
-                                [pp[l]["w"] for l in pp], step + 1)
+                                [pp[l]["w"] for l in pp],
+                                fused_optim.adam_scalars(plan, step + 1, dev))
         for l in pp:
             assert float((pk[l]["w"] - pp[l]["w"]).abs().max()) <= 1e-6
             for m in ("mu", "nu"):
@@ -823,3 +824,142 @@ def test_f32_conv_without_tf32_on_card(groups):
     want = lower(layer, [xs], ws, LoweringCtx(device=torch.device("cpu")))[0]
     err = float((got.double().cpu() - want).abs().max())
     assert err <= 1e-5 * float(want.abs().max())
+
+
+# ------------------------------------------- the K-step graph (make_multi_step)
+def _graph_pair(opt, dropout, seed=0, n=2):
+    """`n` compiles of one 1-layer GPT-2 with the same initial weights and
+    the same layer guids (the dropout keys fold them in)."""
+    from flexflow_tpu_torch import AdamOptimizer, SGDOptimizer
+    from flexflow_tpu_torch.core.layer import Layer
+    from flexflow_tpu_torch.core.tensor import Tensor
+
+    dev = _cuda_or_skip()
+    make = {"adam": lambda: AdamOptimizer(alpha=1e-3),
+            "sgd": lambda: SGDOptimizer(lr=0.05, momentum=0.9)}[opt]
+    guids = Layer._next_guid[0], Tensor._next_guid[0]
+    cms = []
+    for _ in range(n):
+        Layer._next_guid[0], Tensor._next_guid[0] = guids
+        cm = _tiny_train_model(256, 128, dropout=dropout,
+                               compute_dtype="bfloat16").compile(
+            make(), "sparse_categorical_crossentropy", [], device=dev)
+        cm.init(seed=seed)
+        cms.append(cm)
+    return cms
+
+
+def _groups(n, k, vocab=256):
+    rng = np.random.default_rng(9)
+    ids = rng.integers(0, vocab, size=(n, k, 2, 64)).astype(np.int32)
+    pos = np.broadcast_to(np.arange(64, dtype=np.int32), ids.shape).copy()
+    labels = rng.integers(0, vocab, size=(n, k, 2, 64)).astype(np.int32)
+    return [torch.from_numpy(a).cuda() for a in (ids, pos, labels)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt,dropout", [("adam", 0.0), ("sgd", 0.0),
+                                         ("adam", 0.1)])
+def test_multi_step_graph_equals_eager_steps_on_card(opt, dropout):
+    """Two replays of the K-step CUDA graph against 2K eager train steps
+    fed the same batches and keys (fold_in(base, i)): losses and params
+    bitwise equal where two eager runs are, else within the eager
+    run-to-run difference; the kernels' launches are counted once, at the
+    capture; a fused-optimizer table is never rebuilt."""
+    from flexflow_tpu_torch import random as ff_random
+    from flexflow_tpu_torch.compiler import graph_steps
+    from flexflow_tpu_torch.kernels import fused_optim
+
+    _cuda_or_skip()
+    K = 3
+    ids, pos, labels = _groups(2, K)
+    base = ff_random.key(5)
+    eager, eager2, graph = _graph_pair(opt, dropout, n=3)
+
+    def run_eager(cm):
+        means = []
+        for d in range(2):
+            losses = []
+            for i in range(K):
+                (cm.params, cm.opt_state, cm.state, loss, _) = cm.train_step(
+                    cm.params, cm.opt_state, cm.state,
+                    [ids[d, i], pos[d, i]], labels[d, i],
+                    ff_random.fold_in(base, d * K + i))
+                losses.append(loss)
+            s = losses[0]
+            for x in losses[1:]:
+                s = s + x
+            means.append(s / K)
+        return means
+
+    means, means2 = run_eager(eager), run_eager(eager2)
+    caps = graph_steps.captures
+    multi = graph.make_multi_step(K)
+    fwd0 = flash_attention.launches
+    got = []
+    for d in range(2):
+        (graph.params, graph.opt_state, graph.state, loss, _) = multi(
+            graph.params, graph.opt_state, graph.state,
+            [ids[d], pos[d]], labels[d], base, d * K)
+        got.append(loss)
+        builds = fused_optim.table_builds
+    torch.cuda.synchronize()
+    assert graph_steps.captures == caps + 1
+    # counted at the capture (K steps, the warm-up's one step), not at a
+    # replay
+    assert flash_attention.launches - fwd0 == (K + 1) * (dropout == 0)
+    assert fused_optim.table_builds == builds
+
+    def diff(a, b):
+        return max(float((a[l][w] - b[l][w]).abs().max())
+                   for l in a for w in a[l])
+    run_to_run = diff(eager.params, eager2.params)
+    if run_to_run == 0 and all(torch.equal(a, b)
+                               for a, b in zip(means, means2)):
+        assert diff(eager.params, graph.params) == 0
+        assert all(torch.equal(a, b) for a, b in zip(means, got))
+    else:
+        assert diff(eager.params, graph.params) <= run_to_run
+    if opt == "adam":
+        assert int(graph.opt_state["count"]) == 2 * K
+
+
+@pytest.mark.cuda
+def test_masks_on_card_equal_the_cpu_masks():
+    """The hash of `bernoulli_mask` in int32 on the card gives the CPU's
+    bits, from a host key and from a device key."""
+    from flexflow_tpu_torch import random as ff_random
+
+    dev = _cuda_or_skip()
+    k = ff_random.fold_in(ff_random.key(2), 9)
+    want = ff_random.bernoulli_mask(k, (16, 4096), 0.9, "cpu")
+    for kk in (k, ff_random.device_key(k, dev)):
+        assert torch.equal(
+            ff_random.bernoulli_mask(kk, (16, 4096), 0.9, dev).cpu(), want)
+    dk = ff_random.fold_in(ff_random.device_key(ff_random.key(2), dev),
+                           torch.tensor(9, device=dev))
+    assert ff_random.host_key(dk) == k
+
+
+@pytest.mark.cuda
+def test_fit_steps_per_dispatch_on_card():
+    """fit with steps_per_dispatch=2 over 5 updates: two graph replays and
+    one single step, the step_stats JAX counts, the params of the K=1
+    fit."""
+    from flexflow_tpu_torch.compiler import graph_steps
+
+    a, b = _graph_pair("adam", 0.1)
+    rng = np.random.default_rng(4)
+    ids = rng.integers(0, 256, size=(10, 64)).astype(np.int32)
+    pos = np.tile(np.arange(64, dtype=np.int32), (10, 1))
+    y = rng.integers(0, 256, size=(10, 64)).astype(np.int32)
+    caps = graph_steps.captures
+    ha = a.fit([ids, pos], y, verbose=False, steps_per_dispatch=2)
+    hb = b.fit([ids, pos], y, verbose=False, steps_per_dispatch=1)
+    assert graph_steps.captures == caps + 1
+    assert a.step_stats == {"dispatches": 3, "host_syncs": 0, "barriers": 0,
+                            "fused_steps": 4}
+    assert np.isfinite(ha[0]["loss"])
+    assert all(torch.equal(a.params[l][w], b.params[l][w])
+               for l in a.params for w in a.params[l])
+    np.testing.assert_allclose(ha[0]["loss"], hb[0]["loss"], rtol=1e-6)

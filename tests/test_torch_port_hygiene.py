@@ -49,6 +49,36 @@ def test_importing_every_module_loads_no_jax():
     assert bad == "[]"
 
 
+# the modules of fit's dispatch pipeline and of fault injection, each
+# imported alone in a fresh interpreter
+DISPATCH_MODULES = [
+    "flexflow_tpu_torch.runtime.faults", "flexflow_tpu_torch.runtime.resilience",
+    "flexflow_tpu_torch.runtime.dataloader",
+    "flexflow_tpu_torch.runtime.checkpoint", "flexflow_tpu_torch.random",
+    "flexflow_tpu_torch.compiler.graph_steps",
+    "flexflow_tpu_torch.compiler.compile", "flexflow_tpu_torch.optimizers",
+    "flexflow_tpu_torch.kernels.fused_optim",
+    "flexflow_tpu_torch.serving.scheduler", "flexflow_tpu_torch.config",
+    "flexflow_tpu_torch.losses"]
+
+_IMPORT_ONE = r"""
+import importlib, sys
+importlib.import_module(sys.argv[1])
+print(sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "flexflow_tpu" or m.startswith("flexflow_tpu.")))
+"""
+
+
+@pytest.mark.parametrize("module", DISPATCH_MODULES)
+def test_dispatch_and_fault_modules_import_no_jax(module):
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def test_sources_name_no_jax_import():
     pat = re.compile(r"^\s*(import jax|from jax)|\bflexflow_tpu\.|"
                      r"from flexflow_tpu import", re.M)

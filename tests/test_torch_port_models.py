@@ -252,7 +252,8 @@ def test_resnet_fit_accum_and_evaluate_match_jax():
     x, y = _data("resnet", 1, n=32)
     jh = jcm.fit(x, y, epochs=1, verbose=False, accum_steps=2)
     ph = pcm.fit(x, y, epochs=1, verbose=False, sync_every=0, accum_steps=2)
-    assert pcm.step_stats == {"dispatches": 2, "host_syncs": 0}
+    assert pcm.step_stats == {"dispatches": 2, "host_syncs": 0,
+                              "barriers": 0, "fused_steps": 0}
     for k in ("loss", "accuracy"):
         np.testing.assert_allclose(ph[0][k], jh[0][k], rtol=LOSS_RTOL,
                                    err_msg=k)

@@ -174,10 +174,12 @@ def test_fit_epoch_matches_jax(trained):
     ph = pcm.fit(x, y, epochs=1, verbose=False, sync_every=0)
     np.testing.assert_allclose(ph[0]["loss"], jh[0]["loss"],
                                rtol=LOSS_RTOL[dt])
-    assert pcm.step_stats == {"dispatches": 4, "host_syncs": 0}
+    assert pcm.step_stats == {"dispatches": 4, "host_syncs": 0,
+                              "barriers": 0, "fused_steps": 0}
     assert ph[0]["dispatches"] == 4.0 and ph[0]["samples"] == 4 * BATCH
     pcm.fit(x, y, epochs=1, verbose=False, sync_every=2)
-    assert pcm.step_stats == {"dispatches": 4, "host_syncs": 2}
+    assert pcm.step_stats == {"dispatches": 4, "host_syncs": 2,
+                              "barriers": 0, "fused_steps": 0}
 
 
 def test_dataloaders_draw_the_same_batches():
@@ -294,7 +296,8 @@ def test_accum_fit_epoch_matches_jax(dt):
     x, y = _data(4, 4 * BATCH, vocab=PAD_KW["vocab"])
     jh = jcm.fit(x, y, epochs=1, verbose=False)
     ph = pcm.fit(x, y, epochs=1, verbose=False, sync_every=0)
-    assert pcm.step_stats == {"dispatches": 2, "host_syncs": 0}
+    assert pcm.step_stats == {"dispatches": 2, "host_syncs": 0,
+                              "barriers": 0, "fused_steps": 0}
     assert ph[0]["dispatches"] == 2.0 and ph[0]["samples"] == 4 * BATCH
     np.testing.assert_allclose(ph[0]["loss"], jh[0]["loss"],
                                rtol=LOSS_RTOL[dt])
@@ -307,7 +310,8 @@ def test_accum_fit_epoch_matches_jax(dt):
     assert opt_state_from_jax(jax.device_get(jcm.opt_state)) == {}
     assert pcm.opt_state == {}
     pcm.fit(x, y, epochs=1, verbose=False, sync_every=0, accum_steps=1)
-    assert pcm.step_stats == {"dispatches": 4, "host_syncs": 0}
+    assert pcm.step_stats == {"dispatches": 4, "host_syncs": 0,
+                              "barriers": 0, "fused_steps": 0}
 
 
 def test_group_microbatches_matches_jax():
