@@ -231,6 +231,45 @@ Phases, each fatal on failure (nothing is caught to let the run exit 0):
         one retry, and the params of (d).
     A capture that fails raises: nothing falls back to eager steps.
 
+11. Telemetry, run health and per-op attribution (telemetry.py,
+    health.py, attribution.py), last, on GPT-2 medium as 5b trains it
+    (full depth, b8, seq 1024, dropout 0, bf16 over f32 masters, Adam
+    1e-4), compiled anew after the peak memory is reset; each fit is 2
+    epochs of a few batches:
+    (a) eager and then steps_per_dispatch 4, each four times from one
+        snapshot with everything off, on, on, off (on: telemetry and the
+        sentinels): the same step_stats, the same launches (eager: a
+        step's; K = 4: the capture's, each run capturing anew) and
+        bitwise the same params; the step ms of each (the drift
+        monitor's median after the first epoch) are printed; a graph
+        dispatch profiled off and on (kernels, busy, idle); and the
+        sentinels' own cost: a K = 4 graph captured off and one on,
+        replayed in turns 10 times each, and 10 pairs of 2 eager steps;
+    (b) each run's stream with telemetry on holds the events fit emits
+        in JAX's counts (the CPU test holds them to JAX's): dispatches,
+        prefetch waits, host syncs, barriers, epochs, goodput and
+        watermarks, and a fit/drift event;
+    (c) a fit under `profiling` and `profile_ops` (one step a dispatch:
+        a replay's kernels carry no layer), then
+        `op_attribution(source="trace")`: the attributed sum within
+        SUM_TOLERANCE of the measured step, its coverage (the credited
+        share of the trace's device time) printed, every attention
+        layer credited with the flash forward, dQ and dK/dV kernels, the
+        top rows and the top 3 by drift printed;
+    (d) at FIT_LAYERS deep (each durable snapshot writes the params and
+        moments), eager and K = 2, under `health/nonfinite@3` with the
+        sentinels, `halt_on_nonfinite`, a snapshot every 2 updates and a
+        host sync every update: NonFiniteError at the step the CPU test
+        gives (3 eager, 4 at K = 2), naming the snapshot of step 2; a
+        fresh model resumed from it trains with finite losses;
+    (e) `health_report()`'s watermark (the allocator's peak, the graph
+        pools included) against `memory_stats()`' predicted peak, with
+        the warning as it falls, and `goodput_report()`'s buckets and
+        residual (the buckets must account for 95% of the wall);
+    (f) run with phase 3: its int8 leg again with telemetry on: one
+        serve/request_admitted and one serve/request_done a request, one
+        serve/decode_step span a decode step.
+
 The line before the last is `{"kernels": [...]}`; the last line is
 `{"ok": true, "device": {...}}`.
 """
@@ -3292,6 +3331,538 @@ def graph_leg(tag: str, cm, host_data, k: int, seed: int,
     return out
 
 
+# ------------------------------- phase 11: telemetry, run health, attribution
+P11_BATCHES, P11_EPOCHS, P11_SYNC = 8, 2, 2
+# 11d: (K, fault plan, the step NonFiniteError names, its checkpoint's
+# step), the cases tests/test_torch_port_health.py holds against JAX
+HALT_CASES = ((1, "health/nonfinite@3", 3, 2),
+              (2, "health/nonfinite@3", 4, 2))
+ATTN_KERNELS = ("flash_fwd_tc_kernel", "flash_dq_tc_kernel",
+                "flash_dkv_tc_kernel")
+
+
+def _fit_events(tdir: str) -> dict:
+    """(name, cat) -> count of the fit/*, health/* and op/* events of a
+    telemetry directory."""
+    from collections import Counter
+
+    from flexflow_tpu_torch import telemetry as tel
+
+    tel.flush()
+    return dict(Counter(f"{e['name']}|{e.get('cat')}"
+                        for e in tel.read_events(tdir)
+                        if e["name"].startswith(("fit/", "health/", "op/"))))
+
+
+def _expected_fit_events(stats: dict, epochs: int) -> dict:
+    """What fit emits (JAX's counts, which the CPU test holds the port
+    to): a dispatch span per dispatch, a prefetch wait per dispatch and
+    one more an epoch (the loader's end), a host sync per sync and one at
+    each epoch's end, a barrier per barrier, an epoch span, a goodput and
+    a watermark event an epoch, and the drift event."""
+    want = {"fit/dispatch|fit": stats["dispatches"],
+            "fit/prefetch_wait|fit": stats["dispatches"] + epochs,
+            "fit/host_sync|fit": stats["host_syncs"] + epochs,
+            "fit/epoch|fit": epochs, "health/goodput|health": epochs,
+            "health/hbm|health": epochs, "fit/drift|drift": 1}
+    if stats["barriers"]:
+        want["fit/barrier_sync|fit"] = stats["barriers"]
+    return want
+
+
+def p11_run(cm, snap, data, k: int, on: bool, tdir: str) -> dict:
+    """One fit of 11a from the snapshot: P11_EPOCHS epochs of
+    P11_BATCHES batches, a host sync every P11_SYNC updates, K = k, with
+    telemetry and the sentinels both on or both off; the launch counters
+    zeroed just before it (a graph's run captures anew, so each counts
+    one capture: the warm-up step and the K captured steps)."""
+    from flexflow_tpu_torch import telemetry as tel
+
+    _restore(cm, snap)
+    cm._multi_cache.clear()
+    cm.cfg.health_sentinels = on
+    if on:
+        tel.configure(tdir)
+    else:
+        tel.shutdown()
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        hist = cm.fit(*data, epochs=P11_EPOCHS, verbose=False,
+                      sync_every=P11_SYNC, steps_per_dispatch=k)
+        torch.cuda.synchronize()
+    finally:
+        tel.shutdown()
+    out = {"k": k, "on": on, "wall_s": time.perf_counter() - t0,
+           "history": hist, "step_stats": dict(cm.step_stats),
+           "launches": launch_counts(),
+           "step_ms": 1e3 * cm.drift_stats()["measured_step_time_s"],
+           "events": _fit_events(tdir) if on else {}}
+    return out
+
+
+def p11_telemetry(cm, gc, seed: int, tdir_root: str) -> dict:
+    """11a and 11b: eager and K = 4, each with everything off and on, in
+    turns (off, on, on, off): the same step_stats, launches and bitwise
+    params; the stream of each run with telemetry on holds the events
+    fit emits, in JAX's counts, and a drift event with the predicted and
+    measured step."""
+    ids, pos, labels = train_batch(seed + 41, gc.vocab,
+                                   n=P11_BATCHES * BATCH)
+    data = ([ids, pos], labels)
+    snap = _snapshot(cm)
+    out = {}
+    for k in (1, GRAPH_K):
+        runs, ref = [], None
+        for i, on in enumerate((False, True, True, False)):
+            tdir = os.path.join(tdir_root, f"k{k}-{i}")
+            r = p11_run(cm, snap, data, k, on, tdir)
+            params = _tree_copy(cm.params)
+            if ref is None:
+                ref = (r, params)
+            else:
+                r["params_bitwise_equal"] = _trees_bitwise(params, ref[1])
+                if r["step_stats"] != ref[0]["step_stats"] or \
+                        r["launches"] != ref[0]["launches"] or \
+                        not r["params_bitwise_equal"]:
+                    fail(f"11a K={k} run {i} ({'on' if on else 'off'}): "
+                         f"step_stats {r['step_stats']} launches "
+                         f"{r['launches']} bitwise "
+                         f"{r['params_bitwise_equal']}, against the first "
+                         f"off run's {ref[0]['step_stats']} "
+                         f"{ref[0]['launches']}")
+            del params
+            if not all(np.isfinite(h["loss"]) for h in r["history"]):
+                fail(f"11a K={k}: non-finite loss {r['history']}")
+            if min(r["launches"][n] for n in (
+                    "flash_attention_fwd", "flash_attention_dq",
+                    "flash_attention_dkv", "fused_adam")) <= 0:
+                fail(f"11a K={k}: a training kernel did not launch "
+                     f"{r['launches']}")
+            if on:
+                want = _expected_fit_events(r["step_stats"], P11_EPOCHS)
+                got = {n: c for n, c in r["events"].items() if n in want}
+                if got != want:
+                    fail(f"11b K={k}: events {r['events']}, expected {want}")
+            runs.append(r)
+        del ref
+        steps = P11_EPOCHS * P11_BATCHES
+        per_step = {n: v / (steps if k == 1 else GRAPH_K + 1)
+                    for n, v in runs[0]["launches"].items() if v}
+        log(f"[11a K={k}] step ms (off, on, on, off): "
+            + ", ".join(f"{r['step_ms']:.2f}" for r in runs)
+            + f"; step_stats {runs[0]['step_stats']}; launches a step "
+            f"{per_step} ({'eager' if k == 1 else 'at the capture'}); "
+            f"params bitwise equal across the four: True")
+        log(f"[11b K={k}] events of the runs with telemetry on: "
+            f"{runs[1]['events']}")
+        out[f"k{k}"] = runs
+    _restore(cm, snap)
+    cm._multi_cache.clear()
+    cm.cfg.health_sentinels = True
+    return out
+
+
+def p11_graph_kernels(cm, gc, seed: int) -> dict:
+    """11a, with everything off the K-step graph must be the one it was
+    without this layer: one dispatch of K = 4 captured with the sentinels
+    off and one with them on, each profiled over 2 replays: the kernels a
+    dispatch, busy ms and idle share."""
+    from flexflow_tpu_torch import random as ff_random
+
+    ids, pos, labels = train_batch(seed + 45, gc.vocab, n=GRAPH_K * BATCH)
+    xs = [torch.from_numpy(a.reshape(GRAPH_K, BATCH, -1)).cuda()
+          for a in (ids, pos)]
+    y = torch.from_numpy(labels.reshape(GRAPH_K, BATCH, -1)).cuda()
+    base = ff_random.key(seed + 17)
+    snap = _snapshot(cm)
+    out = {}
+    for on in (False, True):
+        _restore(cm, snap)
+        cm._multi_cache.clear()
+        cm._steps_key = (cm._accum_steps, on)
+        cm.cfg.health_sentinels = on
+        multi = cm._get_multi(GRAPH_K)
+
+        def dispatch():
+            (cm.params, cm.opt_state, cm.state, _, mv) = multi(
+                cm.params, cm.opt_state, cm.state, xs, y, base, 0)
+            return mv
+
+        mv = dispatch()
+        prof = _device_profile(dispatch, 2, cm.device)
+        if "kernel_launches_per_call" not in prof:
+            fail(f"11a: the profiler saw no kernel of the graph: {prof}")
+        out["on" if on else "off"] = {
+            k: prof[k] for k in ("kernel_launches_per_call",
+                                 "graph_launches_per_call",
+                                 "device_busy_ms_per_call",
+                                 "device_idle_share", "port_kernels",
+                                 "top_kernels")}
+        out["on" if on else "off"]["metric_keys"] = sorted(mv)
+    _restore(cm, snap)
+    cm._multi_cache.clear()
+    cm.cfg.health_sentinels = True
+    off, on = out["off"], out["on"]
+    log(f"[11a graph] a dispatch of K={GRAPH_K}, everything off: "
+        f"{off['kernel_launches_per_call']:.0f} kernels, busy "
+        f"{off['device_busy_ms_per_call'] / GRAPH_K:.2f} ms a step, idle "
+        f"{off['device_idle_share']:.3f}; sentinels on: "
+        f"{on['kernel_launches_per_call']:.0f} kernels, busy "
+        f"{on['device_busy_ms_per_call'] / GRAPH_K:.2f} ms a step, idle "
+        f"{on['device_idle_share']:.3f}; metrics {on['metric_keys']}; top "
+        f"kernels on: " + ", ".join(f"{t['name'][:48]} {t['ms_per_call']:.3f}"
+                                   f" ms x{t['launches_per_call']:.0f}"
+                                   for t in on["top_kernels"][:6]))
+    launches = {k: {n: v["launches_per_call"]
+                    for n, v in out[k]["port_kernels"].items()}
+                for k in out}
+    if off["metric_keys"] or not on["metric_keys"] or \
+            launches["off"] != launches["on"] or not launches["off"] or \
+            off["graph_launches_per_call"] != 1 or \
+            not off["kernel_launches_per_call"] < \
+            on["kernel_launches_per_call"]:
+        fail(f"11a graph: off {off}, on {on}")
+    return out
+
+
+P11_PAIRS = 10
+
+
+def p11_sentinel_pairs(cm, gc, seed: int) -> dict:
+    """11a, the sentinels' own cost, in turns: two K = 4 graphs of the
+    same model, one captured with the sentinels off and one with them on,
+    replayed alternately (off, on, on, off, ...) P11_PAIRS times each,
+    each replay timed by the host clock between two device syncs; then
+    the same for pairs of 2 eager train steps. Reports the medians, the
+    median of the per-pair differences and the off runs' interquartile
+    spread, and how many pairs the sentinels lost."""
+    from flexflow_tpu_torch import random as ff_random
+    from flexflow_tpu_torch.compiler.graph_steps import GraphedSteps
+
+    ids, pos, labels = train_batch(seed + 49, gc.vocab, n=GRAPH_K * BATCH)
+    xs = [torch.from_numpy(a.reshape(GRAPH_K, BATCH, -1)).cuda()
+          for a in (ids, pos)]
+    y = torch.from_numpy(labels.reshape(GRAPH_K, BATCH, -1)).cuda()
+    base = ff_random.key(seed + 17)
+    snap = _snapshot(cm)
+    graphs = {}
+
+    def graph_call(on):
+        if on not in graphs:
+            # each graph captures the program of its own setting
+            cm.cfg.health_sentinels = on
+            graphs[on] = GraphedSteps(cm, GRAPH_K)
+        (cm.params, cm.opt_state, cm.state, _, _) = graphs[on](
+            cm.params, cm.opt_state, cm.state, xs, y, base, 0)
+
+    def eager_call(on):
+        cm.cfg.health_sentinels = on
+        for i in range(2):
+            (cm.params, cm.opt_state, cm.state, _, _) = cm.train_step(
+                cm.params, cm.opt_state, cm.state, [xs[0][i], xs[1][i]],
+                y[i], ff_random.fold_in(base, i))
+
+    def timed(fn, on):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(on)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    out = {}
+    for name, fn, steps in (("eager", eager_call, 2),
+                            ("graph", graph_call, GRAPH_K)):
+        fn(False)
+        fn(True)   # captures and warm-up
+        runs = {False: [], True: []}
+        for i in range(P11_PAIRS):
+            order = (False, True) if i % 2 == 0 else (True, False)
+            for on in order:
+                runs[on].append(1e3 * timed(fn, on) / steps)
+        diffs = [b - a for a, b in zip(runs[False], runs[True])]
+        q1, q3 = np.percentile(runs[False], [25, 75])
+        out[name] = {"off_ms": runs[False], "on_ms": runs[True],
+                     "off_median": float(np.median(runs[False])),
+                     "on_median": float(np.median(runs[True])),
+                     "diff_median": float(np.median(diffs)),
+                     "off_iqr": float(q3 - q1),
+                     "pairs_on_slower": sum(d > 0 for d in diffs)}
+        r = out[name]
+        log(f"[11a pairs {name}] ms a step, {P11_PAIRS} pairs in turns: "
+            f"sentinels off median {r['off_median']:.3f}, on "
+            f"{r['on_median']:.3f}, per-pair difference median "
+            f"{r['diff_median']:+.3f} (off runs' IQR {r['off_iqr']:.3f}); "
+            f"on slower in {r['pairs_on_slower']} of {P11_PAIRS}")
+    del graphs
+    _restore(cm, snap)
+    cm._multi_cache.clear()
+    cm.cfg.health_sentinels = True
+    collect_garbage()
+    torch.cuda.empty_cache()
+    return out
+
+
+def p11_attribution(cm, gc, seed: int, pdir: str, tdir: str) -> dict:
+    """11c: a fit under profiling and profile_ops (telemetry on, so the
+    fit-end attribution runs and emits op/attr), then
+    op_attribution(source="trace"): within SUM_TOLERANCE of the measured
+    step, its coverage, the attention layers credited with the flash
+    forward, dQ and dK/dV kernels, the top 3 by drift."""
+    from flexflow_tpu_torch import attribution
+    from flexflow_tpu_torch import telemetry as tel
+
+    ids, pos, labels = train_batch(seed + 43, gc.vocab, n=2 * BATCH)
+    cm.cfg.profiling, cm.cfg.profile_ops, cm.cfg.profile_dir = True, True, pdir
+    cm.forward_fn.layer_ranges = True
+    tel.configure(tdir)
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        cm.fit([ids, pos], labels, epochs=2, verbose=False)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = launch_counts()
+        t1 = time.perf_counter()
+        rep = cm.op_attribution(source="trace", print_table=False)
+        report_s = time.perf_counter() - t1
+    finally:
+        tel.shutdown()
+        cm.cfg.profiling = cm.cfg.profile_ops = False
+        cm.forward_fn.layer_ranges = False
+    events = _fit_events(tdir)
+    step = rep["step_time_s"]
+    att = rep["attributed_total_s"]
+    kernels = rep["trace"]["kernels"]
+    attn = [l.name for l in cm.model.layers if l.name.endswith("_attn")]
+    missing = {a: [k for k in ATTN_KERNELS
+                   if not any(k in n for n in kernels.get(a, {}))]
+               for a in attn}
+    missing = {a: m for a, m in missing.items() if m}
+    flash_ms = sum(us for a in attn for n, us in kernels.get(a, {}).items()
+                   if "flash" in n) / 1e3
+    out = {"fit_s": fit_s, "report_s": report_s, "source": rep["source"],
+           "coverage": rep["coverage"], "step_ms": 1e3 * step,
+           "attributed_ms": 1e3 * att,
+           "device_ms": rep["trace"]["device_us"] / 1e3,
+           "credited_ms": rep["trace"]["credited_us"] / 1e3,
+           "attention_flash_ms": flash_ms,
+           "trace_file_mb": os.path.getsize(rep["trace"]["file"]) / 2**20,
+           "top_drift": rep["top_drift"], "launches": launches,
+           "events": events,
+           "rows": [{k: r[k] for k in ("layer", "op", "predicted_s",
+                                       "attributed_s", "roofline_s",
+                                       "bound", "mfu")}
+                    for r in rep["rows"][:8]]}
+    log(f"[11c] profiled fit {fit_s:.1f} s (trace "
+        f"{out['trace_file_mb']:.1f} MiB), report {report_s:.1f} s; source "
+        f"{rep['source']}, coverage {rep['coverage']:.4f} (credited "
+        f"{out['credited_ms']:.2f} of {out['device_ms']:.2f} device ms), "
+        f"attributed {out['attributed_ms']:.3f} ms against the measured "
+        f"step {out['step_ms']:.3f} ms; the attention layers' flash kernels "
+        f"{flash_ms:.2f} ms")
+    for line in attribution.format_report(rep, top=8):
+        log(f"[11c] {line}")
+    # the device time of the two layers credited most, by kernel, over the
+    # profiled window's steps
+    steps = 2 * 2
+    out["top_layer_kernels"] = {}
+    for r in rep["rows"][:2]:
+        ks = sorted(kernels.get(r["layer"], {}).items(), key=lambda kv: -kv[1])
+        out["top_layer_kernels"][r["layer"]] = [
+            (n[:60], us / steps / 1e3) for n, us in ks[:4]]
+        log(f"[11c] {r['layer']}: device ms a step by kernel: " + ", ".join(
+            f"{n[:60]} {ms:.3f}" for n, ms in out["top_layer_kernels"][
+                r["layer"]]))
+    if rep["source"] != "trace" or abs(att - step) / step > \
+            attribution.SUM_TOLERANCE or missing or \
+            not rep["coverage"] or rep["coverage"] > 1.0:
+        fail(f"11c: source {rep['source']}, attributed {att} against step "
+             f"{step}, coverage {rep['coverage']}, attention layers missing "
+             f"kernels {missing}")
+    if not events.get("op/attr|op") or not events.get("op/drift_topk|op"):
+        fail(f"11c: the fit-end attribution emitted {events}")
+    return out
+
+
+def p11_halt(seed: int, root: str) -> dict:
+    """11d: GPT-2 medium widths FIT_LAYERS deep (6d's cut: each durable
+    snapshot writes the params and moments), b8 s1024, dropout 0, bf16,
+    Adam, with health_sentinels and halt_on_nonfinite, a snapshot every 2
+    updates and a host sync every update, under `health/nonfinite@s`,
+    eager and K = 2: NonFiniteError at the CPU test's step, naming the
+    last durable checkpoint (its step the CPU test's); a fresh model
+    resumed from it trains with finite losses."""
+    import shutil
+
+    from flexflow_tpu_torch import AdamOptimizer
+    from flexflow_tpu_torch.core.layer import Layer
+    from flexflow_tpu_torch.core.tensor import Tensor
+    from flexflow_tpu_torch.health import NonFiniteError
+    from flexflow_tpu_torch.runtime import faults
+    from flexflow_tpu_torch.runtime import resilience as rz
+
+    ids, pos, labels = train_batch(seed + 47, GPT2_VOCAB, n=6 * BATCH)
+    out = []
+    for k, plan, halt, ckpt in HALT_CASES:
+        croot = os.path.join(root, f"k{k}")
+        Layer._next_guid[0], Tensor._next_guid[0] = 100, 1000
+        _, _, cm = gpt2_train_model(seed, FIT_LAYERS, "bfloat16",
+                                    AdamOptimizer(alpha=LR),
+                                    halt_on_nonfinite=True)
+        faults.configure(plan)
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        err = None
+        try:
+            cm.fit([ids, pos], labels, epochs=1, verbose=False,
+                   sync_every=1, steps_per_dispatch=k, checkpoint_dir=croot,
+                   checkpoint_every_steps=2)
+        except NonFiniteError as e:
+            err = e
+        finally:
+            faults.clear()
+        halt_s = time.perf_counter() - t0
+        launches = launch_counts()
+        if err is None:
+            fail(f"11d K={k}: {plan} did not halt the fit")
+        man = rz.load_manifest(err.checkpoint) if err.checkpoint else None
+        rec = {"k": k, "plan": plan, "step": err.step,
+               "checkpoint": os.path.basename(err.checkpoint or ""),
+               "checkpoint_step": man["step"] if man else None,
+               "halt_s": halt_s, "launches": launches,
+               "health": cm.health_report()["sentinels"]}
+        del cm
+        collect_garbage()
+        torch.cuda.empty_cache()
+        Layer._next_guid[0], Tensor._next_guid[0] = 100, 1000
+        _, _, cm2 = gpt2_train_model(seed, FIT_LAYERS, "bfloat16",
+                                     AdamOptimizer(alpha=LR))
+        t0 = time.perf_counter()
+        hist = cm2.fit([ids, pos], labels, epochs=1, verbose=False,
+                       steps_per_dispatch=k, checkpoint_dir=croot,
+                       resume=err.checkpoint)
+        cm2.wait_checkpoints()
+        torch.cuda.synchronize()
+        rec["resumed_loss"] = hist[0]["loss"]
+        rec["resume_s"] = time.perf_counter() - t0
+        rec["resumed_iteration"] = cm2._iteration
+        del cm2
+        collect_garbage()
+        torch.cuda.empty_cache()
+        shutil.rmtree(croot, ignore_errors=True)
+        log(f"[11d K={k}] {plan}: NonFiniteError at step {rec['step']} "
+            f"naming {rec['checkpoint']} (step {rec['checkpoint_step']}); "
+            f"sentinels {rec['health']}; halted in {halt_s:.1f} s; resumed "
+            f"to iteration {rec['resumed_iteration']}, loss "
+            f"{rec['resumed_loss']:.4f} in {rec['resume_s']:.1f} s")
+        if (rec["step"], rec["checkpoint_step"]) != (halt, ckpt) or \
+                not np.isfinite(rec["resumed_loss"]) or \
+                rec["resumed_iteration"] != 6:
+            fail(f"11d K={k}: {rec}, expected step {halt} and checkpoint "
+                 f"step {ckpt}")
+        if min(launches[n] for n in ("flash_attention_fwd", "fused_adam")) \
+                <= 0:
+            fail(f"11d K={k}: a training kernel did not launch {launches}")
+        out.append(rec)
+    return out
+
+
+def p11_reports(cm) -> dict:
+    """11e: health_report()'s watermark against memory_stats()'
+    prediction (the warning as it falls) and goodput_report()'s buckets
+    and residual (the buckets must tile the fit's wall)."""
+    from flexflow_tpu_torch import health
+
+    hr = cm.health_report()
+    gp = cm.goodput_report()
+    mem = cm.memory_stats()
+    wm = hr["watermarks"]
+    for line in health.format_health(hr["sentinels"], wm) + \
+            health.format_goodput(gp):
+        log(f"[11e] {line}")
+    log(f"[11e] watermark peak {wm['peak_bytes'] / 2**30:.2f} GiB over "
+        f"{wm['samples']} samples (allocated_bytes.all.peak: every tensor, "
+        f"the CUDA graph pools included) against {wm['predicted']} "
+        f"{mem['predicted_peak_bytes'] / 2**30:.2f} GiB: ratio "
+        f"{wm['ratio']:.2f}, warn {wm['warn']} (threshold "
+        f"{wm['warn_ratio']}); weight state predicted "
+        f"{mem['predicted_weight_state_bytes'] / 2**30:.2f} GiB; goodput "
+        f"{gp['goodput']:.4f}, residual {gp['residual_s']:.4f} s of "
+        f"{gp['wall_s']:.3f} s")
+    if not wm["samples"] or not wm["peak_bytes"] or \
+            gp.get("accounted_frac", 0) < 0.95:
+        fail(f"11e: watermarks {wm}, goodput {gp}")
+    return {"health": hr, "goodput": gp, "memory_stats": mem}
+
+
+def p11_serving(engine, params, prompts, tdir: str) -> dict:
+    """11f: phase 3's int8 leg again with telemetry on: one
+    serve/request_admitted and one serve/request_done a request, one
+    serve/decode_step span a decode step."""
+    from collections import Counter
+
+    from flexflow_tpu_torch import telemetry as tel
+
+    tel.configure(tdir)
+    try:
+        run, _ = serve(engine, params, prompts, "int8 telemetry")
+        tel.flush()
+        evs = tel.read_events(tdir)
+    finally:
+        tel.shutdown()
+    c = Counter(e["name"] for e in evs)
+    out = {"events": {n: c[n] for n in sorted(c)},
+           "decode_steps": run["decode_steps"],
+           "tokens_per_s": run["tokens_per_s"],
+           "decode_step_p50_ms": run["decode_step_p50_ms"],
+           "launches": run["launches"]}
+    log(f"[11f] int8 serving with telemetry on: {run['tokens_per_s']:.1f} "
+        f"tokens/s, decode step p50 {run['decode_step_p50_ms']:.2f} ms; "
+        f"events {out['events']}")
+    if c["serve/request_admitted"] != len(prompts) or \
+            c["serve/request_done"] != len(prompts) or \
+            c["serve/decode_step"] != run["decode_steps"]:
+        fail(f"11f: events {out['events']} for {len(prompts)} requests and "
+             f"{run['decode_steps']} decode steps")
+    return out
+
+
+def phase11(seed: int) -> dict:
+    """Phase 11 on GPT-2 medium as 5b trains it (full depth; 11d at
+    FIT_LAYERS), in a temporary directory removed at the end."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="ff_p11_")
+    try:
+        collect_garbage()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gc, _, cm = gpt2_train_model(seed, LAYERS, "bfloat16")
+        out = {"telemetry": p11_telemetry(cm, gc, seed,
+                                          os.path.join(root, "tel"))}
+        out["graph_kernels"] = p11_graph_kernels(cm, gc, seed)
+        out["attribution"] = p11_attribution(
+            cm, gc, seed, os.path.join(root, "prof"),
+            os.path.join(root, "tel-attr"))
+        # the reports before the pairs: two graph pools at once would
+        # raise the peak the watermark reads past what the fits hold
+        out["reports"] = p11_reports(cm)
+        out["sentinel_pairs"] = p11_sentinel_pairs(cm, gc, seed)
+        del cm
+        collect_garbage()
+        torch.cuda.empty_cache()
+        out["halt"] = p11_halt(seed, os.path.join(root, "ckpt"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[phase 11] {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3381,6 +3952,12 @@ def main() -> None:
             f"decode step p50 {run['decode_step_p50_ms']:.2f} ms, "
             f"launches {run['launches']}")
         run["profile"] = profile_engine(engine, params, prompts)
+        if kv == "int8":
+            # 11f: the same leg with telemetry on
+            import tempfile
+
+            with tempfile.TemporaryDirectory(prefix="ff_p11f_") as tdir:
+                serve_telemetry = p11_serving(engine, params, prompts, tdir)
         for phase, prof in run["profile"].items():
             if "wall_ms_per_call" in prof:
                 log(f"[{kv}] {phase}: {prof['wall_ms_per_call']:.2f} ms wall, "
@@ -3504,6 +4081,11 @@ def main() -> None:
         f"{g['profile_graph']['device_idle_share']:.3f}"
         for t, g in graph.items()))
 
+    # ---- 11. telemetry, run health and per-op attribution (11f ran with
+    # phase 3's int8 leg)
+    health11 = phase11(args.seed)
+    health11["serving"] = serve_telemetry
+
     # launches on the main paths: both serving runs, the 12 Adam training
     # steps and the Adam fit epoch, the 12 padded-vocab SGD steps and the
     # accum_steps=2 fit epoch, each counted from 0 just before it ran
@@ -3544,6 +4126,14 @@ def main() -> None:
         into = paths if t in ("5b", "5f") else paths9
         into[f"graph_{t}_capture"] = g["launches"]
         into[f"graph_{t}_fit"] = g["fit"]["launches"]
+    # phase 11's fits (GPT-2, the flash kernels masked) and 11f's serving
+    for kk, runs in health11["telemetry"].items():
+        for i, r in enumerate(runs):
+            paths[f"p11a_{kk}_run{i}"] = r["launches"]
+    paths["p11c_profiled_fit"] = health11["attribution"]["launches"]
+    for r in health11["halt"]:
+        paths[f"p11d_halt_k{r['k']}"] = r["launches"]
+    paths["p11f_serve_int8_telemetry"] = serve_telemetry["launches"]
     for r in rows:
         causal = r.get("causal")
         counted = (paths if causal else paths9 if causal is False
@@ -3565,6 +4155,7 @@ def main() -> None:
     log(json.dumps({"spec": spec}))
     log(json.dumps({"bench_workloads": bench}))
     log(json.dumps({"graph": graph}))
+    log(json.dumps({"health": health11}, default=str))
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

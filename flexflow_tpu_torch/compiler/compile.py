@@ -5,8 +5,11 @@
 forward (compiler/lowering.py) and returns a `CompiledModel` with
 `init`, `train_step`, `eval_step`, `infer`, `fit`, `evaluate`, `forward`,
 `save_checkpoint`, `load_checkpoint`, `get_weight`, `set_weight` and
-`make_multi_step`, as the JAX package's. It runs on one device: ZeRO,
-pipelines, health and telemetry are not ported yet.
+`make_multi_step`, as the JAX package's, and its reports: `drift_stats`,
+`goodput_report`, `health_report`, `op_attribution`, `profile_report`
+and `recompile_on_condition`. It runs on one device: ZeRO and pipelines
+are not ported yet. The config's `telemetry_dir` turns on the span stream
+(telemetry.py) at compile, as in JAX.
 
 The strategy is chosen as in JAX (`_pick_strategy`): a strategy file
 (`import_strategy_file`), else the Unity search (search/) of the search
@@ -31,8 +34,9 @@ where nothing draws), the accumulating step gives microbatch j
 `fold_in(rng, j)`, and `fit` steps with `fold_in(key(seed + 17),
 iteration)`, where `_iteration` counts optimizer updates across fits.
 
-`fit` is the JAX fit's dispatch loop (`_fit_epochs`, non-pipeline,
-without telemetry or health): `steps_per_dispatch` K > 1 runs K updates
+`fit` is the JAX fit's dispatch loop (`_fit_epochs`, non-pipeline, with
+its telemetry spans, goodput buckets, numerics sentinels and memory
+watermarks: health.py): `steps_per_dispatch` K > 1 runs K updates
 as ONE dispatch of `make_multi_step(K)` over groups of K batches stacked
 by `runtime/dataloader.prefetch_multi` (the epoch's tail goes singly);
 on the card that dispatch is one replay of a CUDA graph of the K steps
@@ -83,6 +87,7 @@ a CUDA device they raise unless the caller passes `device="cpu"`.
 
 from __future__ import annotations
 
+import os
 import time
 import warnings
 from typing import Any, Dict, List, Optional, Sequence
@@ -90,7 +95,9 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from flexflow_tpu_torch import health
 from flexflow_tpu_torch import random as ff_random
+from flexflow_tpu_torch import telemetry as tel
 from flexflow_tpu_torch.compiler.lowering import build_forward
 from flexflow_tpu_torch.core.graph import topo_order
 from flexflow_tpu_torch.device import resolve_device, to_device
@@ -165,8 +172,10 @@ def _pick_strategy(model, machine: MachineSpec, optimizer=None,
 
             # the optimizer rides along so the search's memory model can
             # price its moments (count and state dtype)
-            strategy = graph_optimize(model, sm, optimizer=optimizer,
-                                      measure_device=device)
+            with tel.span("compile/graph_optimize", cat="compile",
+                          mesh=str(dict(sm.mesh_axes))):
+                strategy = graph_optimize(model, sm, optimizer=optimizer,
+                                          measure_device=device)
         else:
             strategy = data_parallel_strategy(model, machine)
     if strategy.pipeline:
@@ -179,13 +188,24 @@ def compile_model(model, optimizer, loss_type, metrics: Sequence = (),
                   device=None) -> "CompiledModel":
     """The training program of `model`'s graph, its output the last
     layer's first output (SGD at the config's `learning_rate` when no
-    optimizer is given, as in JAX). The config's `fault_plan` arms the
-    fault injector (runtime/faults.py), as the JAX compile does."""
+    optimizer is given, as in JAX). The config's `telemetry_dir` turns on
+    the span stream ("" leaves it as it is: turning it off is an explicit
+    `telemetry.shutdown()`), and its `fault_plan` arms the fault injector
+    (runtime/faults.py), as the JAX compile does."""
     device = resolve_device(device)
-    if model.config.fault_plan:
+    cfg = model.config
+    if cfg.telemetry_dir:
+        tel.configure(cfg.telemetry_dir, max_mb=cfg.telemetry_max_mb)
+    if cfg.fault_plan:
         from flexflow_tpu_torch.runtime import faults
 
-        faults.configure(model.config.fault_plan)
+        faults.configure(cfg.fault_plan)
+    with tel.span("compile/compile_model", cat="compile",
+                  pipeline_stages=int(cfg.pipeline_stages)):
+        return _compile_model(model, optimizer, loss_type, metrics, device)
+
+
+def _compile_model(model, optimizer, loss_type, metrics, device):
     optimizer = optimizer or SGDOptimizer(lr=model.config.learning_rate)
     machine = resolve_machine(model.config, device)
     strategy = _pick_strategy(model, machine, optimizer, device)
@@ -216,13 +236,12 @@ class CompiledModel:
         # --remat (deprecated alias): uniform "full" per-layer policy
         if self.cfg.remat and not self.strategy.remat:
             self.strategy.remat = {l.name: "full" for l in model.layers}
-        self.forward_fn = build_forward(model.layers, model.input_tensors,
-                                        outputs,
-                                        compute_dtype=self.cfg.compute_dtype,
-                                        enable_fusion=self.cfg.enable_fusion,
-                                        remat=self.strategy.remat)
+        self.outputs = list(outputs)
+        self.forward_fn = self._build_forward()
         # optimizer updates taken (the fit rng and checkpoints count them)
         self._iteration = 0
+        # recompile_on_condition's (trigger, alter), or None
+        self.recompile_state = None
         self.fused_loss_mode = str(self.cfg.fused_loss)
         fused_opt_mode = str(self.cfg.fused_optimizer)
         self.fopt_plan = None
@@ -238,11 +257,28 @@ class CompiledModel:
         self._accum_steps = max(1, int(self.cfg.accum_steps))
         # the last fit's dispatches, host_syncs, barriers and fused_steps
         self.step_stats: Dict[str, int] = {}
-        # make_multi_step(K) per K, cleared when accum_steps changes
+        # make_multi_step(K) per K, cleared when fit changes accum_steps or
+        # the sentinels (the (accum, sentinels) the cache was built for)
         self._multi_cache: Dict[int, Any] = {}
+        self._steps_key = (self._accum_steps, bool(self.cfg.health_sentinels))
+        # run health (health.py): the drift monitor's (steps, seconds) per
+        # epoch of the last fit, its goodput meter, the memory watermarks
+        # since init, and the last fit's sentinel monitor
+        self._drift_windows: List[tuple] = []
+        self._goodput: Optional[health.GoodputMeter] = None
+        self._watermarks = health.WatermarkTracker()
+        self._sentinels: Optional[health.SentinelMonitor] = None
         self.params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
         self.state: Dict[str, Any] = {}
         self.opt_state: Optional[Dict[str, Any]] = None
+
+    def _build_forward(self):
+        fwd = build_forward(self.model.layers, self.model.input_tensors,
+                            self.outputs, compute_dtype=self.cfg.compute_dtype,
+                            enable_fusion=self.cfg.enable_fusion,
+                            remat=self.strategy.remat)
+        fwd.layer_ranges = bool(self.cfg.profiling)
+        return fwd
 
     # ---------------------------------------------------------------- init
     def _weight_layers(self):
@@ -275,6 +311,9 @@ class CompiledModel:
         self.params = placed
         self.state = {}
         self.opt_state = self.optimizer.init_state(placed)
+        # the first watermark: the persistent footprint right after init
+        self._watermarks.sample("init", (self.params, self.opt_state),
+                                self.device)
         return self.params
 
     def _place(self, value, spec, what: str) -> torch.Tensor:
@@ -336,8 +375,22 @@ class CompiledModel:
         label = to_device(label, self.device)
         loss, logits, new_state, grads = self.value_and_grads(
             params, state, inputs, label, rng)
+        sentinels = self._sentinel_metrics(loss, grads)
         opt_state = self._apply_update(params, opt_state, grads)
-        return params, opt_state, new_state, loss, self._metrics(logits, label)
+        mvals = self._metrics(logits, label)
+        if sentinels:
+            mvals = dict(mvals, **sentinels)
+        return params, opt_state, new_state, loss, mvals
+
+    def _sentinel_metrics(self, loss, grads) -> Dict[str, torch.Tensor]:
+        """With `health_sentinels`: the grad global norm and the
+        non-finite flag of this update, device scalars computed before the
+        optimizer runs (health.sentinel_metrics); else {}."""
+        if not self.cfg.health_sentinels:
+            return {}
+        with torch.no_grad():
+            return health.sentinel_metrics(loss,
+                                           health.grad_global_norm(grads))
 
     def _accum_step(self, params, opt_state, state, inputs, label, rng=None):
         n = self._accum_steps
@@ -369,9 +422,13 @@ class CompiledModel:
         for ws in gsum.values():
             for g in ws.values():
                 g.mul_(inv)
+        loss = lsum * inv
+        sentinels = self._sentinel_metrics(loss, gsum)
         opt_state = self._apply_update(params, opt_state, gsum)
-        return (params, opt_state, state, lsum * inv,
-                {k: v * inv for k, v in msum.items()})
+        mvals = {k: v * inv for k, v in msum.items()}
+        if sentinels:
+            mvals = dict(mvals, **sentinels)
+        return params, opt_state, state, loss, mvals
 
     def _run_steps(self, n: int, params, opt_state, state, inputs, labels,
                    rng, i0=0):
@@ -417,8 +474,8 @@ class CompiledModel:
         return multi
 
     def _get_multi(self, k: int):
-        """make_multi_step(k), one per width per accumulation setting
-        (fit clears the cache when accum_steps changes, as JAX rebuilds
+        """make_multi_step(k), one per width per (accumulation, sentinels)
+        setting (fit clears the cache when either changes, as JAX rebuilds
         its steps)."""
         fn = self._multi_cache.get(k)
         if fn is None:
@@ -470,14 +527,19 @@ class CompiledModel:
         final snapshot, then `Preempted`) and resume the same trajectory
         (runtime/resilience.py). Returns one summary dict per epoch;
         `step_stats` counts the fit's dispatches, mid-epoch host syncs,
-        barriers and fused steps."""
-        from flexflow_tpu_torch.runtime import faults
-        from flexflow_tpu_torch.runtime.checkpoint import warn_failed_writes
-        from flexflow_tpu_torch.runtime.resilience import (FitResilience,
-                                                           RetryPolicy,
-                                                           progress_dict,
-                                                           run_resilient,
-                                                           start_state)
+        barriers and fused steps.
+
+        Run health and telemetry (health.py, telemetry.py): the goodput
+        meter laps the loop's wall clock into buckets; with
+        `health_sentinels` the step's grad norm and non-finite flag are
+        read at the syncs the loop already makes, and `halt_on_nonfinite`
+        raises `NonFiniteError` naming the last durable checkpoint;
+        memory is sampled at each epoch's end; with telemetry on, the loop
+        emits its `fit/*` spans. Under `profiling` the fit runs inside
+        `torch.profiler` (K = 1: a CUDA graph's replay cannot be credited
+        to layers), whose Chrome trace goes under `profile_dir`; with
+        `profile_ops` the fit ends with `op_attribution`."""
+        from flexflow_tpu_torch.runtime.resilience import FitResilience
 
         xs = x if isinstance(x, (list, tuple)) else [x]
         epochs = epochs or self.cfg.epochs
@@ -486,9 +548,12 @@ class CompiledModel:
             steps_per_dispatch = self.cfg.steps_per_dispatch
         accum = max(1, int(self.cfg.accum_steps if accum_steps is None
                            else accum_steps))
-        if accum != self._accum_steps:
-            # the multi-step programs were built for the old width
+        steps_key = (accum, bool(self.cfg.health_sentinels))
+        if steps_key != self._steps_key:
+            # the multi-step programs were built for the old width, or
+            # with the sentinels the other way
             self._multi_cache.clear()
+            self._steps_key = steps_key
         self._accum_steps = accum
         if self.params is None:
             self.init()
@@ -496,14 +561,83 @@ class CompiledModel:
         res = FitResilience.build(self, resume, checkpoint_dir,
                                   checkpoint_every_steps,
                                   checkpoint_every_secs)
-        progress = None
         if res is not None:
             res.set_effective(batch_size, accum)
-            progress = res.resume_now(verbose)
-        policy = res.policy if res is not None \
-            else RetryPolicy.from_config(self.cfg)
+        # restoring a snapshot is the "resume" bucket: it happens before
+        # any epoch's wall clock starts
+        gm = self._goodput = health.GoodputMeter()
+        t_res = time.perf_counter()
+        progress = res.resume_now(verbose) if res is not None else None
+        gm.add("resume", time.perf_counter() - t_res)
         loader = SingleDataLoader(xs, y, batch_size, shuffle=True,
                                   seed=self.cfg.seed)
+        self._drift_windows = []
+        prof, pdir = None, None
+        if self.cfg.profiling:
+            pdir = self.cfg.profile_dir or "./ff_profile"
+            os.makedirs(pdir, exist_ok=True)
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            prof = torch.profiler.profile(activities=acts)
+            prof.__enter__()
+        try:
+            history = self._fit_epochs(epochs, loader, batch_size, callbacks,
+                                       verbose, sync_every,
+                                       steps_per_dispatch, res, progress, gm)
+        finally:
+            if prof is not None:
+                prof.__exit__(None, None, None)
+                path = os.path.join(pdir, f"fit-{os.getpid()}-"
+                                    f"{time.time_ns()}.pt.trace.json")
+                prof.export_chrome_trace(path)
+                if verbose:
+                    print(f"[profiling] trace written to {path}")
+        self._fit_end_report(verbose)
+        # per-op work only on the success path: --profile-ops attributes
+        # the fit's measured step to its ops when someone reads the result
+        # (the printed table or the telemetry corpus), and not when
+        # profile_report below runs the same join anyway
+        will_report = prof is not None and verbose
+        if self.cfg.profile_ops and (verbose or tel.enabled()) \
+                and not will_report:
+            self.op_attribution(print_table=verbose)
+        if will_report:
+            self.profile_report()
+        return history
+
+    def _fit_end_report(self, verbose: bool) -> None:
+        """Fit-end hooks: the fit/drift event (and the [drift] warning
+        when the cost model has drifted), and any FAILED async checkpoint
+        write."""
+        from flexflow_tpu_torch.runtime.checkpoint import warn_failed_writes
+
+        tel.emit_fit_end(self.drift_stats(), verbose)
+        warn_failed_writes(verbose)
+
+    def _fit_epochs(self, epochs, loader, batch_size, callbacks, verbose,
+                    sync_every, steps_per_dispatch, res, progress, gm):
+        """fit's loop (JAX's `_fit_epochs`). `rec` is telemetry's state
+        read once: with it off the loop is the one without telemetry (the
+        same dispatches, host syncs and barriers); the goodput laps are a
+        few perf_counter reads a dispatch, and the sentinels add device
+        scalars to the step's metrics, read only where the loop reads the
+        loss."""
+        from flexflow_tpu_torch.runtime import faults
+        from flexflow_tpu_torch.runtime.resilience import (RetryPolicy,
+                                                           progress_dict,
+                                                           run_resilient,
+                                                           start_state)
+
+        accum = self._accum_steps
+        policy = res.policy if res is not None \
+            else RetryPolicy.from_config(self.cfg)
+        sent = None
+        if self.cfg.health_sentinels:
+            sent = health.SentinelMonitor(
+                halt=bool(self.cfg.halt_on_nonfinite),
+                checkpoint_root=res.root if res is not None else None)
+        self._sentinels = sent
         base_rng = ff_random.key(self.cfg.seed + 17)
         per_batch_cbs = [cb for cb in callbacks or []
                          if hasattr(cb, "on_batch_end")]
@@ -514,34 +648,48 @@ class CompiledModel:
         if progress:
             # the epochs before start_epoch drew their shuffles
             loader.advance_epochs(start_epoch)
+        rec = tel.enabled()
         faults_on = faults.active()
         if res is not None:
             res.install_guard()
         try:
             for epoch in range(start_epoch, epochs):
+                # re-read each epoch: a recompile trigger registered
+                # mid-fit drops the loop to one step a dispatch, and a
+                # recompile rebuilds the multi-step programs
                 k = max(1, int(steps_per_dispatch))
                 sync = max(0, int(sync_every))
-                if per_batch_cbs:
-                    k, sync = 1, 1  # the callbacks read every update's loss
+                if per_batch_cbs or self.recompile_state is not None:
+                    k, sync = 1, 1  # per-step host control
+                if self.cfg.profiling:
+                    k = 1  # a replay's kernels carry no layer
                 multi = self._get_multi(k) if k > 1 else None
                 pm, pml = PerfMetrics(), PerfMetrics()
-                nb = since_sync = ep_sync = ep_disp = seed_samples = 0
+                nb = since_sync = ep_sync = ep_disp = 0
+                seed_steps = seed_samples = 0
                 t0 = time.perf_counter()
+                gm.tick()  # the goodput lap cursor starts with the epoch
                 # resume mid-epoch: skip the accumulation groups consumed
                 # before the snapshot, and re-seed the epoch's sums so its
-                # summary covers the whole epoch
+                # summary covers the whole epoch (the wall-clock figures
+                # count only the steps run since the resume)
                 resuming = epoch == start_epoch and bool(progress)
                 batches = group_microbatches(loader.epoch(
                     skip_batches=skip_steps * accum if resuming else 0),
                     accum)
                 if resuming:
-                    nb = skip_steps
+                    nb = seed_steps = skip_steps
                     pml.sums["loss"] = float(progress.get("loss_sum", 0.0))
                     pml.train_all = nb
                     pm.sums = {mk: float(v) for mk, v in
                                (progress.get("metric_sums") or {}).items()}
                     pm.train_all = seed_samples = int(
                         progress.get("samples", 0))
+                if sent is not None:
+                    # the loss window's baseline (re-seeded on resume, so
+                    # the loss before the snapshot is no spike)
+                    sent._loss_sum_prev = pml.sums.get("loss", 0.0)
+                    sent._steps_prev = nb
 
                 def make_progress(_pml=pml, _pm=pm, _epoch=epoch):
                     _pml.materialize()
@@ -553,7 +701,19 @@ class CompiledModel:
                 gen = prefetch_multi(batches, k, self.device,
                                      retry_policy=policy)
                 try:
-                    for kind, dx, dy in gen:
+                    while True:
+                        # the wait for the loader: the data stall the
+                        # prefetch thread is there to hide
+                        if rec:
+                            t_w = tel.now_us()
+                            item = next(gen, None)
+                            tel.record("fit/prefetch_wait", t_w, cat="fit")
+                        else:
+                            item = next(gen, None)
+                        gm.lap("prefetch_wait")
+                        if item is None:
+                            break
+                        kind, dx, dy = item
                         steps = k if kind == "k" else 1
                         if faults_on:
                             # one admission check per global step the
@@ -564,6 +724,8 @@ class CompiledModel:
                                               policy, index=s)
                                 if faults.poison("health/nonfinite", index=s):
                                     self._poison_first_param()
+                        if rec:
+                            t_d = tel.now_us()
                         if kind == "k":
                             (self.params, self.opt_state, self.state, loss,
                              mvals) = multi(self.params, self.opt_state,
@@ -576,44 +738,93 @@ class CompiledModel:
                              mvals) = self.train_step(
                                 self.params, self.opt_state, self.state, dx,
                                 dy, rng)
+                        gm.lap("dispatch")
                         self._iteration += steps
                         nb += steps
                         since_sync += steps
                         ep_disp += 1
                         stats["dispatches"] += 1
+                        if rec:
+                            tel.record("fit/dispatch", t_d, cat="fit",
+                                       kind=kind, steps=steps,
+                                       iteration=self._iteration)
+                        if sent is not None:
+                            sent.push(steps, mvals)  # strips health/* keys
                         pml.update_deferred(steps, {"loss": loss})
                         pm.update_deferred(batch_size * accum * steps, mvals)
+                        gm.lap("loop")
                         if sync and since_sync >= sync:
+                            if rec:
+                                t_s = tel.now_us()
                             pml.materialize()
                             pm.materialize()
+                            if sent is not None:
+                                # the sentinel window rides this sync
+                                sent.check(self._iteration,
+                                           loss_sum=pml.sums.get("loss", 0.0),
+                                           steps_total=nb)
+                            if rec:
+                                tel.record("fit/host_sync", t_s, cat="fit",
+                                           iteration=self._iteration)
                             stats["host_syncs"] += 1
                             ep_sync += 1
                             since_sync = 0
+                            gm.lap("host_sync")
                         elif ep_disp % ahead == 0:
                             # bounded dispatch-ahead: wait for the device,
                             # read nothing
+                            if rec:
+                                t_b = tel.now_us()
                             if self.device.type == "cuda":
                                 torch.cuda.current_stream(
                                     self.device).synchronize()
+                            if rec:
+                                tel.record("fit/barrier_sync", t_b,
+                                           cat="fit",
+                                           iteration=self._iteration)
                             stats["barriers"] += 1
+                            gm.lap("barrier")
                         if res is not None:
                             res.maybe_checkpoint(make_progress)
+                            gm.lap("checkpoint")
                         for cb in per_batch_cbs:
                             cb.on_batch_end(self._iteration,
                                             {"loss": float(loss)})
+                        if kind == "1":
+                            self._maybe_recompile()
                 finally:
                     gen.close()
                 # epoch end: the one read the loop cannot avoid (not
                 # counted as a mid-epoch host sync)
+                if rec:
+                    t_s = tel.now_us()
                 pml.materialize()
-                summ = pm.summary()
+                if sent is not None:
+                    sent.check(self._iteration,
+                               loss_sum=pml.sums.get("loss", 0.0),
+                               steps_total=nb)
+                if rec:
+                    tel.record("fit/host_sync", t_s, cat="fit",
+                               scope="epoch_end")
+                gm.lap("host_sync")
                 dt = time.perf_counter() - t0
+                self._drift_windows.append((nb - seed_steps, dt))
+                if rec:
+                    tel.record("fit/epoch", tel.now_us() - dt * 1e6,
+                               cat="fit", epoch=epoch, steps=nb)
+                grec = gm.epoch_end(dt, epoch)
+                # the memory watermark, outside the epoch's wall
+                self._watermarks.sample(f"epoch{epoch}",
+                                        (self.params, self.opt_state),
+                                        self.device)
+                summ = pm.summary()
                 summ["loss"] = pml.sums.get("loss", 0.0) / max(1, nb)
                 summ["epoch_time_s"] = dt
                 summ["samples_per_sec"] = ((pm.train_all - seed_samples) / dt
                                            if dt > 0 else 0.0)
                 summ["dispatches"] = float(ep_disp)
                 summ["host_syncs"] = float(ep_sync)
+                summ["goodput"] = grec["goodput"]
                 history.append(summ)
                 if verbose:
                     ms = " ".join(f"{mk}={v:.4f}" for mk, v in summ.items()
@@ -630,7 +841,6 @@ class CompiledModel:
         finally:
             if res is not None:
                 res.guard.uninstall()
-        warn_failed_writes(verbose)
         return history
 
     @torch.no_grad()
@@ -801,3 +1011,167 @@ class CompiledModel:
                 total += (cost_fn(layer, cand) if cost_fn is not None
                           else cand.op_time(layer, self.machine))
         return total * accum if total > 0 else None
+
+    # ------------------------------------------------------------- reports
+    def drift_stats(self) -> dict:
+        """The cost model's drift: predicted against measured step time
+        (telemetry.drift_stats over the last fit's per-epoch (steps,
+        seconds) windows)."""
+        return tel.drift_stats(self.predicted_step_time(),
+                               list(self._drift_windows))
+
+    def goodput_report(self) -> dict:
+        """The last fit's wall-clock buckets (health.GoodputMeter.report):
+        seconds per bucket, goodput, the unattributed residual and the
+        accounted fraction. {} before any fit."""
+        return self._goodput.report() if self._goodput is not None else {}
+
+    def health_report(self) -> dict:
+        """Run health: the sentinels' status (non-finite windows, spikes)
+        and the memory watermark against the cost model's prediction
+        (health.watermark_drift). On a CUDA device the peak is the caching
+        allocator's `allocated_bytes.all.peak`: every live tensor (params,
+        gradients, moments, activations, a CUDA graph's pool) at its
+        highest since the process started or the caller's last
+        `torch.cuda.reset_peak_memory_stats`; it is held against the
+        search's predicted peak (`predicted_peak_bytes`, activations
+        included). On the CPU the sample is the params' and moments' bytes,
+        held against `predicted_weight_state_bytes`, as JAX's fallback.
+        `watermarks["predicted"]` names which."""
+        sent = self._sentinels.state.status() \
+            if self._sentinels is not None else None
+        wm = None
+        if self._watermarks.samples:
+            mem = self.memory_stats()
+            which = ("predicted_peak_bytes" if self.device.type == "cuda"
+                     else "predicted_weight_state_bytes")
+            wm = self._watermarks.report(mem[which])
+            wm["predicted"] = which
+        return {"sentinels": sent, "watermarks": wm}
+
+    def op_attribution(self, step_time_s: Optional[float] = None,
+                       source: str = "auto", top: int = 0,
+                       print_table: bool = True) -> dict:
+        """Per-op attribution (attribution.py): each compiled op's measured
+        time (the --profiling trace when one can be read, else MeasuredCost
+        on this compile's device) against the search's per-op predicted
+        cost and its roofline. step_time_s defaults to the drift monitor's
+        measured per-update time of the LAST fit (attributed times are
+        rescaled to sum to it). Emits op/attr and op/drift_topk when
+        telemetry is on. Returns the report ({"rows", "top_drift",
+        "coverage", "source", ...})."""
+        from flexflow_tpu_torch import attribution
+
+        if step_time_s is None:
+            step_time_s = self.drift_stats().get("measured_step_time_s")
+        pred = getattr(self.strategy, "_predicted_op_costs", None) or {}
+        items = []
+        for layer in topo_order(self.model.layers):
+            cand = self._candidate_for(layer)
+            if cand.passthrough:
+                continue
+            items.append({"layer": layer, "cand": cand,
+                          "machine": self.machine,
+                          "predicted_s": pred.get(layer.name),
+                          "stage": None})
+        profile_dir = (self.cfg.profile_dir or "./ff_profile") \
+            if self.cfg.profiling else None
+        report = attribution.build_report(
+            items, step_time_s=step_time_s,
+            mult=max(1, int(self._accum_steps)),
+            profile_dir=profile_dir, source=source, device=self.device,
+            compute_dtype=self.cfg.compute_dtype)
+        if print_table:
+            for line in attribution.format_report(report, top=top):
+                print(line)
+        return report
+
+    def profile_report(self, top: int = 0, print_table: bool = True):
+        """Per-op timing table: each layer's analytic time and its time
+        measured alone (MeasuredCost, repeats 3, not persisted) under the
+        candidate of its compiled sharding, then the memory, drift,
+        goodput and health lines, and with `profile_ops` the attribution
+        join. Returns the rows."""
+        from flexflow_tpu_torch.search.measure import MeasuredCost
+
+        mc = MeasuredCost(self.machine, repeats=3, warmup=1, cache_dir="",
+                          device=self.device,
+                          compute_dtype=self.cfg.compute_dtype)
+        rows = []
+        for layer in self.model.layers:
+            cand = self._candidate_for(layer)
+            if cand.passthrough:
+                continue
+            rows.append({
+                "layer": layer.name,
+                "op": layer.op_type.value,
+                "candidate": cand.name,
+                "analytic_us": cand.op_time(layer, self.machine) * 1e6,
+                "measured_us": mc.op_time(layer, cand) * 1e6,
+            })
+        rows.sort(key=lambda x: -x["measured_us"])
+        if top:
+            rows = rows[:top]
+        if print_table:
+            from flexflow_tpu_torch.runtime.checkpoint import \
+                report_failed_writes
+
+            total = sum(x["measured_us"] for x in rows) or 1.0
+            print(f"{'layer':28} {'op':18} {'analytic':>10} "
+                  f"{'measured':>10} {'%':>5}")
+            for x in rows:
+                print(f"{x['layer'][:28]:28} {x['op'][:18]:18} "
+                      f"{x['analytic_us']:9.1f}u {x['measured_us']:9.1f}u "
+                      f"{100 * x['measured_us'] / total:4.1f}%")
+            mem = self.memory_stats()
+            mb = 1024 * 1024
+            print(f"[memory] predicted/device: weight-state "
+                  f"{mem['predicted_weight_state_bytes'] / mb:.2f}MB (opt "
+                  f"{mem['predicted_opt_state_bytes'] / mb:.2f}MB), peak "
+                  f"{mem['predicted_peak_bytes'] / mb:.2f}MB")
+            print(f"[memory] actual/device:    params "
+                  f"{mem['actual_param_bytes_per_device'] / mb:.2f}MB, "
+                  f"opt state "
+                  f"{mem['actual_opt_state_bytes_per_device'] / mb:.2f}MB")
+            for line in tel.format_drift(self.drift_stats()):
+                print(line)
+            if self._goodput is not None and self._goodput.epochs:
+                for line in health.format_goodput(self._goodput.report()):
+                    print(line)
+            hr = self.health_report()
+            for line in health.format_health(hr["sentinels"],
+                                             hr["watermarks"]):
+                print(line)
+            if self.cfg.profile_ops:
+                self.op_attribution(print_table=True, top=top)
+            else:
+                print("[drift] per-op attribution: --profile-ops / "
+                      "op_attribution()")
+            for line in report_failed_writes():
+                print(line)
+        return rows
+
+    # ------------------------------------------------- recompile-on-condition
+    def recompile_on_condition(self, trigger_fn, alter_fn):
+        """After every single-step dispatch of fit, `trigger_fn(cm)`; when
+        it is true, `alter_fn(cm)` and the forward and the step programs
+        are rebuilt. A registered trigger makes fit take one step a
+        dispatch with a host sync after each (as in JAX)."""
+        self.recompile_state = (trigger_fn, alter_fn)
+
+    def _maybe_recompile(self):
+        if self.recompile_state is None:
+            return
+        trigger, alter = self.recompile_state
+        if trigger(self):
+            alter(self)
+            self.forward_fn = self._build_forward()
+            # a captured graph holds the old forward and the old params'
+            # addresses, and the fused optimizer's plan their pointer
+            # tables: drop both
+            self._multi_cache.clear()
+            if self.fopt_plan is not None:
+                self.fopt_plan = fused_optim.plan_for(self.optimizer)
+            if self._goodput is not None:
+                # the rebuild is the recompile bucket
+                self._goodput.lap("recompile")

@@ -22,8 +22,10 @@ graph once. The graph reads:
 A tree handed in that is not the captured one (a restored or replaced
 tensor) is copied into the captured buffers first, and the captured trees
 are returned: a caller that writes the result back keeps stepping the
-same buffers. The mean loss and metrics are the graph's static outputs;
-each call returns copies, so a deferred value survives the next replay.
+same buffers. The mean loss and metrics are the graph's static outputs
+(with `health_sentinels`, the grad norm and the non-finite flag among
+them: means over the K steps, so a NaN in any step shows); each call
+returns copies, so a deferred value survives the next replay.
 
 Before the capture: the state gets every key the step writes (the ops'
 `init_state`, the values their lowerings read in a missing key's place),

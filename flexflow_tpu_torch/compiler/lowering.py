@@ -18,7 +18,11 @@ to) through a selective-checkpoint policy, the counterpart of
 rest. A checkpointed layer runs on a sub-context of its own, so its
 `new_state` comes back as an output and its recompute writes nothing
 outside; the recompute draws the same dropout mask (a hash of the layer's
-key), so remat never changes the numbers. The
+key), so remat never changes the numbers. Under `--profiling` the
+compile sets `layer_ranges`: each layer's lowering, its casts included,
+then runs in a `torch.profiler.record_function` range named after the
+layer (JAX's `jax.named_scope(layer.name)`), which attribution.py reads
+back from the trace; off, the loop opens no range. The
 hand-written kernels' autograd Functions rerun in the recompute, and their
 launches count again. The mixed-precision policy
 is the JAX package's: floating inputs and weights are cast to the compute
@@ -106,6 +110,10 @@ class GraphForward(nn.Module):
         self.mask_hook: Optional[Callable] = None
         # the lowerings' per-forward cache (LoweringCtx.cache)
         self.cache: Dict[Any, Any] = {}
+        # under --profiling: each layer's lowering, its casts included, in
+        # a torch.profiler record_function range named after the layer
+        # (attribution.py credits the trace's kernels through them)
+        self.layer_ranges = False
 
     def _ctx(self, state, training, rng, device) -> LoweringCtx:
         return LoweringCtx(state=state, enable_fusion=self.enable_fusion,
@@ -127,6 +135,24 @@ class GraphForward(nn.Module):
         ctx.new_state.update(delta)
         return outs
 
+    def _layer(self, layer: Layer, params, env, ctx: LoweringCtx,
+               training: bool) -> None:
+        """One layer: its weights cast to the compute dtype, its lowering
+        (checkpointed under remat), its outputs into `env`."""
+        ins = [env[t.guid] for t in layer.inputs]
+        w = params.get(layer.name, {})
+        cast_to = self.cast_to
+        if cast_to is not None:
+            ex = self.exempt.get(layer.name, ())
+            w = {k: (v.to(cast_to) if k not in ex and v.is_floating_point()
+                     else v) for k, v in w.items()}
+        if training and layer.name in self.remat:
+            outs = self._lower_checkpointed(layer, ins, w, ctx)
+        else:
+            outs = get_op_def(layer.op_type).lower(layer, ins, w, ctx)
+        for t, o in zip(layer.outputs, outs):
+            env[t.guid] = o
+
     def forward(self, params: Dict[str, Dict[str, torch.Tensor]],
                 state: Dict[str, Any], input_arrays: List[torch.Tensor],
                 training: bool = False, rng=None):
@@ -138,19 +164,14 @@ class GraphForward(nn.Module):
             if cast_to is not None and arr.is_floating_point():
                 arr = arr.to(cast_to)
             env[t.guid] = arr
+        scope = (torch.profiler.record_function if self.layer_ranges
+                 else None)
         for layer in self.order:
-            ins = [env[t.guid] for t in layer.inputs]
-            w = params.get(layer.name, {})
-            if cast_to is not None:
-                ex = self.exempt.get(layer.name, ())
-                w = {k: (v.to(cast_to) if k not in ex and v.is_floating_point()
-                         else v) for k, v in w.items()}
-            if training and layer.name in self.remat:
-                outs = self._lower_checkpointed(layer, ins, w, ctx)
+            if scope is None:
+                self._layer(layer, params, env, ctx, training)
             else:
-                outs = get_op_def(layer.op_type).lower(layer, ins, w, ctx)
-            for t, o in zip(layer.outputs, outs):
-                env[t.guid] = o
+                with scope(layer.name):
+                    self._layer(layer, params, env, ctx, training)
         new_state = dict(state)
         new_state.update(ctx.new_state)
         return [env[t.guid] for t in self.outputs], new_state

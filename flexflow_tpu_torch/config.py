@@ -54,8 +54,26 @@ class FFConfig:
     simulator_mode: str = "additive"
     machine_model_file: str = ""
     # --profiling: the search prices ops by timing them on the device
-    # (search/measure.py)
+    # (search/measure.py), and fit runs under torch.profiler, writing a
+    # Chrome trace of the whole fit under profile_dir ("" = ./ff_profile)
+    # with each layer's lowering in a record_function range of its name
     profiling: bool = False
+    profile_dir: str = ""
+    # per-op attribution (attribution.py): at fit end, join each layer's
+    # measured time (the --profiling trace, else MeasuredCost's isolated
+    # times) with the cost model's predicted time and its roofline, and
+    # emit op/attr telemetry events
+    profile_ops: bool = False
+    # the span/counter stream (telemetry.py): "" = off; telemetry_max_mb
+    # caps each JSONL segment (0 = unbounded)
+    telemetry_dir: str = ""
+    telemetry_max_mb: float = 512.0
+    # numerics sentinels (health.py): the grad norm and a non-finite flag
+    # folded into the step's deferred metrics and read at fit's existing
+    # syncs; halt_on_nonfinite raises NonFiniteError naming the last
+    # durable checkpoint
+    health_sentinels: bool = True
+    halt_on_nonfinite: bool = False
     # pipeline parallelism is not ported: > 1 raises at compile
     pipeline_stages: int = 1
     # --fusion: False keeps the hand-written attention kernels off (the
@@ -257,13 +275,13 @@ class FFConfig:
                        default=True)
         p.add_argument("--no-fusion", dest="fusion", action="store_false")
         p.add_argument("--profiling", action="store_true")
-        p.add_argument("--profile-dir", type=str, default=U)
-        p.add_argument("--profile-ops", action="store_true", default=U)
-        p.add_argument("--telemetry-dir", type=str, default=U)
-        p.add_argument("--telemetry-max-mb", type=float, default=U)
+        p.add_argument("--profile-dir", type=str, default="")
+        p.add_argument("--profile-ops", action="store_true")
+        p.add_argument("--telemetry-dir", type=str, default="")
+        p.add_argument("--telemetry-max-mb", type=float, default=512.0)
         p.add_argument("--health-sentinels",
-                       action=argparse.BooleanOptionalAction, default=U)
-        p.add_argument("--halt-on-nonfinite", action="store_true", default=U)
+                       action=argparse.BooleanOptionalAction, default=True)
+        p.add_argument("--halt-on-nonfinite", action="store_true")
         p.add_argument("--compute-dtype", type=str, default="float32")
         p.add_argument("--remat", action="store_true")
         p.add_argument("--remat-search", action="store_true")
@@ -342,6 +360,12 @@ class FFConfig:
             simulator_mode=args.simulator_mode,
             machine_model_file=args.machine_model_file,
             profiling=args.profiling,
+            profile_dir=args.profile_dir,
+            profile_ops=args.profile_ops,
+            telemetry_dir=args.telemetry_dir,
+            telemetry_max_mb=args.telemetry_max_mb,
+            health_sentinels=args.health_sentinels,
+            halt_on_nonfinite=args.halt_on_nonfinite,
             pipeline_stages=args.pipeline_stages,
             enable_fusion=args.fusion,
             compute_dtype=args.compute_dtype,
@@ -392,11 +416,6 @@ _UNPORTED = {
     "cost_model_path": ("--cost-model-path", 8),
     "auto_refit": ("--auto-refit", 8),
     "simulator_trace": ("--simulator-trace", 8),
-    "profile_dir": ("--profile-dir", 4), "profile_ops": ("--profile-ops", 4),
-    "telemetry_dir": ("--telemetry-dir", 4),
-    "telemetry_max_mb": ("--telemetry-max-mb", 4),
-    "health_sentinels": ("--health-sentinels", 4),
-    "halt_on_nonfinite": ("--halt-on-nonfinite", 4),
     "export_dot": ("--compgraph", 6),
     "include_costs_dot_graph": ("--include-costs-dot-graph", 6),
     "serve": ("--serve", 7),

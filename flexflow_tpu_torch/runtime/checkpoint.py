@@ -23,6 +23,11 @@ The fingerprint (`model_fingerprint`) is what the saved tree depends on:
 each weighted layer's op type and weight shapes and dtypes, and the
 optimizer's class, moment count and state dtype. A restore into another
 model raises `CheckpointMismatchError`, listing the layers that differ.
+
+Telemetry (telemetry.py): the spans `checkpoint/snapshot` (the copy on
+the caller thread), `checkpoint/write` (on the writer thread, or on the
+caller's with `blocking`) and `checkpoint/drain` (`wait_pending`), and
+the error event `checkpoint/write_failed` the moment a write fails.
 """
 
 from __future__ import annotations
@@ -37,6 +42,8 @@ import time
 from typing import Any, Dict, List, Optional
 
 import torch
+
+from flexflow_tpu_torch import telemetry as tel
 
 _LOG = logging.getLogger("flexflow_tpu_torch")
 TREE_FILE = os.path.join("tree", "state.pt")
@@ -196,7 +203,9 @@ class _AsyncSave:
 
     def _run(self, write_fn):
         try:
-            write_fn()
+            with tel.span("checkpoint/write", cat="checkpoint",
+                          path=self.path):
+                write_fn()
             # a FAILED handle stays registered until result() reports it
             with _PENDING_LOCK:
                 if _PENDING.get(self.path) is self:
@@ -206,6 +215,8 @@ class _AsyncSave:
             with _PENDING_LOCK:
                 _FAILED.append({"path": self.path, "error": repr(e),
                                 "handle": self})
+            tel.error("checkpoint/write_failed", path=self.path,
+                      error=repr(e))
             _LOG.error("async checkpoint write to %s failed: %s",
                        self.path, e)
 
@@ -248,20 +259,22 @@ def wait_pending(path: Optional[str] = None,
         return
     deadline = None if timeout is None else time.monotonic() + timeout
     first_exc: Optional[BaseException] = None
-    for h in handles:
-        remaining = None if deadline is None \
-            else max(0.0, deadline - time.monotonic())
-        try:
-            h.result(timeout=remaining)
-        except BaseException as e:
-            if first_exc is None or (isinstance(first_exc, TimeoutError)
-                                     and h._exc is not None):
-                first_exc = e
-            elif h._exc is not None:
-                # not re-raised: keep it listed as failed
-                with _PENDING_LOCK:
-                    _FAILED.append({"path": h.path, "error": repr(e),
-                                    "handle": h})
+    with tel.span("checkpoint/drain", cat="checkpoint",
+                  pending=len(handles)):
+        for h in handles:
+            remaining = None if deadline is None \
+                else max(0.0, deadline - time.monotonic())
+            try:
+                h.result(timeout=remaining)
+            except BaseException as e:
+                if first_exc is None or (isinstance(first_exc, TimeoutError)
+                                         and h._exc is not None):
+                    first_exc = e
+                elif h._exc is not None:
+                    # not re-raised: keep it listed as failed
+                    with _PENDING_LOCK:
+                        _FAILED.append({"path": h.path, "error": repr(e),
+                                        "handle": h})
     if first_exc is not None:
         raise first_exc
 
@@ -327,8 +340,9 @@ def save_checkpoint(cm, path: str, block: bool = True, commit=None,
         "strategy": cm.strategy.to_json(),
         "fingerprint": model_fingerprint(cm),
     }
-    host = _snapshot({"params": cm.params, "opt_state": cm.opt_state,
-                      "state": cm.state})
+    with tel.span("checkpoint/snapshot", cat="checkpoint", path=path):
+        host = _snapshot({"params": cm.params, "opt_state": cm.opt_state,
+                          "state": cm.state})
 
     def write_and_commit():
         def once():
@@ -339,7 +353,9 @@ def save_checkpoint(cm, path: str, block: bool = True, commit=None,
         run_resilient("checkpoint/write", once, retry_policy)
 
     if block:
-        write_and_commit()
+        with tel.span("checkpoint/write", cat="checkpoint", path=path,
+                      blocking=True):
+            write_and_commit()
         return path
     _register_exit_drain()
     handle = _AsyncSave(path)

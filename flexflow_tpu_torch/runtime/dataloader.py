@@ -33,6 +33,8 @@ from typing import Iterator, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from flexflow_tpu_torch import telemetry as tel
+
 
 class SingleDataLoader:
     def __init__(self, xs: Sequence[np.ndarray], y: np.ndarray, batch_size: int,
@@ -152,7 +154,20 @@ def prefetch_multi(it, k: int, device, depth: int = 2, retry_policy=None):
                 continue
         return False
 
+    # telemetry, read once: a span a transfer and the queue's depth,
+    # from the worker thread
+    rec = tel.enabled()
+
+    def put_counted(item) -> bool:
+        ok = put(item)
+        if rec and ok:
+            tel.counter("dataloader/queue_depth", q.qsize(),
+                        cat="dataloader")
+        return ok
+
     def move(kind, xs, y):
+        t0 = tel.now_us() if rec else 0.0
+
         def once():
             host = [_as_tensor(a) for a in (*xs, y)]
             if not cuda:
@@ -164,8 +179,11 @@ def prefetch_multi(it, k: int, device, depth: int = 2, retry_policy=None):
                 ev.record(stream)
             return dev[:-1], dev[-1], ev
 
-        return (kind,) + run_resilient("dataloader/transfer", once,
-                                       retry_policy)
+        out = (kind,) + run_resilient("dataloader/transfer", once,
+                                      retry_policy)
+        if rec:
+            tel.record("dataloader/transfer", t0, cat="dataloader")
+        return out
 
     def worker():
         try:
@@ -174,13 +192,13 @@ def prefetch_multi(it, k: int, device, depth: int = 2, retry_policy=None):
             buf: List = []
             for xs, y in it:
                 if k <= 1:
-                    if not put(move("1", xs, y)):
+                    if not put_counted(move("1", xs, y)):
                         return
                     continue
                 if buf and _batch_shapes(xs, y) != _batch_shapes(*buf[0]):
                     # a ragged batch: the partial group goes singly
                     for bxs, by in buf:
-                        if not put(move("1", bxs, by)):
+                        if not put_counted(move("1", bxs, by)):
                             return
                     buf = []
                 buf.append((xs, y))
@@ -189,10 +207,10 @@ def prefetch_multi(it, k: int, device, depth: int = 2, retry_policy=None):
                           for i in range(len(buf[0][0]))]
                     sy = np.stack([b[1] for b in buf])
                     buf = []
-                    if not put(move("k", sx, sy)):
+                    if not put_counted(move("k", sx, sy)):
                         return
             for xs, y in buf:  # the tail: fewer than k batches left
-                if not put(move("1", xs, y)):
+                if not put_counted(move("1", xs, y)):
                     return
             put(done)
         except BaseException as e:  # forwarded to the consumer

@@ -54,6 +54,8 @@ import threading
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
+from flexflow_tpu_torch import telemetry as tel
+
 _LOG = logging.getLogger("flexflow_tpu_torch")
 
 SITES = (
@@ -198,6 +200,11 @@ def _fire(site: str, index: Optional[int]):
     return None
 
 
+def _emit(site: str, idx: int, permanent: bool, **extra) -> None:
+    tel.event("fault/injected", cat="fault", site=site, index=idx,
+              permanent=permanent, **extra)
+
+
 def check(site: str, index: Optional[int] = None) -> None:
     """Raise the fault armed for `site` at this operation, if any. Called
     before the real work. `index` is the operation's index (run_resilient
@@ -207,6 +214,7 @@ def check(site: str, index: Optional[int] = None) -> None:
     if hit is None:
         return
     idx, permanent = hit
+    _emit(site, idx, permanent)
     cls = PermanentInjectedFault if permanent else InjectedFault
     raise cls(f"injected fault at {site} (index {idx}"
               + (", permanent)" if permanent else ")"))
@@ -215,5 +223,10 @@ def check(site: str, index: Optional[int] = None) -> None:
 def poison(site: str, index: Optional[int] = None) -> bool:
     """The non-raising check: True when the fault armed for `site` fires
     at this operation (health/nonfinite: the caller corrupts the params
-    itself and carries on)."""
-    return _fire(site, index) is not None
+    itself and carries on). Emits the same fault/injected event as
+    check()."""
+    hit = _fire(site, index)
+    if hit is None:
+        return False
+    _emit(site, hit[0], hit[1], poison=True)
+    return True

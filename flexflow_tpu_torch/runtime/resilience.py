@@ -22,9 +22,12 @@ flexflow_tpu/runtime/resilience.py, its non-pipeline part).
   attempts with exponential backoff and a seeded jitter
   (`RetryPolicy`); a failure past the budget escalates to the caller.
   It wraps loader transfers, checkpoint writes (write and commit), fit's
-  dispatch admission and the serving dispatches. The JAX package's
-  telemetry `retry`/`error` events wait for the port's telemetry
-  (ROADMAP Queue 1 item 4); the retries are logged as JAX logs them.
+  dispatch admission and the serving dispatches. Each retry emits a
+  telemetry `retry` event and an exhausted budget a `retry/exhausted`
+  error (telemetry.py), and both are logged, as in JAX. A commit emits
+  `checkpoint/committed`, a restore `resume/restored`, a drain
+  `preempt/drained`, and the failures `resume/drain_timeout` and
+  `resume/snapshot_unusable` as errors.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from flexflow_tpu_torch import telemetry as tel
 from flexflow_tpu_torch.runtime import faults
 
 MANIFEST = "MANIFEST.json"
@@ -123,10 +127,13 @@ def run_resilient(site: str, fn, policy: Optional[RetryPolicy] = None,
         except pol.retryable as e:
             attempt += 1
             if attempt >= max(1, pol.attempts):
+                tel.error("retry/exhausted", site=site, attempts=attempt,
+                          error=repr(e))
                 _LOG.warning("%s failed after %d attempts: %r", site,
                              attempt, e)
                 raise
             d = pol.delay(attempt)
+            tel.retry(site, attempt, e, delay_s=d)
             _LOG.warning("transient failure at %s (attempt %d/%d, retrying "
                          "in %.3fs): %s", site, attempt, pol.attempts, d, e)
             time.sleep(d)
@@ -299,6 +306,8 @@ def save_durable(model, root: str, progress: Optional[Dict[str, Any]] = None,
         _fsync_dir(root)
         if old is not None:
             shutil.rmtree(old, ignore_errors=True)
+        tel.event("checkpoint/committed", cat="checkpoint", path=final,
+                  step=step)
         _prune(root, keep)
 
     if block is None:
@@ -335,6 +344,7 @@ def _drain_before_resume(ck) -> None:
     try:
         ck.wait_pending(timeout=ck.DRAIN_TIMEOUT)
     except TimeoutError as e:
+        tel.error("resume/drain_timeout", error=repr(e))
         _LOG.warning("pending checkpoint write(s) did not drain in %ss "
                      "(%s); resuming from the newest already-committed "
                      "snapshot", ck.DRAIN_TIMEOUT, e)
@@ -378,9 +388,11 @@ def restore_auto(model, resume: str, root: str = "", verbose: bool = False,
         except ck.CheckpointMismatchError:
             raise
         except Exception as e:
+            tel.error("resume/snapshot_unusable", path=path, error=repr(e))
             _LOG.warning("durable snapshot %s unusable (%s); falling back "
                          "to the previous one", path, e)
             continue
+        tel.event("resume/restored", cat="checkpoint", path=path, step=step)
         _LOG.info("resumed from %s (step %d)", path, step)
         if verbose:
             print(f"[resume] restored {path} (step {step})")
@@ -558,6 +570,8 @@ class FitResilience:
         and the clean-exit raise."""
         path = self.save(progress, block=True) if self.root else None
         signum = self.guard.signum or signal.SIGTERM
+        tel.event("preempt/drained", cat="preempt", signum=signum,
+                  checkpoint=path)
         _LOG.warning("preempted by signal %s: drained, snapshot %s; "
                      "exiting cleanly", signum, path or "<no checkpoint dir>")
         raise Preempted(signum, path)

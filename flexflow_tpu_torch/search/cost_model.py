@@ -183,6 +183,33 @@ def compute_time(flops: float, hbm_bytes: float, machine: MachineSpec,
     return max(t_flop, t_mem)
 
 
+def op_roofline(layer, cand, machine: MachineSpec) -> Dict[str, float]:
+    """Per-op roofline facts for one (layer, candidate placement): the
+    machine-bound minimum time of the op's fwd+bwd work, which leg binds,
+    and the MFU ceiling the roofline permits (1.0 when compute-bound at
+    peak, < 1 when HBM bandwidth caps it), so measured_mfu / mfu_ceiling
+    separates scheduling loss from roofline loss. attribution.py joins it
+    with each op's measured time."""
+    flops, hbm_bytes, degree = cand.flops_bytes(layer, machine)
+    t_flop, t_mem = roofline_split(flops, hbm_bytes, machine, degree,
+                                   bytes_predivided=True)
+    t = max(t_flop, t_mem)
+    # flops/s the roofline bound sustains, over the device's PEAK (not the
+    # overhead-derated rate the bound itself uses)
+    dev_flops = 3.0 * flops / max(1.0, degree)
+    return {
+        "flops": flops,
+        "device_flops": dev_flops,
+        "hbm_bytes": hbm_bytes,
+        "degree": degree,
+        "roofline_s": t,
+        "t_flop_s": t_flop,
+        "t_mem_s": t_mem,
+        "bound": "bandwidth" if t_mem > t_flop else "compute",
+        "mfu_ceiling": (dev_flops / (t * machine.flops)) if t > 0 else 0.0,
+    }
+
+
 def overlapped_step_cost(comp: float, comm: float, machine: MachineSpec) -> float:
     """One layer's contribution under compute/comm overlap (the closed-form
     stand-in for the reference's event-driven concurrent replay,

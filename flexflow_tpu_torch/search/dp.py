@@ -20,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from flexflow_tpu_torch import telemetry as tel
 from flexflow_tpu_torch.core.graph import topo_order
 from flexflow_tpu_torch.parallel.machine import MachineSpec
 from flexflow_tpu_torch.search import cost_model as cm
@@ -159,7 +160,24 @@ def _live_coords(li, n_layers, coords, last_use):
     return frozenset(out)
 
 
-def search_graph(model, machine: MachineSpec, beam_width: int = 64,
+def search_graph(model, machine, *args, **kwargs):
+    """One `search/dp` span per DP run (telemetry.py), carrying the
+    expansions this run added to SEARCH_STATS, over `_search_graph_impl`
+    (the signature and the docstring below)."""
+    if not tel.enabled():
+        return _search_graph_impl(model, machine, *args, **kwargs)
+    t0 = tel.now_us()
+    e0 = SEARCH_STATS.get("expansions", 0)
+    r = _search_graph_impl(model, machine, *args, **kwargs)
+    tel.record("search/dp", t0, cat="compile",
+               layers=len(model.layers),
+               expansions=SEARCH_STATS.get("expansions", 0) - e0,
+               cost_s=(r.cost if not isinstance(r, list)
+                       else (r[0].cost if r else None)))
+    return r
+
+
+def _search_graph_impl(model, machine: MachineSpec, beam_width: int = 64,
                  enable_parameter: bool = True, enable_attribute: bool = True,
                  mem_budget: Optional[float] = None,
                  cost_fn=None,

@@ -173,6 +173,13 @@ class MeasuredCost:
             layer.weight_specs, cand.weight_dims, self.machine,
             _batch_axes(self.machine))
 
+    def op_time_fwd(self, layer: Layer, cand: "Candidate") -> float:
+        """The forward only (serving attribution): the measured forward
+        plus the candidate's inherent collectives; no backward and no
+        gradient sync."""
+        fwd, _bwd = self.op_times(layer, cand)
+        return fwd + cand.extra_comm
+
     # ----------------------------------------------------------- timing
     def _time(self, fn) -> float:
         """Seconds of one fn() call: the median over `windows` windows of

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import time
 
+from flexflow_tpu_torch import telemetry as tel
 from flexflow_tpu_torch.core.graph import topo_order
 from flexflow_tpu_torch.parallel.machine import MachineSpec
 from flexflow_tpu_torch.parallel.sharding import OpSharding, Strategy
@@ -85,11 +86,16 @@ def graph_optimize(model, machine: MachineSpec, measured: bool = False,
     from flexflow_tpu_torch.search.unity import unity_optimize
 
     t0 = time.perf_counter()
-    st, stats = unity_optimize(model, machine, cost_fn=cost_fn,
-                               opt_mem=opt_mem)
+    with tel.span("search/unity", cat="compile",
+                  measured=bool(cost_fn is not None)):
+        st, stats = unity_optimize(model, machine, cost_fn=cost_fn,
+                                   opt_mem=opt_mem)
     wall = time.perf_counter() - t0
     st._predicted_cost = stats.best_cost
     st._predicted_op_costs = dict(stats.op_costs)
+    tel.event("search/result", cat="compile", cost_s=stats.best_cost,
+              baseline_cost_s=stats.baseline_cost,
+              expansions=stats.expansions)
     st._search_stats = stats
     st._search_seconds = wall
     if use_cache:

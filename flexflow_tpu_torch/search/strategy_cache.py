@@ -34,6 +34,7 @@ import os
 import time
 from typing import Dict, List, Optional
 
+from flexflow_tpu_torch import telemetry as tel
 from flexflow_tpu_torch.core.graph import topo_order
 from flexflow_tpu_torch.parallel.machine import MachineSpec
 from flexflow_tpu_torch.parallel.sharding import Strategy, used_axes
@@ -191,9 +192,11 @@ def lookup(cache_dir: str, key: str, model,
             entry = json.load(f)
     except (OSError, ValueError):
         STATS.misses += 1
+        tel.event("search/strategy_cache", cat="compile", event="miss")
         return None
     if entry.get("version") != CACHE_VERSION:
         STATS.misses += 1
+        tel.event("search/strategy_cache", cat="compile", event="miss")
         return None
     try:
         st = Strategy.from_json(entry["strategy"])
@@ -202,11 +205,16 @@ def lookup(cache_dir: str, key: str, model,
         # readable but malformed (hand-edited / schema drift without a
         # version bump): degrade to a miss, never abort the compile
         STATS.invalidated += 1
+        tel.event("search/strategy_cache", cat="compile",
+                  event="invalidated")
         return None
     if problems:
         STATS.invalidated += 1
+        tel.event("search/strategy_cache", cat="compile",
+                  event="invalidated")
         return None
     STATS.hits += 1
+    tel.event("search/strategy_cache", cat="compile", event="hit", key=key)
     st._cache_info = {"event": "hit", "key": key, "dir": cache_dir,
                       "meta": entry.get("meta", {})}
     # the stored search's predicted per-step cost (and per-op breakdown)
@@ -238,5 +246,6 @@ def store(cache_dir: str, key: str, strategy: Strategy,
         STATS.errors += 1
         return
     STATS.stores += 1
+    tel.event("search/strategy_cache", cat="compile", event="store", key=key)
     strategy._cache_info = {"event": "store", "key": key, "dir": cache_dir,
                             "meta": entry["meta"]}

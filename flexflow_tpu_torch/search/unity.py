@@ -22,6 +22,7 @@ import dataclasses
 import heapq
 from typing import Dict, List, Optional, Tuple
 
+from flexflow_tpu_torch import telemetry as tel
 from flexflow_tpu_torch.core.graph import topo_order
 from flexflow_tpu_torch.ops.op_type import OperatorType
 from flexflow_tpu_torch.parallel.machine import MachineSpec
@@ -109,6 +110,7 @@ def substitution_optimize(pcg: PCG, machine: MachineSpec,
             stats.pruned += 1
             continue
         stats.expansions += 1
+        t_exp = tel.now_us() if tel.enabled() else None
         order = topo_order(g.layers)
         pos = {id(l): i for i, l in enumerate(order)}
         for xi, xfer in enumerate(xfers):
@@ -136,6 +138,9 @@ def substitution_optimize(pcg: PCG, machine: MachineSpec,
                 if nr.cost <= alpha * best_r.cost:
                     counter += 1
                     heapq.heappush(heap, (nr.cost, counter, ng, npath))
+        if t_exp is not None:
+            tel.record("search/substitution_round", t_exp, cat="compile",
+                       expansion=stats.expansions, frontier_cost_s=c)
     stats.best_cost = best_r.cost
     return best, best_r, stats
 

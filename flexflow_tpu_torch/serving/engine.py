@@ -33,6 +33,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
+from flexflow_tpu_torch import telemetry as tel
 from flexflow_tpu_torch.compiler.lowering import (build_forward, cast_dtype,
                                                   cast_exempt)
 from flexflow_tpu_torch.core.graph import topo_order
@@ -91,6 +92,10 @@ def compile_serving(model, max_batch_slots: Optional[int] = None,
     decoding (see the module docstring)."""
     dev = resolve_device(device)
     cfg = model.config
+    # --telemetry-dir turns the span stream on for serving-only runs too
+    if getattr(cfg, "telemetry_dir", ""):
+        tel.configure(cfg.telemetry_dir,
+                      max_mb=getattr(cfg, "telemetry_max_mb", None))
     if getattr(cfg, "search_budget", 0) > 0:
         raise NotImplementedError(
             "compile_serving with search_budget > 0: the serving searches "
@@ -113,39 +118,45 @@ def compile_serving(model, max_batch_slots: Optional[int] = None,
     if draft is None and spec_k > 0 and getattr(cfg, "serve_draft_model", ""):
         draft = _draft_from_spec(cfg, cfg.serve_draft_model,
                                  int(model.input_tensors[0].spec.shape[0]))
-    pre_model, attn = clone_for_serving(model, "prefill", slots)
-    dec_model, _ = clone_for_serving(model, "decode", slots)
-    kv_spec = KVCacheSpec(
-        layers=len(attn), heads=heads, head_dim=embed // heads, slots=slots,
-        pages_per_slot=-(-(seq + max_new) // page), page_size=page,
-        itemsize=kv_itemsize, scale_itemsize=kv_scale_itemsize)
-    ver_model = None
-    draft_engine = None
-    if draft is not None and spec_k > 0:
-        dseq = int(draft.input_tensors[0].spec.shape[1])
-        if dseq != seq:
-            raise ValueError(
-                f"draft model seq {dseq} != target seq {seq}: the "
-                "scheduler prefills both from one prompt batch")
-        if kv_quantized and cfg.enable_fusion and spec_k + 1 > MAX_QUERY_ROWS:
-            raise ValueError(
-                f"spec_tokens={spec_k}: the verify pass gives the int8 "
-                f"dequant decode kernel (kernels/dequant_attention.py) "
-                f"{spec_k + 1} query rows, past its gate of "
-                f"MAX_QUERY_ROWS={MAX_QUERY_ROWS}; take spec_tokens <= "
-                f"{MAX_QUERY_ROWS - 1}")
-        ver_model, _ = clone_for_serving(model, "decode", slots,
-                                         decode_seq=spec_k + 1)
-        draft_engine = compile_serving(
-            draft, max_batch_slots=slots, max_decode_len=max_new,
-            kv_page_size=page, spec_tokens=0, kv_cache_dtype=kv_cache_dtype,
-            device=dev)
-    return ServingCompiled(model, pre_model, dec_model, attn, kv_spec,
-                           max_new, kv_dtype=kv_dtype,
-                           kv_quantized=kv_quantized, device=dev,
-                           verify_model=ver_model,
-                           spec_tokens=spec_k if draft_engine else 0,
-                           draft=draft_engine)
+    with tel.span("serve/compile_serving", cat="compile", slots=slots,
+                  max_decode_len=max_new, kv_page_size=page,
+                  spec_tokens=spec_k if draft is not None else 0,
+                  kv_dtype=str(kv_dtype)):
+        pre_model, attn = clone_for_serving(model, "prefill", slots)
+        dec_model, _ = clone_for_serving(model, "decode", slots)
+        kv_spec = KVCacheSpec(
+            layers=len(attn), heads=heads, head_dim=embed // heads,
+            slots=slots, pages_per_slot=-(-(seq + max_new) // page),
+            page_size=page, itemsize=kv_itemsize,
+            scale_itemsize=kv_scale_itemsize)
+        ver_model = None
+        draft_engine = None
+        if draft is not None and spec_k > 0:
+            dseq = int(draft.input_tensors[0].spec.shape[1])
+            if dseq != seq:
+                raise ValueError(
+                    f"draft model seq {dseq} != target seq {seq}: the "
+                    "scheduler prefills both from one prompt batch")
+            if kv_quantized and cfg.enable_fusion and \
+                    spec_k + 1 > MAX_QUERY_ROWS:
+                raise ValueError(
+                    f"spec_tokens={spec_k}: the verify pass gives the int8 "
+                    f"dequant decode kernel (kernels/dequant_attention.py) "
+                    f"{spec_k + 1} query rows, past its gate of "
+                    f"MAX_QUERY_ROWS={MAX_QUERY_ROWS}; take spec_tokens <= "
+                    f"{MAX_QUERY_ROWS - 1}")
+            ver_model, _ = clone_for_serving(model, "decode", slots,
+                                             decode_seq=spec_k + 1)
+            draft_engine = compile_serving(
+                draft, max_batch_slots=slots, max_decode_len=max_new,
+                kv_page_size=page, spec_tokens=0,
+                kv_cache_dtype=kv_cache_dtype, device=dev)
+        return ServingCompiled(model, pre_model, dec_model, attn, kv_spec,
+                               max_new, kv_dtype=kv_dtype,
+                               kv_quantized=kv_quantized, device=dev,
+                               verify_model=ver_model,
+                               spec_tokens=spec_k if draft_engine else 0,
+                               draft=draft_engine)
 
 
 class ServingCompiled:
@@ -188,6 +199,13 @@ class ServingCompiled:
                 verify_model.layers, verify_model.input_tensors,
                 verify_model.layers[-1].outputs[:1], **fwd_kw)
         self.params: Optional[Dict[str, Any]] = None
+        # inside spec_round_step: its steps record no span of their own
+        self._in_round = False
+        if tel.enabled():
+            tel.event("serve/engine", cat="serve",
+                      kv_dtype=str(self.kv_dtype),
+                      kv_quantized=self.kv_quantized,
+                      spec_tokens=self.spec_tokens)
         # the SLO error budgets of every request served on this engine
         self.slo = SLOTracker(parse_slo(getattr(self.cfg, "serve_slo", "")
                                         or ""))
@@ -242,22 +260,31 @@ class ServingCompiled:
     def prefill(self, params, input_arrays):
         """Run the prefill program: returns (logits, kv_state) where
         kv_state maps each attention layer to its `[slots, S, h, d]`
-        per-head K/V for `PagedKVCache.commit_prefill`."""
+        per-head K/V for `PagedKVCache.commit_prefill`. With telemetry
+        on, a `serve/prefill` span of the host's dispatch."""
+        t0 = tel.now_us() if tel.enabled() else None
         inputs = [to_device(x, self.device) for x in input_arrays]
         with torch.no_grad():
             outs, kv_state = self._prefill_fwd(params, {}, inputs)
+        if t0 is not None:
+            tel.record("serve/prefill", t0, cat="serve", slots=self.slots)
         return outs[0], kv_state
 
     def decode_step(self, params, state, input_arrays):
         """One single-token step over all slots: returns (logits
         `[slots, 1, vocab]`, new cache state with positions advanced).
-        Nothing is synchronized with the host."""
+        Nothing is synchronized with the host. With telemetry on, one
+        `serve/decode_step` span of the host's dispatch (none inside a
+        speculative round, which is one span)."""
+        t0 = tel.now_us() if tel.enabled() and not self._in_round else None
         inputs = [to_device(x, self.device) for x in input_arrays]
         with torch.no_grad():
             outs, ns = self._decode_fwd(params, state, inputs)
             # device-side sequence advance: every ACTIVE slot cached one
             # more token this step (inactive slots stay parked)
             ns[POS_KEY] = state[POS_KEY] + state[ACTIVE_KEY]
+        if t0 is not None:
+            tel.record("serve/decode_step", t0, cat="serve")
         return outs[0], ns
 
     def verify_step(self, params, state, input_arrays):
@@ -265,6 +292,7 @@ class ServingCompiled:
         committed token and the K drafted ones and returns logits
         `[slots, K+1, vocab]`. Every active slot caches K+1 entries; the
         scheduler re-publishes the committed extent after acceptance."""
+        t0 = tel.now_us() if tel.enabled() and not self._in_round else None
         if self._verify_fwd is None:
             raise RuntimeError("verify_step: engine compiled without a "
                                "draft (pass draft=/--serve-draft-model and "
@@ -274,6 +302,9 @@ class ServingCompiled:
             outs, ns = self._verify_fwd(params, state, inputs)
             ns[POS_KEY] = state[POS_KEY] + \
                 (self.spec_tokens + 1) * state[ACTIVE_KEY]
+        if t0 is not None:
+            tel.record("serve/decode_step", t0, cat="serve",
+                       verify=True, steps=self.spec_tokens + 1)
         return outs[0], ns
 
     def build_spec_program(self, step_inputs_fn: Callable) -> Callable:
@@ -312,9 +343,20 @@ class ServingCompiled:
 
     def spec_round_step(self, params, draft_params, state, draft_state,
                         last, step_inputs_fn: Callable):
-        """Run one speculative round (see `build_spec_program`)."""
+        """Run one speculative round (see `build_spec_program`); with
+        telemetry on, one `serve/decode_step` span for the round."""
         fn = self.build_spec_program(step_inputs_fn)
-        return fn(params, draft_params, state, draft_state, last)
+        if not tel.enabled():
+            return fn(params, draft_params, state, draft_state, last)
+        t0 = tel.now_us()
+        self._in_round = self.draft._in_round = True
+        try:
+            out = fn(params, draft_params, state, draft_state, last)
+        finally:
+            self._in_round = self.draft._in_round = False
+        tel.record("serve/decode_step", t0, cat="serve",
+                   spec_round=True, steps=self.spec_tokens + 1)
+        return out
 
     def memory_stats(self) -> Dict[str, int]:
         """Predicted vs measured KV-cache bytes and the param bytes held;

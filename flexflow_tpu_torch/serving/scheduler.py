@@ -49,7 +49,12 @@ Policy, as in the JAX package:
   before it is drained first). The engine keeps serving in every case.
 
 Every outcome ends in one terminal record (`reqtrace.terminal_record`),
-which the engine's SLO tracker classifies. Not ported yet: request
+which the engine's SLO tracker classifies and which rides the telemetry
+event of the outcome (`serve/request_done`, `_shed`, `_failed`; and
+`serve/request_admitted`, `serve/slot_evicted`, `serve/decode_timeout`,
+the counters `serve/queue_depth`, `serve/active_slots`,
+`serve/overdecode_tokens`, `serve/spec_*`, and `serve/slo` at the end of
+a run), as in JAX. Not ported yet: request
 tracing, the host KV tier, hot-swap (`serve/param_swap`) and the fleet
 hooks. The constructor raises `NotImplementedError` where a caller asks
 for them.
@@ -66,6 +71,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from flexflow_tpu_torch import telemetry as tel
 from flexflow_tpu_torch.runtime.resilience import RetryPolicy, run_resilient
 from flexflow_tpu_torch.serving.kv_cache import POS_KEY, KVPoolExhausted
 from flexflow_tpu_torch.serving.reqtrace import terminal_record
@@ -210,7 +216,9 @@ class ContinuousBatchingScheduler:
         req.finish_s = now_s
         self.shed.append(req)
         self.stats["shed_" + reason] += 1
-        self._terminal(req, now_s, reason)
+        rec = self._terminal(req, now_s, reason)
+        tel.event("serve/request_shed", cat="serve", reason=reason,
+                  waited_s=max(0.0, now_s - req.arrival_s), **rec)
 
     def _fail(self, req: Request, outcome: str, now_s: float,
               err: Optional[BaseException] = None) -> None:
@@ -223,8 +231,10 @@ class ContinuousBatchingScheduler:
         req.slot = None
         self.failed.append(req)
         self.stats["failed"] += 1
-        self._terminal(req, now_s,
-                       "decode_timeout" if outcome == "timeout" else "error")
+        rec = self._terminal(
+            req, now_s, "decode_timeout" if outcome == "timeout" else "error")
+        tel.event("serve/request_failed", cat="serve",
+                  error=repr(err)[:200] if err else "", **rec)
 
     def _enqueue(self, req: Request, waiting: List[Request],
                  now_s: float) -> None:
@@ -261,6 +271,8 @@ class ContinuousBatchingScheduler:
             self.draft.kv.evict(slot)
             self.draft.kv.push()
         self.stats["evicted_wedged"] += 1
+        tel.event("serve/slot_evicted", cat="serve", rid=req.rid, slot=slot,
+                  outcome=outcome, tokens=len(req.tokens))
         self._fail(req, outcome, now_s, err)
 
     # ------------------------------------------------------------ admission
@@ -364,6 +376,10 @@ class ContinuousBatchingScheduler:
             req.admit_s = t_pre - self._t0
             next_host[req.slot, 0] = first
             active[req.slot] = req
+            tel.event("serve/request_admitted", cat="serve", rid=req.rid,
+                      slot=req.slot, prompt_len=int(lengths[req.slot]),
+                      priority=req.priority, ttft_s=req.ttft_s,
+                      queue_wait_s=max(0.0, req.admit_s - req.arrival_s))
         return True
 
     def _fail_batch(self, batch: List[Request], err: BaseException) -> None:
@@ -389,7 +405,9 @@ class ContinuousBatchingScheduler:
         self.completed.append(req)
         reason = ("eos" if self.eos_id is not None
                   and self.eos_id in req.tokens else "max_new_tokens")
-        self._terminal(req, now_s, reason, kv_pages=kv_pages)
+        rec = self._terminal(req, now_s, reason, kv_pages=kv_pages)
+        tel.event("serve/request_done", cat="serve",
+                  tokens=len(req.tokens), **rec)
 
     def _truncate(self, req: Request) -> bool:
         """Apply EOS/max-len to a request's token list; True = finished."""
@@ -416,6 +434,9 @@ class ContinuousBatchingScheduler:
         if self.decode_timeout_ms and active and \
                 1e3 * per_step_s > self.decode_timeout_ms:
             self.stats["decode_timeouts"] += 1
+            tel.event("serve/decode_timeout", cat="serve",
+                      per_step_ms=1e3 * per_step_s,
+                      budget_ms=self.decode_timeout_ms)
             self._evict_wedged(active, "timeout", self._now())
 
     def _materialize(self, window_toks: List[torch.Tensor], state,
@@ -446,6 +467,9 @@ class ContinuousBatchingScheduler:
         self.kv.sync_after(steps, advances=adv)
         for slot in finished:
             self._finish(active.pop(slot), self._now())
+        if self.stats["overdecode_tokens"]:
+            tel.counter("serve/overdecode_tokens",
+                        self.stats["overdecode_tokens"], cat="serve")
         self._watchdog(active, per_step)
         return mats[:, -1:].copy()
 
@@ -514,6 +538,11 @@ class ContinuousBatchingScheduler:
         rate = round_accept / round_drafted
         self._accept_ema = (rate if self.stats["spec_rounds"] == 1
                             else 0.9 * self._accept_ema + 0.1 * rate)
+        tel.counter("serve/spec_drafted_tokens",
+                    self.stats["spec_drafted_tokens"], cat="serve")
+        tel.counter("serve/spec_accepted_tokens",
+                    self.stats["spec_accepted_tokens"], cat="serve")
+        tel.counter("serve/spec_accept_rate", self._accept_ema, cat="serve")
         per_tok = wall / max_commit
         self.step_times.extend([per_tok] * max_commit)
         self.decode_steps += K + 1
@@ -540,6 +569,8 @@ class ContinuousBatchingScheduler:
             now = self._now()
             while queue and queue[0].arrival_s <= now:
                 self._enqueue(queue.popleft(), waiting, now)
+            tel.counter("serve/queue_depth", len(waiting), cat="serve")
+            tel.counter("serve/active_slots", len(active), cat="serve")
             want_sync = (len(window_toks) >= self._window_cap(active)
                          or (waiting and self.kv.free_slots())
                          or not active)
@@ -598,4 +629,6 @@ class ContinuousBatchingScheduler:
                 torch.int32)[:, None]
             window_toks.append(next_dev)
             self.decode_steps += 1
+        if self.slo is not None and tel.enabled():
+            tel.event("serve/slo", cat="serve", report=self.slo.report())
         return self.completed

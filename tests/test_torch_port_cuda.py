@@ -963,3 +963,96 @@ def test_fit_steps_per_dispatch_on_card():
     assert all(torch.equal(a.params[l][w], b.params[l][w])
                for l in a.params for w in a.params[l])
     np.testing.assert_allclose(ha[0]["loss"], hb[0]["loss"], rtol=1e-6)
+
+
+# --------------------------------- run health and attribution on the card
+@pytest.mark.cuda
+def test_graph_sentinels_equal_eager_steps_on_card():
+    """The K-step graph returns the sentinels' grad norm and non-finite
+    flag as means over its K steps: those of K eager steps fed the same
+    batches and keys (bitwise where the params are); a NaN-poisoned param
+    read in place by the replay trips the flag."""
+    from flexflow_tpu_torch import health
+    from flexflow_tpu_torch import random as ff_random
+
+    _cuda_or_skip()
+    K = 3
+    ids, pos, labels = _groups(1, K)
+    base = ff_random.key(5)
+    eager, graph = _graph_pair("adam", 0.0)
+    assert eager.cfg.health_sentinels
+    *_, emv = eager._run_steps(K, eager.params, eager.opt_state, eager.state,
+                               [ids[0], pos[0]], labels[0], base, 0)
+    multi = graph.make_multi_step(K)
+    (graph.params, graph.opt_state, graph.state, _, gmv) = multi(
+        graph.params, graph.opt_state, graph.state, [ids[0], pos[0]],
+        labels[0], base, 0)
+    torch.cuda.synchronize()
+    assert set(gmv) == set(emv) == set(health.SENTINEL_KEYS)
+    same = all(torch.equal(eager.params[l][w], graph.params[l][w])
+               for l in eager.params for w in eager.params[l])
+    for k in health.SENTINEL_KEYS:
+        if same:
+            assert torch.equal(gmv[k], emv[k]), k
+        else:
+            torch.testing.assert_close(gmv[k], emv[k], rtol=1e-5, atol=0)
+    assert float(gmv[health.NONFINITE_KEY]) == 0.0
+    assert float(gmv[health.GRAD_NORM_KEY]) > 0.0
+    graph._poison_first_param()
+    (graph.params, graph.opt_state, graph.state, _, gmv) = multi(
+        graph.params, graph.opt_state, graph.state, [ids[0], pos[0]],
+        labels[0], base, K)
+    flag = float(gmv[health.NONFINITE_KEY])
+    assert flag > 0.0 or flag != flag
+
+
+@pytest.mark.cuda
+def test_device_watermarks_read_memory_stats_on_card():
+    from flexflow_tpu_torch import health
+
+    dev = _cuda_or_skip()
+    x = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    got = health.device_watermarks((), dev)
+    stats = torch.cuda.memory_stats(dev)
+    (key, wm), = got.items()
+    assert key == str(torch.cuda.current_device())
+    assert wm["live"] == stats["allocated_bytes.all.current"] >= x.numel()
+    assert wm["peak"] == stats["allocated_bytes.all.peak"] >= wm["live"]
+    wt = health.WatermarkTracker()
+    wt.sample("t", (), dev)
+    assert wt.report(1)["warn"]
+
+
+@pytest.mark.cuda
+def test_trace_credits_a_profiled_step_to_its_layers_on_card(tmp_path):
+    """A profiled fit of a 2-layer GPT-2 in bf16: torch.profiler's trace
+    credits the flash forward, dQ and dK/dV kernels to the attention
+    layers (the backward through the autograd node's sequence number) and
+    each MLP layer's backward GEMMs to it; the report's source is the
+    trace and it states its coverage."""
+    from flexflow_tpu_torch import AdamOptimizer, attribution
+
+    dev = _cuda_or_skip()
+    pdir = str(tmp_path / "prof")
+    m = _tiny_train_model(256, 128, layers=2, compute_dtype="bfloat16",
+                          profiling=True, profile_dir=pdir)
+    cm = m.compile(AdamOptimizer(alpha=1e-3),
+                   "sparse_categorical_crossentropy", [], device=dev)
+    cm.init(seed=0)
+    rng = np.random.default_rng(3)
+    ids = rng.integers(0, 256, size=(8, 64)).astype(np.int32)
+    pos = np.tile(np.arange(64, dtype=np.int32), (8, 1))
+    y = rng.integers(0, 256, size=(8, 64)).astype(np.int32)
+    cm.fit([ids, pos], y, epochs=2, verbose=False)
+    rep = cm.op_attribution(source="trace", print_table=False)
+    assert rep["source"] == "trace" and 0.5 < rep["coverage"] <= 1.0
+    kernels = rep["trace"]["kernels"]
+    for layer in ("h0_attn", "h1_attn"):
+        names = " ".join(kernels[layer])
+        for k in ("flash_fwd_tc_kernel", "flash_dq_tc_kernel",
+                  "flash_dkv_tc_kernel"):
+            assert k in names, (layer, k, sorted(kernels[layer]))
+    assert len(kernels["h0_mlp_up"]) >= 2      # forward and backward GEMMs
+    step = rep["step_time_s"]
+    assert abs(rep["attributed_total_s"] - step) / step <= \
+        attribution.SUM_TOLERANCE

@@ -348,3 +348,22 @@ def test_model_zoo_compile_raises_without_cuda(monkeypatch):
     assert len(state) == 8 and all(t.device.type == "cpu"
                                    and t.dtype == torch.float32
                                    for t in state.values())
+
+
+HEALTH_MODULES = ("flexflow_tpu_torch.telemetry",
+                  "flexflow_tpu_torch.health",
+                  "flexflow_tpu_torch.attribution",
+                  "flexflow_tpu_torch.search.cost_model",
+                  "flexflow_tpu_torch.compiler.lowering",
+                  "flexflow_tpu_torch.serving.engine")
+
+
+def test_telemetry_health_and_attribution_modules_load_no_jax():
+    """The span stream, run health, per-op attribution and the modules
+    they instrument, each imported in turn into a fresh interpreter, load
+    neither JAX nor the JAX package."""
+    out = subprocess.run([sys.executable, "-c", _IMPORT_EACH,
+                          *HEALTH_MODULES],
+                         cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == str({n: [] for n in HEALTH_MODULES})

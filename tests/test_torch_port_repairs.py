@@ -56,7 +56,7 @@ def test_lr_reaches_the_default_optimizer_as_in_jax():
 
 @pytest.mark.parametrize("argv,item", [
     (["--zero-sharding", "zero1"], 9), (["--mesh", "data=2"], 9),
-    (["--telemetry-dir", "t"], 4), (["--no-health-sentinels"], 4),
+    (["--auto-refit"], 8), (["--simulator-trace", "t.json"], 8),
     (["--kv-host-pages", "8"], 5), (["--cost-model-path", "m.json"], 8),
     (["--compgraph", "g.dot"], 6), (["--serve"], 7)])
 def test_unported_flags_raise_naming_their_item(argv, item):
@@ -65,6 +65,20 @@ def test_unported_flags_raise_naming_their_item(argv, item):
     with pytest.raises(NotImplementedError,
                        match=f"{flag} \\(ROADMAP Queue 1 item {item}\\)"):
         FFConfig.parse_args(argv)
+
+
+@pytest.mark.parametrize("argv", [
+    [], ["--telemetry-dir", "t", "--telemetry-max-mb", "3",
+         "--no-health-sentinels", "--halt-on-nonfinite", "--profiling",
+         "--profile-dir", "p", "--profile-ops"]])
+def test_item4_flags_parse_into_jax_fields(argv):
+    """The telemetry, sentinel and attribution flags parse into the JAX
+    package's fields, with its defaults."""
+    jcfg, pcfg = JFFConfig.parse_args(argv), FFConfig.parse_args(argv)
+    for f in ("telemetry_dir", "telemetry_max_mb", "health_sentinels",
+              "halt_on_nonfinite", "profiling", "profile_dir",
+              "profile_ops"):
+        assert getattr(pcfg, f) == getattr(jcfg, f), f
 
 
 def test_choices_exit_as_in_jax_and_unknown_flags_are_ignored():
