@@ -232,10 +232,10 @@ Phases, each fatal on failure (nothing is caught to let the run exit 0):
     A capture that fails raises: nothing falls back to eager steps.
 
 11. Telemetry, run health and per-op attribution (telemetry.py,
-    health.py, attribution.py), last, on GPT-2 medium as 5b trains it
-    (full depth, b8, seq 1024, dropout 0, bf16 over f32 masters, Adam
-    1e-4), compiled anew after the peak memory is reset; each fit is 2
-    epochs of a few batches:
+    health.py, attribution.py), before phase 12, on GPT-2 medium as 5b
+    trains it (full depth, b8, seq 1024, dropout 0, bf16 over f32
+    masters, Adam 1e-4), compiled anew after the peak memory is reset;
+    each fit is 2 epochs of a few batches:
     (a) eager and then steps_per_dispatch 4, each four times from one
         snapshot with everything off, on, on, off (on: telemetry and the
         sentinels): the same step_stats, the same launches (eager: a
@@ -269,6 +269,51 @@ Phases, each fatal on failure (nothing is caught to let the run exit 0):
     (f) run with phase 3: its int8 leg again with telemetry on: one
         serve/request_admitted and one serve/request_done a request, one
         serve/decode_step span a decode step.
+
+12. The rest of one-card serving, run last on phase 3's weights (kept
+    on the host from phase 8 on), prompts and greedy streams (GPT-2
+    medium, 8 slots, page 16, 66 pages a slot), in a temporary directory
+    removed at the end:
+    (a) the tiered KV cache (`kv_host_pages` 396, three quarters of every
+        slot's pages, so the device pool holds 132 data pages and
+        scratch), with the bf16 cache and the int8 one: phase 3's 16
+        prompts of 32 new tokens, whose streams must equal phase 3's
+        bitwise, with at least 8 spills and 8 rejoins (each a hit or a
+        stall), the int8 dequant decode launched once a layer on every
+        decode step, every page back on its free list, `memory_stats()`
+        at 133 device pages with the host bytes beside them, and host
+        syncs (counted by torch's sync debug mode) equal to the
+        materializations, the prefills and one a spill: refills and
+        rejoins add none. Each leg prints the spills, refills, hits,
+        stalls and bytes each way, the median spill and refill device ms
+        (CUDA events) against a timed pinned host-to-device copy, and the
+        decode step against the same engine untiered in the same call
+        (also held to phase 3's streams) and phase 3's: the run's p50,
+        and 4 profiled steps at 8 slots of 224-token prompts;
+    (c) phase 3's int8 run with request tracing off, on, on, off (the on
+        runs export the offered load through `serve_trace_out`): the
+        streams are phase 3's, the materializations equal, every
+        request's stages account for at least 0.95 of its wall, and the
+        exported trace loads and replays to the same requests; the decode
+        step p50 of each run is printed;
+    (b) hot-swap on that engine: durable snapshots of GPT-2 medium by the
+        port's checkpoint writer, A (phase 3's params) and B (A perturbed
+        from the seed); the engine watches the root and takes A; B lands
+        after the first admission wave of a run, which swaps exactly once
+        and completes every request, those admitted after the swap
+        equal to a fresh engine loaded with B; `rollback()` pins A
+        (phase 3's streams, `poll_swap` then False), `unpin()` brings B
+        back (B's streams); a snapshot of GPT-2 medium at 2 layers is
+        rejected (`serve/swap_rejected`) while a run serves B's streams.
+        The swap latency (placement and a device sync included) and the
+        bytes placed are printed;
+    (d) `health_report()` of the tiered engines (the `kv_tier` panel) and
+        of the swapping one (the swap ledger, the SLO scoreboard, the
+        watermark from the allocator's peak since that engine was made),
+        and `op_attribution()` of its prefill and decode programs (each op
+        measured in isolation, the decode attention over its cache's full
+        context), printed.
+    The phase logs its wall time and each part's.
 
 The line before the last is `{"kernels": [...]}`; the last line is
 `{"ok": true, "device": {...}}`.
@@ -1246,10 +1291,12 @@ def _device_profile(fn, reps: int, dev: torch.device) -> dict:
                              for n, (t, c) in sorted(port.items())}}
 
 
-def profile_engine(engine, params, prompts) -> dict:
+def profile_engine(engine, params, prompts, profile_prefill: bool = True,
+                   steps: int = NEW_TOKENS // 2) -> dict:
     """Where a prefill and a decode step spend their time: the first
-    wave's prompts prefilled into every slot, then decode steps over all
-    slots, each phase in its own profiled window."""
+    wave's prompts prefilled into every slot, then `steps` decode steps
+    over all slots, each phase in its own profiled window (the prefill's
+    only with `profile_prefill`)."""
     from flexflow_tpu_torch.serving import gpt2_prompt_inputs, gpt2_step_inputs
 
     kv, slots = engine.kv, engine.slots
@@ -1262,8 +1309,9 @@ def profile_engine(engine, params, prompts) -> dict:
     kv.push()
     inputs = gpt2_prompt_inputs(ids, lengths)
     dev = engine.device
-    out = {"prefill": _device_profile(lambda: engine.prefill(params, inputs),
-                                      2, dev)}
+    out = ({"prefill": _device_profile(
+        lambda: engine.prefill(params, inputs), 2, dev)}
+        if profile_prefill else {})
     _, kv_state = engine.prefill(params, inputs)
     kv.commit_prefill(kv_state, np.arange(slots, dtype=np.int32), lengths)
     box = {"state": kv.state,
@@ -1274,7 +1322,6 @@ def profile_engine(engine, params, prompts) -> dict:
         logits, box["state"] = engine.decode_step(
             params, st, gpt2_step_inputs(box["tok"], st))
         box["tok"] = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
-    steps = NEW_TOKENS // 2
     out["decode_step"] = _device_profile(step, steps, dev)
     kv.adopt(box["state"])
     kv.sync_after(steps)
@@ -3863,6 +3910,454 @@ def phase11(seed: int) -> dict:
     return out
 
 
+# ------------------------------- phase 12: tiered KV, hot-swap, tracing
+# 12a's host tier: three quarters of every slot's pages, so the device pool
+# keeps a quarter (8 x 66 - 396 = 132 data pages + scratch)
+P12_PAGES_PER_SLOT = -(-(SEQ + NEW_TOKENS) // PAGE)
+P12_HOST_PAGES = 3 * SLOTS * P12_PAGES_PER_SLOT // 4
+# 12a's decode profile: prompts cut so all 8 slots fit the tiered pool
+# (8 x 16 pages of 16), over a few decode steps
+P12_PROFILE_PROMPT = 16 * PAGE - NEW_TOKENS
+P12_PROFILE_STEPS = 4
+P12_MIN_TIER_MOVES = 8
+# 12b's mismatched snapshot: GPT-2 medium at another depth
+P12_OTHER_DEPTH = 2
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+def p12_engine(gc, params, kv: str, seed: int, **cfg_kw):
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.models import build_gpt2
+    from flexflow_tpu_torch.serving import compile_serving
+
+    model = FFModel(FFConfig(seed=seed, compute_dtype="bfloat16",
+                             max_batch_slots=SLOTS, kv_page_size=PAGE,
+                             max_decode_len=NEW_TOKENS, kv_cache_dtype=kv,
+                             **cfg_kw))
+    build_gpt2(model, gc, batch=SLOTS)
+    engine = compile_serving(model)
+    engine.load_params(params)
+    return engine
+
+
+def p12_serve(engine, prompts, label: str, count_syncs: bool = False,
+              **sched_kw) -> dict:
+    """One scheduler run over `prompts` with the launch counters set to 0
+    just before it and read just after; with `count_syncs`, the host syncs
+    it made, counted by torch's sync debug mode (each synchronizing CUDA
+    call warns once). Fails unless every request completes with
+    NEW_TOKENS tokens."""
+    import warnings
+
+    from flexflow_tpu_torch.serving import (ContinuousBatchingScheduler,
+                                            Request, gpt2_prompt_inputs,
+                                            gpt2_step_inputs)
+
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS)
+            for i, p in enumerate(prompts)]
+    sched = ContinuousBatchingScheduler(engine, engine.params,
+                                        gpt2_prompt_inputs, gpt2_step_inputs,
+                                        **sched_kw)
+    dev = engine.device
+    sync(dev)
+    zero_launch_counts()
+    syncs = None
+    t0 = time.perf_counter()
+    if count_syncs:
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                done = sched.run(reqs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        syncs = sum(SYNC_WARNING in str(w.message) for w in caught)
+    else:
+        done = sched.run(reqs)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    if len(done) != len(prompts) or sched.shed or sched.failed:
+        fail(f"{label}: {len(done)} of {len(prompts)} requests completed")
+    if any(len(r.tokens) != NEW_TOKENS for r in done):
+        fail(f"{label}: a request ended short of {NEW_TOKENS} tokens")
+    return {"sched": sched, "streams": {r.rid: list(r.tokens) for r in done},
+            "wall_s": wall, "launches": counts, "host_syncs": syncs,
+            "decode_steps": sched.decode_steps, "prefills": sched.prefills,
+            "materializations": sched.materializations,
+            "decode_step_p50_ms": 1e3 * float(np.median(sched.step_times)),
+            "tokens_per_s": sum(len(r.tokens) for r in done) / wall}
+
+
+def _summary(run: dict) -> dict:
+    return {k: v for k, v in run.items() if k not in ("sched", "streams")}
+
+
+def _transfer_ms(kv) -> dict:
+    """Median device ms and GB/s of the tier's spills and refills (CUDA
+    events recorded around each)."""
+    out = {}
+    for direction, rows in kv.transfer_times().items():
+        if rows:
+            ms = float(np.median([m for _, m in rows]))
+            rate = float(np.median([b / (m * 1e-3) for b, m in rows if m > 0]))
+            out[direction] = {"count": len(rows), "median_ms": ms,
+                              "median_bytes": float(np.median(
+                                  [b for b, _ in rows])),
+                              "median_GBps": rate / 1e9}
+    return out
+
+
+def p12_tier(gc, params, prompts, streams: dict, seed: int,
+             host_bw: float, phase3: dict) -> dict:
+    """12a: the tiered cache at 132 device data pages, int8 and bf16;
+    `phase3` holds phase 3's runs by KV dtype."""
+    out = {}
+    for kv in ("auto", "int8"):
+        t_leg = time.perf_counter()
+        label = f"12a {kv} tiered"
+        eng = p12_engine(gc, params, kv, seed, kv_host_pages=P12_HOST_PAGES)
+        ms = eng.memory_stats()
+        if ms["kv_pool_pages"] != SLOTS * P12_PAGES_PER_SLOT - \
+                P12_HOST_PAGES + 1 or \
+                ms["actual_kv_cache_bytes"] != ms["predicted_kv_cache_bytes"] \
+                or ms["actual_kv_host_bytes"] != ms["predicted_kv_host_bytes"]:
+            fail(f"{label}: memory_stats {ms}")
+        run = p12_serve(eng, prompts, label, count_syncs=True)
+        sched, kvc = run["sched"], eng.kv
+        ts = kvc.tier_stats()
+        joins = ts["kv_prefetch_hits"] + ts["kv_prefetch_stalls"]
+        if run["streams"] != streams[kv]:
+            diff = [r for r in run["streams"]
+                    if run["streams"][r] != streams[kv][r]]
+            fail(f"{label}: streams differ from phase 3's in requests {diff}")
+        if ts["kv_spills"] < P12_MIN_TIER_MOVES or \
+                joins < P12_MIN_TIER_MOVES or joins != ts["kv_refills"]:
+            fail(f"{label}: tier stats {ts}")
+        deq = run["launches"]["dequant_decode_attention"]
+        if kv == "int8" and deq != LAYERS * sched.decode_steps:
+            fail(f"{label}: {deq} dequant launches for "
+                 f"{sched.decode_steps} decode steps")
+        if kv == "auto" and deq:
+            fail(f"{label}: the bf16 cache launched the dequant kernel")
+        if len(kvc.free_pages) != kvc.spec.pool_pages - 1 or \
+                len(kvc.free_host_pages) != P12_HOST_PAGES or sched.parked:
+            fail(f"{label}: pages not back: {len(kvc.free_pages)} device, "
+                 f"{len(kvc.free_host_pages)} host free")
+        want_syncs = sched.materializations + sched.prefills + kvc.host_syncs
+        if run["host_syncs"] != want_syncs:
+            fail(f"{label}: {run['host_syncs']} host syncs, want "
+                 f"{sched.materializations} materializations + "
+                 f"{sched.prefills} prefills + {kvc.host_syncs} spills")
+        leg = {"run": _summary(run), "tier": ts, "memory": ms,
+               "transfers": _transfer_ms(kvc), "host_bw_GBps": host_bw / 1e9,
+               "health": eng.health_report()}
+        short = [p[:P12_PROFILE_PROMPT] for p in prompts]
+        leg["profile_tiered"] = profile_engine(eng, params, short, False,
+                                               P12_PROFILE_STEPS)
+        del eng, sched, run
+        collect_garbage()
+        torch.cuda.empty_cache()
+        flat = p12_engine(gc, params, kv, seed)
+        base = p12_serve(flat, prompts, f"12a {kv} untiered")
+        if base["streams"] != streams[kv]:
+            fail(f"12a {kv} untiered: streams differ from phase 3's")
+        leg["untiered"] = _summary(base)
+        leg["profile_untiered"] = profile_engine(flat, params, short, False,
+                                                 P12_PROFILE_STEPS)
+        del flat, base
+        collect_garbage()
+        torch.cuda.empty_cache()
+        nan = {"median_ms": float("nan"), "median_GBps": float("nan")}
+        tr = {d: leg["transfers"].get(d, nan) for d in ("spill", "prefetch")}
+        pt, pu = leg["profile_tiered"]["decode_step"], \
+            leg["profile_untiered"]["decode_step"]
+        log(f"[{label}] pool {ms['kv_pool_pages']} pages "
+            f"({ms['actual_kv_cache_bytes'] / 2**20:.1f} MiB), host "
+            f"{ms['actual_kv_host_bytes'] / 2**20:.1f} MiB; spills "
+            f"{ts['kv_spills']} ({ts['kv_spilled_bytes'] / 2**20:.1f} MiB), "
+            f"refills {ts['kv_refills']} "
+            f"({ts['kv_refilled_bytes'] / 2**20:.1f} MiB), hits "
+            f"{ts['kv_prefetch_hits']}, stalls "
+            f"{ts['kv_prefetch_stalls']}; host syncs "
+            f"{leg['run']['host_syncs']} = "
+            f"{leg['run']['materializations']} + "
+            f"{leg['run']['prefills']} + {ts['kv_spills']}")
+        log(f"[{label}] spill {tr['spill']['median_ms']:.3f} ms "
+            f"({tr['spill']['median_GBps']:.2f} GB/s), refill "
+            f"{tr['prefetch']['median_ms']:.3f} ms "
+            f"({tr['prefetch']['median_GBps']:.2f} GB/s) a slot, pinned "
+            f"host_bw {host_bw / 1e9:.2f} GB/s; decode step p50 "
+            f"{leg['run']['decode_step_p50_ms']:.2f} ms tiered, "
+            f"{leg['untiered']['decode_step_p50_ms']:.2f} untiered; "
+            f"{leg['run']['decode_steps']} against "
+            f"{leg['untiered']['decode_steps']} steps, "
+            f"{leg['run']['tokens_per_s']:.1f} against "
+            f"{leg['untiered']['tokens_per_s']:.1f} tokens/s; profiled step "
+            f"(8 slots of {P12_PROFILE_PROMPT}-token prompts) wall "
+            f"{pt.get('wall_ms_per_call', float('nan')):.2f} / "
+            f"{pu.get('wall_ms_per_call', float('nan')):.2f} ms, busy "
+            f"{pt.get('device_busy_ms_per_call', float('nan')):.3f} / "
+            f"{pu.get('device_busy_ms_per_call', float('nan')):.3f} ms")
+        b3 = phase3.get(kv, {})
+        b3p = b3.get("profile", {}).get("decode_step", {})
+        leg["phase3"] = {"decode_step_p50_ms": b3.get("decode_step_p50_ms"),
+                         "profile_decode_step": b3p}
+        leg["wall_s"] = time.perf_counter() - t_leg
+        log(f"[{label}] phase 3's run: decode step p50 "
+            f"{b3.get('decode_step_p50_ms', float('nan')):.2f} ms, profiled "
+            f"step (full prompts) wall "
+            f"{b3p.get('wall_ms_per_call', float('nan')):.2f} ms, busy "
+            f"{b3p.get('device_busy_ms_per_call', float('nan')):.3f} ms; "
+            f"leg {leg['wall_s']:.1f} s")
+        out[kv] = leg
+    return out
+
+
+def p12_snapshot(cm, root: str, step: int, params=None) -> str:
+    from flexflow_tpu_torch.runtime.resilience import save_durable
+
+    if params is not None:
+        cm.load_params(params)
+    cm._iteration = step
+    return save_durable(cm, root, block=True)
+
+
+def p12_trace(engine, prompts, streams: dict, tdir: str) -> dict:
+    """12c: phase 3's int8 run with tracing off, on, on, off (the on runs
+    export the offered load)."""
+    from flexflow_tpu_torch.serving import tracefmt
+
+    runs, path = [], os.path.join(tdir, "trace.jsonl")
+    for i, on in enumerate((False, True, True, False)):
+        engine.cfg.serve_trace_out = path if on else ""
+        run = p12_serve(engine, prompts,
+                        f"12c tracing {'on' if on else 'off'}", reqtrace=on)
+        if run["streams"] != streams["int8"]:
+            fail(f"12c run {i}: streams differ from phase 3's int8 streams")
+        if on:
+            fracs = [tr["accounted_frac"] for tr in run["sched"].tracer.ring]
+            if len(fracs) != len(prompts) or min(fracs) < 0.95:
+                fail(f"12c: stage accounting {min(fracs)} over "
+                     f"{len(fracs)} traces")
+            run["min_accounted_frac"] = min(fracs)
+            trace = tracefmt.load_trace(path)
+            back = tracefmt.records_to_requests(trace.records)
+            got = [(r.rid, r.prompt, r.max_new_tokens, r.arrival_s,
+                    r.priority, r.deadline_s) for r in back]
+            want = [(i, p, NEW_TOKENS, 0.0, 1, None)
+                    for i, p in enumerate(prompts)]
+            if got != want or trace.skipped:
+                fail("12c: the exported trace does not replay to the "
+                     "same requests")
+            run["stages"] = sorted({s["stage"] for tr in
+                                    run["sched"].tracer.ring
+                                    for s in tr["stages"]})
+        else:
+            if run["sched"].tracer is not None:
+                fail("12c: tracing off still holds a tracer")
+        runs.append(run)
+    engine.cfg.serve_trace_out = ""
+    if len({r["materializations"] for r in runs}) != 1:
+        fail(f"12c: materializations {[r['materializations'] for r in runs]}")
+    out = {"runs": [_summary(r) for r in runs],
+           "stages": runs[1]["stages"],
+           "min_accounted_frac": min(r["min_accounted_frac"]
+                                     for r in runs if "stages" in r)}
+    log("[12c] tracing off/on/on/off: decode step p50 " + ", ".join(
+        f"{r['decode_step_p50_ms']:.2f}" for r in runs) + " ms, tokens/s " +
+        ", ".join(f"{r['tokens_per_s']:.1f}" for r in runs) +
+        f"; materializations {runs[0]['materializations']} each; stages "
+        f"{out['stages']}; min accounted {out['min_accounted_frac']:.4f}")
+    return out
+
+
+def p12_swap(engine, gc, params, prompts, streams: dict, seed: int,
+             root: str) -> dict:
+    """12b: two durable snapshots (A: phase 3's params, B: A perturbed from
+    the seed), a mid-run swap to B, rollback to A and its pin, unpin, and
+    a snapshot of another depth rejected while serving goes on."""
+    from flexflow_tpu_torch import SGDOptimizer
+    from flexflow_tpu_torch import telemetry as tel
+
+    live, stage = os.path.join(root, "live"), os.path.join(root, "stage")
+    _, _, cm = gpt2_train_model(seed, LAYERS, "bfloat16",
+                                SGDOptimizer(lr=SGD_LR))
+    gen = torch.Generator().manual_seed(seed + 12)
+    a = {n: {w: t.float() for w, t in d.items()} for n, d in params.items()}
+    b = {n: {w: t + 0.02 * t.abs().mean() * torch.randn(
+        t.shape, generator=gen).to(t.device) for w, t in d.items()}
+        for n, d in a.items()}
+    t0 = time.perf_counter()
+    p12_snapshot(cm, live, 1, a)
+    staged_b = p12_snapshot(cm, stage, 2, b)
+    del cm
+    collect_garbage()
+    torch.cuda.empty_cache()
+    write_s = time.perf_counter() - t0
+    engine.watch(live, poll_interval_s=0.0)
+    if not engine.poll_swap(force=True) or engine.active_version != 1:
+        fail("12b: the engine did not take snapshot A")
+    # B lands in the watched root after the first admission wave
+    moved, swap_at = {}, {}
+    prefill, poll = engine.prefill, engine.poll_swap
+
+    def prefill_then_publish(p, inputs):
+        out = prefill(p, inputs)
+        if not moved:
+            os.replace(staged_b,
+                       os.path.join(live, os.path.basename(staged_b)))
+            moved["done"] = True
+        return out
+
+    def timed_poll(force=False):
+        swapped = poll(force)
+        if swapped:
+            swap_at.setdefault("t", time.perf_counter())
+        return swapped
+    engine.prefill, engine.poll_swap = prefill_then_publish, timed_poll
+    try:
+        mid = p12_serve(engine, prompts, "12b mid-run swap")
+    finally:
+        engine.prefill, engine.poll_swap = prefill, poll
+    sched = mid["sched"]
+    if sched.stats["swaps"] != 1 or engine.active_version != 2 or \
+            "t" not in swap_at:
+        fail(f"12b: swaps {sched.stats['swaps']}, version "
+             f"{engine.active_version}")
+    t_swap = swap_at["t"] - sched._t0
+    after = sorted(r.rid for r in sched.completed if r.admit_s > t_swap)
+    fresh = p12_engine(gc, b, "int8", seed)
+    b_run = p12_serve(fresh, prompts, "12b fresh engine on B")
+    del fresh
+    collect_garbage()
+    torch.cuda.empty_cache()
+    if not after or any(mid["streams"][r] != b_run["streams"][r]
+                        for r in after):
+        fail(f"12b: requests admitted after the swap {after} differ from "
+             "a fresh engine on B")
+    lat_ms, nbytes = 1e3 * engine.swap_stats.latencies_s[-1], \
+        engine.swap_bytes
+    # rollback to A, pinned
+    if engine.rollback() != 1:
+        fail("12b: rollback did not re-pin A")
+    ra = p12_serve(engine, prompts, "12b rolled back to A")
+    if ra["streams"] != streams["int8"] or engine.poll_swap(force=True):
+        fail("12b: rollback streams are not A's, or the pin let a swap in")
+    engine.unpin()
+    if not engine.poll_swap(force=True) or engine.active_version != 2:
+        fail("12b: unpin did not bring B back")
+    rb = p12_serve(engine, prompts, "12b unpinned to B")
+    if rb["streams"] != b_run["streams"]:
+        fail("12b: after unpin the streams are not B's")
+    # another depth: rejected while serving goes on
+    _, _, small = gpt2_train_model(seed, P12_OTHER_DEPTH, "bfloat16",
+                                   SGDOptimizer(lr=SGD_LR))
+    p12_snapshot(small, live, 3)
+    del small
+    tdir = os.path.join(root, "tel")
+    tel.configure(tdir)
+    try:
+        rej = p12_serve(engine, prompts, "12b mismatched snapshot")
+        tel.flush()
+        evs = tel.read_events(tdir)
+    finally:
+        tel.shutdown()
+    rejected = [e for e in evs if e["name"] == "serve/swap_rejected"]
+    if len(rejected) != 1 or engine.active_version != 2 or \
+            rej["streams"] != b_run["streams"] or \
+            engine.swap_stats.rejected != 1:
+        fail(f"12b: the other depth's snapshot: {len(rejected)} rejections, "
+             f"version {engine.active_version}")
+    engine._watch_root = None
+    out = {"snapshot_write_s": write_s, "swap_latency_ms": lat_ms,
+           "swap_bytes": nbytes, "after_swap_rids": after,
+           "mid_run": _summary(mid), "rejection": rejected[0]["args"],
+           "swap_stats": engine.swap_stats.report(),
+           "health": engine.health_report()}
+    log(f"[12b] snapshots A and B written in {write_s:.1f} s; one mid-run "
+        f"swap to B in {lat_ms:.1f} ms ({nbytes / 2**20:.1f} MiB placed), "
+        f"{len(after)} requests admitted after it equal a fresh engine on "
+        f"B; rollback to A pinned, unpin to B; the {P12_OTHER_DEPTH}-layer "
+        f"snapshot "
+        f"rejected: {rejected[0]['args'].get('error', '')[:120]!r}")
+    return out
+
+
+def p12_reports(tier: dict, swap: dict, engine, trace: dict) -> dict:
+    """12d: health reports (the KV tier's and the swap panels) and the
+    serving op attribution of prefill and decode."""
+    med = trace["runs"][0]["decode_step_p50_ms"] / 1e3
+    att = engine.op_attribution(step_time_s=med)
+    out = {"kv_tier": {kv: leg["health"]["serving"]["kv_tier"]
+                       for kv, leg in tier.items()},
+           "swap": swap["health"]["serving"],
+           "watermarks": swap["health"]["watermarks"]}
+    from flexflow_tpu_torch.attribution import format_report
+    for kv, panel in out["kv_tier"].items():
+        log(f"[12d] kv_tier ({kv}): {panel}")
+    log(f"[12d] swap panel: " + json.dumps(
+        {k: v for k, v in out["swap"].items() if k not in ("slo",)},
+        default=str))
+    log(f"[12d] watermark: {out['watermarks']}")
+    for tag, rep in att.items():
+        log(f"[12d] {tag}: {len(rep['rows'])} ops, measured "
+            f"{1e3 * rep['measured_total_s']:.3f} ms")
+        for line in format_report(rep, top=6):
+            log(f"  {line}")
+        out[tag] = {"rows": [{k: r[k] for k in ("layer", "op", "predicted_s",
+                                                "measured_s", "attributed_s",
+                                                "bound")}
+                             for r in rep["rows"][:12]],
+                    "measured_total_s": rep["measured_total_s"],
+                    "coverage": rep["coverage"]}
+    return out
+
+
+def phase12(gc, params, prompts, streams: dict, seed: int,
+            base: dict) -> dict:
+    """Phase 12 on phase 3's weights, prompts and greedy streams (`base`:
+    phase 3's runs by KV dtype), in a temporary directory removed at the
+    end."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="ff_p12_")
+    walls = {}
+    try:
+        host_bw = host_copy_rate()
+        out = {"tier": p12_tier(gc, params, prompts, streams, seed, host_bw,
+                                base)}
+        walls["12a"] = time.perf_counter() - t_phase
+        collect_garbage()
+        torch.cuda.empty_cache()
+        # the engine's watermark reads the allocator's peak from here
+        torch.cuda.reset_peak_memory_stats()
+        engine = p12_engine(gc, params, "int8", seed)
+        t0 = time.perf_counter()
+        out["trace"] = p12_trace(engine, prompts, streams, root)
+        walls["12c"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["swap"] = p12_swap(engine, gc, params, prompts, streams, seed,
+                               root)
+        walls["12b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["reports"] = p12_reports(out["tier"], out["swap"], engine,
+                                     out["trace"])
+        walls["12d"] = time.perf_counter() - t0
+        del engine
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    collect_garbage()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    out["walls_s"] = walls
+    log(f"[phase 12] {out['wall_s']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in walls.items()) + ")")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3991,6 +4486,9 @@ def main() -> None:
     # ---- 8. speculative serving and SLO-aware admission, on phase 3's
     # weights, prompts and streams
     spec = phase8(gc, params, prompts, streams, args.seed)
+    # phase 12 runs last on these weights: a host copy until then
+    params_host = {n: {w: t.cpu() for w, t in d.items()}
+                   for n, d in params.items()}
     del params
     torch.cuda.empty_cache()
 
@@ -4086,6 +4584,17 @@ def main() -> None:
     health11 = phase11(args.seed)
     health11["serving"] = serve_telemetry
 
+    # ---- 12. the tiered KV cache, hot-swap and rollback, request tracing,
+    # the engine's reports, on phase 3's weights, prompts and streams
+    collect_garbage()
+    torch.cuda.empty_cache()
+    params = {n: {w: t.to("cuda") for w, t in d.items()}
+              for n, d in params_host.items()}
+    serving12 = phase12(gc, params, prompts, streams, args.seed,
+                        {r["kv_cache_dtype"]: r for r in runs})
+    del params, params_host
+    torch.cuda.empty_cache()
+
     # launches on the main paths: both serving runs, the 12 Adam training
     # steps and the Adam fit epoch, the 12 padded-vocab SGD steps and the
     # accum_steps=2 fit epoch, each counted from 0 just before it ran
@@ -4134,6 +4643,13 @@ def main() -> None:
     for r in health11["halt"]:
         paths[f"p11d_halt_k{r['k']}"] = r["launches"]
     paths["p11f_serve_int8_telemetry"] = serve_telemetry["launches"]
+    for kv, leg in serving12["tier"].items():
+        paths[f"p12a_serve_{kv}_tiered"] = leg["run"]["launches"]
+        paths[f"p12a_serve_{kv}_untiered"] = leg["untiered"]["launches"]
+    for i, r in enumerate(serving12["trace"]["runs"]):
+        paths[f"p12c_serve_int8_run{i}"] = r["launches"]
+    paths["p12b_serve_int8_mid_run_swap"] = \
+        serving12["swap"]["mid_run"]["launches"]
     for r in rows:
         causal = r.get("causal")
         counted = (paths if causal else paths9 if causal is False
@@ -4156,6 +4672,7 @@ def main() -> None:
     log(json.dumps({"bench_workloads": bench}))
     log(json.dumps({"graph": graph}))
     log(json.dumps({"health": health11}, default=str))
+    log(json.dumps({"serving12": serving12}, default=str))
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -287,7 +287,8 @@ def build_report(items: List[Dict[str, Any]],
                  inference: bool = False,
                  tag: Optional[str] = None,
                  device=None,
-                 compute_dtype: str = "float32") -> Dict[str, Any]:
+                 compute_dtype: str = "float32",
+                 state_fn=None) -> Dict[str, Any]:
     """Assemble the attribution report (JAX's arguments and keys).
 
     items: one dict per placed op, {"layer", "cand", "machine",
@@ -301,9 +302,12 @@ def build_report(items: List[Dict[str, Any]],
     "measure". inference: forward only (serving), priced on the
     roofline's forward leg. tag: the op/attr events' "source". device and
     compute_dtype: where and in what dtype MeasuredCost times the ops
-    (the compile's). `coverage`: on the trace path the share of the
-    trace's device time credited to a layer; on the measure path the
-    isolated times' sum over the step (JAX's).
+    (the compile's); with `inference` it times the forward only.
+    state_fn(layer): the lowering state a measured op reads (the serving
+    engine's synthetic paged cache for a decode attention). `coverage`:
+    on the trace path the share of the trace's device time credited to a
+    layer; on the measure path the isolated times' sum over the step
+    (JAX's).
     """
     from flexflow_tpu_torch.search.measure import MeasuredCost
 
@@ -337,7 +341,9 @@ def build_report(items: List[Dict[str, Any]],
             mcs[fp] = MeasuredCost(machine, repeats=measure_repeats,
                                    warmup=measure_warmup, cache_dir="",
                                    device=device,
-                                   compute_dtype=compute_dtype)
+                                   compute_dtype=compute_dtype,
+                                   forward_only=inference,
+                                   state_fn=state_fn)
         return mcs[fp]
 
     rows: List[Dict[str, Any]] = []

@@ -113,6 +113,26 @@ class FFConfig:
     serve_decode_timeout_ms: float = 0.0
     serve_slo: str = ""
     serve_max_context: int = 0
+    # the rest of one-card serving (serving/{kv_cache,engine,scheduler,
+    # reqtrace,tracefmt}.py):
+    #   serve_watch_dir   - durable-checkpoint root the engine polls for
+    #                       newer committed snapshots to hot-swap ("" = off)
+    #   serve_reqtrace    - per-request stage tracing (serve/req/* spans,
+    #                       streaming histograms); on by default, it reads
+    #                       only timestamps the loop already took
+    #   kv_host_pages     - host-memory pages of the KV cache's cold tier;
+    #                       > 0 shrinks the device pool by as many (floored
+    #                       at one slot's worth) and lets the scheduler
+    #                       park slots on the host (0 = untiered)
+    #   kv_prefetch_ahead - decode steps a parked slot's refill is issued
+    #                       before its rejoin; less lead counts a stall
+    #   serve_trace_out   - write the offered load as a tracefmt JSONL
+    #                       trace at the end of a run ("" = off)
+    serve_watch_dir: str = ""
+    serve_reqtrace: bool = True
+    kv_host_pages: int = 0
+    kv_prefetch_ahead: int = 2
+    serve_trace_out: str = ""
     # training loop (compiler/compile.py): fit reads the loss to the host
     # every sync_every updates (0 = at epoch end only); accum_steps N > 1
     # makes every update one over N microbatches (fit(accum_steps=)
@@ -299,7 +319,7 @@ class FFConfig:
         p.add_argument("--max-batch-slots", type=int, default=8)
         p.add_argument("--serve-objective", type=str, default=U,
                        choices=("latency", "throughput"))
-        p.add_argument("--serve-watch-dir", type=str, default=U)
+        p.add_argument("--serve-watch-dir", type=str, default="")
         p.add_argument("--serve-ttft-budget-ms", type=float, default=0.0)
         p.add_argument("--serve-queue-cap", type=int, default=0)
         p.add_argument("--serve-decode-timeout-ms", type=float, default=0.0)
@@ -311,9 +331,9 @@ class FFConfig:
                        help='SLO objectives, e.g. "ttft_p99_ms=25,'
                             'per_token_p99_ms=10,availability=0.999"')
         p.add_argument("--serve-reqtrace",
-                       action=argparse.BooleanOptionalAction, default=U)
-        p.add_argument("--kv-host-pages", type=int, default=U)
-        p.add_argument("--kv-prefetch-ahead", type=int, default=U)
+                       action=argparse.BooleanOptionalAction, default=True)
+        p.add_argument("--kv-host-pages", type=int, default=0)
+        p.add_argument("--kv-prefetch-ahead", type=int, default=2)
         p.add_argument("--serve-max-context", type=int, default=0)
         p.add_argument("--serve-replicas", type=int, default=U)
         p.add_argument("--serve-fleet-topology", type=str, default=U,
@@ -322,7 +342,9 @@ class FFConfig:
         p.add_argument("--serve-router", type=str, default=U,
                        choices=("least_loaded", "round_robin"))
         p.add_argument("--serve-rollout-burn-max", type=float, default=U)
-        p.add_argument("--serve-trace-out", type=str, default=U)
+        p.add_argument("--serve-trace-out", type=str, default="",
+                       help="export the served load as a replayable "
+                            "tracefmt JSONL trace at serve end")
         p.add_argument("--twin-trace", type=str, default=U)
         p.add_argument("--twin-replicas", type=int, default=U)
         p.add_argument("--twin-out", type=str, default=U)
@@ -380,6 +402,11 @@ class FFConfig:
             serve_decode_timeout_ms=args.serve_decode_timeout_ms,
             serve_slo=args.serve_slo,
             serve_max_context=args.serve_max_context,
+            serve_watch_dir=args.serve_watch_dir,
+            serve_reqtrace=args.serve_reqtrace,
+            kv_host_pages=args.kv_host_pages,
+            kv_prefetch_ahead=args.kv_prefetch_ahead,
+            serve_trace_out=args.serve_trace_out,
             sync_every=args.sync_every,
             accum_steps=args.accum_steps,
             steps_per_dispatch=args.steps_per_dispatch,
@@ -419,16 +446,11 @@ _UNPORTED = {
     "export_dot": ("--compgraph", 6),
     "include_costs_dot_graph": ("--include-costs-dot-graph", 6),
     "serve": ("--serve", 7),
-    "serve_watch_dir": ("--serve-watch-dir", 5),
-    "serve_reqtrace": ("--serve-reqtrace", 5),
-    "kv_host_pages": ("--kv-host-pages", 5),
-    "kv_prefetch_ahead": ("--kv-prefetch-ahead", 5),
     "serve_replicas": ("--serve-replicas", 5),
     "serve_fleet_topology": ("--serve-fleet-topology", 5),
     "serve_prefill_replicas": ("--serve-prefill-replicas", 5),
     "serve_router": ("--serve-router", 5),
     "serve_rollout_burn_max": ("--serve-rollout-burn-max", 5),
-    "serve_trace_out": ("--serve-trace-out", 5),
     "twin_trace": ("--twin-trace", 5), "twin_replicas": ("--twin-replicas", 5),
     "twin_out": ("--twin-out", 5),
 }

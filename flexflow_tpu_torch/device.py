@@ -26,3 +26,15 @@ def to_device(x, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device)
     return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+
+def to_device_async(x, device) -> torch.Tensor:
+    """A copy of numpy array `x` on `device` that makes the host wait for
+    nothing: on a CUDA device through a fresh pinned buffer and a
+    non-blocking copy (the pinned allocator holds the buffer until the copy
+    has run, so `x` may change at once), on the CPU a plain copy."""
+    t = torch.from_numpy(np.array(x))
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return t
+    return t.pin_memory().to(dev, non_blocking=True)

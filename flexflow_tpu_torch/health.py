@@ -29,9 +29,13 @@ and serving SLOs (counterpart: flexflow_tpu/health.py).
     exceed the threshold). `availability=<frac>` budgets the outcomes
     other than "done" (sheds, failures and watchdog timeouts all count
     against it). `merge_slo_trackers` and `scaling_signal` read them.
+  * Serving swaps and the KV tier: `SwapStats` (the hot-swap ledger) and
+    `format_kv_tier` (the tiered cache's panel), read by the serving
+    engine's `health_report`.
 
 Telemetry events (cat "health"): health/goodput (per epoch),
-health/grad_spike, health/loss_spike, health/hbm; cat "error":
+health/grad_spike, health/loss_spike, health/hbm; cat "serve":
+serve/version; cat "error":
 health/nonfinite, health/halt.
 """
 
@@ -456,6 +460,79 @@ class WatermarkTracker:
                               warn_ratio)
         rep["samples"] = len(self.samples)
         return rep
+
+
+# ----------------------------------------------------------- serving swaps
+class SwapStats:
+    """Hot-swap bookkeeping of the serving engine: every swap or rollback
+    records its wall latency (the placement's device sync included) and
+    the version (training step) it activated, for
+    `health_report()["serving"]`; each emits a `serve/version` event."""
+
+    def __init__(self) -> None:
+        self.active_version: Optional[int] = None
+        self.swaps = 0
+        self.rollbacks = 0
+        self.rejected = 0          # snapshots refused (fingerprint/fault)
+        self.latencies_s: List[float] = []
+        self.last_swap_s: Optional[float] = None  # wall ts of last swap
+
+    def record_swap(self, version: Optional[int], latency_s: float,
+                    rollback: bool = False) -> None:
+        self.active_version = version
+        self.latencies_s.append(float(latency_s))
+        self.last_swap_s = time.time()
+        if rollback:
+            self.rollbacks += 1
+        else:
+            self.swaps += 1
+        if tel.enabled():
+            tel.event("serve/version", cat="serve",
+                      version=-1 if version is None else int(version),
+                      latency_s=float(latency_s), rollback=bool(rollback))
+
+    def record_rejected(self) -> None:
+        self.rejected += 1
+
+    def report(self) -> Dict[str, Any]:
+        lats = sorted(self.latencies_s)
+
+        def q(p: float) -> Optional[float]:
+            if not lats:
+                return None
+            return lats[min(len(lats) - 1, int(p * (len(lats) - 1) + 0.5))]
+
+        return {
+            "active_version": self.active_version,
+            "swaps": self.swaps,
+            "rollbacks": self.rollbacks,
+            "rejected": self.rejected,
+            "swap_p50_s": q(0.5),
+            "swap_p99_s": q(0.99),
+            "last_swap_unix_s": self.last_swap_s,
+        }
+
+
+def format_kv_tier(tier_stats: Dict[str, Any]) -> Dict[str, Any]:
+    """A PagedKVCache.tier_stats() snapshot as the health report's serving
+    panel: occupancy, transfer totals and the prefetch hit rate (hits /
+    (hits + stalls); 1.0 with no rejoin)."""
+    hits = int(tier_stats.get("kv_prefetch_hits", 0))
+    stalls = int(tier_stats.get("kv_prefetch_stalls", 0))
+    joins = hits + stalls
+    return {
+        "hot_pages": int(tier_stats.get("kv_hot_pages", 0)),
+        "cold_pages": int(tier_stats.get("kv_cold_pages", 0)),
+        "host_pages_total": int(tier_stats.get("kv_host_pages_total", 0)),
+        "parked_slots": int(tier_stats.get("kv_parked_slots", 0)),
+        "spills": int(tier_stats.get("kv_spills", 0)),
+        "refills": int(tier_stats.get("kv_refills", 0)),
+        "spilled_bytes": int(tier_stats.get("kv_spilled_bytes", 0)),
+        "refilled_bytes": int(tier_stats.get("kv_refilled_bytes", 0)),
+        "prefetch_hits": hits,
+        "prefetch_stalls": stalls,
+        "prefetch_hit_rate": (hits / joins) if joins else 1.0,
+    }
 
 
 # ------------------------------------------------------------ serving SLOs

@@ -23,7 +23,8 @@ silently arm nothing):
                         the wedged slot, the rest keep serving
   serve/kv_admit        KV page reservation at admission (one index per
                         request): a permanent fault fails that request
-  serve/param_swap      the hot-swap's snapshot read (hot-swap not ported)
+  serve/param_swap      the hot-swap's snapshot read: a permanent fault
+                        is a serve/swap_failed, the live version stays
 
 Plan grammar (`FF_FAULT_PLAN` or `--fault-plan`, comma-separated):
 

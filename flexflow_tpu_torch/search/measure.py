@@ -32,7 +32,7 @@ import copy
 import json
 import os
 import time
-from typing import TYPE_CHECKING, Dict, Optional, Tuple
+from typing import TYPE_CHECKING, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -79,7 +79,13 @@ class MeasuredCost:
     def __init__(self, machine: MachineSpec, repeats: int = 5,
                  warmup: int = 2, windows: int = 3,
                  cache_dir: Optional[str] = None, device=None,
-                 compute_dtype: str = "bfloat16"):
+                 compute_dtype: str = "bfloat16", forward_only: bool = False,
+                 state_fn: Optional[Callable[[Layer], dict]] = None):
+        # forward_only: time no backward (serving attribution; bwd is 0).
+        # state_fn(layer): the lowering state an op reads (a serving
+        # decode attention's paged cache), else none
+        self.forward_only = bool(forward_only)
+        self.state_fn = state_fn
         self.machine = machine
         self.repeats = repeats
         self.warmup = warmup
@@ -256,16 +262,20 @@ class MeasuredCost:
         local = _local_layer(layer, {w: tuple(t.shape)
                                      for w, t in weights.items()})
         lower = get_op_def(layer.op_type).lower
+        state = self.state_fn(layer) if self.state_fn is not None else {}
 
         def apply():
             return lower(local, ins, weights, LoweringCtx(
-                training=False, device=dev, compute_dtype=cast_to))
+                state=state, training=False, device=dev,
+                compute_dtype=cast_to))
 
         def run_fwd():
             with torch.no_grad():
                 apply()
 
         fwd = self._time(run_fwd)
+        if self.forward_only:
+            return fwd, 0.0
         # backward: autograd of the lowering wrt (weights, float inputs);
         # bwd = (forward + backward) time minus the forward time
         diff = [t for t in list(weights.values()) + ins

@@ -13,9 +13,9 @@ Policy, as in the JAX package:
   prefill program once ("prefill-then-join"), their K/V committed into
   the paged cache, and their first token (argmax of the logits at
   `lengths - 1`) recorded as time-to-first-token.
-- DECODE: between sync points the host dispatches up to `DISPATCH_AHEAD`
-  single-token steps without synchronizing: each step's argmax feeds the
-  next step as a device tensor. The window is capped at the smallest
+- DECODE: between sync points the host dispatches up to `dispatch_ahead`
+  (default 4) single-token steps without synchronizing: each step's argmax
+  feeds the next step as a device tensor. The window is capped at the smallest
   remaining token budget across active slots; an EOS finish inside a
   window is masked out of the committed KV advance
   (`sync_after(advances=...)`) and counted as `overdecode_tokens`.
@@ -48,16 +48,36 @@ Policy, as in the JAX package:
   freed), a decode escalation the wedged slot (the window dispatched
   before it is drained first). The engine keeps serving in every case.
 
+- TIERED KV (`kv_host_pages` > 0): a parked request keeps its slot id
+  while its K/V sits in the host tier. When pages are short at admission,
+  `_make_room` spills active slots (the largest remaining decode budget
+  first). At each sync point with no window in flight `_rotate` issues
+  refills for parked slots (in park order, as far as device pages allow)
+  and rejoins those whose refill has had `prefetch_ahead` decode steps
+  (or at once when nothing else is active, a counted stall). A rejoin
+  re-seeds the slot's next token with its last committed one, which keeps
+  the streams bitwise those of an untiered run.
+- HOT-SWAP: when the engine `watch`es a snapshot root, the loop calls
+  `engine.poll_swap()` only while no window is dispatched, so the swap's
+  pointer flip falls between decode steps (`stats["swaps"]`).
+- REQUEST TRACING (`serve_reqtrace`, on by default): a
+  `reqtrace.RequestTracer` sees only timestamps the loop already took at
+  its sync points, so it adds no host sync; its histograms are published
+  (`serve/hist`) at the end of a run.
+- TRACE EXPORT (`serve_trace_out`): the offered load is written as a
+  replayable `tracefmt` trace at the end of `run()`.
+
 Every outcome ends in one terminal record (`reqtrace.terminal_record`),
 which the engine's SLO tracker classifies and which rides the telemetry
 event of the outcome (`serve/request_done`, `_shed`, `_failed`; and
 `serve/request_admitted`, `serve/slot_evicted`, `serve/decode_timeout`,
+`serve/slot_parked`, `serve/slot_rejoined`, `serve/kv_prefetch_autotune`,
 the counters `serve/queue_depth`, `serve/active_slots`,
-`serve/overdecode_tokens`, `serve/spec_*`, and `serve/slo` at the end of
-a run), as in JAX. Not ported yet: request
-tracing, the host KV tier, hot-swap (`serve/param_swap`) and the fleet
-hooks. The constructor raises `NotImplementedError` where a caller asks
-for them.
+`serve/overdecode_tokens`, `serve/spec_*`, `serve/kv_tier_*`,
+`serve/kv_prefetch_*`, `serve/kv_spills`, and `serve/slo` at the end of a
+run), as in JAX. Not ported yet: the fleet's hooks (the arrival feed, the
+swap orchestration and the disaggregated handoff); `handoff=` raises
+`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -72,12 +92,13 @@ import numpy as np
 import torch
 
 from flexflow_tpu_torch import telemetry as tel
+from flexflow_tpu_torch.device import to_device_async
 from flexflow_tpu_torch.runtime.resilience import RetryPolicy, run_resilient
-from flexflow_tpu_torch.serving.kv_cache import POS_KEY, KVPoolExhausted
-from flexflow_tpu_torch.serving.reqtrace import terminal_record
+from flexflow_tpu_torch.serving.kv_cache import (POS_KEY, KVPoolExhausted,
+                                                 derive_prefetch_ahead,
+                                                 learned_kv_transfer_seconds)
+from flexflow_tpu_torch.serving.reqtrace import RequestTracer, terminal_record
 
-# decode steps dispatched between two host syncs (the JAX default)
-DISPATCH_AHEAD = 4
 _LOG = logging.getLogger("flexflow_tpu_torch")
 
 
@@ -123,6 +144,7 @@ def _urgency(r: Request):
 class ContinuousBatchingScheduler:
     def __init__(self, engine, params, prompt_inputs_fn: Callable,
                  step_inputs_fn: Callable, eos_id: Optional[int] = None,
+                 dispatch_ahead: int = 4,
                  ttft_budget_ms: Optional[float] = None,
                  queue_cap: Optional[int] = None,
                  decode_timeout_ms: Optional[float] = None,
@@ -130,9 +152,6 @@ class ContinuousBatchingScheduler:
                  retry_policy: Optional[RetryPolicy] = None,
                  reqtrace: Optional[bool] = None,
                  handoff: Optional[Callable] = None):
-        if reqtrace:
-            raise NotImplementedError("reqtrace: request tracing is not "
-                                      "ported yet")
         if handoff is not None:
             raise NotImplementedError("handoff: the fleet's disaggregated "
                                       "prefill is not ported yet")
@@ -143,7 +162,7 @@ class ContinuousBatchingScheduler:
         self.prompt_inputs_fn = prompt_inputs_fn
         self.step_inputs_fn = step_inputs_fn
         self.eos_id = eos_id
-        self.dispatch_ahead = DISPATCH_AHEAD
+        self.dispatch_ahead = max(1, int(dispatch_ahead))
         self.kv = engine.kv
         self.slots = engine.slots
         self.device = engine.device
@@ -174,6 +193,20 @@ class ContinuousBatchingScheduler:
                 "speculative scheduler: draft engine has no params (call "
                 "engine.draft.init() or engine.draft.load_params first)")
         self._accept_ema = 0.0
+        # tiered KV cache: prefetch_ahead is the hit/stall classifier and
+        # the lead the rotation aims for; a learned transfer time would
+        # re-derive it at the first measured decode step (none resolves in
+        # the port: the flag value stays)
+        self.tiered = bool(getattr(self.kv, "host_pages", 0))
+        self.prefetch_ahead = max(1, int(
+            getattr(cfg, "kv_prefetch_ahead", 2) or 2))
+        self._autotune_transfer_s: Optional[float] = None
+        self._autotuned = False
+        if self.tiered:
+            self._autotune_transfer_s = learned_kv_transfer_seconds(
+                cfg, self.kv.spec, quantized=self.kv.quantized,
+                machine=self.kv.machine)
+        self.parked: Dict[int, Request] = {}
         self.admission = AdmissionControl(
             seq=self.seq, max_context=self.max_context,
             queue_cap=self.queue_cap, ttft_budget_ms=self.ttft_budget_ms,
@@ -184,7 +217,7 @@ class ContinuousBatchingScheduler:
             "shed_queue_full": 0, "shed_ttft_budget": 0, "shed_deadline": 0,
             "shed_prompt_too_long": 0, "shed_over_max_context": 0,
             "failed": 0, "evicted_wedged": 0, "decode_timeouts": 0,
-            "overdecode_tokens": 0, "spec_rounds": 0,
+            "overdecode_tokens": 0, "swaps": 0, "spec_rounds": 0,
             "spec_drafted_tokens": 0, "spec_accepted_tokens": 0}
         self._ema_serve_ms = 0.0  # EMA of the prefill wall (shed estimator)
         # per-decode-step wall seconds at materialization granularity (a
@@ -193,7 +226,15 @@ class ContinuousBatchingScheduler:
         self.decode_steps = 0
         self.prefills = 0
         self.materializations = 0  # host syncs that drained decode work
+        # request tracing: no tracer at all when it is off
+        rt_on = (reqtrace if reqtrace is not None
+                 else bool(getattr(cfg, "serve_reqtrace", True)))
+        self.tracer: Optional[RequestTracer] = \
+            RequestTracer() if rt_on else None
         self.slo = getattr(engine, "slo", None)
+        # serve_trace_out: the offered load, exported at run() end
+        self.trace_out = str(getattr(cfg, "serve_trace_out", "") or "")
+        self._trace_arrivals: List[Request] = []
         self._t0 = time.perf_counter()
 
     def _now(self) -> float:
@@ -203,10 +244,12 @@ class ContinuousBatchingScheduler:
     def _terminal(self, req: Request, now_s: float, reason: str,
                   kv_pages: int = 0) -> Dict[str, Any]:
         """Every outcome ends here: the terminal record, classified against
-        the engine's SLO objectives."""
+        the engine's SLO objectives; it closes the request's trace."""
         rec = terminal_record(req, now_s, kv_pages, reason)
         if self.slo is not None:
             self.slo.observe(rec)
+        if self.tracer is not None:
+            self.tracer.on_terminal(req, now_s, rec)
         return rec
 
     # --------------------------------------------------------- degradation
@@ -240,6 +283,10 @@ class ContinuousBatchingScheduler:
                  now_s: float) -> None:
         """The shed-or-queue decision for one arrival
         (`fleet.AdmissionControl` decides, this sheds)."""
+        if self.tracer is not None:
+            self.tracer.on_submit(req, now_s)
+        if self.trace_out:
+            self._trace_arrivals.append(req)
         reason = self.admission.permanent_shed_reason(req)
         if reason is not None:
             self._shed(req, reason, now_s)
@@ -298,7 +345,10 @@ class ContinuousBatchingScheduler:
             need = (len(req.prompt) + req.max_new_tokens
                     + self.dispatch_ahead + self.spec_tokens)
             if not self.kv.can_admit(need):
-                break  # page backpressure: keep queued
+                # tiered: spill active slots to the host tier to make room
+                # before conceding backpressure
+                if not (self.tiered and self._make_room(need, active)):
+                    break  # page backpressure: keep queued
             slot = free[0]
             try:
                 run_resilient(
@@ -362,20 +412,27 @@ class ContinuousBatchingScheduler:
         self.prefills += 1
         # first token: argmax at each row's last real position, taken on
         # the device; the sync that brings it back is the TTFT
-        last = torch.from_numpy(np.maximum(lengths - 1, 0)).long().to(logits.device)
+        last = to_device_async(np.maximum(lengths - 1, 0).astype(np.int64),
+                               logits.device)
         rows = torch.arange(self.slots, device=logits.device)
         first_tok = logits[rows, last].argmax(dim=-1).cpu().numpy()
         t_first = time.perf_counter()
         serve_ms = 1e3 * (t_first - t_pre)
         self._ema_serve_ms = (serve_ms if not self._ema_serve_ms
                               else 0.5 * self._ema_serve_ms + 0.5 * serve_ms)
+        t_pre_off, t_first_off = t_pre - self._t0, t_first - self._t0
         for req in batch:
             first = int(first_tok[req.slot])
             req.tokens.append(first)
-            req.ttft_s = (t_first - self._t0) - req.arrival_s
-            req.admit_s = t_pre - self._t0
+            req.ttft_s = t_first_off - req.arrival_s
+            req.admit_s = t_pre_off
             next_host[req.slot, 0] = first
             active[req.slot] = req
+            if self.tracer is not None:
+                # the queue stage closes at the prefill dispatch, the
+                # prefill stage at the TTFT sync: both times taken above
+                self.tracer.on_admit(req, t_pre_off, t_first_off,
+                                     wave=self.prefills)
             tel.event("serve/request_admitted", cat="serve", rid=req.rid,
                       slot=req.slot, prompt_len=int(lengths[req.slot]),
                       priority=req.priority, ttft_s=req.ttft_s,
@@ -393,6 +450,118 @@ class ContinuousBatchingScheduler:
         self.kv.push()
         if self._spec:
             self.draft.kv.push()
+
+    # ---------------------------------------------------------- tier rotation
+    def _park(self, slot: int, active: Dict[int, Request]) -> None:
+        """Spill one active slot to the host tier. Called at sync points
+        only (the window was just materialized), so the request's tokens
+        and the cache's position mirror agree on the committed extent."""
+        req = active.pop(slot)
+        self.kv.spill(slot, self.decode_steps)
+        if self._spec:
+            self.draft.kv.spill(slot, self.decode_steps)
+        self.parked[slot] = req
+        tel.event("serve/slot_parked", cat="serve", rid=req.rid, slot=slot,
+                  tokens=len(req.tokens))
+
+    def _make_room(self, need: int, active: Dict[int, Request]) -> bool:
+        """Spill active slots (the largest remaining decode budget first:
+        the request farthest from finishing gives up its device pages)
+        until `need` pages fit. The spills' tables are published at once,
+        so a failed admission afterwards never leaves a parked slot active
+        on the device."""
+        spilled = False
+        while not self.kv.can_admit(need):
+            cands = [s for s in active
+                     if self.kv.can_spill(s)
+                     and (not self._spec or self.draft.kv.can_spill(s))]
+            if not cands:
+                break
+            slot = max(cands, key=lambda s: (
+                active[s].max_new_tokens - len(active[s].tokens), -s))
+            self._park(slot, active)
+            spilled = True
+        if spilled:
+            self.kv.push()
+            if self._spec:
+                self.draft.kv.push()
+        return self.kv.can_admit(need)
+
+    def _rotate(self, active: Dict[int, Request], next_host: np.ndarray,
+                now_s: float) -> bool:
+        """One rotation round at a sync point: issue refills for parked
+        slots (in park order, as far as device pages allow), then rejoin
+        the slots whose refill has had `prefetch_ahead` decode steps, or
+        at once when nothing is active (a counted stall). Returns True when
+        the cache's tables changed."""
+        changed = False
+        for slot in list(self.parked):
+            if slot in self.kv._inflight:
+                continue
+            if not self.kv.prefetch(slot, self.decode_steps):
+                break  # device pages short: retry at the next sync point
+            if self._spec:
+                self.draft.kv.prefetch(slot, self.decode_steps)
+            changed = True
+        for slot in list(self.parked):
+            issued = self.kv._inflight.get(slot)
+            if issued is None:
+                continue
+            lead = self.decode_steps - issued
+            if lead < self.prefetch_ahead and active:
+                continue  # not ready and decode has other work
+            stalled = self.kv.join(slot, self.decode_steps,
+                                   self.prefetch_ahead)
+            if self._spec:
+                self.draft.kv.join(slot, self.decode_steps,
+                                   self.prefetch_ahead)
+            req = self.parked.pop(slot)
+            # the next step consumes the last committed token at the kept
+            # position: the spill path stays bitwise the resident one
+            next_host[slot, 0] = req.tokens[-1]
+            active[slot] = req
+            changed = True
+            if self.tracer is not None:
+                # the parked interval is its own stage of the request
+                self.tracer.stage(req, "kv_prefetch", now_s,
+                                  stalled=int(stalled),
+                                  pages=len(self.kv._slot_pages.get(slot, ())))
+            tel.event("serve/slot_rejoined", cat="serve", rid=req.rid,
+                      slot=slot, stalled=int(stalled), lead_steps=int(lead))
+        if changed:
+            self.kv.push()
+            if self._spec:
+                self.draft.kv.push()
+            self._emit_tier()
+        return changed
+
+    def _maybe_autotune(self, decode_step_s: float) -> None:
+        """The first measured decode step sets the lead from a learned
+        transfer time: ceil(transfer s / step s). With none (always, in
+        the port: no learned cost model yet) the flag value stays."""
+        if self._autotune_transfer_s is None or self._autotuned:
+            return
+        self._autotuned = True
+        tuned = derive_prefetch_ahead(self._autotune_transfer_s,
+                                      decode_step_s, self.prefetch_ahead)
+        tel.event("serve/kv_prefetch_autotune", cat="serve",
+                  learned_transfer_s=float(self._autotune_transfer_s),
+                  decode_step_s=float(decode_step_s),
+                  prefetch_ahead=int(tuned),
+                  fallback=int(self.prefetch_ahead))
+        self.prefetch_ahead = tuned
+
+    def _emit_tier(self) -> None:
+        ts = self.kv.tier_stats()
+        tel.counter("serve/kv_tier_hot_pages", ts["kv_hot_pages"],
+                    cat="serve")
+        tel.counter("serve/kv_tier_cold_pages", ts["kv_cold_pages"],
+                    cat="serve")
+        tel.counter("serve/kv_prefetch_hits", ts["kv_prefetch_hits"],
+                    cat="serve")
+        tel.counter("serve/kv_prefetch_stalls", ts["kv_prefetch_stalls"],
+                    cat="serve")
+        tel.counter("serve/kv_spills", ts["kv_spills"], cat="serve")
 
     # ------------------------------------------------------------- finish
     def _finish(self, req: Request, now_s: float) -> None:
@@ -421,7 +590,7 @@ class ContinuousBatchingScheduler:
         return False
 
     def _window_cap(self, active: Dict[int, Request]) -> int:
-        """Dispatch-window length: `DISPATCH_AHEAD`, capped at the smallest
+        """Dispatch-window length: `dispatch_ahead`, capped at the smallest
         remaining token budget across active slots."""
         if not active:
             return self.dispatch_ahead
@@ -451,6 +620,7 @@ class ContinuousBatchingScheduler:
         self.materializations += 1
         per_step = (t_now - window_t0) / steps
         self.step_times.extend([per_step] * steps)
+        self._maybe_autotune(per_step)
         adv = np.zeros((self.slots,), np.int32)
         finished: List[int] = []
         for slot, req in active.items():
@@ -463,6 +633,12 @@ class ContinuousBatchingScheduler:
                 finished.append(slot)
             else:
                 adv[slot] = steps
+        if self.tracer is not None:
+            # the drained window, charged to every slot that decoded in it
+            # at the time this sync already took
+            self.tracer.on_decode_window(
+                list(active.values()), t_now - self._t0, steps, per_step,
+                {slot: int(adv[slot]) for slot in active})
         self.kv.adopt(state)
         self.kv.sync_after(steps, advances=adv)
         for slot in finished:
@@ -490,7 +666,7 @@ class ContinuousBatchingScheduler:
         query reads it (query i sees keys up to pos+i)."""
         K = self.spec_tokens
         t0 = time.perf_counter()
-        last = torch.from_numpy(next_host).to(self.device)
+        last = to_device_async(next_host, self.device)
         t_pred_dev, ver_in, tstate, dstate = self.engine.spec_round_step(
             self.params, self.draft.params, self.kv.state,
             self.draft.kv.state, last, self.step_inputs_fn)
@@ -499,6 +675,7 @@ class ContinuousBatchingScheduler:
         t_pred, drafted = both[:, :K + 1], both[:, K + 1:]
         wall = time.perf_counter() - t0
         self.materializations += 1
+        t_end_off = (t0 + wall) - self._t0
         match = drafted == t_pred[:, :-1]                    # [slots, K]
         adv = np.zeros((self.slots,), np.int32)
         out = next_host.copy()
@@ -522,6 +699,10 @@ class ContinuousBatchingScheduler:
                 adv[slot] = ncommit
                 out[slot, 0] = committed[-1]
             max_commit = max(max_commit, ncommit)
+            if self.tracer is not None:
+                self.tracer.on_spec_round(
+                    req, t_end_off, drafted=K, committed=ncommit,
+                    rejected=K - min(j, K))
         for kv, st in ((self.kv, tstate), (self.draft.kv, dstate)):
             # re-publish the committed extent: the speculative advance on
             # the device (K+1 for the verify pass, K for the draft) rolls
@@ -545,6 +726,9 @@ class ContinuousBatchingScheduler:
         tel.counter("serve/spec_accept_rate", self._accept_ema, cat="serve")
         per_tok = wall / max_commit
         self.step_times.extend([per_tok] * max_commit)
+        self._maybe_autotune(per_tok)
+        if self.tracer is not None:
+            self.tracer.hists["decode_step"].add(per_tok, n=max_commit)
         self.decode_steps += K + 1
         self._watchdog(active, wall / (K + 1))
         return out
@@ -556,16 +740,18 @@ class ContinuousBatchingScheduler:
         fields filled. Shed requests land in `self.shed`, timed-out and
         failed ones in `self.failed`, each with its outcome and reason."""
         self._t0 = time.perf_counter()
+        if self.tracer is not None:
+            self.tracer.begin(self._t0)
         queue = deque(sorted(requests, key=lambda r: (r.arrival_s, r.rid)))
         waiting: List[Request] = []
         active: Dict[int, Request] = {}
         next_host = np.zeros((self.slots, 1), np.int32)
         state = self.kv.state
-        next_dev = torch.from_numpy(next_host).to(self.device)
+        next_dev = to_device_async(next_host, self.device)
         window_toks: List[torch.Tensor] = []  # dispatched, unmaterialized
         window_t0 = time.perf_counter()
 
-        while queue or waiting or active:
+        while queue or waiting or active or self.parked:
             now = self._now()
             while queue and queue[0].arrival_s <= now:
                 self._enqueue(queue.popleft(), waiting, now)
@@ -573,6 +759,7 @@ class ContinuousBatchingScheduler:
             tel.counter("serve/active_slots", len(active), cat="serve")
             want_sync = (len(window_toks) >= self._window_cap(active)
                          or (waiting and self.kv.free_slots())
+                         or bool(self.parked)
                          or not active)
             if want_sync and window_toks:
                 next_host = self._materialize(window_toks, state, active,
@@ -580,17 +767,41 @@ class ContinuousBatchingScheduler:
                 window_toks = []
                 state = self.kv.state
                 window_t0 = time.perf_counter()
+            if not window_toks and self.engine.watching:
+                # the swap's safe point: nothing dispatched holds params
+                if self.engine.poll_swap():
+                    self.params = self.engine.params
+                    self.stats["swaps"] += 1
+                    state = self.kv.state
+                    if self.tracer is not None:
+                        # mark it in every in-flight request's timeline
+                        self.tracer.on_swap(list(active.values()),
+                                            self._now(),
+                                            self.engine.active_version)
             if waiting:
                 self._shed_stale(waiting, self._now())
+            if self.parked and not window_toks:
+                # tier rotation before admission: rejoining slots claim
+                # device pages ahead of new arrivals (they are older)
+                self._rotate(active, next_host, self._now())
             if waiting and self.kv.free_slots():
                 if self._admit(waiting, active, next_host):
                     state = self.kv.state
-                    next_dev = torch.from_numpy(next_host).to(self.device)
+                    next_dev = to_device_async(next_host, self.device)
                     window_t0 = time.perf_counter()
+            if self.tiered and not window_toks:
+                # rotation and spills change the tables outside _admit's
+                # refresh; re-anchor only with no step in flight (then the
+                # cache's state and the host's tokens agree)
+                state = self.kv.state
+                next_dev = to_device_async(next_host, self.device)
             if not active:
                 if queue and not waiting:
-                    # open loop: idle until the next arrival
-                    time.sleep(max(0.0, queue[0].arrival_s - self._now()))
+                    # open loop: idle until the next arrival (short naps
+                    # when watching, so snapshot polls go on)
+                    wait = max(0.0, queue[0].arrival_s - self._now())
+                    time.sleep(min(wait, 0.05) if self.engine.watching
+                               else wait)
                 continue
             if self._spec:
                 # a round is its own sync point: no dispatch-ahead window
@@ -603,7 +814,7 @@ class ContinuousBatchingScheduler:
                     if active:
                         self._evict_wedged(active, "failed", self._now(), e)
                 state = self.kv.state
-                next_dev = torch.from_numpy(next_host).to(self.device)
+                next_dev = to_device_async(next_host, self.device)
                 continue
             inputs = self.step_inputs_fn(next_dev, state)
             try:
@@ -622,13 +833,39 @@ class ContinuousBatchingScheduler:
                 if active:
                     self._evict_wedged(active, "failed", self._now(), e)
                 state = self.kv.state
-                next_dev = torch.from_numpy(next_host).to(self.device)
+                next_dev = to_device_async(next_host, self.device)
                 window_t0 = time.perf_counter()
                 continue
             next_dev = torch.argmax(logits[:, -1, :], dim=-1).to(
                 torch.int32)[:, None]
             window_toks.append(next_dev)
             self.decode_steps += 1
+        if self.tiered:
+            # the final tier ledger, into telemetry and into stats
+            self._emit_tier()
+            self.stats.update(self.kv.tier_stats())
+        if self.tracer is not None:
+            self.tracer.emit_hists()
         if self.slo is not None and tel.enabled():
             tel.event("serve/slo", cat="serve", report=self.slo.report())
+        if getattr(self.engine.cfg, "profile_ops", False) and tel.enabled():
+            # profile_ops: this run's prefill and decode ops as op/attr
+            # rows, normalized by the run's own step times
+            try:
+                self.engine.op_attribution(
+                    step_time_s=(float(np.median(self.step_times))
+                                 if self.step_times else None),
+                    prefill_step_time_s=(self._ema_serve_ms / 1e3
+                                         if self._ema_serve_ms else None))
+            except Exception as e:  # noqa: BLE001 - a served run stands
+                _LOG.warning("serving op attribution failed: %r", e)
+        if self.trace_out and self._trace_arrivals:
+            from flexflow_tpu_torch.serving import tracefmt
+            tracefmt.save_trace(
+                self.trace_out,
+                tracefmt.requests_to_records(
+                    sorted(self._trace_arrivals,
+                           key=lambda r: (r.arrival_s, r.rid))),
+                meta={"source": "scheduler", "slots": self.slots,
+                      "seq": self.seq})
         return self.completed

@@ -1056,3 +1056,116 @@ def test_trace_credits_a_profiled_step_to_its_layers_on_card(tmp_path):
     step = rep["step_time_s"]
     assert abs(rep["attributed_total_s"] - step) / step <= \
         attribution.SUM_TOLERANCE
+
+
+def _tiered_int8_engine(host_pages, seed=0):
+    """GPT-2 at medium's head width (64) and 2 layers, int8 KV, 4 slots of
+    3 pages of 16 (seq 32, 16 new tokens)."""
+    m = FFModel(FFConfig(max_batch_slots=4, max_decode_len=16, kv_page_size=16,
+                         kv_cache_dtype="int8", kv_host_pages=host_pages,
+                         compute_dtype="bfloat16"))
+    build_gpt2(m, GPT2Config(vocab=512, seq=32, d_model=256, heads=4,
+                             layers=2, dropout=0.0), batch=4)
+    eng = compile_serving(m)
+    eng.init(seed=seed)
+    return eng
+
+
+@pytest.mark.cuda
+def test_pinned_spill_refill_through_dequant_on_card():
+    """A slot spilled to the pinned host tier and refilled into other
+    device pages holds its K/V bitwise, and the paged dequant kernel reads
+    the refilled pages to the same output as the never-spilled ones; a
+    tiered run's streams equal the untiered engine's bitwise."""
+    from flexflow_tpu_torch.kernels.dequant_attention import (
+        paged_dequant_decode_attention)
+    from flexflow_tpu_torch.serving import (ContinuousBatchingScheduler,
+                                            Request, gpt2_step_inputs)
+
+    dev = _cuda_or_skip()
+    eng = _tiered_int8_engine(host_pages=6)
+    kv = eng.kv
+    assert kv.spec.pool_pages == 7 and kv._host["h0_attn"]["k"].is_pinned()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    kv.admit(1, 20, 40)
+    kv.push()
+    pages = list(kv._slot_pages[1])
+    for n in kv.attn_layers:
+        for key, leaf in kv.state[n].items():
+            if leaf.dtype == torch.int8:
+                leaf.copy_(torch.randint(-127, 128, leaf.shape, generator=gen,
+                                         device=dev, dtype=torch.int8))
+            else:
+                leaf.copy_(torch.rand(leaf.shape, generator=gen, device=dev))
+    before = {n: {k: v[pages].clone() for k, v in kv.state[n].items()}
+              for n in kv.attn_layers}
+    q = torch.randn((4, 1, 4, 64), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+
+    def attend():
+        st = kv.state["h0_attn"]
+        return paged_dequant_decode_attention(
+            q, st["k"], st["k_scale"], st["v"], st["v_scale"],
+            kv.state["serve/page_table"], kv.state["serve/pos"],
+            scale=0.125)[1]
+    want = attend()
+    kv.spill(1, 0)
+    kv.push()
+    # another slot takes the freed pages, so the refill lands elsewhere
+    kv.admit(0, 30, 40)
+    assert kv.prefetch(1, 0) and kv.join(1, 2, 2) is False
+    kv.push()
+    torch.cuda.synchronize()
+    moved = list(kv._slot_pages[1])
+    assert set(moved).isdisjoint(pages)
+    for n in kv.attn_layers:
+        for k, v in kv.state[n].items():
+            assert torch.equal(v[moved], before[n][k]), (n, k)
+    assert torch.equal(attend(), want)
+    kv.evict(0)
+    kv.evict(1)
+    kv.push()
+
+    rng = np.random.default_rng(1)
+    prompts = [[int(t) for t in rng.integers(1, 512, size=n)]
+               for n in rng.integers(8, 32, size=8)]
+
+    def run(e):
+        s = ContinuousBatchingScheduler(e, e.params, gpt2_prompt_inputs,
+                                        gpt2_step_inputs)
+        done = s.run([Request(rid=i, prompt=p, max_new_tokens=16)
+                      for i, p in enumerate(prompts)])
+        return {r.rid: r.tokens for r in done}, s
+    flat = _tiered_int8_engine(host_pages=0)
+    before_launches = dequant_attention.launches
+    tiered, s = run(eng)
+    assert dequant_attention.launches > before_launches
+    assert s.stats["kv_spills"] > 0
+    assert tiered == run(flat)[0]
+
+
+@pytest.mark.cuda
+def test_refill_adds_no_host_sync_on_card():
+    """prefetch, join and the table push make no host sync (torch's sync
+    debug mode raises on one); the spill waits once for its copy."""
+    dev = _cuda_or_skip()
+    eng = _tiered_int8_engine(host_pages=6)
+    kv = eng.kv
+    kv.admit(2, 20, 40)
+    kv.push()
+    kv.state["h1_attn"]["v"].fill_(7)
+    kv.spill(2, 0)
+    assert kv.host_syncs == 1
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kv.push()
+        assert kv.prefetch(2, 3)
+        kv.push()
+        assert kv.join(2, 4, 2) is True       # one step of lead: a stall
+        kv.push()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    v = kv.state["h1_attn"]["v"][torch.as_tensor(kv._slot_pages[2],
+                                                 device=dev)]
+    assert bool((v == 7).all())
+    assert kv.tier_counters["kv_prefetch_stalls"] == 1

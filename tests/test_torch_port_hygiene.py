@@ -367,3 +367,41 @@ def test_telemetry_health_and_attribution_modules_load_no_jax():
                          cwd=REPO, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == str({n: [] for n in HEALTH_MODULES})
+
+
+# the rest of one-card serving: the tiered cache, hot-swap, request
+# tracing and replayable traces
+SERVING_MODULES = tuple(f"flexflow_tpu_torch.serving.{m}" for m in (
+    "kv_cache", "engine", "scheduler", "reqtrace", "tracefmt", "program"))
+
+
+def test_tier_swap_and_trace_modules_load_no_jax():
+    """The grown serving modules, each imported in turn into a fresh
+    interpreter, load neither JAX nor the JAX package."""
+    out = subprocess.run([sys.executable, "-c", _IMPORT_EACH,
+                          *SERVING_MODULES],
+                         cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == str({n: [] for n in SERVING_MODULES})
+
+
+def test_tiered_and_watching_engines_raise_without_cuda(monkeypatch,
+                                                         tmp_path):
+    """A tiered compile_serving, and one that watches a snapshot root from
+    the config, run on the GPU unless the caller passes device="cpu";
+    on the CPU the host tier is plain (unpinned) memory."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    root = str(tmp_path / "snaps")
+    for cfg in ({"kv_host_pages": 2}, {"serve_watch_dir": root},
+                {"kv_host_pages": 2, "serve_watch_dir": root}):
+        for dev in (None, "cuda"):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                compile_serving(_tiny_model(**cfg), device=dev)
+        eng = compile_serving(_tiny_model(**cfg), device="cpu")
+        assert eng.device.type == "cpu"
+        assert eng.watching == ("serve_watch_dir" in cfg)
+        if "kv_host_pages" in cfg:
+            assert eng.kv.host_pages == 2
+            assert not any(t.is_pinned() for d in eng.kv._host.values()
+                           for t in d.values())
+    assert not eng.poll_swap(force=True)    # an empty root: nothing to take

@@ -57,7 +57,7 @@ def test_lr_reaches_the_default_optimizer_as_in_jax():
 @pytest.mark.parametrize("argv,item", [
     (["--zero-sharding", "zero1"], 9), (["--mesh", "data=2"], 9),
     (["--auto-refit"], 8), (["--simulator-trace", "t.json"], 8),
-    (["--kv-host-pages", "8"], 5), (["--cost-model-path", "m.json"], 8),
+    (["--serve-replicas", "2"], 5), (["--cost-model-path", "m.json"], 8),
     (["--compgraph", "g.dot"], 6), (["--serve"], 7)])
 def test_unported_flags_raise_naming_their_item(argv, item):
     JFFConfig.parse_args(argv)          # the JAX package takes them
@@ -79,6 +79,20 @@ def test_item4_flags_parse_into_jax_fields(argv):
               "halt_on_nonfinite", "profiling", "profile_dir",
               "profile_ops"):
         assert getattr(pcfg, f) == getattr(jcfg, f), f
+
+
+@pytest.mark.parametrize("argv", [
+    [], ["--serve-watch-dir", "snaps", "--no-serve-reqtrace",
+         "--kv-host-pages", "24", "--kv-prefetch-ahead", "3",
+         "--serve-trace-out", "t.jsonl"], ["--serve-reqtrace"]])
+def test_item5_serving_flags_parse_into_jax_fields(argv):
+    """The tiered cache's, hot-swap's and tracing's flags parse into the
+    JAX package's fields, with its defaults (tracing on)."""
+    jcfg, pcfg = JFFConfig.parse_args(argv), FFConfig.parse_args(argv)
+    for f in ("serve_watch_dir", "serve_reqtrace", "kv_host_pages",
+              "kv_prefetch_ahead", "serve_trace_out"):
+        assert getattr(pcfg, f) == getattr(jcfg, f), f
+        assert getattr(FFConfig(), f) == getattr(JFFConfig(), f), f
 
 
 def test_choices_exit_as_in_jax_and_unknown_flags_are_ignored():
