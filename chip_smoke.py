@@ -315,6 +315,56 @@ Phases, each fatal on failure (nothing is caught to let the run exit 0):
         context), printed.
     The phase logs its wall time and each part's.
 
+13. The serving fleet and the capacity twin, run last on phase 3's
+    weights, prompts and greedy streams: two int8 engines of GPT-2
+    medium (8 slots, page 16), each with half of every slot's pages on
+    the host (264: the disaggregated handoff travels through the host
+    tier of every replica), serving phase 3's 16 prompts of 32 new
+    tokens; where arrivals are open loop they come at 50 requests/s by
+    `tracefmt.poisson_records` timing from the seed. Every launch counter
+    is set to 0 just before each run and read just after; each check is
+    fatal:
+    (a) a one-replica colocated `ServingFleet` against the plain
+        scheduler on the same engine, every request at time 0 (no count
+        then hangs on the clock): streams bitwise, the flash forward's
+        and the dequant decode's launches equal, host syncs (torch's
+        sync debug mode) equal;
+    (b) two replicas colocated (`least_loaded`) and disaggregated (one
+        prefill, one decode replica) on the open-loop trace: per request
+        the streams of both equal each other and phase 3's int8 streams;
+        disagg hands every request off exactly once (16 handoffs, 16
+        imports) with `kv_handoff_bytes` the pages each request was
+        admitted with x layers x the spec's page bytes; in both, the
+        dequant decode launches 24 x the replicas' decode steps and the
+        flash forward 24 x their prefills. Each handoff's export and
+        import (host copies) ms and GB/s are printed beside phase 12's
+        pinned host-to-device rate. The colocated run exports its trace
+        (`serve_trace_out`);
+    (c) the rolling swap: both replicas watch an empty root; a durable
+        snapshot of phase 3's params (step 2, by phase 12's snapshot
+        trainer) lands after the first prefill; replica 0 swaps, then
+        replica 1, no request is dropped and every stream is phase 3's.
+        Both engines carry a TTFT objective of 1 ms (every request
+        breaks it; the first run sets no burn ceiling). A second run with
+        `rollout_burn_max` 1 publishes step 3: replica 0 swaps and is
+        rolled back, the rollout freezes, and replica 1 never swaps
+        though it serves on after the rollback: the port's controller
+        holds replica 1 until replica 0's burn has been judged (a bake
+        the JAX controller lacks), and its count of held safe points is
+        printed. The `serve/fleet_rollout` events come in the
+        controller's order;
+    (d) scaling, reported only: aggregate decode tokens/s, TTFT p50 and
+        p99 at one and at two colocated replicas with the load per
+        replica held equal (16 requests, 50 a second, each), and each
+        one's device idle share from a profiled run of the same load;
+    (e) the twin against live: (b)'s colocated trace replayed through
+        `serving/twin.py` with costs from the live report
+        (`TwinCosts.resolve`) and the window overhead calibrated from the
+        live wall time: `validate(live, twin)` is printed; the twin must
+        complete every request and its report carry the live report's
+        keys (the error itself is a finding, not a gate).
+    The phase logs its wall time and each part's.
+
 The line before the last is `{"kernels": [...]}`; the last line is
 `{"ok": true, "device": {...}}`.
 """
@@ -322,6 +372,7 @@ The line before the last is `{"kernels": [...]}`; the last line is
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -4358,6 +4409,512 @@ def phase12(gc, params, prompts, streams: dict, seed: int,
     return out
 
 
+# --------------------------------- phase 13: the fleet and the twin
+# half of every slot's pages on the host: whatever a prefill replica
+# admitted onto its device pool fits its host tier when it hands it off,
+# and the device pools keep half (264 data pages + scratch)
+P13_HOST_PAGES = SLOTS * P12_PAGES_PER_SLOT // 2
+P13_RATE = 50.0             # open-loop arrivals a second, a replica
+P13_SLO = "ttft_p99_ms=1"   # (c)'s objective: every request breaks it
+P13_BURN_MAX = 1.0
+
+
+def p13_arrivals(seed: int, n: int = 0, rate: float = P13_RATE):
+    """Open-loop arrival offsets (REQUESTS of them unless `n`):
+    `tracefmt.poisson_records` timing."""
+    from flexflow_tpu_torch.serving import tracefmt
+
+    recs = tracefmt.poisson_records(np.random.default_rng(seed),
+                                    n or REQUESTS, rate, 2, 1, NEW_TOKENS)
+    return [r.arrival_ts for r in recs]
+
+
+def p13_requests(prompts, arrivals):
+    """Phase 3's prompts (cycled) arriving at `arrivals`, rid = index."""
+    from flexflow_tpu_torch.serving import Request
+
+    return [Request(rid=i, prompt=prompts[i % len(prompts)],
+                    max_new_tokens=NEW_TOKENS, arrival_s=float(a))
+            for i, a in enumerate(arrivals)]
+
+
+def p13_fleet(engines, **kw):
+    from flexflow_tpu_torch.serving import (ServingFleet, gpt2_prompt_inputs,
+                                            gpt2_step_inputs)
+
+    return ServingFleet(engines, gpt2_prompt_inputs, gpt2_step_inputs, **kw)
+
+
+def _idle_profile(fn, dev: torch.device) -> dict:
+    """One call of `fn` under torch.profiler recording the card's activity
+    only: the wall time, the device's busy time (the union of its kernel
+    intervals) and its idle share, read from the raw kineto events (a
+    whole serving run holds ~10^5 kernels). The profiler may drop events:
+    the busy time is a floor."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sync(dev)
+        t0 = time.perf_counter()
+        fn()
+        sync(dev)
+        wall_ns = 1e9 * (time.perf_counter() - t0)
+    spans = sorted((e.start_ns(), e.end_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return {"device": "not measured (the profiler saw no kernel)"}
+    busy, (cur_s, cur_e) = 0, spans[0]
+    for a, b in spans[1:]:
+        if a > cur_e:
+            busy, cur_s = busy + cur_e - cur_s, a
+        cur_e = max(cur_e, b)
+    busy += cur_e - cur_s
+    return {"wall_ms": wall_ns / 1e6, "device_busy_ms": busy / 1e6,
+            "device_idle_share": 1.0 - busy / wall_ns,
+            "kernels": len(spans)}
+
+
+def p13_serve(runner, reqs, label: str, count_syncs: bool = False,
+              profile: bool = False, **serve_kw) -> dict:
+    """One run of `runner` (a `ServingFleet`, or a plain scheduler) over
+    `reqs`, with every launch counter set to 0 just before it and read
+    just after; `count_syncs` counts the host syncs (torch's sync debug
+    mode), `profile` runs it under torch.profiler for the device's busy
+    time and idle share. Fails unless every request completes with
+    NEW_TOKENS tokens."""
+    import warnings
+
+    fleet = hasattr(runner, "replicas")
+    dev = torch.device("cuda")
+    box = {}
+
+    def call():
+        box["done"] = (runner.serve(reqs, **serve_kw) if fleet
+                       else runner.run(reqs))
+    sync(dev)
+    zero_launch_counts()
+    syncs, prof = None, None
+    t0 = time.perf_counter()
+    if count_syncs:
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                call()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        syncs = sum(SYNC_WARNING in str(w.message) for w in caught)
+    elif profile:
+        prof = _idle_profile(call, dev)
+    else:
+        call()
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    done = box["done"]
+    scheds = [h.sched for h in runner.replicas] if fleet else [runner]
+    if len(done) != len(reqs) or runner.shed or runner.failed:
+        fail(f"{label}: {len(done)} of {len(reqs)} requests completed, "
+             f"{len(runner.shed)} shed, {len(runner.failed)} failed")
+    if any(len(r.tokens) != NEW_TOKENS for r in done):
+        fail(f"{label}: a request ended short of {NEW_TOKENS} tokens")
+    ttft = np.array([r.ttft_s for r in done])
+    tokens = sum(len(r.tokens) for r in done)
+    out = {"runner": runner, "streams": {r.rid: list(r.tokens)
+                                         for r in done},
+           "requests": len(done), "wall_s": wall, "launches": counts,
+           "host_syncs": syncs, "tokens_per_s": tokens / wall,
+           "ttft_p50_ms": 1e3 * float(np.percentile(ttft, 50)),
+           "ttft_p99_ms": 1e3 * float(np.percentile(ttft, 99)),
+           "decode_steps": sum(s.decode_steps for s in scheds),
+           "prefills": sum(s.prefills for s in scheds),
+           "materializations": sum(s.materializations for s in scheds)}
+    if prof is not None:
+        out["profile"] = prof
+    return out
+
+
+def _p13_summary(run: dict) -> dict:
+    return {k: v for k, v in run.items() if k not in ("runner", "streams")}
+
+
+def p13_exact_launches(run: dict, label: str) -> None:
+    """The dequant decode once a layer every decode step, the flash
+    forward once a layer every prefill, summed over the replicas."""
+    got = run["launches"]
+    deq, fla = got["dequant_decode_attention"], got["flash_attention_fwd"]
+    if deq != LAYERS * run["decode_steps"] or \
+            fla != LAYERS * run["prefills"]:
+        fail(f"{label}: {deq} dequant launches for {run['decode_steps']} "
+             f"decode steps, {fla} flash launches for {run['prefills']} "
+             "prefills")
+
+
+def p13_same_streams(got: dict, want: dict, label: str) -> None:
+    bad = sorted(r for r in want if got.get(r) != want[r])
+    if len(got) != len(want) or bad:
+        fail(f"{label}: streams differ from phase 3's int8 streams in "
+             f"requests {bad}")
+
+
+def p13_identity(engine, prompts, want: dict) -> dict:
+    """13a: one colocated replica against the plain scheduler."""
+    from flexflow_tpu_torch.serving import (ContinuousBatchingScheduler,
+                                            gpt2_prompt_inputs,
+                                            gpt2_step_inputs)
+
+    at0 = [0.0] * len(prompts)
+    plain = p13_serve(ContinuousBatchingScheduler(
+        engine, engine.params, gpt2_prompt_inputs, gpt2_step_inputs),
+        p13_requests(prompts, at0), "13a plain", count_syncs=True)
+    one = p13_serve(p13_fleet([engine]), p13_requests(prompts, at0),
+                    "13a one replica", count_syncs=True)
+    p13_same_streams(plain["streams"], want, "13a plain")
+    if one["streams"] != plain["streams"]:
+        fail("13a: the one-replica fleet's streams differ from the plain "
+             "scheduler's")
+    for k in ("flash_attention_fwd", "dequant_decode_attention"):
+        if one["launches"][k] != plain["launches"][k]:
+            fail(f"13a: {k} launched {one['launches'][k]} times in the "
+                 f"fleet, {plain['launches'][k]} in the plain scheduler")
+    if one["host_syncs"] != plain["host_syncs"]:
+        fail(f"13a: {one['host_syncs']} host syncs in the fleet, "
+             f"{plain['host_syncs']} in the plain scheduler")
+    if one["runner"].replicas[0].thread is not None:
+        fail("13a: the one-replica fleet started a thread")
+    out = {"plain": _p13_summary(plain), "one_replica": _p13_summary(one)}
+    log(f"[13a] one replica = plain scheduler: streams bitwise, launches "
+        f"{one['launches']['flash_attention_fwd']} flash / "
+        f"{one['launches']['dequant_decode_attention']} dequant, host "
+        f"syncs {one['host_syncs']} each; {one['tokens_per_s']:.1f} "
+        f"against {plain['tokens_per_s']:.1f} tokens/s")
+    return out
+
+
+def _payload_bytes(payload) -> int:
+    return sum(int(t.numel() * t.element_size())
+               for d in payload["layers"].values() for t in d.values())
+
+
+def p13_topologies(engines, prompts, arrivals, want: dict, host_bw: float,
+                   trace_path: str) -> dict:
+    """13b: colocated (least_loaded) against disagg (1 + 1)."""
+    reckoned = sum(engines[0].kv.pages_needed(len(p) + NEW_TOKENS + 4)
+                   for p in prompts)
+    spec = engines[0].kv.spec
+    engines[0].cfg.serve_trace_out = trace_path
+    try:
+        colo = p13_serve(p13_fleet(engines, topology="colocated",
+                                   router="least_loaded"),
+                         p13_requests(prompts, arrivals), "13b colocated")
+    finally:
+        engines[0].cfg.serve_trace_out = ""
+    times = {"export": [], "import": []}
+
+    def timed(kind, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            dt = time.perf_counter() - t0
+            times[kind].append((_payload_bytes(out if kind == "export"
+                                               else a[1]), dt))
+            return out
+        return call
+    before = [dict(e.kv.tier_counters) for e in engines]
+    for e in engines:
+        e.kv.export_parked = timed("export", e.kv.export_parked)
+        e.kv.import_parked = timed("import", e.kv.import_parked)
+    try:
+        dis = p13_serve(p13_fleet(engines, topology="disagg"),
+                        p13_requests(prompts, arrivals), "13b disagg")
+    finally:
+        for e in engines:
+            del e.kv.export_parked, e.kv.import_parked
+    p13_same_streams(colo["streams"], want, "13b colocated")
+    p13_same_streams(dis["streams"], want, "13b disagg")
+    fleet = dis["runner"]
+    imports = [e.kv.tier_counters["kv_handoffs"] - b["kv_handoffs"]
+               for e, b in zip(engines, before)]
+    moved = [e.kv.tier_counters["kv_handoff_bytes"] - b["kv_handoff_bytes"]
+             for e, b in zip(engines, before)]
+    want_bytes = reckoned * spec.layers * spec.page_bytes()
+    if fleet.stats["handoffs"] != REQUESTS or imports != [0, REQUESTS] or \
+            len(times["export"]) != REQUESTS:
+        fail(f"13b disagg: {fleet.stats['handoffs']} handoffs, imports "
+             f"{imports}, {len(times['export'])} exports")
+    if moved != [0, want_bytes]:
+        fail(f"13b disagg: kv_handoff_bytes {moved}, want {want_bytes} "
+             f"({reckoned} pages x {spec.layers} layers x "
+             f"{spec.page_bytes()} B)")
+    if colo["runner"].stats["handoffs"]:
+        fail("13b colocated: a request was handed off")
+    for run, label in ((colo, "13b colocated"), (dis, "13b disagg")):
+        p13_exact_launches(run, label)
+    rows = {}
+    for kind, xs in times.items():
+        ms = [1e3 * dt for _, dt in xs]
+        rate = [b / dt / 1e9 for b, dt in xs if dt > 0]
+        rows[kind] = {"count": len(xs), "ms": ms,
+                      "bytes": [b for b, _ in xs],
+                      "median_ms": float(np.median(ms)),
+                      "median_GBps": float(np.median(rate))}
+        log(f"[13b] {kind} (host copies) a handoff, ms: " + ", ".join(
+            f"{m:.2f}" for m in ms) + f"; median {rows[kind]['median_ms']:.3f}"
+            f" ms, {rows[kind]['median_GBps']:.2f} GB/s against the pinned "
+            f"host-to-device copy's {host_bw / 1e9:.2f} GB/s")
+    out = {"colocated": _p13_summary(colo), "disagg": _p13_summary(dis),
+           "handoff_bytes": want_bytes, "handoff_pages": reckoned,
+           "handoffs": rows, "colocated_report": colo["runner"].report(),
+           "per_replica": {"colocated": colo["runner"].stats["per_replica"],
+                           "disagg": fleet.stats["per_replica"]}}
+    for tag in ("colocated", "disagg"):
+        r = out[tag]
+        log(f"[13b] {tag}: streams = phase 3's; {r['tokens_per_s']:.1f} "
+            f"tokens/s, TTFT p50 {r['ttft_p50_ms']:.1f} p99 "
+            f"{r['ttft_p99_ms']:.1f} ms, {r['prefills']} prefills, "
+            f"{r['decode_steps']} decode steps, launches exact; per "
+            "replica " + ", ".join(
+                f"{p['role']}: {p['completed']} done, {p['handoffs']} "
+                "handed off" for p in out["per_replica"][tag]))
+    log(f"[13b] disagg: {REQUESTS} handoffs, {want_bytes / 2**20:.1f} MiB "
+        f"({reckoned} pages) through the host tiers")
+    return out, colo["runner"]
+
+
+def p13_rolling(engines, gc, params, prompts, arrivals, want: dict,
+                seed: int, root: str) -> dict:
+    """13c: the rolling swap, then the burn-triggered rollback."""
+    import threading
+
+    from flexflow_tpu_torch import SGDOptimizer
+    from flexflow_tpu_torch import telemetry as tel
+    from flexflow_tpu_torch.health import SLOTracker, parse_slo
+
+    stage, live = os.path.join(root, "stage"), os.path.join(root, "live")
+    os.makedirs(live)
+    _, _, cm = gpt2_train_model(seed, LAYERS, "bfloat16",
+                                SGDOptimizer(lr=SGD_LR))
+    a = {n: {w: t.float() for w, t in d.items()} for n, d in params.items()}
+    t0 = time.perf_counter()
+    staged = {step: p12_snapshot(cm, stage, step, a) for step in (2, 3)}
+    del cm, a
+    collect_garbage()
+    torch.cuda.empty_cache()
+    write_s = time.perf_counter() - t0
+    for e in engines:
+        e.slo = SLOTracker(parse_slo(P13_SLO))
+    runs = {}
+    for step, burn in ((2, 0.0), (3, P13_BURN_MAX)):
+        label = f"13c {'rollback' if burn else 'rolling swap'}"
+        fleet = p13_fleet(engines, rollout_burn_max=burn)
+        prefill, published = engines[0].prefill, threading.Event()
+
+        def publish(p, inputs, prefill=prefill, published=published,
+                    step=step):
+            out = prefill(p, inputs)
+            if not published.is_set():
+                os.replace(staged[step], os.path.join(
+                    live, os.path.basename(staged[step])))
+                published.set()
+            return out
+        engines[0].prefill = publish
+        seen = {}
+        if burn:
+            # the controller bakes replica 0's swap until its burn is
+            # judged and then freezes the rollout: note how far replica 1
+            # had got at the rollback, to show it served on, refused
+            rollback0 = engines[0].rollback
+
+            def judged(*a, rollback0=rollback0, fleet=fleet, **kw):
+                out = rollback0(*a, **kw)
+                seen["mats1"] = fleet.replicas[1].sched.materializations
+                return out
+            engines[0].rollback = judged
+        tdir = os.path.join(root, f"tel{step}")
+        tel.configure(tdir)
+        try:
+            run = p13_serve(fleet, p13_requests(prompts, arrivals), label,
+                            watch_root=live, poll_interval_s=0.0)
+            tel.flush()
+            events = [(e["args"]["replica"], e["args"]["action"],
+                       e["args"]["version"]) for e in tel.read_events(tdir)
+                      if e["name"] == "serve/fleet_rollout"]
+        finally:
+            tel.shutdown()
+            for e in engines:
+                for name in ("prefill", "rollback"):
+                    e.__dict__.pop(name, None)
+        p13_same_streams(run["streams"], want, label)
+        rolling = fleet.rolling
+        if burn:
+            want_events = [(0, "swap", 3), (0, "rollback", 2)]
+            if rolling.swaps != [(0, 3)] or \
+                    rolling.rollbacks != [(0, 2)] or not rolling.halted or \
+                    events != want_events or engines[1].active_version != 2:
+                fail(f"{label}: swaps {rolling.swaps}, rollbacks "
+                     f"{rolling.rollbacks}, halted {rolling.halted}, events "
+                     f"{events}")
+            if fleet.replicas[1].sched.materializations <= \
+                    seen.get("mats1", 1 << 30):
+                fail(f"{label}: replica 1 served nothing after the "
+                     "rollback (the freeze was not tried)")
+            run["replica1_windows_after_rollback"] = \
+                fleet.replicas[1].sched.materializations - seen["mats1"]
+            run["bake_waits"] = rolling.bake_waits
+        else:
+            want_events = [(0, "swap", 2), (1, "swap", 2)]
+            if rolling.swaps != [(0, 2), (1, 2)] or rolling.rollbacks or \
+                    rolling.halted or events != want_events or \
+                    [h.sched.stats["swaps"] for h in fleet.replicas] != \
+                    [1, 1]:
+                fail(f"{label}: swaps {rolling.swaps}, rollbacks "
+                     f"{rolling.rollbacks}, events {events}")
+        run["events"] = events
+        runs[label] = run
+        log(f"[{label}] events {events}; {run['requests']} of "
+            f"{REQUESTS} completed, none dropped, streams = phase 3's; "
+            f"{run['tokens_per_s']:.1f} tokens/s"
+            + (f"; replica 1 was held {run['bake_waits']} times by the "
+               "bake, then ran "
+               f"{run['replica1_windows_after_rollback']} windows after the "
+               "rollback, refused by the freeze" if burn else ""))
+    for e in engines:
+        e._watch_root = None
+        e.unpin()
+        e.slo = SLOTracker(parse_slo(""))
+    out = {k: _p13_summary(v) for k, v in runs.items()}
+    out["snapshot_write_s"] = write_s
+    out["swap_latency_ms"] = [1e3 * x for e in engines
+                              for x in e.swap_stats.latencies_s]
+    log(f"[13c] snapshots written in {write_s:.1f} s; swap latencies "
+        + ", ".join(f"{m:.1f}" for m in out["swap_latency_ms"]) + " ms")
+    return out
+
+
+def p13_scaling(engines, prompts, want: dict, seed: int) -> dict:
+    """13d: one and two colocated replicas at equal load a replica."""
+    out = {}
+    for n in (1, 2):
+        arrivals = p13_arrivals(seed + 20 + n, n * REQUESTS, n * P13_RATE)
+        leg = {}
+        for profile in (False, True):
+            tag = f"13d {n} replica{'s' if n > 1 else ''}" + \
+                (" profiled" if profile else "")
+            run = p13_serve(p13_fleet(engines[:n]),
+                            p13_requests(prompts, arrivals), tag,
+                            profile=profile)
+            got = {r: s for r, s in run["streams"].items()}
+            if any(got[r] != want[r % REQUESTS] for r in got):
+                fail(f"{tag}: streams differ from phase 3's")
+            p13_exact_launches(run, tag)
+            leg["profiled" if profile else "run"] = _p13_summary(run)
+        out[n] = leg
+        r, p = leg["run"], leg["profiled"].get("profile", {})
+        log(f"[13d] {n} replica(s), {n * REQUESTS} requests at "
+            f"{n * P13_RATE:.0f}/s: {r['tokens_per_s']:.1f} tokens/s, TTFT "
+            f"p50 {r['ttft_p50_ms']:.1f} p99 {r['ttft_p99_ms']:.1f} ms, "
+            f"{r['decode_steps']} decode steps; profiled run: idle share "
+            f"{p.get('device_idle_share', float('nan')):.3f}, busy "
+            f"{p.get('device_busy_ms', float('nan')):.1f} of "
+            f"{p.get('wall_ms', float('nan')):.1f} ms, "
+            f"{p.get('kernels', 0)} kernels")
+    out["scale2_x"] = out[2]["run"]["tokens_per_s"] / \
+        out[1]["run"]["tokens_per_s"]
+    log(f"[13d] two replicas give {out['scale2_x']:.3f}x the tokens/s of one")
+    return out
+
+
+def p13_twin(engine, live_fleet, trace_path: str) -> dict:
+    """13e: (b)'s colocated trace through the twin, against the live run."""
+    from flexflow_tpu_torch.serving import tracefmt, twin
+
+    trace = tracefmt.load_trace(trace_path)
+    if len(trace) != REQUESTS or trace.skipped:
+        fail(f"13e: the exported trace holds {len(trace)} records")
+    live_rep = live_fleet.report()
+    spec = twin.TwinSpec.from_engine(engine, replicas=len(
+        live_fleet.replicas), dispatch_ahead=4)
+    costs = twin.TwinCosts.resolve(spec.kv_spec(), cfg=engine.cfg,
+                                   machine=engine.machine,
+                                   live_report=live_rep, slots=spec.slots)
+    costs.window_overhead_s = twin.calibrate_window_overhead(
+        trace.records, spec, costs, live_rep["stats"]["wall_s"])
+    res = twin.simulate(trace.records, spec, costs)
+    rep = res.report()
+    if res.stats["completed"] != REQUESTS or res.stats["shed"]:
+        fail(f"13e: the twin completed {res.stats['completed']} of "
+             f"{REQUESTS}")
+    missing = sorted(set(live_rep) - set(rep))
+    if missing:
+        fail(f"13e: the twin's report lacks the live report's {missing}")
+
+    def metrics(r):
+        h = r["hists"]
+        return {"tokens_per_s": r["stats"]["tokens_per_s"],
+                "wall_s": r["stats"]["wall_s"],
+                "ttft_p50_s": h["ttft"]["p50"], "ttft_p99_s": h["ttft"]["p99"],
+                "per_token_p50_s": h["per_token"]["p50"],
+                "queue_wait_p50_s": h["queue_wait"]["p50"]}
+    val = twin.validate(metrics(live_rep), metrics(rep))
+    log(f"[13e] twin ({costs.source}: decode step "
+        f"{1e3 * costs.decode_step_s:.2f} ms, prefill "
+        f"{1e3 * costs.prefill_base_s:.2f} ms, window overhead "
+        f"{1e3 * costs.window_overhead_s:.2f} ms) against live: " + ", ".join(
+            f"{k} {m['live']:.4g} / {m['twin']:.4g} ({100 * m['rel_err']:.1f}%)"
+            for k, m in val["metrics"].items())
+        + f"; worst {100 * val['max_rel_err']:.1f}%")
+    return {"costs": dataclasses.asdict(costs), "validate": val,
+            "twin_stats": res.stats, "spec": dataclasses.asdict(spec)}
+
+
+def phase13(gc, params, prompts, streams: dict, seed: int,
+            host_bw: float) -> dict:
+    """Phase 13 on phase 3's weights, prompts and int8 streams, in a
+    temporary directory removed at the end."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="ff_p13_")
+    walls, out = {}, {}
+    want = streams["int8"]
+    try:
+        engines = [p12_engine(gc, params, "int8", seed,
+                              kv_host_pages=P13_HOST_PAGES)
+                   for _ in range(2)]
+        walls["engines"] = time.perf_counter() - t_phase
+        arrivals = p13_arrivals(seed + 13)
+        t0 = time.perf_counter()
+        out["13a"] = p13_identity(engines[0], prompts, want)
+        walls["13a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        trace_path = os.path.join(root, "fleet_trace.jsonl")
+        out["13b"], colo_fleet = p13_topologies(
+            engines, prompts, arrivals, want, host_bw, trace_path)
+        walls["13b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["13e"] = p13_twin(engines[0], colo_fleet, trace_path)
+        walls["13e"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["13c"] = p13_rolling(engines, gc, params, prompts, arrivals,
+                                 want, seed, root)
+        walls["13c"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["13d"] = p13_scaling(engines, prompts, want, seed)
+        walls["13d"] = time.perf_counter() - t0
+        del engines, colo_fleet
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    collect_garbage()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    out["walls_s"] = walls
+    log(f"[phase 13] {out['wall_s']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in walls.items()) + ")")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4592,6 +5149,10 @@ def main() -> None:
               for n, d in params_host.items()}
     serving12 = phase12(gc, params, prompts, streams, args.seed,
                         {r["kv_cache_dtype"]: r for r in runs})
+    # ---- 13. the serving fleet (identity, colocated against disagg, the
+    # rolling swap and its rollback, scaling) and the capacity twin
+    serving13 = phase13(gc, params, prompts, streams, args.seed,
+                        serving12["tier"]["int8"]["host_bw_GBps"] * 1e9)
     del params, params_host
     torch.cuda.empty_cache()
 
@@ -4650,6 +5211,13 @@ def main() -> None:
         paths[f"p12c_serve_int8_run{i}"] = r["launches"]
     paths["p12b_serve_int8_mid_run_swap"] = \
         serving12["swap"]["mid_run"]["launches"]
+    for part in ("13a", "13b", "13c"):
+        for leg, run in serving13[part].items():
+            if isinstance(run, dict) and "launches" in run:
+                paths[f"p{part}_{leg.replace(' ', '_')}"] = run["launches"]
+    for n in (1, 2):
+        for kind, run in serving13["13d"][n].items():
+            paths[f"p13d_{n}_replicas_{kind}"] = run["launches"]
     for r in rows:
         causal = r.get("causal")
         counted = (paths if causal else paths9 if causal is False
@@ -4673,6 +5241,7 @@ def main() -> None:
     log(json.dumps({"graph": graph}))
     log(json.dumps({"health": health11}, default=str))
     log(json.dumps({"serving12": serving12}, default=str))
+    log(json.dumps({"serving13": serving13}, default=str))
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

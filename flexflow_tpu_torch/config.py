@@ -133,6 +133,34 @@ class FFConfig:
     kv_host_pages: int = 0
     kv_prefetch_ahead: int = 2
     serve_trace_out: str = ""
+    # the serving fleet (serving/fleet.py) and the capacity twin
+    # (serving/twin.py, tools/twin.py):
+    #   serve_replicas         - in-process engine replicas behind the
+    #                            router (1 = the plain scheduler's path)
+    #   serve_fleet_topology   - "colocated" (every replica prefills and
+    #                            decodes) or "disagg" (prefill replicas
+    #                            hand committed K/V to the decode replicas
+    #                            through the host tier; kv_host_pages > 0
+    #                            on every replica)
+    #   serve_prefill_replicas - the prefill pool under disagg, clamped to
+    #                            [1, replicas - 1]
+    #   serve_router           - "least_loaded" or "round_robin"
+    #   serve_rollout_burn_max - the rolling swap's ceiling: a swapped
+    #                            replica whose SLO worst burn rate crosses
+    #                            it rolls back and the rollout freezes
+    #                            (0 = no rollback monitor)
+    #   twin_trace             - the trace the twin's command line replays
+    #   twin_replicas          - replicas the twin simulates (0 = follow
+    #                            serve_replicas)
+    #   twin_out               - the twin's report JSON ("" = stdout)
+    serve_replicas: int = 1
+    serve_fleet_topology: str = "colocated"
+    serve_prefill_replicas: int = 1
+    serve_router: str = "least_loaded"
+    serve_rollout_burn_max: float = 0.0
+    twin_trace: str = ""
+    twin_replicas: int = 0
+    twin_out: str = ""
     # training loop (compiler/compile.py): fit reads the loss to the host
     # every sync_every updates (0 = at epoch end only); accum_steps N > 1
     # makes every update one over N microbatches (fit(accum_steps=)
@@ -335,19 +363,23 @@ class FFConfig:
         p.add_argument("--kv-host-pages", type=int, default=0)
         p.add_argument("--kv-prefetch-ahead", type=int, default=2)
         p.add_argument("--serve-max-context", type=int, default=0)
-        p.add_argument("--serve-replicas", type=int, default=U)
-        p.add_argument("--serve-fleet-topology", type=str, default=U,
-                       choices=("colocated", "disagg"))
-        p.add_argument("--serve-prefill-replicas", type=int, default=U)
-        p.add_argument("--serve-router", type=str, default=U,
+        p.add_argument("--serve-replicas", type=int, default=1)
+        p.add_argument("--serve-fleet-topology", type=str,
+                       default="colocated", choices=("colocated", "disagg"))
+        p.add_argument("--serve-prefill-replicas", type=int, default=1)
+        p.add_argument("--serve-router", type=str, default="least_loaded",
                        choices=("least_loaded", "round_robin"))
-        p.add_argument("--serve-rollout-burn-max", type=float, default=U)
+        p.add_argument("--serve-rollout-burn-max", type=float, default=0.0)
         p.add_argument("--serve-trace-out", type=str, default="",
                        help="export the served load as a replayable "
                             "tracefmt JSONL trace at serve end")
-        p.add_argument("--twin-trace", type=str, default=U)
-        p.add_argument("--twin-replicas", type=int, default=U)
-        p.add_argument("--twin-out", type=str, default=U)
+        p.add_argument("--twin-trace", type=str, default="",
+                       help="trace file the capacity twin replays")
+        p.add_argument("--twin-replicas", type=int, default=0,
+                       help="replica count the twin simulates "
+                            "(0 = --serve-replicas)")
+        p.add_argument("--twin-out", type=str, default="",
+                       help="twin report JSON path ('' = stdout)")
         return p
 
     @staticmethod
@@ -407,6 +439,14 @@ class FFConfig:
             kv_host_pages=args.kv_host_pages,
             kv_prefetch_ahead=args.kv_prefetch_ahead,
             serve_trace_out=args.serve_trace_out,
+            serve_replicas=args.serve_replicas,
+            serve_fleet_topology=args.serve_fleet_topology,
+            serve_prefill_replicas=args.serve_prefill_replicas,
+            serve_router=args.serve_router,
+            serve_rollout_burn_max=args.serve_rollout_burn_max,
+            twin_trace=args.twin_trace,
+            twin_replicas=args.twin_replicas,
+            twin_out=args.twin_out,
             sync_every=args.sync_every,
             accum_steps=args.accum_steps,
             steps_per_dispatch=args.steps_per_dispatch,
@@ -446,11 +486,4 @@ _UNPORTED = {
     "export_dot": ("--compgraph", 6),
     "include_costs_dot_graph": ("--include-costs-dot-graph", 6),
     "serve": ("--serve", 7),
-    "serve_replicas": ("--serve-replicas", 5),
-    "serve_fleet_topology": ("--serve-fleet-topology", 5),
-    "serve_prefill_replicas": ("--serve-prefill-replicas", 5),
-    "serve_router": ("--serve-router", 5),
-    "serve_rollout_burn_max": ("--serve-rollout-burn-max", 5),
-    "twin_trace": ("--twin-trace", 5), "twin_replicas": ("--twin-replicas", 5),
-    "twin_out": ("--twin-out", 5),
 }

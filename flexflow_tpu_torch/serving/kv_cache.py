@@ -32,8 +32,16 @@ and `join` makes the main stream wait for the copy's event, so neither
 adds a host sync. `join` reactivates the slot and counts the rejoin as a
 prefetch hit (issued >= prefetch-ahead decode steps before) or a stall.
 Host pages have their own free list, so admission capacity spans both
-tiers. The replica handoff (`export_parked`, `import_parked`) is not
-ported yet.
+tiers.
+
+Replica handoff (the fleet's disaggregated topology): a prefill replica
+spills a committed slot, `export_parked` copies its host rows (values and
+int8 scales of every layer) and position into a payload of plain CPU
+tensors, and the decode replica's `import_parked` writes them into its
+own host tier: the slot lands PARKED, so the ordinary rotation (refill on
+the side stream, then `join`) carries it to the device, bitwise the spill
+path. The import writes host pages on the host; a host page whose
+earlier refill may still be reading it on the card is waited for first.
 """
 
 from __future__ import annotations
@@ -104,6 +112,12 @@ class KVCacheSpec:
         """Resident bytes per device with the heads dim sharded
         `model_degree` ways (1 = the one device the port runs on)."""
         return self.total_bytes() // max(1, model_degree)
+
+    def step_read_bytes(self, model_degree: int = 1) -> int:
+        """Device-memory bytes ONE decode step adds per device: the whole
+        resident K/V pool streams through the attention, on top of the
+        weights."""
+        return self.per_device_bytes(model_degree)
 
     def slot_bytes(self) -> int:
         """Worst-case K/V bytes of ONE slot across all layers: what a full
@@ -207,6 +221,9 @@ class PagedKVCache:
         self._cold: Dict[int, List[int]] = {}   # parked slot -> host pages
         self._inflight: Dict[int, int] = {}     # slot -> prefetch issue step
         self._ready: Dict[int, torch.cuda.Event] = {}  # slot -> refill done
+        # host page -> the event ending the last refill that read it: an
+        # import writes host pages on the host, after that copy has run
+        self._host_reads: Dict[int, torch.cuda.Event] = {}
         self._copy_stream = None
         # card only: (direction, bytes, start event, end event) of the last
         # transfers, for `transfer_times`
@@ -434,6 +451,7 @@ class PagedKVCache:
             ev = self._refill(pages, host_ids)
         if ev is not None:
             self._ready[slot] = ev
+            self._host_reads.update((h, ev) for h in host_ids)
         row = np.zeros(self.spec.pages_per_slot, np.int32)
         row[:need] = pages
         self._table[slot] = row
@@ -462,6 +480,56 @@ class PagedKVCache:
         else:
             self.tier_counters["kv_prefetch_hits"] += 1
         return stalled
+
+    # ------------------------------------------------------ replica handoff
+    def export_parked(self, slot: int) -> Dict:
+        """A PARKED slot's host-tier rows (every layer's values and, int8,
+        scales, in the slot's page order) and its committed position, for
+        another replica's `import_parked`. The rows are copies (indexing a
+        pinned buffer gives pageable memory); the spill's one wait has
+        already let its copies land. The caller evicts afterwards."""
+        host_ids = self._cold.get(slot)
+        if host_ids is None:
+            raise ValueError(f"slot {slot} is not parked (spill it first)")
+        idx = torch.tensor(host_ids, dtype=torch.long)
+        return {"pos": int(self._pos[slot]), "pages": len(host_ids),
+                "layers": {n: {key: buf.index_select(0, idx)
+                               for key, buf in self._host[n].items()}
+                           for n in self.attn_layers}}
+
+    def can_import(self, payload: Dict) -> bool:
+        return bool(self.host_pages) and \
+            len(self.free_host_pages) >= int(payload["pages"])
+
+    def import_parked(self, slot: int, payload: Dict) -> None:
+        """Adopt a handed-off slot into this cache's host tier: it lands
+        PARKED with its position kept, and the rotation refills and rejoins
+        it. Counts `kv_handoffs` and `kv_handoff_bytes` and writes a
+        `kv_transfer` row (direction "handoff"). Raises `KVPoolExhausted`
+        when the host free list is short (backpressure)."""
+        if self._active[slot] or slot in self._cold:
+            raise ValueError(f"slot {slot} is occupied")
+        need = int(payload["pages"])
+        if not self.can_import(payload):
+            raise KVPoolExhausted(slot, need, len(self.free_host_pages))
+        t0 = time.perf_counter()
+        host_ids = sorted(self.free_host_pages.pop() for _ in range(need))
+        for h in host_ids:
+            ev = self._host_reads.pop(h, None)
+            if ev is not None:
+                ev.synchronize()  # a refill on the card still reads it
+        idx = torch.tensor(host_ids, dtype=torch.long)
+        for n in self.attn_layers:
+            for key, rows in payload["layers"][n].items():
+                self._host[n][key].index_copy_(0, idx, rows)
+        self._cold[slot] = host_ids
+        self._pos[slot] = int(payload["pos"])
+        self._table[slot] = 0
+        self._active[slot] = 0
+        moved = self.spec.layers * need * self.spec.page_bytes()
+        self.tier_counters["kv_handoffs"] += 1
+        self.tier_counters["kv_handoff_bytes"] += moved
+        self._transfer_row("handoff", need, time.perf_counter() - t0)
 
     def tier_stats(self) -> Dict[str, int]:
         """Counters + occupancy snapshot for telemetry and reports."""

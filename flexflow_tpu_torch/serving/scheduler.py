@@ -75,15 +75,29 @@ event of the outcome (`serve/request_done`, `_shed`, `_failed`; and
 the counters `serve/queue_depth`, `serve/active_slots`,
 `serve/overdecode_tokens`, `serve/spec_*`, `serve/kv_tier_*`,
 `serve/kv_prefetch_*`, `serve/kv_spills`, and `serve/slo` at the end of a
-run), as in JAX. Not ported yet: the fleet's hooks (the arrival feed, the
-swap orchestration and the disaggregated handoff); `handoff=` raises
-`NotImplementedError`.
+run), as in JAX.
+
+FLEET HOOKS (`fleet.ServingFleet` drives N of these loops): `feed`, a
+thread-safe arrival feed drained at the top of the loop (the loop runs
+until it is exhausted); `control`, the rolling swap's per-replica view,
+called at the between-windows safe point in place of the engine's own
+`poll_swap`; and `handoff=`, which makes this a prefill-only replica:
+right after its first-token sync every admitted slot is spilled, its
+K/V exported, the slot evicted and the request handed to the callback
+(`handoffs` counts them), while a decode replica adopts what its feed
+delivers as parked slots (`_ingest_handoffs`). Under a fleet, the
+scheduler is built with `exec_lock=`, the fleet-wide lock: its own device
+calls (the argmax, the syncs that read tokens back, the host-to-device
+copies) then run under it, each to completion inside it. All default to
+off: a standalone scheduler (no lock) runs the loop above unchanged.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
+import threading
 import time
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional
@@ -151,10 +165,8 @@ class ContinuousBatchingScheduler:
                  prefill_chunk_tokens: int = 0,
                  retry_policy: Optional[RetryPolicy] = None,
                  reqtrace: Optional[bool] = None,
-                 handoff: Optional[Callable] = None):
-        if handoff is not None:
-            raise NotImplementedError("handoff: the fleet's disaggregated "
-                                      "prefill is not ported yet")
+                 handoff: Optional[Callable] = None,
+                 exec_lock: Optional[threading.RLock] = None):
         from flexflow_tpu_torch.serving.fleet import AdmissionControl
 
         self.engine = engine
@@ -213,6 +225,22 @@ class ContinuousBatchingScheduler:
             overhead_tokens=self.dispatch_ahead + self.spec_tokens,
             pages_needed=self.kv.pages_needed,
             capacity_pages=self.kv.capacity_pages)
+        # fleet hooks (default off; see the module docstring)
+        self.feed = None                    # the fleet's arrival feed
+        self.control = None                 # the rolling swap's view
+        self.handoff = handoff              # prefill-only: to the decode pool
+        # under a fleet, the fleet-wide lock with run to completion;
+        # standalone (None), no lock and no added sync
+        self.exec_lock = exec_lock
+        self._exec = (exec_lock if exec_lock is not None
+                      else contextlib.nullcontext())
+        if self.handoff is not None and self._spec:
+            raise ValueError("prefill-only handoff does not compose with "
+                             "speculative decoding (no draft-cache handoff)")
+        self.handoffs = 0
+        self._pending_handoffs: List = []   # (Request, payload) to adopt
+        self.queue_depth = 0                # the router's live signals
+        self.active_count = 0               # (ints, read across threads)
         self.stats: Dict[str, int] = {
             "shed_queue_full": 0, "shed_ttft_budget": 0, "shed_deadline": 0,
             "shed_prompt_too_long": 0, "shed_over_max_context": 0,
@@ -239,6 +267,19 @@ class ContinuousBatchingScheduler:
 
     def _now(self) -> float:
         return time.perf_counter() - self._t0
+
+    def _settle(self) -> None:
+        """Under a fleet: the work just queued runs to completion before
+        `exec_lock` is released (no device tail escapes it)."""
+        if self.exec_lock is not None and self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def _upload(self, next_host: np.ndarray) -> torch.Tensor:
+        """The next step's tokens on the device."""
+        with self._exec:
+            out = to_device_async(next_host, self.device)
+            self._settle()
+        return out
 
     # ----------------------------------------------------------- terminal
     def _terminal(self, req: Request, now_s: float, reason: str,
@@ -412,10 +453,11 @@ class ContinuousBatchingScheduler:
         self.prefills += 1
         # first token: argmax at each row's last real position, taken on
         # the device; the sync that brings it back is the TTFT
-        last = to_device_async(np.maximum(lengths - 1, 0).astype(np.int64),
-                               logits.device)
-        rows = torch.arange(self.slots, device=logits.device)
-        first_tok = logits[rows, last].argmax(dim=-1).cpu().numpy()
+        with self._exec:
+            last = to_device_async(
+                np.maximum(lengths - 1, 0).astype(np.int64), logits.device)
+            rows = torch.arange(self.slots, device=logits.device)
+            first_tok = logits[rows, last].argmax(dim=-1).cpu().numpy()
         t_first = time.perf_counter()
         serve_ms = 1e3 * (t_first - t_pre)
         self._ema_serve_ms = (serve_ms if not self._ema_serve_ms
@@ -551,6 +593,52 @@ class ContinuousBatchingScheduler:
                   fallback=int(self.prefetch_ahead))
         self.prefetch_ahead = tuned
 
+    # -------------------------------------------------- disaggregated handoff
+    def _handoff_all(self, active: Dict[int, Request]) -> None:
+        """Prefill-only replica: right after the first-token sync, every
+        admitted slot is spilled to the host tier, its K/V exported, the
+        slot evicted and the request handed to the decode pool through
+        `handoff`. A slot that cannot spill (host pages short) stays and
+        decodes here: the colocated fallback, never a drop."""
+        moved = False
+        for slot in list(active):
+            if not self.kv.can_spill(slot):
+                continue
+            req = active.pop(slot)
+            self.kv.spill(slot, self.decode_steps)
+            payload = self.kv.export_parked(slot)
+            self.kv.evict(slot)
+            req.slot = None
+            moved = True
+            self.handoffs += 1
+            tel.event("serve/request_handoff", cat="serve", rid=req.rid,
+                      pages=int(payload["pages"]), tokens=len(req.tokens))
+            self.handoff(req, payload)
+        if moved:
+            self.kv.push()
+
+    def _ingest_handoffs(self, now_s: float) -> None:
+        """Decode side of the handoff: adopt each pending payload into the
+        host tier as a PARKED slot (position kept), so the rotation refills
+        and rejoins it, bitwise the spill path. Short of a free slot or of
+        host pages, the payload stays pending (backpressure, retried at the
+        next sync point)."""
+        still: List = []
+        for req, payload in self._pending_handoffs:
+            free = self.kv.free_slots()
+            if not free or not self.kv.can_import(payload):
+                still.append((req, payload))
+                continue
+            slot = free[0]
+            self.kv.import_parked(slot, payload)
+            req.slot = slot
+            self.parked[slot] = req
+            if self.tracer is not None:
+                self.tracer.on_submit(req, now_s)
+            tel.event("serve/request_adopted", cat="serve", rid=req.rid,
+                      slot=slot, pages=int(payload["pages"]))
+        self._pending_handoffs = still
+
     def _emit_tier(self) -> None:
         ts = self.kv.tier_stats()
         tel.counter("serve/kv_tier_hot_pages", ts["kv_hot_pages"],
@@ -614,7 +702,8 @@ class ContinuousBatchingScheduler:
         tokens, advances the host KV mirrors (per slot: an EOS finish inside
         the window is masked out of the committed advance), evicts finished
         slots and applies the watchdog. Returns the last step's tokens."""
-        mats = torch.cat(window_toks, dim=1).cpu().numpy()   # [slots, steps]
+        with self._exec:
+            mats = torch.cat(window_toks, dim=1).cpu().numpy()  # [slots, steps]
         steps = mats.shape[1]
         t_now = time.perf_counter()
         self.materializations += 1
@@ -666,12 +755,14 @@ class ContinuousBatchingScheduler:
         query reads it (query i sees keys up to pos+i)."""
         K = self.spec_tokens
         t0 = time.perf_counter()
-        last = to_device_async(next_host, self.device)
-        t_pred_dev, ver_in, tstate, dstate = self.engine.spec_round_step(
-            self.params, self.draft.params, self.kv.state,
-            self.draft.kv.state, last, self.step_inputs_fn)
-        # the round's one host sync: the verify argmax and the drafts
-        both = torch.cat([t_pred_dev, ver_in[:, 1:]], dim=1).cpu().numpy()
+        with self._exec:
+            last = to_device_async(next_host, self.device)
+            t_pred_dev, ver_in, tstate, dstate = self.engine.spec_round_step(
+                self.params, self.draft.params, self.kv.state,
+                self.draft.kv.state, last, self.step_inputs_fn)
+            # the round's one host sync: the verify argmax and the drafts
+            both = torch.cat([t_pred_dev, ver_in[:, 1:]],
+                             dim=1).cpu().numpy()
         t_pred, drafted = both[:, :K + 1], both[:, K + 1:]
         wall = time.perf_counter() - t0
         self.materializations += 1
@@ -747,19 +838,32 @@ class ContinuousBatchingScheduler:
         active: Dict[int, Request] = {}
         next_host = np.zeros((self.slots, 1), np.int32)
         state = self.kv.state
-        next_dev = to_device_async(next_host, self.device)
+        next_dev = self._upload(next_host)
         window_toks: List[torch.Tensor] = []  # dispatched, unmaterialized
         window_t0 = time.perf_counter()
 
-        while queue or waiting or active or self.parked:
+        while (queue or waiting or active or self.parked
+               or self._pending_handoffs
+               or (self.feed is not None and not self.feed.exhausted)):
             now = self._now()
+            if self.feed is not None:
+                # the fleet delivers arrivals (and handed-off prefills)
+                # while the loop runs
+                for item in self.feed.drain():
+                    if isinstance(item, tuple):
+                        self._pending_handoffs.append(item)
+                    else:
+                        self._enqueue(item, waiting, now)
             while queue and queue[0].arrival_s <= now:
                 self._enqueue(queue.popleft(), waiting, now)
+            self.queue_depth = len(waiting)
+            self.active_count = len(active)
             tel.counter("serve/queue_depth", len(waiting), cat="serve")
             tel.counter("serve/active_slots", len(active), cat="serve")
             want_sync = (len(window_toks) >= self._window_cap(active)
                          or (waiting and self.kv.free_slots())
                          or bool(self.parked)
+                         or bool(self._pending_handoffs)
                          or not active)
             if want_sync and window_toks:
                 next_host = self._materialize(window_toks, state, active,
@@ -767,9 +871,14 @@ class ContinuousBatchingScheduler:
                 window_toks = []
                 state = self.kv.state
                 window_t0 = time.perf_counter()
-            if not window_toks and self.engine.watching:
-                # the swap's safe point: nothing dispatched holds params
-                if self.engine.poll_swap():
+            if not window_toks and (self.control is not None
+                                    or self.engine.watching):
+                # the swap's safe point: nothing dispatched holds params.
+                # Under a fleet the rolling controller decides whether this
+                # replica may advance (or must roll back) here.
+                if (self.control.at_safe_point(self)
+                        if self.control is not None
+                        else self.engine.poll_swap()):
                     self.params = self.engine.params
                     self.stats["swaps"] += 1
                     state = self.kv.state
@@ -780,6 +889,11 @@ class ContinuousBatchingScheduler:
                                             self.engine.active_version)
             if waiting:
                 self._shed_stale(waiting, self._now())
+            if self._pending_handoffs and not window_toks:
+                # decode side of the disaggregated topology: adopt handed-off
+                # prefills into the host tier; the rotation below carries
+                # them to the device
+                self._ingest_handoffs(self._now())
             if self.parked and not window_toks:
                 # tier rotation before admission: rejoining slots claim
                 # device pages ahead of new arrivals (they are older)
@@ -787,21 +901,32 @@ class ContinuousBatchingScheduler:
             if waiting and self.kv.free_slots():
                 if self._admit(waiting, active, next_host):
                     state = self.kv.state
-                    next_dev = to_device_async(next_host, self.device)
+                    next_dev = self._upload(next_host)
                     window_t0 = time.perf_counter()
+            if self.handoff is not None and active and not window_toks:
+                # prefill replica: what it admitted leaves for the decode
+                # pool right after its first-token sync
+                self._handoff_all(active)
+                state = self.kv.state
             if self.tiered and not window_toks:
                 # rotation and spills change the tables outside _admit's
                 # refresh; re-anchor only with no step in flight (then the
                 # cache's state and the host's tokens agree)
                 state = self.kv.state
-                next_dev = to_device_async(next_host, self.device)
+                next_dev = self._upload(next_host)
             if not active:
                 if queue and not waiting:
                     # open loop: idle until the next arrival (short naps
                     # when watching, so snapshot polls go on)
                     wait = max(0.0, queue[0].arrival_s - self._now())
-                    time.sleep(min(wait, 0.05) if self.engine.watching
-                               else wait)
+                    time.sleep(min(wait, 0.05)
+                               if (self.engine.watching
+                                   or self.control is not None) else wait)
+                elif self.feed is not None and not waiting \
+                        and not self.parked and not self._pending_handoffs:
+                    # a fed loop with nothing in hand naps instead of
+                    # spinning on the (still open) feed
+                    time.sleep(0.002)
                 continue
             if self._spec:
                 # a round is its own sync point: no dispatch-ahead window
@@ -814,7 +939,7 @@ class ContinuousBatchingScheduler:
                     if active:
                         self._evict_wedged(active, "failed", self._now(), e)
                 state = self.kv.state
-                next_dev = to_device_async(next_host, self.device)
+                next_dev = self._upload(next_host)
                 continue
             inputs = self.step_inputs_fn(next_dev, state)
             try:
@@ -833,11 +958,15 @@ class ContinuousBatchingScheduler:
                 if active:
                     self._evict_wedged(active, "failed", self._now(), e)
                 state = self.kv.state
-                next_dev = to_device_async(next_host, self.device)
+                next_dev = self._upload(next_host)
                 window_t0 = time.perf_counter()
                 continue
-            next_dev = torch.argmax(logits[:, -1, :], dim=-1).to(
-                torch.int32)[:, None]
+            with self._exec:
+                # the one launch the scheduler owns (the engine's own calls
+                # serialize inside the fleet's proxy)
+                next_dev = torch.argmax(logits[:, -1, :], dim=-1).to(
+                    torch.int32)[:, None]
+                self._settle()
             window_toks.append(next_dev)
             self.decode_steps += 1
         if self.tiered:

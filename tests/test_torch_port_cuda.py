@@ -1169,3 +1169,118 @@ def test_refill_adds_no_host_sync_on_card():
                                                  device=dev)]
     assert bool((v == 7).all())
     assert kv.tier_counters["kv_prefetch_stalls"] == 1
+
+
+def _fill_random(kv, dev, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for n in kv.attn_layers:
+        for key, leaf in kv.state[n].items():
+            if leaf.dtype == torch.int8:
+                leaf.copy_(torch.randint(-127, 128, leaf.shape, generator=gen,
+                                         device=dev, dtype=torch.int8))
+            else:
+                leaf.copy_(torch.rand(leaf.shape, generator=gen, device=dev)
+                           + 0.5)
+
+
+@pytest.mark.cuda
+def test_export_parked_waits_for_the_spill_on_card():
+    """`export_parked` reads host rows the spill's copies have filled: the
+    spill waits for them once. A spin queued ahead of the spill holds its
+    copies back ~0.5 s; the payload must still be the device rows, not the
+    host tier's zeros."""
+    dev = _cuda_or_skip()
+    kv = _tiered_int8_engine(host_pages=6).kv
+    kv.admit(1, 20, 40)
+    kv.push()
+    _fill_random(kv, dev)
+    pages = torch.as_tensor(kv._slot_pages[1], device=dev)
+    want = {n: {k: v.index_select(0, pages).cpu()
+                for k, v in kv.state[n].items()} for n in kv.attn_layers}
+    torch.cuda._sleep(1_000_000_000)
+    kv.spill(1, 0)
+    payload = kv.export_parked(1)
+    assert kv.host_syncs == 1 and payload["pos"] == 20
+    for n in kv.attn_layers:
+        for k, rows in want[n].items():
+            assert torch.equal(payload["layers"][n][k], rows), (n, k)
+
+
+@pytest.mark.cuda
+def test_import_waits_for_a_refill_reading_its_host_pages_on_card():
+    """A refill still queued on the card reads host pages that an evict
+    gave back; an import that takes those pages writes them only after
+    that copy has run: the refilled device pages hold the exported rows,
+    not the import's."""
+    dev = _cuda_or_skip()
+    kv = _tiered_int8_engine(host_pages=6).kv
+    for warm in (True, False):
+        # the warm pass fills the allocators' caches, so that no
+        # allocation in the timed pass synchronizes the device
+        kv.admit(1, 20, 40)
+        kv.push()
+        _fill_random(kv, dev, seed=1)
+        kv.spill(1, 0)
+        x = kv.export_parked(1)
+        host_ids = list(kv._cold[1])
+        if not warm:
+            torch.cuda._sleep(1_000_000_000)  # the refill's stream waits
+        assert kv.prefetch(1, 0)
+        dst = list(kv._slot_pages[1])     # (a device tensor now would sync)
+        if warm:
+            kv.join(1, 4, 2)
+            kv.evict(1)
+            kv.push()
+            torch.cuda.synchronize()
+    kv.evict(1)
+    y = {"pos": 7, "pages": x["pages"],
+         "layers": {n: {k: torch.full_like(t, 3) for k, t in d.items()}
+                    for n, d in x["layers"].items()}}
+    # the premise: the refill is still queued behind the spin
+    assert not kv._host_reads[host_ids[0]].query()
+    kv.import_parked(2, y)
+    assert sorted(kv._cold[2]) == sorted(host_ids) and kv._pos[2] == 7
+    torch.cuda.synchronize()
+    dst = torch.as_tensor(dst, device=dev)
+    for n in kv.attn_layers:
+        for k, rows in x["layers"][n].items():
+            assert torch.equal(kv.state[n][k].index_select(0, dst).cpu(),
+                               rows), (n, k)
+    assert kv.tier_counters["kv_handoffs"] == 1
+
+
+@pytest.mark.cuda
+def test_fleet_colocated_and_disagg_on_card():
+    """Two int8 replicas on the card, colocated and disaggregated: the
+    streams equal the plain scheduler's on an untiered engine, the dequant
+    decode launches once a layer on every decode step of every replica
+    (the fleet's lock keeps the global counter exact), and disagg hands
+    every request off once."""
+    from flexflow_tpu_torch.serving import (ContinuousBatchingScheduler,
+                                            Request, ServingFleet,
+                                            gpt2_step_inputs)
+
+    _cuda_or_skip()
+    rng = np.random.default_rng(2)
+    prompts = [[int(t) for t in rng.integers(1, 512, size=n)]
+               for n in rng.integers(8, 32, size=8)]
+
+    def reqs():
+        return [Request(rid=i, prompt=p, max_new_tokens=16,
+                        arrival_s=0.01 * i) for i, p in enumerate(prompts)]
+    flat = _tiered_int8_engine(host_pages=0)
+    s = ContinuousBatchingScheduler(flat, flat.params, gpt2_prompt_inputs,
+                                    gpt2_step_inputs)
+    want = {r.rid: r.tokens for r in s.run(reqs())}
+    engines = [_tiered_int8_engine(host_pages=6) for _ in range(2)]
+    for topo in ("colocated", "disagg"):
+        fleet = ServingFleet(engines, gpt2_prompt_inputs, gpt2_step_inputs,
+                             topology=topo)
+        before = (dequant_attention.launches, flash_attention.launches)
+        done = fleet.serve(reqs())
+        assert {r.rid: r.tokens for r in done} == want, topo
+        steps = sum(h.sched.decode_steps for h in fleet.replicas)
+        prefills = sum(h.sched.prefills for h in fleet.replicas)
+        assert dequant_attention.launches - before[0] == 2 * steps, topo
+        assert flash_attention.launches - before[1] == 2 * prefills, topo
+        assert fleet.stats["handoffs"] == (8 if topo == "disagg" else 0)

@@ -372,7 +372,8 @@ def test_telemetry_health_and_attribution_modules_load_no_jax():
 # the rest of one-card serving: the tiered cache, hot-swap, request
 # tracing and replayable traces
 SERVING_MODULES = tuple(f"flexflow_tpu_torch.serving.{m}" for m in (
-    "kv_cache", "engine", "scheduler", "reqtrace", "tracefmt", "program"))
+    "kv_cache", "engine", "scheduler", "reqtrace", "tracefmt", "program",
+    "fleet", "twin")) + ("flexflow_tpu_torch.tools.twin",)
 
 
 def test_tier_swap_and_trace_modules_load_no_jax():

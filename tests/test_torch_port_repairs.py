@@ -57,7 +57,8 @@ def test_lr_reaches_the_default_optimizer_as_in_jax():
 @pytest.mark.parametrize("argv,item", [
     (["--zero-sharding", "zero1"], 9), (["--mesh", "data=2"], 9),
     (["--auto-refit"], 8), (["--simulator-trace", "t.json"], 8),
-    (["--serve-replicas", "2"], 5), (["--cost-model-path", "m.json"], 8),
+    (["--serve-objective", "latency"], 9),
+    (["--cost-model-path", "m.json"], 8),
     (["--compgraph", "g.dot"], 6), (["--serve"], 7)])
 def test_unported_flags_raise_naming_their_item(argv, item):
     JFFConfig.parse_args(argv)          # the JAX package takes them
