@@ -365,6 +365,35 @@ Phases, each fatal on failure (nothing is caught to let the run exit 0):
         keys (the error itself is a finding, not a gate).
     The phase logs its wall time and each part's.
 
+14. The model zoo, run last: every model the JAX package builds that
+    the earlier phases do not, built by the port's builders at their JAX
+    defaults and trained in bf16 compute over f32 master weights, cuDNN's
+    autotuner on; the optimizers those of tests/test_models.py where a
+    test sets one (SGD 0.01), SGD(0.01, momentum 0.9, weight decay 5e-4)
+    for AlexNet, Adam(1e-4) elsewhere:
+    (a) gradient checks as 9f's (`grad_check`, f32 and bf16): MoE-MLP at
+        its defaults under SGD(0.01) (#8; the update read as -lr g from
+        the run's gradients), the branch ensemble at full width and one
+        module under Adam (#7), AlexNet-CIFAR10 (b64) under the momentum
+        SGD (#9), each at 5a's or 5e's tolerances;
+    (b) AlexNet (b64, 224x224, 1000 classes, dropout 0.5), Inception-v3
+        (b32, 299x299), the MLP (b64, 784, hidden 512 x 2), CANDLE Uno
+        (b64, towers 4192 x 8, top 4192 x 4, MSE), XDL (b64, four
+        1,000,000 x 64 tables), MoE-MLP (b64, 64 experts, top-2) and the
+        branch ensemble (b1024, 4 modules of 4 branches): 2 warm-up and
+        5 timed steps each (`train_leg`), the optimizer kernel exactly
+        once a step, then one step profiled;
+    (c) `fuse_fork_joins` before compile on Inception-v3 (JAX's pass fuses
+        none of its regions: its concats join on the channel axis) and on
+        the branch ensemble written in plain layers (4 regions): 2 steps
+        from the unfused model's params against the unfused model's,
+        expected bitwise, gated at `RUN_LOSS_RTOL`;
+    (d) phase 10's `graph_leg` at K = 4 on MoE-MLP and the ensemble;
+    (e) the ensemble searched for an H100 machine of data 8 x model 4,
+        saved, imported on the card: 3 steps to the data-parallel
+        compile's losses.
+    The phase logs its wall time with the card's name and power limit.
+
 The line before the last is `{"kernels": [...]}`; the last line is
 `{"ok": true, "device": {...}}`.
 """
@@ -1933,11 +1962,14 @@ def grad_check(make, inputs, label, tols, tag: str, depth: str,
     in f32 and bf16: the loss, every gradient and every updated param.
     Weights named in `skip` are left out of the gradient and update
     checks. Under SGD with momentum the update is -lr t' from the stored
-    trace, and every updated param is held to `sgd_param_excess`."""
+    trace, under SGD without it -lr (g + wd p) from the run's gradients,
+    and in both every updated param is held to `sgd_param_excess`."""
     out = {}
     for dt in ("float32", "bfloat16"):
         cm = make(dt)
-        sgd_lr = (cm.optimizer.lr if "trace" in cm.opt_state else None)
+        sgd = type(cm.optimizer).__name__ == "SGDOptimizer"
+        sgd_lr = cm.optimizer.lr if sgd else None
+        wd = cm.optimizer.weight_decay if sgd else 0.0
         p0 = {l: {w: t.detach().clone() for w, t in ws.items()}
               for l, ws in cm.params.items()}
         loss_k, _, _, g_k = cm.value_and_grads(cm.params, cm.state, inputs,
@@ -1958,11 +1990,14 @@ def grad_check(make, inputs, label, tols, tag: str, depth: str,
                 cm.train_step(cm.params, cm.opt_state, cm.state, inputs, label)
             after.append({l: {w: t.detach() for w, t in ws.items()}
                           for l, ws in cm.params.items()})
-            updated.append({l: {w: (-sgd_lr * cm.opt_state["trace"][l][w]
-                                    if sgd_lr is not None
-                                    else t - p0[l][w])
-                                for w, t in ws.items()}
-                            for l, ws in after[-1].items()})
+            g = g_p if plain else g_k
+            updated.append({l: {w: (
+                -sgd_lr * cm.opt_state["trace"][l][w]
+                if "trace" in cm.opt_state
+                else -sgd_lr * (g[l][w].float() + wd * p0[l][w])
+                if sgd else t - p0[l][w])
+                for w, t in ws.items()}
+                for l, ws in after[-1].items()})
         upd_err = max(l2_rel(updated[0][l][w], updated[1][l][w])
                       for l in p0 for w in p0[l] if w not in skip)
         loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
@@ -1970,8 +2005,10 @@ def grad_check(make, inputs, label, tols, tag: str, depth: str,
         out[dt] = {"loss_kernels": float(loss_k), "loss_plain": float(loss_p),
                    "loss_rel_err": loss_err, "grad_rel_l2_max": grad_err,
                    "update_rel_l2_max": upd_err,
-                   "update_read_as": ("-lr * trace" if sgd_lr is not None
-                                      else "p' - p"), "tolerance": tol}
+                   "update_read_as": (
+                       "-lr * trace" if "trace" in cm.opt_state
+                       else "-lr * (g + wd * p)" if sgd else "p' - p"),
+                   "tolerance": tol}
         ok = (loss_err <= tol["loss"] and grad_err <= tol["grad"]
               and upd_err <= tol["update"])
         excess = ""
@@ -2975,21 +3012,34 @@ def on_card(xs, y):
 
 def p9_leg(tag: str, which: str, exact: dict, seed: int,
            dropout: float = 0.0, metrics=()) -> tuple:
-    """One leg of phase 9: 2 warm-up and 10 timed steps on one batch, the
-    launch counters zeroed before the 12 steps and read after (`exact`
-    gives each kernel's launches per step; a kernel it does not name must
-    not launch), the optimizer's table built in the first step only,
-    every loss finite; then torch.profiler over one step. Step i draws
-    its dropout from fold_in(key(seed + 17), i). Returns (summary,
-    compiled model, device inputs, label)."""
-    from flexflow_tpu_torch import random as ff_random
-    from flexflow_tpu_torch.kernels import fused_optim as fo
-
+    """One leg of phase 9: `train_leg` over 2 warm-up and 10 timed steps
+    (5 windows of 2) of `which` at full width. Returns (summary, compiled
+    model, device inputs, label)."""
     collect_garbage()
     torch.cuda.empty_cache()
     cm, flops, batch = p9_model(which, "bfloat16", seed, dropout=dropout,
                                 metrics=metrics)
     inputs, label = on_card(*p9_batch(which, seed))
+    summary = train_leg(tag, which, cm, flops, batch, inputs, label, exact,
+                        seed, TRAIN_STEPS // 2, 2)
+    summary["dropout"] = dropout
+    return summary, cm, inputs, label
+
+
+def train_leg(tag: str, which: str, cm, flops: float, batch: int, inputs,
+              label, exact: dict, seed: int, windows_n: int,
+              per_window: int) -> dict:
+    """2 warm-up steps, then `windows_n` windows of `per_window` steps on
+    one batch, each window ended by a device sync; the launch counters
+    zeroed before the first step and read after the last (`exact` gives
+    each kernel's launches per step; a kernel it does not name must not
+    launch), the optimizer's table built in the first step only, every
+    loss finite; then torch.profiler over one step. Step i draws its
+    dropout from fold_in(key(seed + 17), i). MFU is 3 x the registry's
+    forward flops a step over the card's bf16 peak."""
+    from flexflow_tpu_torch import random as ff_random
+    from flexflow_tpu_torch.kernels import fused_optim as fo
+
     losses = []
     base = ff_random.key(seed + 17)
 
@@ -3010,19 +3060,19 @@ def p9_leg(tag: str, which: str, exact: dict, seed: int,
     warmup_s = time.perf_counter() - t0
     builds = [fo.table_builds - builds0]
     windows = []
-    for _ in range(TRAIN_STEPS // 2):
+    for _ in range(windows_n):
         t0 = time.perf_counter()
-        step()
-        step()
+        for _ in range(per_window):
+            step()
         torch.cuda.synchronize()
-        windows.append((time.perf_counter() - t0) / 2)
+        windows.append((time.perf_counter() - t0) / per_window)
     counts = launch_counts()
     builds.append(fo.table_builds - builds0 - builds[0])
-    steps = WARMUP_STEPS + TRAIN_STEPS
+    steps = WARMUP_STEPS + windows_n * per_window
     loss_vals = [float(x) for x in losses]
     step_s = float(np.median(windows))
     summary = {
-        "model": which, "batch": batch, "dropout": dropout,
+        "model": which, "batch": batch,
         "compute_dtype": "bfloat16", "optimizer": type(cm.optimizer).__name__,
         "optimizer_args": {k: v for k, v in vars(cm.optimizer).items()
                            if isinstance(v, (int, float, str))},
@@ -3058,7 +3108,7 @@ def p9_leg(tag: str, which: str, exact: dict, seed: int,
              f"times in the warm-up and timed steps, expected [1, 0]")
     summary["profile"] = profile_train(cm, inputs, label, tag,
                                        rng=ff_random.key(seed), reps=1)
-    return summary, cm, inputs, label
+    return summary
 
 
 def p9_fit_evaluate(cm, seed: int) -> dict:
@@ -4915,6 +4965,324 @@ def phase13(gc, params, prompts, streams: dict, seed: int,
     return out
 
 
+# ------------------------------------------- phase 14: the model zoo
+# each builder's JAX defaults (the batch they build with), bf16 compute
+# over f32 master weights; the optimizers of tests/test_models.py where a
+# test sets one (SGD 0.01), AlexNet's SGD with momentum 0.9 and weight
+# decay 5e-4, Adam(1e-4) elsewhere
+P14_MODELS = ("alexnet", "inception_v3", "mlp", "candle_uno", "xdl",
+              "moe_mlp", "branchy")
+P14_TIMED, P14_GRAPH_K = 5, 4
+ZOO_SGD = dict(lr=0.01, momentum=0.9, weight_decay=5e-4)
+# the optimizer kernel each model's step launches once
+ZOO_KERNEL = {"alexnet": "fused_sgd", "alexnet_cifar10": "fused_sgd",
+              "mlp": "fused_sgd_plain", "moe_mlp": "fused_sgd_plain",
+              "inception_v3": "fused_adam", "candle_uno": "fused_adam",
+              "xdl": "fused_adam", "branchy": "fused_adam",
+              "branchy_1": "fused_adam", "branchy_plain": "fused_adam"}
+
+
+def branchy_plain(model, batch: int = 1024, width: int = 512,
+                  hidden: int = 8192, modules: int = 4):
+    """(14c) the branch ensemble written out in plain layers, two
+    branches (relu, gelu) a module joined by an add: the graph
+    `fuse_fork_joins` rewrites into `modules` fork-joins."""
+    x = model.create_tensor([batch, width], name="x")
+    t = model.dense(x, width, activation="relu", name="trunk")
+    for j in range(modules):
+        ys = [model.dense(model.dense(t, hidden, activation=act,
+                                      name=f"m{j}_{act}_mid"),
+                          width, name=f"m{j}_{act}_out")
+              for act in ("relu", "gelu")]
+        t = model.add(ys[0], ys[1], name=f"m{j}_join")
+        t = model.dense(t, width, activation="relu", name=f"proj{j}")
+    model.dense(t, 10, name="head")
+
+
+def zoo_build(which: str, model) -> None:
+    from flexflow_tpu_torch import models
+    from flexflow_tpu_torch.models.alexnet import build_alexnet_cifar10
+    from flexflow_tpu_torch.models.branchy import build_branchy
+
+    if which == "alexnet":
+        models.build_alexnet(model)             # b64, 3x224x224, 1000
+    elif which == "alexnet_cifar10":
+        build_alexnet_cifar10(model, batch=64)
+    elif which == "inception_v3":
+        models.build_inception_v3(model)        # b32, 3x299x299, 1000
+    elif which == "mlp":
+        models.build_mlp(model, 64, 784)        # hidden (512, 512), 10
+    elif which == "candle_uno":
+        models.build_candle_uno(model)          # towers 4192 x 8, top x 4
+    elif which == "xdl":
+        models.build_xdl(model)                 # four 1,000,000 x 64
+    elif which == "moe_mlp":
+        models.build_moe_mlp(model)             # 64 experts, top-2
+    elif which == "branchy":
+        build_branchy(model)                    # b1024, 4 modules x 4
+    elif which == "branchy_1":
+        build_branchy(model, modules=1)
+    else:
+        branchy_plain(model)
+
+
+def zoo_model(which: str, compute_dtype: str, seed: int, fuse: bool = False,
+              guids=None, **cfg) -> tuple:
+    """(compiled model, forward flops by the registry's count, batch,
+    fork-join regions fused) of `which` built by the port's builders;
+    `fuse` applies `fuse_fork_joins` before the compile; `guids` (layer,
+    tensor) starts the guid counters there, so two builds draw the same
+    dropout masks."""
+    from flexflow_tpu_torch import (AdamOptimizer, FFConfig, FFModel,
+                                    SGDOptimizer)
+    from flexflow_tpu_torch.compiler.passes import fuse_fork_joins
+    from flexflow_tpu_torch.core.layer import Layer
+    from flexflow_tpu_torch.core.tensor import Tensor
+    from flexflow_tpu_torch.ops import get_op_def
+
+    if guids is not None:
+        Layer._next_guid[0], Tensor._next_guid[0] = guids
+    model = FFModel(FFConfig(compute_dtype=compute_dtype, seed=seed, **cfg))
+    zoo_build(which, model)
+    model.config.batch_size = model.input_tensors[0].shape[0]
+    fused = fuse_fork_joins(model) if fuse else 0
+    kernel = ZOO_KERNEL[which]
+    opt = (SGDOptimizer(**ZOO_SGD) if kernel == "fused_sgd"
+           else SGDOptimizer(lr=0.01) if kernel == "fused_sgd_plain"
+           else AdamOptimizer(alpha=LR))
+    loss = ("mean_squared_error" if which == "candle_uno"
+            else "sparse_categorical_crossentropy")
+    cm = model.compile(opt, loss, [])
+    cm.init(seed=seed)
+    flops = sum(get_op_def(l.op_type).flop_count(l) for l in model.layers)
+    return cm, flops, model.input_tensors[0].shape[0], fused
+
+
+def zoo_batches(model, seed: int, n: int = 1) -> tuple:
+    """`n` batches for `model`'s inputs, one after the other (numpy, on
+    the host): ids below the table size of the embedding reading them,
+    floats N(0, 0.25), labels as its loss takes them."""
+    rng = np.random.default_rng(seed)
+    xs = []
+    for t in model.input_tensors:
+        shape = (n * t.shape[0],) + tuple(t.shape[1:])
+        if t.dtype.value == "int32":
+            hi = next(l.params["num_entries"] for l in model.layers
+                      if t in l.inputs)
+            xs.append(rng.integers(0, hi, size=shape).astype(np.int32))
+        else:
+            xs.append(rng.normal(size=shape, scale=0.5).astype(np.float32))
+    out = model.layers[-1].outputs[0].spec.shape
+    rows = n * out[0]
+    if model.compiled.loss_type.value == "mean_squared_error":
+        y = rng.normal(size=(rows,) + tuple(out[1:])).astype(np.float32)
+    else:
+        y = rng.integers(0, out[-1], size=(rows,)).astype(np.int32)
+    return xs, y
+
+
+def p14_grad_check(which: str, seed: int, tols) -> dict:
+    """(14a) `grad_check` of `which`: one step through the kernels and one
+    through the plain versions from the same params, f32 and bf16. The
+    model's optimizer kernel must have launched."""
+    probe = zoo_model(which, "float32", seed)[0]
+    inputs, label = on_card(*zoo_batches(probe.model, seed + 1))
+    del probe
+    collect_garbage()
+    torch.cuda.empty_cache()
+    zero_launch_counts()
+    out = grad_check(lambda dt: zoo_model(which, dt, seed)[0], inputs, label,
+                     tols, f"14a grad check {which}", "full width")
+    counts = launch_counts()
+    if counts[ZOO_KERNEL[which]] <= 0:
+        fail(f"14a grad check {which}: {ZOO_KERNEL[which]} not launched: "
+             f"{counts}")
+    out["launches"] = counts
+    return out
+
+
+def _steps_losses(cm, inputs, label, seed: int, n: int) -> list:
+    from flexflow_tpu_torch import random as ff_random
+
+    base, losses = ff_random.key(seed + 17), []
+    for i in range(n):
+        (cm.params, cm.opt_state, cm.state, loss, _) = cm.train_step(
+            cm.params, cm.opt_state, cm.state, inputs, label,
+            ff_random.fold_in(base, i))
+        losses.append(float(loss))
+    return losses
+
+
+def p14_fusion(seed: int) -> dict:
+    """(14c) `fuse_fork_joins` before compile: Inception-v3 (its concat
+    joins ride the channel axis, so JAX's pass fuses none of its regions)
+    and the branch ensemble in plain layers (4 regions). Both models of a
+    pair are built from the same guids (Inception's dropout masks fold
+    them in); the fused one takes the unfused one's params and state; 2
+    steps of each on one batch: the losses, expected bitwise, gated at
+    RUN_LOSS_RTOL."""
+    from flexflow_tpu_torch.compiler.passes import find_fork_join_regions
+    from flexflow_tpu_torch.core.layer import Layer
+    from flexflow_tpu_torch.core.tensor import Tensor
+
+    out = {}
+    start = Layer._next_guid[0], Tensor._next_guid[0]
+    for which in ("inception_v3", "branchy_plain"):
+        ref = zoo_model(which, "bfloat16", seed, guids=start)[0]
+        regions = len(find_fork_join_regions(ref.model))
+        p0, s0 = _tree_copy(ref.params), _tree_copy(ref.state)
+        cm, _, _, fused = zoo_model(which, "bfloat16", seed, fuse=True,
+                                    guids=start)
+        params = {}
+        for layer in cm.model.layers:
+            if layer.branches:
+                for bi, (bls, _bx, _o) in enumerate(layer.branches):
+                    for bl in bls:
+                        for w in bl.weight_specs:
+                            params.setdefault(layer.name, {})[
+                                f"b{bi}.{bl.name}.{w}"] = p0[bl.name][w]
+            elif layer.weight_specs:
+                params[layer.name] = p0[layer.name]
+        cm.load_params(params)
+        cm.state = _tree_copy(s0)
+        inputs, label = on_card(*zoo_batches(ref.model, seed + 5))
+        ref.load_params(p0)
+        ref.state = s0
+        zero_launch_counts()
+        unfused = _steps_losses(ref, inputs, label, seed, 2)
+        fused_l = _steps_losses(cm, inputs, label, seed, 2)
+        counts = launch_counts()
+        diff = max(abs(a - b) / abs(b) for a, b in zip(fused_l, unfused))
+        out[which] = {"regions_found": regions, "regions_fused": fused,
+                      "losses_unfused": unfused, "losses_fused": fused_l,
+                      "max_rel_diff": diff,
+                      "bitwise": fused_l == unfused, "launches": counts}
+        log(f"[14c] {which}: {regions} fork-join regions found, {fused} "
+            f"fused; losses unfused {unfused}, fused {fused_l}, largest "
+            f"relative difference {diff:.3e} (bitwise {fused_l == unfused};"
+            f" gate {RUN_LOSS_RTOL})")
+        if diff > RUN_LOSS_RTOL or not all(np.isfinite(fused_l)):
+            fail(f"14c {which}: fused against unfused {out[which]}")
+        if counts != {n: 4 if n == ZOO_KERNEL[which] else 0 for n in counts}:
+            fail(f"14c {which}: launches {counts}")
+        del cm, ref, p0, s0
+        collect_garbage()
+        torch.cuda.empty_cache()
+    if out["branchy_plain"]["regions_fused"] != 4 or \
+            out["inception_v3"]["regions_fused"] != 0:
+        fail(f"14c: fused regions {out}")
+    return out
+
+
+def p14_strategy(seed: int, tmpdir: str) -> dict:
+    """(14e) the branch ensemble searched (graph_optimize) for an H100
+    machine of data 8 x model 4 and saved as `export_strategy_file`
+    saves a strategy; imported on the one card (`import_strategy_file`)
+    it trains 3 steps to the data-parallel compile's losses from the same
+    params (one device applies neither placement)."""
+    from flexflow_tpu_torch import AdamOptimizer, FFConfig, FFModel
+    from flexflow_tpu_torch.models.branchy import build_branchy
+    from flexflow_tpu_torch.parallel.machine import MachineSpec
+    from flexflow_tpu_torch.search.optimize import graph_optimize
+
+    machine = MachineSpec(mesh_axes={"data": 8, "model": 4}, chip="h100")
+    model = FFModel(FFConfig(batch_size=1024, search_budget=SEARCH_BUDGET,
+                             strategy_cache=False))
+    build_branchy(model)
+    t0 = time.perf_counter()
+    strategy = graph_optimize(model, machine,
+                              optimizer=AdamOptimizer(alpha=LR))
+    search_s = time.perf_counter() - t0
+    path = os.path.join(tmpdir, "branchy_strategy.json")
+    strategy.save(path)
+    placed = {k: v.attrs for k, v in strategy.op_shardings.items() if v.attrs}
+    imported = zoo_model("branchy", "bfloat16", seed,
+                         import_strategy_file=path)[0]
+    inputs, label = on_card(*zoo_batches(imported.model, seed + 7))
+    zero_launch_counts()
+    li = _steps_losses(imported, inputs, label, seed, 3)
+    counts = launch_counts()
+    del imported
+    collect_garbage()
+    torch.cuda.empty_cache()
+    plain = zoo_model("branchy", "bfloat16", seed)[0]
+    lp = _steps_losses(plain, inputs, label, seed, 3)
+    del plain
+    collect_garbage()
+    torch.cuda.empty_cache()
+    diff = max(abs(a - b) / abs(b) for a, b in zip(li, lp))
+    out = {"machine": dict(machine.mesh_axes), "search_s": search_s,
+           "strategy": strategy.name, "placed": placed,
+           "predicted_step_s": getattr(strategy, "_predicted_cost", None),
+           "losses_imported": li, "losses_data_parallel": lp,
+           "max_rel_diff": diff, "bitwise": li == lp, "launches": counts}
+    log(f"[14e] search on {out['machine']} in {search_s:.2f} s: "
+        f"{strategy.name}, placed {placed}, predicted step "
+        f"{1e3 * (out['predicted_step_s'] or 0):.3f} ms; imported on one card"
+        f": losses {li} against data parallel {lp} (bitwise {li == lp})")
+    if not placed or diff > RUN_LOSS_RTOL or not all(np.isfinite(li)):
+        fail(f"14e: {out}")
+    if counts != {n: 3 if n == "fused_adam" else 0 for n in counts}:
+        fail(f"14e: launches {counts}")
+    return out
+
+
+def phase14(seed: int) -> dict:
+    """The model zoo on the card: (a) gradient checks, (b) every model at
+    its builder's defaults, (c) the fork-join pass, (d) the K-step graph on
+    MoE-MLP and the branch ensemble, (e) a searched strategy imported.
+    cuDNN's autotuner is on for the phase."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    out = {"grad_check": {}, "legs": {}, "graph": {}}
+    for which, tols in (("moe_mlp", GRAD_TOL_SGD), ("branchy_1", GRAD_TOL),
+                        ("alexnet_cifar10", GRAD_TOL_SGD)):
+        out["grad_check"][which] = p14_grad_check(which, seed, tols)
+    out["grad_check_s"] = time.perf_counter() - t0
+    card = card_line()
+    for which in P14_MODELS:
+        collect_garbage()
+        torch.cuda.empty_cache()
+        cm, flops, batch, _ = zoo_model(which, "bfloat16", seed)
+        inputs, label = on_card(*zoo_batches(cm.model, seed))
+        out["legs"][which] = train_leg(
+            f"14b {which}", which, cm, flops, batch, inputs, label,
+            {ZOO_KERNEL[which]: 1}, seed, P14_TIMED, 1)
+        leg, prof = out["legs"][which], out["legs"][which]["profile"]
+        log(f"[14b {which}] {card}: step {leg['step_ms_median']:.2f} ms, "
+            f"{leg['samples_per_s']:.1f} samples/s, MFU "
+            f"{100 * leg['mfu_port_count']:.2f}%, peak "
+            f"{leg['max_memory_allocated_gib']:.2f} GiB, "
+            f"{ZOO_KERNEL[which]} once a step, busy "
+            f"{prof.get('device_busy_ms_per_call', float('nan')):.2f} ms, "
+            f"idle {prof.get('device_idle_share', float('nan')):.3f}")
+        if which in ("moe_mlp", "branchy"):
+            out["graph"][which] = graph_leg(
+                f"14d {which}", cm,
+                lambda n, s_, m=cm.model: zoo_batches(m, s_, n),
+                P14_GRAPH_K, seed)
+        del cm, inputs, label
+    out["legs_s"] = time.perf_counter() - t0 - out["grad_check_s"]
+    out["fusion"] = p14_fusion(seed)
+    tmpdir = tempfile.mkdtemp(prefix="ff_p14_")
+    try:
+        out["strategy"] = p14_strategy(seed, tmpdir)
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+    collect_garbage()
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.benchmark = bench
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[phase 14] {out['wall_s']:.1f} s (grad checks "
+        f"{out['grad_check_s']:.1f} s, legs and graphs {out['legs_s']:.1f} s)"
+        f" on {card_line()}")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5155,6 +5523,10 @@ def main() -> None:
                         serving12["tier"]["int8"]["host_bw_GBps"] * 1e9)
     del params, params_host
     torch.cuda.empty_cache()
+    # ---- 14. the model zoo: gradient checks, every remaining model at its
+    # builder's defaults, the fork-join pass, the K-step graph, a searched
+    # strategy imported
+    zoo = phase14(args.seed)
 
     # launches on the main paths: both serving runs, the 12 Adam training
     # steps and the Adam fit epoch, the 12 padded-vocab SGD steps and the
@@ -5218,6 +5590,16 @@ def main() -> None:
     for n in (1, 2):
         for kind, run in serving13["13d"][n].items():
             paths[f"p13d_{n}_replicas_{kind}"] = run["launches"]
+    # phase 14's legs, graphs (captures and fits), fusion and import: no
+    # attention, the optimizer kernels only
+    for which, leg in zoo["legs"].items():
+        paths9[f"p14b_{which}_steps"] = leg["launches"]
+    for which, g in zoo["graph"].items():
+        paths9[f"p14d_{which}_capture"] = g["launches"]
+        paths9[f"p14d_{which}_fit"] = g["fit"]["launches"]
+    for which, f in zoo["fusion"].items():
+        paths9[f"p14c_{which}_fused_and_unfused"] = f["launches"]
+    paths9["p14e_imported_strategy_steps"] = zoo["strategy"]["launches"]
     for r in rows:
         causal = r.get("causal")
         counted = (paths if causal else paths9 if causal is False
@@ -5242,6 +5624,7 @@ def main() -> None:
     log(json.dumps({"health": health11}, default=str))
     log(json.dumps({"serving12": serving12}, default=str))
     log(json.dumps({"serving13": serving13}, default=str))
+    log(json.dumps({"zoo": zoo}, default=str))
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -126,7 +126,7 @@ def resolve_machine(cfg, device=None) -> MachineSpec:
         raise NotImplementedError(
             f"machine {dict(machine.mesh_axes)} has {machine.num_devices} "
             "devices: the port executes on one (multi-GPU execution is "
-            "ROADMAP Queue 1 item 7); search a larger machine with "
+            "ROADMAP Queue 1 item 9); search a larger machine with "
             "search_num_nodes / search_num_workers and export_strategy_file")
     return machine
 
@@ -237,6 +237,10 @@ class CompiledModel:
         if self.cfg.remat and not self.strategy.remat:
             self.strategy.remat = {l.name: "full" for l in model.layers}
         self.outputs = list(outputs)
+        # the model's L1/L2 penalties as the compile found them, added to
+        # the f32 loss of every train step (JAX reads them at compile too)
+        self._regularizers = {k: list(v) for k, v in
+                              model._weight_regularizers.items()}
         self.forward_fn = self._build_forward()
         # optimizer updates taken (the fit rng and checkpoints count them)
         self._iteration = 0
@@ -349,6 +353,11 @@ class CompiledModel:
                                           training=True, rng=rng)
         logits = outs[0]
         loss = self._loss(logits, label)
+        for (ln, wn), terms in self._regularizers.items():
+            w = params[ln][wn].float()
+            for mode, lam in terms:
+                loss = loss + lam * (w.abs().sum() if mode == "l1"
+                                     else (w * w).sum())
         flat = torch.autograd.grad(loss, [params[l][w] for l, w in order])
         grads: Dict[str, Dict[str, torch.Tensor]] = {}
         for (l, w), g in zip(order, flat):
@@ -908,13 +917,44 @@ class CompiledModel:
         return outs[0] if len(outs) == 1 else outs
 
     # -------------------------------------------------------------- weights
+    @staticmethod
+    def _stacked_alias(layer, wname: str):
+        """A fork-join branch's "b{i}.{sub}.{w}" resolved against stacked
+        storage: (the "stk.{sub}.{w}" key, i), or None (JAX's rule)."""
+        if wname in layer.weight_specs or not wname.startswith("b"):
+            return None
+        head, _, rest = wname.partition(".")
+        if not rest or not head[1:].isdigit():
+            return None
+        stk = f"stk.{rest}"
+        return (stk, int(head[1:])) if stk in layer.weight_specs else None
+
     def get_weight(self, layer_name: str, wname: str = "kernel") -> np.ndarray:
+        alias = self._stacked_alias(self.model.get_layer_by_name(layer_name),
+                                    wname)
+        if alias is not None:
+            stk, b = alias
+            return self.params[layer_name][stk][b].detach().cpu().numpy().copy()
         return self.params[layer_name][wname].detach().cpu().numpy().copy()
 
     def set_weight(self, layer_name: str, wname: str, value):
         """Replace one weight (a new device tensor: the fused optimizer's
-        pointer table is rebuilt at the next step)."""
+        pointer table is rebuilt at the next step). A fork-join branch's
+        "b{i}.{sub}.{w}" on stacked storage writes slice i of the stacked
+        weight in place."""
         layer = self.model.get_layer_by_name(layer_name)
+        alias = self._stacked_alias(layer, wname)
+        if alias is not None:
+            stk, b = alias
+            target = self.params[layer_name][stk]
+            value = to_device(np.asarray(value), self.device)
+            if tuple(value.shape) != tuple(target.shape[1:]):
+                raise ValueError(f"{layer_name}.{wname}: shape "
+                                 f"{tuple(value.shape)} vs expected "
+                                 f"{tuple(target.shape[1:])}")
+            with torch.no_grad():
+                target[b].copy_(value)
+            return
         self.params[layer_name][wname] = self._place(
             np.asarray(value), layer.weight_specs[wname],
             f"{layer_name}.{wname}")

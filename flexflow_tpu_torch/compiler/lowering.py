@@ -26,8 +26,8 @@ back from the trace; off, the loop opens no range. The
 hand-written kernels' autograd Functions rerun in the recompute, and their
 launches count again. The mixed-precision policy
 is the JAX package's: floating inputs and weights are cast to the compute
-dtype, except norm params (gamma/beta), whose lowerings compute the affine
-in f32.
+dtype, except norm params (gamma/beta), those inside fork-join branches
+included, whose lowerings compute the affine in f32.
 """
 
 from __future__ import annotations
@@ -84,9 +84,24 @@ def cast_dtype(compute_dtype: Optional[str]) -> Optional[torch.dtype]:
 
 
 def cast_exempt(layers: Sequence[Layer]) -> Dict[str, set]:
-    """Per-layer weight names exempt from the compute-dtype cast."""
-    return {l.name: set(l.weight_specs) for l in layers
-            if l.op_type in NORM_TYPES}
+    """Per-layer weight names exempt from the compute-dtype cast: norm
+    params, those of norms nested in fork-join branches included (named
+    `b{i}.{sub}.{w}` or `stk.{sub}.{w}` on the composite), as JAX's
+    lowering exempts them."""
+    out: Dict[str, set] = {}
+    for l in layers:
+        if l.op_type in NORM_TYPES:
+            out[l.name] = set(l.weight_specs)
+        elif l.op_type is OperatorType.FORK_JOIN:
+            ex = set()
+            for bi, (bls, _bx, _bo) in enumerate(l.branches):
+                for bl in bls:
+                    if bl.op_type in NORM_TYPES:
+                        ex.update(f"b{bi}.{bl.name}.{w}" for w in bl.weight_specs)
+                        ex.update(f"stk.{bl.name}.{w}" for w in bl.weight_specs)
+            if ex:
+                out[l.name] = ex
+    return out
 
 
 class GraphForward(nn.Module):

@@ -193,6 +193,11 @@ class FFConfig:
     remat: bool = False
     remat_search: bool = False
     remat_policies: str = "none,dots,full"
+    # --compgraph: compile writes FFModel.dot() (the layer graph with each
+    # op's sharding) to this path ("" = off); --include-costs-dot-graph
+    # adds each op's predicted time
+    export_dot: str = ""
+    include_costs_dot_graph: bool = False
     # checkpoints (runtime/checkpoint.py, runtime/resilience.py):
     #   async_checkpoint — snapshot to host on the caller thread, write on
     #     a background thread
@@ -338,9 +343,8 @@ class FFConfig:
                        choices=("auto", "on", "off"))
         p.add_argument("--fused-optimizer", type=str, default="auto",
                        choices=("auto", "on", "off"))
-        p.add_argument("--compgraph", dest="export_dot", type=str, default=U)
-        p.add_argument("--include-costs-dot-graph", action="store_true",
-                       default=U)
+        p.add_argument("--compgraph", dest="export_dot", type=str, default="")
+        p.add_argument("--include-costs-dot-graph", action="store_true")
         p.add_argument("--serve", action="store_true", default=U)
         p.add_argument("--max-decode-len", type=int, default=0)
         p.add_argument("--kv-page-size", type=int, default=16)
@@ -458,6 +462,8 @@ class FFConfig:
             remat=args.remat,
             remat_search=args.remat_search,
             remat_policies=args.remat_policies,
+            export_dot=args.export_dot,
+            include_costs_dot_graph=args.include_costs_dot_graph,
             async_checkpoint=args.async_checkpoint,
             checkpoint_dir=args.checkpoint_dir,
             checkpoint_every_steps=args.checkpoint_every_steps,
@@ -483,7 +489,5 @@ _UNPORTED = {
     "cost_model_path": ("--cost-model-path", 8),
     "auto_refit": ("--auto-refit", 8),
     "simulator_trace": ("--simulator-trace", 8),
-    "export_dot": ("--compgraph", 6),
-    "include_costs_dot_graph": ("--include-costs-dot-graph", 6),
     "serve": ("--serve", 7),
 }

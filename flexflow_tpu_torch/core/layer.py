@@ -1,7 +1,10 @@
 """Layer — a node in the frontend graph (counterpart: flexflow_tpu/core/layer.py).
 
 A Layer records its op type, a params dict, its input tensors and the
-output tensors it produces; shape inference fills `weight_specs`.
+output tensors it produces; shape inference fills `weight_specs`. A
+fork-join composite (ops/fork_join.py) also holds `branches`: one
+(sub_layers, branch_input, branch_output) per branch, None on every other
+layer.
 `params_key()` is its hashable identity (op type, params, input specs),
 the key the search's memo tables and measured-cost store intern by.
 """
@@ -37,6 +40,8 @@ class Layer:
         Layer._next_guid[0] += 1
         self.name = name or f"{op_type.value}_{self.guid}"
         self.weight_specs: Dict[str, TensorSpec] = {}
+        self.branches: Optional[List[Tuple[List["Layer"], Tensor, Tensor]]] \
+            = None
 
     def add_output(self, spec: TensorSpec, idx: int = 0,
                    name: Optional[str] = None) -> Tensor:

@@ -3,13 +3,17 @@
 The builder methods append Layers to the frontend graph with the same op
 types, params and default names as the JAX package, so the same build
 script yields the same layer names, weight specs and topological order in
-both packages. Ported: the dense, conv, pool, embedding, batch-matmul and
-attention builders, the elementwise, norm, softmax, dropout, shape and
-reduction builders; the MoE, fork-join, cache and parallel-op builders
-are not.
+both packages. Every builder of the JAX FFModel is here: dense, conv,
+pool, embedding, batch matmul, attention and scaled-dot-product attention,
+the elementwise, norm, softmax, dropout, shape and reduction builders, the
+MoE ops and the composite `moe`, `fork_join`, and the parallel ops.
 `compile`, `fit`, `eval`, `forward`, `save_checkpoint`,
-`load_checkpoint`, `get_weight` and `set_weight` delegate to the
-`CompiledModel` (compiler/compile.py), as in JAX.
+`load_checkpoint`, `get_weight` and `set_weight` (and JAX's names for the
+last two, `get_parameter_by_name` and `set_parameter_by_name`) delegate to
+the `CompiledModel` (compiler/compile.py), as in JAX. `dot()` is the
+Graphviz export that `compile` writes to the config's `export_dot`
+(`--compgraph`), with each op's predicted time under
+`include_costs_dot_graph`.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 
 from flexflow_tpu_torch.config import FFConfig
+from flexflow_tpu_torch.core.graph import to_dot, topo_order
 from flexflow_tpu_torch.core.layer import Layer
 from flexflow_tpu_torch.core.tensor import Tensor, TensorSpec
 from flexflow_tpu_torch.dtype import DataType
@@ -33,6 +38,21 @@ class FFModel:
         self.input_tensors: List[Tensor] = []
         self._initializer_overrides: Dict[Tuple[str, str], Any] = {}
         self._compiled = None
+        # (layer, wname) -> [("l1" | "l2", coeff)]: penalty terms the train
+        # step adds to the f32 loss
+        self._weight_regularizers: Dict[Tuple[str, str],
+                                        List[Tuple[str, float]]] = {}
+
+    def add_weight_regularizer(self, layer_name: str, wname: str,
+                               mode: str, coeff: float) -> None:
+        """Register an L1 or L2 penalty on a weight: the train step adds
+        coeff * sum|w| or coeff * sum w^2 (of the f32 master weight) to
+        the loss it differentiates, the eager step and the K-step graph
+        alike."""
+        if mode not in ("l1", "l2"):
+            raise ValueError(f"unknown regularizer mode {mode!r}")
+        self._weight_regularizers.setdefault(
+            (layer_name, wname), []).append((mode, float(coeff)))
 
     def create_tensor(self, dims: Sequence[int], dtype=DataType.FLOAT,
                       name: Optional[str] = None) -> Tensor:
@@ -320,6 +340,19 @@ class FFModel:
         """Elementwise select (torch.where): a where cond else b."""
         return self._add_layer(OperatorType.WHERE, {}, [cond, a, b], name)[0]
 
+    def scaled_dot_product_attention(self, query, key, value, attn_mask=None,
+                                     dropout_p: float = 0.0,
+                                     is_causal: bool = False, scale=None,
+                                     name=None) -> Tensor:
+        """Core attention without projections (torch's
+        F.scaled_dot_product_attention semantics, JAX's masking)."""
+        ins = [query, key, value] + ([attn_mask] if attn_mask is not None
+                                     else [])
+        return self._add_layer(
+            OperatorType.SDPA,
+            {"dropout_p": dropout_p, "is_causal": is_causal, "scale": scale},
+            ins, name)[0]
+
     # reductions ------------------------------------------------------------
     def reduce_sum(self, input, axes, keepdims: bool = False,
                    name=None) -> Tensor:
@@ -347,6 +380,118 @@ class FFModel:
         return self._add_layer(OperatorType.TOPK,
                                {"k": int(k), "sorted": sorted}, [input], name)
 
+    # MoE -------------------------------------------------------------------
+    def group_by(self, data: Tensor, assign: Tensor, n_experts: int,
+                 alpha: float = 1.0, name=None) -> List[Tensor]:
+        return self._add_layer(OperatorType.GROUP_BY,
+                               {"n_experts": int(n_experts), "alpha": alpha},
+                               [data, assign], name)
+
+    def experts(self, dispatched: Tensor, out_dim: int, activation=None,
+                use_bias: bool = True, name=None) -> Tensor:
+        return self._add_layer(OperatorType.EXPERTS,
+                               {"out_dim": int(out_dim),
+                                "activation": activation,
+                                "use_bias": use_bias},
+                               [dispatched], name)[0]
+
+    def aggregate(self, gates: Tensor, assign: Tensor, positions: Tensor,
+                  expert_outputs: Tensor, name=None) -> Tensor:
+        return self._add_layer(OperatorType.AGGREGATE, {},
+                               [gates, assign, positions, expert_outputs],
+                               name)[0]
+
+    def aggregate_spec(self, gates, assign, positions, expert_outputs,
+                       name=None) -> Tensor:
+        return self._add_layer(OperatorType.AGGREGATE_SPEC, {},
+                               [gates, assign, positions, expert_outputs],
+                               name)[0]
+
+    def cache(self, input: Tensor, num_batches: int = 1, name=None) -> Tensor:
+        return self._add_layer(OperatorType.CACHE,
+                               {"num_batches": num_batches}, [input], name)[0]
+
+    def moe(self, input: Tensor, num_exp: int, num_select: int,
+            expert_hidden_size: int, alpha: float = 2.0,
+            lambda_bal: float = 0.0, name=None) -> Tensor:
+        """Composite MoE block: top-k gating, group_by, the per-expert
+        dense and aggregate."""
+        gate_logits = self.dense(input, num_exp, name=f"{name or 'moe'}_gate")
+        gate_probs = self.softmax(gate_logits)
+        topk_vals, topk_idx = self.top_k(gate_probs, num_select)
+        dispatched, positions = self.group_by(input, topk_idx, num_exp, alpha)
+        hidden = self.experts(dispatched, expert_hidden_size,
+                              activation="relu",
+                              name=f"{name or 'moe'}_experts")
+        return self.aggregate(topk_vals, topk_idx, positions, hidden,
+                              name=f"{name or 'moe'}_agg")
+
+    def fork_join(self, input: Tensor, branches, join: str = "add",
+                  name=None) -> Tensor:
+        """Parallel branches joined by "add" or a last-dim "concat"
+        (ops/fork_join.py). Each branch is a callable f(sub_model, x) ->
+        Tensor building an ordinary sub-graph on a sub-model; its weights
+        surface on this layer as "b{i}.{sub_layer}.{wname}" (or stacked,
+        "stk.{sub_layer}.{wname}", for congruent branches). A sub-layer
+        whose name embeds its guid is renamed by position, so models built
+        alike get the same weight names; branch initializer overrides move
+        to the prefixed names."""
+        subs = []
+        overrides = []
+        for bi, build in enumerate(branches):
+            bm = FFModel(self.config)
+            bx = bm.create_tensor(list(input.shape), dtype=input.spec.dtype,
+                                  name=f"_fj_b{bi}_in")
+            out = build(bm, bx)
+            rename = {}
+            for j, l in enumerate(bm.layers):
+                if l.name == f"{l.op_type.value}_{l.guid}":
+                    rename[l.name] = f"{l.op_type.value}{j}"
+                    l.name = rename[l.name]
+            subs.append((bm.layers, bx, out))
+            overrides.append({(rename.get(ln, ln), wn): init for (ln, wn), init
+                              in bm._initializer_overrides.items()})
+        layer = Layer(OperatorType.FORK_JOIN,
+                      {"join": join, "n_branches": len(branches)},
+                      [input], name=name)
+        layer.branches = subs
+        for i, spec in enumerate(get_op_def(OperatorType.FORK_JOIN).infer(layer)):
+            layer.add_output(spec, idx=i)
+        self.layers.append(layer)
+        for bi, ov in enumerate(overrides):
+            for (lname, wname), init in ov.items():
+                self._initializer_overrides[
+                    (layer.name, f"b{bi}.{lname}.{wname}")] = init
+        return layer.outputs[0]
+
+    # parallel ops (identities on one device: ops/parallel_ops.py) ----------
+    def repartition(self, input: Tensor, dim: int, axis: str = "data",
+                    name=None) -> Tensor:
+        return self._add_layer(OperatorType.REPARTITION,
+                               {"dim": dim, "axis": axis}, [input], name)[0]
+
+    def combine(self, input: Tensor, dim: int, axis: str, name=None) -> Tensor:
+        return self._add_layer(OperatorType.COMBINE,
+                               {"dim": dim, "axis": axis}, [input], name)[0]
+
+    def replicate(self, input: Tensor, name=None) -> Tensor:
+        return self._add_layer(OperatorType.REPLICATE, {}, [input], name)[0]
+
+    def reduction(self, input: Tensor, axis: str, name=None) -> Tensor:
+        return self._add_layer(OperatorType.REDUCTION, {"axis": axis},
+                               [input], name)[0]
+
+    def all_to_all(self, input: Tensor, src_dim: int, dst_dim: int, axis: str,
+                   name=None) -> Tensor:
+        return self._add_layer(OperatorType.ALLTOALL,
+                               {"src_dim": src_dim, "dst_dim": dst_dim,
+                                "axis": axis}, [input], name)[0]
+
+    def fused_parallel(self, input: Tensor, dims: Sequence,
+                       name=None) -> Tensor:
+        return self._add_layer(OperatorType.FUSED_PARALLEL,
+                               {"dims": tuple(dims)}, [input], name)[0]
+
     # ------------------------------------------------------------- compile
     def compile(self, optimizer=None,
                 loss_type="sparse_categorical_crossentropy",
@@ -357,6 +502,9 @@ class FFModel:
 
         self._compiled = compile_model(self, optimizer, loss_type, metrics,
                                        device=device)
+        if self.config.export_dot:
+            with open(self.config.export_dot, "w") as f:
+                f.write(self.dot())
         return self._compiled
 
     @property
@@ -397,6 +545,9 @@ class FFModel:
     def eval(self, x, y, batch_size: Optional[int] = None):
         return self.compiled.evaluate(x, y, batch_size=batch_size)
 
+    def get_layers(self) -> List[Layer]:
+        return list(self.layers)
+
     def get_layer_by_name(self, name: str) -> Layer:
         for l in self.layers:
             if l.name == name:
@@ -408,3 +559,32 @@ class FFModel:
 
     def set_weight(self, layer_name: str, wname: str, value) -> None:
         self.compiled.set_weight(layer_name, wname, value)
+
+    def get_parameter_by_name(self, layer_name: str, wname: str = "kernel"):
+        return self.compiled.get_weight(layer_name, wname)
+
+    def set_parameter_by_name(self, layer_name: str, wname: str, value):
+        self.compiled.set_weight(layer_name, wname, value)
+
+    def dot(self, include_costs: Optional[bool] = None) -> str:
+        """Graphviz text with each layer's compiled sharding; with
+        include_costs (default: the config's `include_costs_dot_graph`)
+        also each op's roofline time on the compiled machine
+        (search/cost_model.compute_time), as JAX's `dot` writes it."""
+        if include_costs is None:
+            include_costs = self.config.include_costs_dot_graph
+        ann = {}
+        if self._compiled is not None:
+            ann = {l: str(self._compiled.strategy.op_shardings.get(l.name, ""))
+                   for l in self.layers}
+            if include_costs:
+                from flexflow_tpu_torch.ops.registry import io_bytes
+                from flexflow_tpu_torch.search import cost_model as cm_
+
+                machine = self._compiled.machine
+                for l in self.layers:
+                    t = cm_.compute_time(get_op_def(l.op_type).flop_count(l),
+                                         io_bytes(l), machine)
+                    ann[l] = (ann.get(l, "") + f"\\n{t * 1e6:.1f}us"
+                              ).lstrip("\\n")
+        return to_dot(topo_order(self.layers), ann)

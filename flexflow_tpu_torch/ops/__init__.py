@@ -17,6 +17,8 @@ from flexflow_tpu_torch.ops import (  # noqa: F401
     dense_ops,
     elementwise,
     embed_ops,
+    fork_join,
+    moe_ops,
     norm_ops,
     parallel_ops,
     reduce_ops,

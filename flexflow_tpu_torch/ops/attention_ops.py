@@ -58,9 +58,6 @@ def _mha_infer(layer: "Layer"):
         raise ValueError(f"kdim={p['kdim']} != key feature dim {k.shape[-1]}")
     if p.get("vdim") and p["vdim"] != v.shape[-1]:
         raise ValueError(f"vdim={p['vdim']} != value feature dim {v.shape[-1]}")
-    if p.get("add_bias_kv", False) or p.get("add_zero_attn", False):
-        raise NotImplementedError(
-            "add_bias_kv/add_zero_attn are not ported yet")
     layer.weight_specs = {
         "wq": TensorSpec((q.shape[-1], embed), q.dtype),
         "wk": TensorSpec((k.shape[-1], embed), q.dtype),
@@ -74,6 +71,9 @@ def _mha_infer(layer: "Layer"):
             "bv": TensorSpec((embed,), q.dtype),
             "bo": TensorSpec((embed,), q.dtype),
         })
+    if p.get("add_bias_kv", False):
+        layer.weight_specs["bias_k"] = TensorSpec((embed,), q.dtype)
+        layer.weight_specs["bias_v"] = TensorSpec((embed,), q.dtype)
     return [q.with_shape(q.shape[:-1] + (embed,))]
 
 
@@ -180,8 +180,21 @@ def _mha_decode_lower(layer: "Layer", inputs, weights, ctx: LoweringCtx):
     return [_out_proj(weights, out, b, s, embed)]
 
 
+def _jax_flash_gate(sk: int) -> bool:
+    """Whether the JAX lowering's flash gate admits a key length: it
+    needs a block of (1024, 512, 256, 128) to divide it, else it takes the
+    einsum path. Only the key positions add_bias_kv / add_zero_attn append
+    consult it here, so those layers take the path JAX takes."""
+    return any(sk % b == 0 for b in (1024, 512, 256, 128))
+
+
 def _mha_lower(layer: "Layer", inputs, weights, ctx: LoweringCtx):
     p = layer.params
+    extras = "bias_k" in weights or p.get("add_zero_attn", False)
+    if extras and (p.get("decode", False) or p.get("kv_out", False)):
+        raise NotImplementedError(
+            "KV-cache decode/prefill does not support add_bias_kv/"
+            "add_zero_attn (extra key positions would enter the cache)")
     if p.get("decode", False):
         return _mha_decode_lower(layer, inputs, weights, ctx)
     q, k, v = inputs[:3]
@@ -189,11 +202,21 @@ def _mha_lower(layer: "Layer", inputs, weights, ctx: LoweringCtx):
     embed = p["embed_dim"]
     kp = _proj(weights, k, "wk", "bk")
     vp = _proj(weights, v, "wv", "bv")
-    kh = _split_heads(kp, heads)
-    vh = _split_heads(vp, heads)
     if p.get("kv_out", False):
         # serving prefill: the per-head K/V of the prompt, for the cache
-        ctx.new_state[layer.name] = {"k": kh, "v": vh}
+        ctx.new_state[layer.name] = {"k": _split_heads(kp, heads),
+                                     "v": _split_heads(vp, heads)}
+    b_ = k.shape[0]
+    if "bias_k" in weights:  # add_bias_kv: one learned key/value position
+        kp = torch.cat([kp, weights["bias_k"].to(kp.dtype).expand(
+            b_, 1, embed)], dim=1)
+        vp = torch.cat([vp, weights["bias_v"].to(vp.dtype).expand(
+            b_, 1, embed)], dim=1)
+    if p.get("add_zero_attn", False):
+        kp = torch.cat([kp, kp.new_zeros(b_, 1, embed)], dim=1)
+        vp = torch.cat([vp, vp.new_zeros(b_, 1, embed)], dim=1)
+    kh = _split_heads(kp, heads)
+    vh = _split_heads(vp, heads)
     qh = _split_heads(_proj(weights, q, "wq", "bq"), heads)
 
     impl = p.get("impl", "auto")
@@ -207,14 +230,24 @@ def _mha_lower(layer: "Layer", inputs, weights, ctx: LoweringCtx):
     scale = 1.0 / math.sqrt(embed // heads)
     b, sq = q.shape[0], q.shape[1]
     sk = kh.shape[1]
-    if not needs_dropout and (impl == "flash"
-                              or (impl == "auto" and ctx.enable_fusion)):
+    # the extra key positions: JAX's flash gate decides (it refuses a
+    # causal band over sq != sk and a key length its blocks do not divide)
+    flash_ok = not extras or (_jax_flash_gate(sk) and _jax_flash_gate(sq)
+                              and not (causal and sq != sk))
+    if not needs_dropout and flash_ok and (
+            impl == "flash" or (impl == "auto" and ctx.enable_fusion)):
         out = flash_attention_qkv(qh, kh, vh, causal=causal, scale=scale)
     else:
         logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh) * scale
         if causal:
-            mask = torch.ones(sq, sk, dtype=torch.bool,
-                              device=q.device).tril(diagonal=sk - sq)
+            # the band over the original key positions; those appended
+            # by add_bias_kv / add_zero_attn (at the end) stay attendable
+            sk_orig = k.shape[1]
+            mask = torch.ones(sq, sk_orig, dtype=torch.bool,
+                              device=q.device).tril(diagonal=sk_orig - sq)
+            if sk > sk_orig:
+                mask = torch.cat([mask, mask.new_ones(sq, sk - sk_orig)],
+                                 dim=1)
             logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
         probs = torch.softmax(logits, dim=-1)
         if needs_dropout:
@@ -234,3 +267,57 @@ def _mha_flops(layer: "Layer"):
 
 register_op(OperatorType.MULTIHEAD_ATTENTION, _mha_infer, _mha_lower,
             _mha_flops)
+
+
+def _sdpa_infer(layer: "Layer"):
+    """Scaled-dot-product attention without projections (torch's
+    F.scaled_dot_product_attention signature): q (..., sq, d), k (..., sk,
+    d), v (..., sk, dv) -> (..., sq, dv); an optional 4th input is an
+    additive float mask or a boolean keep-mask, broadcastable to (..., sq,
+    sk)."""
+    q, k, v = [t.spec for t in layer.inputs[:3]]
+    if q.shape[-1] != k.shape[-1]:
+        raise ValueError(f"q/k depth mismatch {q.shape} vs {k.shape}")
+    return [q.with_shape(q.shape[:-1] + (v.shape[-1],))]
+
+
+def _sdpa_lower(layer: "Layer", inputs, weights, ctx: LoweringCtx):
+    """matmul, softmax, matmul, masked as JAX masks: a masked logit is the
+    dtype's finfo.min (a fully masked row averages V uniformly, where
+    torch's SDPA gives NaN), the causal band is top-left aligned (tril
+    diagonal 0) and the dropout mask comes from the layer's key."""
+    q, k, v = inputs[:3]
+    mask = inputs[3] if len(inputs) > 3 else None
+    p = layer.params
+    scale = p.get("scale")
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.matmul(q, k.transpose(-1, -2)) * scale
+    neg = torch.finfo(logits.dtype).min
+    if mask is not None:
+        if mask.dtype == torch.bool:
+            logits = logits.masked_fill(~mask, neg)
+        else:
+            logits = logits + mask.to(logits.dtype)
+    if p.get("is_causal", False):
+        sq, sk = logits.shape[-2], logits.shape[-1]
+        band = torch.ones(sq, sk, dtype=torch.bool,
+                          device=logits.device).tril()
+        logits = logits.masked_fill(~band, neg)
+    probs = torch.softmax(logits, dim=-1)
+    if ctx.training and p.get("dropout_p", 0.0) > 0.0:
+        probs = apply_dropout(probs, layer, ctx, p["dropout_p"])
+    return [torch.matmul(probs, v)]
+
+
+def _sdpa_flops(layer: "Layer"):
+    q, k = layer.inputs[0].spec, layer.inputs[1].spec
+    batch = 1
+    for d in q.shape[:-2]:
+        batch *= d
+    sq, d = q.shape[-2], q.shape[-1]
+    sk = k.shape[-2]
+    return 2.0 * batch * sq * sk * d * 2
+
+
+register_op(OperatorType.SDPA, _sdpa_infer, _sdpa_lower, _sdpa_flops)

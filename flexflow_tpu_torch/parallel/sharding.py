@@ -67,6 +67,18 @@ class OpSharding:
             attrs=dict(d.get("attrs", {})),
         )
 
+    def __str__(self):
+        """The dot export's annotation: each output's dims, then each
+        weight's ("." replicated, "a+b" two axes), as JAX prints them."""
+        def fmt(dims):
+            return "[" + ",".join(
+                "." if d is None else (d if isinstance(d, str) else "+".join(d))
+                for d in dims) + "]"
+
+        o = " ".join(fmt(x) for x in self.outputs)
+        w = " ".join(f"{k}{fmt(v)}" for k, v in self.weights.items())
+        return (o + (" | " + w if w else "")).strip()
+
 
 @dataclasses.dataclass
 class Strategy:

@@ -2,7 +2,9 @@
 (counterpart: flexflow_tpu/parallel/templates.py).
 
 Megatron tensor parallelism: a column-sharded MLP up projection feeding a
-row-sharded down projection, and head-parallel attention. They are the
+row-sharded down projection, and head-parallel attention; a DLRM-style
+table sharded over entries or features (`apply_sharded_embedding`); expert
+parallelism over an "expert" axis (`apply_expert_parallel`). They are the
 anchors the search is compared with: `megatron_strategy` lays a GPT-2
 style graph out the Megatron way over one axis, and
 `search.optimize.strategy_cost` prices it on the same cost model the
@@ -10,6 +12,8 @@ search ranks by.
 """
 
 from __future__ import annotations
+
+from typing import Sequence
 
 from flexflow_tpu_torch.core.graph import topo_order
 from flexflow_tpu_torch.ops.op_type import OperatorType
@@ -48,6 +52,33 @@ def apply_tensor_parallel_attention(strategy: Strategy, mha_layer, axis: str = "
     sh.weights["wo"] = [axis, None]
     if "bo" in mha_layer.weight_specs:
         sh.weights["bo"] = [None]
+
+
+def apply_sharded_embedding(strategy: Strategy, emb_layer, axis: str = "model",
+                            dim: int = 0):
+    """Attribute-parallel embedding: the table sharded over its entries
+    (dim 0) or its features (dim 1)."""
+    sh = strategy.op_shardings[emb_layer.name]
+    dims = [None, None]
+    dims[dim] = axis
+    sh.weights["kernel"] = dims
+
+
+def apply_expert_parallel(strategy: Strategy, layers: Sequence,
+                          axis: str = "expert"):
+    """Expert parallelism: the group_by dispatch buffers, the expert
+    weights and the expert outputs sharded over the expert dim (all-to-alls
+    at the dispatch and the combine once the port runs on several GPUs)."""
+    for layer in layers:
+        sh = strategy.op_shardings[layer.name]
+        if layer.op_type is OperatorType.GROUP_BY:
+            nd0 = len(layer.outputs[0].spec.shape)
+            sh.outputs[0] = [axis] + [None] * (nd0 - 1)
+        elif layer.op_type is OperatorType.EXPERTS:
+            sh.weights["kernel"] = [axis, None, None]
+            if "bias" in layer.weight_specs:
+                sh.weights["bias"] = [axis, None]
+            sh.outputs[0] = [axis, None, None]
 
 
 def megatron_strategy(model, machine, axis: str = "model") -> Strategy:

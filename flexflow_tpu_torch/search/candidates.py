@@ -12,8 +12,11 @@ parallelism is the always-present baseline candidate). The other axes
 ("model", ...) are enumerated for tensor/attribute parallelism, gated by
 enable_parameter_parallel / enable_attribute_parallel.
 
-Not ported yet, and raising NotImplementedError where a layer asks for
-them: fork-join (inter-op) and expert-parallel (MoE) candidates.
+Expert parallelism shards the MoE ops over a mesh axis (`ep:{axis}`);
+a fork-join composite gets `inter:{axis}` (branch i on axis index i) and
+grouped `inter:{axis}:{g0}-{g1}-...` (an unequal division of the axis,
+`_best_groups`) beside `dp`. The port executes either replicated on its
+one device; the candidates price the searched machine.
 """
 
 from __future__ import annotations
@@ -79,8 +82,9 @@ class Candidate:
     def op_time(self, layer: "Layer", machine: MachineSpec) -> float:
         # interned by (op params key, placement, machine): structural twins
         # (GPT-2 blocks) and repeated DP frontier states share one
-        # evaluation
-        if memo.enabled():
+        # evaluation. fork_join costs read layer.branches (not in
+        # params_key), so composites always take the direct path.
+        if memo.enabled() and not layer.branches:
             key = (layer.params_key(),
                    memo.freeze_weight_specs(layer.weight_specs),
                    self.memo_key(), memo.machine_fingerprint(machine))
@@ -221,6 +225,34 @@ def _ddeg(dims, machine):
     return cm.dims_degree(dims, machine)
 
 
+def _best_groups(costs, n: int, b_local: int):
+    """Best division of n axis indices among len(costs) branches
+    minimizing max_b(costs[b] / g_b), each g_b dividing the per-device
+    batch. Exhaustive over divisor-valued compositions (k is small, n at
+    most the axis size). Returns (makespan_rel, group_sizes) or None."""
+    k = len(costs)
+    divs = [d for d in range(1, n + 1) if b_local % d == 0]
+    if n < k or not divs:
+        return None
+    best = None
+
+    def rec(i, left, acc):
+        nonlocal best
+        if i == k - 1:
+            if left in divs:
+                g = acc + [left]
+                mk = max(c / gi for c, gi in zip(costs, g))
+                if best is None or mk < best[0]:
+                    best = (mk, g)
+            return
+        for d in divs:
+            if d <= left - (k - 1 - i):
+                rec(i + 1, left - d, acc + [d])
+
+    rec(0, n, [])
+    return best
+
+
 def layer_candidates(layer: "Layer", machine: MachineSpec, batch_sizes,
                      enable_parameter: bool = True,
                      enable_attribute: bool = True) -> List[Candidate]:
@@ -228,7 +260,8 @@ def layer_candidates(layer: "Layer", machine: MachineSpec, batch_sizes,
     machine, knobs) so the substitution loop's repeated DP runs and
     structural twins enumerate each op family once (search/memo.py, tier 2).
     Candidates are immutable after construction; callers get a fresh list
-    over the shared objects."""
+    over the shared objects. fork_join composites key on layer.branches
+    (absent from params_key), so they always rebuild."""
     if memo.enabled() and layer.op_type is not OperatorType.FORK_JOIN:
         key = (layer.params_key(),
                memo.freeze_weight_specs(layer.weight_specs),
@@ -371,10 +404,31 @@ def _layer_candidates(layer: "Layer", machine: MachineSpec, batch_sizes,
                     compute_degree=max(1, dp.compute_degree) * dm,
                     eff=min(1.0, (tbl.shape[1] // dm) / machine.mxu_min_dim)))
 
-    elif t in (OperatorType.EXPERTS, OperatorType.GROUP_BY):
-        raise NotImplementedError(
-            f"{layer.name}: expert-parallel (MoE) candidates are not ported "
-            "yet (ROADMAP Queue 1 item 8: the MoE ops)")
+    elif t is OperatorType.EXPERTS:
+        e = ispecs[0].shape[0]
+        for m in maxes:
+            dm = machine.mesh_axes[m]
+            if e % dm:
+                continue
+            ind = [[m, None, None]]
+            od = [[m, None, None]]
+            wd = {"kernel": [m, None, None]}
+            if "bias" in repl_w:
+                wd["bias"] = [m, None]
+            cands.append(Candidate(f"ep:{m}", ind, od, wd, compute_degree=dm))
+
+    elif t is OperatorType.GROUP_BY:
+        e = ospecs[0].shape[0]
+        for m in maxes:
+            dm = machine.mesh_axes[m]
+            if e % dm:
+                continue
+            od = [[m, None, None], dp_out[1]]
+            cands.append(Candidate(
+                f"ep:{m}", dp_in, od, {}, compute_degree=1,
+                extra_comm=cm.all_to_all_time(
+                    cm.shard_bytes(ospecs[0], [m, None, None], machine),
+                    (m,), machine)))
 
     elif t is OperatorType.CONV2D and enable_attribute:
         x, o = ispecs[0], ospecs[0]
@@ -402,9 +456,68 @@ def _layer_candidates(layer: "Layer", machine: MachineSpec, batch_sizes,
                     compute_degree=max(1, dp.compute_degree) * dm))
 
     elif t is OperatorType.FORK_JOIN:
-        raise NotImplementedError(
-            f"{layer.name}: fork-join (inter-op placement) candidates are not "
-            "ported yet (ROADMAP Queue 1 item 8: compiler/passes)")
+        # inter-op placement: branch i on mesh-axis index i; compute
+        # divides by the axis size (balanced branches run at once on
+        # disjoint devices) and the join's collective (all-reduce for
+        # add, all-gather for concat) is the price; dp runs every branch
+        # on every device
+        k = layer.params["n_branches"]
+        join = layer.params["join"]
+        from flexflow_tpu_torch.ops.fork_join import (branch_flops,
+                                                      branch_weight_bytes,
+                                                      congruent_branches,
+                                                      grouped_placeable,
+                                                      inter_placeable)
+
+        stacked = congruent_branches(layer)
+        b_local = (ispecs[0].shape[0] // max(1, _ddeg([dp_in[0][0]], machine))
+                   if ispecs and ispecs[0].ndim else 1)
+        # only where the batch shards over the batch axes: a replicated
+        # batch cannot run the placed branches (JAX's crash gate)
+        batch_shards = (not ispecs or not ispecs[0].ndim
+                        or dp_in[0][0] is not None)
+        for m in (maxes if batch_shards else ()):
+            n = machine.mesh_axes[m]
+            out_bytes = cm.shard_bytes(ospecs[0], dp_out[0], machine)
+            if n == k and inter_placeable(layer):
+                comm = (cm.all_reduce_time(out_bytes, (m,), machine)
+                        if join == "add"
+                        else cm.all_gather_time(out_bytes, (m,), machine))
+                if stacked:
+                    # stacked (k, ...) weights sharded over the placement
+                    # axis: memory, streaming and the grad all-reduce all
+                    # divide by k
+                    wd = {w: [m] for w in layer.weight_specs}
+                    frac = 1.0
+                else:
+                    # heterogeneous branches: replicated, each device
+                    # streams only its branch's share
+                    wd = dict(repl_w)
+                    frac = 1.0 / k
+                cands.append(Candidate(
+                    f"inter:{m}", dp_in, dp_out, wd,
+                    compute_degree=max(1, dp.compute_degree) * k,
+                    extra_comm=comm,
+                    weight_stream_frac=frac))
+            elif n > k and grouped_placeable(layer):
+                # unequal division: branch b owns g_b axis indices and
+                # batch-shards g_b ways inside its group; weights replicate
+                costs = [max(f, 1.0) for f in branch_flops(layer)]
+                best = _best_groups(costs, n, b_local)
+                if best is None:
+                    continue
+                makespan_rel, gsz = best
+                speedup = sum(costs) / max(makespan_rel, 1e-30)
+                wb = branch_weight_bytes(layer)
+                frac = (max(wb) / sum(wb)) if sum(wb) else 1.0
+                # one all-reduce of the joined output over the axis
+                comm = cm.all_reduce_time(out_bytes, (m,), machine)
+                cands.append(Candidate(
+                    f"inter:{m}:{'-'.join(map(str, gsz))}",
+                    dp_in, dp_out, dict(repl_w),
+                    compute_degree=max(1, dp.compute_degree) * speedup,
+                    extra_comm=comm,
+                    weight_stream_frac=frac))
 
     elif t in UNARY_OPS or t in (OperatorType.DROPOUT, OperatorType.CAST,
                                  OperatorType.SOFTMAX, OperatorType.LOG_SOFTMAX):

@@ -138,7 +138,7 @@ def _prefix_identity(layers, input_tensors, pins):
                tuple(coords.get(t.guid, ("?", t.guid)) for t in layer.inputs),
                pins.get(layer.name) if pins else None,
                memo.freeze_weight_specs(layer.weight_specs),
-               None)
+               memo.branches_signature(layer))
         h.update(repr(row).encode())
         keys.append(h.hexdigest())  # digest-so-far: cumulative prefix id
         for oi, o in enumerate(layer.outputs):

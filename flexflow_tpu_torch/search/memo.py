@@ -108,3 +108,21 @@ def freeze_weight_specs(weight_specs) -> tuple:
     """Hashable identity of a layer's weight TensorSpecs."""
     return tuple(sorted((w, s.shape, s.dtype)
                         for w, s in weight_specs.items()))
+
+
+def branches_signature(layer):
+    """Canonical content of a fork_join composite's branch sub-graphs, or
+    None for other layers. The branches live outside the composite's
+    params and weight_specs yet decide its cost and placement
+    (branch_flops, congruent_branches, inter_placeable): every graph or
+    prefix fingerprint of a fork_join row includes this, or an edited
+    branch body would keep the old identity."""
+    branches = getattr(layer, "branches", None)
+    if not branches:
+        return None
+    sig = []
+    for ls, _bx, out in branches:
+        sig.append((tuple((l.params_key(), freeze_weight_specs(l.weight_specs))
+                          for l in ls),
+                    out.spec.shape, out.spec.dtype))
+    return tuple(sig)

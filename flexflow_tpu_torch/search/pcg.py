@@ -47,6 +47,7 @@ class PCG:
         for l in topo_order(layers):
             nl = Layer(l.op_type, l.params, [tmap[t.guid] for t in l.inputs], name=l.name)
             nl.weight_specs = dict(l.weight_specs)
+            nl.branches = l.branches  # fork_join sub-graphs (read-only)
             for i, o in enumerate(l.outputs):
                 tmap[o.guid] = nl.add_output(o.spec, i, name=o.name)
             new_layers.append(nl)

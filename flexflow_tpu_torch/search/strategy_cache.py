@@ -90,7 +90,7 @@ def graph_fingerprint(model) -> str:
                 ins.append((-1, in_idx.get(t.guid, -9)))
         rows.append((l.name, l.op_type.value, _freeze_params(l.params),
                      tuple(ins), memo.freeze_weight_specs(l.weight_specs),
-                     len(l.outputs)))
+                     memo.branches_signature(l), len(l.outputs)))
     return hashlib.sha256(repr(rows).encode()).hexdigest()[:24]
 
 

@@ -143,7 +143,7 @@ def compile_serving(model, max_batch_slots: Optional[int] = None,
     if getattr(cfg, "search_budget", 0) > 0:
         raise NotImplementedError(
             "compile_serving with search_budget > 0: the serving searches "
-            "(serving_optimize) are not ported yet (ROADMAP Queue 1 item 8)")
+            "(serving_optimize) are not ported yet (ROADMAP Queue 1 item 9)")
     slots = int(max_batch_slots or getattr(cfg, "max_batch_slots", 8) or 8)
     max_new = int(max_decode_len or getattr(cfg, "max_decode_len", 0) or 32)
     page = int(kv_page_size or getattr(cfg, "kv_page_size", 16) or 16)

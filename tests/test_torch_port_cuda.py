@@ -1284,3 +1284,136 @@ def test_fleet_colocated_and_disagg_on_card():
         assert dequant_attention.launches - before[0] == 2 * steps, topo
         assert flash_attention.launches - before[1] == 2 * prefills, topo
         assert fleet.stats["handoffs"] == (8 if topo == "disagg" else 0)
+
+
+# ------------------------------------------------ MoE and fork-join (item 6)
+def _moe_cm(dev, seed=0):
+    from flexflow_tpu_torch import SGDOptimizer
+    from flexflow_tpu_torch.core.layer import Layer
+    from flexflow_tpu_torch.core.tensor import Tensor
+    from flexflow_tpu_torch.models import build_moe_mlp
+
+    Layer._next_guid[0], Tensor._next_guid[0] = 100, 1000
+    m = FFModel(FFConfig(compute_dtype="bfloat16"))
+    build_moe_mlp(m, batch=64, in_dim=784, num_exp=64, num_select=2,
+                  hidden=64, alpha=1.0)
+    cm = m.compile(SGDOptimizer(lr=0.01), "sparse_categorical_crossentropy",
+                   [], device=dev)
+    cm.init(seed=seed)
+    return cm
+
+
+def _moe_data(n=1):
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(n, 64, 784)).astype(np.float32)
+    y = rng.integers(0, 10, size=(n, 64)).astype(np.int32)
+    return torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+
+
+@pytest.mark.cuda
+def test_moe_backward_is_bitwise_repeatable_on_card():
+    """MoE-MLP at its widths, alpha 1 (choices overflow): two backward
+    passes from the same params give bitwise equal gradients (a dropped
+    pair adds an exact zero to its buffer row; every row takes at most one
+    nonzero term), and the overflowed choices' positions are -1."""
+    from flexflow_tpu_torch.ops.registry import LoweringCtx, get_op_def
+
+    dev = _cuda_or_skip()
+    cm = _moe_cm(dev)
+    x, y = _moe_data()
+    grads = [cm.value_and_grads(cm.params, cm.state, [x[0]], y[0])[3]
+             for _ in range(2)]
+    for l, ws in grads[0].items():
+        for w, g in ws.items():
+            assert torch.isfinite(g).all(), f"{l}.{w}"
+            assert torch.equal(g, grads[1][l][w]), f"{l}.{w}"
+    gb = next(l for l in cm.model.layers if l.op_type.value == "group_by")
+    assign = torch.randint(0, 4, (64, 2), device=dev, dtype=torch.int32)
+    _, pos = get_op_def(gb.op_type).lower(
+        gb, [x[0, :, :64].bfloat16(), assign], {}, LoweringCtx())
+    assert pos.dtype == torch.int32 and (pos == -1).any()
+    assert ((pos >= 0) & (pos < gb.params["capacity"]) | (pos == -1)).all()
+
+
+@pytest.mark.cuda
+def test_fork_join_batch_norm_branches_train_on_card():
+    """A fork-join of three congruent branches, each with a batch norm
+    named "bn", trains on the card: its running stats live under JAX's
+    keys ("bn/mean", "bn/var": one key for all branches), f32, finite and
+    moved; its gamma and beta stay f32 master weights in a bf16 compile."""
+    from flexflow_tpu_torch import AdamOptimizer
+
+    dev = _cuda_or_skip()
+    m = FFModel(FFConfig(compute_dtype="bfloat16"))
+    x = m.create_tensor([64, 32], name="x")
+
+    def branch(act):
+        def b(bm, t):
+            h = bm.dense(t, 128, activation=act, name="mid")
+            h = bm.batch_norm(h, relu=False, name="bn")
+            return bm.dense(h, 32, name="out")
+        return b
+    t = m.fork_join(x, [branch(a) for a in ("relu", "tanh", "gelu")],
+                    name="fj")
+    m.dense(t, 10, name="head")
+    cm = m.compile(AdamOptimizer(alpha=1e-3),
+                   "sparse_categorical_crossentropy", [], device=dev)
+    cm.init(seed=0)
+    assert cm.params["fj"]["stk.bn.gamma"].dtype == torch.float32
+    rng = np.random.default_rng(3)
+    xs = torch.from_numpy(rng.normal(size=(64, 32)).astype(np.float32)).cuda()
+    ys = torch.from_numpy(rng.integers(0, 10, size=64).astype(np.int32)).cuda()
+    losses = []
+    for _ in range(5):
+        cm.params, cm.opt_state, cm.state, loss, _ = cm.train_step(
+            cm.params, cm.opt_state, cm.state, [xs], ys)
+        losses.append(float(loss))
+    assert sorted(cm.state) == ["bn/mean", "bn/var"]
+    for v in cm.state.values():
+        assert v.dtype == torch.float32 and torch.isfinite(v).all()
+    assert float(cm.state["bn/mean"].abs().max()) > 0
+    assert float((cm.state["bn/var"] - 1).abs().max()) > 0
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+
+
+@pytest.mark.cuda
+def test_moe_mlp_k_step_graph_on_card():
+    """make_multi_step(4) of MoE-MLP captures (no host read in the MoE
+    ops) and its two replays equal 8 eager steps bitwise; the fused SGD
+    kernel is counted at the capture (K steps and the warm-up's one)."""
+    from flexflow_tpu_torch import random as ff_random
+    from flexflow_tpu_torch.compiler import graph_steps
+    from flexflow_tpu_torch.kernels import fused_optim
+
+    dev = _cuda_or_skip()
+    K = 4
+    x, y = _moe_data(2 * K)
+    x, y = x.reshape(2, K, 64, 784), y.reshape(2, K, 64)
+    base = ff_random.key(5)
+    eager = _moe_cm(dev)
+    means = []
+    for d in range(2):
+        s = 0.0
+        for i in range(K):
+            (eager.params, eager.opt_state, eager.state, loss, _) = \
+                eager.train_step(eager.params, eager.opt_state, eager.state,
+                                 [x[d, i]], y[d, i],
+                                 ff_random.fold_in(base, d * K + i))
+            s = s + loss
+        means.append(s / K)
+    graph = _moe_cm(dev)
+    caps, n0 = graph_steps.captures, fused_optim.launches_sgd_plain
+    multi = graph.make_multi_step(K)
+    got = []
+    for d in range(2):
+        (graph.params, graph.opt_state, graph.state, loss, _) = multi(
+            graph.params, graph.opt_state, graph.state, [x[d]], y[d], base,
+            d * K)
+        got.append(loss)
+    torch.cuda.synchronize()
+    assert graph_steps.captures == caps + 1
+    assert fused_optim.launches_sgd_plain - n0 == K + 1
+    for l, ws in eager.params.items():
+        for w, p in ws.items():
+            assert torch.equal(p, graph.params[l][w]), f"{l}.{w}"
+    assert all(torch.equal(a, b) for a, b in zip(means, got))

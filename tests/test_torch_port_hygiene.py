@@ -313,13 +313,23 @@ ZOO_MODULES = ("flexflow_tpu_torch.ops.conv_ops",
                "flexflow_tpu_torch.models.resnet",
                "flexflow_tpu_torch.models.resnext",
                "flexflow_tpu_torch.models.bert",
-               "flexflow_tpu_torch.models.dlrm")
+               "flexflow_tpu_torch.models.dlrm",
+               "flexflow_tpu_torch.ops.moe_ops",
+               "flexflow_tpu_torch.ops.fork_join",
+               "flexflow_tpu_torch.compiler.passes",
+               "flexflow_tpu_torch.models.alexnet",
+               "flexflow_tpu_torch.models.inception",
+               "flexflow_tpu_torch.models.mlp",
+               "flexflow_tpu_torch.models.candle_uno",
+               "flexflow_tpu_torch.models.xdl",
+               "flexflow_tpu_torch.models.moe",
+               "flexflow_tpu_torch.models.branchy")
 
 
 def test_model_zoo_modules_load_no_jax():
-    """The conv, reduce, shape and elementwise ops and the ResNet,
-    ResNeXt, BERT and DLRM builders, each imported in turn into a fresh
-    interpreter, load neither JAX nor the JAX package."""
+    """The conv, reduce, shape, elementwise, MoE and fork-join ops, the
+    fork-join pass and every model builder, each imported in turn into a
+    fresh interpreter, load neither JAX nor the JAX package."""
     out = subprocess.run([sys.executable, "-c", _IMPORT_EACH, *ZOO_MODULES],
                          cwd=REPO, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

@@ -12,6 +12,10 @@ package on the CPU:
    with and without `from_logits`.
 """
 
+import ast
+import pathlib
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,8 +24,11 @@ import torch
 from flexflow_tpu import FFConfig as JFFConfig
 from flexflow_tpu import FFModel as JFFModel
 from flexflow_tpu.losses import compute_loss as jcompute_loss
+import flexflow_tpu_torch
 from flexflow_tpu_torch import FFConfig, FFModel
 from flexflow_tpu_torch.losses import compute_loss
+
+PKG = pathlib.Path(flexflow_tpu_torch.__file__).parent
 
 
 def _options(parser):
@@ -59,7 +66,7 @@ def test_lr_reaches_the_default_optimizer_as_in_jax():
     (["--auto-refit"], 8), (["--simulator-trace", "t.json"], 8),
     (["--serve-objective", "latency"], 9),
     (["--cost-model-path", "m.json"], 8),
-    (["--compgraph", "g.dot"], 6), (["--serve"], 7)])
+    (["--simulator-topk", "4"], 8), (["--serve"], 7)])
 def test_unported_flags_raise_naming_their_item(argv, item):
     JFFConfig.parse_args(argv)          # the JAX package takes them
     flag = argv[0].replace("--no-", "--")
@@ -126,3 +133,56 @@ def test_sparse_ce_out_of_range_labels_match_jax(bad, from_logits):
     else:
         np.testing.assert_allclose(got, want, rtol=1e-6)
     assert np.isnan(want) == (bad in (-100, 12))
+
+
+# the features an unported-path error names, each looked up in the text of
+# the ROADMAP Queue 1 item the error names
+FEATURES = ("multi-GPU", "pipeline", "MCMC", "taskgraph", "learned",
+            "serving_optimize", "MoE", "fork-join", "compiler/passes")
+
+
+def _queue1_items():
+    """{n: text of ROADMAP Queue 1 item n}, each without its sentences
+    that point at another item ("... (item 9)")."""
+    text = (PKG.parent / "ROADMAP.md").read_text()
+    q1 = text[text.index("### Queue 1"):text.index("### Queue 2")]
+    items = {}
+    for m in re.finditer(r"^(\d+)\. (.*?)(?=^\d+\. |\Z)", q1, re.S | re.M):
+        own = [sent for sent in re.split(r"(?<=[.;])\s+", m.group(2))
+               if not re.search(r"item \d", sent)]
+        items[int(m.group(1))] = " ".join(own).lower()
+    return items
+
+
+def _unported_raises():
+    """(file:line, message) of every NotImplementedError in the port whose
+    message names a ROADMAP item."""
+    out = []
+    for path in sorted(PKG.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if not (isinstance(node, ast.Raise)
+                    and isinstance(node.exc, ast.Call)
+                    and getattr(node.exc.func, "id", "")
+                    == "NotImplementedError"):
+                continue
+            msg = "".join(c.value for c in ast.walk(node.exc)
+                          if isinstance(c, ast.Constant)
+                          and isinstance(c.value, str))
+            if re.search(r"item \d", msg):
+                out.append((f"{path.relative_to(PKG)}:{node.lineno}", msg))
+    return out
+
+
+def test_unported_errors_name_the_roadmap_item_of_their_feature():
+    """Every NotImplementedError that names a ROADMAP Queue 1 item names
+    the item whose text lists its feature."""
+    items = _queue1_items()
+    raises = _unported_raises()
+    assert len(raises) >= 5
+    for where, msg in raises:
+        n = int(re.search(r"item (\d+)", msg).group(1))
+        feats = [f for f in FEATURES if f.lower() in msg.lower()]
+        assert feats, f"{where}: no known feature in {msg!r}"
+        for f in feats:
+            assert f.lower() in items[n], \
+                f"{where} names item {n} for {f!r}, which that item lacks"

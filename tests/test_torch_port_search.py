@@ -31,10 +31,8 @@ from flexflow_tpu.search.dp import search_graph as jsearch_graph
 from flexflow_tpu.search.optimize import graph_optimize as jgraph_optimize
 from flexflow_tpu_torch import AdamOptimizer, FFConfig, FFModel
 from flexflow_tpu_torch.compiler.compile import _search_machine
-from flexflow_tpu_torch.core.layer import Layer
-from flexflow_tpu_torch.core.tensor import Tensor, TensorSpec
+from flexflow_tpu_torch.core.tensor import TensorSpec
 from flexflow_tpu_torch.models import GPT2Config, build_gpt2
-from flexflow_tpu_torch.ops.op_type import OperatorType
 from flexflow_tpu_torch.ops.registry import get_op_def, io_bytes
 from flexflow_tpu_torch.parallel.default_strategy import data_parallel_strategy
 from flexflow_tpu_torch.parallel.machine import MachineSpec
@@ -479,8 +477,8 @@ def _compile(m, **kw):
 
 
 @pytest.mark.parametrize("case", ["taskgraph", "learned", "mcmc", "pipeline",
-                                  "fork_join", "moe", "multi_device",
-                                  "serving_search"])
+                                  "simulator_topk", "pipeline_schedule",
+                                  "multi_device", "serving_search"])
 def test_unported_modes_raise(case, tmp_path):
     if case in ("taskgraph", "learned"):
         _, pm = _gpt2_pair(search_budget=BUDGET, search_num_workers=8,
@@ -495,15 +493,12 @@ def test_unported_modes_raise(case, tmp_path):
         _, pm = _gpt2_pair(pipeline_stages=2)
         with pytest.raises(NotImplementedError, match="pipelined"):
             _compile(pm)
-    elif case in ("fork_join", "moe"):
-        t = Tensor(TensorSpec((BATCH, 16)))
-        op = OperatorType.FORK_JOIN if case == "fork_join" \
-            else OperatorType.EXPERTS
-        layer = Layer(op, {"n_branches": 2, "join": "add"}, [t])
-        layer.add_output(t.spec)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            layer_candidates(layer, MachineSpec.from_json(
-                dict(MACHINES[0])), {BATCH})
+    elif case in ("simulator_topk", "pipeline_schedule"):
+        # the taskgraph re-rank's top-k and the pipeline's schedule
+        flag = {"simulator_topk": ["--simulator-topk", "4"],
+                "pipeline_schedule": ["--pipeline-schedule", "1f1b"]}[case]
+        with pytest.raises(NotImplementedError, match=flag[0]):
+            FFConfig.parse_args(flag)
     elif case == "multi_device":
         path = tmp_path / "machine.json"
         path.write_text(json.dumps(MachineSpec.from_json(
