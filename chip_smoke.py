@@ -394,6 +394,50 @@ Phases, each fatal on failure (nothing is caught to let the run exit 0):
         compile's losses.
     The phase logs its wall time with the card's name and power limit.
 
+15. The frontends, run last, each at full width in the port's default
+    compute dtype (f32; TF32 off), cuDNN's autotuner on; every launch
+    counter is set to 0 just before each leg's run and read just after,
+    and each check is fatal:
+    (a) BERT-base (vocab 30522, d 768, 12 layers, 12 heads, FFN 3072, an
+        MLM head; b8, seq 512) written as a plain-PyTorch module
+        (`P15Bert`: nn.Embedding for tokens and positions,
+        nn.MultiheadAttention without masks, nn.LayerNorm, nn.Linear,
+        nn.GELU) from the seed and moved to the card, imported by
+        torch.fx: `PyTorchModel` -> `torch_to_ff` -> `compile(Adam,
+        outputs=)` -> `import_weights` from the module on the card. The
+        logits are held to the module's own forward (`P15_FWD_TOL`,
+        relative to the largest logit); whether the fused cross-entropy
+        gate admits the logits is printed (vocab 30522 is no multiple of
+        128); then `train_leg` (2 warm-up and 6 timed steps, the flash
+        forward, dQ and dK/dV once a layer and Adam once a step,
+        non-causal; losses finite and falling); then `torch_to_file` ->
+        `file_to_ff`: the same layer list and bitwise the same logits;
+        then phase 9d's `build_bert` at the same dtype, timed the same
+        way;
+    (b) BASELINE #1 through the Keras API: `examples/keras/
+        func_cifar10_alexnet.py`'s stack at 229 x 229 on
+        `cifar10.load_data`'s synthetic data, `Model.compile(SGD(0.01))`
+        -> `fit` for 2 epochs of 4 batches of 64 with EpochVerifyMetrics
+        and VerifyMetrics (as in JAX: fit calls their `on_epoch_end`;
+        `on_train_end` is called here, and a 101% target raises): the
+        plain SGD kernel exactly once an update; then `train_leg` on the
+        compiled model;
+    (c) 12 pre-LN blocks at BERT-base's widths (b8, seq 512) in the ONNX
+        op vocabulary of tests/test_onnx_frontend.py's block, written to
+        a file by the port's own `onnx/proto.py` encoder and read back
+        through `ONNXModel`: `apply` -> `compile(Adam, outputs=)` ->
+        `import_weights`; the forward held to the same arithmetic in
+        plain torch on the card (`P15_ONNX_TOL`); then `train_leg` under
+        MSE (Adam once a step; losses falling);
+    (d) `python -m flexflow_tpu_torch -b 64 --lr 0.05 -e 1 script.py
+        --its-own-arg` in a subprocess: the script reads
+        `get_launch_config()`, trains an MLP a fit epoch on the card
+        under the compile's default optimizer and prints its argv, its
+        config, its device and its launches (the plain SGD kernel 4
+        times); it must exit 0 with all of them as given.
+    Each step ms is printed beside phase 9d's and 14b's AlexNet leg; the
+    phase logs its wall time with the card's name and power limit.
+
 The line before the last is `{"kernels": [...]}`; the last line is
 `{"ok": true, "device": {...}}`.
 """
@@ -3028,13 +3072,15 @@ def p9_leg(tag: str, which: str, exact: dict, seed: int,
 
 def train_leg(tag: str, which: str, cm, flops: float, batch: int, inputs,
               label, exact: dict, seed: int, windows_n: int,
-              per_window: int) -> dict:
+              per_window: int, table_builds=(1, 0)) -> dict:
     """2 warm-up steps, then `windows_n` windows of `per_window` steps on
     one batch, each window ended by a device sync; the launch counters
     zeroed before the first step and read after the last (`exact` gives
     each kernel's launches per step; a kernel it does not name must not
-    launch), the optimizer's table built in the first step only, every
-    loss finite; then torch.profiler over one step. Step i draws its
+    launch), the optimizer's table built in the first step only (or as
+    `table_builds` gives for the warm-up and the timed steps: (0, 0) on a
+    model that has trained before), every loss finite; then
+    torch.profiler over one step. Step i draws its
     dropout from fold_in(key(seed + 17), i). MFU is 3 x the registry's
     forward flops a step over the card's bf16 peak."""
     from flexflow_tpu_torch import random as ff_random
@@ -3073,7 +3119,8 @@ def train_leg(tag: str, which: str, cm, flops: float, batch: int, inputs,
     step_s = float(np.median(windows))
     summary = {
         "model": which, "batch": batch,
-        "compute_dtype": "bfloat16", "optimizer": type(cm.optimizer).__name__,
+        "compute_dtype": cm.cfg.compute_dtype,
+        "optimizer": type(cm.optimizer).__name__,
         "optimizer_args": {k: v for k, v in vars(cm.optimizer).items()
                            if isinstance(v, (int, float, str))},
         "loss": cm.loss_type.value, "layers": len(cm.model.layers),
@@ -3103,9 +3150,10 @@ def train_leg(tag: str, which: str, cm, flops: float, batch: int, inputs,
     want = {name: exact.get(name, 0) * steps for name in counts}
     if counts != want:
         fail(f"{tag}: launches over {steps} steps {counts}, expected {want}")
-    if builds != [1, 0]:
+    if builds != list(table_builds):
         fail(f"{tag}: the optimizer's pointer table was built {builds} "
-             f"times in the warm-up and timed steps, expected [1, 0]")
+             f"times in the warm-up and timed steps, expected "
+             f"{list(table_builds)}")
     summary["profile"] = profile_train(cm, inputs, label, tag,
                                        rng=ff_random.key(seed), reps=1)
     return summary
@@ -5283,6 +5331,613 @@ def phase14(seed: int) -> dict:
     return out
 
 
+# ------------------------------------------------ phase 15: the frontends
+# BERT-base's widths (phase 9d's constants), as a plain-PyTorch module
+BERT_D, BERT_HEADS, BERT_FFN = 768, 12, 3072
+# 15a: the port's logits against the module's own forward, f32 on both
+# sides (TF32 off): the largest |difference| over the largest |logit|
+P15_FWD_TOL = 1e-3
+# 15c: the imported encoder's forward against the same arithmetic in plain
+# torch (the same f32 ops, another grouping of some): the same measure
+P15_ONNX_TOL = 1e-4
+P15_WINDOWS, P15_PER_WINDOW = 3, 2       # 2 warm-up + 6 timed steps a leg
+P15_KERAS_BATCH, P15_KERAS_BATCHES = 64, 4
+P15_LAUNCH_ARGS = ("-b", "64", "--lr", "0.05", "-e", "1")
+
+# the script 15d launches: it reads the launcher's config, trains an MLP
+# for its epochs at its batch size under the compile's default optimizer
+# (SGD at --lr) on the default device, and prints what it got
+P15_SCRIPT = r'''
+import json, sys
+import numpy as np
+import torch
+import flexflow_tpu_torch as ff
+from chip_smoke import launch_counts, zero_launch_counts
+
+cfg = ff.get_launch_config()
+m = ff.FFModel(cfg)
+x = m.create_tensor([cfg.batch_size, 784], name="x")
+m.dense(m.dense(x, 512, activation="relu", name="h"), 10, name="out")
+cm = m.compile(None, "sparse_categorical_crossentropy", ["accuracy"])
+rng = np.random.default_rng(0)
+xs = rng.normal(size=(4 * cfg.batch_size, 784)).astype(np.float32)
+ys = rng.integers(0, 10, size=(4 * cfg.batch_size,)).astype(np.int32)
+cm.init(seed=0)
+
+
+def sync():
+    if cm.device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+sync()
+zero_launch_counts()
+hist = cm.fit(xs, ys, verbose=False, sync_every=0)
+sync()
+print("P15D " + json.dumps({
+    "argv": sys.argv[1:], "batch_size": cfg.batch_size,
+    "learning_rate": cfg.learning_rate, "epochs": cfg.epochs,
+    "optimizer_lr": cm.optimizer.lr, "device": str(cm.device),
+    "losses": [h["loss"] for h in hist], "launches": launch_counts()}))
+'''
+
+
+class P15Block(torch.nn.Module):
+    """A post-LN encoder block of plain PyTorch modules: attention without
+    masks, residual, LayerNorm, the GELU FFN, residual, LayerNorm."""
+
+    def __init__(self, d, heads, ffn):
+        super().__init__()
+        nn = torch.nn
+        self.attn = nn.MultiheadAttention(d, heads, batch_first=True)
+        self.ln1 = nn.LayerNorm(d)
+        self.up = nn.Linear(d, ffn)
+        # the tanh form, the one both packages' gelu op computes (an
+        # nn.GELU() of the erf form imports as that op too)
+        self.act = nn.GELU(approximate="tanh")
+        self.down = nn.Linear(ffn, d)
+        self.ln2 = nn.LayerNorm(d)
+
+    def forward(self, h):
+        a, _ = self.attn(h, h, h, need_weights=False)
+        h = self.ln1(h + a)
+        return self.ln2(h + self.down(self.act(self.up(h))))
+
+
+class P15Bert(torch.nn.Module):
+    """BERT-base as a plain-PyTorch module: token and position embeddings
+    (positions a second int input), LayerNorm, `layers` blocks and an MLM
+    head (dense, GELU, LayerNorm, the vocab projection)."""
+
+    def __init__(self, vocab=BERT_VOCAB, d=BERT_D, heads=BERT_HEADS,
+                 ffn=BERT_FFN, layers=BERT_LAYERS, max_pos=BERT_SEQ):
+        super().__init__()
+        nn = torch.nn
+        self.tok = nn.Embedding(vocab, d)
+        self.pos = nn.Embedding(max_pos, d)
+        self.ln = nn.LayerNorm(d)
+        self.blocks = nn.ModuleList(P15Block(d, heads, ffn)
+                                    for _ in range(layers))
+        self.mlm_dense = nn.Linear(d, d)
+        self.mlm_act = nn.GELU(approximate="tanh")
+        self.mlm_ln = nn.LayerNorm(d)
+        self.mlm_out = nn.Linear(d, vocab)
+
+    def forward(self, ids, pos):
+        h = self.ln(self.tok(ids) + self.pos(pos))
+        for blk in self.blocks:
+            h = blk(h)
+        return self.mlm_out(self.mlm_ln(self.mlm_act(self.mlm_dense(h))))
+
+
+def _layer_list(model) -> list:
+    return [(l.name, l.op_type.value, repr(sorted(l.params.items())),
+             [tuple(t.shape) for t in l.outputs]) for l in model.layers]
+
+
+def _fwd_err(got, want) -> dict:
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    return {"max_abs_err": err, "max_abs_ref": scale,
+            "rel_err": err / scale, "finite": bool(torch.isfinite(got).all())}
+
+
+def _flops(model) -> float:
+    from flexflow_tpu_torch.ops import get_op_def
+    return sum(get_op_def(l.op_type).flop_count(l) for l in model.layers)
+
+
+def p15_fx_bert(seed: int, tmpdir: str) -> dict:
+    """(15a) BERT-base as a plain-PyTorch module on the card, imported by
+    torch.fx: PyTorchModel -> torch_to_ff -> compile(Adam, outputs=) ->
+    import_weights from the module; the logits against the module's own
+    forward; Adam steps (`train_leg`: the flash kernels once a layer a
+    step, non-causal, Adam once); a .ff round trip to the same layer list
+    and bitwise the same logits; then phase 9d's build_bert at the same
+    dtype, timed the same way."""
+    from flexflow_tpu_torch import AdamOptimizer, FFConfig, FFModel
+    from flexflow_tpu_torch.kernels import fused_ce
+    from flexflow_tpu_torch.torch import PyTorchModel, file_to_ff
+
+    collect_garbage()
+    torch.cuda.empty_cache()
+    torch.manual_seed(seed)
+    module = P15Bert().cuda().eval()
+
+    def graph():
+        model = FFModel(FFConfig(batch_size=BERT_BATCH, seed=seed))
+        return model, [model.create_tensor([BERT_BATCH, BERT_SEQ], "int32",
+                                           name=n)
+                       for n in ("input_ids", "position_ids")]
+
+    t0 = time.perf_counter()
+    pm = PyTorchModel(module)
+    n_records = len(pm.torch_to_string())
+    trace_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model, ins = graph()
+    outs = pm.torch_to_ff(model, ins)
+    import_s = time.perf_counter() - t0
+    cm = model.compile(AdamOptimizer(alpha=LR),
+                       "sparse_categorical_crossentropy", [],
+                       outputs=outs[:1])
+    cm.init(seed=seed)
+    t0 = time.perf_counter()
+    pm.import_weights(cm)
+    torch.cuda.synchronize()
+    weights_s = time.perf_counter() - t0
+    inputs, label = on_card(*p9_batch("bert", seed))
+    with torch.no_grad():
+        want = module(*(x.long() for x in inputs))
+    got = cm.forward(*inputs)
+    fwd = _fwd_err(got, want)
+    fused_ce_admits = fused_ce.use_fused_ce(cm.loss_type, got,
+                                            cm.fused_loss_mode,
+                                            cm.cfg.enable_fusion)
+    del want, got
+    out = {"layers": len(model.layers), "fx_records": n_records,
+           "trace_s": trace_s, "import_s": import_s,
+           "import_weights_s": weights_s, "forward": fwd,
+           "forward_tol": P15_FWD_TOL, "compute_dtype": cm.cfg.compute_dtype,
+           "fused_ce_admits": bool(fused_ce_admits),
+           "module_on": str(next(module.parameters()).device)}
+    log(f"[15a] torch.fx BERT-base ({n_records} fx nodes traced in "
+        f"{trace_s:.2f} s, {out['layers']} layers emitted in {import_s:.2f} "
+        f"s, weights copied on the card in {weights_s:.3f} s): logits vs the module's forward max |err| "
+        f"{fwd['max_abs_err']:.3e} of max |logit| {fwd['max_abs_ref']:.3f} "
+        f"(rel {fwd['rel_err']:.3e}, tolerance {P15_FWD_TOL:g}); "
+        f"use_fused_ce admits the {tuple(inputs[0].shape) + (BERT_VOCAB,)} "
+        f"logits: {out['fused_ce_admits']}")
+    if not fwd["finite"] or fwd["rel_err"] > P15_FWD_TOL:
+        fail(f"15a: the imported BERT's logits disagree with the module: "
+             f"{fwd}")
+    del module
+    flash = {"flash_attention_fwd": BERT_LAYERS,
+             "flash_attention_dq": BERT_LAYERS,
+             "flash_attention_dkv": BERT_LAYERS}
+    exact = dict(flash, fused_adam=1)
+    if fused_ce_admits:
+        exact.update(fused_ce_fwd=1, fused_ce_bwd=1)
+    out["steps"] = train_leg("15a fx bert", "bert_fx", cm, _flops(model),
+                             BERT_BATCH, inputs, label, exact, seed,
+                             P15_WINDOWS, P15_PER_WINDOW)
+    if not out["steps"]["loss_fell"]:
+        fail(f"15a: the loss did not fall: {out['steps']['losses']}")
+    # the .ff round trip: the same layer list, bitwise the same logits
+    path = os.path.join(tmpdir, "bert.ff")
+    pm.torch_to_file(path)
+    model2, ins2 = graph()
+    outs2 = file_to_ff(path, model2, ins2)
+    cm2 = model2.compile(AdamOptimizer(alpha=LR),
+                         "sparse_categorical_crossentropy", [],
+                         outputs=outs2[:1])
+    cm2.load_params(cm.params)
+    same_layers = _layer_list(model2) == _layer_list(model)
+    bitwise = bool(torch.equal(cm2.forward(*inputs), cm.forward(*inputs)))
+    out["file_round_trip"] = {"bytes": os.path.getsize(path),
+                              "same_layers": same_layers,
+                              "logits_bitwise": bitwise}
+    log(f"[15a] .ff round trip ({out['file_round_trip']['bytes']} bytes): "
+        f"same layer list {same_layers}, logits bitwise {bitwise}")
+    if not (same_layers and bitwise):
+        fail(f"15a: the .ff round trip differs: {out['file_round_trip']}")
+    del cm, cm2, model, model2
+    collect_garbage()
+    torch.cuda.empty_cache()
+    # phase 9d's model (build_bert, dropout 0) at this leg's dtype
+    cmb, flops_b, _ = p9_model("bert", out["compute_dtype"], seed)
+    out["build_bert_steps"] = train_leg(
+        "15a build_bert", "bert", cmb, flops_b, BERT_BATCH, inputs, label,
+        dict(flash, fused_adam=1), seed, P15_WINDOWS, P15_PER_WINDOW)
+    del cmb, inputs, label
+    collect_garbage()
+    torch.cuda.empty_cache()
+    return out
+
+
+def keras_alexnet(num_classes: int = 10):
+    """examples/keras/func_cifar10_alexnet.py's stack through the port's
+    Keras API: 5 conv, 3 pool, 2 fc-4096 and the softmax head at
+    229 x 229."""
+    from flexflow_tpu_torch.keras.layers import (Activation, Conv2D, Dense,
+                                                 Flatten, Input,
+                                                 MaxPooling2D)
+    from flexflow_tpu_torch.keras.models import Model
+
+    inp = Input(shape=(3, 229, 229), dtype="float32")
+    x = Conv2D(filters=64, kernel_size=(11, 11), strides=(4, 4),
+               padding=(2, 2), activation="relu")(inp)
+    x = MaxPooling2D(pool_size=(3, 3), strides=(2, 2), padding="valid")(x)
+    x = Conv2D(filters=192, kernel_size=(5, 5), strides=(1, 1),
+               padding=(2, 2), activation="relu")(x)
+    x = MaxPooling2D(pool_size=(3, 3), strides=(2, 2), padding="valid")(x)
+    for filters in (384, 256, 256):
+        x = Conv2D(filters=filters, kernel_size=(3, 3), strides=(1, 1),
+                   padding=(1, 1), activation="relu")(x)
+    x = MaxPooling2D(pool_size=(3, 3), strides=(2, 2), padding="valid")(x)
+    x = Flatten()(x)
+    x = Dense(4096, activation="relu")(x)
+    x = Dense(4096, activation="relu")(x)
+    x = Dense(num_classes)(x)
+    return Model(inp, Activation("softmax")(x))
+
+
+def upsample_nearest(x: np.ndarray, size: int) -> np.ndarray:
+    """(N, C, h, w) -> (N, C, size, size) float32, nearest neighbour (the
+    example's upsample)."""
+    _, _, h, w = x.shape
+    ih = (np.arange(size) * h // size).astype(np.int32)
+    iw = (np.arange(size) * w // size).astype(np.int32)
+    return x[:, :, ih[:, None], iw[None, :]].astype(np.float32)
+
+
+def p15_keras_alexnet(seed: int) -> dict:
+    """(15b) BASELINE #1 through the Keras API: `cifar10.load_data`'s
+    synthetic data upsampled to 229, `Model.compile(SGD(0.01))` -> `fit`
+    for 2 epochs of P15_KERAS_BATCHES batches with EpochVerifyMetrics and
+    VerifyMetrics; the plain SGD kernel exactly once an update; then the
+    compiled model's step by `train_leg`."""
+    import warnings
+
+    import flexflow_tpu_torch.keras.optimizers as kopt
+    from flexflow_tpu_torch.keras.callbacks import (EpochVerifyMetrics,
+                                                    VerifyMetrics)
+    from flexflow_tpu_torch.keras.datasets import cifar10
+
+    collect_garbage()
+    torch.cuda.empty_cache()
+    n = P15_KERAS_BATCH * P15_KERAS_BATCHES
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        (x, y), _ = cifar10.load_data(n)
+    x = upsample_nearest(x, 229) / 255.0
+    y = y.astype(np.int32).reshape(-1)
+    model = keras_alexnet()
+    model.compile(optimizer=kopt.SGD(learning_rate=0.01),
+                  loss="sparse_categorical_crossentropy",
+                  metrics=["accuracy", "sparse_categorical_crossentropy"])
+    cbs = [EpochVerifyMetrics(0.0), VerifyMetrics(0.0)]
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    hist = model.fit(x, y, batch_size=P15_KERAS_BATCH, epochs=2,
+                     callbacks=cbs, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    cm = model.ffmodel.compiled
+    losses = [h["loss"] for h in hist]
+    # the callbacks as in JAX: the epoch one saw the target, the verify
+    # one holds the last epoch's accuracy and passes at train end; a
+    # verify over 100% accuracy raises there
+    cbs[1].on_train_end()
+    strict = VerifyMetrics(1.01)
+    strict.on_epoch_end(1, hist[-1])
+    try:
+        strict.on_train_end()
+        strict_raised = False
+    except AssertionError:
+        strict_raised = True
+    out = {"samples": n, "synthetic": any("synthetic" in str(w.message)
+                                          for w in caught),
+           "layers": len(model.ffmodel.layers), "history": hist,
+           "fit_wall_s": wall, "launches": counts,
+           "device": str(cm.device), "compute_dtype": cm.cfg.compute_dtype,
+           "epoch_verify_reached": cbs[0].reached,
+           "verify_last": cbs[1].last, "strict_verify_raised": strict_raised,
+           "fit_step_ms_epoch2": 1e3 * P15_KERAS_BATCH
+           / hist[-1]["samples_per_sec"]}
+    log(f"[15b] Keras AlexNet/CIFAR-10 on {out['device']}: "
+        f"{out['layers']} layers, fit 2 epochs x {P15_KERAS_BATCHES} batches "
+        f"of {P15_KERAS_BATCH} in {wall:.1f} s, losses "
+        f"{' '.join(f'{v:.4f}' for v in losses)}, accuracy "
+        f"{hist[-1]['accuracy']:.4f}, epoch 2 {out['fit_step_ms_epoch2']:.2f}"
+        f" ms a step, launches {counts}; EpochVerifyMetrics reached "
+        f"{cbs[0].reached}, VerifyMetrics last {cbs[1].last}, a 101% "
+        f"VerifyMetrics raised {strict_raised}")
+    want = {k: 0 for k in counts}
+    want["fused_sgd_plain"] = 2 * P15_KERAS_BATCHES
+    if counts != want:
+        fail(f"15b: fit launches {counts}, expected {want}")
+    if not (all(np.isfinite(losses)) and out["synthetic"]
+            and cbs[0].reached and cbs[1].last == hist[-1]["accuracy"]
+            and strict_raised and out["device"].startswith("cuda")):
+        fail(f"15b: {out}")
+    inputs, label = on_card([x[:P15_KERAS_BATCH]], y[:P15_KERAS_BATCH])
+    out["steps"] = train_leg("15b keras alexnet", "alexnet_keras", cm,
+                             _flops(model.ffmodel), P15_KERAS_BATCH, inputs,
+                             label, {"fused_sgd_plain": 1}, seed,
+                             P15_WINDOWS, P15_PER_WINDOW, table_builds=(0, 0))
+    del model, cm, inputs, label
+    collect_garbage()
+    torch.cuda.empty_cache()
+    return out
+
+
+def onnx_encoder(rng, layers: int = BERT_LAYERS, b: int = BERT_BATCH,
+                 s: int = BERT_SEQ, d: int = BERT_D, h: int = BERT_HEADS):
+    """`layers` pre-LN encoder blocks at BERT-base's widths, op by op in
+    the ONNX vocabulary of tests/test_onnx_frontend.py's transformer block
+    (LayerNormalization, MatMul, Add, Split, Reshape, Transpose, Mul,
+    Softmax, Erf), as {field: value} dicts for `proto.encode`. Returns
+    (model dict, {name: weight array}, the plain-torch forward)."""
+    from flexflow_tpu_torch.onnx import proto
+
+    dh, f = d // h, 4 * d
+
+    def tensor(name, arr):
+        arr = np.ascontiguousarray(arr)
+        dt = {np.dtype(np.float32): proto.DT_FLOAT,
+              np.dtype(np.int64): proto.DT_INT64}[arr.dtype]
+        return {1: [int(n) for n in arr.shape], 2: dt, 8: name,
+                9: arr.tobytes()}
+
+    def vi(name, shape):
+        return {1: name, 2: {1: {1: proto.DT_FLOAT,
+                                 2: {1: [{1: int(n)} for n in shape]}}}}
+
+    def attr(name, val):
+        if isinstance(val, int):
+            return {1: name, 20: 2, 3: val}
+        return {1: name, 20: 7, 8: [int(v) for v in val]}
+
+    def node(op, ins, outs, name, **attrs):
+        return {4: op, 1: list(ins), 2: list(outs), 3: name,
+                5: [attr(k, v) for k, v in attrs.items()]}
+
+    w, nodes, x = {}, [], "x"
+    for i in range(layers):
+        p = f"l{i}_"
+        for k, shape in (("Wqkv", (d, 3 * d)), ("Bqkv", (3 * d,)),
+                         ("Wo", (d, d)), ("Bo", (d,)), ("W1", (d, f)),
+                         ("B1", (f,)), ("W2", (f, d)), ("B2", (d,))):
+            w[p + k] = rng.normal(size=shape, scale=0.02).astype(np.float32)
+        for k in ("g1", "g2"):
+            w[p + k] = (1 + rng.normal(size=(d,), scale=0.1)
+                        ).astype(np.float32)
+        for k in ("be1", "be2"):
+            w[p + k] = rng.normal(size=(d,), scale=0.1).astype(np.float32)
+        n = lambda v: p + v  # noqa: E731
+        nodes += [
+            node("LayerNormalization", [x, n("g1"), n("be1")], [n("ln1")],
+                 n("ln1")),
+            node("MatMul", [n("ln1"), n("Wqkv")], [n("qkv0")], n("qkv")),
+            node("Add", [n("qkv0"), n("Bqkv")], [n("qkv1")], n("qkv_b")),
+            node("Split", [n("qkv1")], [n("q"), n("k"), n("v")], n("split"),
+                 axis=2, split=[d, d, d]),
+            node("Reshape", [n("q"), "hshape"], [n("q4")], n("q4")),
+            node("Transpose", [n("q4")], [n("qh")], n("qh"),
+                 perm=[0, 2, 1, 3]),
+            node("Reshape", [n("k"), "hshape"], [n("k4")], n("k4")),
+            node("Transpose", [n("k4")], [n("kh")], n("kh"),
+                 perm=[0, 2, 3, 1]),
+            node("Reshape", [n("v"), "hshape"], [n("v4")], n("v4")),
+            node("Transpose", [n("v4")], [n("vh")], n("vh"),
+                 perm=[0, 2, 1, 3]),
+            node("MatMul", [n("qh"), n("kh")], [n("logits")], n("logits")),
+            node("Mul", [n("logits"), "scale"], [n("scaled")], n("scale")),
+            node("Softmax", [n("scaled")], [n("probs")], n("probs"),
+                 axis=-1),
+            node("MatMul", [n("probs"), n("vh")], [n("ctx")], n("ctx")),
+            node("Transpose", [n("ctx")], [n("ctxT")], n("ctxT"),
+                 perm=[0, 2, 1, 3]),
+            node("Reshape", [n("ctxT"), "dshape"], [n("ctx2")], n("ctx2")),
+            node("MatMul", [n("ctx2"), n("Wo")], [n("proj0")], n("proj")),
+            node("Add", [n("proj0"), n("Bo")], [n("proj1")], n("proj_b")),
+            node("Add", [n("proj1"), x], [n("res1")], n("res1")),
+            node("LayerNormalization", [n("res1"), n("g2"), n("be2")],
+                 [n("ln2")], n("ln2")),
+            node("MatMul", [n("ln2"), n("W1")], [n("up0")], n("up")),
+            node("Add", [n("up0"), n("B1")], [n("up1")], n("up_b")),
+            node("Mul", [n("up1"), "inv_sqrt2"], [n("g_in")], n("g_in")),
+            node("Erf", [n("g_in")], [n("g_erf")], n("g_erf")),
+            node("Add", [n("g_erf"), "one"], [n("g_1p")], n("g_1p")),
+            node("Mul", [n("up1"), n("g_1p")], [n("g_m")], n("g_m")),
+            node("Mul", [n("g_m"), "half"], [n("gelu")], n("g_half")),
+            node("MatMul", [n("gelu"), n("W2")], [n("down0")], n("down")),
+            node("Add", [n("down0"), n("B2")], [n("down1")], n("down_b")),
+            node("Add", [n("down1"), n("res1")], [n("y")], n("res2"))]
+        x = n("y")
+    scale = np.float32(1.0 / np.sqrt(dh))
+    consts = {"hshape": np.asarray([b, s, h, dh], np.int64),
+              "dshape": np.asarray([b, s, d], np.int64),
+              "scale": np.asarray([scale], np.float32),
+              "inv_sqrt2": np.asarray([1.0 / np.sqrt(2.0)], np.float32),
+              "one": np.asarray([1.0], np.float32),
+              "half": np.asarray([0.5], np.float32)}
+    graph = {2: "encoder", 1: nodes,
+             5: [tensor(k, v) for k, v in {**w, **consts}.items()],
+             11: [vi("x", (b, s, d))], 12: [vi(x, (b, s, d))]}
+    model = {1: 8, 2: "chip_smoke", 7: graph, 8: [{1: "", 2: 17}]}
+
+    def plain(xt, t):
+        """The same arithmetic in plain torch, block by block."""
+        for i in range(layers):
+            g = {k: t[f"l{i}_{k}"] for k in ("Wqkv", "Bqkv", "Wo", "Bo",
+                                              "W1", "B1", "W2", "B2", "g1",
+                                              "be1", "g2", "be2")}
+            ln1 = F.layer_norm(xt, (d,), g["g1"], g["be1"])
+            q, k, v = (ln1 @ g["Wqkv"] + g["Bqkv"]).split(d, dim=2)
+            qh, kh, vh = (z.reshape(b, s, h, dh).permute(0, 2, 1, 3)
+                          for z in (q, k, v))
+            probs = torch.softmax(qh @ kh.transpose(-1, -2) * float(scale),
+                                  -1)
+            ctx = (probs @ vh).permute(0, 2, 1, 3).reshape(b, s, d)
+            res1 = ctx @ g["Wo"] + g["Bo"] + xt
+            ln2 = F.layer_norm(res1, (d,), g["g2"], g["be2"])
+            xt = (F.gelu(ln2 @ g["W1"] + g["B1"]) @ g["W2"] + g["B2"]
+                  + res1)
+        return xt
+    return model, w, plain
+
+
+def p15_onnx_encoder(seed: int, tmpdir: str) -> dict:
+    """(15c) 12 pre-LN blocks at BERT-base's widths written to ONNX bytes
+    by the port's own encoder, read back through ONNXModel: apply ->
+    compile(Adam, outputs=) -> import_weights; the forward against the same
+    arithmetic in plain torch on the card; Adam steps (`train_leg`: Adam
+    once a step; the attention here is MatMul/Softmax ops, no flash)."""
+    from flexflow_tpu_torch import AdamOptimizer, FFConfig, FFModel
+    from flexflow_tpu_torch.onnx import ONNXModel, proto
+
+    collect_garbage()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    graph, w, plain = onnx_encoder(rng)
+    path = os.path.join(tmpdir, "encoder.onnx")
+    with open(path, "wb") as fh:
+        fh.write(proto.encode(graph))
+    del graph
+    encode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    om = ONNXModel(path)
+    model = FFModel(FFConfig(batch_size=BERT_BATCH, seed=seed))
+    (y,) = om.apply(model)
+    import_s = time.perf_counter() - t0
+    cm = model.compile(AdamOptimizer(alpha=LR), "mean_squared_error", [],
+                       outputs=[y])
+    cm.init(seed=seed)
+    om.import_weights(cm)
+    x = torch.from_numpy(rng.normal(size=(BERT_BATCH, BERT_SEQ, BERT_D))
+                         .astype(np.float32)).cuda()
+    target = torch.from_numpy(rng.normal(size=(BERT_BATCH, BERT_SEQ, BERT_D))
+                              .astype(np.float32)).cuda()
+    got = cm.forward(x)
+    with torch.no_grad():
+        want = plain(x, {k: torch.from_numpy(v).cuda() for k, v in w.items()})
+    fwd = _fwd_err(got, want)
+    ops = sorted({n.op_type for n in om.graph.node})
+    out = {"file_bytes": os.path.getsize(path), "encode_s": encode_s,
+           "import_s": import_s, "onnx_nodes": len(om.graph.node),
+           "onnx_ops": ops, "layers": len(model.layers), "forward": fwd,
+           "forward_tol": P15_ONNX_TOL,
+           "compute_dtype": cm.cfg.compute_dtype}
+    del got, want, om, w
+    log(f"[15c] ONNX encoder ({out['onnx_nodes']} nodes of {ops}, "
+        f"{out['file_bytes'] / 2**20:.0f} MiB written by the port's encoder "
+        f"in {encode_s:.1f} s, read back and applied in {import_s:.1f} s to "
+        f"{out['layers']} layers): forward vs plain torch max |err| "
+        f"{fwd['max_abs_err']:.3e} of max |y| {fwd['max_abs_ref']:.3f} "
+        f"(rel {fwd['rel_err']:.3e}, tolerance {P15_ONNX_TOL:g})")
+    if not fwd["finite"] or fwd["rel_err"] > P15_ONNX_TOL:
+        fail(f"15c: the imported encoder disagrees with plain torch: {fwd}")
+    out["steps"] = train_leg("15c onnx encoder", "onnx_encoder", cm,
+                             _flops(model), BERT_BATCH, [x], target,
+                             {"fused_adam": 1}, seed, P15_WINDOWS,
+                             P15_PER_WINDOW)
+    if not out["steps"]["loss_fell"]:
+        fail(f"15c: the loss did not fall: {out['steps']['losses']}")
+    del cm, model, x, target
+    collect_garbage()
+    torch.cuda.empty_cache()
+    return out
+
+
+def p15_launcher(tmpdir: str) -> dict:
+    """(15d) `python -m flexflow_tpu_torch -b 64 --lr 0.05 -e 1 script.py
+    --its-own-arg` in a subprocess on the card: the flags reach
+    `get_launch_config()`, the script's own argv reaches it, the compile's
+    default device is the card and its default optimizer SGD at --lr (the
+    plain SGD kernel once an update), and the run exits 0."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(tmpdir, "launched.py")
+    with open(script, "w") as fh:
+        fh.write(P15_SCRIPT)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("FLEXFLOW_PLATFORM", "FF_LAUNCH_ARGS")}
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    cmd = [sys.executable, "-m", "flexflow_tpu_torch", *P15_LAUNCH_ARGS,
+           script, "--its-own-arg"]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=tmpdir, env=env, capture_output=True,
+                         text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    lines = [l for l in run.stdout.splitlines() if l.startswith("P15D ")]
+    if run.returncode != 0 or not lines:
+        fail(f"15d: the launcher exited {run.returncode}: "
+             f"{run.stdout[-2000:]}\n{run.stderr[-3000:]}")
+    got = json.loads(lines[-1][len("P15D "):])
+    got.update(returncode=run.returncode, wall_s=wall,
+               command=" ".join(["python", "-m", "flexflow_tpu_torch",
+                                 *P15_LAUNCH_ARGS, "launched.py",
+                                 "--its-own-arg"]))
+    log(f"[15d] `{got['command']}` exited 0 in {wall:.1f} s: argv "
+        f"{got['argv']}, batch {got['batch_size']}, lr "
+        f"{got['learning_rate']}, epochs {got['epochs']}, device "
+        f"{got['device']}, losses {got['losses']}, launches {got['launches']}")
+    want = {k: 0 for k in got["launches"]}
+    want["fused_sgd_plain"] = 4
+    if not (got["argv"] == ["--its-own-arg"] and got["batch_size"] == 64
+            and got["learning_rate"] == got["optimizer_lr"] == 0.05
+            and got["epochs"] == 1 and got["device"].startswith("cuda")
+            and all(np.isfinite(got["losses"]))
+            and got["launches"] == want):
+        fail(f"15d: {got}")
+    return got
+
+
+def phase15(seed: int, bert_9d: dict, alexnet_14b: dict) -> dict:
+    """The frontends on the card, each at full width in the port's default
+    compute dtype: 15a torch.fx BERT-base, 15b Keras AlexNet/CIFAR-10,
+    15c an ONNX encoder at BERT-base's widths, 15d the launcher. cuDNN's
+    autotuner is on for the phase. Each step ms is printed beside the
+    phase 9d or 14b leg timed earlier in this run."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    tmpdir = tempfile.mkdtemp(prefix="ff_p15_")
+    out = {}
+    try:
+        out["15a"] = p15_fx_bert(seed, tmpdir)
+        out["15b"] = p15_keras_alexnet(seed)
+        out["15c"] = p15_onnx_encoder(seed, tmpdir)
+        out["15d"] = p15_launcher(tmpdir)
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+        torch.backends.cudnn.benchmark = bench
+    card = card_line()
+    a, b = out["15a"], out["15b"]
+    log(f"[phase 15] {card}: 15a torch.fx BERT-base "
+        f"({a['compute_dtype']}) {a['steps']['step_ms_median']:.2f} ms a "
+        f"step, build_bert at {a['compute_dtype']} "
+        f"{a['build_bert_steps']['step_ms_median']:.2f} ms, 9d build_bert "
+        f"(bfloat16) {bert_9d['step_ms_median']:.2f} ms; 15b Keras AlexNet "
+        f"({b['compute_dtype']}, 229 x 229, 10 classes) "
+        f"{b['steps']['step_ms_median']:.2f} ms a step, 14b AlexNet "
+        f"(bfloat16, 224 x 224, 1000 classes) "
+        f"{alexnet_14b['step_ms_median']:.2f} ms; 15c ONNX encoder "
+        f"{out['15c']['steps']['step_ms_median']:.2f} ms a step")
+    out["beside"] = {"9d_build_bert_step_ms": bert_9d["step_ms_median"],
+                     "14b_alexnet_step_ms": alexnet_14b["step_ms_median"]}
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[phase 15] {out['wall_s']:.1f} s on {card}")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5527,6 +6182,9 @@ def main() -> None:
     # builder's defaults, the fork-join pass, the K-step graph, a searched
     # strategy imported
     zoo = phase14(args.seed)
+    # ---- 15. the frontends: torch.fx BERT-base, Keras AlexNet/CIFAR-10,
+    # an ONNX encoder at BERT-base's widths, the launcher
+    fronts = phase15(args.seed, bench["9d"], zoo["legs"]["alexnet"])
 
     # launches on the main paths: both serving runs, the 12 Adam training
     # steps and the Adam fit epoch, the 12 padded-vocab SGD steps and the
@@ -5600,6 +6258,14 @@ def main() -> None:
     for which, f in zoo["fusion"].items():
         paths9[f"p14c_{which}_fused_and_unfused"] = f["launches"]
     paths9["p14e_imported_strategy_steps"] = zoo["strategy"]["launches"]
+    # phase 15's legs: the flash kernels non-causal (15a), the optimizers
+    paths9["p15a_fx_bert_steps"] = fronts["15a"]["steps"]["launches"]
+    paths9["p15a_build_bert_steps"] = \
+        fronts["15a"]["build_bert_steps"]["launches"]
+    paths9["p15b_keras_fit"] = fronts["15b"]["launches"]
+    paths9["p15b_keras_steps"] = fronts["15b"]["steps"]["launches"]
+    paths9["p15c_onnx_steps"] = fronts["15c"]["steps"]["launches"]
+    paths9["p15d_launcher_fit"] = fronts["15d"]["launches"]
     for r in rows:
         causal = r.get("causal")
         counted = (paths if causal else paths9 if causal is False
@@ -5625,6 +6291,7 @@ def main() -> None:
     log(json.dumps({"serving12": serving12}, default=str))
     log(json.dumps({"serving13": serving13}, default=str))
     log(json.dumps({"zoo": zoo}, default=str))
+    log(json.dumps({"frontends": fronts}, default=str))
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,3 +12,13 @@ from flexflow_tpu_torch.losses import LossType  # noqa: F401
 from flexflow_tpu_torch.metrics import MetricsType  # noqa: F401
 from flexflow_tpu_torch.optimizers import (  # noqa: F401
     AdamOptimizer, SGDOptimizer)
+
+# set by the launcher (`python -m flexflow_tpu_torch [flags] script.py`,
+# __main__.py)
+_launch_config = None
+
+
+def get_launch_config() -> "FFConfig":
+    """The FFConfig the launcher parsed from its command line, or a default
+    config when the script runs on its own."""
+    return _launch_config if _launch_config is not None else FFConfig()

@@ -185,10 +185,11 @@ def _pick_strategy(model, machine: MachineSpec, optimizer=None,
 
 
 def compile_model(model, optimizer, loss_type, metrics: Sequence = (),
-                  device=None) -> "CompiledModel":
-    """The training program of `model`'s graph, its output the last
-    layer's first output (SGD at the config's `learning_rate` when no
-    optimizer is given, as in JAX). The config's `telemetry_dir` turns on
+                  device=None, outputs=None) -> "CompiledModel":
+    """The training program of `model`'s graph, its outputs `outputs`
+    (default: the last layer's first output; the loss reads the first),
+    under SGD at the config's `learning_rate` when no optimizer is given,
+    as in JAX. The config's `telemetry_dir` turns on
     the span stream ("" leaves it as it is: turning it off is an explicit
     `telemetry.shutdown()`), and its `fault_plan` arms the fault injector
     (runtime/faults.py), as the JAX compile does."""
@@ -202,19 +203,31 @@ def compile_model(model, optimizer, loss_type, metrics: Sequence = (),
         faults.configure(cfg.fault_plan)
     with tel.span("compile/compile_model", cat="compile",
                   pipeline_stages=int(cfg.pipeline_stages)):
-        return _compile_model(model, optimizer, loss_type, metrics, device)
+        return _compile_model(model, optimizer, loss_type, metrics, device,
+                              outputs)
 
 
-def _compile_model(model, optimizer, loss_type, metrics, device):
+def _compile_model(model, optimizer, loss_type, metrics, device, outputs):
     optimizer = optimizer or SGDOptimizer(lr=model.config.learning_rate)
     machine = resolve_machine(model.config, device)
     strategy = _pick_strategy(model, machine, optimizer, device)
     if model.config.export_strategy_file:
         strategy.save(model.config.export_strategy_file)
+    if outputs is None:
+        outputs = model.layers[-1].outputs[:1] if model.layers else []
     return CompiledModel(model, optimizer, LossType.from_any(loss_type),
                          [MetricsType.from_any(m) for m in metrics],
-                         model.layers[-1].outputs[:1], device=device,
+                         list(outputs), device=device,
                          strategy=strategy, machine=machine)
+
+
+def _host_or_tensor(value):
+    """A weight value as `to_device` takes it: a tensor detached from any
+    autograd graph (on any device, copied there without a host round
+    trip), anything else as a numpy array."""
+    if isinstance(value, torch.Tensor):
+        return value.detach()
+    return np.asarray(value)
 
 
 class CompiledModel:
@@ -358,10 +371,14 @@ class CompiledModel:
             for mode, lam in terms:
                 loss = loss + lam * (w.abs().sum() if mode == "l1"
                                      else (w * w).sum())
-        flat = torch.autograd.grad(loss, [params[l][w] for l, w in order])
+        # a param the outputs do not reach (compiled with `outputs=` short
+        # of the last layer) gets a zero gradient, as jax.grad gives it
+        flat = torch.autograd.grad(loss, [params[l][w] for l, w in order],
+                                   allow_unused=True)
         grads: Dict[str, Dict[str, torch.Tensor]] = {}
         for (l, w), g in zip(order, flat):
-            grads.setdefault(l, {})[w] = g
+            grads.setdefault(l, {})[w] = (torch.zeros_like(params[l][w])
+                                          if g is None else g)
         return loss.detach(), logits.detach(), new_state, grads
 
     def _metrics(self, logits, label):
@@ -938,8 +955,9 @@ class CompiledModel:
         return self.params[layer_name][wname].detach().cpu().numpy().copy()
 
     def set_weight(self, layer_name: str, wname: str, value):
-        """Replace one weight (a new device tensor: the fused optimizer's
-        pointer table is rebuilt at the next step). A fork-join branch's
+        """Replace one weight by `value` (an array, or a tensor on any
+        device), as a new device tensor: the fused optimizer's pointer
+        table is rebuilt at the next step. A fork-join branch's
         "b{i}.{sub}.{w}" on stacked storage writes slice i of the stacked
         weight in place."""
         layer = self.model.get_layer_by_name(layer_name)
@@ -947,7 +965,7 @@ class CompiledModel:
         if alias is not None:
             stk, b = alias
             target = self.params[layer_name][stk]
-            value = to_device(np.asarray(value), self.device)
+            value = to_device(_host_or_tensor(value), self.device)
             if tuple(value.shape) != tuple(target.shape[1:]):
                 raise ValueError(f"{layer_name}.{wname}: shape "
                                  f"{tuple(value.shape)} vs expected "
@@ -956,7 +974,7 @@ class CompiledModel:
                 target[b].copy_(value)
             return
         self.params[layer_name][wname] = self._place(
-            np.asarray(value), layer.weight_specs[wname],
+            _host_or_tensor(value), layer.weight_specs[wname],
             f"{layer_name}.{wname}")
 
     # ------------------------------------------------------------ cost model

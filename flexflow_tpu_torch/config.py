@@ -15,6 +15,9 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
+import shlex
+import sys
 from typing import List, Optional, Tuple
 
 
@@ -81,6 +84,8 @@ class FFConfig:
     enable_fusion: bool = True
     compute_dtype: str = "float32"  # "bfloat16" enables the mixed policy
     # serving knobs (compile_serving reads them when no explicit arg is given)
+    # --serve: a plain field, as in JAX (nothing there acts on it either)
+    serve: bool = False
     max_decode_len: int = 0
     kv_page_size: int = 16
     max_batch_slots: int = 8
@@ -345,7 +350,7 @@ class FFConfig:
                        choices=("auto", "on", "off"))
         p.add_argument("--compgraph", dest="export_dot", type=str, default="")
         p.add_argument("--include-costs-dot-graph", action="store_true")
-        p.add_argument("--serve", action="store_true", default=U)
+        p.add_argument("--serve", action="store_true")
         p.add_argument("--max-decode-len", type=int, default=0)
         p.add_argument("--kv-page-size", type=int, default=16)
         p.add_argument("--max-batch-slots", type=int, default=8)
@@ -387,7 +392,25 @@ class FFConfig:
         return p
 
     @staticmethod
+    def launcher_value_flags() -> set:
+        """The option strings that take the next argv token as their value
+        (argparse's nargs: 0 for a flag, None or a count for a value), read
+        off the parser as JAX's launcher reads them, so the launcher's
+        script-versus-value split follows every flag the parser knows."""
+        flags = set()
+        for a in FFConfig.build_parser()._actions:
+            if a.nargs == 0:
+                continue
+            flags.update(a.option_strings)
+        return flags
+
+    @staticmethod
     def parse_args(argv: Optional[List[str]] = None) -> "FFConfig":
+        # a real command line (argv None) takes `FF_LAUNCH_ARGS` first and
+        # its own flags after them, as in JAX; an explicit argv does not
+        if argv is None:
+            env_args = shlex.split(os.environ.get("FF_LAUNCH_ARGS", ""))
+            argv = env_args + list(sys.argv[1:])
         args, _unknown = FFConfig.build_parser().parse_known_args(argv)
         given = sorted(d for d in _UNPORTED if hasattr(args, d))
         if given:
@@ -427,6 +450,7 @@ class FFConfig:
             pipeline_stages=args.pipeline_stages,
             enable_fusion=args.fusion,
             compute_dtype=args.compute_dtype,
+            serve=args.serve,
             max_decode_len=args.max_decode_len,
             kv_page_size=args.kv_page_size,
             max_batch_slots=args.max_batch_slots,
@@ -489,5 +513,4 @@ _UNPORTED = {
     "cost_model_path": ("--cost-model-path", 8),
     "auto_refit": ("--auto-refit", 8),
     "simulator_trace": ("--simulator-trace", 8),
-    "serve": ("--serve", 7),
 }

@@ -495,13 +495,21 @@ class FFModel:
     # ------------------------------------------------------------- compile
     def compile(self, optimizer=None,
                 loss_type="sparse_categorical_crossentropy",
-                metrics: Sequence = ("accuracy",), device=None):
-        """Build the training program (compiler/compile.py). It runs on the
-        GPU unless `device="cpu"` is passed."""
+                metrics: Sequence = ("accuracy",), comp_mode=None,
+                outputs: Optional[Sequence[Tensor]] = None, device=None):
+        """Build the training program (compiler/compile.py). `outputs`
+        (default: the last layer's first output) are the model's outputs,
+        the first of them the one the loss reads; `comp_mode` is taken and
+        ignored, as in JAX. It runs on the GPU unless `device="cpu"` is
+        passed."""
         from flexflow_tpu_torch.compiler.compile import compile_model
 
+        if getattr(self.config, "simulator_trace", ""):
+            raise NotImplementedError(
+                "simulator_trace: the taskgraph simulator's trace export is "
+                "not ported yet (ROADMAP Queue 1 item 8)")
         self._compiled = compile_model(self, optimizer, loss_type, metrics,
-                                       device=device)
+                                       device=device, outputs=outputs)
         if self.config.export_dot:
             with open(self.config.export_dot, "w") as f:
                 f.write(self.dot())
@@ -517,6 +525,7 @@ class FFModel:
     def fit(self, x, y, batch_size: Optional[int] = None,
             epochs: Optional[int] = None, callbacks=None, verbose: bool = True,
             sync_every: Optional[int] = None,
+            steps_per_dispatch: Optional[int] = None,
             accum_steps: Optional[int] = None,
             resume: Optional[str] = None,
             checkpoint_dir: Optional[str] = None,
@@ -526,7 +535,8 @@ class FFModel:
         config's value for this call."""
         return self.compiled.fit(
             x, y, batch_size=batch_size, epochs=epochs, callbacks=callbacks,
-            verbose=verbose, sync_every=sync_every, accum_steps=accum_steps,
+            verbose=verbose, sync_every=sync_every,
+            steps_per_dispatch=steps_per_dispatch, accum_steps=accum_steps,
             resume=resume, checkpoint_dir=checkpoint_dir,
             checkpoint_every_steps=checkpoint_every_steps,
             checkpoint_every_secs=checkpoint_every_secs)

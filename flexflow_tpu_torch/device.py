@@ -3,7 +3,8 @@
 `compile_serving` and `compile_model` (and the objects they return) run on
 the GPU: `device=None` means "cuda", and a CUDA request without a CUDA
 device raises instead of carrying on quietly on the CPU. The CPU is used
-only when the caller asks for it (`device="cpu"`, as the tests do).
+only when the caller asks for it (`device="cpu"`, as the tests do, or the
+launcher's `FLEXFLOW_PLATFORM=cpu`, which sets the default below).
 """
 
 from __future__ import annotations
@@ -12,8 +13,25 @@ import numpy as np
 import torch
 
 
+# the device that `device=None` means: "cuda" unless the launcher was
+# asked for another platform (set_default_device)
+_DEFAULT = ["cuda"]
+
+# FLEXFLOW_PLATFORM's values (JAX's platform names) -> torch device types
+PLATFORMS = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
+
+
+def set_default_device(platform: str) -> None:
+    """Make `device=None` mean `platform` ("cpu", "gpu" or "cuda") for the
+    rest of the process: the launcher's explicit request for a device."""
+    if platform not in PLATFORMS:
+        raise ValueError(f"FLEXFLOW_PLATFORM={platform!r}: the port runs on "
+                         f"one of {sorted(PLATFORMS)}")
+    _DEFAULT[0] = PLATFORMS[platform]
+
+
 def resolve_device(device=None) -> torch.device:
-    dev = torch.device("cuda" if device is None else device)
+    dev = torch.device(_DEFAULT[0] if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: flexflow_tpu_torch runs on the GPU; pass "

@@ -150,6 +150,12 @@ def warn_failed_writes(verbose: bool) -> None:
         print(f"[checkpoint] WARNING: {msg}")
 
 
+def report_failed_writes() -> List[str]:
+    """One `profile_report` line per failed write not yet reported."""
+    return [f"[checkpoint] FAILED async write: {f['path']}: {f['error']}"
+            for f in failed_writes()]
+
+
 def active_writes(prefix: Optional[str] = None) -> List[str]:
     """Paths of async writes whose thread is still running."""
     with _PENDING_LOCK:

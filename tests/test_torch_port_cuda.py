@@ -1417,3 +1417,62 @@ def test_moe_mlp_k_step_graph_on_card():
         for w, p in ws.items():
             assert torch.equal(p, graph.params[l][w]), f"{l}.{w}"
     assert all(torch.equal(a, b) for a, b in zip(means, got))
+
+
+@pytest.mark.cuda
+def test_frontends_import_a_module_that_lives_on_card():
+    """A torch module on the card imports through torch.fx with no host
+    round trip (`Tensor.numpy` is never called): its weights and batch
+    norm's running stats land on the card, the forward matches the
+    module's (f32, 1e-5), and an ONNX BN's moments land there too."""
+    import torch.nn as nn
+
+    from flexflow_tpu_torch.onnx import ONNXModel, proto
+    from flexflow_tpu_torch.torch import PyTorchModel
+
+    dev = _cuda_or_skip()
+    torch.manual_seed(0)
+    mod = nn.Sequential(nn.Conv2d(3, 8, 3, padding=1), nn.BatchNorm2d(8),
+                        nn.ReLU(), nn.Flatten(), nn.Linear(8 * 8 * 8, 10))
+    with torch.no_grad():
+        mod[1].running_mean.uniform_(-0.5, 0.5)
+        mod[1].running_var.uniform_(0.5, 2.0)
+    mod = mod.to(dev).eval()
+    pm = PyTorchModel(mod)
+    m = FFModel(FFConfig(batch_size=4))
+    outs = pm.torch_to_ff(m, [m.create_tensor([4, 3, 8, 8], name="x")])
+    cm = m.compile(None, "sparse_categorical_crossentropy", [],
+                   outputs=outs)
+    cm.init(seed=0)
+    numpy = torch.Tensor.numpy
+    torch.Tensor.numpy = lambda *a, **k: pytest.fail("went through numpy")
+    try:
+        pm.import_weights(cm)
+    finally:
+        torch.Tensor.numpy = numpy
+    assert all(t.device.type == "cuda" for ws in cm.params.values()
+               for t in ws.values())
+    assert all(t.device.type == "cuda" for t in cm.state.values())
+    x = torch.randn(4, 3, 8, 8, device=dev)
+    with torch.no_grad():
+        want = mod(x)
+    torch.testing.assert_close(cm.forward(x), want, rtol=1e-5, atol=1e-5)
+    c = 4
+    onx = proto.encode({1: 8, 7: {2: "g", 1: [{4: "BatchNormalization",
+                                              1: ["x", "g", "b", "m", "v"],
+                                              2: ["y"], 3: "bn"}],
+                                  5: [{1: [c], 2: proto.DT_FLOAT, 8: n,
+                                       9: np.full(c, v, np.float32).tobytes()}
+                                      for n, v in (("g", 1.0), ("b", 0.0),
+                                                   ("m", 0.5), ("v", 2.0))],
+                                  11: [{1: "x", 2: {1: {1: proto.DT_FLOAT, 2: {
+                                      1: [{1: 2}, {1: c}, {1: 3}, {1: 3}]}}}}],
+                                  12: [{1: "y"}]}})
+    om = ONNXModel(proto.decode(onx, proto.MODEL_PROTO))
+    m2 = FFModel(FFConfig(batch_size=2))
+    (y,) = om.apply(m2)
+    cm2 = m2.compile(loss_type="identity", metrics=[], outputs=[y])
+    cm2.init(seed=0)
+    om.import_weights(cm2)
+    assert cm2.state["bn/mean"].device.type == "cuda"
+    assert float(cm2.state["bn/var"][0]) == 2.0

@@ -416,3 +416,38 @@ def test_tiered_and_watching_engines_raise_without_cuda(monkeypatch,
             assert not any(t.is_pinned() for d in eng.kv._host.values()
                            for t in d.values())
     assert not eng.poll_swap(force=True)    # an empty root: nothing to take
+
+
+# the frontends: every module of the torch.fx, ONNX and Keras subpackages
+# and the launcher, found by walking the package, each loaded alone
+def _frontend_modules():
+    import pkgutil
+
+    names = ["flexflow_tpu_torch.__main__"]
+    for sub in ("torch", "onnx", "keras"):
+        pkg = __import__(f"flexflow_tpu_torch.{sub}", fromlist=["_"])
+        names.append(pkg.__name__)
+        names += [m.name for m in pkgutil.walk_packages(
+            pkg.__path__, pkg.__name__ + ".")]
+    return names
+
+
+def test_frontend_modules_load_no_jax():
+    """The torch.fx, ONNX and Keras frontends and the launcher import
+    neither JAX nor the JAX package, alone or together."""
+    names = _frontend_modules()
+    assert len(names) >= 17
+    out = subprocess.run([sys.executable, "-c", _IMPORT_EACH, *names],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == str({n: [] for n in names})
+
+
+def test_frontend_sources_name_no_jax_package():
+    """No source of the frontends names the JAX package in an import."""
+    for sub in ("torch", "onnx", "keras"):
+        for path in sorted((PKG / sub).rglob("*.py")):
+            text = path.read_text()
+            assert not re.search(r"^\s*(from|import) (jax|flexflow_tpu)\b",
+                                 text, re.M), path

@@ -1,4 +1,4 @@
-"""The two port faults that ROADMAP Queue 3 listed, each against the JAX
+"""The port faults that ROADMAP Queue 3 listed, each against the JAX
 package on the CPU:
 
 1. `FFConfig.parse_args` knows every option string of the JAX parser,
@@ -10,6 +10,15 @@ package on the CPU:
    does (lse minus the label's logit by `take_along_axis`'s rules: a
    negative label counts from the end, one outside [-v, v) reads NaN),
    with and without `from_logits`.
+3. `CompiledModel.profile_report()` prints one line per failed async
+   checkpoint write, JAX's line (`report_failed_writes`).
+4. `FFModel.compile(..., comp_mode=, outputs=)`: the outputs given are
+   the model's, the first of them the one the loss reads, and the forward
+   and the SGD losses from them equal JAX's (f32, 1e-5 relative).
+5. `FFModel.fit(..., steps_per_dispatch=K)` reaches `CompiledModel.fit`:
+   K updates a dispatch, the `step_stats` and losses JAX's give.
+
+`--serve` is a plain field, as in JAX, and no longer an unported flag.
 """
 
 import ast
@@ -66,7 +75,7 @@ def test_lr_reaches_the_default_optimizer_as_in_jax():
     (["--auto-refit"], 8), (["--simulator-trace", "t.json"], 8),
     (["--serve-objective", "latency"], 9),
     (["--cost-model-path", "m.json"], 8),
-    (["--simulator-topk", "4"], 8), (["--serve"], 7)])
+    (["--simulator-topk", "4"], 8), (["--workers-per-node", "2"], 9)])
 def test_unported_flags_raise_naming_their_item(argv, item):
     JFFConfig.parse_args(argv)          # the JAX package takes them
     flag = argv[0].replace("--no-", "--")
@@ -186,3 +195,107 @@ def test_unported_errors_name_the_roadmap_item_of_their_feature():
         for f in feats:
             assert f.lower() in items[n], \
                 f"{where} names item {n} for {f!r}, which that item lacks"
+
+
+def test_serve_flag_is_a_plain_field_as_in_jax():
+    for argv in ([], ["--serve"]):
+        assert FFConfig.parse_args(argv).serve \
+            == JFFConfig.parse_args(argv).serve == bool(argv)
+    assert FFConfig().serve is JFFConfig().serve is False
+
+
+def _mlp(model_cls, cfg_cls, **cfg):
+    """x (8, 6) -> mid (8, 4) -> last (8, 3), both dense, named."""
+    m = model_cls(cfg_cls(batch_size=8, **cfg))
+    x = m.create_tensor([8, 6], name="x")
+    mid = m.dense(x, 4, activation="relu", name="mid")
+    m.dense(mid, 3, name="last")
+    return m, mid
+
+
+def test_profile_report_prints_each_failed_write(capsys):
+    from flexflow_tpu.runtime import checkpoint as jckpt
+    from flexflow_tpu_torch.runtime import checkpoint as pckpt
+
+    m, _ = _mlp(FFModel, FFConfig)
+    cm = m.compile(None, "sparse_categorical_crossentropy", [], device="cpu")
+    cm.init(seed=0)
+    fails = [{"path": "/ckpt/a", "error": "OSError('disk full')"},
+             {"path": "/ckpt/b", "error": "RuntimeError('x')"}]
+    with pckpt._PENDING_LOCK:
+        pckpt._FAILED.extend(fails)
+    with jckpt._PENDING_LOCK:
+        jckpt._FAILED.extend(fails)
+    try:
+        want = jckpt.report_failed_writes()
+        assert pckpt.report_failed_writes() == want and len(want) == 2
+        rows = cm.profile_report()
+        out = capsys.readouterr().out.splitlines()
+    finally:
+        with pckpt._PENDING_LOCK:
+            del pckpt._FAILED[-2:]
+        with jckpt._PENDING_LOCK:
+            del jckpt._FAILED[-2:]
+    assert out[-2:] == want
+    assert {r["layer"] for r in rows} == {"mid", "last"}
+
+
+def _train_pair(outputs_of, steps=3, **fit_kw):
+    """The MLP in both packages, compiled under SGD(0.1) with `outputs`
+    picked by `outputs_of(mid)`, the port given JAX's initial weights;
+    then `fit` over 4 batches for `steps` epochs in each."""
+    from flexflow_tpu import SGDOptimizer as JSGD
+    from flexflow_tpu_torch import SGDOptimizer
+    from flexflow_tpu_torch.convert import params_from_jax
+    import jax
+
+    jm, jmid = _mlp(JFFModel, JFFConfig, mesh_shape={"data": 1},
+                    log_level="warning")
+    pm, pmid = _mlp(FFModel, FFConfig)
+    jcm = jm.compile(JSGD(lr=0.1), "sparse_categorical_crossentropy", [],
+                     comp_mode="training", outputs=outputs_of(jmid))
+    pcm = pm.compile(SGDOptimizer(lr=0.1), "sparse_categorical_crossentropy",
+                     [], comp_mode="training", outputs=outputs_of(pmid),
+                     device="cpu")
+    jcm.init(seed=0)
+    pcm.load_params(params_from_jax(jax.device_get(jcm.params)))
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(32, 6)).astype(np.float32)
+    y = rng.integers(0, 3, size=(32,)).astype(np.int32)
+    fwd = (np.asarray(jcm.forward(x[:8])), pcm.forward(x[:8]).numpy())
+    jh = jm.fit(x, y, epochs=steps, verbose=False, sync_every=0, **fit_kw)
+    ph = pm.fit(x, y, epochs=steps, verbose=False, sync_every=0, **fit_kw)
+    return (jcm, pcm), fwd, ([h["loss"] for h in jh], [h["loss"] for h in ph])
+
+
+def test_compile_outputs_are_the_models_outputs_as_in_jax():
+    """outputs=[mid]: the forward returns mid's (8, 4) and the loss reads
+    it (4 classes of logits; labels < 3), as in JAX; the default is the
+    last layer's (8, 3)."""
+    (jcm, pcm), (jf, pf), (jl, pl) = _train_pair(lambda mid: [mid])
+    assert pf.shape == jf.shape == (8, 4)
+    assert [t.owner.name for t in pcm.outputs] == ["mid"]
+    np.testing.assert_allclose(pf, jf, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(pl, jl, rtol=1e-5)
+    (_, pcm), (jf, pf), _ = _train_pair(lambda mid: None, steps=1)
+    assert pf.shape == jf.shape == (8, 3)
+    assert [t.owner.name for t in pcm.outputs] == ["last"]
+
+
+def test_simulator_trace_still_raises_naming_item_8():
+    m, _ = _mlp(FFModel, FFConfig)
+    m.config.simulator_trace = "trace.json"
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP Queue 1 item 8"):
+        m.compile(None, "sparse_categorical_crossentropy", [], device="cpu")
+
+
+def test_fit_passes_steps_per_dispatch_through_as_in_jax():
+    """FFModel.fit(steps_per_dispatch=2): 4 batches an epoch make 2
+    dispatches of 2 updates (4 over the 2 epochs), the step_stats and
+    losses JAX's give."""
+    (jcm, pcm), _, (jl, pl) = _train_pair(lambda mid: None, steps=2,
+                                          steps_per_dispatch=2)
+    assert pcm.step_stats == jcm.step_stats
+    assert pcm.step_stats["dispatches"] == 4
+    np.testing.assert_allclose(pl, jl, rtol=1e-5)
