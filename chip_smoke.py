@@ -438,6 +438,50 @@ Phases, each fatal on failure (nothing is caught to let the run exit 0):
     Each step ms is printed beside phase 9d's and 14b's AlexNet leg; the
     phase logs its wall time with the card's name and power limit.
 
+16. The rest of the one-card port, run last, each check fatal, every
+    launch counter set to 0 just before each run and read just after:
+    (a) config #5 (GPT-2 medium, b8, seq 1024, dropout 0, bf16, Adam)
+        compiled with simulator_mode="taskgraph" and simulator_trace: the
+        trace holds a fwd and a bwd task of every layer that is not a
+        passthrough; the compiled step replayed with analytic and with
+        measured op costs (MeasuredCost on the card) beside `train_leg`'s
+        eager step and phase 10's K-step graph step; exposed
+        communication 0 on one device; then the same model searched for
+        2 nodes x 4 workers under "additive" and "taskgraph": each
+        winner, its simulated makespan and hidden_frac, and whether the
+        re-rank changed the pick;
+    (c) on (a)'s model: a profile_ops fit into a telemetry dir (no
+        native call in it, counted), span_dataset and refit; the 2 x 4 search under simulator_mode="learned" with that
+        model (coverage above 0, hits, misses, candidates and finalists
+        pruned, the model's path and fingerprint); learned against
+        MeasuredCost op times (MAPE, the exact table and the ridge alone)
+        and the predicted step (analytic, measured, learned, the learned
+        replay) against the measured step; a fit with auto_refit=True
+        writes a model whose new fingerprint makes the next learned
+        compile a strategy-cache miss; 13e's replay priced with and
+        without the learned rung, the rung refit from the twin's own
+        residual rows (tokens/s against live, a finding);
+    (b) MCMC on the 2 x 4 machine under both evaluators, each winner's
+        simulated makespan beside Unity's; MCMC on the one-card machine,
+        its strategy saved, imported and trained 2 steps;
+    (d) the native batch_gather bitwise against numpy's index at GPT-2's
+        b8 x 1024 int32 tokens and a 64 x 3 x 224 x 224 f32 image batch,
+        timed against it; the native topological order of GPT-2
+        medium's graph equal to the Python walk's, timed against it (the
+        loader and the compile take the Python paths: these times are
+        why);
+    (e) a kernelspec installed into a temporary prefix from a
+        reference-format config; a process with its environment parses
+        the flags and fits an MLP on the card (the plain SGD kernel once
+        an update); the port's quickstart notebook's cells on the card,
+        the loss falling;
+    (f) the C API library built, examples/c/mlp_train.c compiled against
+        it into build/flexflow_tpu_torch/ and run on the card: it prints
+        C_API_OK, `forward_ok dims=2 (32, 4)` and a falling final_loss,
+        the plain SGD kernel once an update (counted in the C program's
+        process and written out at flexflow_finalize).
+    The phase logs its wall time with the card's name and power limit.
+
 The line before the last is `{"kernels": [...]}`; the last line is
 `{"ok": true, "device": {...}}`.
 """
@@ -1258,19 +1302,8 @@ class PlainKernels:
 
 def launch_counts() -> dict:
     """Every kernel wrapper's launch counter, by the kernel's name."""
-    from flexflow_tpu_torch.kernels import dequant_attention as da
-    from flexflow_tpu_torch.kernels import flash_attention as fa
-    from flexflow_tpu_torch.kernels import fused_ce as fc
-    from flexflow_tpu_torch.kernels import fused_optim as fo
-    return {"flash_attention_fwd": fa.launches,
-            "flash_attention_dq": fa.launches_dq,
-            "flash_attention_dkv": fa.launches_dkv,
-            "dequant_decode_attention": da.launches,
-            "fused_adam": fo.launches,
-            "fused_ce_fwd": fc.launches_fwd,
-            "fused_ce_bwd": fc.launches_bwd,
-            "fused_sgd": fo.launches_sgd,
-            "fused_sgd_plain": fo.launches_sgd_plain}
+    from flexflow_tpu_torch.kernels import launch_counts as counts
+    return counts()
 
 
 def zero_launch_counts() -> None:
@@ -1358,24 +1391,65 @@ def serve(engine, params, prompts, label: str):
         {r.rid: list(r.tokens) for r in done}
 
 
-def _device_profile(fn, reps: int, dev: torch.device) -> dict:
+# idle seconds at each edge of a profile window, and between a lead call
+# and the counted calls. The profiler keeps only the device records that
+# fall inside its window on the host's clock, and the device's timestamps,
+# as it converts them, can run ahead of that clock (phase 10's 9b graph
+# read its first kernel 0.68 ms before its launch call).
+PROFILE_EDGE_S = 0.1
+# the host's launch calls, against which a kernel's start is read
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch")
+# the host range around the counted calls
+COUNTED_RANGE = "chip_smoke/counted"
+
+
+def _device_profile(fn, reps: int, dev: torch.device, lead=None) -> dict:
     """Run `fn` `reps` times under torch.profiler: host wall time per call,
     the device's busy time (union of kernel intervals) and idle share, and
-    the kernels that took the most device time. Empty when the profiler
-    records no kernel (then the device split is not measured)."""
-    from torch.profiler import ProfilerActivity, profile
+    the kernels that took the most device time; and the time from the
+    first launch call to the first kernel's start, both as the profiler
+    reads them (milliseconds where the profiler kept no record of the
+    first kernels; negative where the device's converted clock runs ahead
+    of the host's). Empty when the profiler records no kernel (then the
+    device split is not measured).
+
+    Late in a long process the profiler loses the records of the first
+    milliseconds of device work after its window opens, whatever idle time
+    precedes them (one layer's forward of a one-step GPT-2 or BERT window,
+    five BERT layers of a replayed graph). Where the counts must be exact,
+    pass `lead`: it runs once inside the window before the counted calls,
+    a device sync and PROFILE_EDGE_S apart from them, and nothing of it is
+    counted (host events by their start, kernels by theirs, up to half of
+    PROFILE_EDGE_S early)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         sync(dev)
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        sync(dev)
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    events = prof.events()
-    kern = [e for e in events
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+        if lead is not None:
+            lead()
+            sync(dev)
+        time.sleep(PROFILE_EDGE_S)
+        with record_function(COUNTED_RANGE):
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            sync(dev)
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        time.sleep(PROFILE_EDGE_S)
+    cuda = torch.autograd.DeviceType.CUDA
+    # the range's own device span (a user annotation) is no kernel
+    events = [e for e in prof.events() if e.device_type != cuda or not (
+        e.name == COUNTED_RANGE or getattr(e, "is_user_annotation", False))]
+    first_us = min(e.time_range.start for e in events
+                   if e.name == COUNTED_RANGE)
+    events = [e for e in events if e.time_range.start >= first_us
+              or (e.device_type == cuda and
+                  e.time_range.start >= first_us - 5e5 * PROFILE_EDGE_S)]
+    kern = [e for e in events if e.device_type == cuda]
+    launch_us = min((e.time_range.start for e in events
+                     if e.name in LAUNCH_CALLS), default=None)
     # gathers `pool[table]` (and any other advanced-index read) on the host
     gathers = sum(e.name == "aten::index" for e in events)
     # CUDA graph replays (the runtime call, on the host)
@@ -1402,6 +1476,8 @@ def _device_profile(fn, reps: int, dev: torch.device) -> dict:
             pt, pc = port.get(m.group(1), (0.0, 0))
             port[m.group(1)] = (pt + t, pc + c)
     return {"calls": reps, "wall_ms_per_call": wall_us / reps / 1e3,
+            "launch_to_first_kernel_us": (None if launch_us is None
+                                          else spans[0][0] - launch_us),
             "device_busy_ms_per_call": busy / reps / 1e3,
             "device_idle_share": 1.0 - busy / wall_us,
             "kernel_launches_per_call": len(kern) / reps,
@@ -2590,7 +2666,8 @@ def profile_train(cm, inputs, label, tag: str, rng=None,
         log(f"[{tag}] step: {prof['wall_ms_per_call']:.2f} ms wall, device "
             f"busy {prof['device_busy_ms_per_call']:.2f} ms, idle share "
             f"{prof['device_idle_share']:.3f}, "
-            f"{prof['kernel_launches_per_call']:.0f} kernel launches")
+            f"{prof['kernel_launches_per_call']:.0f} kernel launches, first "
+            f"launch to first kernel {prof['launch_to_first_kernel_us']} us")
         for k in prof["top_kernels"]:
             log(f"[{tag}]   {k['ms_per_call']:8.3f} ms "
                 f"{k['launches_per_call']:5.0f}x  {k['name']}")
@@ -3335,7 +3412,9 @@ def graph_leg(tag: str, cm, host_data, k: int, seed: int,
     and read after its two dispatches: a kernel launch counts where it is
     captured (the warm-up step and the k captured ones), never at a
     replay. (b) torch.profiler: one cudaGraphLaunch per dispatch, the
-    port's kernels replayed with the counts of k eager steps. (c) step ms
+    port's kernels replayed with the counts of k eager steps (each window
+    counts two dispatches, or k eager steps, after an uncounted lead of
+    the same; see `_device_profile`). (c) step ms
     eager against graph, the graph's busy ms and idle share, capture
     seconds, the graph pool's bytes beside max_memory_allocated. (d) one
     fit epoch of 2k + 1 batches with steps_per_dispatch=k, sync_every=0
@@ -3433,8 +3512,10 @@ def graph_leg(tag: str, cm, host_data, k: int, seed: int,
         if a == b:
             fail(f"10 {tag}: two dispatches drew the same masks")
     # (b)
-    prof_g = _device_profile(lambda: dispatch(0), 2, cm.device)
-    prof_e = _device_profile(lambda: eager_steps(0), 1, cm.device)
+    prof_g = _device_profile(lambda: dispatch(0), 2, cm.device,
+                             lead=lambda: dispatch(0))
+    prof_e = _device_profile(lambda: eager_steps(0), 1, cm.device,
+                             lead=lambda: eager_steps(0))
     out["profile_graph"], out["profile_eager_k_steps"] = prof_g, prof_e
     if "wall_ms_per_call" in prof_g and "wall_ms_per_call" in prof_e:
         pg = {n: v["launches_per_call"]
@@ -3449,7 +3530,9 @@ def graph_leg(tag: str, cm, host_data, k: int, seed: int,
             f"{prof_g['device_busy_ms_per_call'] / k:.2f} ms a step, idle "
             f"{prof_g['device_idle_share']:.3f} (eager busy "
             f"{prof_e['device_busy_ms_per_call'] / k:.2f} ms, idle "
-            f"{prof_e['device_idle_share']:.3f})")
+            f"{prof_e['device_idle_share']:.3f}); first launch to first "
+            f"kernel {prof_g['launch_to_first_kernel_us']} us (eager "
+            f"{prof_e['launch_to_first_kernel_us']} us)")
         if prof_g["graph_launches_per_call"] != 1 or pg != pe or not pg:
             fail(f"10 {tag}: graph launches "
                  f"{prof_g['graph_launches_per_call']} a dispatch, replayed "
@@ -3687,12 +3770,13 @@ def p11_graph_kernels(cm, gc, seed: int) -> dict:
             return mv
 
         mv = dispatch()
-        prof = _device_profile(dispatch, 2, cm.device)
+        prof = _device_profile(dispatch, 2, cm.device, lead=dispatch)
         if "kernel_launches_per_call" not in prof:
             fail(f"11a: the profiler saw no kernel of the graph: {prof}")
         out["on" if on else "off"] = {
             k: prof[k] for k in ("kernel_launches_per_call",
                                  "graph_launches_per_call",
+                                 "launch_to_first_kernel_us",
                                  "device_busy_ms_per_call",
                                  "device_idle_share", "port_kernels",
                                  "top_kernels")}
@@ -4940,6 +5024,9 @@ def p13_twin(engine, live_fleet, trace_path: str) -> dict:
         trace.records, spec, costs, live_rep["stats"]["wall_s"])
     res = twin.simulate(trace.records, spec, costs)
     rep = res.report()
+    # kept for 16c, which prices the same replay with the learned rung
+    _TWIN_REPLAY.update(records=trace.records, spec=spec, live=live_rep,
+                        costs=costs, machine=engine.machine, cfg=engine.cfg)
     if res.stats["completed"] != REQUESTS or res.stats["shed"]:
         fail(f"13e: the twin completed {res.stats['completed']} of "
              f"{REQUESTS}")
@@ -5938,6 +6025,592 @@ def phase15(seed: int, bert_9d: dict, alexnet_14b: dict) -> dict:
     return out
 
 
+# ------------------- phase 16: the search's remainder and the host runtime
+# 16b's MCMC budgets (proposals) on the 2 x 4 search machine, additive and
+# task-graph evaluated; 16d's dataset rows a gather draws from
+P16_MCMC_BUDGET, P16_MCMC_TG_BUDGET, P16_GATHER_REPS = 200, 30, 20
+P16_IMAGES = 128
+# 13e's twin replay (trace records, spec, live report, costs, machine,
+# config), kept for 16c's learned rung
+_TWIN_REPLAY: dict = {}
+
+
+def _p16_choices(model, st, machine):
+    from flexflow_tpu_torch.search.candidates import compiled_candidate
+    return {l.name: compiled_candidate(l, st, machine, {BATCH})
+            for l in model.layers}
+
+
+def _p16_sim(model, st, machine, cost_fn=None) -> dict:
+    from flexflow_tpu_torch.search.simulator import simulate_strategy
+    rep = simulate_strategy(model, _p16_choices(model, st, machine), machine,
+                            cost_fn=cost_fn)
+    return {"makespan_ms": 1e3 * rep.makespan,
+            "exposed_comm_ms": 1e3 * rep.exposed_comm,
+            "total_comm_ms": 1e3 * rep.total_comm,
+            "hidden_frac": rep.hidden_frac, "tasks": len(rep.tasks)}
+
+
+def p16_taskgraph(seed: int, tmpdir: str, graph_5b: dict, mc) -> tuple:
+    """16a: config #5 compiled with simulator_mode="taskgraph" and
+    simulator_trace on the one-card machine, its step simulated with
+    analytic and measured op costs beside train_leg's eager step and
+    phase 10's K-step graph step; then the 2 x 4 searches, additive and
+    task-graph. Returns (summary, compiled model, inputs, label)."""
+    from flexflow_tpu_torch import AdamOptimizer
+    from flexflow_tpu_torch.compiler.compile import _search_machine
+    from flexflow_tpu_torch.search.optimize import graph_optimize
+
+    trace = os.path.join(tmpdir, "sim_trace.json")
+    gc, model, cm = gpt2_train_model(seed, LAYERS, "bfloat16",
+                                     simulator_mode="taskgraph",
+                                     simulator_trace=trace)
+    events = json.load(open(trace))["traceEvents"]
+    names = {e["name"] for e in events if e.get("ph") == "X"}
+    compute = [l.name for l in model.layers
+               if not cm._candidate_for(l).passthrough]
+    missing = [n for n in compute
+               if f"{n}:fwd" not in names or f"{n}:bwd" not in names]
+    if missing or not compute:
+        fail(f"16a: the simulator trace lacks fwd/bwd tasks of {missing}")
+    analytic = cm.export_sim_trace(os.path.join(tmpdir, "analytic.json"))
+    measured = cm.export_sim_trace(os.path.join(tmpdir, "measured.json"),
+                                   cost_fn=mc.op_time)
+    for what, rep in (("analytic", analytic), ("measured", measured)):
+        if rep.total_comm != 0.0 or rep.exposed_comm > 1e-9 * rep.makespan:
+            fail(f"16a: {what} replay on one device: comm "
+                 f"{rep.total_comm} s, exposed {rep.exposed_comm} s")
+    ids, pos, labels = train_batch(seed, gc.vocab)
+    inputs = [torch.from_numpy(ids).cuda(), torch.from_numpy(pos).cuda()]
+    label = torch.from_numpy(labels).cuda()
+    flash = {"flash_attention_fwd": LAYERS, "flash_attention_dq": LAYERS,
+             "flash_attention_dkv": LAYERS}
+    leg = train_leg("16a", "gpt2-medium", cm,
+                    gc.flops_per_token() * BATCH * SEQ / 3, BATCH, inputs,
+                    label, dict(flash, fused_adam=1), seed, 2, 2)
+    out = {"trace_events": len(events), "compute_layers": len(compute),
+           "sim_analytic_ms": 1e3 * analytic.makespan,
+           "sim_measured_ms": 1e3 * measured.makespan,
+           "exposed_comm_ms": 1e3 * measured.exposed_comm,
+           "eager_step_ms": leg["step_ms_median"],
+           "graph_step_ms_phase10": graph_5b["step_ms"]["graph"],
+           "eager_step_ms_phase10": graph_5b["step_ms"]["eager"],
+           "leg": leg, "launches": leg["launches"]}
+    log(f"[16a] simulated step: analytic {out['sim_analytic_ms']:.2f} ms, "
+        f"measured op costs {out['sim_measured_ms']:.2f} ms; measured step "
+        f"eager {out['eager_step_ms']:.2f} ms, phase 10's K-step graph "
+        f"{out['graph_step_ms_phase10']:.2f} ms (eager there "
+        f"{out['eager_step_ms_phase10']:.2f}); exposed comm "
+        f"{out['exposed_comm_ms']} ms; trace {len(events)} events, fwd and "
+        f"bwd of all {len(compute)} compute layers")
+    # the 2 x 4 searches, additive and task-graph
+    sm = None
+    out["search"] = {}
+    for mode in ("additive", "taskgraph"):
+        sm_model = search_model(seed, search_budget=SEARCH_BUDGET,
+                                search_num_nodes=2, search_num_workers=4,
+                                simulator_mode=mode, strategy_cache=False)
+        sm = _search_machine(sm_model.config, cm.machine)
+        t0 = time.perf_counter()
+        st = graph_optimize(sm_model, sm, optimizer=AdamOptimizer(alpha=LR))
+        wall = time.perf_counter() - t0
+        sim = _p16_sim(sm_model, st, sm)
+        out["search"][mode] = {"strategy": st.name, "search_s": wall,
+                               "predicted_ms": 1e3 * st._predicted_cost,
+                               "sim": sim, "json": st.to_json()}
+        log(f"[16a] {mode} search of {sm.mesh_axes}: {st.name} in "
+            f"{wall:.2f} s; simulated makespan {sim['makespan_ms']:.3f} ms, "
+            f"hidden_frac {sim['hidden_frac']:.3f}")
+    s = out["search"]
+    out["rerank_changed_pick"] = s["additive"]["json"] != s["taskgraph"]["json"]
+    for r in s.values():
+        del r["json"]
+    log(f"[16a] the task-graph re-rank changed the pick: "
+        f"{out['rerank_changed_pick']}")
+    out["search_machine"] = sm.to_json()
+    return out, cm, inputs, label, sm, model
+
+
+def p16_mcmc(seed: int, tmpdir: str, sm, unity_ms: float, machine) -> dict:
+    """16b: MCMC on the 2 x 4 machine, both evaluators, each winner's
+    simulated makespan beside Unity's; then MCMC on the one-card machine,
+    its strategy saved, imported and trained 2 steps."""
+    from flexflow_tpu_torch.search.mcmc import mcmc_optimize
+
+    out = {}
+    model = search_model(seed)
+    for ev, budget in (("additive", P16_MCMC_BUDGET),
+                       ("taskgraph", P16_MCMC_TG_BUDGET)):
+        t0 = time.perf_counter()
+        st, stats = mcmc_optimize(model, sm, budget=budget, seed=seed,
+                                  evaluator=ev)
+        wall = time.perf_counter() - t0
+        sim = _p16_sim(model, st, sm)
+        out[ev] = {"budget": budget, "wall_s": wall,
+                   "stats": dataclasses.asdict(stats), "sim": sim}
+        log(f"[16b] MCMC {ev} ({budget} proposals, {wall:.2f} s): "
+            f"{stats.accepted} accepted, {stats.improved} improved, cost "
+            f"{1e3 * stats.init_cost:.3f} -> {1e3 * stats.best_cost:.3f} ms; "
+            f"simulated makespan {sim['makespan_ms']:.3f} ms against "
+            f"Unity's {unity_ms:.3f} ms")
+        if not stats.best_cost <= stats.init_cost:
+            fail(f"16b: MCMC {ev} ended above its start: {stats}")
+    st, stats = mcmc_optimize(model, machine, budget=50, seed=seed)
+    path = os.path.join(tmpdir, "mcmc_one_card.json")
+    st.save(path)
+    collect_garbage()
+    torch.cuda.empty_cache()
+    losses, counts, cm = two_steps(seed, import_strategy_file=path)
+    want = {n: 0 for n in counts}
+    want.update(flash_attention_fwd=2 * LAYERS, flash_attention_dq=2 * LAYERS,
+                flash_attention_dkv=2 * LAYERS, fused_adam=2)
+    out["one_card"] = {"strategy": cm.strategy.name, "losses": losses,
+                       "launches": counts}
+    log(f"[16b] one-card MCMC strategy {st.name} imported: losses {losses}, "
+        f"launches {counts}")
+    if counts != want or not all(np.isfinite(losses)):
+        fail(f"16b: launches {counts} (expected {want}), losses {losses}")
+    del cm
+    collect_garbage()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _p16_fit(cm, seed: int, vocab: int) -> dict:
+    from flexflow_tpu_torch import native
+    ids, pos, labels = train_batch(seed, vocab, n=2 * BATCH)
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    n0 = native.gathers + native.topo_orders
+    t0 = time.perf_counter()
+    hist = cm.fit([ids, pos], labels, epochs=1, verbose=False, sync_every=0)
+    torch.cuda.synchronize()
+    return {"wall_s": time.perf_counter() - t0, "loss": hist[0]["loss"],
+            "launches": launch_counts(),
+            "native_calls": native.gathers + native.topo_orders - n0}
+
+
+def p16_learned(seed: int, tmpdir: str, cm, mc, sm, step_ms: float) -> dict:
+    """16c: a profile_ops fit of config #5 into a telemetry dir, the corpus
+    and the refit; the learned search of 2 x 4; learned against measured
+    op times; a refit by auto_refit and the next compile's cache miss; the
+    twin with and without the learned rung."""
+    from flexflow_tpu_torch import AdamOptimizer
+    from flexflow_tpu_torch import telemetry as tel
+    from flexflow_tpu_torch.search import learned_cost as lc
+    from flexflow_tpu_torch.search import memo
+    from flexflow_tpu_torch.search.candidates import layer_candidates
+    from flexflow_tpu_torch.search.dp import SEARCH_STATS
+    from flexflow_tpu_torch.tools import refit_cost_model, span_dataset
+
+    out = {}
+    tdir = os.path.join(tmpdir, "telemetry")
+    mp = os.path.join(tmpdir, "cost_model.json")
+    cache = os.path.join(tmpdir, "strategy_cache")
+    cm.cfg.profile_ops, cm.cfg.telemetry_dir = True, tdir
+    tel.configure(tdir)
+    try:
+        out["profiled_fit"] = fit1 = _p16_fit(cm, seed + 3, GPT2_VOCAB)
+        tel.flush()
+        rows = span_dataset.build(tdir, out_path=os.path.join(
+            tdir, "op_corpus.jsonl"), quiet=True)
+        info = refit_cost_model.refit(tdir, model_path=mp)
+        if info is None or not rows:
+            fail(f"16c: the profiled fit gave {len(rows)} corpus rows, "
+                 f"refit {info}")
+        model = lc.LearnedCostModel.load(mp)
+        out["corpus_rows"], out["refit"] = len(rows), info
+        log(f"[16c] profiled fit {fit1['wall_s']:.1f} s, loss "
+            f"{fit1['loss']:.4f}, launches {fit1['launches']}, native "
+            f"calls {fit1['native_calls']}; corpus {len(rows)} rows; "
+            f"refit {info['rows']} rows, kinds {info['kinds']}, model "
+            f"{info['path']} [{info['fingerprint']}]")
+        if fit1["native_calls"] != 0:
+            fail(f"16c: the fit made {fit1['native_calls']} native calls")
+        if min(fit1["launches"][n] for n in (
+                "flash_attention_fwd", "flash_attention_dq",
+                "flash_attention_dkv", "fused_adam")) <= 0:
+            fail(f"16c: the profiled fit launched {fit1['launches']}")
+
+        def learned_search(tag):
+            e0 = dict(SEARCH_STATS)
+            m = search_model(seed, search_budget=SEARCH_BUDGET,
+                             search_num_nodes=2, search_num_workers=4,
+                             simulator_mode="learned", cost_model_path=mp,
+                             strategy_cache_dir=cache)
+            c = m.compile(AdamOptimizer(alpha=LR),
+                          "sparse_categorical_crossentropy", [])
+            st, lrn = c.strategy, c.strategy._learned
+            r = {"strategy": st.name, "event": c.search_cache_info["event"],
+                 "coverage": lrn.coverage(), "hits": lrn.hits,
+                 "misses": lrn.misses,
+                 "fingerprint": lrn.model.fingerprint,
+                 "predicted_ms": 1e3 * st._predicted_cost,
+                 **{k: SEARCH_STATS[k] - e0.get(k, 0) for k in
+                    ("calls", "expansions", "cands_pruned",
+                     "finalists_pruned")}}
+            log(f"[16c] {tag}: learned search of {sm.mesh_axes} "
+                f"({r['event']}): {st.name}; coverage {r['coverage']}, "
+                f"hits {r['hits']}, misses {r['misses']}, candidates "
+                f"pruned {r['cands_pruned']}, finalists pruned "
+                f"{r['finalists_pruned']}, {r['expansions']} expansions; "
+                f"model {mp} [{r['fingerprint']}]")
+            del c
+            return r
+        out["search"] = s1 = learned_search("16c")
+        if not (s1["coverage"] or 0) > 0 or s1["event"] != "store":
+            fail(f"16c: the learned tier was not live: {s1}")
+        # learned against measured op times on the one-card machine
+        machine = cm.machine
+        distinct = {}
+        for layer in cm.model.layers:
+            key = (layer.params_key(),
+                   memo.freeze_weight_specs(layer.weight_specs))
+            distinct.setdefault(key, layer)
+        learned = lc.LearnedCost(model, machine)
+        ridge = lc.LearnedCost(lc.LearnedCostModel(model.kinds, {},
+                                                   model.meta), machine)
+        pairs, ridge_pairs, per_op = [], [], []
+        for layer in distinct.values():
+            cand = layer_candidates(layer, machine, {BATCH})[0]
+            if cand.passthrough:
+                continue
+            meas = mc.op_time(layer, cand)
+            got, hit = learned._predict(layer, cand)
+            rg, rhit = ridge._predict(layer, cand)
+            pairs.append((got, meas))
+            if rhit:
+                ridge_pairs.append((rg, meas))
+            per_op.append({"op": layer.name, "kind": layer.op_type.value,
+                           "measured_ms": 1e3 * meas,
+                           "learned_ms": 1e3 * got, "learned_hit": hit,
+                           "ridge_ms": 1e3 * rg if rhit else None,
+                           "analytic_ms": 1e3 * cand.op_time(layer,
+                                                             machine)})
+        out["ops"] = per_op
+        out["mape"] = lc.mape(pairs)
+        out["mape_ridge_only"] = lc.mape(ridge_pairs)
+        pred = {"analytic_ms": 1e3 * cm.predicted_step_time(),
+                "measured_ms": 1e3 * cm.predicted_step_time(
+                    cost_fn=mc.op_time),
+                "learned_ms": 1e3 * cm.predicted_step_time(
+                    cost_fn=learned.op_time),
+                "learned_sim_ms": 1e3 * cm.export_sim_trace(
+                    os.path.join(tmpdir, "learned.json"),
+                    cost_fn=learned.op_time).makespan}
+        out["prediction"] = {**pred, "step_ms": step_ms, **{
+            k.replace("_ms", "_over_step"): v / step_ms
+            for k, v in pred.items()}}
+        log(f"[16c] learned against measured op times over {len(pairs)} "
+            f"distinct ops: MAPE {out['mape']:.4f} (the exact table), ridge "
+            f"alone {out['mape_ridge_only']} over {len(ridge_pairs)}; "
+            f"predicted step against the measured {step_ms:.2f} ms: "
+            + ", ".join(f"{k} {v:.2f} ms (x{v / step_ms:.3f})"
+                        for k, v in pred.items()))
+        for r in per_op:
+            log(f"[16c op] {r['op']} ({r['kind']}): measured "
+                f"{r['measured_ms']:.4f} ms, learned {r['learned_ms']:.4f} "
+                f"ms ({'exact' if r['learned_hit'] else 'analytic'}), ridge "
+                f"{r['ridge_ms']}, analytic {r['analytic_ms']:.4f} ms")
+        # auto_refit: the next fit refits the model at its end
+        cm.cfg.auto_refit, cm.cfg.cost_model_path = True, mp
+        out["auto_refit_fit"] = fit2 = _p16_fit(cm, seed + 4, GPT2_VOCAB)
+        fit2["refit_info"] = cm.refit_info
+        log(f"[16c] auto_refit fit {fit2['wall_s']:.1f} s, launches "
+            f"{fit2['launches']}, refit {cm.refit_info}")
+        if cm.refit_info is None or not os.path.exists(mp):
+            fail("16c: auto_refit wrote no model")
+        out["search_after_refit"] = s2 = learned_search("16c after refit")
+        if s2["fingerprint"] == s1["fingerprint"] or s2["event"] != "store" \
+                or s2["expansions"] <= 0:
+            fail(f"16c: after the refit: {s2} (before: {s1})")
+    finally:
+        cm.cfg.profile_ops = cm.cfg.auto_refit = False
+        cm.cfg.telemetry_dir = cm.cfg.cost_model_path = ""
+        tel.shutdown()
+    out["twin"] = p16_twin_rung(tmpdir)
+    return out
+
+
+def p16_twin_rung(tmpdir: str) -> dict:
+    """16c: 13e's replay priced again with the learned rung, the model
+    refit from the twin's own residual rows against the live run (a
+    finding, not a gate)."""
+    from flexflow_tpu_torch import telemetry as tel
+    from flexflow_tpu_torch.serving import twin
+    from flexflow_tpu_torch.tools import refit_cost_model
+
+    records, spec, live_rep, costs0, machine, cfg = (
+        _TWIN_REPLAY[k] for k in ("records", "spec", "live", "costs",
+                                  "machine", "cfg"))
+    tdir = os.path.join(tmpdir, "twin_telemetry")
+    mp = os.path.join(tmpdir, "twin_model.json")
+    tel.configure(tdir)
+    try:
+        n = twin.emit_residual_rows(live_rep, costs0, spec.kv_spec(),
+                                    spec.slots, machine)
+        tel.flush()
+    finally:
+        tel.shutdown()
+    info = refit_cost_model.refit(tdir, model_path=mp)
+    costs = twin.TwinCosts.resolve(
+        spec.kv_spec(), cfg=dataclasses.replace(cfg, cost_model_path=mp),
+        machine=machine, live_report=live_rep, slots=spec.slots)
+    costs.window_overhead_s = costs0.window_overhead_s
+    live = live_rep["stats"]["tokens_per_s"]
+    out = {"rows_emitted": n, "refit": info, "source": costs.source,
+           "live_tokens_per_s": live}
+    for tag, c in (("without", costs0), ("with", costs)):
+        res = twin.simulate(records, spec, c)
+        tps = res.report()["stats"]["tokens_per_s"]
+        out[f"{tag}_learned"] = {"tokens_per_s": tps,
+                                 "rel_err": (tps - live) / live,
+                                 "decode_step_ms": 1e3 * c.decode_step_s,
+                                 "prefill_ms": 1e3 * c.prefill_base_s}
+    log(f"[16c twin] {n} residual rows, refit {info and info['kinds']}, "
+        f"rung {costs.source}: twin tokens/s against live {live:.1f}: "
+        f"without the learned rung {out['without_learned']['tokens_per_s']:.1f}"
+        f" ({100 * out['without_learned']['rel_err']:+.1f}%), with it "
+        f"{out['with_learned']['tokens_per_s']:.1f} "
+        f"({100 * out['with_learned']['rel_err']:+.1f}%)")
+    if costs.source != "learned":
+        fail(f"16c: the twin's learned rung did not price: {costs.source}")
+    return out
+
+
+def p16_native(model) -> dict:
+    """16d: batch_gather bitwise against numpy's index at the GPT-2 batch
+    and an image batch, timed against it; the native order of GPT-2
+    medium's graph against the Python walk."""
+    from flexflow_tpu_torch import native
+    from flexflow_tpu_torch.core import graph
+
+    rng = np.random.default_rng(16)
+    out = {"library": str(native.library_path())}
+    cases = {"gpt2_tokens_b8x1024_int32": (
+        rng.integers(0, GPT2_VOCAB, size=(8 * BATCH, SEQ)).astype(np.int32),
+        BATCH),
+             "images_64x3x224x224_f32": (
+        rng.standard_normal((P16_IMAGES, 3, IMAGE_HW, IMAGE_HW),
+                            dtype=np.float32), IMAGE_BATCH)}
+    for name, (data, n) in cases.items():
+        idx = rng.permutation(data.shape[0])[:n]
+        got = native.batch_gather(data, idx)
+        if got.tobytes() != data[idx].tobytes():
+            fail(f"16d: batch_gather differs from numpy's index at {name}")
+        times = {}
+        for how, fn in (("native", lambda: native.batch_gather(data, idx)),
+                        ("numpy", lambda: data[idx])):
+            ts = []
+            for _ in range(P16_GATHER_REPS):
+                t0 = time.perf_counter()
+                fn()
+                ts.append(time.perf_counter() - t0)
+            times[how] = 1e3 * float(np.median(ts))
+        out[name] = {"bytes": int(got.nbytes), "native_ms": times["native"],
+                     "numpy_ms": times["numpy"]}
+        log(f"[16d] {name}: bitwise numpy's index; {got.nbytes} bytes, "
+            f"native {times['native']:.4f} ms, numpy {times['numpy']:.4f} ms "
+            f"(median of {P16_GATHER_REPS}, host clock)")
+    layers = list(model.layers)
+    t0 = native.topo_orders
+    order = [l.name for l in native.topo_order(layers)]
+    if native.topo_orders != t0 + 1 or order != [
+            l.name for l in graph.topo_order(layers)]:
+        fail("16d: the native order of GPT-2 medium's graph differs from "
+             "the Python walk's (or was not taken)")
+    times = {}
+    for how, fn in (("native", lambda: native.topo_order(layers)),
+                    ("python", lambda: graph.topo_order(layers))):
+        ts = []
+        for _ in range(P16_GATHER_REPS):
+            t0 = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - t0)
+        times[how] = 1e3 * float(np.median(ts))
+    out["topo"] = {"layers": len(order), "native_ms": times["native"],
+                   "python_ms": times["python"]}
+    log(f"[16d] native topological order of GPT-2 medium's {len(order)} "
+        f"layers equals the Python walk's; native {times['native']:.4f} ms, "
+        f"Python {times['python']:.4f} ms (median of {P16_GATHER_REPS}, "
+        "host clock)")
+    return out
+
+
+def p16_jupyter(tmpdir: str) -> dict:
+    """16e: a kernelspec installed into a temporary prefix from a
+    reference-format config; a process with its environment parses the
+    flags and fits an MLP on the card; the port's quickstart cells run on
+    the card."""
+    from flexflow_tpu_torch.jupyter import notebook_cells
+    from flexflow_tpu_torch.jupyter.install import install
+
+    cfg = os.path.join(tmpdir, "flexflow_jupyter.json")
+    with open(cfg, "w") as f:
+        json.dump({"name": "FlexFlow torch (H100)",
+                   "batch_size": {"cmd": "-b", "value": 64},
+                   "epochs": {"cmd": "-e", "value": 2},
+                   "budget": {"cmd": "--budget", "value": 0},
+                   "platform": {"value": "gpu"},
+                   "fbmem": {"cmd": "-ll:fsize", "value": 4096}}, f)
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        kdir = install(config=cfg, prefix=os.path.join(tmpdir, "jupyter"),
+                       mute=True)
+    spec = json.load(open(os.path.join(kdir, "kernel.json")))
+    script = (
+        "import json, numpy as np\n"
+        "from flexflow_tpu_torch import FFConfig, FFModel\n"
+        "from flexflow_tpu_torch.kernels import launch_counts\n"
+        "cfg = FFConfig.parse_args()\n"
+        "m = FFModel(cfg)\n"
+        "x = m.create_tensor([cfg.batch_size, 784], name='x')\n"
+        "m.dense(m.dense(x, 512, activation='relu'), 10)\n"
+        "cm = m.compile(None, 'sparse_categorical_crossentropy', [])\n"
+        "rng = np.random.default_rng(0)\n"
+        "h = cm.fit(rng.standard_normal((256, 784), dtype=np.float32), "
+        "rng.integers(0, 10, 256).astype(np.int32), verbose=False)\n"
+        "print(json.dumps({'batch_size': cfg.batch_size, 'epochs': len(h), "
+        "'device': str(cm.device), 'loss': [r['loss'] for r in h], "
+        "'launches': launch_counts()}))\n")
+    env = {**os.environ, **spec["env"],
+           "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", script], env=env,
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"16e: the kernel-environment process failed:\n"
+             f"{proc.stderr[-3000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    res["wall_s"] = time.perf_counter() - t0
+    res["ff_launch_args"] = spec["env"]["FF_LAUNCH_ARGS"]
+    log(f"[16e] kernelspec {kdir}: FF_LAUNCH_ARGS "
+        f"{res['ff_launch_args']!r}, FLEXFLOW_PLATFORM "
+        f"{spec['env'].get('FLEXFLOW_PLATFORM')}; the process read batch "
+        f"{res['batch_size']}, {res['epochs']} epochs, ran on "
+        f"{res['device']}, losses {res['loss']}, launches {res['launches']} "
+        f"({res['wall_s']:.1f} s)")
+    if (res["batch_size"], res["epochs"]) != (64, 2) or not res[
+            "device"].startswith("cuda") or res["launches"][
+            "fused_sgd_plain"] != 2 * 256 // 64:
+        fail(f"16e: the kernel environment gave {res}")
+    out = {"kernel_env": res}
+    argv = sys.argv
+    sys.argv = ["kernel"]
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        ns = {}
+        for src in notebook_cells():
+            exec(compile(src, "<quickstart-cell>", "exec"), ns)
+    finally:
+        sys.argv = argv
+    torch.cuda.synchronize()
+    hist = ns["history"]
+    out["quickstart"] = {"device": str(ns["cm"].device),
+                         "loss": [h["loss"] for h in hist],
+                         "accuracy": hist[-1]["accuracy"],
+                         "wall_s": time.perf_counter() - t0,
+                         "launches": launch_counts()}
+    log(f"[16e] quickstart on {ns['cm'].device}: losses "
+        f"{out['quickstart']['loss']}, accuracy {hist[-1]['accuracy']:.3f}, "
+        f"launches {out['quickstart']['launches']}")
+    if ns["cm"].device.type != "cuda" or not hist[-1]["loss"] < hist[0][
+            "loss"] or out["quickstart"]["launches"]["fused_sgd_plain"] <= 0:
+        fail(f"16e: the quickstart gave {out['quickstart']}")
+    del ns
+    return out
+
+
+def p16_capi(tmpdir: str) -> dict:
+    """16f: the C API library built, examples/c/mlp_train.c compiled
+    against it into build/flexflow_tpu_torch/, run on the card."""
+    from flexflow_tpu_torch.capi import LAUNCH_COUNTS_ENV, build
+
+    t0 = time.perf_counter()
+    lib = build.build_lib()
+    exe = build.build_example()
+    built = time.perf_counter() - t0
+    counts_path = os.path.join(tmpdir, "capi_counts.json")
+    t0 = time.perf_counter()
+    text = build.run_example(None, batch=32,
+                             extra_env={LAUNCH_COUNTS_ENV: counts_path})
+    wall = time.perf_counter() - t0
+    counts = json.load(open(counts_path))
+    m = re.search(r"epoch0_loss=([\d.]+) final_loss=([\d.]+)", text)
+    out = {"library": str(lib), "example": str(exe), "build_s": built,
+           "run_s": wall, "stdout": text, "launches": counts,
+           "losses": [float(m.group(1)), float(m.group(2))] if m else None}
+    log(f"[16f] C API {lib} and {exe} built in {built:.1f} s; the example "
+        f"ran in {wall:.1f} s on the card: "
+        + " | ".join(text.strip().splitlines()) + f"; launches {counts}")
+    want = {n: 0 for n in counts}
+    want["fused_sgd_plain"] = 5 * 256 // 32
+    if ("C_API_OK" not in text or "forward_ok dims=2 (32, 4)" not in text
+            or m is None or not out["losses"][1] < out["losses"][0]
+            or counts != want):
+        fail(f"16f: the C example gave {out} (launches expected {want})")
+    return out
+
+
+def phase16(seed: int, graph_5b: dict) -> dict:
+    """Phase 16: the task-graph simulator, MCMC, the learned tier and its
+    refit loop on config #5, then the native core, the Jupyter kernel and
+    the C API, in a temporary directory removed at the end."""
+    import shutil
+    import tempfile
+
+    from flexflow_tpu_torch.compiler.compile import resolve_machine
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.search.measure import MeasuredCost
+
+    t_phase = time.perf_counter()
+    tmpdir = tempfile.mkdtemp(prefix="ff_p16_")
+    out, walls = {}, {}
+    try:
+        machine = resolve_machine(FFConfig())
+        mc = MeasuredCost(machine, cache_dir="", device="cuda",
+                          compute_dtype="bfloat16")
+        t0 = time.perf_counter()
+        out["16a"], cm, inputs, label, sm, model = p16_taskgraph(
+            seed, tmpdir, graph_5b, mc)
+        walls["16a"] = time.perf_counter() - t0
+        del inputs, label
+        t0 = time.perf_counter()
+        out["16c"] = p16_learned(seed, tmpdir, cm, mc, sm,
+                                 out["16a"]["eager_step_ms"])
+        walls["16c"] = time.perf_counter() - t0
+        del cm
+        collect_garbage()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["16b"] = p16_mcmc(seed, tmpdir, sm, out["16a"]["search"][
+            "additive"]["sim"]["makespan_ms"], machine)
+        walls["16b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["16d"] = p16_native(model)
+        walls["16d"] = time.perf_counter() - t0
+        del model
+        t0 = time.perf_counter()
+        out["16e"] = p16_jupyter(tmpdir)
+        walls["16e"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["16f"] = p16_capi(tmpdir)
+        walls["16f"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+    collect_garbage()
+    torch.cuda.empty_cache()
+    card = card_line()
+    out["wall_s"] = time.perf_counter() - t_phase
+    out["walls_s"] = walls
+    log(f"[phase 16] {out['wall_s']:.1f} s on {card} ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()) + ")")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6185,6 +6858,9 @@ def main() -> None:
     # ---- 15. the frontends: torch.fx BERT-base, Keras AlexNet/CIFAR-10,
     # an ONNX encoder at BERT-base's widths, the launcher
     fronts = phase15(args.seed, bench["9d"], zoo["legs"]["alexnet"])
+    # ---- 16. the task-graph simulator, MCMC, the learned cost model and
+    # its refit loop on config #5; the native core, Jupyter, the C API
+    p16 = phase16(args.seed, graph["5b"])
 
     # launches on the main paths: both serving runs, the 12 Adam training
     # steps and the Adam fit epoch, the 12 padded-vocab SGD steps and the
@@ -6266,6 +6942,15 @@ def main() -> None:
     paths9["p15b_keras_steps"] = fronts["15b"]["steps"]["launches"]
     paths9["p15c_onnx_steps"] = fronts["15c"]["steps"]["launches"]
     paths9["p15d_launcher_fit"] = fronts["15d"]["launches"]
+    # phase 16's: GPT-2 medium (the flash kernels masked) in 16a-16c; the
+    # plain SGD of 16e's MLPs and 16f's C program
+    paths["p16a_taskgraph_steps"] = p16["16a"]["launches"]
+    paths["p16b_mcmc_imported_steps"] = p16["16b"]["one_card"]["launches"]
+    paths["p16c_profiled_fit"] = p16["16c"]["profiled_fit"]["launches"]
+    paths["p16c_auto_refit_fit"] = p16["16c"]["auto_refit_fit"]["launches"]
+    paths9["p16e_kernel_env_fit"] = p16["16e"]["kernel_env"]["launches"]
+    paths9["p16e_quickstart_fit"] = p16["16e"]["quickstart"]["launches"]
+    paths9["p16f_capi_fit"] = p16["16f"]["launches"]
     for r in rows:
         causal = r.get("causal")
         counted = (paths if causal else paths9 if causal is False
@@ -6292,6 +6977,7 @@ def main() -> None:
     log(json.dumps({"serving13": serving13}, default=str))
     log(json.dumps({"zoo": zoo}, default=str))
     log(json.dumps({"frontends": fronts}, default=str))
+    log(json.dumps({"phase16": p16}, default=str))
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -246,6 +246,8 @@ class CompiledModel:
         self.strategy = strategy or data_parallel_strategy(model, self.machine)
         # this compile's strategy-cache event (None when nothing searched)
         self.search_cache_info = getattr(self.strategy, "_cache_info", None)
+        # the last fit's auto_refit info (learned_cost.auto_refit)
+        self.refit_info = None
         # --remat (deprecated alias): uniform "full" per-layer policy
         if self.cfg.remat and not self.strategy.remat:
             self.strategy.remat = {l.name: "full" for l in model.layers}
@@ -630,6 +632,19 @@ class CompiledModel:
             self.op_attribution(print_table=verbose)
         if will_report:
             self.profile_report()
+        # auto_refit: fold this run's telemetry (op_attribution's op/attr
+        # rows above included) into a refreshed learned cost model; the
+        # model file's content hash re-keys the strategy cache. It runs
+        # after the loop, outside any graph capture.
+        if self.cfg.auto_refit:
+            from flexflow_tpu_torch.search.learned_cost import auto_refit
+
+            info = auto_refit(self.cfg)
+            self.refit_info = info
+            if info is not None and verbose:
+                print(f"[refit] cost model <- {info['rows']} corpus rows "
+                      f"({len(info['kinds'])} op kinds) -> {info['path']} "
+                      f"[{info['fingerprint']}]")
         return history
 
     def _fit_end_report(self, verbose: bool) -> None:
@@ -1069,6 +1084,21 @@ class CompiledModel:
                 total += (cost_fn(layer, cand) if cost_fn is not None
                           else cand.op_time(layer, self.machine))
         return total * accum if total > 0 else None
+
+    def export_sim_trace(self, path: str, cost_fn=None):
+        """Replay the compiled strategy through the event-driven simulator
+        (search/simulator.py) with the search's segment size and write its
+        timeline to `path` as a Chrome trace; `cost_fn` (a MeasuredCost's
+        op_time) prices the ops instead of the analytic model. Wired to
+        `simulator_trace`. Returns the SimReport."""
+        from flexflow_tpu_torch.search.simulator import simulate_strategy
+
+        choices = {l.name: self._candidate_for(l) for l in self.model.layers}
+        report = simulate_strategy(self.model, choices, self.machine,
+                                   cost_fn=cost_fn,
+                                   segment_bytes=self.cfg.simulator_segment_size)
+        report.export_trace(path)
+        return report
 
     # ------------------------------------------------------------- reports
     def drift_stats(self) -> dict:

@@ -53,8 +53,23 @@ class FFConfig:
     # dir "" -> $FF_STRATEGY_CACHE_DIR or ~/.cache/flexflow_tpu_torch/strategy
     strategy_cache: bool = True
     strategy_cache_dir: str = ""
-    # "additive" (the only one ported; "taskgraph" and "learned" raise)
+    # how the search prices strategies (search/unity.py): "additive" trusts
+    # the frontier DP's closed-form costing; "taskgraph" re-ranks each
+    # segment's top simulator_topk finalists by the event-driven replay
+    # (search/simulator.py; transfers split into simulator_segment_size
+    # bytes); "learned" prices the same search with the ridge model of
+    # search/learned_cost.py, read from cost_model_path ("" =
+    # $FF_COST_MODEL_PATH or ~/.cache/flexflow_tpu_torch/cost_model.json),
+    # and without a model file is the additive search. auto_refit refits
+    # that model from this run's telemetry at fit end; simulator_trace
+    # writes the compiled strategy's simulated timeline (a Chrome trace)
+    # at compile
     simulator_mode: str = "additive"
+    simulator_segment_size: int = 16 * 1024 * 1024
+    simulator_topk: int = 4
+    cost_model_path: str = ""
+    auto_refit: bool = False
+    simulator_trace: str = ""
     machine_model_file: str = ""
     # --profiling: the search prices ops by timing them on the device
     # (search/measure.py), and fit runs under torch.profiler, writing a
@@ -304,11 +319,12 @@ class FFConfig:
         p.add_argument("--strategy-cache-dir", type=str, default="")
         p.add_argument("--simulator-mode", type=str, default="additive",
                        choices=("additive", "learned", "taskgraph"))
-        p.add_argument("--simulator-segment-size", type=int, default=U)
-        p.add_argument("--simulator-topk", type=int, default=U)
-        p.add_argument("--cost-model-path", type=str, default=U)
-        p.add_argument("--auto-refit", action="store_true", default=U)
-        p.add_argument("--simulator-trace", type=str, default=U)
+        p.add_argument("--simulator-segment-size", type=int,
+                       default=16 * 1024 * 1024)
+        p.add_argument("--simulator-topk", type=int, default=4)
+        p.add_argument("--cost-model-path", type=str, default="")
+        p.add_argument("--auto-refit", action="store_true")
+        p.add_argument("--simulator-trace", type=str, default="")
         p.add_argument("--machine-model-file", type=str, default="")
         p.add_argument("--sync-every", type=int, default=0)
         p.add_argument("--steps-per-dispatch", type=int, default=1)
@@ -407,10 +423,16 @@ class FFConfig:
     @staticmethod
     def parse_args(argv: Optional[List[str]] = None) -> "FFConfig":
         # a real command line (argv None) takes `FF_LAUNCH_ARGS` first and
-        # its own flags after them, as in JAX; an explicit argv does not
+        # its own flags after them, as in JAX, and `FLEXFLOW_PLATFORM` as
+        # the default device, as the launcher does (the Jupyter kernel's
+        # environment carries both); an explicit argv reads neither
         if argv is None:
             env_args = shlex.split(os.environ.get("FF_LAUNCH_ARGS", ""))
             argv = env_args + list(sys.argv[1:])
+            if os.environ.get("FLEXFLOW_PLATFORM"):
+                from flexflow_tpu_torch import device
+
+                device.set_default_device(os.environ["FLEXFLOW_PLATFORM"])
         args, _unknown = FFConfig.build_parser().parse_known_args(argv)
         given = sorted(d for d in _UNPORTED if hasattr(args, d))
         if given:
@@ -439,6 +461,11 @@ class FFConfig:
             strategy_cache=args.strategy_cache,
             strategy_cache_dir=args.strategy_cache_dir,
             simulator_mode=args.simulator_mode,
+            simulator_segment_size=args.simulator_segment_size,
+            simulator_topk=args.simulator_topk,
+            cost_model_path=args.cost_model_path,
+            auto_refit=args.auto_refit,
+            simulator_trace=args.simulator_trace,
             machine_model_file=args.machine_model_file,
             profiling=args.profiling,
             profile_dir=args.profile_dir,
@@ -508,9 +535,4 @@ _UNPORTED = {
     "zero_sharding": ("--zero-sharding", 9),
     "pipeline_schedule": ("--pipeline-schedule", 9),
     "serve_objective": ("--serve-objective", 9),
-    "simulator_segment_size": ("--simulator-segment-size", 8),
-    "simulator_topk": ("--simulator-topk", 8),
-    "cost_model_path": ("--cost-model-path", 8),
-    "auto_refit": ("--auto-refit", 8),
-    "simulator_trace": ("--simulator-trace", 8),
 }

@@ -501,18 +501,17 @@ class FFModel:
         (default: the last layer's first output) are the model's outputs,
         the first of them the one the loss reads; `comp_mode` is taken and
         ignored, as in JAX. It runs on the GPU unless `device="cpu"` is
-        passed."""
+        passed. With `simulator_trace` set, the compiled strategy's
+        simulated step is written there as a Chrome trace."""
         from flexflow_tpu_torch.compiler.compile import compile_model
 
-        if getattr(self.config, "simulator_trace", ""):
-            raise NotImplementedError(
-                "simulator_trace: the taskgraph simulator's trace export is "
-                "not ported yet (ROADMAP Queue 1 item 8)")
         self._compiled = compile_model(self, optimizer, loss_type, metrics,
                                        device=device, outputs=outputs)
         if self.config.export_dot:
             with open(self.config.export_dot, "w") as f:
                 f.write(self.dot())
+        if self.config.simulator_trace:
+            self._compiled.export_sim_trace(self.config.simulator_trace)
         return self._compiled
 
     @property

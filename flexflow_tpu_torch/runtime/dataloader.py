@@ -21,7 +21,12 @@ its memory out again while the step still reads it. Groups are tagged
 go singly, tagged "1". Every copy runs as one `dataloader/transfer`
 operation under the retry policy (runtime/resilience.py). On the CPU the
 same thread and queue run without streams. `prefetch_to_device` is its
-k = 1 case, as in JAX. The JAX loader's native gather is not ported.
+k = 1 case, as in JAX.
+
+A batch is gathered by numpy's index. The native core's `batch_gather`
+(flexflow_tpu_torch/native), which the JAX loader takes, is not used here:
+on the H100 machine's host it ran slower than numpy's index at a GPT-2
+token batch and at a ResNet-50 image batch (chip_smoke.py 16d; PERF.md).
 """
 
 from __future__ import annotations

@@ -30,13 +30,17 @@ from flexflow_tpu_torch.search.candidates import Candidate, layer_candidates
 # Process-wide search instrumentation (the search fast path's observable):
 # calls = search_graph invocations, expansions = (beam entry x candidate)
 # inner-loop evaluations (the DP's unit of work — a strategy-cache hit must
-# leave this at 0), layers_skipped / prefix_hits = tier-3 prefix reuse.
+# leave this at 0), layers_skipped / prefix_hits = tier-3 prefix reuse,
+# cands_pruned / finalists_pruned = the learned pruner's cuts (per-layer
+# candidates dropped before expansion, layout finalists dropped before the
+# event-driven re-rank).
 SEARCH_STATS: Dict[str, int] = {}
 
 
 def reset_search_stats() -> None:
     SEARCH_STATS.update(calls=0, expansions=0, layers_skipped=0,
-                        prefix_hits=0, prefix_misses=0)
+                        prefix_hits=0, prefix_misses=0,
+                        cands_pruned=0, finalists_pruned=0)
 
 
 reset_search_stats()
@@ -102,7 +106,8 @@ class DPPrefixCache:
     position, output slot) and remapped to the resuming graph's guids.
 
     One instance is only valid for a fixed (machine, beam_width, mem_budget,
-    cost_fn, enable flags) — stored traces index into the candidate lists —
+    cost_fn, enable flags, learned pruner) — stored traces index into the
+    (possibly pruned) candidate lists —
     and the substitution loop creates one per search.
     """
 
@@ -182,15 +187,31 @@ def _search_graph_impl(model, machine: MachineSpec, beam_width: int = 64,
                  mem_budget: Optional[float] = None,
                  cost_fn=None,
                  pins: Optional[Dict[str, str]] = None,
+                 topk: int = 1,
                  prefix_cache: Optional[DPPrefixCache] = None,
                  opt_mem: "Optional[cm.OptMemSpec]" = None,
                  remat_policies: Optional[Sequence[str]] = None,
-                 ) -> SearchResult:
+                 learned=None,
+                 ) -> "SearchResult | List[SearchResult]":
     """The best SearchResult for `model` (anything with .layers /
     .input_tensors: an FFModel or a PCG) on `machine`.
 
     `cost_fn(layer, cand) -> seconds` overrides the analytic op time (the
     measured path, search/measure.py).
+
+    `learned` (search/learned_cost.LearnedCost: `simulator_mode="learned"`
+    with a model file) turns on the learned pruner: before a layer's
+    candidates expand against the beam, those whose learned time exceeds
+    the layer's best by `learned.prune_ratio` are dropped (passthroughs and
+    the memory-leanest candidate always stay), counted in
+    SEARCH_STATS["cands_pruned"]. Pinned layers are never pruned. None
+    keeps the exact candidate sets and expansion counts.
+
+    `topk > 1` returns the best `topk` finalists (a list, one per distinct
+    terminal frontier) for the event-driven re-rank (search/simulator.py).
+    The beam keeps one trace per frontier layout, so a chain whose
+    strategies end in the same layout yields one finalist and the re-rank
+    keeps the additive choice.
 
     `remat_policies` makes rematerialization a PER-LAYER search dimension:
     each compute candidate expands once per policy in the set
@@ -208,7 +229,8 @@ def _search_graph_impl(model, machine: MachineSpec, beam_width: int = 64,
     snapshot whose canonical graph prefix + boundary liveness match this
     graph, re-pricing only the frontier window a rewrite touched. The
     caller guarantees one cache instance per (machine, beam_width,
-    mem_budget, cost_fn, enable flags) combination.
+    mem_budget, cost_fn, enable flags, learned pruner) combination: stored
+    traces index into the (possibly pruned) candidate lists.
 
     `pins` restricts named layers to one candidate (by candidate name) —
     the substitution engine's hook: a rewritten PCG is costed with its
@@ -321,6 +343,11 @@ def _search_graph_impl(model, machine: MachineSpec, beam_width: int = 64,
                 raise KeyError(f"pinned candidate {want!r} not available for "
                                f"{layer.name} (have {[c.name for c in cands]})")
             cands = sel
+        elif learned is not None:
+            cands, dropped = learned.prune_candidates(layer, cands)
+            if dropped:
+                SEARCH_STATS["cands_pruned"] = SEARCH_STATS.get(
+                    "cands_pruned", 0) + dropped
         cand_cache[layer.name] = cands
         if li <= resume_li:
             continue  # beam restored from snapshot; candidates only decode traces
@@ -471,4 +498,8 @@ def _search_graph_impl(model, machine: MachineSpec, beam_width: int = 64,
 
     ranked = sorted(beam.values(),
                     key=lambda v: score(v[0], v[1] + v[2]))
+    if topk > 1:
+        # the final beam holds the best trace per terminal frontier layout:
+        # distinct layouts are materially different strategies
+        return [_to_result(e) for e in ranked[:topk]]
     return _to_result(ranked[0])

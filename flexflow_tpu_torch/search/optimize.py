@@ -22,6 +22,7 @@ from flexflow_tpu_torch.search import strategy_cache as sc
 from flexflow_tpu_torch.search.candidates import (_dp_dims, candidate_attrs,
                                                   compiled_candidate)
 from flexflow_tpu_torch.search.dp import SearchResult, search_graph
+from flexflow_tpu_torch.search.mcmc import mcmc_optimize  # noqa: F401
 
 
 def result_to_strategy(model, machine: MachineSpec,
@@ -47,15 +48,20 @@ def graph_optimize(model, machine: MachineSpec, measured: bool = False,
 
     With `measured` (or cfg.profiling) the per-op costs are timed on
     `measure_device` in cfg.compute_dtype by search/measure.py's
-    MeasuredCost, whose store persists under the strategy-cache dir. Unless cfg.strategy_cache is
-    off, the winning Strategy is persisted keyed by (graph hash, machine
-    fingerprint, search knobs, calibration fingerprint, optimizer memory)
-    — a warm call on an unchanged model returns the validated cached
-    strategy without a single DP expansion.
+    MeasuredCost, whose store persists under the strategy-cache dir. With
+    `simulator_mode="learned"` and a model file (search/learned_cost.py),
+    the learned model prices the ops when nothing is measured, prunes the
+    DP's candidates and finalists, and emits a `search/learned_cost`
+    event with its coverage. Unless cfg.strategy_cache is off, the winning
+    Strategy is persisted keyed by (graph hash, machine fingerprint,
+    search knobs, calibration fingerprint, optimizer memory, learned
+    model fingerprint) — a warm call on an unchanged model returns the
+    validated cached strategy without a single DP expansion.
 
     The returned strategy carries `_predicted_cost` (the search's best
-    per-step time), `_predicted_op_costs` and `_search_stats` (the
-    UnityStats of a cold search; None on a cache hit)."""
+    per-step time), `_predicted_op_costs`, `_search_stats` (the
+    UnityStats of a cold search; None on a cache hit) and `_learned` (the
+    LearnedCost that priced it, with its hits and misses, or None)."""
     cfg = model.config
     # the optimizer's memory model (moment count/dtype): changes what
     # memory-constrained searches predict, so it rides the cache key
@@ -76,12 +82,23 @@ def graph_optimize(model, machine: MachineSpec, measured: bool = False,
                           compute_dtype=cfg.compute_dtype)
         cost_fn = mc.op_time
         measure_cache_path = mc.cache_path
+    # the learned tier: None unless simulator_mode is "learned" and a model
+    # file resolves; with None the search is the one without the tier
+    from flexflow_tpu_torch.search import learned_cost as lcm
+
+    learned = lcm.load_for_config(cfg, machine)
+    learned_fp = sc.learned_fingerprint(
+        learned.path if learned is not None else None)
+    if learned is not None and cost_fn is None:
+        cost_fn = learned.op_time
     if use_cache:
         calib = sc.calibration_fingerprint(measure_cache_path)
-        key = sc.cache_key(model, machine, cfg, calib, opt_fp)
+        key = sc.cache_key(model, machine, cfg, calib, opt_fp,
+                           learned_fp=learned_fp)
         cached = sc.lookup(cache_dir, key, model, machine)
         if cached is not None:
             cached._search_stats = None
+            cached._learned = learned
             return cached
     from flexflow_tpu_torch.search.unity import unity_optimize
 
@@ -89,8 +106,14 @@ def graph_optimize(model, machine: MachineSpec, measured: bool = False,
     with tel.span("search/unity", cat="compile",
                   measured=bool(cost_fn is not None)):
         st, stats = unity_optimize(model, machine, cost_fn=cost_fn,
-                                   opt_mem=opt_mem)
+                                   opt_mem=opt_mem, learned=learned)
     wall = time.perf_counter() - t0
+    if learned is not None:
+        tel.event("search/learned_cost", cat="compile",
+                  coverage=learned.coverage(), hits=learned.hits,
+                  misses=learned.misses, fingerprint=learned.model.fingerprint,
+                  finalists_pruned=stats.finalists_pruned)
+    st._learned = learned
     st._predicted_cost = stats.best_cost
     st._predicted_op_costs = dict(stats.op_costs)
     tel.event("search/result", cat="compile", cost_s=stats.best_cost,
@@ -105,15 +128,20 @@ def graph_optimize(model, machine: MachineSpec, measured: bool = False,
             # the next run's lookup (which hashes the populated store)
             # finds this entry instead of orphaning it
             calib = sc.calibration_fingerprint(measure_cache_path)
-            key = sc.cache_key(model, machine, cfg, calib, opt_fp)
-        sc.store(cache_dir, key, st, meta={
+            key = sc.cache_key(model, machine, cfg, calib, opt_fp,
+                               learned_fp=learned_fp)
+        meta = {
             "cost_s": stats.best_cost,
             "op_costs_s": dict(stats.op_costs),
             "baseline_cost_s": stats.baseline_cost,
             "expansions": stats.expansions,
             "search_wallclock_s": wall,
             "calibration": calib,
-        })
+        }
+        if learned is not None:
+            meta["learned_fingerprint"] = learned.model.fingerprint
+            meta["learned_coverage"] = learned.coverage()
+        sc.store(cache_dir, key, st, meta=meta)
     return st
 
 
@@ -131,10 +159,3 @@ def strategy_cost(model, machine: MachineSpec, strategy: Strategy,
                         opt_mem=cm.opt_mem_spec(optimizer, model.config,
                                                 machine))
 
-
-def mcmc_optimize(model, machine: MachineSpec, budget: int = 500, **kwargs):
-    """The JAX package's MCMC search over per-op placements
-    (search/mcmc.py there) is not ported."""
-    raise NotImplementedError(
-        "MCMC search (mcmc_optimize) is not ported yet: ROADMAP Queue 1 "
-        "item 8; graph_optimize runs the Unity search")

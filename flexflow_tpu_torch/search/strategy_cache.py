@@ -4,7 +4,8 @@
 `graph_optimize` keys the winning Strategy by
 
     (canonical graph hash, MachineSpec fingerprint, search-knob tuple,
-     calibration fingerprint, optimizer-memory fingerprint)
+     calibration fingerprint, optimizer-memory fingerprint[, learned cost
+     model fingerprint])
 
 and stores it on disk in the same JSON schema as `--export`, so a warm
 `compile()` of an unchanged model skips the substitution search entirely —
@@ -110,7 +111,8 @@ def knob_fingerprint(cfg) -> str:
     knobs = (cfg.search_budget, cfg.search_alpha, cfg.only_data_parallel,
              cfg.enable_parameter_parallel, cfg.enable_attribute_parallel,
              cfg.base_optimize_threshold, cfg.memory_search, sub,
-             cfg.simulator_mode, cfg.remat, cfg.remat_search,
+             cfg.simulator_mode, cfg.simulator_topk,
+             cfg.simulator_segment_size, cfg.remat, cfg.remat_search,
              cfg.remat_policies if cfg.remat_search else "")
     return hashlib.sha256(repr(knobs).encode()).hexdigest()[:16]
 
@@ -129,14 +131,33 @@ def calibration_fingerprint(measure_cache_path: Optional[str]) -> str:
         return "measured:empty"
 
 
+def learned_fingerprint(model_path: Optional[str]) -> str:
+    """Content hash of the learned cost model file, or "" when the learned
+    tier is off. A refit rewrites the file, changes this fingerprint and
+    so invalidates every strategy the learned tier priced, as the
+    calibration fingerprint does for measured costs."""
+    if not model_path:
+        return ""
+    try:
+        with open(model_path, "rb") as f:
+            return "learned:" + hashlib.sha256(f.read()).hexdigest()[:16]
+    except OSError:
+        return "learned:absent"
+
+
 def cache_key(model, machine: MachineSpec, cfg,
-              calib_fp: str = "analytic", opt_fp: str = "") -> str:
+              calib_fp: str = "analytic", opt_fp: str = "",
+              learned_fp: str = "") -> str:
     # opt_fp: the OptMemSpec fingerprint (search/cost_model.py) — the
     # optimizer's moment count/dtype change the memory accounting
     # memory-constrained searches rank by
     parts = (CACHE_VERSION, graph_fingerprint(model),
              memo.machine_fingerprint(machine), knob_fingerprint(cfg),
              calib_fp, opt_fp)
+    if learned_fp:
+        # appended only when the learned tier is on, so every other key
+        # stays as it was
+        parts = parts + (learned_fp,)
     return hashlib.sha256(repr(parts).encode()).hexdigest()[:32]
 
 

@@ -30,6 +30,7 @@ from flexflow_tpu_torch.parallel.sharding import OpSharding, Strategy
 from flexflow_tpu_torch.search import memo
 from flexflow_tpu_torch.search.candidates import _dp_dims, candidate_attrs
 from flexflow_tpu_torch.search.dp import (
+    SEARCH_STATS,
     DPPrefixCache,
     SearchResult,
     _drop_axis,
@@ -58,6 +59,10 @@ class UnityStats:
     # — replayable onto a structurally identical graph (segment memoization)
     best_path: Tuple = ()
     segments_replayed: int = 0
+    # the learned pruner's cuts: layout finalists dropped before the
+    # event-driven re-rank (per-layer candidate cuts are counted in
+    # dp.SEARCH_STATS["cands_pruned"]: they happen inside the DP)
+    finalists_pruned: int = 0
     # the DP's PER-OP cost under the winning strategy, model layer name ->
     # seconds — what the search believed each op costs (stamped on the
     # Strategy by graph_optimize)
@@ -79,6 +84,7 @@ def substitution_optimize(pcg: PCG, machine: MachineSpec,
                           dp_cache: Optional[DPPrefixCache] = None,
                           opt_mem=None,
                           remat_policies=None,
+                          learned=None,
                           ) -> Tuple[PCG, SearchResult, UnityStats]:
     """Best-first search over xfer applications (base_optimize analog).
 
@@ -96,7 +102,8 @@ def substitution_optimize(pcg: PCG, machine: MachineSpec,
                             enable_parameter=enable_parameter,
                             enable_attribute=enable_attribute,
                             pins=g.pins, prefix_cache=dp_cache,
-                            opt_mem=opt_mem, remat_policies=remat_policies)
+                            opt_mem=opt_mem, remat_policies=remat_policies,
+                            learned=learned)
 
     r0 = cost(pcg)
     stats = UnityStats(baseline_cost=r0.cost, best_cost=r0.cost)
@@ -319,20 +326,18 @@ def _unfreeze(d):
 
 # ------------------------------------------------------------ entry point
 def unity_optimize(model, machine: MachineSpec, cost_fn=None,
-                   opt_mem=None) -> Tuple[Strategy, UnityStats]:
+                   opt_mem=None, learned=None) -> Tuple[Strategy, UnityStats]:
     """graph_optimize with the substitution engine (the Unity search).
 
     Honors FFConfig: search_budget (expansion budget), search_alpha (prune
     factor), base_optimize_threshold (sequence-split segment size),
-    substitution_json (extra rules in the reference schema), memory_search
-    and remat_search. Only the additive simulator is ported: the
-    event-driven re-rank ("taskgraph") and the learned cost model raise."""
+    substitution_json (extra rules in the reference schema), memory_search,
+    remat_search, and simulator_mode with simulator_topk and
+    simulator_segment_size: "taskgraph" re-ranks each segment's top DP
+    finalists by the event-driven replay (search/simulator.py), "learned"
+    (with `learned`, a search/learned_cost.LearnedCost) prunes candidates
+    and finalists by the learned model and prices the re-rank with it."""
     cfg = model.config
-    if cfg.simulator_mode != "additive":
-        raise NotImplementedError(
-            f"simulator_mode={cfg.simulator_mode!r}: only the additive cost "
-            "model is ported (the taskgraph simulator and the learned cost "
-            "model wait on ROADMAP Queue 1 item 8)")
     en_param = cfg.enable_parameter_parallel and not cfg.only_data_parallel
     en_attr = cfg.enable_attribute_parallel and not cfg.only_data_parallel
     xfers = generate_pcg_xfers(machine, enable_parameter=en_param,
@@ -358,7 +363,8 @@ def unity_optimize(model, machine: MachineSpec, cost_fn=None,
     beam_width = max(16, min(cfg.search_budget, 64))
     keys = [seg.key() for seg in segments]
     budget_left = max(8, cfg.search_budget)
-    # seg key -> (rewrite path, baseline_cost)
+    # seg key -> (rewrite path, baseline_cost, refined candidate names in
+    # topo order once the re-rank ran — replayed as pins — or None)
     seg_memo: Dict[Tuple, Tuple] = {}
     st = Strategy(mesh_axes=dict(machine.mesh_axes), name="unity")
     model_layer_names = {l.name for l in model.layers}
@@ -370,6 +376,9 @@ def unity_optimize(model, machine: MachineSpec, cost_fn=None,
     # knobs/cost_fn): segment replays and the substitution loop's candidate
     # graphs all resume from shared beam snapshots (tier-3 fast path)
     dp_cache = DPPrefixCache() if memo.enabled() else None
+    # the re-rank's pick per (segment, names, DP cost): the replay is
+    # deterministic in those, so an unchanged pair yields the same pick
+    sim_cache: Dict[Tuple, SearchResult] = {}
 
     def _cost_pcg(g: PCG) -> SearchResult:
         return search_graph(g, machine, beam_width=beam_width,
@@ -377,18 +386,86 @@ def unity_optimize(model, machine: MachineSpec, cost_fn=None,
                             enable_parameter=en_param,
                             enable_attribute=en_attr, pins=g.pins,
                             prefix_cache=dp_cache, opt_mem=opt_mem,
-                            remat_policies=remat_policies)
+                            remat_policies=remat_policies, learned=learned)
+
+    def _sim_refine(g: PCG, r: SearchResult) -> SearchResult:
+        """simulator_mode="taskgraph": the additive DP prunes, the
+        event-driven replay (search/simulator.py, the reference's
+        LogicalTaskgraphBasedSimulator) decides among the segment winner's
+        top layout finalists by simulated makespan.
+
+        simulator_mode="learned": the same finalists, but the learned model
+        drops those whose learned score exceeds the best by its
+        finalist_margin, and prices the re-rank's task times."""
+        if cfg.simulator_mode not in ("taskgraph", "learned") \
+                or cfg.simulator_topk < 2:
+            return r
+        if cfg.simulator_mode == "learned" and learned is None:
+            return r
+        # layer names ride the key: PCG.key() is name-free, but the cached
+        # result's choices are addressed by name
+        sim_key = (g.key(), tuple(l.name for l in topo_order(g.layers)),
+                   r.cost)
+        hit = sim_cache.get(sim_key)
+        if hit is not None:
+            return hit
+        # one more DP per segment recovers the ranked finalists
+        from flexflow_tpu_torch.search import simulator as sim
+
+        finalists = search_graph(g, machine, beam_width=beam_width,
+                                 mem_budget=mem_budget, cost_fn=cost_fn,
+                                 enable_parameter=en_param,
+                                 enable_attribute=en_attr, pins=g.pins,
+                                 topk=cfg.simulator_topk,
+                                 prefix_cache=dp_cache, opt_mem=opt_mem,
+                                 remat_policies=remat_policies,
+                                 learned=learned)
+        if learned is not None and isinstance(finalists, list):
+            kept, f_dropped = learned.prune_finalists(g, finalists)
+            if f_dropped:
+                stats_all.finalists_pruned += f_dropped
+                SEARCH_STATS["finalists_pruned"] = SEARCH_STATS.get(
+                    "finalists_pruned", 0) + f_dropped
+                finalists = kept
+        with tel.span("search/sim_rerank", cat="compile",
+                      finalists=len(finalists)
+                      if isinstance(finalists, list) else 1):
+            rerank_cost = (learned.op_time if learned is not None
+                           and cfg.simulator_mode == "learned" else cost_fn)
+            picked, _reports = sim.rerank(
+                g, machine, finalists, cost_fn=rerank_cost,
+                segment_bytes=cfg.simulator_segment_size)
+        sim_cache[sim_key] = picked
+        return picked
 
     for si, (seg, k) in enumerate(zip(segments, keys)):
         best = best_r = None
+        refined_done = False
         if k in seg_memo:
-            path, base_cost = seg_memo[k]
+            path, base_cost, rnames = seg_memo[k]
             replayed = replay_path(seg, xfers, path)
             if replayed is not None:
                 try:
-                    best, best_r = replayed, _cost_pcg(replayed)
+                    if rnames is not None:
+                        # a structurally identical segment: re-apply the
+                        # refined choices by name as pins (topo positions
+                        # coincide) instead of re-running the top-k DP and
+                        # the replays for every repetition
+                        pins = {l.name: nm for l, nm in
+                                zip(topo_order(replayed.layers), rnames)}
+                        best_r = search_graph(
+                            replayed, machine, beam_width=beam_width,
+                            mem_budget=mem_budget, cost_fn=cost_fn,
+                            enable_parameter=en_param,
+                            enable_attribute=en_attr, pins=pins,
+                            prefix_cache=dp_cache, opt_mem=opt_mem,
+                            remat_policies=remat_policies, learned=learned)
+                        best, refined_done = replayed, True
+                    else:
+                        best, best_r = replayed, _cost_pcg(replayed)
                 except (KeyError, RuntimeError):
                     best = best_r = None
+                    refined_done = False
             if best is not None:
                 stats_all.segments_replayed += 1
                 stats_all.baseline_cost += base_cost
@@ -402,15 +479,28 @@ def unity_optimize(model, machine: MachineSpec, cost_fn=None,
                 mem_budget=mem_budget, cost_fn=cost_fn,
                 enable_parameter=en_param, enable_attribute=en_attr,
                 dp_cache=dp_cache, opt_mem=opt_mem,
-                remat_policies=remat_policies)
+                remat_policies=remat_policies, learned=learned)
             budget_left = max(0, budget_left - stats.expansions)
-            seg_memo[k] = (stats.best_path, stats.baseline_cost)
+            seg_memo[k] = (stats.best_path, stats.baseline_cost, None)
             stats_all.expansions += stats.expansions
             stats_all.generated += stats.generated
             stats_all.deduped += stats.deduped
             stats_all.pruned += stats.pruned
             stats_all.baseline_cost += stats.baseline_cost
             stats_all.best_cost += stats.best_cost
+        if not refined_done:
+            refined = _sim_refine(best, best_r)
+            if refined is not best_r:
+                # the totals describe the returned strategy: the re-rank
+                # may pick a finalist whose additive cost differs
+                stats_all.best_cost += refined.cost - best_r.cost
+                best_r = refined
+            if (cfg.simulator_mode == "taskgraph"
+                    or (cfg.simulator_mode == "learned"
+                        and learned is not None)) and k in seg_memo:
+                seg_memo[k] = (seg_memo[k][0], seg_memo[k][1],
+                               [best_r.choices[l.name].name
+                                for l in topo_order(best.layers)])
         strategy_from_pcg(best, machine, best_r, model_layer_names,
                           model_input_names, strategy=st)
         # per-op predicted costs of the winner, priced by the SAME cost

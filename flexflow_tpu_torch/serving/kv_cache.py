@@ -605,12 +605,38 @@ def learned_kv_transfer_seconds(cfg, spec: KVCacheSpec,
                                 quantized: bool = False, machine=None,
                                 pages: Optional[int] = None
                                 ) -> Optional[float]:
-    """Learned seconds for one slot-sized host<->device transfer, or None
-    when no learned model resolves a `kv_transfer` prediction. The port has
-    no learned cost model yet (`--cost-model-path` is ROADMAP Queue 1 item
-    8), so it returns None, as the JAX package does when no model file
-    resolves: the `kv_prefetch_ahead` flag stays authoritative."""
-    return None
+    """Learned seconds for one slot-sized host<->device refill, or None
+    when no learned model resolves a `kv_transfer` prediction (`cfg` asks
+    for no learned model, the file is missing, or the model never saw the
+    kind). The features are those `PagedKVCache._transfer_row` writes for
+    a prefetch, so a model refit from the cache's own serving telemetry
+    prices this query."""
+    import os
+
+    from flexflow_tpu_torch.search import memo
+    from flexflow_tpu_torch.search.learned_cost import (LearnedCostModel,
+                                                        named_model_path)
+
+    path = named_model_path(cfg)
+    if path is None or not os.path.isfile(path):
+        return None
+    model = LearnedCostModel.load(path)
+    n_pages = int(pages if pages is not None else spec.pages_per_slot)
+    moved = spec.layers * n_pages * spec.page_bytes()
+    host_bw = getattr(machine, "host_bw", 0.0) or 16e9
+    predicted = moved / host_bw
+    page_shape = [n_pages, spec.page_size, spec.heads, spec.head_dim]
+    features = {
+        "op": "kv_transfer", "in_shapes": [page_shape],
+        "out_shapes": [page_shape], "weight_shapes": [],
+        "dtype": "int8" if quantized else "float32",
+        "params": 0, "layout": "prefetch",
+        "sharding": {"out": [], "weights": []},
+        "machine": (memo.machine_fingerprint(machine)
+                    if machine is not None else ()),
+    }
+    return model.predict_features(features, predicted_s=predicted,
+                                  roofline_s=predicted)
 
 
 def derive_prefetch_ahead(transfer_s: Optional[float],

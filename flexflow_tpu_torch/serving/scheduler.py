@@ -206,9 +206,9 @@ class ContinuousBatchingScheduler:
                 "engine.draft.init() or engine.draft.load_params first)")
         self._accept_ema = 0.0
         # tiered KV cache: prefetch_ahead is the hit/stall classifier and
-        # the lead the rotation aims for; a learned transfer time would
-        # re-derive it at the first measured decode step (none resolves in
-        # the port: the flag value stays)
+        # the lead the rotation aims for; a learned transfer time
+        # (learned_kv_transfer_seconds) re-derives it at the first measured
+        # decode step, and without one the flag value stays
         self.tiered = bool(getattr(self.kv, "host_pages", 0))
         self.prefetch_ahead = max(1, int(
             getattr(cfg, "kv_prefetch_ahead", 2) or 2))
@@ -579,8 +579,8 @@ class ContinuousBatchingScheduler:
 
     def _maybe_autotune(self, decode_step_s: float) -> None:
         """The first measured decode step sets the lead from a learned
-        transfer time: ceil(transfer s / step s). With none (always, in
-        the port: no learned cost model yet) the flag value stays."""
+        transfer time: ceil(transfer s / step s). With none (no learned
+        cost model resolves a `kv_transfer` price) the flag value stays."""
         if self._autotune_transfer_s is None or self._autotuned:
             return
         self._autotuned = True

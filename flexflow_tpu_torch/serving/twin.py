@@ -16,11 +16,11 @@ load alike) through the control plane's own classes:
 - speculation as expected commits a round (1 + accept rate x K tokens),
 - the disaggregated handoff priced like the cache's `kv_transfer` rows.
 
-Durations come from `TwinCosts`: live measurement (`from_live_report`)
-over the analytic roofline of the machine. With no machine given the
-roofline takes the port's H100 preset (`parallel/machine.CHIP_PRESETS`).
-The learned cost model's rung returns nothing in the port: that model is
-ROADMAP Queue 1 item 8. The report has the live schema: terminal records
+Durations come from `TwinCosts`: the learned cost model
+(search/learned_cost.py, refit from `emit_residual_rows`' rows) over live
+measurement (`from_live_report`) over the analytic roofline of the
+machine. With no machine given the roofline takes the port's H100 preset
+(`parallel/machine.CHIP_PRESETS`). The report has the live schema: terminal records
 from `reqtrace.terminal_record`, the same `StreamingHistogram` metrics and
 an `SLOTracker` scoreboard, so twin against live is a plain diff
 (`validate`) and `health.scaling_signal` reads the twin's output as it
@@ -185,7 +185,7 @@ def _twin_features(kind: str, spec: KVCacheSpec, slots: int,
 @dataclasses.dataclass
 class TwinCosts:
     """Every duration the event loop charges. `source` names the rung of
-    the ladder that priced it ("measured" or "analytic")."""
+    the ladder that priced it ("learned", "measured" or "analytic")."""
 
     decode_step_s: float = 1e-3       # one decode step (all slots)
     prefill_base_s: float = 1e-3      # per prefill program launch
@@ -262,8 +262,8 @@ class TwinCosts:
                 param_bytes: int = 0, step_floor_s: float = 0.0,
                 model_degree: int = 1, slots: int = 0) -> "TwinCosts":
         """The ladder, field by field: learned model > live measurement >
-        analytic roofline (the port's learned rung is empty, see
-        `_learned_costs`)."""
+        analytic roofline (a learned kind that never fit falls through
+        alone)."""
         out = cls.analytic(spec, machine, param_bytes=param_bytes,
                            step_floor_s=step_floor_s,
                            model_degree=model_degree)
@@ -295,12 +295,29 @@ def _hist_mean(report: Dict[str, Any], metric: str) -> Optional[float]:
 
 def _learned_costs(spec: KVCacheSpec, cfg: Any, machine: Any,
                    slots: int) -> Dict[str, float]:
-    """The learned cost model's prices of the twin's step and prefill.
-    The port has no learned cost model yet (`--cost-model-path` is ROADMAP
-    Queue 1 item 8), so it returns {}, as the JAX package does when no
-    model file resolves: the ladder falls through to measurement and the
-    roofline."""
-    return {}
+    """The learned cost model's prices of the twin's decode step and
+    prefill (search/learned_cost.py), queried with the feature rows
+    `emit_residual_rows` writes, so a model refit from the twin's own
+    rows prices them. A config that asks for no learned model, no model
+    file, or kinds the model never saw return {} and the ladder falls
+    through to measurement and the roofline."""
+    import os
+
+    from flexflow_tpu_torch.search.learned_cost import (LearnedCostModel,
+                                                        named_model_path)
+
+    path = named_model_path(cfg)
+    if path is None or not os.path.isfile(path):
+        return {}
+    model = LearnedCostModel.load(path)
+    out: Dict[str, float] = {}
+    for kind, field in (("twin_decode_step", "decode_step_s"),
+                        ("twin_prefill", "prefill_base_s")):
+        feats = _twin_features(kind, spec, slots, machine)
+        t = model.predict_features(feats, predicted_s=None, roofline_s=None)
+        if t is not None and t > 0:
+            out[field] = float(t)
+    return out
 
 
 # ------------------------------------------------------------- sim replica

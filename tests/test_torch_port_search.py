@@ -476,27 +476,15 @@ def _compile(m, **kw):
                      device="cpu", **kw)
 
 
-@pytest.mark.parametrize("case", ["taskgraph", "learned", "mcmc", "pipeline",
-                                  "simulator_topk", "pipeline_schedule",
+@pytest.mark.parametrize("case", ["pipeline", "pipeline_schedule",
                                   "multi_device", "serving_search"])
 def test_unported_modes_raise(case, tmp_path):
-    if case in ("taskgraph", "learned"):
-        _, pm = _gpt2_pair(search_budget=BUDGET, search_num_workers=8,
-                           simulator_mode=case)
-        with pytest.raises(NotImplementedError, match="simulator_mode"):
-            _compile(pm)
-    elif case == "mcmc":
-        _, pm = _gpt2_pair()
-        with pytest.raises(NotImplementedError, match="MCMC"):
-            mcmc_optimize(pm, MachineSpec.from_json(dict(MACHINES[0])))
-    elif case == "pipeline":
+    if case == "pipeline":
         _, pm = _gpt2_pair(pipeline_stages=2)
         with pytest.raises(NotImplementedError, match="pipelined"):
             _compile(pm)
-    elif case in ("simulator_topk", "pipeline_schedule"):
-        # the taskgraph re-rank's top-k and the pipeline's schedule
-        flag = {"simulator_topk": ["--simulator-topk", "4"],
-                "pipeline_schedule": ["--pipeline-schedule", "1f1b"]}[case]
+    elif case == "pipeline_schedule":
+        flag = ["--pipeline-schedule", "1f1b"]
         with pytest.raises(NotImplementedError, match=flag[0]):
             FFConfig.parse_args(flag)
     elif case == "multi_device":
