@@ -143,7 +143,12 @@ Phases, each fatal on failure (nothing is caught to let the run exit 0):
        the finding).
 
 8. Speculative serving and SLO-aware admission, run right after phase 4
-   on phase 3's weights, prompts and greedy streams (32 new tokens):
+   on phase 3's prompts and weights, GPT-2 medium cut to
+   `SERVE_CUT_LAYERS` (4) of its 24 layers at full width (phases 12 and
+   13 serve the same cut model; the time limit's cut), against that
+   model's own greedy streams (32 new tokens), served first as phase 3
+   serves (`cut_serving`); "phase 3's" streams below are the cut model's,
+   and the small draft is GPT-2 small's widths at the same depth:
    (a-d) four legs at K=4, {int8, compute-dtype KV} x {GPT-2 small as the
        draft, from seed + 1; the self-draft, GPT-2 medium carrying the
        target's params}. Each serves, measures the decode-verify gap
@@ -233,8 +238,9 @@ Phases, each fatal on failure (nothing is caught to let the run exit 0):
 
 11. Telemetry, run health and per-op attribution (telemetry.py,
     health.py, attribution.py), before phase 12, on GPT-2 medium as 5b
-    trains it (full depth, b8, seq 1024, dropout 0, bf16 over f32
-    masters, Adam 1e-4), compiled anew after the peak memory is reset;
+    trains it (b8, seq 1024, dropout 0, bf16 over f32 masters, Adam
+    1e-4) at `P11_LAYERS` (6) of its 24 layers (the time limit's cut),
+    compiled anew after the peak memory is reset;
     each fit is 2 epochs of a few batches:
     (a) eager and then steps_per_dispatch 4, each four times from one
         snapshot with everything off, on, on, off (on: telemetry and the
@@ -270,10 +276,10 @@ Phases, each fatal on failure (nothing is caught to let the run exit 0):
         serve/request_admitted and one serve/request_done a request, one
         serve/decode_step span a decode step.
 
-12. The rest of one-card serving, run last on phase 3's weights (kept
-    on the host from phase 8 on), prompts and greedy streams (GPT-2
-    medium, 8 slots, page 16, 66 pages a slot), in a temporary directory
-    removed at the end:
+12. The rest of one-card serving, run last on phase 8's cut model, its
+    weights (kept on the host from phase 8 on), prompts and greedy
+    streams (GPT-2 medium's widths, 4 layers, 8 slots, page 16, 66 pages
+    a slot), in a temporary directory removed at the end:
     (a) the tiered KV cache (`kv_host_pages` 396, three quarters of every
         slot's pages, so the device pool holds 132 data pages and
         scratch), with the bf16 cache and the int8 one: phase 3's 16
@@ -315,9 +321,10 @@ Phases, each fatal on failure (nothing is caught to let the run exit 0):
         context), printed.
     The phase logs its wall time and each part's.
 
-13. The serving fleet and the capacity twin, run last on phase 3's
-    weights, prompts and greedy streams: two int8 engines of GPT-2
-    medium (8 slots, page 16), each with half of every slot's pages on
+13. The serving fleet and the capacity twin, run last on phase 8's cut
+    model, weights, prompts and greedy streams: two int8 engines of GPT-2
+    medium's widths at 4 layers (8 slots, page 16), each with half of
+    every slot's pages on
     the host (264: the disaggregated handoff travels through the host
     tier of every replica), serving phase 3's 16 prompts of 32 new
     tokens; where arrivals are open loop they come at 50 requests/s by
@@ -481,6 +488,34 @@ Phases, each fatal on failure (nothing is caught to let the run exit 0):
         the plain SGD kernel once an update (counted in the C program's
         process and written out at flexflow_finalize).
     The phase logs its wall time with the card's name and power limit.
+
+17. Multi-GPU, first part, run last, each check fatal:
+    (a) the process group started from torchrun's environment at world 1
+        in this process (NCCL); config #5 compiled over {"data": 1}
+        through the DeviceMesh and DTensor path beside the plain compile:
+        a DTensor weight and the group live, the init bitwise equal, 3
+        steps from the seed with the losses, the params and the launches
+        (#1-#3 once a layer, #7 once a step) equal bitwise; eager step
+        ms of both in turns, a profiled step of each (idle share, the
+        port's kernels equal, the NCCL kernels seen); then phase 10's
+        `graph_leg` on the mesh's model (the K-step CUDA graph captured
+        over the process group) beside 5b's plain graph;
+    (b) two spawned ranks on cuda:0 over gloo (NCCL refuses two ranks on
+        one GPU): first which collectives gloo carries on CUDA tensors,
+        c10d's in the ranks and the functional ones DTensor calls each
+        in a pair of processes of its own (a crash kills only its pair),
+        printed; then every leg they allow, config #5's widths at full
+        depth, global batch 8, 3 Adam steps from the seed: {"data": 2}
+        with zero off, zero1 and zero2, and {"data": 1, "model": 2}
+        under the Megatron template; each leg's losses within
+        `P17_LOSS_RTOL` of (a)'s world-1 run, the params bitwise equal
+        on both ranks, exact launches, and under ZeRO each rank's moment
+        bytes half of world 1's; a leg gloo cannot carry is not started
+        and is printed with why;
+    (c) `python -m flexflow_tpu_torch --mesh data=1 -b 8 script.py` under
+        torchrun's environment (one process): the launcher starts the
+        group (NCCL), the script's MLP compiles over the mesh (DTensor
+        weights) and fits 2 steps (the plain SGD kernel twice), exit 0.
 
 The line before the last is `{"kernels": [...]}`; the last line is
 `{"ok": true, "device": {...}}`.
@@ -1404,6 +1439,54 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
 COUNTED_RANGE = "chip_smoke/counted"
 
 
+class _Range:
+    __slots__ = ("start", "end")
+
+    def __init__(self, start: float, end: float):
+        self.start, self.end = start, end
+
+    def elapsed_us(self) -> float:
+        return self.end - self.start
+
+
+class _Record:
+    """What `_device_profile` reads of a profiler record (the fields of a
+    FunctionEvent: name, device type, user annotation, start and end in
+    µs on the host's clock)."""
+    __slots__ = ("name", "device_type", "is_user_annotation", "time_range")
+
+    def __init__(self, name, device_type, annotation, start, end):
+        self.name, self.device_type = name, device_type
+        self.is_user_annotation, self.time_range = annotation, _Range(start,
+                                                                     end)
+
+
+def _profile_records(prof) -> list:
+    """The window's records from the profiler's raw kineto events, as
+    `prof.events()` would give them (its utility ops left out, names
+    demangled) without building its FunctionEvent tree, which takes ~70
+    µs a record: tens of seconds for a window of a few host-bound steps."""
+    from torch.autograd.profiler_util import _filter_name
+
+    res = prof.profiler.kineto_results
+    t0 = res.trace_start_ns()  # µs from here keep float64's resolution
+    names: dict = {}
+    out = []
+    for e in res.events():
+        raw = e.name()
+        if _filter_name(raw) or getattr(e, "is_hidden_event",
+                                        lambda: False)():
+            continue
+        name = names.get(raw)
+        if name is None:
+            name = names[raw] = (torch._C._demangle(raw) if len(raw) > 1
+                                 else raw)
+        out.append(_Record(name, e.device_type(), e.is_user_annotation(),
+                           (e.start_ns() - t0) / 1e3,
+                           (e.end_ns() - t0) / 1e3))
+    return out
+
+
 def _device_profile(fn, reps: int, dev: torch.device, lead=None) -> dict:
     """Run `fn` `reps` times under torch.profiler: host wall time per call,
     the device's busy time (union of kernel intervals) and idle share, and
@@ -1440,8 +1523,9 @@ def _device_profile(fn, reps: int, dev: torch.device, lead=None) -> dict:
         time.sleep(PROFILE_EDGE_S)
     cuda = torch.autograd.DeviceType.CUDA
     # the range's own device span (a user annotation) is no kernel
-    events = [e for e in prof.events() if e.device_type != cuda or not (
-        e.name == COUNTED_RANGE or getattr(e, "is_user_annotation", False))]
+    events = [e for e in _profile_records(prof)
+              if e.device_type != cuda or not (
+                  e.name == COUNTED_RANGE or e.is_user_annotation)]
     first_us = min(e.time_range.start for e in events
                    if e.name == COUNTED_RANGE)
     events = [e for e in events if e.time_range.start >= first_us
@@ -1488,7 +1572,11 @@ def _device_profile(fn, reps: int, dev: torch.device, lead=None) -> dict:
                             for n, (t, c) in top],
             "port_kernels": {n: {"ms_per_call": t / reps / 1e3,
                                  "launches_per_call": c / reps}
-                             for n, (t, c) in sorted(port.items())}}
+                             for n, (t, c) in sorted(port.items())},
+            # the collectives' kernels (phase 17's NCCL all-reduces)
+            "nccl_kernels": {n[:80]: c / reps
+                             for n, (t, c) in sorted(by_name.items())
+                             if n.startswith("nccl")}}
 
 
 def profile_engine(engine, params, prompts, profile_prefill: bool = True,
@@ -1529,6 +1617,49 @@ def profile_engine(engine, params, prompts, profile_prefill: bool = True,
         kv.evict(s)
     kv.push()
     return out
+
+
+# ------------------------- phases 8, 12 and 13: the cut serving model
+# Phases 8, 12 and 13 serve GPT-2 medium at its full width and this depth
+# (phase 3 serves it at full depth), with the same checks: the time
+# limit's cut. Their reference streams are the cut model's own.
+SERVE_CUT_LAYERS = 4
+
+
+def cut_serving(gc, params, prompts, seed: int) -> tuple:
+    """GPT-2 medium at SERVE_CUT_LAYERS deep with phase 3's weights of
+    those layers, and the greedy streams and runs of that model by KV
+    dtype, served as phase 3 serves them: (config, params, streams,
+    runs)."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.models import build_gpt2
+    from flexflow_tpu_torch.serving import compile_serving
+
+    t0 = time.perf_counter()
+    gcc = dataclasses.replace(gc, layers=SERVE_CUT_LAYERS)
+    streams, runs, cut = {}, {}, None
+    for kv in ("auto", "int8"):
+        model = FFModel(FFConfig(seed=seed, compute_dtype="bfloat16",
+                                 max_batch_slots=SLOTS, kv_page_size=PAGE,
+                                 max_decode_len=NEW_TOKENS,
+                                 kv_cache_dtype=kv))
+        build_gpt2(model, gcc, batch=SLOTS)
+        engine = compile_serving(model)
+        if cut is None:
+            names = {l.name for l in model.layers if l.weight_specs}
+            cut = {n: d for n, d in params.items() if n in names}
+        engine.load_params(cut)
+        serve(engine, cut, [p[:32] for p in prompts[:2]], f"{kv} warm-up")
+        runs[kv], streams[kv] = serve(engine, cut, prompts, kv)
+        log(f"[{kv} {SERVE_CUT_LAYERS} layers] "
+            f"{runs[kv]['tokens_per_s']:.1f} tokens/s, decode step p50 "
+            f"{runs[kv]['decode_step_p50_ms']:.2f} ms")
+        del engine, model
+        torch.cuda.empty_cache()
+    log(f"[phases 8, 12, 13] GPT-2 medium cut to {SERVE_CUT_LAYERS} of "
+        f"{gc.layers} layers at full width; its streams in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return gcc, cut, streams, runs
 
 
 # ------------------------------------------ phase 8: speculative serving
@@ -1637,7 +1768,9 @@ def spec_engine(gc, cfg_kw: dict, params, draft: str, k: int, seed: int):
     from flexflow_tpu_torch.serving import compile_serving
 
     models = []
-    for g in (gc, GPT2Config.small() if draft == "small" else gc):
+    # the small draft at the target's depth (phase 8 serves the cut model)
+    small = dataclasses.replace(GPT2Config.small(), layers=gc.layers)
+    for g in (gc, small if draft == "small" else gc):
         m = FFModel(FFConfig(**cfg_kw))
         build_gpt2(m, g, batch=SLOTS)
         models.append(m)
@@ -1721,7 +1854,7 @@ def spec_leg(gc, cfg_kw: dict, params, prompts, base: dict, draft: str,
     spec_serve(engine, [p[:32] for p in prompts[:2]], f"{label} warm-up")
     sched, done, wall, counts, rows = spec_serve(engine, prompts, label)
     l_draft = len(engine.draft.attn_layers)
-    launches = check_spec_launches(sched, counts, rows, k, LAYERS, l_draft,
+    launches = check_spec_launches(sched, counts, rows, k, gc.layers, l_draft,
                                    int8, label)
     mem = check_pages_and_memory(engine, label)
     got = {r.rid: list(r.tokens) for r in done}
@@ -3394,10 +3527,17 @@ def _restore(cm, snap) -> None:
     cm._iteration = it
 
 
+def _loc(t):
+    """A DTensor's block on this process (phase 17); a tensor as it is."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
 def _tree_diff(a, b) -> float:
-    """max |a - b| over the float leaves of two param trees."""
-    return max(float((a[l][w].detach().float() - b[l][w].detach().float())
-                     .abs().max()) for l in a for w in a[l])
+    """max |a - b| over the float leaves of two param trees (each rank's
+    blocks over a mesh)."""
+    return max(float((_loc(a[l][w]).detach().float()
+                      - _loc(b[l][w]).detach().float()).abs().max())
+               for l in a for w in a[l])
 
 
 def graph_leg(tag: str, cm, host_data, k: int, seed: int,
@@ -4109,8 +4249,13 @@ def p11_serving(engine, params, prompts, tdir: str) -> dict:
     return out
 
 
+# phase 11's depth (11d's is FIT_LAYERS): GPT-2 medium's widths, as 5b
+# trains it, cut for the time limit (its checks are the same at any depth)
+P11_LAYERS = 6
+
+
 def phase11(seed: int) -> dict:
-    """Phase 11 on GPT-2 medium as 5b trains it (full depth; 11d at
+    """Phase 11 on GPT-2 medium as 5b trains it at P11_LAYERS deep (11d at
     FIT_LAYERS), in a temporary directory removed at the end."""
     import shutil
     import tempfile
@@ -4121,7 +4266,7 @@ def phase11(seed: int) -> dict:
         collect_garbage()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        gc, _, cm = gpt2_train_model(seed, LAYERS, "bfloat16")
+        gc, _, cm = gpt2_train_model(seed, P11_LAYERS, "bfloat16")
         out = {"telemetry": p11_telemetry(cm, gc, seed,
                                           os.path.join(root, "tel"))}
         out["graph_kernels"] = p11_graph_kernels(cm, gc, seed)
@@ -4268,7 +4413,7 @@ def p12_tier(gc, params, prompts, streams: dict, seed: int,
                 joins < P12_MIN_TIER_MOVES or joins != ts["kv_refills"]:
             fail(f"{label}: tier stats {ts}")
         deq = run["launches"]["dequant_decode_attention"]
-        if kv == "int8" and deq != LAYERS * sched.decode_steps:
+        if kv == "int8" and deq != gc.layers * sched.decode_steps:
             fail(f"{label}: {deq} dequant launches for "
                  f"{sched.decode_steps} decode steps")
         if kv == "auto" and deq:
@@ -4414,7 +4559,7 @@ def p12_swap(engine, gc, params, prompts, streams: dict, seed: int,
     from flexflow_tpu_torch import telemetry as tel
 
     live, stage = os.path.join(root, "live"), os.path.join(root, "stage")
-    _, _, cm = gpt2_train_model(seed, LAYERS, "bfloat16",
+    _, _, cm = gpt2_train_model(seed, gc.layers, "bfloat16",
                                 SGDOptimizer(lr=SGD_LR))
     gen = torch.Generator().manual_seed(seed + 12)
     a = {n: {w: t.float() for w, t in d.items()} for n, d in params.items()}
@@ -4721,13 +4866,13 @@ def _p13_summary(run: dict) -> dict:
     return {k: v for k, v in run.items() if k not in ("runner", "streams")}
 
 
-def p13_exact_launches(run: dict, label: str) -> None:
+def p13_exact_launches(run: dict, label: str, layers: int) -> None:
     """The dequant decode once a layer every decode step, the flash
     forward once a layer every prefill, summed over the replicas."""
     got = run["launches"]
     deq, fla = got["dequant_decode_attention"], got["flash_attention_fwd"]
-    if deq != LAYERS * run["decode_steps"] or \
-            fla != LAYERS * run["prefills"]:
+    if deq != layers * run["decode_steps"] or \
+            fla != layers * run["prefills"]:
         fail(f"{label}: {deq} dequant launches for {run['decode_steps']} "
              f"decode steps, {fla} flash launches for {run['prefills']} "
              "prefills")
@@ -4832,7 +4977,7 @@ def p13_topologies(engines, prompts, arrivals, want: dict, host_bw: float,
     if colo["runner"].stats["handoffs"]:
         fail("13b colocated: a request was handed off")
     for run, label in ((colo, "13b colocated"), (dis, "13b disagg")):
-        p13_exact_launches(run, label)
+        p13_exact_launches(run, label, len(engines[0].attn_layers))
     rows = {}
     for kind, xs in times.items():
         ms = [1e3 * dt for _, dt in xs]
@@ -4875,7 +5020,7 @@ def p13_rolling(engines, gc, params, prompts, arrivals, want: dict,
 
     stage, live = os.path.join(root, "stage"), os.path.join(root, "live")
     os.makedirs(live)
-    _, _, cm = gpt2_train_model(seed, LAYERS, "bfloat16",
+    _, _, cm = gpt2_train_model(seed, gc.layers, "bfloat16",
                                 SGDOptimizer(lr=SGD_LR))
     a = {n: {w: t.float() for w, t in d.items()} for n, d in params.items()}
     t0 = time.perf_counter()
@@ -4989,7 +5134,7 @@ def p13_scaling(engines, prompts, want: dict, seed: int) -> dict:
             got = {r: s for r, s in run["streams"].items()}
             if any(got[r] != want[r % REQUESTS] for r in got):
                 fail(f"{tag}: streams differ from phase 3's")
-            p13_exact_launches(run, tag)
+            p13_exact_launches(run, tag, len(engines[0].attn_layers))
             leg["profiled" if profile else "run"] = _p13_summary(run)
         out[n] = leg
         r, p = leg["run"], leg["profiled"].get("profile", {})
@@ -6611,6 +6756,643 @@ def phase16(seed: int, graph_5b: dict) -> dict:
     return out
 
 
+# ---------------------------------- phase 17: multi-GPU, first part
+# 17b's ranks against 17a's world-1 run: the same weights and global batch
+# in bf16 compute, each rank's rows and the gradients' all-reduce in
+# another order (a relative tolerance on each of the 3 losses)
+P17_STEPS = 3
+P17_LOSS_RTOL = 5e-3
+P17_TIMEOUT_S = 420
+P17_MESH = {"data": 1}
+# the collectives 17b probes on CUDA tensors over gloo: c10d's (the
+# port's own calls: the grad norm's all-reduce, ZeRO's all-gather) and
+# the functional ones DTensor's redistributions call, each functional one
+# in a pair of processes of its own, since a crash kills only that pair
+P17_C10D = ("all_reduce", "broadcast", "all_gather", "all_gather_into_tensor",
+            "reduce_scatter_tensor", "all_to_all_single")
+P17_FUNCTIONAL = ("all_reduce", "reduce_scatter_tensor",
+                  "all_gather_into_tensor")
+# 17b's legs: (mesh, zero_sharding, Megatron tensor parallelism over
+# "model", the collectives gloo must carry for it): the gradients'
+# pending sums all-reduced (and the loss's; the grad norm's by c10d);
+# under ZeRO reduce-scattered to the moments and the params all-gathered
+# by c10d; under tensor parallelism DTensor gathers the activations too
+_DP = ("functional all_reduce", "c10d all_reduce")
+_ZERO = _DP + ("functional reduce_scatter_tensor",
+               "c10d all_gather_into_tensor")
+P17_LEGS = {"data2 zero off": ({"data": 2}, "off", False, _DP),
+            "data2 zero1": ({"data": 2}, "zero1", False, _ZERO),
+            "data2 zero2": ({"data": 2}, "zero2", False, _ZERO),
+            "model2 megatron": ({"data": 1, "model": 2}, "off", True,
+                                _ZERO + ("functional all_gather_into_tensor",))}
+# 17c's script: the launcher's config, a 2-step fit of an MLP on the card
+# over the mesh the command line names
+P17_SCRIPT = r'''
+import json
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+import flexflow_tpu_torch as ff
+from chip_smoke import launch_counts, zero_launch_counts
+
+cfg = ff.get_launch_config()
+m = ff.FFModel(cfg)
+x = m.create_tensor([cfg.batch_size, 784], name="x")
+m.dense(m.dense(x, 512, activation="relu", name="h"), 10, name="out")
+cm = m.compile(None, "sparse_categorical_crossentropy", [])
+rng = np.random.default_rng(0)
+xs = rng.normal(size=(2 * cfg.batch_size, 784)).astype(np.float32)
+ys = rng.integers(0, 10, size=(2 * cfg.batch_size,)).astype(np.int32)
+cm.init(seed=0)
+zero_launch_counts()
+hist = cm.fit(xs, ys, verbose=False)
+torch.cuda.synchronize()
+print("P17C " + json.dumps({
+    "world": dist.get_world_size(), "backend": str(dist.get_backend()),
+    "mesh": dict(zip(cm.mesh.mesh_dim_names, cm.mesh.mesh.shape)),
+    "dtensor": isinstance(cm.params["h"]["kernel"], DTensor),
+    "device": str(cm.device), "updates": cm._iteration,
+    "loss": hist[-1]["loss"], "launches": launch_counts()}), flush=True)
+'''
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def p17_steps(cm, seed: int, vocab: int, n: int = P17_STEPS) -> list:
+    """n train steps on 5b's batch (the full arrays: over a mesh each rank
+    takes its rows), the losses read after the last."""
+    ids, pos, labels = train_batch(seed, vocab)
+    losses = []
+    for _ in range(n):
+        (cm.params, cm.opt_state, cm.state, loss, _) = cm.train_step(
+            cm.params, cm.opt_state, cm.state, [ids, pos], labels)
+        losses.append(loss)
+    return [float(x) for x in losses]
+
+
+def p17_digest(cm) -> list:
+    """Two int64 sums of each f32 param's bits, taken on the card, over
+    the full params as this rank holds them (a replicated weight its own
+    copy, a sharded one gathered): the plain sum and the sum weighted by
+    position, so ranks whose bits differ anywhere read other sums."""
+    out = []
+    for l in sorted(cm.params):
+        for w in sorted(cm.params[l]):
+            t = cm.params[l][w].detach()
+            t = t.full_tensor() if hasattr(t, "full_tensor") else t
+            b = t.contiguous().view(torch.int32).flatten().long()
+            at = torch.arange(1, b.numel() + 1, device=b.device)
+            out.append((int(b.sum()), int((b * at).sum())))
+    return out
+
+
+def p17_graph(cm, gc, seed: int) -> dict:
+    """17a's K-step CUDA graph over the mesh (phase 10's leg, lean: the
+    mesh's eager step is host bound): from one snapshot, K eager steps
+    and one dispatch of K, bitwise equal; a profiled dispatch (one
+    cudaGraphLaunch, the port's kernels K steps' worth, the NCCL kernels);
+    eager against graph in turns; one fit epoch of 2K + 1 batches at K
+    (the loader's rows, step_stats as JAX counts them, no new capture)."""
+    from flexflow_tpu_torch import random as ff_random
+    from flexflow_tpu_torch.compiler import graph_steps
+
+    k, base = GRAPH_K, ff_random.key(seed + 17)
+    ids, pos, labels = train_batch(seed + 31, gc.vocab, k * BATCH)
+    xs = [torch.from_numpy(a.reshape(k, BATCH, -1)).cuda() for a in (ids, pos)]
+    y = torch.from_numpy(labels.reshape(k, BATCH, -1)).cuda()
+    snap = _snapshot(cm)
+    it0 = snap[3]
+
+    def eager():
+        losses = []
+        for i in range(k):
+            (cm.params, cm.opt_state, cm.state, loss, _) = cm.train_step(
+                cm.params, cm.opt_state, cm.state, [x[i] for x in xs], y[i],
+                ff_random.fold_in(base, it0 + i))
+            losses.append(loss)
+        return sum(losses[1:], losses[0]) / k
+
+    def dispatch():
+        (cm.params, cm.opt_state, cm.state, loss, _) = multi(
+            cm.params, cm.opt_state, cm.state, xs, y, base, it0)
+        return loss
+
+    want = float(eager())
+    eager_params = _tree_copy(cm.params)
+    _restore(cm, snap)
+    caps0 = graph_steps.captures
+    zero_launch_counts()
+    multi = cm._get_multi(k)
+    got = float(dispatch())
+    torch.cuda.synchronize()
+    out = {"k": k, "eager_mean": want, "graph_mean": got,
+           "launches": launch_counts(),
+           "graph_vs_eager_max_abs": _tree_diff(cm.params, eager_params),
+           "captures": graph_steps.captures - caps0,
+           "capture_s": multi.capture_s, "graph_pool_bytes": multi.pool_bytes}
+    del eager_params
+    prof = _device_profile(dispatch, 1, cm.device, lead=dispatch)
+    out["profile_graph"] = prof
+    timed = {}
+    for name, fn in (("eager", eager), ("graph", dispatch),
+                     ("graph_again", dispatch), ("eager_again", eager)):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        timed[name] = 1e3 * (time.perf_counter() - t0) / k
+    out["step_ms"] = timed
+    ids2, pos2, labels2 = train_batch(seed + 37, gc.vocab, (2 * k + 1) * BATCH)
+    _restore(cm, snap)
+    zero_launch_counts()
+    caps0 = graph_steps.captures
+    ahead, cm.cfg.dispatch_ahead = cm.cfg.dispatch_ahead, 2
+    try:
+        hist = cm.fit([ids2, pos2], labels2, epochs=1, verbose=False,
+                      sync_every=0, steps_per_dispatch=k)
+    finally:
+        cm.cfg.dispatch_ahead = ahead
+    torch.cuda.synchronize()
+    out["fit"] = {"step_stats": dict(cm.step_stats), "launches":
+                  launch_counts(), "captures": graph_steps.captures - caps0,
+                  "loss": hist[0]["loss"]}
+    pk = {n: v["launches_per_call"] for n, v in
+          prof.get("port_kernels", {}).items()}
+    log(f"[17a graph] K={k}: eager mean {want}, graph {got}, params max "
+        f"|dp| {out['graph_vs_eager_max_abs']:.3e}; capture "
+        f"{multi.capture_s:.2f} s, pool {multi.pool_bytes / 2**20:.0f} MiB; "
+        f"profile: {prof.get('graph_launches_per_call')} cudaGraphLaunch, "
+        f"the port's kernels {pk}, NCCL kernels "
+        f"{prof.get('nccl_kernels')}, idle "
+        f"{prof.get('device_idle_share', float('nan')):.3f}; step ms "
+        f"(eager, graph, graph, eager) {timed}; fit {out['fit']}")
+    per_step = {"flash_fwd_tc_kernel": LAYERS, "flash_dq_tc_kernel": LAYERS,
+                "flash_dkv_tc_kernel": LAYERS, "adam_kernel": 1}
+    stats = {"dispatches": 3, "host_syncs": 0, "barriers": 1,
+             "fused_steps": 2 * k}
+    if got != want or out["graph_vs_eager_max_abs"] != 0 or \
+            out["captures"] != 1 or \
+            prof.get("graph_launches_per_call") != 1 or \
+            pk != {n: k * c for n, c in per_step.items()} or \
+            out["fit"]["step_stats"] != stats or out["fit"]["captures"] or \
+            not np.isfinite(out["fit"]["loss"]):
+        fail(f"17a graph: {out}")
+    return out
+
+
+def p17_world1(seed: int, graph_5b: dict) -> dict:
+    """17a: the process group started from torchrun's environment at world
+    1 (NCCL), config #5 compiled over {"data": 1} through the DeviceMesh
+    and DTensor path against the plain compile, in this process."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from flexflow_tpu_torch.runtime.distributed import (backend_name,
+                                                        init_distributed)
+
+    t0 = time.perf_counter()
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()),
+                      WORLD_SIZE="1", RANK="0", LOCAL_RANK="0")
+    init_distributed()
+    if backend_name() != "nccl":
+        fail(f"17a: backend {backend_name()}, expected nccl on the card")
+    gc, _, plain = gpt2_train_model(seed, LAYERS, "bfloat16")
+    _, _, mesh = gpt2_train_model(seed, LAYERS, "bfloat16",
+                                  mesh_shape=P17_MESH)
+    wte = mesh.params["wte"]["kernel"]
+    if not (dist.is_initialized() and mesh.mesh is not None
+            and isinstance(wte, DTensor) and plain.mesh is None):
+        fail(f"17a: the mesh path is not live (group "
+             f"{dist.is_initialized()}, mesh {mesh.mesh}, wte "
+             f"{type(wte).__name__})")
+    same_init = all(torch.equal(_loc(mesh.params[l][w]), plain.params[l][w])
+                    for l in plain.params for w in plain.params[l])
+    out = {"backend": backend_name(), "mesh": P17_MESH,
+           "wte_placements": str(wte.placements),
+           "init_bitwise_equal": same_init}
+    runs = {}
+    for tag, cm in (("plain", plain), ("mesh", mesh)):
+        zero_launch_counts()
+        runs[tag] = {"losses": p17_steps(cm, seed, gc.vocab),
+                     "launches": launch_counts()}
+    out["runs"] = runs
+    lp, lm = runs["plain"]["losses"], runs["mesh"]["losses"]
+    out["losses_bitwise_equal"] = lp == lm
+    out["params_bitwise_equal"] = _tree_diff(mesh.params, plain.params) == 0
+    log(f"[17a] world 1 over {P17_MESH} ({backend_name()}), wte "
+        f"{wte.placements}: init bitwise {same_init}; losses plain {lp}, "
+        f"mesh {lm}: bitwise {lp == lm}; params after {P17_STEPS} steps "
+        f"bitwise {out['params_bitwise_equal']}; launches plain "
+        f"{runs['plain']['launches']}, mesh {runs['mesh']['launches']}")
+    want = {n: 0 for n in runs["mesh"]["launches"]}
+    want.update(flash_attention_fwd=LAYERS * P17_STEPS,
+                flash_attention_dq=LAYERS * P17_STEPS,
+                flash_attention_dkv=LAYERS * P17_STEPS,
+                fused_adam=P17_STEPS)
+    if not same_init or lp != lm or not out["params_bitwise_equal"] or \
+            runs["mesh"]["launches"] != want or \
+            runs["plain"]["launches"] != want:
+        fail(f"17a: the mesh path at world 1 differs from the plain "
+             f"compile: {out}")
+    # the host's cost: eager steps in turns, then a profiled step of each
+    ids, pos, labels = train_batch(seed, gc.vocab)
+    dev_in = [torch.from_numpy(ids).cuda(), torch.from_numpy(pos).cuda()]
+    dev_lab = torch.from_numpy(labels).cuda()
+
+    def stepper(cm):
+        def step():
+            (cm.params, cm.opt_state, cm.state, _, _) = cm.train_step(
+                cm.params, cm.opt_state, cm.state, dev_in, dev_lab)
+        return step
+
+    steps = {"plain": stepper(plain), "mesh": stepper(mesh)}
+    times = {"plain": [], "mesh": []}
+    for _ in range(2):
+        for tag, fn in steps.items():
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            fn()
+            torch.cuda.synchronize()
+            times[tag].append(1e3 * (time.perf_counter() - t1) / 2)
+    out["eager_step_ms"] = {t: float(np.median(v)) for t, v in times.items()}
+    out["eager_step_ms_pairs"] = times
+    profs = {t: _device_profile(fn, 1, plain.device, lead=fn)
+             for t, fn in steps.items()}
+    out["profiles"] = profs
+    for tag, prof in profs.items():
+        if "wall_ms_per_call" not in prof:
+            fail(f"17a {tag}: the profiler saw no kernel")
+    pk = {t: {n: v["launches_per_call"]
+              for n, v in prof["port_kernels"].items()}
+          for t, prof in profs.items()}
+    log(f"[17a] eager step ms plain {out['eager_step_ms']['plain']:.2f}, "
+        f"mesh {out['eager_step_ms']['mesh']:.2f} (pairs {times}); idle "
+        f"share plain {profs['plain']['device_idle_share']:.3f}, mesh "
+        f"{profs['mesh']['device_idle_share']:.3f}; launches a step plain "
+        f"{profs['plain']['kernel_launches_per_call']:.0f}, mesh "
+        f"{profs['mesh']['kernel_launches_per_call']:.0f}; the port's "
+        f"kernels plain {pk['plain']}, mesh {pk['mesh']}; NCCL kernels "
+        f"{profs['mesh']['nccl_kernels']}")
+    if pk["plain"] != pk["mesh"] or not pk["mesh"]:
+        fail(f"17a: profiled port kernels differ: {pk}")
+    del steps, plain
+    collect_garbage()
+    torch.cuda.empty_cache()
+    out["graph"] = p17_graph(mesh, gc, seed)
+    out["graph_5b_step_ms"] = graph_5b["step_ms"]
+    log(f"[17a] K={GRAPH_K} graph over the mesh {out['graph']['step_ms']}; "
+        f"5b's plain graph (phase 10, this run) {graph_5b['step_ms']}")
+    out["memory"] = mesh.memory_stats()
+    out["moment_bytes"] = out["memory"]["actual_opt_state_bytes_per_device"]
+    out["wall_s"] = time.perf_counter() - t0
+    del mesh
+    collect_garbage()
+    torch.cuda.empty_cache()
+    return out
+
+
+def p17_probe(dev) -> dict:
+    """Which c10d collectives the started group carries on CUDA tensors,
+    each checked for its value: "carried", or the error it raised."""
+    import torch.distributed as dist
+
+    r, w = dist.get_rank(), dist.get_world_size()
+    x = torch.full((4,), float(r + 1), device=dev)
+    tot = float(w * (w + 1) / 2)
+
+    def all_reduce():
+        y = x.clone()
+        dist.all_reduce(y)
+        return bool((y == tot).all())
+
+    def broadcast():
+        y = x.clone()
+        dist.broadcast(y, 0)
+        return bool((y == 1).all())
+
+    def all_gather():
+        ys = [torch.empty_like(x) for _ in range(w)]
+        dist.all_gather(ys, x)
+        return all(bool((y == i + 1).all()) for i, y in enumerate(ys))
+
+    def all_gather_into_tensor():
+        y = torch.empty(4 * w, device=dev)
+        dist.all_gather_into_tensor(y, x)
+        return bool((y.view(w, 4)[:, 0].cpu()
+                     == torch.arange(1, w + 1).float()).all())
+
+    def reduce_scatter_tensor():
+        y = torch.empty(4 // w, device=dev)
+        dist.reduce_scatter_tensor(y, x)
+        return bool((y == tot).all())
+
+    def all_to_all_single():
+        y = torch.empty_like(x)
+        dist.all_to_all_single(y, x)
+        return bool(y.numel() == 4)
+
+    out = {}
+    for fn in (all_reduce, broadcast, all_gather, all_gather_into_tensor,
+               reduce_scatter_tensor, all_to_all_single):
+        try:
+            ok = fn()
+            torch.cuda.synchronize(dev)
+            out[f"c10d {fn.__name__}"] = "carried" if ok else "wrong values"
+        except Exception as e:  # the probe's finding: what gloo refuses
+            out[f"c10d {fn.__name__}"] = f"{type(e).__name__}: {str(e)[:160]}"
+    return out
+
+
+def p17_functional_rank(rank: int, port: int, which: str, out_q) -> None:
+    """One rank of a functional probe pair: DTensor's functional `which`
+    (torch.distributed._functional_collectives) on a CUDA tensor over
+    gloo, checked for its value."""
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as fc
+
+    from flexflow_tpu_torch.runtime.distributed import init_distributed
+
+    init_distributed(f"localhost:{port}", 2, rank, local_device_ids=[0],
+                     backend="gloo")
+    x = torch.full((4,), float(rank + 1), device="cuda")
+    g = dist.group.WORLD
+    if which == "all_reduce":
+        ok = bool((fc.wait_tensor(fc.all_reduce(x, "sum", g)) == 3).all())
+    elif which == "reduce_scatter_tensor":
+        y = fc.wait_tensor(fc.reduce_scatter_tensor(x, "sum", 0, g))
+        ok = y.numel() == 2 and bool((y == 3).all())
+    else:
+        y = fc.wait_tensor(fc.all_gather_tensor(x, 0, g))
+        ok = bool((y[:4] == 1).all() and (y[4:] == 2).all())
+    torch.cuda.synchronize()
+    out_q.put((rank, which, "carried" if ok else "wrong values"))
+    dist.destroy_process_group()
+
+
+def p17_probe_functional() -> dict:
+    """The functional collectives, a pair of processes each, all pairs at
+    once: "carried", "wrong values", or how the pair ended."""
+    import queue as queue_mod
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    pairs = {w: [ctx.Process(target=p17_functional_rank,
+                             args=(r, port, w, q)) for r in range(2)]
+             for w, port in zip(P17_FUNCTIONAL,
+                                [_free_port() for _ in P17_FUNCTIONAL])}
+    for procs in pairs.values():
+        for p in procs:
+            p.start()
+    got: dict = {}
+    deadline = time.perf_counter() + 180
+    try:
+        while sum(len(v) for v in got.values()) < 2 * len(pairs):
+            if all(not p.is_alive() for ps in pairs.values() for p in ps) \
+                    and q.empty():
+                break
+            try:
+                r, w, val = q.get(timeout=1.0)
+            except queue_mod.Empty:
+                if time.perf_counter() > deadline:
+                    break
+                continue
+            got.setdefault(w, {})[r] = val
+    finally:
+        for procs in pairs.values():
+            for p in procs:
+                p.join(10)
+                if p.is_alive():
+                    p.kill()
+                    p.join(5)
+    out = {}
+    for w, procs in pairs.items():
+        vals = set(got.get(w, {}).values())
+        out[f"functional {w}"] = (
+            vals.pop() if len(vals) == 1 and len(got[w]) == 2 else
+            f"the pair ended with exit codes {[p.exitcode for p in procs]} "
+            f"and results {got.get(w)}")
+    return out
+
+
+def p17_rank(rank: int, port: int, seed: int, carried, out_q) -> None:
+    """17b's rank: a gloo group of two on cuda:0, the probe, then every
+    leg the probe allows: config #5's widths at full depth, global batch
+    8, 3 Adam steps from the seed's weights. Each part prints as it ends
+    (the parent's watchdog names the last)."""
+    import traceback
+
+    def say(msg):
+        print(f"[17b rank {rank}] {msg}", flush=True)
+
+    try:
+        from flexflow_tpu_torch.kernels import fused_optim as fo
+        from flexflow_tpu_torch.runtime.distributed import init_distributed
+
+        init_distributed(f"localhost:{port}", 2, rank, local_device_ids=[0],
+                         backend="gloo")
+        dev = torch.device("cuda", 0)
+        probe = dict(carried, **p17_probe(dev))
+        say(f"probe {probe}")
+        legs, skipped = {}, {}
+        for name, (mesh, zero, megatron, needs) in P17_LEGS.items():
+            missing = [c for c in needs if probe.get(c) != "carried"]
+            if missing:
+                skipped[name] = f"gloo does not carry {missing} on CUDA"
+                continue
+            t0 = time.perf_counter()
+            gc, model, cm = gpt2_train_model(seed, LAYERS, "bfloat16",
+                                             mesh_shape=mesh,
+                                             zero_sharding=zero)
+            if megatron:
+                from flexflow_tpu_torch.parallel.templates import \
+                    megatron_strategy
+
+                cm.strategy = megatron_strategy(model, cm.machine)
+                cm._build_steps()
+                cm.init(seed=seed)
+            say(f"{name}: compiled in {time.perf_counter() - t0:.1f} s")
+            zero_launch_counts()
+            builds0 = fo.table_builds
+            t1 = time.perf_counter()
+            losses = p17_steps(cm, seed, gc.vocab)
+            torch.cuda.synchronize()
+            say(f"{name}: {P17_STEPS} steps in "
+                f"{time.perf_counter() - t1:.1f} s, losses {losses}")
+            mem = cm.memory_stats()
+            legs[name] = {"mesh": mesh, "zero": cm._zero, "losses": losses,
+                          "strategy": cm.strategy.name,
+                          "launches": launch_counts(),
+                          "table_builds": fo.table_builds - builds0,
+                          "params_digest": p17_digest(cm),
+                          "moment_bytes":
+                              mem["actual_opt_state_bytes_per_device"],
+                          "param_bytes":
+                              mem["actual_param_bytes_per_device"],
+                          "wall_s": time.perf_counter() - t0}
+            del cm, model
+            collect_garbage()
+            torch.cuda.empty_cache()
+        out_q.put((rank, "ok", {"probe": probe, "legs": legs,
+                                "skipped": skipped}))
+    except Exception:  # the parent fails the phase with it
+        out_q.put((rank, "error", traceback.format_exc()))
+
+
+def p17_two_ranks(seed: int, world1: dict) -> dict:
+    """17b: two spawned ranks on the one card over gloo (NCCL refuses two
+    ranks on one GPU); every process is joined or killed before this
+    returns."""
+    import queue as queue_mod
+
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    functional = p17_probe_functional()
+    log(f"[17b] functional collectives on CUDA tensors over gloo, a pair "
+        f"each: {functional} ({time.perf_counter() - t0:.1f} s)")
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=p17_rank,
+                         args=(r, port, seed, functional, q))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    res = {}
+    try:
+        while len(res) < 2:
+            try:
+                r, kind, val = q.get(timeout=1.0)
+            except queue_mod.Empty:
+                dead = [i for i, p in enumerate(procs)
+                        if i not in res and not p.is_alive()]
+                if dead and q.empty():
+                    fail(f"17b: ranks {dead} ended with exit codes "
+                         f"{[procs[i].exitcode for i in dead]} and no result")
+                if time.perf_counter() - t0 > P17_TIMEOUT_S:
+                    fail(f"17b: ranks {sorted({0, 1} - set(res))} did not "
+                         f"finish in {P17_TIMEOUT_S} s")
+                continue
+            if kind != "ok":
+                fail(f"17b rank {r}:\n{val}")
+            res[r] = val
+    finally:
+        for p in procs:
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    a, b = res[0], res[1]
+    out = {"probe": a["probe"], "skipped": a["skipped"], "legs": {},
+           "wall_s": time.perf_counter() - t0}
+    log(f"[17b] gloo on CUDA tensors, two ranks on cuda:0: {a['probe']}")
+    for name, why in a["skipped"].items():
+        log(f"[17b] leg {name} not started: {why}")
+    ref = world1["runs"]["mesh"]["losses"]
+    for name, leg in a["legs"].items():
+        other = b["legs"][name]
+        rel = max(abs(x - y) / abs(y) for x, y in zip(leg["losses"], ref))
+        half = leg["zero"] != "off"
+        digest = leg.pop("params_digest")
+        row = dict(leg, rel_err_vs_world1=rel,
+                   ranks_bitwise_equal=digest == other["params_digest"]
+                   and leg["losses"] == other["losses"],
+                   moment_bytes_world1=world1["moment_bytes"],
+                   launches_rank1=other["launches"])
+        out["legs"][name] = row
+        log(f"[17b {name}] losses {leg['losses']} (world 1 {ref}, max rel "
+            f"{rel:.2e}); ranks bitwise {row['ranks_bitwise_equal']}; moment "
+            f"bytes a rank {leg['moment_bytes']} (world 1 "
+            f"{world1['moment_bytes']}); launches {leg['launches']}; "
+            f"{leg['wall_s']:.1f} s")
+        want = {n: 0 for n in leg["launches"]}
+        want.update(flash_attention_fwd=LAYERS * P17_STEPS,
+                    flash_attention_dq=LAYERS * P17_STEPS,
+                    flash_attention_dkv=LAYERS * P17_STEPS,
+                    fused_adam=P17_STEPS)
+        if rel > P17_LOSS_RTOL or not row["ranks_bitwise_equal"] or \
+                leg["launches"] != want or other["launches"] != want or \
+                (half and 2 * leg["moment_bytes"] != world1["moment_bytes"]):
+            fail(f"17b {name}: {row}")
+    if "data2 zero off" not in out["legs"]:
+        fail(f"17b: gloo carries no all-reduce on CUDA: {a['probe']}")
+
+    return out
+
+
+def p17_launcher(tmpdir: str) -> dict:
+    """17c: `python -m flexflow_tpu_torch --mesh data=1 -b 8 script.py`
+    under torchrun's environment (one process): the launcher starts the
+    group, the script's compile runs over the mesh, 2 steps, exit 0."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(tmpdir, "launched17.py")
+    with open(script, "w") as fh:
+        fh.write(P17_SCRIPT)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("FLEXFLOW_PLATFORM", "FF_LAUNCH_ARGS")}
+    env.update(PYTHONPATH=repo + os.pathsep + env.get("PYTHONPATH", ""),
+               WORLD_SIZE="1", RANK="0", LOCAL_RANK="0",
+               MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()))
+    cmd = [sys.executable, "-m", "flexflow_tpu_torch", "--mesh", "data=1",
+           "-b", "8", script]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=tmpdir, env=env, capture_output=True,
+                         text=True, timeout=300)
+    lines = [l for l in run.stdout.splitlines() if l.startswith("P17C ")]
+    if run.returncode != 0 or not lines:
+        fail(f"17c: the launcher exited {run.returncode}: "
+             f"{run.stdout[-2000:]}\n{run.stderr[-3000:]}")
+    got = json.loads(lines[-1][len("P17C "):])
+    got.update(returncode=run.returncode, wall_s=time.perf_counter() - t0)
+    log(f"[17c] torchrun env, `python -m flexflow_tpu_torch --mesh data=1 "
+        f"-b 8 launched17.py` exited 0 in {got['wall_s']:.1f} s: {got}")
+    want = {k: 0 for k in got["launches"]}
+    want["fused_sgd_plain"] = 2
+    if not (got["world"] == 1 and got["backend"] == "nccl"
+            and got["mesh"] == {"data": 1} and got["dtensor"]
+            and got["updates"] == 2 and got["device"].startswith("cuda")
+            and np.isfinite(got["loss"]) and got["launches"] == want):
+        fail(f"17c: {got}")
+    return got
+
+
+def phase17(seed: int, graph_5b: dict) -> dict:
+    """Phase 17: 17a world 1 over NCCL in this process, 17b two ranks on
+    the card over gloo, 17c the launcher under torchrun's environment."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    out, walls = {}, {}
+    t0 = time.perf_counter()
+    out["17a"] = p17_world1(seed, graph_5b)
+    walls["17a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["17b"] = p17_two_ranks(seed, out["17a"])
+    walls["17b"] = time.perf_counter() - t0
+    tmpdir = tempfile.mkdtemp(prefix="ff_p17_")
+    try:
+        t0 = time.perf_counter()
+        out["17c"] = p17_launcher(tmpdir)
+        walls["17c"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    out["walls_s"] = walls
+    log(f"[phase 17] {out['wall_s']:.1f} s on {card_line()} ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()) + ")")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6737,8 +7519,13 @@ def main() -> None:
              f"aten::index a step, top kernels {gathers}")
 
     # ---- 8. speculative serving and SLO-aware admission, on phase 3's
-    # weights, prompts and streams
-    spec = phase8(gc, params, prompts, streams, args.seed)
+    # weights (cut to SERVE_CUT_LAYERS), prompts and that model's streams
+    t8 = time.perf_counter()
+    gcc, params, cut_streams, cut_runs = cut_serving(gc, params, prompts,
+                                                     args.seed)
+    spec = phase8(gcc, params, prompts, cut_streams, args.seed)
+    log(f"[phase 8] {time.perf_counter() - t8:.1f} s at "
+        f"{SERVE_CUT_LAYERS} layers")
     # phase 12 runs last on these weights: a host copy until then
     params_host = {n: {w: t.cpu() for w, t in d.items()}
                    for n, d in params.items()}
@@ -6843,11 +7630,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     params = {n: {w: t.to("cuda") for w, t in d.items()}
               for n, d in params_host.items()}
-    serving12 = phase12(gc, params, prompts, streams, args.seed,
-                        {r["kv_cache_dtype"]: r for r in runs})
+    serving12 = phase12(gcc, params, prompts, cut_streams, args.seed,
+                        cut_runs)
     # ---- 13. the serving fleet (identity, colocated against disagg, the
     # rolling swap and its rollback, scaling) and the capacity twin
-    serving13 = phase13(gc, params, prompts, streams, args.seed,
+    serving13 = phase13(gcc, params, prompts, cut_streams, args.seed,
                         serving12["tier"]["int8"]["host_bw_GBps"] * 1e9)
     del params, params_host
     torch.cuda.empty_cache()
@@ -6861,6 +7648,11 @@ def main() -> None:
     # ---- 16. the task-graph simulator, MCMC, the learned cost model and
     # its refit loop on config #5; the native core, Jupyter, the C API
     p16 = phase16(args.seed, graph["5b"])
+    # ---- 17. multi-GPU, first part: config #5 over a world-1 NCCL mesh
+    # against the plain compile, two ranks on the card over gloo (zero
+    # off, zero1, zero2, a model axis, as far as gloo carries), the
+    # launcher under torchrun's environment
+    p17 = phase17(args.seed, graph["5b"])
 
     # launches on the main paths: both serving runs, the 12 Adam training
     # steps and the Adam fit epoch, the 12 padded-vocab SGD steps and the
@@ -6951,6 +7743,17 @@ def main() -> None:
     paths9["p16e_kernel_env_fit"] = p16["16e"]["kernel_env"]["launches"]
     paths9["p16e_quickstart_fit"] = p16["16e"]["quickstart"]["launches"]
     paths9["p16f_capi_fit"] = p16["16f"]["launches"]
+    # phase 17's: config #5 over the mesh (the flash kernels masked); 17c's
+    # MLP the plain SGD
+    paths["p17a_mesh_steps"] = p17["17a"]["runs"]["mesh"]["launches"]
+    paths["p17a_plain_steps"] = p17["17a"]["runs"]["plain"]["launches"]
+    paths["p17a_graph_capture"] = p17["17a"]["graph"]["launches"]
+    paths["p17a_graph_fit"] = p17["17a"]["graph"]["fit"]["launches"]
+    for name, leg in p17["17b"]["legs"].items():
+        tag = name.replace(" ", "_")
+        paths[f"p17b_{tag}_rank0"] = leg["launches"]
+        paths[f"p17b_{tag}_rank1"] = leg["launches_rank1"]
+    paths9["p17c_launcher_fit"] = p17["17c"]["launches"]
     for r in rows:
         causal = r.get("causal")
         counted = (paths if causal else paths9 if causal is False
@@ -6978,6 +7781,7 @@ def main() -> None:
     log(json.dumps({"zoo": zoo}, default=str))
     log(json.dumps({"frontends": fronts}, default=str))
     log(json.dumps({"phase16": p16}, default=str))
+    log(json.dumps({"phase17": p17}, default=str))
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,16 @@ parsed config from `flexflow_tpu_torch.get_launch_config()` and gets the
 tokens after its path as its own argv. `FLEXFLOW_PLATFORM` (cpu, gpu or
 cuda) is an explicit request for a device: `device=None` means it in the
 script's compiles. Without it the script runs on the GPU.
+
+A command line that names a mesh (`--mesh`, `--nodes` > 1) or a process
+started by torchrun (`WORLD_SIZE` in its environment) starts the process
+group first (runtime/distributed.py `init_distributed`, from torchrun's
+environment): one process a GPU, world = nodes x workers-per-node, e.g.
+
+    torchrun --nproc-per-node 4 -m flexflow_tpu_torch --mesh data=4 train.py
+
+A single process with `--mesh data=1` and no torchrun runs the same
+distributed path at world 1, its rendezvous on a free localhost port.
 """
 
 from __future__ import annotations
@@ -39,6 +49,29 @@ def split_argv(argv, value_flags=None):
     return None, argv, []
 
 
+def start_group(cfg) -> None:
+    """The process group of a launch: torchrun's environment, else one
+    process on a free localhost port. `--nodes` x `--workers-per-node`,
+    when given, must be the world."""
+    import socket
+
+    from flexflow_tpu_torch.runtime.distributed import (init_distributed,
+                                                        world_size)
+
+    if "WORLD_SIZE" in os.environ:
+        init_distributed()
+    else:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        init_distributed(f"localhost:{port}", 1, 0)
+    if cfg.num_nodes > 1 and cfg.workers_per_node and \
+            cfg.num_nodes * cfg.workers_per_node != world_size():
+        raise ValueError(
+            f"--nodes {cfg.num_nodes} x --workers-per-node "
+            f"{cfg.workers_per_node} != the world's {world_size()} ranks")
+
+
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     script, launcher_args, script_args = split_argv(argv)
@@ -51,10 +84,12 @@ def main(argv=None):
     from flexflow_tpu_torch import device
 
     env_args = shlex.split(os.environ.get("FF_LAUNCH_ARGS", ""))
-    flexflow_tpu_torch._launch_config = FFConfig.parse_args(
+    cfg = flexflow_tpu_torch._launch_config = FFConfig.parse_args(
         env_args + launcher_args)
     if os.environ.get("FLEXFLOW_PLATFORM"):
         device.set_default_device(os.environ["FLEXFLOW_PLATFORM"])
+    if cfg.mesh_shape or cfg.num_nodes > 1 or "WORLD_SIZE" in os.environ:
+        start_group(cfg)
     sys.argv = [script] + script_args
     runpy.run_path(script, run_name="__main__")
     return 0

@@ -7,21 +7,40 @@ forward (compiler/lowering.py) and returns a `CompiledModel` with
 `save_checkpoint`, `load_checkpoint`, `get_weight`, `set_weight` and
 `make_multi_step`, as the JAX package's, and its reports: `drift_stats`,
 `goodput_report`, `health_report`, `op_attribution`, `profile_report`
-and `recompile_on_condition`. It runs on one device: ZeRO and pipelines
-are not ported yet. The config's `telemetry_dir` turns on the span stream
-(telemetry.py) at compile, as in JAX.
+and `recompile_on_condition`. Pipelines are not ported yet. The config's
+`telemetry_dir` turns on the span stream (telemetry.py) at compile, as
+in JAX.
 
 The strategy is chosen as in JAX (`_pick_strategy`): a strategy file
 (`import_strategy_file`), else the Unity search (search/) of the search
 machine when `search_budget > 0` and that machine has more than one device
 (`search_num_nodes` / `search_num_workers` describe one larger than the
 real machine), else the data-parallel strategy; it is saved to
-`export_strategy_file` when that is set. The machine is
-`machine_model_file`'s or the one device the compile runs on
-(`resolve_machine`); a machine file of more than one device raises, as
-the port executes on one. On one
-device the shardings are carried and none is applied, as a one-device
-mesh applies none in JAX; the strategy's `remat` map ({layer: "full" |
+`export_strategy_file` when that is set. The machine is JAX's
+(`resolve_machine`): the machine file, `--nodes`, `mesh_shape`, else one
+"data" axis over the world, one GPU a rank; it must cover the world.
+
+Over a mesh (`over_mesh`: the config names one, or the process group
+has more than one rank; runtime/distributed.py starts the group) the
+program runs SPMD on every rank, the mesh a named `DeviceMesh`
+(parallel/machine.py `build_mesh`) and the strategy DTensor placements
+(parallel/sharding.py): each weight is a DTensor of its strategy dims
+where `constrainable` admits them (`_weight_dims`, JAX `compile.py:
+421-447`), drawn full from the seeded generator on every rank, which
+keeps its block (every world holds world 1's weights); inputs and labels
+are each rank's rows (`_put`, the loader's `rows`); the lowering
+constrains each layer's outputs (compiler/lowering.py); the loss is the
+mean over the global batch. The gradients come back from autograd with a
+pending sum over the batch axes; `_sync_grads` all-reduces them into the
+param's layout or, under ZeRO, reduce-scatters them into the moments'
+(`zero_sharding`: zero1 shards the moments, zero2 also reduce-scatters
+each microbatch's gradient before accumulating it; both are off on a
+mesh without a batch axis > 1, JAX `compile.py:451-507`), and the
+optimizer runs on each rank's blocks: under ZeRO the rank's block of
+each param, then all-gathered back into the param. Without a mesh the
+program is the one-device program, and the shardings are carried and
+none is applied, as a one-device mesh applies none in JAX. The
+strategy's `remat` map ({layer: "full" |
 "dots"}, searched per layer with `remat_search`) reaches the lowering,
 and `cfg.remat` (the deprecated uniform alias) makes it "full" for every
 layer when the strategy has none. `predicted_step_time()` and
@@ -107,8 +126,9 @@ from flexflow_tpu_torch.losses import LossType, compute_loss
 from flexflow_tpu_torch.metrics import MetricsType, PerfMetrics, compute_metrics
 from flexflow_tpu_torch.optimizers import SGDOptimizer
 from flexflow_tpu_torch.parallel.default_strategy import data_parallel_strategy
-from flexflow_tpu_torch.parallel.machine import MachineSpec
-from flexflow_tpu_torch.parallel.sharding import Strategy
+from flexflow_tpu_torch.parallel.machine import MachineSpec, build_mesh
+from flexflow_tpu_torch.parallel.sharding import (Strategy, constrainable,
+                                                  placements)
 from flexflow_tpu_torch.runtime.dataloader import (SingleDataLoader,
                                                    group_microbatches,
                                                    prefetch_multi,
@@ -116,19 +136,126 @@ from flexflow_tpu_torch.runtime.dataloader import (SingleDataLoader,
 
 
 def resolve_machine(cfg, device=None) -> MachineSpec:
-    """The machine a compile runs on: `machine_model_file`'s, else the one
-    device it executes on (`MachineSpec.detect`, parallel/machine.py). The
-    port executes on one device: a machine file of more than one raises."""
-    if not cfg.machine_model_file:
-        return MachineSpec.detect(device=device)
-    machine = MachineSpec.from_file(cfg.machine_model_file)
-    if machine.num_devices > 1:
-        raise NotImplementedError(
-            f"machine {dict(machine.mesh_axes)} has {machine.num_devices} "
-            "devices: the port executes on one (multi-GPU execution is "
-            "ROADMAP Queue 1 item 9); search a larger machine with "
-            "search_num_nodes / search_num_workers and export_strategy_file")
+    """The machine a compile runs on (JAX `compile.py:146-159`): the
+    machine file, else `--nodes` as a "node" axis across the network over
+    a "data" axis of each node's workers, else `mesh_shape`, else one
+    "data" axis over the world (`MachineSpec.detect`). It must cover the
+    world, one device a rank: a machine of more devices raises JAX's
+    message."""
+    from flexflow_tpu_torch.runtime.distributed import world_size
+
+    if cfg.machine_model_file:
+        machine = MachineSpec.from_file(cfg.machine_model_file)
+    elif not cfg.mesh_shape and cfg.num_nodes > 1:
+        workers = cfg.workers_per_node or max(
+            1, world_size() // cfg.num_nodes)
+        machine = MachineSpec.detect({"node": cfg.num_nodes,
+                                      "data": workers},
+                                     dcn_axes=("node",), device=device)
+    else:
+        machine = MachineSpec.detect(cfg.mesh_shape, device=device)
+    have = world_size()
+    if machine.num_devices > have:
+        raise ValueError(f"mesh {dict(machine.mesh_axes)} needs "
+                         f"{machine.num_devices} devices, have {have}")
+    if machine.num_devices < have:
+        raise ValueError(f"mesh {dict(machine.mesh_axes)} covers "
+                         f"{machine.num_devices} devices of the world's "
+                         f"{have}: one device a rank, the mesh spans them "
+                         "all")
     return machine
+
+
+def over_mesh(cfg) -> bool:
+    """Whether a compile runs over the process group: the config names a
+    mesh (`mesh_shape`, `--nodes`), or the started group has more than
+    one rank. Otherwise it is the one-device program, no group needed."""
+    from flexflow_tpu_torch.runtime.distributed import world_size
+
+    return bool(cfg.mesh_shape) or cfg.num_nodes > 1 or world_size() > 1
+
+
+def _zero_axes_of(mesh_axes: Dict[str, int]) -> List[str]:
+    """The mesh axes ZeRO shards the moments over (JAX `compile.py:
+    272-281`): the batch axes ("node", "data", else the first axis) of
+    degree > 1; every other axis already partitions the params."""
+    axes = [a for a in ("node", "data") if a in mesh_axes]
+    if not axes and mesh_axes:
+        axes = [next(iter(mesh_axes))]
+    return [a for a in axes if mesh_axes[a] > 1]
+
+
+def _zero_moment_dims(dims, shape, mesh_axes: Dict[str, int],
+                      zero_axes: Sequence[str]) -> list:
+    """One param's moment layout under ZeRO (JAX `_zero_moment_pspec`,
+    `compile.py:284-300`): its own dims plus the full batch-axis degree
+    on the first unsharded dim that degree divides; a param with no such
+    dim, or already sharded over a batch axis, keeps its own. Mirrored by
+    search/cost_model.py `zero_divisor`."""
+    spec = list(dims) + [None] * (len(shape) - len(dims))
+    used = {a for d in spec if d is not None
+            for a in ((d,) if isinstance(d, str) else tuple(d))}
+    if used & set(zero_axes):
+        return spec
+    deg = 1
+    for a in zero_axes:
+        deg *= mesh_axes[a]
+    if deg <= 1:
+        return spec
+    for i, d in enumerate(spec):
+        if d is None and shape[i] % deg == 0:
+            spec[i] = zero_axes[0] if len(zero_axes) == 1 \
+                else tuple(zero_axes)
+            break
+    return spec
+
+
+def _overlay_parallel_ops(model, strategy: Strategy) -> None:
+    """Each explicit parallel op's output takes the layout it requests
+    (ops/parallel_ops.py `requested_dims`), over what the strategy gave
+    it, as in JAX (`compile.py:92-112`)."""
+    from flexflow_tpu_torch.ops.op_type import PARALLEL_OPS
+    from flexflow_tpu_torch.ops.parallel_ops import requested_dims
+    from flexflow_tpu_torch.parallel.sharding import OpSharding
+
+    for layer in model.layers:
+        if layer.op_type not in PARALLEL_OPS:
+            continue
+        src = layer.inputs[0]
+        incoming = None
+        if src.owner is not None:
+            sh = strategy.op_shardings.get(src.owner.name)
+            if sh and src.owner_idx < len(sh.outputs):
+                incoming = sh.outputs[src.owner_idx]
+        elif src.name in strategy.input_shardings:
+            incoming = strategy.input_shardings[src.name]
+        strategy.op_shardings[layer.name] = OpSharding(
+            outputs=[requested_dims(layer, incoming)])
+
+
+def _check_mesh_strategy(model, strategy: Strategy) -> None:
+    """Refuse what the mesh path does not run yet: the placed fork-join
+    (`inter:` placements), sequence-parallel attention and expert
+    parallelism's all-to-alls (`ep:`, an expert dim sharded)."""
+    from flexflow_tpu_torch.ops.op_type import OperatorType
+
+    for layer in model.layers:
+        sh = strategy.sharding_for(layer.name)
+        what = None
+        if "placement" in sh.attrs:
+            what = f"the placed fork-join (inter:{sh.attrs['placement']})"
+        elif "seq_parallel" in sh.attrs:
+            what = "sequence-parallel ring attention"
+        elif layer.op_type is OperatorType.EXPERTS and any(
+                d is not None for d in sh.weight_dims("kernel")[:1]):
+            what = "expert parallelism (ep:, experts sharded)"
+        elif layer.op_type is OperatorType.GROUP_BY and any(
+                d is not None for d in sh.output_dims(0)[:1]):
+            what = "expert parallelism (ep:, dispatch sharded)"
+        if what is not None:
+            raise NotImplementedError(
+                f"layer {layer.name}: {what} does not run over a mesh yet "
+                "(ROADMAP Queue 1 item 9: the rest of multi-GPU)")
 
 
 def _search_machine(cfg, machine: MachineSpec) -> MachineSpec:
@@ -148,8 +275,10 @@ def _search_machine(cfg, machine: MachineSpec) -> MachineSpec:
 
 def _pick_strategy(model, machine: MachineSpec, optimizer=None,
                    device=None) -> Strategy:
-    """A strategy file, else a search of the search machine, else data
-    parallel (JAX's order). No fallback: a search that fails raises."""
+    """A strategy file, else a search of the search machine (the real
+    mesh unless search_num_nodes / search_num_workers describe a larger
+    one), else data parallel (JAX's order). No fallback: a search that
+    fails raises."""
     cfg = model.config
     if cfg.pipeline_stages > 1:
         raise NotImplementedError(
@@ -159,7 +288,7 @@ def _pick_strategy(model, machine: MachineSpec, optimizer=None,
         strategy = Strategy.load(cfg.import_strategy_file)
     else:
         sm = _search_machine(cfg, machine)
-        if sm is not machine and sm.mesh_axes != machine.mesh_axes \
+        if sm.num_devices > machine.num_devices \
                 and not cfg.export_strategy_file:
             warnings.warn(
                 f"searching for machine {sm.mesh_axes} but executing on "
@@ -210,7 +339,9 @@ def compile_model(model, optimizer, loss_type, metrics: Sequence = (),
 def _compile_model(model, optimizer, loss_type, metrics, device, outputs):
     optimizer = optimizer or SGDOptimizer(lr=model.config.learning_rate)
     machine = resolve_machine(model.config, device)
+    mesh = build_mesh(machine, device) if over_mesh(model.config) else None
     strategy = _pick_strategy(model, machine, optimizer, device)
+    _overlay_parallel_ops(model, strategy)
     if model.config.export_strategy_file:
         strategy.save(model.config.export_strategy_file)
     if outputs is None:
@@ -218,7 +349,7 @@ def _compile_model(model, optimizer, loss_type, metrics, device, outputs):
     return CompiledModel(model, optimizer, LossType.from_any(loss_type),
                          [MetricsType.from_any(m) for m in metrics],
                          list(outputs), device=device,
-                         strategy=strategy, machine=machine)
+                         strategy=strategy, machine=machine, mesh=mesh)
 
 
 def _host_or_tensor(value):
@@ -230,12 +361,29 @@ def _host_or_tensor(value):
     return np.asarray(value)
 
 
+def _local(x):
+    """A DTensor's block on this rank (the tensor itself otherwise)."""
+    from torch.distributed.tensor import DTensor
+
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _full(x):
+    """A DTensor's full value on every rank, a plain tensor (a collective:
+    every rank calls it); the tensor itself otherwise."""
+    from torch.distributed.tensor import DTensor
+
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
 class CompiledModel:
     def __init__(self, model, optimizer, loss_type: LossType,
                  metrics: List[MetricsType], outputs, device=None,
                  strategy: Optional[Strategy] = None,
-                 machine: Optional[MachineSpec] = None):
+                 machine: Optional[MachineSpec] = None, mesh=None):
         self.device = resolve_device(device)
+        # the DeviceMesh the program runs over, or None (one device)
+        self.mesh = mesh
         self.model = model
         self.cfg = model.config
         self.optimizer = optimizer
@@ -244,6 +392,8 @@ class CompiledModel:
         # the machine the cost model prices this compile on (one device)
         self.machine = machine or resolve_machine(self.cfg, self.device)
         self.strategy = strategy or data_parallel_strategy(model, self.machine)
+        if mesh is not None:
+            _check_mesh_strategy(model, self.strategy)
         # this compile's strategy-cache event (None when nothing searched)
         self.search_cache_info = getattr(self.strategy, "_cache_info", None)
         # the last fit's auto_refit info (learned_cost.auto_refit)
@@ -290,14 +440,144 @@ class CompiledModel:
         self.params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
         self.state: Dict[str, Any] = {}
         self.opt_state: Optional[Dict[str, Any]] = None
+        # over a mesh: each weight's placements and its update layout
+        # (the moments', the gradient's after its sync; the param's own
+        # unless ZeRO shards the moments further), and under ZeRO each
+        # rank's f32 block of the param that the optimizer updates
+        self._zero = self._zero_mode()
+        self._w_pl: Dict[tuple, list] = {}
+        self._u_pl: Dict[tuple, list] = {}
+        self._zbuf: Dict[tuple, torch.Tensor] = {}
+        if mesh is not None:
+            self._layouts()
+
+    def _build_steps(self) -> None:
+        """Rebuild the forward and the step programs after the strategy
+        changed (a template applied to `cm.strategy` after compile, as
+        JAX's tests do before `init`), and over a mesh the weights'
+        layouts."""
+        if self.mesh is not None:
+            _check_mesh_strategy(self.model, self.strategy)
+            self._layouts()
+        self.forward_fn = self._build_forward()
+        self._multi_cache.clear()
 
     def _build_forward(self):
         fwd = build_forward(self.model.layers, self.model.input_tensors,
                             self.outputs, compute_dtype=self.cfg.compute_dtype,
                             enable_fusion=self.cfg.enable_fusion,
-                            remat=self.strategy.remat)
+                            remat=self.strategy.remat, mesh=self.mesh,
+                            strategy=self.strategy)
         fwd.layer_ranges = bool(self.cfg.profiling)
         return fwd
+
+    # ------------------------------------------------------------- sharding
+    @property
+    def _axes(self) -> Dict[str, int]:
+        return dict(self.machine.mesh_axes)
+
+    def _pl(self, dims, shape) -> list:
+        """The placements of `dims` for a tensor of `shape`: replicated
+        where `constrainable` refuses the layout or DTensor cannot say it
+        (JAX's `_weight_sharding` and `input_sharding` rule)."""
+        from torch.distributed.tensor import Replicate
+
+        pl = (placements(dims, self.mesh)
+              if constrainable(dims, shape, self._axes) else None)
+        return pl if pl is not None else [Replicate()] * self.mesh.ndim
+
+    def _weight_dims(self, layer_name: str, wname: str, shape) -> list:
+        dims = self.strategy.sharding_for(layer_name).weight_dims(wname)
+        return dims if (constrainable(dims, shape, self._axes) and
+                        placements(dims, self.mesh) is not None) else []
+
+    def _zero_mode(self) -> str:
+        """cfg.zero_sharding, off without a mesh or on a mesh with no
+        batch axis of degree > 1 (JAX `compile.py:451-460`)."""
+        mode = (self.cfg.zero_sharding or "off").lower()
+        if mode not in ("off", "zero1", "zero2"):
+            raise ValueError(f"zero_sharding={self.cfg.zero_sharding!r} "
+                             "(choose from off/zero1/zero2)")
+        if mode != "off" and (self.mesh is None
+                              or not _zero_axes_of(self._axes)):
+            return "off"
+        return mode
+
+    def _layouts(self) -> None:
+        """Each weight's placements (its strategy dims where they apply)
+        and its update layout: the moments' (JAX `_moment_shardings`),
+        which under ZeRO adds the batch axes on the first free dim they
+        divide."""
+        za = _zero_axes_of(self._axes)
+        for layer in self._weight_layers():
+            for w, spec in layer.weight_specs.items():
+                dims = self._weight_dims(layer.name, w, spec.shape)
+                self._w_pl[layer.name, w] = self._pl(dims, spec.shape)
+                udims = (_zero_moment_dims(dims, spec.shape, self._axes, za)
+                         if self._zero != "off" else dims)
+                self._u_pl[layer.name, w] = self._pl(udims, spec.shape)
+
+    def input_placements(self, tensor, lead: int = 0) -> list:
+        """A graph input's placements (JAX `input_sharding`), with `lead`
+        unsharded leading dims (accumulation's microbatches, the K steps
+        of one dispatch)."""
+        dims = [None] * lead + self.strategy.input_dims(tensor.name)
+        return self._pl(dims, (1,) * lead + tuple(tensor.shape))
+
+    def label_placements(self, shape, lead: int = 0) -> list:
+        """The label's placements (JAX `label_sharding`): dim 0 over
+        "data" (else the first axis) when its degree divides it."""
+        ax = "data" if "data" in self._axes else next(iter(self._axes))
+        dims = [None] * lead + ([ax] if len(shape) > lead else [])
+        return self._pl(dims, tuple(shape))
+
+    def _put(self, x, pl):
+        """Data as the DTensor of placements `pl` (JAX `_put`): a DTensor
+        passes as it is; a full array or tensor, which every rank holds,
+        gives each rank its own block, and nothing is sent."""
+        from torch.distributed.tensor import DTensor
+
+        from flexflow_tpu_torch.runtime.distributed import \
+            global_batch_from_full
+
+        if isinstance(x, DTensor):
+            return x
+        return global_batch_from_full(x, self.mesh, pl)
+
+    def _feed(self, inputs, label, lead: int = 0):
+        """The step's inputs and label on the device: over a mesh as the
+        DTensors of their layouts (`lead` stacked leading dims)."""
+        if self.mesh is None:
+            return ([to_device(x, self.device) for x in inputs],
+                    to_device(label, self.device))
+        ins = [self._put(x, self.input_placements(t, lead))
+               for x, t in zip(inputs, self.model.input_tensors)]
+        return ins, self._put(label, self.label_placements(
+            tuple(label.shape), lead))
+
+    def _host_rows(self, lead: int):
+        """The loader's cut for this rank (runtime/dataloader.py `rows` and
+        `wrap`): rows(kind, i, array) -> this rank's block of batch array
+        i (the inputs, then the label) with `lead` stacked dims, one more
+        in a K-step group (kind "k"); wrap(kind, dx, dy, shapes) makes the
+        device blocks DTensors of the full `shapes`."""
+        from flexflow_tpu_torch.runtime.distributed import (host_local_batch,
+                                                            local_rows)
+
+        def pls(k, i, shape):
+            n = lead + (k == "k")
+            ts = self.model.input_tensors
+            return (self.input_placements(ts[i], n) if i < len(ts)
+                    else self.label_placements(shape, n))
+
+        def rows(k, i, arr):
+            return local_rows(arr, self.mesh, pls(k, i, arr.shape))
+
+        def wrap(k, dx, dy, shapes):
+            out = [host_local_batch(t, self.mesh, pls(k, i, shapes[i]))
+                   for i, t in enumerate(list(dx) + [dy])]
+            return out[:-1], out[-1]
+        return rows, wrap
 
     # ---------------------------------------------------------------- init
     def _weight_layers(self):
@@ -325,23 +605,88 @@ class CompiledModel:
         placed = {}
         for layer in layers:
             placed[layer.name] = {
-                w: self._place(params[layer.name][w], spec, f"{layer.name}.{w}")
+                w: self._place(params[layer.name][w], spec, f"{layer.name}.{w}",
+                               (layer.name, w))
                 for w, spec in sorted(layer.weight_specs.items())}
         self.params = placed
         self.state = {}
-        self.opt_state = self.optimizer.init_state(placed)
+        self.opt_state = self._init_opt_state(placed)
         # the first watermark: the persistent footprint right after init
-        self._watermarks.sample("init", (self.params, self.opt_state),
-                                self.device)
+        self._watermarks.sample("init", self._local_trees(), self.device)
         return self.params
 
-    def _place(self, value, spec, what: str) -> torch.Tensor:
+    def _place(self, value, spec, what: str, key=None) -> torch.Tensor:
+        """A weight as the f32 master copy on the device; over a mesh, the
+        DTensor of its placements, each rank keeping its own block of the
+        full value (sharded at birth: every world holds the weights of
+        world 1)."""
         x = to_device(value, self.device)
         if tuple(x.shape) != tuple(spec.shape):
             raise ValueError(f"{what}: shape {tuple(x.shape)} vs expected "
                              f"{tuple(spec.shape)}")
-        x = x.to(spec.dtype.torch_dtype).clone(memory_format=torch.contiguous_format)
+        x = x.to(spec.dtype.torch_dtype)
+        if self.mesh is not None:
+            from torch.distributed.tensor import DTensor
+
+            from flexflow_tpu_torch.runtime.distributed import local_rows
+
+            pl = self._w_pl[key]
+            local = local_rows(x, self.mesh, pl).clone(
+                memory_format=torch.contiguous_format)
+            return DTensor.from_local(local, self.mesh, pl,
+                                      run_check=False).requires_grad_(
+                                          x.is_floating_point())
+        x = x.clone(memory_format=torch.contiguous_format)
         return x.requires_grad_(x.is_floating_point())
+
+    def _zero_block(self, key, t: torch.Tensor) -> torch.Tensor:
+        """The block of a param's local tensor `t` that this rank updates
+        under ZeRO: the chunk of the update layout's extra shard dim at
+        this rank's coordinate on each ZeRO axis (a view)."""
+        from torch.distributed.tensor import Shard
+
+        coord = self.mesh.get_coordinate()
+        wpl, upl = self._w_pl[key], self._u_pl[key]
+        for j, (a, b) in enumerate(zip(wpl, upl)):
+            if isinstance(b, Shard) and not isinstance(a, Shard):
+                n = self.mesh.size(j)
+                t = t.chunk(n, dim=b.dim)[coord[j]]
+        return t
+
+    def _init_opt_state(self, params):
+        """The optimizer's state; over a mesh its moment trees are
+        DTensors of the update layouts (sharded at birth under ZeRO), and
+        ZeRO's param blocks are allocated."""
+        if self.mesh is None:
+            return self.optimizer.init_state(params)
+        from torch.distributed.tensor import DTensor
+
+        blocks = {}
+        for l, ws in params.items():
+            blocks[l] = {}
+            for w, p in ws.items():
+                blk = self._zero_block((l, w), p.to_local())
+                blocks[l][w] = torch.empty(blk.shape, dtype=blk.dtype,
+                                           device=blk.device)
+                if self._w_pl[l, w] != self._u_pl[l, w]:
+                    self._zbuf[l, w] = blocks[l][w]
+        st = self.optimizer.init_state(blocks)
+        for k, v in st.items():
+            if isinstance(v, dict):
+                st[k] = {l: {w: DTensor.from_local(t, self.mesh,
+                                                   self._u_pl[l, w],
+                                                   run_check=False)
+                             for w, t in ws.items()} for l, ws in v.items()}
+        return st
+
+    def _local_trees(self):
+        """(params, opt_state) with each DTensor as this rank's block: what
+        the rank holds."""
+        def loc(x):
+            if isinstance(x, dict):
+                return {k: loc(v) for k, v in x.items()}
+            return _local(x)
+        return loc(self.params or {}), loc(self.opt_state or {})
 
     # ---------------------------------------------------------------- steps
     def _loss(self, logits, label):
@@ -351,17 +696,77 @@ class CompiledModel:
         return compute_loss(self.loss_type, logits.float(), label)
 
     def _apply_update(self, params, opt_state, grads):
+        if self.mesh is not None:
+            return self._mesh_update(params, opt_state, grads)
         if self.fopt_plan is not None:
             return fused_optim.fused_update(self.fopt_plan, grads, opt_state,
                                             params)
         return self.optimizer.update(grads, opt_state, params)
 
+    @torch.no_grad()
+    def _mesh_update(self, params, opt_state, grads):
+        """The update over a mesh, on each rank's blocks: the optimizer
+        (the fused kernel, one launch over the rank's leaves) writes the
+        local params and moments in place; under ZeRO it updates the
+        rank's block of each param, whose all-gather then rewrites the
+        full param (JAX `compile.py:619-645`). `grads` are synced."""
+        lp, lg = {}, {}
+        for l, ws in params.items():
+            lp[l], lg[l] = {}, {}
+            for w, p in ws.items():
+                lg[l][w] = _local(grads[l][w]).contiguous()
+                buf = self._zbuf.get((l, w))
+                if buf is None:
+                    lp[l][w] = _local(p)
+                else:
+                    buf.copy_(self._zero_block((l, w), _local(p)))
+                    lp[l][w] = buf
+        ls = {k: ({l: {w: _local(t) for w, t in ws.items()}
+                   for l, ws in v.items()} if isinstance(v, dict) else v)
+              for k, v in opt_state.items()}
+        if self.fopt_plan is not None:
+            ls = fused_optim.fused_update(self.fopt_plan, lg, ls, lp)
+        else:
+            ls = self.optimizer.update(lg, ls, lp)
+        for k, v in ls.items():
+            if not isinstance(v, dict):
+                opt_state[k] = v  # Adam's count
+        for key, buf in self._zbuf.items():
+            self._zero_gather(key, buf, _local(params[key[0]][key[1]]))
+        return opt_state
+
+    def _zero_gather(self, key, buf: torch.Tensor, out: torch.Tensor) -> None:
+        """ZeRO's all-gather: each rank's updated block `buf` of a param
+        into its full local tensor `out`, along the update layout's shard
+        dim over each ZeRO axis's group (the last axis first, as the
+        blocks nest), by c10d's `all_gather_into_tensor` (on a dim 0
+        block straight into `out`)."""
+        import torch.distributed as dist
+        from torch.distributed.tensor import Shard
+
+        axes = [(j, b.dim) for j, (a, b) in enumerate(
+            zip(self._w_pl[key], self._u_pl[key]))
+            if isinstance(b, Shard) and not isinstance(a, Shard)]
+        t = buf
+        for i, (j, d) in enumerate(reversed(axes)):
+            n, group = self.mesh.size(j), self.mesh.get_group(j)
+            if d == 0 and i == len(axes) - 1:
+                dist.all_gather_into_tensor(out, t.contiguous(), group=group)
+                return
+            flat = torch.empty((n * t.numel(),), dtype=t.dtype,
+                               device=t.device)
+            dist.all_gather_into_tensor(flat, t.contiguous().view(-1),
+                                        group=group)
+            t = torch.cat(flat.view(n, *t.shape).unbind(0), dim=d)
+        out.copy_(t)
+
     def value_and_grads(self, params, state, inputs, label, rng=None):
         """Forward in training mode (its dropout drawn from `rng`), loss,
         and the gradient of every floating param: (loss, logits,
-        new_state, grads tree)."""
-        inputs = [to_device(x, self.device) for x in inputs]
-        label = to_device(label, self.device)
+        new_state, grads tree). Over a mesh the loss is the global mean,
+        a plain tensor on every rank, and the gradients are DTensors as
+        autograd leaves them (a pending sum over the batch axes)."""
+        inputs, label = self._feed(inputs, label)
         order = [(l, w) for l, ws in params.items() for w, t in ws.items()
                  if t.requires_grad]
         outs, new_state = self.forward_fn(params, state, inputs,
@@ -381,14 +786,16 @@ class CompiledModel:
         for (l, w), g in zip(order, flat):
             grads.setdefault(l, {})[w] = (torch.zeros_like(params[l][w])
                                           if g is None else g)
-        return loss.detach(), logits.detach(), new_state, grads
+        return _full(loss.detach()), logits.detach(), new_state, grads
 
     def _metrics(self, logits, label):
         # no f32 copy of the logits when there is no metric to compute
         if not self.metrics:
             return {}
         with torch.no_grad():
-            return compute_metrics(self.metrics, logits.float(), label)
+            # over a mesh the metrics read the gathered logits
+            return compute_metrics(self.metrics, _full(logits).float(),
+                                   _full(label))
 
     def train_step(self, params, opt_state, state, inputs, label, rng=None):
         """One optimizer update: `value_and_grads`, then the update, or
@@ -400,9 +807,10 @@ class CompiledModel:
         if self._accum_steps > 1:
             return self._accum_step(params, opt_state, state, inputs, label,
                                     rng)
-        label = to_device(label, self.device)
+        inputs, label = self._feed(inputs, label)
         loss, logits, new_state, grads = self.value_and_grads(
             params, state, inputs, label, rng)
+        grads = self._sync_grads(grads)
         sentinels = self._sentinel_metrics(loss, grads)
         opt_state = self._apply_update(params, opt_state, grads)
         mvals = self._metrics(logits, label)
@@ -417,13 +825,45 @@ class CompiledModel:
         if not self.cfg.health_sentinels:
             return {}
         with torch.no_grad():
-            return health.sentinel_metrics(loss,
-                                           health.grad_global_norm(grads))
+            norm = (health.grad_global_norm(grads) if self.mesh is None
+                    else self._mesh_grad_norm(grads))
+            return health.sentinel_metrics(loss, norm)
+
+    def _sync_grads(self, grads):
+        """Over a mesh, each gradient in its update layout: the pending
+        sum over the batch axes all-reduced to the param's layout, or
+        under ZeRO reduce-scattered to the moments' (JAX constrains the
+        gradients to the moment shardings, `compile.py:619-631`). The
+        identity on one device."""
+        if self.mesh is None:
+            return grads
+        return {l: {w: g.redistribute(self.mesh, self._u_pl[l, w])
+                    for w, g in ws.items()} for l, ws in grads.items()}
+
+    def _mesh_grad_norm(self, grads) -> torch.Tensor:
+        """The global L2 norm of synced DTensor gradients: each rank's
+        blocks' squares over their replicas, summed over the world in one
+        all-reduce."""
+        import torch.distributed as dist
+        from torch.distributed.tensor import Replicate
+
+        sq = None
+        for ws in grads.values():
+            for g in ws.values():
+                reps = 1
+                for j, p in enumerate(g.placements):
+                    if isinstance(p, Replicate):
+                        reps *= self.mesh.size(j)
+                part = torch.linalg.vector_norm(_local(g).float()) ** 2 / reps
+                sq = part if sq is None else sq + part
+        if sq is None:
+            return torch.zeros((), dtype=torch.float32)
+        dist.all_reduce(sq)
+        return torch.sqrt(sq)
 
     def _accum_step(self, params, opt_state, state, inputs, label, rng=None):
         n = self._accum_steps
-        inputs = [to_device(x, self.device) for x in inputs]
-        label = to_device(label, self.device)
+        inputs, label = self._feed(inputs, label, lead=1)
         want = [(n, *t.shape) for t in self.model.input_tensors]
         got = [tuple(x.shape) for x in inputs]
         if got != want or label.dim() < 2 or label.shape[0] != n:
@@ -438,6 +878,10 @@ class CompiledModel:
                 params, state, [x[j] for x in inputs], label[j],
                 None if rng is None else ff_random.fold_in(rng, j))
             mvals = self._metrics(logits, label[j])
+            if self._zero == "zero2":
+                # each microbatch's gradient reduce-scattered before it
+                # joins the sum, which is then held sharded
+                grads = self._sync_grads(grads)
             if gsum is None:
                 gsum, lsum, msum = grads, loss, mvals
                 continue
@@ -451,6 +895,7 @@ class CompiledModel:
             for g in ws.values():
                 g.mul_(inv)
         loss = lsum * inv
+        gsum = self._sync_grads(gsum)
         sentinels = self._sentinel_metrics(loss, gsum)
         opt_state = self._apply_update(params, opt_state, gsum)
         mvals = {k: v * inv for k, v in msum.items()}
@@ -493,13 +938,26 @@ class CompiledModel:
             raise ValueError(f"make_multi_step: n={n}, need n >= 1")
         if self.device.type == "cuda":
             from flexflow_tpu_torch.compiler.graph_steps import GraphedSteps
+            from flexflow_tpu_torch.runtime.distributed import backend_name
 
+            if self.mesh is not None and backend_name() == "gloo":
+                raise ValueError(
+                    f"make_multi_step({n}) over a gloo process group: gloo's "
+                    "collectives cannot be captured in a CUDA graph (use "
+                    "NCCL, or steps_per_dispatch=1)")
             return GraphedSteps(self, n)
 
         def multi(params, opt_state, state, inputs, labels, rng, i0=0):
+            inputs, labels = self._feed_stacked(inputs, labels)
             return self._run_steps(n, params, opt_state, state, inputs,
                                    labels, rng, i0)
         return multi
+
+    def _feed_stacked(self, inputs, labels):
+        """A dispatch's stacked (n, ...) inputs and labels as `_feed`
+        gives them (one more stacked dim under accumulation)."""
+        return self._feed(list(inputs), labels,
+                          1 + int(self._accum_steps > 1))
 
     def _get_multi(self, k: int):
         """make_multi_step(k), one per width per (accumulation, sentinels)
@@ -512,17 +970,22 @@ class CompiledModel:
 
     @torch.no_grad()
     def eval_step(self, params, state, inputs, label):
-        inputs = [to_device(x, self.device) for x in inputs]
-        label = to_device(label, self.device)
+        inputs, label = self._feed(inputs, label)
         outs, _ = self.forward_fn(params, state, inputs)
         logits = outs[0].float()
-        return (compute_loss(self.loss_type, logits, label),
-                compute_metrics(self.metrics, logits, label))
+        loss = _full(compute_loss(self.loss_type, logits, label))
+        return loss, compute_metrics(self.metrics, _full(logits),
+                                     _full(label))
 
     @torch.no_grad()
     def infer(self, params, state, inputs):
-        outs, _ = self.forward_fn(
-            params, state, [to_device(x, self.device) for x in inputs])
+        """The outputs (DTensors over a mesh)."""
+        if self.mesh is None:
+            ins = [to_device(x, self.device) for x in inputs]
+        else:
+            ins = [self._put(x, self.input_placements(t))
+                   for x, t in zip(inputs, self.model.input_tensors)]
+        outs, _ = self.forward_fn(params, state, ins)
         return outs
 
     def _coerce_batch(self, batch_size: Optional[int]) -> int:
@@ -739,8 +1202,11 @@ class CompiledModel:
                                          _pml.sums.get("loss", 0.0),
                                          _pm.sums, _pm.train_all, history)
 
+                rows, wrap = (self._host_rows(int(accum > 1))
+                              if self.mesh is not None else (None, None))
                 gen = prefetch_multi(batches, k, self.device,
-                                     retry_policy=policy)
+                                     retry_policy=policy, rows=rows,
+                                     wrap=wrap)
                 try:
                     while True:
                         # the wait for the loader: the data stall the
@@ -856,8 +1322,7 @@ class CompiledModel:
                 grec = gm.epoch_end(dt, epoch)
                 # the memory watermark, outside the epoch's wall
                 self._watermarks.sample(f"epoch{epoch}",
-                                        (self.params, self.opt_state),
-                                        self.device)
+                                        self._local_trees(), self.device)
                 summ = pm.summary()
                 summ["loss"] = pml.sums.get("loss", 0.0) / max(1, nb)
                 summ["epoch_time_s"] = dt
@@ -901,7 +1366,10 @@ class CompiledModel:
         pm, pml = PerfMetrics(), PerfMetrics()
         ahead = max(1, int(self.cfg.dispatch_ahead))
         nb = 0
-        gen = prefetch_to_device(loader.epoch(), self.device)
+        rows, wrap = (self._host_rows(0) if self.mesh is not None
+                      else (None, None))
+        gen = prefetch_to_device(loader.epoch(), self.device, rows=rows,
+                                 wrap=wrap)
         try:
             for dx, dy in gen:
                 loss, mvals = self.eval_step(self.params, self.state, dx, dy)
@@ -945,7 +1413,7 @@ class CompiledModel:
     def forward(self, *inputs):
         if self.params is None:
             self.init()
-        outs = self.infer(self.params, self.state, inputs)
+        outs = [_full(o) for o in self.infer(self.params, self.state, inputs)]
         return outs[0] if len(outs) == 1 else outs
 
     # -------------------------------------------------------------- weights
@@ -966,8 +1434,11 @@ class CompiledModel:
                                     wname)
         if alias is not None:
             stk, b = alias
-            return self.params[layer_name][stk][b].detach().cpu().numpy().copy()
-        return self.params[layer_name][wname].detach().cpu().numpy().copy()
+            return _full(self.params[layer_name][stk].detach())[b].cpu() \
+                .numpy().copy()
+        # over a mesh the full weight, gathered (every rank calls it)
+        return _full(self.params[layer_name][wname].detach()).cpu().numpy() \
+            .copy()
 
     def set_weight(self, layer_name: str, wname: str, value):
         """Replace one weight by `value` (an array, or a tensor on any
@@ -977,6 +1448,10 @@ class CompiledModel:
         weight in place."""
         layer = self.model.get_layer_by_name(layer_name)
         alias = self._stacked_alias(layer, wname)
+        if alias is not None and self.mesh is not None:
+            raise NotImplementedError(
+                "set_weight of one fork-join branch over a mesh (ROADMAP "
+                "Queue 1 item 9: the placed fork-join)")
         if alias is not None:
             stk, b = alias
             target = self.params[layer_name][stk]
@@ -990,7 +1465,7 @@ class CompiledModel:
             return
         self.params[layer_name][wname] = self._place(
             _host_or_tensor(value), layer.weight_specs[wname],
-            f"{layer_name}.{wname}")
+            f"{layer_name}.{wname}", (layer_name, wname))
 
     # ------------------------------------------------------------ cost model
     def _candidate_for(self, layer):
@@ -1009,7 +1484,7 @@ class CompiledModel:
         search's peak with the live activations) next to what the device
         holds (the params' and moments' bytes, and on a CUDA device
         `torch.cuda.max_memory_allocated` since the last
-        `reset_peak_memory_stats`)."""
+        `reset_peak_memory_stats`); over a mesh, this rank's blocks."""
         from flexflow_tpu_torch.search import cost_model as cmod
         from flexflow_tpu_torch.search.optimize import strategy_cost
 
@@ -1029,7 +1504,8 @@ class CompiledModel:
                                                   opt_mem.zero_axes))
 
         def tree_bytes(tree):
-            return sum(t.numel() * t.element_size()
+            # this rank's blocks over a mesh
+            return sum(_local(t).numel() * _local(t).element_size()
                        for ws in (tree or {}).values() for t in ws.values())
 
         moments = 0
@@ -1038,9 +1514,12 @@ class CompiledModel:
                 moments += tree_bytes(v)
         peak = (torch.cuda.max_memory_allocated(self.device)
                 if self.device.type == "cuda" else None)
+        deg = 1
+        for a in _zero_axes_of(self._axes):
+            deg *= self._axes[a]
         return {
-            "zero_sharding": "off",
-            "data_axis_degree": 1,
+            "zero_sharding": self._zero,
+            "data_axis_degree": deg,
             "predicted_weight_state_bytes": int(pred_w),
             "predicted_opt_state_bytes": int(pred_opt),
             "predicted_peak_bytes": int(strategy_cost(

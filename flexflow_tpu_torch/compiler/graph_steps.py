@@ -38,6 +38,15 @@ the key, i0, the fused optimizer's gradient pointers) lives outside the
 graph's memory pool: a buffer from the pool may share memory with a
 tensor the capture freed earlier, which the replay overwrites. A capture
 or a replay that fails raises: nothing falls back to the eager steps.
+
+Over a mesh the trees hold DTensors and the graph captures the step's
+NCCL collectives (the gradients' all-reduce or reduce-scatter, ZeRO's
+all-gather, the loss's and the grad norm's reductions). The warm-up step
+runs every one of them before the capture, so the communicator exists
+and has run when the capture starts; the collectives read and write
+only the step's own tensors, which live in the graph's pool for as long
+as the graph does. A gloo group cannot be captured: `make_multi_step`
+refuses it on the card.
 """
 
 from __future__ import annotations
@@ -179,7 +188,8 @@ class GraphedSteps:
 
     # ------------------------------------------------------------- replay
     def __call__(self, params, opt_state, state, inputs, labels, rng, i0=0):
-        inputs = list(inputs)
+        # over a mesh the rank's blocks as DTensors, at every call alike
+        inputs, labels = self.cm._feed_stacked(inputs, labels)
         if self.graph is None:
             self._capture(params, opt_state, state, inputs, labels)
         else:

@@ -1,8 +1,8 @@
 """Layer graph -> PyTorch forward (counterpart: flexflow_tpu/compiler/lowering.py).
 
 `build_forward` returns a module that interprets the graph in topological
-order on every call; PyTorch runs eagerly, so there is no trace and no
-mesh. `training` selects the train-step lowering, as the JAX forward's
+order on every call; PyTorch runs eagerly, so there is no trace.
+`training` selects the train-step lowering, as the JAX forward's
 `training` argument does; the graph then runs under autograd and the
 gradients reach the f32 master params through the per-layer casts, and
 `rng` (a key of flexflow_tpu_torch/random.py, host or device) feeds the
@@ -28,6 +28,20 @@ launches count again. The mixed-precision policy
 is the JAX package's: floating inputs and weights are cast to the compute
 dtype, except norm params (gamma/beta), those inside fork-join branches
 included, whose lowerings compute the affine in f32.
+
+Over a mesh (`mesh`, a DeviceMesh; compiler/compile.py) the params and
+inputs are DTensors and every op runs through DTensor's propagation, the
+GSPMD of the port: an op on sharded operands computes on each rank's
+blocks and inserts the collectives its result needs. As JAX attaches a
+sharding constraint to each op's outputs, `maybe_constrain` redistributes
+each layer's outputs to the layout the strategy pins for them, and the
+graph inputs to theirs (JAX `lowering.py:30-49`): a layout that pins
+nothing, or that `constrainable` refuses, leaves the DTensor as DTensor's
+propagation left it. The run goes under DTensor's `implicit_replication`:
+a plain tensor a lowering makes (a causal band, a dropout mask drawn at
+the global shape) joins the DTensors as the same value on every rank.
+The hand-written kernels' wrappers take DTensors and run on each rank's
+blocks (kernels/*.py say which layouts each takes).
 """
 
 from __future__ import annotations
@@ -47,6 +61,8 @@ from flexflow_tpu_torch.dtype import torch_dtype
 from flexflow_tpu_torch.ops import get_op_def
 from flexflow_tpu_torch.ops.op_type import OperatorType
 from flexflow_tpu_torch.ops.registry import LoweringCtx
+from flexflow_tpu_torch.parallel.sharding import (Strategy, constrainable,
+                                                  pins_nothing, placements)
 
 NORM_TYPES = (OperatorType.LAYERNORM, OperatorType.BATCHNORM)
 
@@ -104,6 +120,25 @@ def cast_exempt(layers: Sequence[Layer]) -> Dict[str, set]:
     return out
 
 
+def maybe_constrain(x, dims, mesh):
+    """`x` redistributed to the layout `dims` pins on `mesh` (JAX
+    `maybe_constrain`): unchanged when there is no mesh, when `x` is not a
+    DTensor, when `dims` pins nothing (fully replicating would force an
+    all-gather the next op may not need) or when `constrainable` refuses
+    it."""
+    from torch.distributed.tensor import DTensor
+
+    if mesh is None or not isinstance(x, DTensor) or pins_nothing(dims):
+        return x
+    axes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    if not constrainable(dims, tuple(x.shape), axes):
+        return x
+    pl = placements(dims, mesh)
+    if pl is None or tuple(pl) == tuple(x.placements):
+        return x
+    return x.redistribute(mesh, pl)
+
+
 class GraphForward(nn.Module):
     """forward(params, state, input_arrays, training=False) ->
     (output_arrays, new_state)."""
@@ -111,8 +146,12 @@ class GraphForward(nn.Module):
     def __init__(self, layers: Sequence[Layer], graph_inputs: Sequence[Tensor],
                  outputs: Sequence[Tensor], compute_dtype: Optional[str] = None,
                  enable_fusion: bool = True,
-                 remat: Optional[Dict[str, str]] = None):
+                 remat: Optional[Dict[str, str]] = None,
+                 mesh=None, strategy: Optional[Strategy] = None):
         super().__init__()
+        # over a mesh: the layouts the strategy pins (maybe_constrain)
+        self.mesh = mesh
+        self.strategy = strategy or Strategy()
         self.order = topo_order(layers)
         self.graph_inputs = list(graph_inputs)
         self.outputs = list(outputs)
@@ -134,7 +173,8 @@ class GraphForward(nn.Module):
         return LoweringCtx(state=state, enable_fusion=self.enable_fusion,
                            training=training, rng=rng,
                            mask_hook=self.mask_hook, device=device,
-                           compute_dtype=self.cast_to, cache=self.cache)
+                           compute_dtype=self.cast_to, cache=self.cache,
+                           mesh=self.mesh)
 
     def _lower_checkpointed(self, layer: Layer, ins, w, ctx: LoweringCtx):
         """One layer's lowering as a function of (ins, w) on a sub-context:
@@ -165,12 +205,25 @@ class GraphForward(nn.Module):
             outs = self._lower_checkpointed(layer, ins, w, ctx)
         else:
             outs = get_op_def(layer.op_type).lower(layer, ins, w, ctx)
+        if self.mesh is not None:
+            sh = self.strategy.sharding_for(layer.name)
+            outs = [maybe_constrain(o, sh.output_dims(i), self.mesh)
+                    for i, o in enumerate(outs)]
         for t, o in zip(layer.outputs, outs):
             env[t.guid] = o
 
     def forward(self, params: Dict[str, Dict[str, torch.Tensor]],
                 state: Dict[str, Any], input_arrays: List[torch.Tensor],
                 training: bool = False, rng=None):
+        if self.mesh is None:
+            return self._run(params, state, input_arrays, training, rng)
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+
+        with implicit_replication():
+            return self._run(params, state, input_arrays, training, rng)
+
+    def _run(self, params, state, input_arrays, training, rng):
         device = input_arrays[0].device if input_arrays else None
         ctx = self._ctx(dict(state), training, rng, device)
         cast_to = self.cast_to
@@ -178,6 +231,9 @@ class GraphForward(nn.Module):
         for t, arr in zip(self.graph_inputs, input_arrays):
             if cast_to is not None and arr.is_floating_point():
                 arr = arr.to(cast_to)
+            if self.mesh is not None:
+                arr = maybe_constrain(arr, self.strategy.input_dims(t.name),
+                                      self.mesh)
             env[t.guid] = arr
         scope = (torch.profiler.record_function if self.layer_ranges
                  else None)
@@ -195,7 +251,8 @@ class GraphForward(nn.Module):
 def build_forward(layers: Sequence[Layer], graph_inputs: Sequence[Tensor],
                   outputs: Sequence[Tensor], compute_dtype: Optional[str] = None,
                   enable_fusion: bool = True,
-                  remat: Optional[Dict[str, str]] = None) -> GraphForward:
+                  remat: Optional[Dict[str, str]] = None, mesh=None,
+                  strategy: Optional[Strategy] = None) -> GraphForward:
     return GraphForward(layers, graph_inputs, outputs,
                         compute_dtype=compute_dtype, enable_fusion=enable_fusion,
-                        remat=remat)
+                        remat=remat, mesh=mesh, strategy=strategy)

@@ -18,7 +18,7 @@ import dataclasses
 import os
 import shlex
 import sys
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 
 @dataclasses.dataclass
@@ -32,6 +32,20 @@ class FFConfig:
     iterations: int = 0  # 0 = derive from dataset size
     seq_length: int = 0
     seed: int = 0
+    # the machine (parallel/machine.py): the mesh's named axes ({} = one
+    # "data" axis over the world), or --nodes nodes of workers_per_node
+    # ranks each as a "node" axis across the network and a "data" axis
+    # inside a node (0 = the world's ranks over the nodes). A named mesh
+    # compiles over the process group (runtime/distributed.py), one GPU a
+    # rank
+    mesh_shape: Dict[str, int] = dataclasses.field(default_factory=dict)
+    num_nodes: int = 1
+    workers_per_node: int = 0
+    # zero-redundancy data parallelism (compiler/compile.py): "off", or
+    # "zero1" (the optimizer moments sharded over the batch axes) or
+    # "zero2" (zero1, and each microbatch's gradient reduce-scattered
+    # before it is accumulated); off on a mesh without a batch axis > 1
+    zero_sharding: str = "off"
     # the strategy search (search/; --budget, --alpha, ...): compile
     # searches when search_budget > 0 and the search machine has more than
     # one device. search_num_nodes / search_num_workers describe a machine
@@ -201,8 +215,9 @@ class FFConfig:
     fused_loss: str = "auto"
     fused_optimizer: str = "auto"
     # strategy files (parallel/sharding.py; --import / --export): a file
-    # written by either package; one device applies its shardings as a
-    # one-device mesh does, and its remat map reaches the lowering
+    # written by either package; a mesh applies its shardings as DTensor
+    # placements (one device applies none), and its remat map reaches
+    # the lowering
     import_strategy_file: str = ""
     export_strategy_file: str = ""
     # rematerialization: --remat is the deprecated uniform alias (every
@@ -294,10 +309,11 @@ class FFConfig:
         p.add_argument("--iterations", type=int, default=0)
         p.add_argument("--seq-length", type=int, default=0)
         p.add_argument("--seed", type=int, default=0)
-        p.add_argument("--mesh", type=str, default=U)
-        p.add_argument("--nodes", type=int, default=U)
+        p.add_argument("--mesh", type=str, default="",
+                       help="e.g. data=4,model=2")
+        p.add_argument("--nodes", type=int, default=1)
         p.add_argument("-ll:tpu", "--workers-per-node", dest="workers",
-                       type=int, default=U)
+                       type=int, default=0)
         p.add_argument("--budget", "--search-budget", dest="budget", type=int,
                        default=0)
         p.add_argument("--alpha", "--search-alpha", dest="alpha", type=float,
@@ -339,7 +355,7 @@ class FFConfig:
         p.add_argument("--retry-attempts", type=int, default=3)
         p.add_argument("--retry-base-delay", type=float, default=0.05)
         p.add_argument("--fault-plan", type=str, default="")
-        p.add_argument("--zero-sharding", type=str, default=U,
+        p.add_argument("--zero-sharding", type=str, default="off",
                        choices=("off", "zero1", "zero2"))
         p.add_argument("--accum-steps", type=int, default=1)
         p.add_argument("--pipeline-stages", type=int, default=1)
@@ -440,6 +456,11 @@ class FFConfig:
                 "not ported yet: " + "; ".join(
                     f"{_UNPORTED[d][0]} (ROADMAP Queue 1 item "
                     f"{_UNPORTED[d][1]})" for d in given))
+        mesh: Dict[str, int] = {}
+        if args.mesh:
+            for part in args.mesh.split(","):
+                k, v = part.split("=")
+                mesh[k.strip()] = int(v)
         return FFConfig(
             epochs=args.epochs,
             batch_size=args.batch_size,
@@ -448,6 +469,10 @@ class FFConfig:
             iterations=args.iterations,
             seq_length=args.seq_length,
             seed=args.seed,
+            mesh_shape=mesh,
+            num_nodes=args.nodes,
+            workers_per_node=args.workers,
+            zero_sharding=args.zero_sharding,
             search_budget=args.budget,
             search_alpha=args.alpha,
             only_data_parallel=args.only_data_parallel,
@@ -530,9 +555,6 @@ class FFConfig:
 # The JAX parser's flags whose features the port has not yet: argparse
 # dest -> (flag, ROADMAP Queue 1 item that ports it)
 _UNPORTED = {
-    "mesh": ("--mesh", 9), "nodes": ("--nodes", 9),
-    "workers": ("--workers-per-node", 9),
-    "zero_sharding": ("--zero-sharding", 9),
     "pipeline_schedule": ("--pipeline-schedule", 9),
     "serve_objective": ("--serve-objective", 9),
 }

@@ -27,6 +27,13 @@ shared-memory tiles within the 227 KB a block may use, and sq == sk when
 causal (as the TPU kernel requires). The wrappers run the plain versions
 only for tensors on the CPU; for CUDA tensors they launch the kernels or
 raise. `launches`, `launches_dq` and `launches_dkv` count kernel launches.
+
+Over a mesh `flash_attention_qkv` takes DTensors (b, s, h, d) sharded
+over the batch (dim 0) and the heads (dim 2), as data and head-parallel
+attention lay them out: the kernels run on each rank's rows and heads,
+and the output keeps q's layout. Any other layout (a shard of the
+sequence or the head dim, a pending sum) is gathered to replicated
+first, k and v take q's layout, and the gradients come back in it.
 """
 
 from __future__ import annotations
@@ -388,7 +395,17 @@ def flash_attention(q, k, v, causal: bool = False, scale: float | None = None):
 
 def flash_attention_qkv(q, k, v, causal: bool = False, scale: float | None = None):
     """Head-minor layout entry used by ops/attention_ops: q/k/v (b, s, h, d),
-    returns (b, sq, h, d)."""
+    returns (b, sq, h, d). DTensors run on each rank's batch rows and
+    heads (the module docstring)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(q, DTensor):
+        from flexflow_tpu_torch.parallel.sharding import kernel_layout
+
+        mesh, pl = q.device_mesh, kernel_layout(q, (0, 2))
+        ql, kl, vl = [t.redistribute(mesh, pl).to_local() for t in (q, k, v)]
+        out = flash_attention_qkv(ql, kl, vl, causal=causal, scale=scale)
+        return DTensor.from_local(out, mesh, pl, run_check=False)
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                           v.transpose(1, 2), causal=causal, scale=scale)
     return out.transpose(1, 2)

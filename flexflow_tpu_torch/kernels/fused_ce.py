@@ -23,6 +23,14 @@ which it admits. The padded columns take part in the softmax, as in JAX.
 The wrappers run the plain versions only for tensors on the CPU; for CUDA
 tensors they launch the kernels or raise. `launches_fwd` and
 `launches_bwd` count kernel launches.
+
+Over a mesh `fused_cross_entropy` takes DTensor logits sharded over any
+of their row dims (the batch, the sequence): the kernels run on each
+rank's rows, and the rank's mean joins the others' as a sum of
+mean / shards, all-reduced, so the loss is the mean over the global rows
+and each rank's gradient is 1 / shards of its own mean's. Logits sharded
+over the vocab are gathered over it first, as GSPMD gathers around the
+`pallas_call`; the labels take the logits' row layout.
 """
 
 from __future__ import annotations
@@ -239,6 +247,10 @@ def fused_cross_entropy(logits, labels) -> torch.Tensor:
     if not fused_ce_supported(tuple(logits.shape), logits.dtype):
         raise ValueError(f"fused_cross_entropy: unsupported logits "
                          f"{tuple(logits.shape)} {logits.dtype}")
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(logits, DTensor):
+        return _mesh_cross_entropy(logits, labels)
     dev = logits.device.type
     if dev not in ("cpu", "cuda"):
         raise ValueError(f"fused cross-entropy runs on cuda or cpu, not {dev}")
@@ -248,3 +260,29 @@ def fused_cross_entropy(logits, labels) -> torch.Tensor:
     # converted where it lies (on the device for CUDA tensors)
     y2 = labels.reshape(-1).to(device=logits.device, dtype=torch.int32)
     return FusedCrossEntropy.apply(x2, y2.contiguous())
+
+
+def _mesh_cross_entropy(logits, labels):
+    """The DTensor path (the module docstring): each rank's rows through
+    the kernels, the global mean as an all-reduced sum of mean / shards."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from flexflow_tpu_torch.parallel.sharding import kernel_layout
+    from flexflow_tpu_torch.runtime.distributed import local_rows
+
+    mesh = logits.device_mesh
+    pl = kernel_layout(logits, range(logits.ndim - 1))
+    xl = logits.redistribute(mesh, pl).to_local()
+    if isinstance(labels, DTensor):
+        yl = labels.redistribute(mesh, pl).to_local()
+    else:
+        yl = local_rows(labels, mesh, pl)
+    shards = 1
+    for j, p in enumerate(pl):
+        if isinstance(p, Shard):
+            shards *= mesh.size(j)
+    part = fused_cross_entropy(xl, yl) / shards
+    loss = DTensor.from_local(
+        part, mesh, [Partial("sum") if isinstance(p, Shard) else Replicate()
+                     for p in pl], run_check=False)
+    return loss.redistribute(mesh, [Replicate()] * mesh.ndim)

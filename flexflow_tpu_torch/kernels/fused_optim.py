@@ -39,6 +39,12 @@ buffer allocated inside the capture could reuse the memory of a tensor
 the capture freed earlier, and the replay would overwrite the pointers
 with that tensor's values.
 
+Over a mesh the compile hands the update each rank's blocks as plain
+tensors (compiler/compile.py `_mesh_update`): the rank's local params
+and moments (under ZeRO its block of each param and its moment shard)
+and the synced gradients' blocks, so it stays one launch over the rank's
+leaves, and its tables point at blocks that persist from step to step.
+
 `plan_for` recognises the port's optimizers as the JAX one does.
 `launches` counts Adam launches, `launches_sgd` SGD launches with a trace
 (#9) and `launches_sgd_plain` those without (#8); `table_builds` counts

@@ -60,6 +60,9 @@ class LoweringCtx:
     # what a lowering builds once for the life of the forward and reads
     # on every run (the constants' device tensors), keyed by the lowering
     cache: Dict[Any, Any] = dataclasses.field(default_factory=dict)
+    # the DeviceMesh the run's DTensors live on (None: the one-device
+    # program); the parallel ops redistribute over it
+    mesh: Any = None
 
     def layer_key(self, layer: "Layer"):
         """fold_in(rng, layer.guid), a host or a device key as the rng is:

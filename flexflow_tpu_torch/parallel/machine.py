@@ -28,8 +28,10 @@ field names come from the TPU; on a GPU they mean:
 about without their being present: "h100" (an H100 SXM 80 GB node) and
 "cpu-sim" (the JAX package's CPU stand-in, kept as it is there so the two
 packages' searches compare on the CPU). `detect()` reads the device the
-program runs on, as the one device the port executes on; a CUDA card it
+program runs on, one device per rank of the process group; a CUDA card it
 has no preset for raises rather than borrowing another chip's numbers.
+`build_mesh` lays the machine's axes over the ranks as a named
+`DeviceMesh` (JAX `machine.py:170-179`).
 """
 
 from __future__ import annotations
@@ -202,8 +204,9 @@ class MachineSpec:
         means "cuda", as at the entry points): a CPU is "cpu-sim"; a CUDA
         card whose name holds "H100" is "h100" with the card's own memory
         size; any other card raises (give `machine_model_file` for it).
-        The default mesh is that one device, {"data": 1}: the port
-        executes on one device, however many the host shows."""
+        The default mesh is one "data" axis over the world: one device
+        per rank of the process group, {"data": 1} when none is
+        started."""
         dev = resolve_device(device)
         if dev.type == "cpu":
             chip, extra = "cpu-sim", {}
@@ -221,6 +224,38 @@ class MachineSpec:
         else:
             raise ValueError(f"no machine preset for device type {dev.type!r}")
         if not mesh_axes:
-            mesh_axes = {"data": 1}
+            from flexflow_tpu_torch.runtime.distributed import world_size
+
+            mesh_axes = {"data": world_size()}
         return MachineSpec(mesh_axes=dict(mesh_axes), chip=chip,
                            dcn_axes=tuple(dcn_axes), **extra)
+
+
+def build_mesh(spec: MachineSpec, device=None):
+    """The machine's mesh over the ranks of the started process group: a
+    `DeviceMesh` of `device`'s type (default: the entry points' device)
+    named by the axes. It must cover the world, one device a rank; a mesh
+    larger than the world raises JAX's message."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from flexflow_tpu_torch.runtime.distributed import world_size
+
+    shape = tuple(spec.mesh_axes.values())
+    names = tuple(spec.mesh_axes.keys())
+    n = math.prod(shape)
+    have = world_size()
+    if n > have:
+        raise ValueError(f"mesh {spec.mesh_axes} needs {n} devices, have "
+                         f"{have}")
+    if n < have:
+        raise ValueError(f"mesh {spec.mesh_axes} covers {n} devices of the "
+                         f"world's {have}: one device a rank, the mesh "
+                         "spans them all")
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"mesh {spec.mesh_axes}: no process group (call "
+            "flexflow_tpu_torch.runtime.distributed.init_distributed, or "
+            "run under torchrun)")
+    return init_device_mesh(resolve_device(device).type, shape,
+                            mesh_dim_names=names)

@@ -24,6 +24,13 @@ each weighted layer's op type and weight shapes and dtypes, and the
 optimizer's class, moment count and state dtype. A restore into another
 model raises `CheckpointMismatchError`, listing the layers that differ.
 
+Over a mesh (JAX's round trip across meshes, `tests/test_zero.py:253`)
+a checkpoint still holds full arrays: every rank gathers each DTensor
+(a collective), rank 0 writes, blocking, and every rank waits at a
+barrier for the write; a restore reads the full arrays on every rank and
+each keeps its own block under the live layout, whatever mesh, strategy
+or ZeRO mode wrote them.
+
 Telemetry (telemetry.py): the spans `checkpoint/snapshot` (the copy on
 the caller thread), `checkpoint/write` (on the writer thread, or on the
 caller's with `blocking`) and `checkpoint/drain` (`wait_pending`), and
@@ -288,8 +295,11 @@ def wait_pending(path: Optional[str] = None,
 # ------------------------------------------------------------------ save/load
 def _snapshot(tree):
     """A CPU copy of every tensor of `tree` (dicts of tensors and ints),
-    complete when this returns. Device tensors go through pinned memory,
-    one synchronization for the whole tree."""
+    complete when this returns; a DTensor's full value, gathered.
+    Device tensors go through pinned memory, one synchronization for the
+    whole tree."""
+    from torch.distributed.tensor import DTensor
+
     streams = set()
 
     def copy(x):
@@ -298,6 +308,8 @@ def _snapshot(tree):
         if not isinstance(x, torch.Tensor):
             return x
         x = x.detach()
+        if isinstance(x, DTensor):
+            x = x.full_tensor()
         if x.device.type != "cuda":
             return x.clone()
         out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
@@ -340,6 +352,7 @@ def save_checkpoint(cm, path: str, block: bool = True, commit=None,
 
     path = _ckpt_dir(path)
     wait_pending(path)  # never two writers on one directory
+    mesh = getattr(cm, "mesh", None)
     meta = {
         "iteration": int(cm._iteration),
         "state_keys": sorted(cm.state),
@@ -358,6 +371,16 @@ def save_checkpoint(cm, path: str, block: bool = True, commit=None,
 
         run_resilient("checkpoint/write", once, retry_policy)
 
+    if mesh is not None:
+        import torch.distributed as dist
+
+        # rank 0 writes the gathered arrays; the others wait for it
+        if dist.get_rank() == 0:
+            with tel.span("checkpoint/write", cat="checkpoint", path=path,
+                          blocking=True):
+                write_and_commit()
+        dist.barrier()
+        return path
     if block:
         with tel.span("checkpoint/write", cat="checkpoint", path=path,
                       blocking=True):
@@ -383,12 +406,21 @@ def _copy_into(live, saved, where: str):
         return {k: _copy_into(live[k], saved[k], f"{where}.{k}")
                 for k in live}
     if isinstance(live, torch.Tensor):
+        from torch.distributed.tensor import DTensor
+
         if tuple(live.shape) != tuple(saved.shape):
             raise CheckpointMismatchError(
                 f"{where}: shape {tuple(saved.shape)} vs the model's "
                 f"{tuple(live.shape)}")
         with torch.no_grad():
-            live.copy_(saved)
+            if isinstance(live, DTensor):
+                from flexflow_tpu_torch.runtime.distributed import local_rows
+
+                # this rank's block under the live layout
+                live.to_local().copy_(local_rows(saved, live.device_mesh,
+                                                 live.placements))
+            else:
+                live.copy_(saved)
         return live
     return saved
 

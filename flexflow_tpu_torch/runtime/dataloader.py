@@ -23,6 +23,11 @@ operation under the retry policy (runtime/resilience.py). On the CPU the
 same thread and queue run without streams. `prefetch_to_device` is its
 k = 1 case, as in JAX.
 
+Over a mesh each rank copies only its own rows: `rows(kind, i, array)`
+cuts batch array i (the inputs, then the label) on the host before the
+copy, and `wrap(kind, dx, dy, shapes)` makes the device blocks the
+DTensors of the full `shapes` (compiler/compile.py `_host_rows`).
+
 A batch is gathered by numpy's index. The native core's `batch_gather`
 (flexflow_tpu_torch/native), which the JAX loader takes, is not used here:
 on the H100 machine's host it ran slower than numpy's index at a GPT-2
@@ -115,11 +120,12 @@ def _as_tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-def prefetch_to_device(it, device, depth: int = 2, retry_policy=None):
+def prefetch_to_device(it, device, depth: int = 2, retry_policy=None,
+                       rows=None, wrap=None):
     """Yield the (inputs, label) batches of `it` as tensors on `device`,
     copied `depth` batches ahead: `prefetch_multi` at k = 1, untagged."""
     gen = prefetch_multi(it, 1, device, depth=depth,
-                         retry_policy=retry_policy)
+                         retry_policy=retry_policy, rows=rows, wrap=wrap)
     try:
         for _kind, dx, dy in gen:
             yield dx, dy
@@ -127,7 +133,8 @@ def prefetch_to_device(it, device, depth: int = 2, retry_policy=None):
         gen.close()
 
 
-def prefetch_multi(it, k: int, device, depth: int = 2, retry_policy=None):
+def prefetch_multi(it, k: int, device, depth: int = 2, retry_policy=None,
+                   rows=None, wrap=None):
     """Yield ("k", dx, dy) for each group of `k` consecutive batches of
     `it`, stacked to (k, ...) and copied to `device` as one transfer, and
     ("1", dx, dy) for the batches that go singly: the epoch's tail (fewer
@@ -173,16 +180,21 @@ def prefetch_multi(it, k: int, device, depth: int = 2, retry_policy=None):
     def move(kind, xs, y):
         t0 = tel.now_us() if rec else 0.0
 
+        arrays = (*xs, y)
+        shapes = [tuple(np.shape(a)) for a in arrays]
+        if rows is not None:
+            arrays = [rows(kind, i, a) for i, a in enumerate(arrays)]
+
         def once():
-            host = [_as_tensor(a) for a in (*xs, y)]
+            host = [_as_tensor(a) for a in arrays]
             if not cuda:
-                return host[:-1], host[-1], None
+                return host[:-1], host[-1], None, shapes
             with torch.cuda.stream(stream):
                 dev = [h.pin_memory().to(device, non_blocking=True)
                        for h in host]
                 ev = torch.cuda.Event()
                 ev.record(stream)
-            return dev[:-1], dev[-1], ev
+            return dev[:-1], dev[-1], ev, shapes
 
         out = (kind,) + run_resilient("dataloader/transfer", once,
                                       retry_policy)
@@ -230,12 +242,14 @@ def prefetch_multi(it, k: int, device, depth: int = 2, retry_policy=None):
                 break
             if isinstance(item, BaseException):
                 raise item
-            kind, dx, dy, ev = item
+            kind, dx, dy, ev, shapes = item
             if ev is not None:
                 cur = torch.cuda.current_stream(device)
                 cur.wait_event(ev)
                 for x in (*dx, dy):
                     x.record_stream(cur)
+            if wrap is not None:
+                dx, dy = wrap(kind, dx, dy, shapes)
             yield kind, dx, dy
     finally:
         stop.set()

@@ -35,7 +35,7 @@ from flexflow_tpu_torch.ops.op_type import (
 )
 from flexflow_tpu_torch.ops.registry import get_op_def
 from flexflow_tpu_torch.parallel.machine import MachineSpec
-from flexflow_tpu_torch.parallel.sharding import DimSharding
+from flexflow_tpu_torch.parallel.sharding import DimSharding, constrainable
 from flexflow_tpu_torch.search import cost_model as cm
 from flexflow_tpu_torch.search import memo
 
@@ -207,15 +207,16 @@ def _dp_dims(shape, machine: MachineSpec, batch_sizes) -> List[DimSharding]:
     dims: List[DimSharding] = [None] * len(shape)
     if not shape or shape[0] not in batch_sizes:
         return dims
+    # the lowering's own rule (sharding.constrainable), so a strategy
+    # lowers to the layout it was priced at
     axes = _batch_axes(machine)
-    deg = 1
-    for a in axes:
-        deg *= machine.mesh_axes[a]
-    if len(axes) > 1 and shape[0] % deg == 0:
+    lead = (shape[0],)
+    if len(axes) > 1 and constrainable([tuple(axes)], lead,
+                                       machine.mesh_axes):
         dims[0] = tuple(axes)  # batch over node AND data
         return dims
     for ax in axes:
-        if shape[0] % machine.mesh_axes[ax] == 0:
+        if constrainable([ax], lead, machine.mesh_axes):
             dims[0] = ax
             break
     return dims

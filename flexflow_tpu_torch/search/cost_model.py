@@ -33,8 +33,8 @@ class OptMemSpec:
     replaces that with the optimizer's actual shape: `moments` moment
     tensors stored at `state_itemsize` bytes/elem (bf16 Adam moments are 2,
     not 4), divided by the ZeRO data-axis degree when `zero_axes` is set
-    (zero_divisor mirrors the JAX package's placement rule; the port has
-    no `zero_sharding` yet, so its compiles leave zero_axes empty)."""
+    (zero_divisor mirrors compiler/compile.py `_zero_moment_dims`, the
+    JAX package's placement rule)."""
 
     moments: int = 2
     state_itemsize: int = 4
@@ -64,7 +64,7 @@ def opt_mem_spec(optimizer, cfg, machine: MachineSpec) -> Optional[OptMemSpec]:
 def zero_divisor(spec: TensorSpec, dims: Sequence[DimSharding],
                  machine: MachineSpec, zero_axes: Sequence[str]) -> int:
     """Degree the ZeRO runtime actually divides this weight's moments by.
-    MIRRORS compiler/compile.py _zero_moment_pspec: the moments take the
+    MIRRORS compiler/compile.py _zero_moment_dims: the moments take the
     weight's own layout plus the full data-axis degree on the FIRST
     unsharded dim it divides; a weight with no such dim keeps replicated
     moments (divisor 1), and a weight already sharded over a data axis

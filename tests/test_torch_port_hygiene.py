@@ -59,7 +59,7 @@ DISPATCH_MODULES = [
     "flexflow_tpu_torch.compiler.compile", "flexflow_tpu_torch.optimizers",
     "flexflow_tpu_torch.kernels.fused_optim",
     "flexflow_tpu_torch.serving.scheduler", "flexflow_tpu_torch.config",
-    "flexflow_tpu_torch.losses"]
+    "flexflow_tpu_torch.losses", "flexflow_tpu_torch.runtime.distributed"]
 
 _IMPORT_ONE = r"""
 import importlib, sys

@@ -71,8 +71,9 @@ def test_lr_reaches_the_default_optimizer_as_in_jax():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--zero-sharding", "zero1"], 9), (["--mesh", "data=2"], 9),
-    (["--serve-objective", "latency"], 9), (["--workers-per-node", "2"], 9)])
+    (["--pipeline-schedule", "1f1b"], 9), (["--pipeline-schedule", "gpipe"], 9),
+    (["--serve-objective", "latency"], 9),
+    (["--serve-objective", "throughput"], 9)])
 def test_unported_flags_raise_naming_their_item(argv, item):
     JFFConfig.parse_args(argv)          # the JAX package takes them
     flag = argv[0].replace("--no-", "--")
