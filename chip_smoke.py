@@ -516,9 +516,45 @@ Phases, each fatal on failure (nothing is caught to let the run exit 0):
         torchrun's environment (one process): the launcher starts the
         group (NCCL), the script's MLP compiles over the mesh (DTensor
         weights) and fits 2 steps (the plain SGD kernel twice), exit 0.
+    17b's pairs also probe c10d's point-to-point calls, its all-to-all
+    with one nonzero split each way and the port's ring hop; its ranks
+    then run 18c's legs.
+18. Multi-GPU, second part, run last, each check fatal:
+    (a) the ring's per-step functions (kernels/ring_attention.py) for
+        P = 2 and 4 simulated ranks in one process, the hop a rotation of
+        a list, at GPT-2 medium's heads, b1, seq 8192, bf16, causal:
+        out, lse, dQ, dK and dV against #1-#3 over the whole sequence
+        (`P18_OUT_RTOL`, `p18_grad_rtol`, `LSE_TOL`) and at seq 1024
+        against the ring's plain version (JAX's einsum chunk step); the
+        launches of #1-#3, P(P+1)/2 each, counted and profiled (after a
+        lead call); the ring timed against #1-#3 over the sequence, the
+        plain ring and SDPA, beside its bound;
+    (b) in 17a's group (NCCL, world 1), config #5 over {"model": 1} with
+        every attention on the ring (`sequence_parallel_strategy`): its
+        3 losses and its params bitwise 17a's plain compile's, #1-#3 and
+        #7 counted as the plain path's (and the ring once a layer), a
+        profiled step with no NCCL kernel;
+    (c) in 17b's two gloo ranks on cuda:0, each leg the probe allows:
+        `ring_attention`, the per-rank ring the main path calls, with
+        real hops, at (a)'s shape and tolerances against #1-#3 over the
+        whole sequence; the ring (config #5 over {"model": 2}, every
+        attention on it, against 17a's world-1 run), expert
+        parallelism (MoE-MLP over {"expert": 2}, each rank holding 32 of
+        the 64 experts, SGD), the placed fork-join (the ensemble at its
+        widths with 2 branches a module over {"model": 2}, stacked, each
+        rank one branch, Adam): 3 steps against this process's world-1
+        run (the losses within each leg's `P18_LOSS_RTOL`), the
+        replicated params bitwise on both ranks, exact launches,
+        each leg's step ms, idle share (rank 0) and bytes a rank; and the
+        collective matmul at GPT-2 medium's MLP up-projection (x (8192,
+        1024) @ w (1024, 4096), bf16): y and its gradients against f32
+        products, timed against the all-gather and matmul it replaces. A
+        leg whose collectives the probe found refused is not started and
+        is printed with why.
 
-The line before the last is `{"kernels": [...]}`; the last line is
-`{"ok": true, "device": {...}}`.
+The line before the last is `{"kernels": [...]}`, and the one before it
+`{"ring_programs": [...]}` (the two ring programs, with the same keys);
+the last line is `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -526,6 +562,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import re
 import signal
@@ -1342,11 +1379,14 @@ def launch_counts() -> dict:
 
 
 def zero_launch_counts() -> None:
+    from flexflow_tpu_torch.kernels import collective_matmul as cmm
     from flexflow_tpu_torch.kernels import dequant_attention as da
     from flexflow_tpu_torch.kernels import flash_attention as fa
     from flexflow_tpu_torch.kernels import fused_ce as fc
     from flexflow_tpu_torch.kernels import fused_optim as fo
+    from flexflow_tpu_torch.kernels import ring_attention as ra
     fa.launches = fa.launches_dq = fa.launches_dkv = 0
+    ra.launches = cmm.launches = 0
     da.launches = fo.launches = 0
     da.launches_by_rows.clear()
     fc.launches_fwd = fc.launches_bwd = 0
@@ -6762,16 +6802,24 @@ def phase16(seed: int, graph_5b: dict) -> dict:
 # another order (a relative tolerance on each of the 3 losses)
 P17_STEPS = 3
 P17_LOSS_RTOL = 5e-3
-P17_TIMEOUT_S = 420
+P17_TIMEOUT_S = 600
 P17_MESH = {"data": 1}
 # the collectives 17b probes on CUDA tensors over gloo: c10d's (the
-# port's own calls: the grad norm's all-reduce, ZeRO's all-gather) and
-# the functional ones DTensor's redistributions call, each functional one
-# in a pair of processes of its own, since a crash kills only that pair
+# port's own calls: the grad norm's all-reduce, ZeRO's all-gather, the
+# expert all-to-alls, the placed fork-join's joins; point to point, and
+# the all-to-all with one nonzero split each way that the rings' hop is)
+# and the functional ones DTensor's redistributions call. The functional
+# ones, the point-to-point ones and the port's hop (`ring_shift`) run
+# each in a pair of processes of its own, since a crash or a hang takes
+# only that pair
 P17_C10D = ("all_reduce", "broadcast", "all_gather", "all_gather_into_tensor",
-            "reduce_scatter_tensor", "all_to_all_single")
+            "reduce_scatter_tensor", "all_to_all_single", "isend/irecv",
+            "batch_isend_irecv", "all_to_all_single uneven")
 P17_FUNCTIONAL = ("all_reduce", "reduce_scatter_tensor",
                   "all_gather_into_tensor")
+P17_PAIRED = (tuple(f"functional {w}" for w in P17_FUNCTIONAL)
+              + tuple(f"c10d {w}" for w in P17_C10D[6:]) + ("port ring_shift",))
+P17_PAIR_DEADLINE_S = 120
 # 17b's legs: (mesh, zero_sharding, Megatron tensor parallelism over
 # "model", the collectives gloo must carry for it): the gradients'
 # pending sums all-reduced (and the loss's; the grad norm's by c10d);
@@ -6982,6 +7030,8 @@ def p17_world1(seed: int, graph_5b: dict) -> dict:
         runs[tag] = {"losses": p17_steps(cm, seed, gc.vocab),
                      "launches": launch_counts()}
     out["runs"] = runs
+    # 18b holds its ring at world 1 to these params
+    out["plain_digest"] = p17_digest(plain)
     lp, lm = runs["plain"]["losses"], runs["mesh"]["losses"]
     out["losses_bitwise_equal"] = lp == lm
     out["params_bitwise_equal"] = _tree_diff(mesh.params, plain.params) == 0
@@ -7110,50 +7160,80 @@ def p17_probe(dev) -> dict:
     return out
 
 
-def p17_functional_rank(rank: int, port: int, which: str, out_q) -> None:
-    """One rank of a functional probe pair: DTensor's functional `which`
-    (torch.distributed._functional_collectives) on a CUDA tensor over
-    gloo, checked for its value."""
+def p17_pair_rank(rank: int, port: int, which: str, out_q) -> None:
+    """One rank of a probe pair: `which` (P17_PAIRED) on CUDA tensors over
+    gloo, checked for its value: DTensor's functional collectives
+    (torch.distributed._functional_collectives), c10d's point-to-point
+    calls and uneven all-to-all, and the port's ring hop."""
     import torch.distributed as dist
     import torch.distributed._functional_collectives as fc
 
-    from flexflow_tpu_torch.runtime.distributed import init_distributed
+    from flexflow_tpu_torch.runtime.distributed import (init_distributed,
+                                                        ring_shift)
 
     init_distributed(f"localhost:{port}", 2, rank, local_device_ids=[0],
                      backend="gloo")
     x = torch.full((4,), float(rank + 1), device="cuda")
-    g = dist.group.WORLD
-    if which == "all_reduce":
-        ok = bool((fc.wait_tensor(fc.all_reduce(x, "sum", g)) == 3).all())
-    elif which == "reduce_scatter_tensor":
-        y = fc.wait_tensor(fc.reduce_scatter_tensor(x, "sum", 0, g))
-        ok = y.numel() == 2 and bool((y == 3).all())
-    else:
-        y = fc.wait_tensor(fc.all_gather_tensor(x, 0, g))
-        ok = bool((y[:4] == 1).all() and (y[4:] == 2).all())
-    torch.cuda.synchronize()
-    out_q.put((rank, which, "carried" if ok else "wrong values"))
+    g, peer = dist.group.WORLD, 1 - rank
+    try:
+        if which == "functional all_reduce":
+            ok = bool((fc.wait_tensor(fc.all_reduce(x, "sum", g)) == 3).all())
+        elif which == "functional reduce_scatter_tensor":
+            y = fc.wait_tensor(fc.reduce_scatter_tensor(x, "sum", 0, g))
+            ok = y.numel() == 2 and bool((y == 3).all())
+        elif which == "functional all_gather_into_tensor":
+            y = fc.wait_tensor(fc.all_gather_tensor(x, 0, g))
+            ok = bool((y[:4] == 1).all() and (y[4:] == 2).all())
+        elif which == "c10d isend/irecv":
+            y = torch.empty_like(x)
+            for req in (dist.isend(x, peer), dist.irecv(y, peer)):
+                req.wait()
+            ok = bool((y == peer + 1).all())
+        elif which == "c10d batch_isend_irecv":
+            y = torch.empty_like(x)
+            for req in dist.batch_isend_irecv([
+                    dist.P2POp(dist.isend, x, peer),
+                    dist.P2POp(dist.irecv, y, peer)]):
+                req.wait()
+            ok = bool((y == peer + 1).all())
+        elif which == "c10d all_to_all_single uneven":
+            y = torch.empty_like(x)
+            splits = [0, 4] if rank == 0 else [4, 0]
+            dist.all_to_all_single(y, x, splits, splits)
+            ok = bool((y == peer + 1).all())
+        else:  # the port's hop: a bf16 and an f32 tensor, packed
+            from torch.distributed.device_mesh import init_device_mesh
+
+            mesh = init_device_mesh("cuda", (2,), mesh_dim_names=("ring",))
+            a = torch.full((3, 8), float(rank + 1), device="cuda",
+                           dtype=torch.bfloat16)
+            ra, rx = ring_shift([a, x], mesh, "ring").wait()
+            ok = bool((ra == peer + 1).all() and (rx == peer + 1).all())
+        torch.cuda.synchronize()
+        out_q.put((rank, which, "carried" if ok else "wrong values"))
+    except Exception as e:  # the probe's finding: what gloo refuses
+        out_q.put((rank, which, f"{type(e).__name__}: {str(e)[:160]}"))
     dist.destroy_process_group()
 
 
-def p17_probe_functional() -> dict:
-    """The functional collectives, a pair of processes each, all pairs at
-    once: "carried", "wrong values", or how the pair ended."""
+def p17_probe_pairs() -> dict:
+    """P17_PAIRED, a pair of processes each, all pairs at once: "carried",
+    "wrong values", the error, or how the pair ended."""
     import queue as queue_mod
 
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
-    pairs = {w: [ctx.Process(target=p17_functional_rank,
+    pairs = {w: [ctx.Process(target=p17_pair_rank,
                              args=(r, port, w, q)) for r in range(2)]
-             for w, port in zip(P17_FUNCTIONAL,
-                                [_free_port() for _ in P17_FUNCTIONAL])}
+             for w, port in zip(P17_PAIRED,
+                                [_free_port() for _ in P17_PAIRED])}
     for procs in pairs.values():
         for p in procs:
             p.start()
     got: dict = {}
-    deadline = time.perf_counter() + 180
+    deadline = time.perf_counter() + P17_PAIR_DEADLINE_S
     try:
         while sum(len(v) for v in got.values()) < 2 * len(pairs):
             if all(not p.is_alive() for ps in pairs.values() for p in ps) \
@@ -7176,7 +7256,7 @@ def p17_probe_functional() -> dict:
     out = {}
     for w, procs in pairs.items():
         vals = set(got.get(w, {}).values())
-        out[f"functional {w}"] = (
+        out[w] = (
             vals.pop() if len(vals) == 1 and len(got[w]) == 2 else
             f"the pair ended with exit codes {[p.exitcode for p in procs]} "
             f"and results {got.get(w)}")
@@ -7186,8 +7266,9 @@ def p17_probe_functional() -> dict:
 def p17_rank(rank: int, port: int, seed: int, carried, out_q) -> None:
     """17b's rank: a gloo group of two on cuda:0, the probe, then every
     leg the probe allows: config #5's widths at full depth, global batch
-    8, 3 Adam steps from the seed's weights. Each part prints as it ends
-    (the parent's watchdog names the last)."""
+    8, 3 Adam steps from the seed's weights; then 18c's legs
+    (`p18_rank`). Each part prints as it ends (the parent's watchdog
+    names the last)."""
     import traceback
 
     def say(msg):
@@ -7241,8 +7322,11 @@ def p17_rank(rank: int, port: int, seed: int, carried, out_q) -> None:
             del cm, model
             collect_garbage()
             torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        p18 = p18_rank(rank, seed, probe, dev)
+        p18["wall_s"] = time.perf_counter() - t0
         out_q.put((rank, "ok", {"probe": probe, "legs": legs,
-                                "skipped": skipped}))
+                                "skipped": skipped, "p18": p18}))
     except Exception:  # the parent fails the phase with it
         out_q.put((rank, "error", traceback.format_exc()))
 
@@ -7256,9 +7340,10 @@ def p17_two_ranks(seed: int, world1: dict) -> dict:
     import torch.multiprocessing as mp
 
     t0 = time.perf_counter()
-    functional = p17_probe_functional()
-    log(f"[17b] functional collectives on CUDA tensors over gloo, a pair "
-        f"each: {functional} ({time.perf_counter() - t0:.1f} s)")
+    functional = p17_probe_pairs()
+    log(f"[17b] functional collectives, point to point and the port's "
+        f"hop on CUDA tensors over gloo, a pair each: {functional} "
+        f"({time.perf_counter() - t0:.1f} s)")
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
     port = _free_port()
@@ -7293,7 +7378,9 @@ def p17_two_ranks(seed: int, world1: dict) -> dict:
                 p.join(5)
     a, b = res[0], res[1]
     out = {"probe": a["probe"], "skipped": a["skipped"], "legs": {},
-           "wall_s": time.perf_counter() - t0}
+           "wall_s": time.perf_counter() - t0,
+           "p18": {0: a.pop("p18"), 1: b.pop("p18")}}
+    out["p18_wall_s"] = out["p18"][0]["wall_s"]
     log(f"[17b] gloo on CUDA tensors, two ranks on cuda:0: {a['probe']}")
     for name, why in a["skipped"].items():
         log(f"[17b] leg {name} not started: {why}")
@@ -7391,6 +7478,665 @@ def phase17(seed: int, graph_5b: dict) -> dict:
     log(f"[phase 17] {out['wall_s']:.1f} s on {card_line()} ("
         + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()) + ")")
     return out
+
+
+# ---------------------------------- phase 18: multi-GPU, second part
+# 18a: the ring's per-step functions for P simulated ranks in one process
+# at GPT-2 medium's heads, b1, seq 8192, bf16, causal, against #1-#3 over
+# the whole sequence; and at seq 1024 against the ring's plain version.
+# Tolerances, on the largest |error| over the largest |reference|: out
+# one bf16 rounding (the ring merges its chunks' bf16 outputs in f32 and
+# rounds once more; 3.1e-4 measured at P = 2 on an H100 80GB HBM3 at
+# 700 W); lse is f32 (LSE_TOL). The gradients started from one rounding
+# too and were widened with the figure that card gave (dV 6.0e-3, dK
+# 5.0e-3 at P = 2): a chunk's dK/dV sums P results of the kernels, each
+# already rounded to bf16, and both sides round the sum once, so P + 2
+# half-ulp roundings (`p18_grad_rtol`)
+P18_SEQ, P18_PLAIN_SEQ, P18_PS = 8192, 1024, (2, 4)
+P18_OUT_RTOL = 2 ** -8
+
+
+def p18_grad_rtol(p: int) -> float:
+    return (p + 2) * 2 ** -9
+P18_MESH_W1, P18_AXIS = {"model": 1}, "model"
+# 18c's legs on two gloo ranks sharing cuda:0: (mesh, what the probe must
+# find carried on CUDA tensors for it). ring_check is 18a's check on the
+# per-rank ring the main path calls, with real hops
+P18_LEGS = {
+    "ring_check": ({"model": 2}, ("port ring_shift",)),
+    "ring": ({"model": 2}, ("port ring_shift", "functional all_reduce")),
+    "expert_parallel": ({"expert": 2}, (
+        "c10d all_to_all_single", "c10d all_gather_into_tensor",
+        "functional all_reduce")),
+    "fork_join": ({"model": 2}, (
+        "c10d all_reduce", "c10d all_gather_into_tensor",
+        "c10d reduce_scatter_tensor", "functional all_reduce")),
+    "collective_matmul": ({"model": 2}, ("port ring_shift",))}
+# the collective matmul at GPT-2 medium's MLP up-projection over b8 x seq
+# 1024 tokens: x (8192, 1024) @ w (1024, 4096), bf16
+P18_CMM = (BATCH * SEQ, 1024, 4096)
+P18_BRANCHES = 2   # the ensemble cut to one branch a rank
+# 18c's limits on max |loss - world 1's| / |world 1's| over the 3 steps,
+# each leg's own: its reading on an H100 80GB HBM3 at 700 W (the same in
+# two runs: the ring 1.53e-5, EP 1.04e-7, the ensemble 4.28e-5) with
+# 2-10x room
+P18_LOSS_RTOL = {"ring": 1e-4, "expert_parallel": 1e-6, "fork_join": 1e-4}
+
+
+def p18_errs(got: dict, ref: dict) -> dict:
+    """max |got - ref| / max |ref| of each tensor."""
+    return {n: float((got[n].detach().float() - ref[n].float()).abs().max()
+                     / ref[n].float().abs().max().clamp_min(1e-30))
+            for n in ref}
+
+
+def p18_lockstep(seed: int, timer) -> dict:
+    """18a: the ring in lockstep on the card (module docstring)."""
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.kernels import ring_attention as ra
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device="cuda").manual_seed(seed + 18)
+    scale = 1.0 / math.sqrt(HEAD_DIM)
+
+    def inputs(s):
+        return [torch.randn((1, HEADS, s, HEAD_DIM), generator=gen,
+                            device="cuda", dtype=torch.bfloat16)
+                for _ in range(4)]
+
+    def ring(p, q, k, v, do):
+        qs, ks, vs, dos = (t.chunk(p, dim=2) for t in (q, k, v, do))
+        outs, lses = ra.ring_lockstep_fwd(qs, ks, vs, True, scale)
+        dq, dk, dv = ra.ring_lockstep_bwd(qs, ks, vs, outs, lses, dos, True,
+                                          scale)
+        return {"out": torch.cat(outs, 2), "lse": torch.cat(lses, 2),
+                "dq": torch.cat(dq, 2), "dk": torch.cat(dk, 2),
+                "dv": torch.cat(dv, 2)}
+
+    def whole(q, k, v, do):
+        o, lse = fa._fwd(q, k, v, True, scale)
+        dq, dk, dv = fa._bwd(q, k, v, o, lse, do, True, scale)
+        return {"out": o, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+
+    def plain(p, q, k, v, do):
+        o, lse = ra.ring_plain_fwd(q, k, v, p, True, scale)
+        dq, dk, dv = ra.ring_plain_bwd(q, k, v, o, lse, do, p, True, scale)
+        return {"out": o, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+
+    def check(tag, p, got, ref):
+        lse = float((got["lse"] - ref["lse"]).abs().max())
+        errs = p18_errs({n: got[n] for n in ("out", "dq", "dk", "dv")},
+                        {n: ref[n] for n in ("out", "dq", "dk", "dv")})
+        errs["lse_max_abs"] = lse
+        errs["out_max_abs"] = float((got["out"].float()
+                                     - ref["out"].float()).abs().max())
+        bad = (errs["out"] > P18_OUT_RTOL or lse > LSE_TOL or
+               max(errs[n] for n in ("dq", "dk", "dv")) > p18_grad_rtol(p))
+        log(f"[18a] {tag}: errors over the largest |reference| {errs} "
+            f"(tolerances out {P18_OUT_RTOL}, grads {p18_grad_rtol(p)}, "
+            f"lse {LSE_TOL} abs)")
+        if bad:
+            fail(f"18a {tag}: the ring disagrees: {errs}")
+        return errs
+
+    out = {"shape": [1, HEADS, P18_SEQ, HEAD_DIM], "dtype": "bfloat16",
+           "causal": True, "by_p": {}}
+    x = inputs(P18_SEQ)
+    ref = whole(*x)
+    names = ("flash_fwd_tc_kernel", "flash_dq_tc_kernel",
+             "flash_dkv_tc_kernel")
+    for p in P18_PS:
+        zero_launch_counts()
+        got = ring(p, *x)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        row = {"errors_vs_whole": check(f"P={p} vs #1-#3 over seq "
+                                        f"{P18_SEQ}", p, got, ref)}
+        del got
+        prof = _device_profile(lambda: ring(p, *x), 1, dev,
+                               lead=lambda: ring(p, *x))
+        pk = {n: v["launches_per_call"]
+              for n, v in prof.get("port_kernels", {}).items()}
+        want = p * (p + 1) // 2
+        row.update(launches=counts, profiled=pk,
+                   ms=timer(lambda: ring(p, *x)))
+        log(f"[18a] P={p}: {row['ms']:.4f} ms a ring (forward and "
+            f"backward); launches {counts}, profiled {pk}")
+        if [counts[c] for c in ("flash_attention_fwd", "flash_attention_dq",
+                                "flash_attention_dkv")] != [want] * 3 or \
+                [pk.get(n) for n in names] != [want] * 3:
+            fail(f"18a P={p}: expected {want} launches of each of #1-#3: "
+                 f"{counts}, profiled {pk}")
+        out["by_p"][p] = row
+    out["whole_ms"] = timer(lambda: whole(*x))
+    # the plain version at seq 8192 (P = 2) and SDPA over the sequence
+    slow = Timer(reps=5, warmup=1)
+    out["plain_ms"] = slow(lambda: plain(2, *x))
+    qg, kg, vg = (t.detach().requires_grad_() for t in x[:3])
+
+    def sdpa():
+        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                           scale=scale)
+        torch.autograd.grad(o, (qg, kg, vg), x[3])
+    out["library_ms"] = timer(sdpa)
+    b, h, s, d = out["shape"]
+    # causal attention's forward and backward: 2·b·h·s²·d a product over
+    # half the (s, s) block; the forward's S and PV, the backward's S
+    # once, dP, dV, dQ and dK. #2 and #3 each recompute S: the second
+    # recompute is the kernels' choice, not the function's work
+    flops = 7.0 * b * h * s * s * d
+    nbytes = 8 * b * h * s * d * 2 + 2 * b * h * s * 4
+    out["bound_ms"], out["bound_by"] = bound(nbytes, flops, BF16_FLOPS)
+    del x, ref, qg, kg, vg
+    torch.cuda.empty_cache()
+    # the plain version at seq 1024
+    x = inputs(P18_PLAIN_SEQ)
+    out["vs_plain"] = {p: check(f"P={p} vs the plain ring at seq "
+                                f"{P18_PLAIN_SEQ}", p, ring(p, *x),
+                                plain(p, *x)) for p in P18_PS}
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[18a] whole sequence (#1-#3) {out['whole_ms']:.4f} ms, ring "
+        + ", ".join(f"P={p} {r['ms']:.4f} ms" for p, r in out["by_p"].items())
+        + f", the plain ring (P=2) {out['plain_ms']:.2f} ms, SDPA "
+        f"{out['library_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
+        f"({out['bound_by']}); {out['wall_s']:.1f} s")
+    del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def p18_world1(seed: int, world1: dict) -> dict:
+    """18b: config #5 over {"model": 1} in 17a's NCCL group with every
+    attention on the ring, against 17a's plain compile (its losses and
+    params after the same 3 steps), bitwise."""
+    from flexflow_tpu_torch.parallel.templates import \
+        sequence_parallel_strategy
+
+    t0 = time.perf_counter()
+    gc, model, cm = gpt2_train_model(seed, LAYERS, "bfloat16",
+                                     mesh_shape=P18_MESH_W1)
+    cm.strategy = sequence_parallel_strategy(model, cm.machine, P18_AXIS)
+    cm._build_steps()
+    cm.init(seed=seed)
+    zero_launch_counts()
+    losses = p17_steps(cm, seed, gc.vocab)
+    launches = launch_counts()
+    digest = p17_digest(cm)
+    plain = world1["runs"]["plain"]["losses"]
+    out = {"mesh": P18_MESH_W1, "losses": losses, "plain_losses": plain,
+           "losses_bitwise_equal": losses == plain,
+           "params_bitwise_equal": digest == world1["plain_digest"],
+           "launches": launches,
+           "attrs": cm.strategy.sharding_for("h0_attn").attrs}
+    want = {n: 0 for n in launches}
+    want.update(flash_attention_fwd=LAYERS * P17_STEPS,
+                flash_attention_dq=LAYERS * P17_STEPS,
+                flash_attention_dkv=LAYERS * P17_STEPS,
+                fused_adam=P17_STEPS, ring_attention=LAYERS * P17_STEPS)
+    ids, pos, labels = train_batch(seed, gc.vocab)
+    dev_in = [torch.from_numpy(ids).cuda(), torch.from_numpy(pos).cuda()]
+    dev_lab = torch.from_numpy(labels).cuda()
+
+    def step():
+        (cm.params, cm.opt_state, cm.state, _, _) = cm.train_step(
+            cm.params, cm.opt_state, cm.state, dev_in, dev_lab)
+    prof = _device_profile(step, 1, cm.device, lead=step)
+    out["profile"] = {k: prof.get(k) for k in (
+        "wall_ms_per_call", "device_busy_ms_per_call", "device_idle_share",
+        "kernel_launches_per_call", "nccl_kernels")}
+    pk = {n: v["launches_per_call"]
+          for n, v in prof.get("port_kernels", {}).items()}
+    out["profiled_port_kernels"] = pk
+    mem = cm.memory_stats()
+    out["bytes_a_rank"] = (mem["actual_param_bytes_per_device"]
+                           + mem["actual_opt_state_bytes_per_device"])
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[18b] config #5 over {P18_MESH_W1} (NCCL), every attention "
+        f"{out['attrs']}: losses {losses} (17a plain {plain}): bitwise "
+        f"{out['losses_bitwise_equal']}, params bitwise "
+        f"{out['params_bitwise_equal']}; launches {launches}; a profiled "
+        f"step {out['profile']}, the port's kernels {pk}; "
+        f"{out['wall_s']:.1f} s")
+    per_step = {"flash_fwd_tc_kernel": LAYERS, "flash_dq_tc_kernel": LAYERS,
+                "flash_dkv_tc_kernel": LAYERS, "adam_kernel": 1}
+    if not (out["losses_bitwise_equal"] and out["params_bitwise_equal"]) or \
+            launches != want or pk != per_step or prof.get("nccl_kernels"):
+        fail(f"18b: the ring at world 1 differs from the plain compile: "
+             f"{out}")
+    del cm, model
+    collect_garbage()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------- 18c, in 17b's ranks
+def p18_digest(cm) -> dict:
+    """p17_digest's sums over this rank's blocks, by weight, of the
+    replicated weights (every rank holds them whole) and of the sharded
+    ones apart: no collective (gloo's functional all-gather crashes on
+    CUDA tensors)."""
+    out = {"replicated": [], "sharded": []}
+    for l in sorted(cm.params):
+        for w in sorted(cm.params[l]):
+            t = cm.params[l][w]
+            b = t.to_local().detach().contiguous().view(
+                torch.int32).flatten().long()
+            at = torch.arange(1, b.numel() + 1, device=b.device)
+            kind = ("replicated" if all(p.is_replicate()
+                                        for p in t.placements)
+                    else "sharded")
+            out[kind].append((f"{l}.{w}", int(b.sum()), int((b * at).sum())))
+    return out
+
+
+def p18_train(cm, xs, y, n: int = P17_STEPS) -> list:
+    losses = []
+    for _ in range(n):
+        (cm.params, cm.opt_state, cm.state, loss, _) = cm.train_step(
+            cm.params, cm.opt_state, cm.state, xs, y)
+        losses.append(loss)
+    return [float(v) for v in losses]
+
+
+def p18_zoo(which: str, seed: int, mesh=None):
+    """MoE-MLP as phase 14 builds it (64 experts, top-2, b64, hidden 64,
+    SGD) or the branch ensemble at its widths with P18_BRANCHES branches
+    a module (Adam), bf16 compute, weights from the seed; over `mesh`
+    with the experts over "expert" (`ep:expert`) or every fork-join
+    placed on "model" (`inter:model`, stacked); and its batch."""
+    from flexflow_tpu_torch import (AdamOptimizer, FFConfig, FFModel,
+                                    SGDOptimizer)
+    from flexflow_tpu_torch.models.branchy import build_branchy
+    from flexflow_tpu_torch.parallel import templates as T
+
+    cfg = dict(compute_dtype="bfloat16", seed=seed)
+    if mesh:
+        cfg["mesh_shape"] = mesh
+    model = FFModel(FFConfig(**cfg))
+    if which == "moe_mlp":
+        zoo_build("moe_mlp", model)
+    else:
+        build_branchy(model, k=P18_BRANCHES)
+    model.config.batch_size = model.input_tensors[0].shape[0]
+    cm = model.compile(SGDOptimizer(lr=0.01) if which == "moe_mlp"
+                       else AdamOptimizer(alpha=LR),
+                       "sparse_categorical_crossentropy", [])
+    if mesh:
+        if which == "moe_mlp":
+            T.apply_expert_parallel(cm.strategy, [
+                l for l in model.layers
+                if l.op_type.value in ("group_by", "experts")], "expert")
+        else:
+            for l in model.layers:
+                if l.op_type.value == "fork_join":
+                    T.apply_branch_placement(cm.strategy, l, "model")
+        cm._build_steps()
+    cm.init(seed=seed)
+    xs, y = zoo_batches(model, seed)
+    return cm, xs, y
+
+
+def p18_rank_leg(name: str, rank: int, seed: int, dev) -> dict:
+    """One 18c training leg on this rank: P17_STEPS steps from the seed,
+    each timed (rank 0 profiles the last), the launches, the bytes this
+    rank holds, the digests."""
+    from flexflow_tpu_torch.kernels import collective_matmul as cmm
+    from flexflow_tpu_torch.parallel.templates import \
+        sequence_parallel_strategy
+
+    mesh = P18_LEGS[name][0]
+    t0 = time.perf_counter()
+    if name == "ring":
+        gc, model, cm = gpt2_train_model(seed, LAYERS, "bfloat16",
+                                         mesh_shape=mesh)
+        cm.strategy = sequence_parallel_strategy(model, cm.machine, P18_AXIS)
+        cm._build_steps()
+        cm.init(seed=seed)
+        ids, pos, labels = train_batch(seed, gc.vocab)
+        xs, y = [ids, pos], labels
+    else:
+        cm, xs, y = p18_zoo("moe_mlp" if name == "expert_parallel"
+                            else "branchy", seed, mesh)
+    compile_s = time.perf_counter() - t0
+    dev_xs = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in xs]
+    dev_y = torch.from_numpy(np.ascontiguousarray(y)).to(dev)
+    losses, step_ms = [], []
+
+    def step():
+        sync(dev)
+        t1 = time.perf_counter()
+        (cm.params, cm.opt_state, cm.state, loss, _) = cm.train_step(
+            cm.params, cm.opt_state, cm.state, dev_xs, dev_y)
+        sync(dev)
+        step_ms.append(1e3 * (time.perf_counter() - t1))
+        losses.append(loss)
+    # P17_STEPS steps from the seed: the first alone, the last two (rank
+    # 0) a profiled step after an uncounted lead step
+    zero_launch_counts()
+    step()
+    out = {"mesh": mesh, "compile_s": compile_s}
+    if rank == 0:
+        prof = _device_profile(step, 1, dev, lead=step)
+        out["idle_share"] = prof.get("device_idle_share")
+        out["profiled_port_kernels"] = {
+            n: v["launches_per_call"]
+            for n, v in prof.get("port_kernels", {}).items()}
+    else:
+        step()
+        step()
+    out.update(losses=[float(v) for v in losses], step_ms=step_ms,
+               launches=launch_counts(), digest=p18_digest(cm))
+    if len(losses) != P17_STEPS or cmm.launches:
+        fail(f"18c {name}: {len(losses)} steps, {cmm.launches} collective "
+             f"matmuls")
+    mem = cm.memory_stats()
+    out["bytes_a_rank"] = (mem["actual_param_bytes_per_device"]
+                           + mem["actual_opt_state_bytes_per_device"])
+    if name == "expert_parallel":
+        ek = next(l for l in cm.params if "experts" in l)
+        out["expert_kernel_local"] = list(
+            cm.params[ek]["kernel"].to_local().shape)
+    if name == "fork_join":
+        out["stacked_local"] = {w: list(t.to_local().shape)
+                                for w, t in cm.params["fj0"].items()}
+    out["wall_s"] = time.perf_counter() - t0
+    del cm
+    collect_garbage()
+    torch.cuda.empty_cache()
+    return out
+
+
+def p18_rank_cmm(rank: int, seed: int, dev) -> dict:
+    """The collective matmul on this rank at P18_CMM: y and the gradients
+    of sum_r sum(y_r * g_r) against f32 products of the same bf16 inputs
+    (every rank draws the full x, w and g from the seed), and the times
+    of the ring, of the all-gather and matmul it replaces, and of the
+    matmul alone (the library call), forward only."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from flexflow_tpu_torch.kernels import collective_matmul as cmm
+
+    t0 = time.perf_counter()
+    m, k, n = P18_CMM
+    mesh = init_device_mesh("cuda", (2,), mesh_dim_names=(P18_AXIS,))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 181)
+    x = torch.randn((m, k), generator=gen, device=dev, dtype=torch.bfloat16)
+    w = (torch.randn((k, n), generator=gen, device=dev)
+         / math.sqrt(k)).to(torch.bfloat16)
+    g = torch.randn((m, n), generator=gen, device=dev, dtype=torch.bfloat16)
+    rows = slice(rank * m // 2, (rank + 1) * m // 2)
+    cols = slice(rank * n // 2, (rank + 1) * n // 2)
+    xl = x[rows].clone().requires_grad_()
+    wl = w[:, cols].clone().requires_grad_()
+    cmm.launches = 0
+    y = cmm.collective_matmul(xl, wl, mesh, P18_AXIS)
+    dx, dw = torch.autograd.grad(y, (xl, wl), g[:, cols])
+    sync(dev)
+    out = {"shape": [m, k, n], "launches": cmm.launches}
+    xf, wf, gf = x.float(), w.float(), g.float()
+    want = {"y": xf @ wf[:, cols], "dx": (gf @ wf.t())[rows],
+            "dw": xf.t() @ gf[:, cols]}
+    out["errors"] = p18_errs({"y": y, "dx": dx, "dw": dw}, want)
+    out["y_max_abs_err"] = float((y.detach().float()
+                                  - want["y"]).abs().max())
+    del want, xf, wf, gf
+
+    def ring():
+        cmm.collective_matmul(xl.detach(), wl.detach(), mesh, P18_AXIS)
+
+    def gather_then_matmul():
+        full = torch.empty((m, k), device=dev, dtype=x.dtype)
+        dist.all_gather_into_tensor(full, xl.detach().contiguous())
+        return full @ wl.detach()
+
+    def matmul():
+        return x @ wl.detach()
+
+    times = {}
+    for tag, fn in (("ring", ring), ("plain", gather_then_matmul),
+                    ("library", matmul)):
+        fn()
+        ts = []
+        for _ in range(5):
+            sync(dev)
+            t1 = time.perf_counter()
+            fn()
+            sync(dev)
+            ts.append(1e3 * (time.perf_counter() - t1))
+        times[tag] = float(np.median(ts))
+    out["ms"] = times
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def p18_rank_ring_check(rank: int, seed: int, dev) -> dict:
+    """The per-rank ring the main path calls (`ring_attention` on
+    DTensors sharded over the sequence: `RingAttention`, `ring_fwd_local`
+    and `ring_bwd_local` with real hops) at 18a's shape on this rank's
+    half of the sequence, against #1-#3 over the whole sequence (every
+    rank draws the full q, k, v and dO from the seed): the largest
+    |error| on this rank's rows, and the largest |reference| over the
+    whole sequence."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Shard
+
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.kernels import ring_attention as ra
+
+    t0 = time.perf_counter()
+    mesh = init_device_mesh("cuda", (2,), mesh_dim_names=(P18_AXIS,))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 18)
+    scale = 1.0 / math.sqrt(HEAD_DIM)
+    q, k, v, do = [torch.randn((1, HEADS, P18_SEQ, HEAD_DIM), generator=gen,
+                               device=dev, dtype=torch.bfloat16)
+                   for _ in range(4)]
+    o, lse = fa._fwd(q, k, v, True, scale)
+    ref = dict(zip(("out", "dq", "dk", "dv"),
+                   (o, *fa._bwd(q, k, v, o, lse, do, True, scale))))
+    s_loc = P18_SEQ // 2
+    rows = slice(rank * s_loc, (rank + 1) * s_loc)
+    leaves = [t[:, :, rows].contiguous().requires_grad_() for t in (q, k, v)]
+    dts = [DTensor.from_local(t, mesh, [Shard(2)], run_check=False)
+           for t in leaves]
+    out = ra.ring_attention(*dts, mesh, P18_AXIS, causal=True, scale=scale)
+    ol = out.to_local()
+    dq, dk, dv = torch.autograd.grad(ol, leaves,
+                                     do[:, :, rows].contiguous())
+    sync(dev)
+    got = {"out": ol, "dq": dq, "dk": dk, "dv": dv}
+    return {"max_abs_err": {n: float((g.detach().float()
+                                      - ref[n][:, :, rows].float())
+                                     .abs().max()) for n, g in got.items()},
+            "max_abs_ref": {n: float(r.float().abs().max())
+                            for n, r in ref.items()},
+            "placements": [(type(p).__name__, getattr(p, "dim", None))
+                           for p in out.placements],
+            "wall_s": time.perf_counter() - t0}
+
+
+def p18_rank(rank: int, seed: int, probe: dict, dev) -> dict:
+    """18c's legs in 17b's ranks, each started only where the probe found
+    every collective it needs carried."""
+    legs, skipped = {}, {}
+    for name, (mesh, needs) in P18_LEGS.items():
+        missing = [c for c in needs if probe.get(c) != "carried"]
+        if missing:
+            skipped[name] = f"gloo does not carry {missing} on CUDA"
+            continue
+        print(f"[18c rank {rank}] {name} over {mesh}", flush=True)
+        legs[name] = (p18_rank_cmm(rank, seed, dev)
+                      if name == "collective_matmul" else
+                      p18_rank_ring_check(rank, seed, dev)
+                      if name == "ring_check"
+                      else p18_rank_leg(name, rank, seed, dev))
+    return {"legs": legs, "skipped": skipped}
+
+
+def p18_reference(name: str, seed: int) -> dict:
+    """18c's world-1 run of an ensemble or MoE leg, in this process."""
+    cm, xs, y = p18_zoo("moe_mlp" if name == "expert_parallel"
+                        else "branchy", seed)
+    zero_launch_counts()
+    out = {"losses": p18_train(cm, xs, y), "launches": launch_counts()}
+    del cm
+    collect_garbage()
+    torch.cuda.empty_cache()
+    return out
+
+
+def p18_two_ranks(seed: int, p17: dict) -> dict:
+    """18c: the legs 17b's ranks ran, held to world 1 and each other."""
+    res = p17["17b"]["p18"]
+    a, b = res[0], res[1]
+    out = {"skipped": a["skipped"], "legs": {}}
+    for name, why in a["skipped"].items():
+        log(f"[18c] leg {name} not started: {why}")
+    ring_ref = p17["17a"]["runs"]["mesh"]["losses"]
+    zero = {n: 0 for n in launch_counts()}
+    for name, leg in a["legs"].items():
+        other = b["legs"][name]
+        if name == "ring_check":
+            errs = {n: max(leg["max_abs_err"][n], other["max_abs_err"][n])
+                    / leg["max_abs_ref"][n] for n in leg["max_abs_err"]}
+            row = dict(leg, max_abs_err_rank1=other["max_abs_err"],
+                       errors_vs_whole=errs)
+            out["legs"][name] = row
+            log(f"[18c ring_check] ring_attention over {P18_LEGS[name][0]} "
+                f"at (1, {HEADS}, {P18_SEQ}, {HEAD_DIM}) bf16 causal against "
+                f"#1-#3 over the sequence: errors over the largest "
+                f"|reference| {errs} (tolerances out {P18_OUT_RTOL}, grads "
+                f"{p18_grad_rtol(2)}); {leg['wall_s']:.1f} s")
+            if errs["out"] > P18_OUT_RTOL or max(
+                    errs[n] for n in ("dq", "dk", "dv")) > p18_grad_rtol(2) \
+                    or not leg["placements"] == other["placements"] == [
+                        ("Shard", 2)]:
+                fail(f"18c ring_check: the per-rank ring disagrees: {row}")
+            continue
+        if name == "collective_matmul":
+            errs = {r: leg["errors"] if r == 0 else other["errors"]
+                    for r in (0, 1)}
+            worst = max(max(e.values()) for e in errs.values())
+            row = dict(leg, errors_rank1=other["errors"],
+                       ms_rank1=other["ms"], max_rel_err=worst,
+                       launches_rank1=other["launches"],
+                       y_max_abs_err_rank1=other["y_max_abs_err"])
+            out["legs"][name] = row
+            log(f"[18c collective_matmul] x {P18_CMM[:2]} @ w "
+                f"{P18_CMM[1:]} bf16 over gloo: errors over the largest "
+                f"|reference| {errs} (tolerance {P18_OUT_RTOL} y, "
+                f"{p18_grad_rtol(2)} grads); ms (ring, all-gather + matmul, "
+                f"matmul) rank 0 {leg['ms']}, rank 1 {other['ms']}; "
+                f"{leg['wall_s']:.1f} s")
+            if leg["launches"] != 1 or other["launches"] != 1 or \
+                    errs[0]["y"] > P18_OUT_RTOL or errs[1]["y"] > \
+                    P18_OUT_RTOL or worst > p18_grad_rtol(2):
+                fail(f"18c collective_matmul: {row}")
+            continue
+        ref = (ring_ref if name == "ring"
+               else p18_reference(name, seed)["losses"])
+        rel = max(abs(x - y) / abs(y) for x, y in zip(leg["losses"], ref))
+        da, db = leg.pop("digest"), other.pop("digest")
+        row = dict(leg, world1_losses=ref, rel_err_vs_world1=rel,
+                   replicated_bitwise=da["replicated"] == db["replicated"]
+                   and leg["losses"] == other["losses"],
+                   launches_rank1=other["launches"],
+                   step_ms_rank1=other["step_ms"])
+        want = [dict(zero), dict(zero)]
+        for r in (0, 1):
+            if name == "ring":
+                # causal: rank r's q chunk sees r + 1 chunks a layer
+                chunks = LAYERS * P17_STEPS * (r + 1)
+                want[r].update(flash_attention_fwd=chunks,
+                               flash_attention_dq=chunks,
+                               flash_attention_dkv=chunks,
+                               fused_adam=P17_STEPS,
+                               ring_attention=LAYERS * P17_STEPS)
+            elif name == "expert_parallel":
+                want[r].update(fused_sgd_plain=P17_STEPS)
+            else:
+                want[r].update(fused_adam=P17_STEPS)
+        out["legs"][name] = row
+        log(f"[18c {name}] over {leg['mesh']}: losses {leg['losses']} "
+            f"(world 1 {ref}, max rel {rel:.2e}, limit "
+            f"{P18_LOSS_RTOL[name]}); replicated params bitwise "
+            f"on both ranks {row['replicated_bitwise']}; launches "
+            f"{leg['launches']}; step ms {leg['step_ms']}, idle share "
+            f"{leg.get('idle_share')}, bytes a rank {leg['bytes_a_rank']}; "
+            f"compile {leg['compile_s']:.1f} s, {leg['wall_s']:.1f} s")
+        row["loss_rtol"] = P18_LOSS_RTOL[name]
+        if rel > P18_LOSS_RTOL[name] or not row["replicated_bitwise"] or \
+                leg["launches"] != want[0] or other["launches"] != want[1]:
+            fail(f"18c {name}: {row}")
+    if "expert_parallel" in out["legs"] and \
+            out["legs"]["expert_parallel"]["expert_kernel_local"][0] != 32:
+        fail(f"18c: each rank should hold 32 of 64 experts: {out}")
+    return out
+
+
+def phase18(seed: int, timer, p17: dict) -> dict:
+    """Phase 18: 18a the ring in lockstep, 18b world 1 over NCCL, 18c the
+    legs 17b's ranks ran (two ranks on the card over gloo)."""
+    t_phase = time.perf_counter()
+    out, walls = {}, {}
+    for key, fn in (("18a", lambda: p18_lockstep(seed, timer)),
+                    ("18b", lambda: p18_world1(seed, p17["17a"])),
+                    ("18c", lambda: p18_two_ranks(seed, p17))):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        walls[key] = time.perf_counter() - t0
+    walls["18c_in_17b"] = p17["17b"].get("p18_wall_s")
+    out["wall_s"] = time.perf_counter() - t_phase
+    out["walls_s"] = walls
+    log(f"[phase 18] {out['wall_s']:.1f} s on {card_line()} ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()
+                    if v is not None) + ")")
+    return out
+
+
+def ring_program_rows(p18: dict, card: str) -> list:
+    """The `ring_programs` line: the two shard_map programs of the JAX
+    package, ported as rings on the kernels above."""
+    a = p18["18a"]
+    legs = p18["18c"]["legs"]
+    ring_launches = p18["18b"]["launches"]["ring_attention"]
+    if "ring" in legs:
+        ring_launches += (legs["ring"]["launches"]["ring_attention"]
+                          + legs["ring"]["launches_rank1"]["ring_attention"])
+    rows = [{"name": "ring_attention", "route": "cuda",
+             "source": "flexflow_tpu_torch/kernels/ring_attention.py",
+             "replaces": "flexflow_tpu/kernels/ring_attention.py:151",
+             "launches": ring_launches,
+             "max_abs_err": max(r["errors_vs_whole"]["out_max_abs"]
+                                for r in a["by_p"].values()),
+             "ms": a["by_p"][2]["ms"], "plain_ms": a["plain_ms"],
+             "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
+             "library_ms": a["library_ms"],
+             "whole_sequence_ms": a["whole_ms"],
+             "ms_by_p": {p: r["ms"] for p, r in a["by_p"].items()},
+             "err_note": "max |out - #1 over the sequence|, P = 2 and 4",
+             "card": card}]
+    if "ring_check" in legs:
+        rows[0]["errors_two_ranks"] = legs["ring_check"]["errors_vs_whole"]
+    if "collective_matmul" in legs:
+        c = legs["collective_matmul"]
+        m, k, n = P18_CMM
+        per_rank = (m * k + k * n // 2 + m * n // 2) * 2
+        b_ms, b_by = bound(per_rank, 2.0 * m * k * n / 2, BF16_FLOPS)
+        rows.append({
+            "name": "collective_matmul", "route": "cuda",
+            "source": "flexflow_tpu_torch/kernels/collective_matmul.py",
+            "replaces": "flexflow_tpu/kernels/collective_matmul.py:77",
+            "launches": c["launches"] + c["launches_rank1"],
+            "max_abs_err": max(c["y_max_abs_err"],
+                               c["y_max_abs_err_rank1"]),
+            "ms": c["ms"]["ring"], "plain_ms": c["ms"]["plain"],
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": c["ms"]["library"],
+            "err_note": "max |y - f32 x @ w| on either rank",
+            "card": card})
+    return rows
 
 
 def main() -> None:
@@ -7653,6 +8399,12 @@ def main() -> None:
     # off, zero1, zero2, a model axis, as far as gloo carries), the
     # launcher under torchrun's environment
     p17 = phase17(args.seed, graph["5b"])
+    # ---- 18. multi-GPU, second part: the ring in lockstep against #1-#3
+    # over the whole sequence, config #5 on the ring at world 1 against
+    # the plain compile, and the legs 17b's ranks ran (the ring, expert
+    # parallelism, the placed fork-join, the collective matmul) against
+    # world 1
+    p18 = phase18(args.seed, timer, p17)
 
     # launches on the main paths: both serving runs, the 12 Adam training
     # steps and the Adam fit epoch, the 12 padded-vocab SGD steps and the
@@ -7754,6 +8506,14 @@ def main() -> None:
         paths[f"p17b_{tag}_rank0"] = leg["launches"]
         paths[f"p17b_{tag}_rank1"] = leg["launches_rank1"]
     paths9["p17c_launcher_fit"] = p17["17c"]["launches"]
+    # phase 18's: config #5 on the ring (the flash kernels masked, #7);
+    # MoE-MLP (#8) and the ensemble (#7) on two ranks
+    paths["p18b_ring_world1_steps"] = p18["18b"]["launches"]
+    for name, leg in p18["18c"]["legs"].items():
+        if name not in ("collective_matmul", "ring_check"):
+            into = paths if name == "ring" else paths9
+            into[f"p18c_{name}_rank0"] = leg["launches"]
+            into[f"p18c_{name}_rank1"] = leg["launches_rank1"]
     for r in rows:
         causal = r.get("causal")
         counted = (paths if causal else paths9 if causal is False
@@ -7782,6 +8542,8 @@ def main() -> None:
     log(json.dumps({"frontends": fronts}, default=str))
     log(json.dumps({"phase16": p16}, default=str))
     log(json.dumps({"phase17": p17}, default=str))
+    log(json.dumps({"phase18": p18}, default=str))
+    log(json.dumps({"ring_programs": ring_program_rows(p18, card)}))
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -37,7 +37,17 @@ param's layout or, under ZeRO, reduce-scatters them into the moments'
 each microbatch's gradient before accumulating it; both are off on a
 mesh without a batch axis > 1, JAX `compile.py:451-507`), and the
 optimizer runs on each rank's blocks: under ZeRO the rank's block of
-each param, then all-gathered back into the param. Without a mesh the
+each param, then all-gathered back into the param. The strategy's
+sequence-parallel attention (`seq_parallel`: the ring,
+kernels/ring_attention.py), expert parallelism (`ep:`, ops/moe_ops.py)
+and placed fork-joins (`inter:`, parallel/interop.py) run over the mesh
+where their guards hold (`_check_mesh_strategy` raises naming the one
+that fails); their weights are sharded at birth like any other (the
+experts' kernels over the expert axis, stacked branch weights over the
+placement axis). A label of class ids takes the logits' layout without
+the class dim (`label_placements`), and where the two are sharded alike
+each rank takes the mean over its own rows, weighted by their share
+(`_local_loss`). Without a mesh the
 program is the one-device program, and the shardings are carried and
 none is applied, as a one-device mesh applies none in JAX. The
 strategy's `remat` map ({layer: "full" |
@@ -128,7 +138,7 @@ from flexflow_tpu_torch.optimizers import SGDOptimizer
 from flexflow_tpu_torch.parallel.default_strategy import data_parallel_strategy
 from flexflow_tpu_torch.parallel.machine import MachineSpec, build_mesh
 from flexflow_tpu_torch.parallel.sharding import (Strategy, constrainable,
-                                                  placements)
+                                                  pins_nothing, placements)
 from flexflow_tpu_torch.runtime.dataloader import (SingleDataLoader,
                                                    group_microbatches,
                                                    prefetch_multi,
@@ -233,29 +243,72 @@ def _overlay_parallel_ops(model, strategy: Strategy) -> None:
             outputs=[requested_dims(layer, incoming)])
 
 
-def _check_mesh_strategy(model, strategy: Strategy) -> None:
-    """Refuse what the mesh path does not run yet: the placed fork-join
-    (`inter:` placements), sequence-parallel attention and expert
-    parallelism's all-to-alls (`ep:`, an expert dim sharded)."""
+def _check_mesh_strategy(model, strategy: Strategy,
+                         mesh_axes: Dict[str, int]) -> None:
+    """Hold the strategy's ring, placement and expert layouts to their
+    guards on this mesh (JAX's lowering guards): sequence-parallel
+    attention (`seq_parallel`: the axis on the mesh, sq == sk dividing by
+    its size, no dropout, no bias_k, no add_zero_attn, impl != "xla"), the
+    placed fork-join (`inter:`: the axis on the mesh, one index a branch
+    or groups summing to it, no stateful sub-op) and expert parallelism
+    (`ep:`: the experts' axis on the mesh and dividing them). Raises
+    ValueError naming the guard that failed."""
+    from flexflow_tpu_torch.ops.fork_join import (grouped_placeable,
+                                                  inter_placeable)
     from flexflow_tpu_torch.ops.op_type import OperatorType
+
+    def need(ok, layer, what):
+        if not ok:
+            raise ValueError(f"layer {layer.name}: {what} (mesh "
+                             f"{dict(mesh_axes)})")
 
     for layer in model.layers:
         sh = strategy.sharding_for(layer.name)
-        what = None
-        if "placement" in sh.attrs:
-            what = f"the placed fork-join (inter:{sh.attrs['placement']})"
-        elif "seq_parallel" in sh.attrs:
-            what = "sequence-parallel ring attention"
-        elif layer.op_type is OperatorType.EXPERTS and any(
-                d is not None for d in sh.weight_dims("kernel")[:1]):
-            what = "expert parallelism (ep:, experts sharded)"
-        elif layer.op_type is OperatorType.GROUP_BY and any(
-                d is not None for d in sh.output_dims(0)[:1]):
-            what = "expert parallelism (ep:, dispatch sharded)"
-        if what is not None:
-            raise NotImplementedError(
-                f"layer {layer.name}: {what} does not run over a mesh yet "
-                "(ROADMAP Queue 1 item 9: the rest of multi-GPU)")
+        p = layer.params
+        sp = sh.attrs.get("seq_parallel")
+        if sp is not None:
+            what = f"sequence-parallel attention over {sp!r}"
+            need(sp in mesh_axes, layer, f"{what}: the mesh has no such axis")
+            q, k = layer.inputs[0].spec.shape, layer.inputs[1].spec.shape
+            need(q[1] == k[1] and q[1] % mesh_axes[sp] == 0, layer,
+                 f"{what}: sq {q[1]} == sk {k[1]} dividing by "
+                 f"{mesh_axes[sp]} fails")
+            need(not p.get("dropout"), layer, f"{what}: dropout > 0")
+            need(not p.get("add_bias_kv") and not p.get("add_zero_attn"),
+                 layer, f"{what}: add_bias_kv / add_zero_attn")
+            need(p.get("impl", "auto") != "xla", layer,
+                 f"{what}: impl='xla'")
+        pa = sh.attrs.get("placement")
+        if pa is not None:
+            what = f"the placed fork-join (inter:{pa})"
+            need(pa in mesh_axes, layer, f"{what}: the mesh has no such axis")
+            groups = sh.attrs.get("placement_groups")
+            k = len(layer.branches)
+            if groups:
+                gs = [int(g) for g in groups.split("-")]
+                need(len(gs) == k and sum(gs) == mesh_axes[pa], layer,
+                     f"{what}: groups {groups} for {k} branches over "
+                     f"{mesh_axes[pa]} indices")
+                need(grouped_placeable(layer), layer,
+                     f"{what}: a stateful sub-op")
+            else:
+                need(mesh_axes[pa] == k, layer,
+                     f"{what}: axis size {mesh_axes[pa]} != {k} branches")
+                need(inter_placeable(layer), layer,
+                     f"{what}: unequal branch outputs or a stateful sub-op")
+        if layer.op_type in (OperatorType.EXPERTS, OperatorType.GROUP_BY):
+            dims = (sh.weight_dims("kernel") if layer.op_type is
+                    OperatorType.EXPERTS else sh.output_dims(0))
+            ax = dims[0] if dims else None
+            if ax is not None:
+                what = f"expert parallelism (ep:{ax})"
+                need(isinstance(ax, str) and ax in mesh_axes, layer,
+                     f"{what}: the mesh has no such axis")
+                e = (layer.weight_specs["kernel"].shape[0]
+                     if layer.op_type is OperatorType.EXPERTS
+                     else p["n_experts"])
+                need(e % mesh_axes[ax] == 0, layer,
+                     f"{what}: {e} experts over {mesh_axes[ax]} ranks")
 
 
 def _search_machine(cfg, machine: MachineSpec) -> MachineSpec:
@@ -368,6 +421,27 @@ def _local(x):
     return x.to_local() if isinstance(x, DTensor) else x
 
 
+def _rows_apart(logits, label) -> bool:
+    """Whether the loss can read its rows on each rank alone: both are
+    DTensors, each mesh dim shards them on the same dim or on none, the
+    logits' last dim is whole and nothing is pending."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not (isinstance(logits, DTensor) and isinstance(label, DTensor)):
+        return False
+    last = logits.ndim - 1
+    for a, b in zip(logits.placements, label.placements):
+        if a.is_partial() or b.is_partial():
+            return False
+        if isinstance(a, Shard) != isinstance(b, Shard):
+            return False
+        if isinstance(a, Shard) and (a.dim % logits.ndim == last
+                                     or a.dim % logits.ndim
+                                     != b.dim % label.ndim):
+            return False
+    return True
+
+
 def _full(x):
     """A DTensor's full value on every rank, a plain tensor (a collective:
     every rank calls it); the tensor itself otherwise."""
@@ -393,7 +467,7 @@ class CompiledModel:
         self.machine = machine or resolve_machine(self.cfg, self.device)
         self.strategy = strategy or data_parallel_strategy(model, self.machine)
         if mesh is not None:
-            _check_mesh_strategy(model, self.strategy)
+            _check_mesh_strategy(model, self.strategy, self._axes)
         # this compile's strategy-cache event (None when nothing searched)
         self.search_cache_info = getattr(self.strategy, "_cache_info", None)
         # the last fit's auto_refit info (learned_cost.auto_refit)
@@ -457,7 +531,7 @@ class CompiledModel:
         JAX's tests do before `init`), and over a mesh the weights'
         layouts."""
         if self.mesh is not None:
-            _check_mesh_strategy(self.model, self.strategy)
+            _check_mesh_strategy(self.model, self.strategy, self._axes)
             self._layouts()
         self.forward_fn = self._build_forward()
         self._multi_cache.clear()
@@ -525,8 +599,19 @@ class CompiledModel:
         return self._pl(dims, (1,) * lead + tuple(tensor.shape))
 
     def label_placements(self, shape, lead: int = 0) -> list:
-        """The label's placements (JAX `label_sharding`): dim 0 over
-        "data" (else the first axis) when its degree divides it."""
+        """The label's placements: a label of class ids (one dim fewer
+        than the logits) takes the logits' layout without the class dim
+        where the strategy pins one (a sequence-sharded output's labels
+        are sharded so too, and the loss reads both on local rows); else
+        JAX's `label_sharding`, dim 0 over "data" (else the first axis)
+        when its degree divides it."""
+        out = self.outputs[0] if self.outputs else None
+        if out is not None and out.owner is not None and \
+                len(shape) - lead == out.spec.ndim - 1:
+            od = self.strategy.sharding_for(out.owner.name).output_dims(
+                out.owner_idx)[:-1]
+            if od and not pins_nothing(od):
+                return self._pl([None] * lead + od, tuple(shape))
         ax = "data" if "data" in self._axes else next(iter(self._axes))
         dims = [None] * lead + ([ax] if len(shape) > lead else [])
         return self._pl(dims, tuple(shape))
@@ -693,7 +778,24 @@ class CompiledModel:
         if fused_ce.use_fused_ce(self.loss_type, logits, self.fused_loss_mode,
                                  self.cfg.enable_fusion):
             return fused_ce.fused_cross_entropy(logits, label)
+        if self.mesh is not None and _rows_apart(logits, label):
+            return self._local_loss(logits, label)
         return compute_loss(self.loss_type, logits.float(), label)
+
+    def _local_loss(self, logits, label):
+        """The loss over a mesh where the logits and the label are sharded
+        alike and the class dim whole: each rank's mean over its rows,
+        weighted by its share of them, as a pending sum over the sharded
+        mesh dims (DTensor's `Partial`), which the global mean resolves."""
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+
+        xl = logits.to_local()
+        share = xl.numel() / logits.numel()
+        part = compute_loss(self.loss_type, xl.float(), label.to_local())
+        pl = [Replicate() if p.is_replicate() else Partial()
+              for p in logits.placements]
+        return DTensor.from_local(part * share if share != 1 else part,
+                                  self.mesh, pl, run_check=False)
 
     def _apply_update(self, params, opt_state, grads):
         if self.mesh is not None:

@@ -174,7 +174,7 @@ class GraphForward(nn.Module):
                            training=training, rng=rng,
                            mask_hook=self.mask_hook, device=device,
                            compute_dtype=self.cast_to, cache=self.cache,
-                           mesh=self.mesh)
+                           mesh=self.mesh, strategy=self.strategy)
 
     def _lower_checkpointed(self, layer: Layer, ins, w, ctx: LoweringCtx):
         """One layer's lowering as a function of (ins, w) on a sub-context:

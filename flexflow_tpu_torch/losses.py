@@ -42,9 +42,12 @@ def _take_label(x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     v = x.shape[-1]
     idx = torch.where(labels < 0, labels + v, labels)
     ok = (idx >= 0) & (idx < v)
-    got = torch.gather(x, -1, idx.clamp(0, v - 1)[..., None])[..., 0]
-    return torch.where(ok, got, torch.full((), float("nan"), dtype=x.dtype,
-                                           device=x.device))
+    # the mask is applied before the gathered dim is dropped: over a mesh
+    # whose class dim is sharded, DTensor's pending masked gather is
+    # resolved at the shape it was taken at
+    got = torch.gather(x, -1, idx.clamp(0, v - 1)[..., None])
+    return torch.where(ok[..., None], got, torch.full(
+        (), float("nan"), dtype=x.dtype, device=x.device))[..., 0]
 
 
 def compute_loss(loss_type, logits: torch.Tensor, labels: torch.Tensor,

@@ -5,7 +5,9 @@ Two lowerings, as in the JAX package:
 - the plain/prefill path (`kv_out` exposes the per-head K/V of the prompt
   for the paged cache): the hand-written flash kernel
   (kernels/flash_attention.py) when fusion is on, the einsum path when it
-  is off;
+  is off; over a mesh, where the strategy sets `seq_parallel` (held to
+  JAX's guard at compile), the ring (kernels/ring_attention.py) on the
+  flash kernels, with q/k/v/out sharded over the sequence on that axis;
 - the paged decode path (serving): the step's K/V are scattered into the
   cache pools (the write indices computed once a step, shared by the
   layers), then attention runs over each slot's pages. An int8 cache runs
@@ -39,6 +41,8 @@ from flexflow_tpu_torch.core.tensor import TensorSpec
 from flexflow_tpu_torch.kernels.dequant_attention import \
     paged_dequant_decode_attention
 from flexflow_tpu_torch.kernels.flash_attention import flash_attention_qkv
+from flexflow_tpu_torch.kernels.ring_attention import ring_attention_qkv
+from flexflow_tpu_torch.ops.dense_ops import weight_matmul
 from flexflow_tpu_torch.ops.norm_ops import apply_dropout
 from flexflow_tpu_torch.ops.op_type import OperatorType
 from flexflow_tpu_torch.ops.registry import LoweringCtx, register_op
@@ -83,14 +87,14 @@ def _split_heads(x, heads):
 
 
 def _proj(weights, x, w, b):
-    y = x @ weights[w].to(x.dtype)
+    y = weight_matmul(x, weights[w].to(x.dtype))
     if b in weights:
         y = y + weights[b].to(x.dtype)
     return y
 
 
 def _out_proj(weights, out, b, s, embed):
-    y = out.reshape(b, s, embed) @ weights["wo"].to(out.dtype)
+    y = weight_matmul(out.reshape(b, s, embed), weights["wo"].to(out.dtype))
     if "bo" in weights:
         y = y + weights["bo"].to(out.dtype)
     return y
@@ -188,6 +192,25 @@ def _jax_flash_gate(sk: int) -> bool:
     return any(sk % b == 0 for b in (1024, 512, 256, 128))
 
 
+def _ring_axis(layer: "Layer", ctx: LoweringCtx):
+    """The mesh axis the strategy runs this attention's ring on (the
+    sp_ring candidate's {"seq_parallel": axis}), None off a mesh or
+    without one. The compile held it to JAX's guard
+    (`attention_ops.py:228-238`); what the ring cannot run raises there."""
+    sh = ctx.mesh_sharding(layer)
+    return None if sh is None else sh.attrs.get("seq_parallel")
+
+
+def _batch_axes(x) -> list:
+    """The mesh dims a DTensor shards its dim 0 over, by name."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(x, DTensor):
+        return []
+    return [n for n, p in zip(x.device_mesh.mesh_dim_names, x.placements)
+            if isinstance(p, Shard) and p.dim == 0]
+
+
 def _mha_lower(layer: "Layer", inputs, weights, ctx: LoweringCtx):
     p = layer.params
     extras = "bias_k" in weights or p.get("add_zero_attn", False)
@@ -234,7 +257,12 @@ def _mha_lower(layer: "Layer", inputs, weights, ctx: LoweringCtx):
     # causal band over sq != sk and a key length its blocks do not divide)
     flash_ok = not extras or (_jax_flash_gate(sk) and _jax_flash_gate(sq)
                               and not (causal and sq != sk))
-    if not needs_dropout and flash_ok and (
+    ring = _ring_axis(layer, ctx)
+    if ring is not None:
+        # the batch stays on the axes the strategy put it on
+        out = ring_attention_qkv(qh, kh, vh, ctx.mesh, ring, causal=causal,
+                                 scale=scale, batch_axes=_batch_axes(qh))
+    elif not needs_dropout and flash_ok and (
             impl == "flash" or (impl == "auto" and ctx.enable_fusion)):
         out = flash_attention_qkv(qh, kh, vh, causal=causal, scale=scale)
     else:

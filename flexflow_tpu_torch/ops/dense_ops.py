@@ -7,6 +7,13 @@ is `torch.matmul(a, b)` after the seq-length truncation: with the
 config's `seq_length` captured at build time (`params["seq_length"]`),
 the dims `a_seq_length_dim` / `b_seq_length_dim` are cut to it at shape
 inference and sliced to it at run time.
+
+Over a mesh `weight_matmul` takes `x @ W` onto each rank's rows itself
+where x is sharded on a dim between its first and its last (a sequence
+shard) and W is replicated: DTensor's rule for a 3-d `@` flattens the
+leading dims, and torch 2.11's refuses to flatten a sharded dim 1. Each
+rank multiplies its rows; W's gradient is a pending sum over the dims x
+is sharded on. Every other case is DTensor's own `@`.
 """
 
 from __future__ import annotations
@@ -33,9 +40,29 @@ def _linear_infer(layer: "Layer"):
     return [x.with_shape(x.shape[:-1] + (out_dim,))]
 
 
+def weight_matmul(x, w):
+    """x @ w for activations x and a weight w (plain tensors or DTensors;
+    the module docstring)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    if not (isinstance(x, DTensor) and isinstance(w, DTensor)
+            and any(isinstance(p, Shard) and 0 < p.dim % x.ndim < x.ndim - 1
+                    for p in x.placements)
+            and all(p.is_replicate() for p in w.placements)
+            and not any(p.is_partial() or (isinstance(p, Shard)
+                                           and p.dim % x.ndim == x.ndim - 1)
+                        for p in x.placements)):
+        return x @ w
+    gpl = [Partial() if isinstance(p, Shard) else Replicate()
+           for p in x.placements]
+    y = x.to_local() @ w.to_local(grad_placements=gpl)
+    return DTensor.from_local(y, x.device_mesh, x.placements,
+                              run_check=False)
+
+
 def _linear_lower(layer: "Layer", inputs, weights, ctx):
     x = inputs[0]
-    y = x @ weights["kernel"].to(x.dtype)
+    y = weight_matmul(x, weights["kernel"].to(x.dtype))
     if "bias" in weights:
         y = y + weights["bias"].to(y.dtype)
     return [apply_activation(layer.params.get("activation"), y)]

@@ -15,11 +15,16 @@ shapes, position by position) store each sub-weight stacked, one
 `stk.{sub}.{w}` of shape (k, ...) whose slice i is branch i's; otherwise
 branch i's sub-layer L weight w is `b{i}.{L}.{w}` on the fork-join layer.
 
-The port executes on one device, so every branch runs on it, one after
-the other, and the outputs are joined: the JAX lowering's replicated path,
-which it also takes when the strategy's placement names an axis its mesh
-lacks. The placed paths (shard_map and switch over disjoint devices) wait
-for multi-GPU execution.
+Without a mesh, or when the strategy places nothing, every branch runs
+on every rank, one after the other, and the outputs are joined: the JAX
+lowering's replicated path. Over a mesh where the strategy places it
+(`_fj_placed`, JAX `fork_join.py:175-210`), a rank runs only its branch
+(parallel/interop.py): stacked weights under `inter:{axis}`
+(`place_branches_stacked`, each rank holding its branch's slice),
+per-branch weights under it (`place_branches`), and the groups of
+`inter:{axis}:{g0}-...` (`place_branches_grouped`). The compile holds the
+placement to its guards first (compiler/compile.py
+`_check_mesh_strategy`).
 """
 
 from __future__ import annotations
@@ -166,8 +171,42 @@ def _run_branch(layer: "Layer", bi: int, x, wdict, ctx: LoweringCtx):
     return env[bout.guid]
 
 
+def _fj_placed(layer: "Layer", x, weights, ctx: LoweringCtx, axis: str,
+               groups):
+    """The placed lowering: each rank runs its branch on local tensors
+    (parallel/interop.py), the sub-layers lowered on a context without
+    the mesh."""
+    import dataclasses
+
+    from flexflow_tpu_torch.parallel import interop
+
+    sub = dataclasses.replace(ctx, mesh=None, strategy=None)
+    k, join = len(layer.branches), layer.params["join"]
+
+    def fn(bi):
+        return lambda xv, wd: _run_branch(layer, bi, xv, wd, sub)
+    fns = [fn(b) for b in range(k)]
+    if groups:
+        # weights replicated; a stacked one gives each branch its slice
+        gs = tuple(int(g) for g in groups.split("-"))
+        out_dims = [out.spec.shape[-1] for (_ls, _bx, out) in layer.branches]
+        return interop.place_branches_grouped(
+            ctx.mesh, axis, fns, x, _branch_weight_dicts(layer, weights),
+            join, gs, out_dims, layer.outputs[0].spec.ndim)
+    stacked = stacked_weight_trees(layer, weights)
+    if stacked is not None:
+        return interop.place_branches_stacked(ctx.mesh, axis, fns, x,
+                                              stacked, join)
+    return interop.place_branches(ctx.mesh, axis, fns, x,
+                                  _branch_weight_dicts(layer, weights), join)
+
+
 def _fj_lower(layer: "Layer", inputs, weights, ctx: LoweringCtx):
     x = inputs[0]
+    sh = ctx.mesh_sharding(layer)
+    if sh is not None and "placement" in sh.attrs:
+        return [_fj_placed(layer, x, weights, ctx, sh.attrs["placement"],
+                           sh.attrs.get("placement_groups"))]
     wdicts = _branch_weight_dicts(layer, weights)
     ys = [_run_branch(layer, bi, x, wd, ctx) for bi, wd in enumerate(wdicts)]
     if layer.params["join"] == "add":

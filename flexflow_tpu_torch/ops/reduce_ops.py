@@ -5,7 +5,9 @@ A reduction keeps its input's dtype, as `jnp.sum` and friends do (torch
 would widen an integer sum to int64); an empty `axes` is the identity, as
 in JAX (torch reads `dim=()` as every dim). argmax, argmin and top_k's
 indices are int32; top_k returns the k largest of the last dim, largest
-first.
+first. Over a mesh top_k runs on each rank's rows when the last dim is
+whole (its result is row by row): torch 2.11's DTensor builds top_k's
+gradient from a plain tensor and fails.
 """
 
 from __future__ import annotations
@@ -86,7 +88,18 @@ def _topk_infer(layer: "Layer"):
 
 
 def _topk_lower(layer: "Layer", inputs, weights, ctx):
-    vals, idx = torch.topk(inputs[0], layer.params["k"], dim=-1)
+    from torch.distributed.tensor import DTensor, Shard
+
+    x = inputs[0]
+    if isinstance(x, DTensor) and not any(
+            p.is_partial() or (isinstance(p, Shard)
+                               and p.dim % x.ndim == x.ndim - 1)
+            for p in x.placements):
+        vals, idx = torch.topk(x.to_local(), layer.params["k"], dim=-1)
+        return [DTensor.from_local(t, x.device_mesh, x.placements,
+                                   run_check=False)
+                for t in (vals, idx.to(torch.int32))]
+    vals, idx = torch.topk(x, layer.params["k"], dim=-1)
     return [vals, idx.to(torch.int32)]
 
 

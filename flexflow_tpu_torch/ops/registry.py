@@ -63,6 +63,18 @@ class LoweringCtx:
     # the DeviceMesh the run's DTensors live on (None: the one-device
     # program); the parallel ops redistribute over it
     mesh: Any = None
+    # the run's Strategy: over a mesh the lowerings read the ring, the
+    # placement and the expert layouts from it (`mesh_sharding`)
+    strategy: Any = None
+
+    def mesh_sharding(self, layer: "Layer"):
+        """The strategy's sharding of `layer` over a mesh (its `attrs`
+        name the ring and placement axes), None for the one-device
+        program, which applies none. The compile held it to its guards
+        (compiler/compile.py `_check_mesh_strategy`)."""
+        if self.mesh is None or self.strategy is None:
+            return None
+        return self.strategy.sharding_for(layer.name)
 
     def layer_key(self, layer: "Layer"):
         """fold_in(rng, layer.guid), a host or a device key as the rng is:

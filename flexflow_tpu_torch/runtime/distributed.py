@@ -19,6 +19,20 @@ device.
   batch from this rank's rows, or from the full array every rank holds
   (`local_rows` cuts them): the rows of this rank's coordinate on each
   sharded mesh axis.
+- `axis_group`, `axis_index` and `axis_size` name one mesh dim's process
+  group, this rank's coordinate on it and its size (JAX's
+  `lax.axis_index` and the axis of a collective).
+- `ring_shift` is JAX's `ppermute` around a ring, the hop every ring
+  program calls (kernels/ring_attention.py, kernels/collective_matmul.py):
+  the tensors go, packed into one byte buffer, to the next rank on the
+  axis and come from the previous one, as one `all_to_all_single` whose
+  only nonzero splits are those two. On NCCL that is one send and one
+  receive in a group (zero counts are skipped); gloo carries it on CUDA
+  tensors too. It is issued with `async_op=True`, so a ring posts its
+  next hop before it computes the current chunk and waits on the handle
+  only when the chunk is needed: the transfer overlaps the compute, on
+  NCCL's stream or gloo's worker. One code path for every backend; at
+  axis size 1 it is the identity and issues nothing.
 """
 
 from __future__ import annotations
@@ -135,6 +149,86 @@ def global_batch_from_full(arr, mesh, placements):
     rank keeps its own block (`local_rows`), nothing is sent."""
     return host_local_batch(local_rows(arr, mesh, placements), mesh,
                             placements)
+
+
+def axis_group(mesh, axis: str):
+    """The process group of mesh dim `axis`: the ranks that differ from
+    this one only in their coordinate on it, in coordinate order."""
+    return mesh.get_group(axis)
+
+
+def axis_index(mesh, axis: str) -> int:
+    """This rank's coordinate on mesh dim `axis` (`lax.axis_index`)."""
+    return mesh.get_local_rank(axis)
+
+
+def axis_size(mesh, axis: str) -> int:
+    return mesh.size(list(mesh.mesh_dim_names).index(axis))
+
+
+# bytes each packed tensor starts on: the hand-written kernels read the
+# tensors unpacked from a received buffer with 16-byte aligned rows
+_PACK_ALIGN = 16
+
+
+def _packed_layout(tensors):
+    """Each tensor's byte offset in the packed buffer, and its length."""
+    offs, n = [], 0
+    for t in tensors:
+        offs.append(n)
+        n += -(-t.numel() * t.element_size() // _PACK_ALIGN) * _PACK_ALIGN
+    return offs, n
+
+
+class RingHop:
+    """The handle of one `ring_shift`: `wait()` gives the received
+    tensors, each in the shape and dtype of the one sent (contiguous)."""
+
+    def __init__(self, work, buf, metas, offs, send=None):
+        # the send buffer lives until the hop is waited on
+        self._work, self._buf, self._send = work, buf, send
+        self._metas, self._offs = metas, offs
+
+    def wait(self):
+        if self._work is None:
+            return self._buf
+        self._work.wait()
+        self._send = None
+        out = []
+        for (shape, dtype, nbytes), off in zip(self._metas, self._offs):
+            out.append(self._buf[off:off + nbytes].view(dtype).view(shape))
+        return out
+
+
+def ring_shift(tensors, mesh, axis: str, shift: int = 1) -> RingHop:
+    """Send `tensors` to the rank `shift` ahead on mesh dim `axis` and
+    receive those of the rank `shift` behind, as one asynchronous
+    `all_to_all_single` of one packed byte buffer (the module docstring).
+    Every rank of the axis calls it with tensors of the same shapes and
+    dtypes. Returns a `RingHop`; a failed hop raises at `wait()`."""
+    import torch.distributed as dist
+
+    tensors = list(tensors)
+    p = axis_size(mesh, axis)
+    if p == 1:
+        return RingHop(None, tensors, None, None)
+    idx = axis_index(mesh, axis)
+    offs, nbytes = _packed_layout(tensors)
+    dev = tensors[0].device
+    send = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    for t, off in zip(tensors, offs):
+        n = t.numel() * t.element_size()
+        send[off:off + n].copy_(t.contiguous().view(-1).view(torch.uint8))
+    recv = torch.empty_like(send)
+    in_splits, out_splits = [0] * p, [0] * p
+    in_splits[(idx + shift) % p] = nbytes
+    out_splits[(idx - shift) % p] = nbytes
+    work = dist.all_to_all_single(recv, send, out_splits, in_splits,
+                                  group=axis_group(mesh, axis),
+                                  async_op=True)
+    metas = [(tuple(t.shape), t.dtype, t.numel() * t.element_size())
+             for t in tensors]
+    return RingHop(work, recv, metas, offs, send)
 
 
 def mesh_device(mesh) -> torch.device:

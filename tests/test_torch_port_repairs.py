@@ -292,3 +292,142 @@ def test_fit_passes_steps_per_dispatch_through_as_in_jax():
     assert pcm.step_stats == jcm.step_stats
     assert pcm.step_stats["dispatches"] == 4
     np.testing.assert_allclose(pl, jl, rtol=1e-5)
+
+
+_MESH_STRATEGIES = r'''
+import socket, sys
+import numpy as np
+import flexflow_tpu_torch as F
+from flexflow_tpu_torch.parallel import templates as T
+from flexflow_tpu_torch.runtime.distributed import init_distributed
+
+with socket.socket() as s:
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+init_distributed(f"localhost:{port}", 1, 0, backend="gloo")
+rng = np.random.default_rng(0)
+
+
+def run(mesh, build, place, unguarded=None):
+    m = F.FFModel(F.FFConfig(batch_size=8, mesh_shape=mesh,
+                             only_data_parallel=True))
+    x = build(m)
+    cm = m.compile(F.SGDOptimizer(lr=0.1), "sparse_categorical_crossentropy",
+                   [], device="cpu")
+    place(cm, m)
+    cm._build_steps()
+    cm.init(seed=0)
+    if unguarded is not None:
+        # past the compile's guard: the lowering raises, it does not fall
+        # back to the layer's usual path
+        unguarded(cm)
+    xs = rng.normal(size=(8,) + tuple(x.shape[1:])).astype(np.float32)
+    ys = rng.integers(0, 4, size=(8,) + tuple(m.layers[-1].outputs[0]
+                                           .spec.shape[1:-1])).astype(np.int32)
+    return float(cm.fit(xs, ys, epochs=1, verbose=False)[0]["loss"])
+
+
+def attn(m):
+    x = m.create_tensor([8, 16, 32], name="x")
+    m.dense(m.multihead_attention(x, x, x, 32, 2, causal=True, name="mha"),
+            4, name="head")
+    return x
+
+
+def sp(cm, m):
+    cm.strategy.op_shardings["mha"].attrs["seq_parallel"] = (
+        "model" if sys.argv[1] == "unguarded" else sys.argv[1])
+
+
+def sp_nope(cm):
+    cm.strategy.op_shardings["mha"].attrs["seq_parallel"] = "nope"
+
+
+def ep_nope(cm):
+    gb = next(l.name for l in cm.model.layers
+              if l.op_type.value == "group_by")
+    sh = cm.strategy.op_shardings[gb]
+    sh.outputs[0] = ["nope"] + list(sh.outputs[0][1:])
+
+
+def moe(m):
+    x = m.create_tensor([8, 16], name="x")
+    m.dense(m.moe(x, num_exp=4, num_select=2, expert_hidden_size=16,
+                  name="moe"), 4, name="head")
+    return x
+
+
+def ep(cm, m):
+    T.apply_expert_parallel(cm.strategy, [l for l in m.layers if
+                                          l.op_type.value in
+                                          ("group_by", "experts")], "expert")
+
+
+def fj(m):
+    x = m.create_tensor([8, 16], name="x")
+    br = lambda mm, t: mm.dense(t, 16, activation="relu", name="mid")
+    m.dense(m.fork_join(x, [br], name="fj"), 4, name="head")
+    return x
+
+
+def inter(cm, m):
+    T.apply_branch_placement(cm.strategy, m.get_layer_by_name("fj"), "model")
+
+
+def inter_nope(cm):
+    cm.strategy.op_shardings["fj"].attrs["placement"] = "nope"
+
+
+if sys.argv[1] == "unguarded":
+    for case in ((attn, sp, sp_nope), (moe, ep, ep_nope),
+                 (fj, inter, inter_nope)):
+        try:
+            run({"model": 1} if case[0] is not moe else {"expert": 1}, *case)
+            print("RAN", case[2].__name__)
+        except ValueError as e:
+            print("RAISED", case[2].__name__, e)
+    sys.exit(0)
+print("LOSSES", run({"model": 1}, attn, sp), run({"expert": 1}, moe, ep),
+      run({"model": 1}, fj, inter))
+'''
+
+
+@pytest.mark.parametrize("axis", ["model", "nope", "unguarded"])
+def test_seq_parallel_ep_and_inter_compile_over_a_mesh(tmp_path, axis):
+    """A strategy with `seq_parallel`, `ep:` or `inter:` compiles and
+    trains over a mesh (a world-1 gloo group, one process) instead of
+    raising NotImplementedError; an attention ring over an axis the mesh
+    lacks raises ValueError naming that guard. Past the guard (the axis
+    changed after the compile) each lowering raises ValueError naming
+    the missing axis instead of taking its usual path."""
+    import os
+    import subprocess
+    import sys
+
+    script = tmp_path / "mesh_strategies.py"
+    script.write_text(_MESH_STRATEGIES)
+    env = dict(os.environ, FLEXFLOW_PLATFORM="cpu",
+               PYTHONPATH=os.pathsep.join(
+                   [str(PKG.parent), os.environ.get("PYTHONPATH", "")]))
+    for k in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(k, None)
+    out = subprocess.run([sys.executable, str(script), axis],
+                         cwd=str(PKG.parent), env=env, capture_output=True,
+                         text=True, timeout=120)
+    if axis == "unguarded":
+        assert out.returncode == 0, out.stderr[-3000:]
+        said = [l for l in out.stdout.splitlines() if l.startswith(("RAN",
+                                                                     "RAISED"))]
+        assert [l.split()[:2] for l in said] == [
+            ["RAISED", n] for n in ("sp_nope", "ep_nope", "inter_nope")], \
+            out.stdout[-3000:]
+        assert all("mesh has no axis 'nope'" in l for l in said), said
+        return
+    if axis == "nope":
+        assert out.returncode != 0
+        assert "sequence-parallel attention over 'nope': the mesh has no " \
+               "such axis" in out.stderr, out.stderr[-2000:]
+        return
+    assert out.returncode == 0, out.stderr[-3000:]
+    line = [l for l in out.stdout.splitlines() if l.startswith("LOSSES")]
+    assert line and all(np.isfinite(float(v)) for v in line[0].split()[1:])
