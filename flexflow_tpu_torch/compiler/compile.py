@@ -7,7 +7,9 @@ forward (compiler/lowering.py) and returns a `CompiledModel` with
 `save_checkpoint`, `load_checkpoint`, `get_weight`, `set_weight` and
 `make_multi_step`, as the JAX package's, and its reports: `drift_stats`,
 `goodput_report`, `health_report`, `op_attribution`, `profile_report`
-and `recompile_on_condition`. Pipelines are not ported yet. The config's
+and `recompile_on_condition`. With `pipeline_stages` S > 1 it returns a
+`PipelinedModel` (parallel/pipeline.py) on each rank of a world of S x
+(devices a stage) instead (`_compile_pipelined`). The config's
 `telemetry_dir` turns on the span stream (telemetry.py) at compile, as
 in JAX.
 
@@ -333,10 +335,6 @@ def _pick_strategy(model, machine: MachineSpec, optimizer=None,
     one), else data parallel (JAX's order). No fallback: a search that
     fails raises."""
     cfg = model.config
-    if cfg.pipeline_stages > 1:
-        raise NotImplementedError(
-            "pipeline_stages > 1: pipelined compiles are not ported yet "
-            "(ROADMAP Queue 1 item 9: the pipeline and its cut search)")
     if cfg.import_strategy_file:
         strategy = Strategy.load(cfg.import_strategy_file)
     else:
@@ -360,9 +358,6 @@ def _pick_strategy(model, machine: MachineSpec, optimizer=None,
                                           measure_device=device)
         else:
             strategy = data_parallel_strategy(model, machine)
-    if strategy.pipeline:
-        raise NotImplementedError(
-            "pipeline strategies are not ported yet (ROADMAP Queue 1 item 9)")
     return strategy
 
 
@@ -391,6 +386,9 @@ def compile_model(model, optimizer, loss_type, metrics: Sequence = (),
 
 def _compile_model(model, optimizer, loss_type, metrics, device, outputs):
     optimizer = optimizer or SGDOptimizer(lr=model.config.learning_rate)
+    if model.config.pipeline_stages > 1:
+        return _compile_pipelined(model, optimizer, loss_type, metrics,
+                                  device, outputs)
     machine = resolve_machine(model.config, device)
     mesh = build_mesh(machine, device) if over_mesh(model.config) else None
     strategy = _pick_strategy(model, machine, optimizer, device)
@@ -403,6 +401,97 @@ def _compile_model(model, optimizer, loss_type, metrics, device, outputs):
                          [MetricsType.from_any(m) for m in metrics],
                          list(outputs), device=device,
                          strategy=strategy, machine=machine, mesh=mesh)
+
+
+def _compile_pipelined(model, optimizer, loss_type, metrics, device,
+                       outputs):
+    """--pipeline-stages S (JAX `compile.py:188-260`): the world splits into
+    S stages of contiguous ranks. The machine describes the whole world;
+    the stage machine takes the pipe dimension out of it (an explicit
+    "pipe" axis, else the batch axis divided by S: dp.stage_machine_for),
+    and the layouts inside a stage are picked on it (`_pick_strategy`: a
+    strategy file, the search, or data parallel). The cuts come from the
+    cut search when `search_budget > 0` (span `compile/pipeline_cut_search`)
+    or from `balanced_cuts`; M = accum_steps microbatches an update. The
+    completed strategy (layouts and its `pipeline` block) is stored in the
+    strategy cache under the full machine's key, which covers the stage
+    count, the schedule and M: a warm compile finds the block and skips
+    both searches (zero DP expansions). A world smaller than S raises
+    JAX's "need N devices, have M"."""
+    from flexflow_tpu_torch.parallel.machine import stage_device_groups
+    from flexflow_tpu_torch.parallel.pipeline import (PipelinedModel,
+                                                      balanced_cuts)
+    from flexflow_tpu_torch.runtime.distributed import world_size
+    from flexflow_tpu_torch.search import cost_model as cmod
+    from flexflow_tpu_torch.search import strategy_cache as sc
+    from flexflow_tpu_torch.search.dp import (search_pipelined,
+                                              stage_machine_for)
+
+    cfg = model.config
+    S = int(cfg.pipeline_stages)
+    if world_size() < S:
+        stage_device_groups(S, 1)
+    machine = resolve_machine(cfg, device)
+    stage_machine = stage_machine_for(machine, S)
+    micro = max(1, int(cfg.accum_steps))
+    searching = cfg.search_budget > 0 and not cfg.only_data_parallel
+    strategy, key, cache_dir = None, None, None
+    if searching and cfg.strategy_cache and not cfg.import_strategy_file:
+        cache_dir = sc.resolve_dir(cfg)
+        opt_mem = cmod.opt_mem_spec(optimizer, cfg, stage_machine)
+        key = sc.cache_key(model, machine, cfg, "pipeline",
+                           repr(opt_mem.fingerprint()) if opt_mem else "")
+        hit = sc.lookup(cache_dir, key, model, stage_machine)
+        if hit is not None and hit.pipeline:
+            strategy = hit
+        if world_size() > 1:
+            # every rank has looked the key up before any rank stores it
+            import torch.distributed as dist
+
+            dist.barrier()
+    if strategy is None:
+        strategy = _pick_strategy(model, stage_machine, optimizer, device)
+    if strategy.pipeline and int(strategy.pipeline.get("stages", S)) != S:
+        raise ValueError(f"imported strategy pipelines "
+                         f"{strategy.pipeline.get('stages')} stages but "
+                         f"--pipeline-stages is {S}")
+    if not strategy.pipeline:
+        cuts = None
+        if searching:
+            with tel.span("compile/pipeline_cut_search", cat="compile",
+                          stages=S, micro=micro):
+                r = search_pipelined(
+                    model, machine, S, micro,
+                    schedule=cfg.pipeline_schedule,
+                    mem_budget=machine.hbm_bytes if cfg.memory_search
+                    else None,
+                    opt_mem=cmod.opt_mem_spec(optimizer, cfg, stage_machine))
+            if r is not None:
+                cuts = list(r.cuts)
+                strategy._pipeline_search = r
+        if cuts is None:
+            cuts = balanced_cuts(model, stage_machine, S)
+        strategy.pipeline = {"stages": S, "cuts": cuts,
+                             "schedule": cfg.pipeline_schedule}
+        if key is not None:
+            from flexflow_tpu_torch.runtime.distributed import rank
+
+            if rank() == 0:  # the same search on every rank: one writer
+                sc.store(cache_dir, key, strategy,
+                         meta={"pipeline": strategy.pipeline})
+            strategy._cache_info = {"event": "miss", "key": key,
+                                    "dir": cache_dir}
+    _overlay_parallel_ops(model, strategy)
+    if cfg.export_strategy_file:
+        strategy.save(cfg.export_strategy_file)
+    if outputs is None:
+        outputs = model.layers[-1].outputs[:1] if model.layers else []
+    pm = PipelinedModel(model, machine, stage_machine, strategy, optimizer,
+                        LossType.from_any(loss_type),
+                        [MetricsType.from_any(m) for m in metrics],
+                        list(outputs), device=device)
+    pm.search_cache_info = getattr(strategy, "_cache_info", None)
+    return pm
 
 
 def _host_or_tensor(value):

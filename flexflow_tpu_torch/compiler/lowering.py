@@ -229,7 +229,11 @@ class GraphForward(nn.Module):
         cast_to = self.cast_to
         env: Dict[int, torch.Tensor] = {}
         for t, arr in zip(self.graph_inputs, input_arrays):
-            if cast_to is not None and arr.is_floating_point():
+            # a model input takes the compute dtype; a layer's output fed
+            # in from outside (a pipeline stage's boundary input) keeps the
+            # dtype its layer gave it, as inside the whole graph
+            if cast_to is not None and arr.is_floating_point() \
+                    and t.owner is None:
                 arr = arr.to(cast_to)
             if self.mesh is not None:
                 arr = maybe_constrain(arr, self.strategy.input_dims(t.name),

@@ -106,8 +106,15 @@ class FFConfig:
     # durable checkpoint
     health_sentinels: bool = True
     halt_on_nonfinite: bool = False
-    # pipeline parallelism is not ported: > 1 raises at compile
+    # pipeline parallelism (parallel/pipeline.py): the world splits into
+    # pipeline_stages contiguous groups of ranks, each holding only its
+    # stage's weights and optimizer state; accum_steps is the microbatch
+    # count M the schedule pipelines over. pipeline_schedule: "gpipe" (all
+    # forwards, then all backwards; M in-flight boundary inputs a stage) or
+    # "1f1b" (one forward, one backward in the steady state; <= S in
+    # flight). Both have the bubble (S-1)/(M+S-1).
     pipeline_stages: int = 1
+    pipeline_schedule: str = "1f1b"
     # --fusion: False keeps the hand-written attention kernels off (the
     # plain PyTorch attention runs instead)
     enable_fusion: bool = True
@@ -359,7 +366,7 @@ class FFConfig:
                        choices=("off", "zero1", "zero2"))
         p.add_argument("--accum-steps", type=int, default=1)
         p.add_argument("--pipeline-stages", type=int, default=1)
-        p.add_argument("--pipeline-schedule", type=str, default=U,
+        p.add_argument("--pipeline-schedule", type=str, default="1f1b",
                        choices=("gpipe", "1f1b"))
         p.add_argument("--fusion", dest="fusion", action="store_true",
                        default=True)
@@ -500,6 +507,7 @@ class FFConfig:
             health_sentinels=args.health_sentinels,
             halt_on_nonfinite=args.halt_on_nonfinite,
             pipeline_stages=args.pipeline_stages,
+            pipeline_schedule=args.pipeline_schedule,
             enable_fusion=args.fusion,
             compute_dtype=args.compute_dtype,
             serve=args.serve,
@@ -555,6 +563,5 @@ class FFConfig:
 # The JAX parser's flags whose features the port has not yet: argparse
 # dest -> (flag, ROADMAP Queue 1 item that ports it)
 _UNPORTED = {
-    "pipeline_schedule": ("--pipeline-schedule", 9),
     "serve_objective": ("--serve-objective", 9),
 }

@@ -28,7 +28,10 @@
 //   rounded to bf16 and packed straight into A fragments, never through
 //   shared memory. Only k tiles that cross the diagonal or SK are masked.
 //   O/l is staged through the warp's own Q rows and written with 16-byte
-//   stores.
+//   stores; or, with out_f32 (the ring's chunks, which it merges in f32
+//   and rounds once), written unrounded from the fragments as float32.
+//   The output type is the kernel's template parameter, not a second
+//   kernel.
 // - float32: flash_fwd_kernel, scalar f32 FMAs. Tensor cores give no f32
 //   products at the 1e-4 the f32 checks hold the kernel to (TF32 keeps ~3
 //   digits). One block of 256 threads per (batch, head, 64-row q tile);
@@ -41,6 +44,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tc_bf16.cuh"
 
@@ -225,10 +230,10 @@ constexpr size_t tc_smem_bytes() {  // Q, K x 2, V x 2 padded bf16 tiles
   return (size_t)(tc_q_rows<D>() + 4 * BK) * (D + tc::PAD) * sizeof(__nv_bfloat16);
 }
 
-template <int D>
+template <int D, typename OutT>
 __global__ void __launch_bounds__(TC_THREADS) flash_fwd_tc_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+    const __nv_bfloat16* __restrict__ v, OutT* __restrict__ o,
     float* __restrict__ lse, int SQ, int SK, int H, Strides qs, Strides ks, Strides vs,
     Strides os, float scale, int causal) {
   static_assert(BK == 64, "8 n-blocks of 8 keys a k tile");
@@ -391,16 +396,24 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_tc_kernel(
     __syncthreads();         // and every warp is done with buffer kt
   }
 
-  // O / l staged in this warp's own Q rows (read only by this warp, into
-  // qf), then 16-byte stores; lse = m + log(l)
+  // O / l: in f32 straight from the fragments; in bf16 staged in this
+  // warp's own Q rows (read only by this warp, into qf), then 16-byte
+  // stores; lse = m + log(l)
+  OutT* op = o + bb * os.b + hh * os.h;
+  if constexpr (std::is_same<OutT, float>::value) {
 #pragma unroll
-  for (int mi = 0; mi < MW; ++mi)
-    tc::stage_rows<D>(Qs, wr + mi * 16, acc[mi], l[mi][0], l[mi][1], lane);
-  __syncwarp();
-  __nv_bfloat16* op = o + bb * os.b + hh * os.h;
+    for (int mi = 0; mi < MW; ++mi)
+      tc::store_acc_f32<D>(op, os.s, acc[mi], l[mi][0], l[mi][1], q0 + wr + mi * 16, SQ,
+                           lane);
+  } else {
 #pragma unroll
-  for (int mi = 0; mi < MW; ++mi)
-    tc::store_rows<D>(op, os.s, Qs, wr + mi * 16, q0 + wr + mi * 16, SQ, lane);
+    for (int mi = 0; mi < MW; ++mi)
+      tc::stage_rows<D>(Qs, wr + mi * 16, acc[mi], l[mi][0], l[mi][1], lane);
+    __syncwarp();
+#pragma unroll
+    for (int mi = 0; mi < MW; ++mi)
+      tc::store_rows<D>(op, os.s, Qs, wr + mi * 16, q0 + wr + mi * 16, SQ, lane);
+  }
   if (t == 0) {
 #pragma unroll
     for (int mi = 0; mi < MW; ++mi)
@@ -412,20 +425,20 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_tc_kernel(
   }
 }
 
-template <int D>
+template <int D, typename OutT>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                       int H, int SQ, int SK, Strides qs, Strides ks, Strides vs, Strides os,
                       float scale, int causal, cudaStream_t stream) {
   const size_t smem = tc_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_tc_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_tc_kernel<D, OutT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (SQ + tc_q_rows<D>() - 1) / tc_q_rows<D>());
-  flash_fwd_tc_kernel<D><<<grid, TC_THREADS, smem, stream>>>(
+  flash_fwd_tc_kernel<D, OutT><<<grid, TC_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, SQ, SK, H,
-      qs, ks, vs, os, scale, causal);
+      static_cast<const __nv_bfloat16*>(v), static_cast<OutT*>(o), lse, SQ, SK, H, qs, ks, vs,
+      os, scale, causal);
   return cudaGetLastError();
 }
 
@@ -436,14 +449,16 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, floa
 // strides in multiples of 8 elements; the Python wrapper checks). Strides
 // are in elements, for the (batch, head, seq) dims of q/k/v/o viewed as
 // (b, h, s, d) with the last dim contiguous. lse is a contiguous
-// (b, h, sq) float32 array.
+// (b, h, sq) float32 array. out_f32 = 1 writes a bf16 route's O in float32
+// (the accumulator unrounded: the ring merges its chunks' O so); the f32
+// route's O is float32 either way.
 extern "C" int ff_flash_fwd(const void* q, const void* k, const void* v, void* o,
                             void* lse, int dtype, int B, int H, int SQ, int SK, int D,
                             long long qsb, long long qsh, long long qss,
                             long long ksb, long long ksh, long long kss,
                             long long vsb, long long vsh, long long vss,
                             long long osb, long long osh, long long oss,
-                            float scale, int causal, void* stream) {
+                            float scale, int causal, int out_f32, void* stream) {
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss}, os{osb, osh, oss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
@@ -452,9 +467,16 @@ extern "C" int ff_flash_fwd(const void* q, const void* k, const void* v, void* o
     err = launch_f32<64>(q, k, v, o, l, B, H, SQ, SK, qs, ks, vs, os, scale, causal, st);
   else if (dtype == 0 && D == 128)
     err = launch_f32<128>(q, k, v, o, l, B, H, SQ, SK, qs, ks, vs, os, scale, causal, st);
+  else if (dtype == 1 && D == 64 && out_f32)
+    err = launch_tc<64, float>(q, k, v, o, l, B, H, SQ, SK, qs, ks, vs, os, scale, causal, st);
+  else if (dtype == 1 && D == 128 && out_f32)
+    err = launch_tc<128, float>(q, k, v, o, l, B, H, SQ, SK, qs, ks, vs, os, scale, causal,
+                                st);
   else if (dtype == 1 && D == 64)
-    err = launch_tc<64>(q, k, v, o, l, B, H, SQ, SK, qs, ks, vs, os, scale, causal, st);
+    err = launch_tc<64, __nv_bfloat16>(q, k, v, o, l, B, H, SQ, SK, qs, ks, vs, os, scale,
+                                       causal, st);
   else if (dtype == 1 && D == 128)
-    err = launch_tc<128>(q, k, v, o, l, B, H, SQ, SK, qs, ks, vs, os, scale, causal, st);
+    err = launch_tc<128, __nv_bfloat16>(q, k, v, o, l, B, H, SQ, SK, qs, ks, vs, os, scale,
+                                        causal, st);
   return (int)err;
 }

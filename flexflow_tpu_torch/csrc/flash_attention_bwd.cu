@@ -55,7 +55,11 @@
 //   and dV are staged in the warp's own K and V rows and written once,
 //   with 16-byte stores; no atomics.
 //
-// Each output is written once; no reduction across blocks.
+// Each output is written once; no reduction across blocks. With out_f32
+// the bf16 kernels write dQ, dK and dV as float32 straight from their
+// accumulator fragments, unrounded (the ring adds P steps' gradients in
+// f32 and rounds once); the output type is a template parameter of the
+// same kernels.
 //
 // What bounds them on an H100: at GPT-2 medium's training shape (8 x 16
 // heads x 1024 x 64, bf16, causal) dQ does 3 causal matmuls (25.8 GFLOP,
@@ -69,6 +73,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tc_bf16.cuh"
 
@@ -350,12 +356,12 @@ constexpr size_t dkv_tc_smem_bytes() {  // K, V, (Q, dO) x 2 padded bf16 tiles, 
          4 * (size_t)BQ * sizeof(float);
 }
 
-template <int D>
+template <int D, typename OutT>
 __global__ void __launch_bounds__(TC_THREADS) flash_dkv_tc_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int H, int SQ, int SK,
+    OutT* __restrict__ dk, OutT* __restrict__ dv, int H, int SQ, int SK,
     Strides qs, Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs, float scale,
     int causal) {
   static_assert(BQ == 64 && BK == 64, "4 warps x 16 keys, 8 n-blocks of q rows");
@@ -500,14 +506,22 @@ __global__ void __launch_bounds__(TC_THREADS) flash_dkv_tc_kernel(
     __syncthreads();         // and every warp is done with buffer qt
   }
 
-  // staged in this warp's own K and V rows (only this warp reads them),
-  // then 16-byte stores of the keys below SK
-  tc::stage_rows<D>(Ks, warp * 16, dk_acc, 1.f, 1.f, lane);
-  tc::stage_rows<D>(Vs, warp * 16, dv_acc, 1.f, 1.f, lane);
-  __syncwarp();
+  // in f32 straight from the fragments; in bf16 staged in this warp's own
+  // K and V rows (only this warp reads them), then 16-byte stores of the
+  // keys below SK
   const int krow = k0 + warp * 16;
-  tc::store_rows<D>(dk + bb * dks.b + hh * dks.h, dks.s, Ks, warp * 16, krow, SK, lane);
-  tc::store_rows<D>(dv + bb * dvs.b + hh * dvs.h, dvs.s, Vs, warp * 16, krow, SK, lane);
+  if constexpr (std::is_same<OutT, float>::value) {
+    tc::store_acc_f32<D>(dk + bb * dks.b + hh * dks.h, dks.s, dk_acc, 1.f, 1.f, krow, SK,
+                         lane);
+    tc::store_acc_f32<D>(dv + bb * dvs.b + hh * dvs.h, dvs.s, dv_acc, 1.f, 1.f, krow, SK,
+                         lane);
+  } else {
+    tc::stage_rows<D>(Ks, warp * 16, dk_acc, 1.f, 1.f, lane);
+    tc::stage_rows<D>(Vs, warp * 16, dv_acc, 1.f, 1.f, lane);
+    __syncwarp();
+    tc::store_rows<D>(dk + bb * dks.b + hh * dks.h, dks.s, Ks, warp * 16, krow, SK, lane);
+    tc::store_rows<D>(dv + bb * dvs.b + hh * dvs.h, dvs.s, Vs, warp * 16, krow, SK, lane);
+  }
 }
 
 // --------------------------------------------- bf16 tensor-core dQ route
@@ -516,12 +530,12 @@ constexpr size_t dq_tc_smem_bytes() {  // Q, dO, (K, V) x 2 padded bf16 tiles
   return (size_t)(2 * BQ + 4 * BK) * (D + tc::PAD) * sizeof(__nv_bfloat16);
 }
 
-template <int D>
+template <int D, typename OutT>
 __global__ void __launch_bounds__(TC_THREADS) flash_dq_tc_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    __nv_bfloat16* __restrict__ dq, int H, int SQ, int SK, Strides qs, Strides ks,
+    OutT* __restrict__ dq, int H, int SQ, int SK, Strides qs, Strides ks,
     Strides vs, Strides dos, Strides dqs, float scale, int causal) {
   static_assert(BQ == 64 && BK == 64, "4 warps x 16 q rows, 8 n-blocks of keys");
   constexpr int RS = D + tc::PAD, KD = D / 16, ND = D / 8;
@@ -654,11 +668,17 @@ __global__ void __launch_bounds__(TC_THREADS) flash_dq_tc_kernel(
     __syncthreads();         // and every warp is done with buffer kt
   }
 
-  // staged in this warp's own Q rows (only this warp reads them), then
-  // 16-byte stores of the rows below SQ
-  tc::stage_rows<D>(Qs, wr, acc, 1.f, 1.f, lane);
-  __syncwarp();
-  tc::store_rows<D>(dq + bb * dqs.b + hh * dqs.h, dqs.s, Qs, wr, q0 + wr, SQ, lane);
+  // in f32 straight from the fragments; in bf16 staged in this warp's own
+  // Q rows (only this warp reads them), then 16-byte stores of the rows
+  // below SQ
+  if constexpr (std::is_same<OutT, float>::value) {
+    tc::store_acc_f32<D>(dq + bb * dqs.b + hh * dqs.h, dqs.s, acc, 1.f, 1.f, q0 + wr, SQ,
+                         lane);
+  } else {
+    tc::stage_rows<D>(Qs, wr, acc, 1.f, 1.f, lane);
+    __syncwarp();
+    tc::store_rows<D>(dq + bb * dqs.b + hh * dqs.h, dqs.s, Qs, wr, q0 + wr, SQ, lane);
+  }
 }
 
 template <int D>
@@ -679,22 +699,22 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename OutT>
 cudaError_t launch_dq_tc(const void* q, const void* k, const void* v, const void* dout,
                          const float* lse, const float* delta, void* dq, int B, int H,
                          int SQ, int SK, Strides qs, Strides ks, Strides vs, Strides dos,
                          Strides dqs, float scale, int causal, cudaStream_t stream) {
   const size_t smem = dq_tc_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_dq_tc_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_dq_tc_kernel<D, OutT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (SQ + BQ - 1) / BQ);
   using bf = __nv_bfloat16;
-  flash_dq_tc_kernel<D><<<grid, TC_THREADS, smem, stream>>>(
+  flash_dq_tc_kernel<D, OutT><<<grid, TC_THREADS, smem, stream>>>(
       static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
-      static_cast<const bf*>(dout), lse, delta, static_cast<bf*>(dq), H, SQ, SK, qs, ks, vs,
-      dos, dqs, scale, causal);
+      static_cast<const bf*>(dout), lse, delta, static_cast<OutT*>(dq), H, SQ, SK, qs, ks,
+      vs, dos, dqs, scale, causal);
   return cudaGetLastError();
 }
 
@@ -718,23 +738,23 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename OutT>
 cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v, const void* dout,
                           const float* lse, const float* delta, void* dk, void* dv, int B,
                           int H, int SQ, int SK, Strides qs, Strides ks, Strides vs,
                           Strides dos, Strides dks, Strides dvs, float scale, int causal,
                           cudaStream_t stream) {
   const size_t smem = dkv_tc_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_dkv_tc_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_dkv_tc_kernel<D, OutT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (SK + BK - 1) / BK);
   using bf = __nv_bfloat16;
-  flash_dkv_tc_kernel<D><<<grid, TC_THREADS, smem, stream>>>(
+  flash_dkv_tc_kernel<D, OutT><<<grid, TC_THREADS, smem, stream>>>(
       static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
-      static_cast<const bf*>(dout), lse, delta, static_cast<bf*>(dk), static_cast<bf*>(dv), H,
-      SQ, SK, qs, ks, vs, dos, dks, dvs, scale, causal);
+      static_cast<const bf*>(dout), lse, delta, static_cast<OutT*>(dk),
+      static_cast<OutT*>(dv), H, SQ, SK, qs, ks, vs, dos, dks, dvs, scale, causal);
   return cudaGetLastError();
 }
 
@@ -745,7 +765,9 @@ cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v, const voi
 // strides in multiples of 8 elements; the Python wrapper checks). Strides are in
 // elements, for the (batch, head, seq) dims of each tensor viewed as
 // (b, h, s, d) with the last dim contiguous. lse and delta are contiguous
-// (b, h, sq) float32.
+// (b, h, sq) float32. out_f32 = 1 writes a bf16 route's gradients in
+// float32, unrounded (the ring adds its steps' so); the f32 route's are
+// float32 either way.
 extern "C" int ff_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse, const void* delta,
                                void* dq, int dtype, int B, int H, int SQ, int SK, int D,
@@ -754,7 +776,7 @@ extern "C" int ff_flash_bwd_dq(const void* q, const void* k, const void* v,
                                long long vsb, long long vsh, long long vss,
                                long long dosb, long long dosh, long long doss,
                                long long dqsb, long long dqsh, long long dqss,
-                               float scale, int causal, void* stream) {
+                               float scale, int causal, int out_f32, void* stream) {
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
       dos{dosb, dosh, doss}, dqs{dqsb, dqsh, dqss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -766,12 +788,18 @@ extern "C" int ff_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (dtype == 0 && D == 128)
     return (int)launch_dq<128>(q, k, v, dout, l, dl, dq, B, H, SQ, SK, qs, ks, vs, dos, dqs,
                                scale, causal, st);
+  if (dtype == 1 && D == 64 && out_f32)
+    return (int)launch_dq_tc<64, float>(q, k, v, dout, l, dl, dq, B, H, SQ, SK, qs, ks, vs,
+                                        dos, dqs, scale, causal, st);
+  if (dtype == 1 && D == 128 && out_f32)
+    return (int)launch_dq_tc<128, float>(q, k, v, dout, l, dl, dq, B, H, SQ, SK, qs, ks, vs,
+                                         dos, dqs, scale, causal, st);
   if (dtype == 1 && D == 64)
-    return (int)launch_dq_tc<64>(q, k, v, dout, l, dl, dq, B, H, SQ, SK, qs, ks, vs, dos, dqs,
-                                 scale, causal, st);
+    return (int)launch_dq_tc<64, __nv_bfloat16>(q, k, v, dout, l, dl, dq, B, H, SQ, SK, qs,
+                                                ks, vs, dos, dqs, scale, causal, st);
   if (dtype == 1 && D == 128)
-    return (int)launch_dq_tc<128>(q, k, v, dout, l, dl, dq, B, H, SQ, SK, qs, ks, vs, dos,
-                                  dqs, scale, causal, st);
+    return (int)launch_dq_tc<128, __nv_bfloat16>(q, k, v, dout, l, dl, dq, B, H, SQ, SK, qs,
+                                                 ks, vs, dos, dqs, scale, causal, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -784,7 +812,8 @@ extern "C" int ff_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 long long vss, long long dosb, long long dosh,
                                 long long doss, long long dksb, long long dksh,
                                 long long dkss, long long dvsb, long long dvsh,
-                                long long dvss, float scale, int causal, void* stream) {
+                                long long dvss, float scale, int causal, int out_f32,
+                                void* stream) {
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
       dos{dosb, dosh, doss}, dks{dksb, dksh, dkss}, dvs{dvsb, dvsh, dvss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -796,11 +825,18 @@ extern "C" int ff_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (dtype == 0 && D == 128)
     return (int)launch_dkv<128>(q, k, v, dout, l, dl, dk, dv, B, H, SQ, SK, qs, ks, vs, dos,
                                 dks, dvs, scale, causal, st);
+  if (dtype == 1 && D == 64 && out_f32)
+    return (int)launch_dkv_tc<64, float>(q, k, v, dout, l, dl, dk, dv, B, H, SQ, SK, qs, ks,
+                                         vs, dos, dks, dvs, scale, causal, st);
+  if (dtype == 1 && D == 128 && out_f32)
+    return (int)launch_dkv_tc<128, float>(q, k, v, dout, l, dl, dk, dv, B, H, SQ, SK, qs, ks,
+                                          vs, dos, dks, dvs, scale, causal, st);
   if (dtype == 1 && D == 64)
-    return (int)launch_dkv_tc<64>(q, k, v, dout, l, dl, dk, dv, B, H, SQ, SK, qs, ks, vs, dos,
-                                  dks, dvs, scale, causal, st);
+    return (int)launch_dkv_tc<64, __nv_bfloat16>(q, k, v, dout, l, dl, dk, dv, B, H, SQ, SK,
+                                                 qs, ks, vs, dos, dks, dvs, scale, causal, st);
   if (dtype == 1 && D == 128)
-    return (int)launch_dkv_tc<128>(q, k, v, dout, l, dl, dk, dv, B, H, SQ, SK, qs, ks, vs,
-                                   dos, dks, dvs, scale, causal, st);
+    return (int)launch_dkv_tc<128, __nv_bfloat16>(q, k, v, dout, l, dl, dk, dv, B, H, SQ, SK,
+                                                  qs, ks, vs, dos, dks, dvs, scale, causal,
+                                                  st);
   return (int)cudaErrorInvalidValue;
 }

@@ -163,4 +163,26 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, long long stride,
   }
 }
 
+// rows r0..r0+15 of a warp's accumulator fragments straight to global
+// memory as float32 (no bf16 rounding), each value divided by its row's
+// div: a lane writes 8 bytes of rows g and g + 8 per n-block; rows at or
+// past n (global index grow + r) skipped. dst and stride must keep the
+// 8-byte pieces aligned (the Python wrapper allocates the output).
+template <int D>
+__device__ __forceinline__ void store_acc_f32(float* dst, long long stride,
+                                              const float (&acc)[D / 8][4], float div_lo,
+                                              float div_hi, int grow, int n, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nb = 0; nb < D / 8; ++nb) {
+    const int c = nb * 8 + 2 * t;
+    if (grow + g < n)
+      *reinterpret_cast<float2*>(dst + (long long)(grow + g) * stride + c) =
+          make_float2(acc[nb][0] / div_lo, acc[nb][1] / div_lo);
+    if (grow + g + 8 < n)
+      *reinterpret_cast<float2*>(dst + (long long)(grow + g + 8) * stride + c) =
+          make_float2(acc[nb][2] / div_hi, acc[nb][3] / div_hi);
+  }
+}
+
 }  // namespace tc

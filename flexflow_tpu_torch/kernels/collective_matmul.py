@@ -16,9 +16,10 @@ written out (`CollectiveMatmul`): dW is a second walk of x's chunks
 (dW = Σ_c x_cᵀ dY[rows c]), and dX is a reduce ring, each partial dX
 chunk (dY[rows c] wᵀ over this rank's columns) travelling with the ring
 and summed until it reaches the chunk's home (P - 1 hops). Each partial
-product comes out of `torch.matmul` in the inputs' dtype and the sums
-run in f32, so a bf16 gradient rounds P + 1 times where one matmul over
-the gathered x rounds once.
+product comes out in f32 (`_mm_f32`, JAX's `preferred_element_type=
+jnp.float32`), the sums run in f32 and each gradient is rounded to its
+input's dtype once, at the end, as one matmul over the gathered x
+rounds it.
 `launches` counts calls on CUDA tensors.
 """
 
@@ -65,6 +66,16 @@ def _ring_fwd(x, w, mesh, axis: str):
     return y
 
 
+def _mm_f32(a, b):
+    """a @ b with f32 products and an f32 result: on CUDA one GEMM of the
+    inputs' dtype that accumulates and writes f32 (torch.mm's
+    `out_dtype`); on the CPU, which has no such GEMM, the f32 upcast,
+    which computes the same products (a bf16 product is exact in f32)."""
+    if a.device.type == "cuda" and a.dtype != torch.float32:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
 def _ring_bwd(x, w, dy, mesh, axis: str):
     """(dx, dw) of `_ring_fwd`: dw by a second walk of x's chunks, dx by
     the reduce ring (module docstring)."""
@@ -78,15 +89,15 @@ def _ring_bwd(x, w, dy, mesh, axis: str):
     cur = x
     for i in range(p):
         hop = ring_shift([cur], mesh, axis) if i < p - 1 else None
-        dw += (cur.transpose(0, 1) @ rows((idx - i) % p)).float()
+        dw += _mm_f32(cur.transpose(0, 1), rows((idx - i) % p))
         if hop is not None:
             (cur,) = hop.wait()
     # the partial dX of chunk c starts at rank c + 1 and goes round to c
     wt = w.transpose(0, 1)
-    acc = (rows((idx - 1) % p) @ wt).float()
+    acc = _mm_f32(rows((idx - 1) % p), wt)
     for s in range(1, p):
         hop = ring_shift([acc], mesh, axis)
-        part = (rows((idx - 1 - s) % p) @ wt).float()
+        part = _mm_f32(rows((idx - 1 - s) % p), wt)
         (acc,) = hop.wait()
         acc = acc + part
     return acc.to(x.dtype), dw.to(w.dtype)

@@ -22,6 +22,12 @@ otherwise. dQ and dK/dV recompute P by `expf`, the forward by `__expf`.
 In float32 the kernels do scalar f32 FMAs from shared memory: tensor cores
 give no float32 products at the 1e-4 the f32 checks hold them to.
 
+`_fwd`, `_dq_cuda` and `_dkv_cuda` (and their plain versions) take
+`out_dtype=torch.float32` for bf16 inputs: the same kernels then write
+O, or dQ, dK and dV, unrounded from their f32 accumulators (the output
+type is a template parameter of each kernel), which the ring
+(kernels/ring_attention.py) merges or sums in f32 and rounds once.
+
 The gate is Hopper's: head_dim 64 or 128, f32 or bf16, every kernel's
 shared-memory tiles within the 227 KB a block may use, and sq == sk when
 causal (as the TPU kernel requires). The wrappers run the plain versions
@@ -123,9 +129,10 @@ def _check_rows_aligned(*ts) -> None:
                 f"{tuple(t.stride())} for shape {tuple(t.shape)}")
 
 
-def _fwd_plain(q, k, v, causal: bool, scale: float):
+def _fwd_plain(q, k, v, causal: bool, scale: float, out_dtype=None):
     """The same function in plain PyTorch: f32 scores and softmax, P
-    rounded to v's dtype before PV, O in q's dtype, lse (b, h, sq, 1)."""
+    rounded to v's dtype before PV, O in q's dtype (or `out_dtype`),
+    lse (b, h, sq, 1)."""
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     if causal:
         sq, sk = s.shape[-2], s.shape[-1]
@@ -135,7 +142,7 @@ def _fwd_plain(q, k, v, causal: bool, scale: float):
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float()) / l
-    return o.to(q.dtype), m + torch.log(l)
+    return o.to(out_dtype or q.dtype), m + torch.log(l)
 
 
 def _kernel_fn():
@@ -144,11 +151,23 @@ def _kernel_fn():
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                        + [ctypes.c_longlong] * 12
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
     return fn
 
 
-def _fwd_cuda(q, k, v, causal: bool, scale: float):
+def _out_f32(out_dtype, dtype) -> int:
+    """The kernels' out_f32 flag: a float32 output asked of bf16 inputs
+    (f32 inputs give f32 outputs either way); any other dtype raises."""
+    if out_dtype in (None, dtype):
+        return 0
+    if out_dtype != torch.float32:
+        raise ValueError(f"flash kernels write {dtype} or float32, not "
+                         f"{out_dtype}")
+    return 1
+
+
+def _fwd_cuda(q, k, v, causal: bool, scale: float, out_dtype=None):
     global launches
     b, h, sq, d = q.shape
     sk = k.shape[2]
@@ -157,8 +176,9 @@ def _fwd_cuda(q, k, v, causal: bool, scale: float):
             raise ValueError("flash kernel needs the head dim contiguous")
     if q.dtype == torch.bfloat16:
         _check_rows_aligned(q, k, v)
+    out_f32 = _out_f32(out_dtype, q.dtype)
     # O in the layout of q, so the (b, s, h, d) entry gets (b, s, h, d) back
-    o = torch.empty_like(q)
+    o = torch.empty_like(q, dtype=out_dtype or q.dtype)
     lse = torch.empty((b, h, sq, 1), dtype=torch.float32, device=q.device)
     fn = _kernel_fn()
     strides = []
@@ -166,7 +186,7 @@ def _fwd_cuda(q, k, v, causal: bool, scale: float):
         strides += [t.stride(0), t.stride(1), t.stride(2)]
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              lse.data_ptr(), _DTYPE_CODE[q.dtype], b, h, sq, sk, d, *strides,
-             float(scale), int(bool(causal)),
+             float(scale), int(bool(causal)), out_f32,
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
@@ -174,12 +194,13 @@ def _fwd_cuda(q, k, v, causal: bool, scale: float):
     return o, lse
 
 
-def _fwd(q, k, v, causal: bool, scale: float):
-    """q: (b, h, sq, d); k/v: (b, h, sk, d) -> (o, lse (b, h, sq, 1) f32).
+def _fwd(q, k, v, causal: bool, scale: float, out_dtype=None):
+    """q: (b, h, sq, d); k/v: (b, h, sk, d) -> (o, lse (b, h, sq, 1) f32),
+    o in q's dtype or `out_dtype` (float32: the accumulator unrounded).
     CPU tensors take the plain version; CUDA tensors the kernel."""
     dev = q.device.type
     if dev == "cpu":
-        return _fwd_plain(q, k, v, causal, scale)
+        return _fwd_plain(q, k, v, causal, scale, out_dtype)
     if dev != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu, not {dev}")
     b, h, sq, d = q.shape
@@ -190,7 +211,7 @@ def _fwd(q, k, v, causal: bool, scale: float):
         raise ValueError(f"flash kernel does not cover q {tuple(q.shape)} "
                          f"{q.dtype}, k {tuple(k.shape)} (causal={causal}); "
                          "enable_fusion=False runs the plain attention")
-    return _fwd_cuda(q, k, v, causal, scale)
+    return _fwd_cuda(q, k, v, causal, scale, out_dtype)
 
 
 # -------------------------------------------------------------- backward
@@ -208,10 +229,13 @@ def _bwd_terms(q, k, v, do, lse, delta, causal: bool, scale: float):
     return p, ds
 
 
-def _dq_plain(q, k, v, do, lse, delta, causal: bool, scale: float):
-    """dQ = dS.K in plain PyTorch (the `_dq_kernel` function)."""
+def _dq_plain(q, k, v, do, lse, delta, causal: bool, scale: float,
+              out_dtype=None):
+    """dQ = dS.K in plain PyTorch (the `_dq_kernel` function), in q's
+    dtype or `out_dtype`."""
     _, ds = _bwd_terms(q, k, v, do, lse, delta, causal, scale)
-    return torch.einsum("bhqk,bhkd->bhqd", ds.float(), k.float()).to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", ds.float(),
+                        k.float()).to(out_dtype or q.dtype)
 
 
 def _dq_bf16_bound(q, k, v, do, lse, delta, causal: bool, scale: float):
@@ -264,13 +288,15 @@ def _dq_bf16_bound(q, k, v, do, lse, delta, causal: bool, scale: float):
             + 2 * torch.ldexp(torch.full_like(dq, 2 ** -7), x - 1))
 
 
-def _dkv_plain(q, k, v, do, lse, delta, causal: bool, scale: float):
+def _dkv_plain(q, k, v, do, lse, delta, causal: bool, scale: float,
+               out_dtype=None):
     """dK = dS^T.q and dV = round(P)^T.dO in plain PyTorch (the
-    `_dkv_kernel` function); P is rounded to dO's dtype, dS to q's."""
+    `_dkv_kernel` function); P is rounded to dO's dtype, dS to q's; dK
+    and dV in k's and v's dtypes or `out_dtype`."""
     p, ds = _bwd_terms(q, k, v, do, lse, delta, causal, scale)
     dv = torch.einsum("bhqk,bhqd->bhkd", p.to(do.dtype).float(), do.float())
     dk = torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).float(), q.float())
-    return dk.to(k.dtype), dv.to(v.dtype)
+    return dk.to(out_dtype or k.dtype), dv.to(out_dtype or v.dtype)
 
 
 def _delta(o, do):
@@ -293,7 +319,8 @@ def _bwd_fn(name: str, n_ptr: int, n_strides: int):
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6
                        + [ctypes.c_longlong] * (3 * n_strides)
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
     return fn
 
 
@@ -304,35 +331,41 @@ def _strides(*ts):
     return out
 
 
-def _dq_cuda(q, k, v, do, lse, delta, causal: bool, scale: float):
+def _dq_cuda(q, k, v, do, lse, delta, causal: bool, scale: float,
+             out_dtype=None):
     global launches_dq
     b, h, sq, d = q.shape
     if q.dtype == torch.bfloat16:
         _check_rows_aligned(q, k, v, do)
-    dq = torch.empty_like(q)           # in q's layout
+    out_f32 = _out_f32(out_dtype, q.dtype)
+    dq = torch.empty_like(q, dtype=out_dtype or q.dtype)  # in q's layout
     err = _bwd_fn("ff_flash_bwd_dq", 7, 5)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), _DTYPE_CODE[q.dtype],
         b, h, sq, k.shape[2], d, *_strides(q, k, v, do, dq), float(scale),
-        int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream)
+        int(bool(causal)), out_f32,
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash dQ kernel launch failed: CUDA error {err}")
     launches_dq += 1
     return dq
 
 
-def _dkv_cuda(q, k, v, do, lse, delta, causal: bool, scale: float):
+def _dkv_cuda(q, k, v, do, lse, delta, causal: bool, scale: float,
+              out_dtype=None):
     global launches_dkv
     b, h, sq, d = q.shape
     if q.dtype == torch.bfloat16:
         _check_rows_aligned(q, k, v, do)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    out_f32 = _out_f32(out_dtype, q.dtype)
+    dk = torch.empty_like(k, dtype=out_dtype or k.dtype)
+    dv = torch.empty_like(v, dtype=out_dtype or v.dtype)
     err = _bwd_fn("ff_flash_bwd_dkv", 8, 6)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         _DTYPE_CODE[q.dtype], b, h, sq, k.shape[2], d,
         *_strides(q, k, v, do, dk, dv), float(scale), int(bool(causal)),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        out_f32, torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash dK/dV kernel launch failed: CUDA error {err}")
     launches_dkv += 1

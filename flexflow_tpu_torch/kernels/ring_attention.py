@@ -40,10 +40,13 @@ Over a mesh `ring_attention` (b, h, s, d) and `ring_attention_qkv`
 output keeps that layout. Plain tensors are this rank's shards of a
 mesh's ring.
 
-Precision: #1 gives each chunk's o, and #2/#3 each step's dQ/dK/dV, in
-the inputs' dtype; the ring sums them in f32 and rounds once more, so a
-bf16 ring rounds P + 1 times where JAX's einsum ring rounds once (18a's
-tolerance in chip_smoke.py counts them).
+Precision: as JAX's ring (`ring_attention.py:91-93`, `:123-126`), the
+accumulators are f32 and the result is rounded once. #1 gives each
+chunk's o, and #2/#3 each step's dQ/dK/dV, in f32 straight from their
+accumulators (`out_dtype=torch.float32`, the kernels' f32 store); the
+ring merges and sums them in f32 and rounds the output and the gradients
+to the inputs' dtype once, at the end. The plain version rounds the same
+way. A ring of one calls #1-#3 as flash does, bit for bit.
 """
 
 from __future__ import annotations
@@ -63,42 +66,43 @@ launches = 0  # ring programs run on CUDA tensors
 # ------------------------------------------------------- the chunk steps
 def chunk_fwd(q, k, v, qi: int, ki: int, causal: bool, scale: float):
     """q chunk `qi` against k/v chunk `ki`, (b, h, s_loc, d) each:
-    (o, lse (b, h, s_loc, 1) f32), or None for a chunk wholly masked
-    (causal, ki ahead of qi)."""
+    (o f32, unrounded, lse (b, h, s_loc, 1) f32), or None for a chunk
+    wholly masked (causal, ki ahead of qi)."""
     if causal and ki > qi:
         return None
-    return fa._fwd(q, k, v, causal and ki == qi, scale)
+    return fa._fwd(q, k, v, causal and ki == qi, scale,
+                   out_dtype=torch.float32)
 
 
 def merge(acc, part):
-    """Two partial attentions of the same rows, (o, lse) each, as one:
-    o in f32, weighted by exp(lse - lse_new)."""
+    """Two partial attentions of the same rows, (o f32, lse) each, as
+    one: o weighted by exp(lse - lse_new), in f32."""
     o_a, l_a = acc
     o_b, l_b = part
     lse = torch.logaddexp(l_a, l_b)
-    o = o_a.float() * torch.exp(l_a - lse) + o_b.float() * torch.exp(l_b - lse)
-    return o, lse
+    return o_a * torch.exp(l_a - lse) + o_b * torch.exp(l_b - lse), lse
 
 
 def chunk_bwd(q, k, v, do, lse, delta, qi: int, ki: int, causal: bool,
               scale: float):
-    """(dq, dk, dv) of one step from the global lse and delta, in the
-    inputs' dtypes, or None for a wholly masked chunk."""
+    """(dq, dk, dv) of one step from the global lse and delta, in f32
+    unrounded, or None for a wholly masked chunk."""
     if causal and ki > qi:
         return None
     c = causal and ki == qi
     dev = q.device.type
+    f32 = torch.float32
     if dev == "cpu":
-        return (fa._dq_plain(q, k, v, do, lse, delta, c, scale),
-                *fa._dkv_plain(q, k, v, do, lse, delta, c, scale))
+        return (fa._dq_plain(q, k, v, do, lse, delta, c, scale, f32),
+                *fa._dkv_plain(q, k, v, do, lse, delta, c, scale, f32))
     if dev != "cuda":
         raise ValueError(f"ring attention runs on cuda or cpu, not {dev}")
     if not fa.flash_supported(q.shape[2], k.shape[2], q.shape[3], q.dtype,
                               c, q.shape[0] * q.shape[1]):
         raise ValueError(f"flash kernels do not cover the ring chunk q "
                          f"{tuple(q.shape)} k {tuple(k.shape)} {q.dtype}")
-    return (fa._dq_cuda(q, k, v, do, lse, delta, c, scale),
-            *fa._dkv_cuda(q, k, v, do, lse, delta, c, scale))
+    return (fa._dq_cuda(q, k, v, do, lse, delta, c, scale, f32),
+            *fa._dkv_cuda(q, k, v, do, lse, delta, c, scale, f32))
 
 
 # ---------------------------------------------------- the per-rank loops
@@ -142,9 +146,9 @@ def ring_bwd_local(q, k, v, o, lse, do, mesh, axis: str, causal: bool,
         if pending is not None:
             dkv = pending.wait()
         if g is not None:
-            dq += g[0].float()
-            dkv[0] += g[1].float()
-            dkv[1] += g[2].float()
+            dq += g[0]
+            dkv[0] += g[1]
+            dkv[1] += g[2]
         pending = ring_shift(dkv, mesh, axis)
         if hop is not None:
             kv = hop.wait()
@@ -243,6 +247,9 @@ def ring_lockstep_fwd(qs, ks, vs, causal: bool, scale: float):
     """The per-step functions for len(qs) simulated ranks in one process,
     the hop a rotation of the list: ([out], [lse]) a rank."""
     p = len(qs)
+    if p == 1:
+        o, lse = fa._fwd(qs[0], ks[0], vs[0], causal, scale)
+        return [o], [lse]
     kv = list(zip(ks, vs))
     acc = [None] * p
     for j in range(p):
@@ -252,8 +259,6 @@ def ring_lockstep_fwd(qs, ks, vs, causal: bool, scale: float):
             if part is not None:
                 acc[i] = part if acc[i] is None else merge(acc[i], part)
         kv = [kv[(i - 1) % p] for i in range(p)]
-    if p == 1:
-        return [acc[0][0]], [acc[0][1]]
     return ([a[0].to(qs[0].dtype) for a in acc],
             [a[1].contiguous() for a in acc])
 
@@ -273,9 +278,9 @@ def ring_lockstep_bwd(qs, ks, vs, outs, lses, dos, causal: bool,
             g = chunk_bwd(qs[i], kv[i][0], kv[i][1], dos[i], lses[i],
                           deltas[i], i, (i - j) % p, causal, scale)
             if g is not None:
-                dq[i] += g[0].float()
-                dkv[i][0] += g[1].float()
-                dkv[i][1] += g[2].float()
+                dq[i] += g[0]
+                dkv[i][0] += g[1]
+                dkv[i][1] += g[2]
         kv = [kv[(i - 1) % p] for i in range(p)]
         dkv = [dkv[(i - 1) % p] for i in range(p)]
     return ([d.to(q.dtype) for d, q in zip(dq, qs)],

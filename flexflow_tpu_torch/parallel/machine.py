@@ -32,6 +32,13 @@ program runs on, one device per rank of the process group; a CUDA card it
 has no preset for raises rather than borrowing another chip's numbers.
 `build_mesh` lays the machine's axes over the ranks as a named
 `DeviceMesh` (JAX `machine.py:170-179`).
+
+A pipelined compile (parallel/pipeline.py) splits the world into stages:
+`stage_device_groups` gives each stage its contiguous range of ranks,
+stage-major (JAX `pipeline.py:74-84`, where the groups are devices of one
+process), and `build_pipeline_mesh` lays a 2-D `DeviceMesh` ("pipe", the
+stage machine's axes) over them: this rank's stage is its "pipe"
+coordinate, and its stage sub-mesh the slice over the stage axes.
 """
 
 from __future__ import annotations
@@ -39,7 +46,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -259,3 +266,43 @@ def build_mesh(spec: MachineSpec, device=None):
             "run under torchrun)")
     return init_device_mesh(resolve_device(device).type, shape,
                             mesh_dim_names=names)
+
+
+def stage_device_groups(num_stages: int, per_stage: int) -> List[List[int]]:
+    """Contiguous disjoint groups of ranks, stage-major: stage s owns ranks
+    [s * per_stage, (s + 1) * per_stage) (JAX `pipeline.py:74-84`: a
+    stage's collectives stay on neighbours, the boundary hop between
+    neighbours). Raises JAX's message when the world is smaller."""
+    from flexflow_tpu_torch.runtime.distributed import world_size
+
+    need, have = num_stages * per_stage, world_size()
+    if need > have:
+        raise ValueError(f"{num_stages} stages x {per_stage} devices "
+                         f"need {need} devices, have {have}")
+    if need < have:
+        raise ValueError(f"{num_stages} stages x {per_stage} devices cover "
+                         f"{need} of the world's {have}: one device a "
+                         "rank, the stages span them all")
+    return [list(range(s * per_stage, (s + 1) * per_stage))
+            for s in range(num_stages)]
+
+
+def build_pipeline_mesh(stage: MachineSpec, num_stages: int, device=None):
+    """(stage index, stage sub-mesh) of this rank for `num_stages` stages
+    on the stage machine `stage`: a 2-D `DeviceMesh` ("pipe", stage axes)
+    over the world, sliced to this rank's stage. A stage of one device
+    runs the one-device program: its sub-mesh is None and no mesh is
+    built (a one-device mesh applies no sharding in JAX either)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    per = stage.num_devices
+    stage_device_groups(num_stages, per)
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    if per == 1:
+        return rank // per, None
+    names = tuple(stage.mesh_axes)
+    mesh = init_device_mesh(resolve_device(device).type,
+                            (num_stages,) + tuple(stage.mesh_axes.values()),
+                            mesh_dim_names=("pipe",) + names)
+    return rank // per, mesh[names if len(names) > 1 else names[0]]

@@ -31,6 +31,15 @@ barrier for the write; a restore reads the full arrays on every rank and
 each keeps its own block under the live layout, whatever mesh, strategy
 or ZeRO mode wrote them.
 
+A pipeline checkpoint (`save_pipeline_checkpoint`, JAX `checkpoint.py:
+476-580`) keeps the params as one tree keyed by layer and the optimizer
+state per layer (`_split_opt_by_layer`; `meta.json` says "opt_schema":
+"per-layer"), so a restore lands on another stage mesh AND another stage
+count or cut set; the stage-keyed legacy schema is refused. Each stage's
+first rank writes its layers (`tree/stage-<s>.pt`), rank 0 writes
+`meta.json` once every stage's file is written, and the commit runs
+after it; every rank waits at a barrier for both.
+
 Telemetry (telemetry.py): the spans `checkpoint/snapshot` (the copy on
 the caller thread), `checkpoint/write` (on the writer thread, or on the
 caller's with `blocking`) and `checkpoint/drain` (`wait_pending`), and
@@ -82,12 +91,13 @@ def _graph_fingerprint(model) -> Dict[str, str]:
 
 
 def model_fingerprint(cm) -> Dict[str, Any]:
-    """Graph, optimizer state schema and format of a CompiledModel (the
-    learning rate and betas are not part of it: resuming under another
-    schedule is legitimate)."""
+    """Graph, optimizer state schema and format of a CompiledModel, or a
+    PipelinedModel's whole graph in the "pipeline" format (the learning
+    rate and betas are not part of it: resuming under another schedule is
+    legitimate)."""
     opt = cm.optimizer
     return {
-        "format": "flat",
+        "format": "pipeline" if hasattr(cm, "stage_cm") else "flat",
         "graph": _graph_fingerprint(cm.model),
         "optimizer": {
             "class": type(opt).__name__,
@@ -443,3 +453,139 @@ def restore_checkpoint(cm, path: str) -> None:
     cm.state = {k: v.to(cm.device) if isinstance(v, torch.Tensor) else v
                 for k, v in tree.get("state", {}).items()}
     cm._iteration = int(meta.get("iteration", 0))
+
+
+# ---------------------------------------------------- pipeline checkpoints
+def _split_opt_by_layer(opt_state: Dict[str, Any]):
+    """An optimizer state {key: {layer: {weight: t}} or scalar} as (per
+    layer {layer: {key: {weight: t}}}, the scalars {key: value}): the
+    schema a restore re-keys onto any stage partition (JAX
+    `_split_opt_by_layer`)."""
+    per: Dict[str, Dict[str, Any]] = {}
+    scalars: Dict[str, Any] = {}
+    for k, v in (opt_state or {}).items():
+        if isinstance(v, dict):
+            for l, ws in v.items():
+                per.setdefault(l, {})[k] = ws
+        else:
+            scalars[k] = v
+    return per, scalars
+
+
+def _join_opt_by_layer(per: Dict[str, Any], scalars: Dict[str, Any],
+                       live: Dict[str, Any]) -> Dict[str, Any]:
+    """The saved per-layer state in the live state's shape (its layers)."""
+    out: Dict[str, Any] = {}
+    for k, v in live.items():
+        if isinstance(v, dict):
+            out[k] = {l: per[l][k] for l in v}
+        else:
+            out[k] = scalars[k]
+    return out
+
+
+def save_pipeline_checkpoint(pm, path: str, commit=None,
+                             retry_policy=None) -> str:
+    """Checkpoint a PipelinedModel (parallel/pipeline.py; module docstring):
+    every rank calls it. Synchronous: the stages write at once."""
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch.runtime.resilience import run_resilient
+
+    path = _ckpt_dir(path)
+    wait_pending(path)
+    scm = pm.stage_cm
+    with tel.span("checkpoint/snapshot", cat="checkpoint", path=path):
+        # a DTensor's full value: a collective over the stage's ranks
+        host = _snapshot({"params": scm.params, "opt_state": scm.opt_state,
+                          "state": scm.state})
+    per, scalars = _split_opt_by_layer(host["opt_state"])
+    part = {"params": host["params"], "opt_state": per, "scalars": scalars,
+            "state": host["state"]}
+    meta = {
+        "iteration": int(pm._iteration),
+        "strategy": pm.strategy.to_json(),
+        "mesh_axes": dict(pm.stage_machine.mesh_axes),
+        "pipeline": {"stages": pm.num_stages, "schedule": pm.schedule,
+                     "cuts": list(pm.cuts)},
+        "zero_sharding": scm._zero,
+        "opt_schema": "per-layer",
+        "fingerprint": model_fingerprint(pm),
+    }
+    tfile = os.path.join(path, "tree", f"stage-{pm.stage}.pt")
+
+    def write_part():
+        os.makedirs(os.path.dirname(tfile), exist_ok=True)
+        with open(tfile, "wb") as f:
+            torch.save(part, f)
+            f.flush()
+            os.fsync(f.fileno())
+
+    def write_meta_and_commit():
+        with open(os.path.join(path, "meta.json"), "w") as f:
+            json.dump(meta, f)
+            f.flush()
+            os.fsync(f.fileno())
+        if commit is not None:
+            commit()
+
+    with tel.span("checkpoint/write", cat="checkpoint", path=path,
+                  blocking=True):
+        if pm.index == 0:
+            run_resilient("checkpoint/write", write_part, retry_policy)
+        dist.barrier()
+        if dist.get_rank() == 0:
+            run_resilient("checkpoint/write", write_meta_and_commit,
+                          retry_policy)
+        dist.barrier()
+    return path
+
+
+def restore_pipeline_checkpoint(pm, path: str) -> None:
+    """Restore a pipeline checkpoint into a PipelinedModel of the same
+    model graph: every rank reads every stage's file and keeps its own
+    layers, each under its live layout, so the saving run's stage count,
+    cuts and stage mesh may differ from this one's. The legacy
+    stage-keyed optimizer schema and another model raise
+    CheckpointMismatchError."""
+    path = _ckpt_dir(path)
+    wait_pending(path)
+    scm = pm.stage_cm
+    if scm.params is None:
+        pm.init()
+    with open(os.path.join(path, "meta.json")) as f:
+        meta = json.load(f)
+    _validate_fingerprint(meta, model_fingerprint(pm), path)
+    saved = meta.get("pipeline", {})
+    if meta.get("opt_schema") != "per-layer":
+        raise CheckpointMismatchError(
+            f"checkpoint {path} uses the legacy stage-keyed optimizer "
+            f"schema (stages={saved.get('stages')} cuts={saved.get('cuts')})"
+            "; this version stores pipeline optimizer state per layer: "
+            "re-save the checkpoint to restore it")
+    if saved.get("stages") != pm.num_stages or \
+            sorted(saved.get("cuts", [])) != sorted(pm.cuts):
+        _LOG.info("pipeline checkpoint %s saved with stages=%s cuts=%s, "
+                  "restoring onto stages=%s cuts=%s", path,
+                  saved.get("stages"), saved.get("cuts"), pm.num_stages,
+                  list(pm.cuts))
+    params, per, scalars, state = {}, {}, {}, {}
+    tdir = os.path.join(path, "tree")
+    for name in sorted(os.listdir(tdir)):
+        if not (name.startswith("stage-") and name.endswith(".pt")):
+            continue
+        with open(os.path.join(tdir, name), "rb") as f:
+            part = torch.load(f, map_location="cpu", weights_only=True)
+        params.update(part["params"])
+        per.update(part["opt_state"])
+        scalars.update(part["scalars"])
+        state.update(part["state"])
+    mine = {l: params[l] for l in scm.params}
+    scm.params = _copy_into(scm.params, mine, "params")
+    scm.opt_state = _copy_into(
+        scm.opt_state, _join_opt_by_layer(per, scalars, scm.opt_state),
+        "opt_state")
+    names = {l.name for l in pm.stage_layers[pm.stage]}
+    scm.state = {k: v.to(scm.device) if isinstance(v, torch.Tensor) else v
+                 for k, v in state.items() if k.split("/")[0] in names}
+    pm._iteration = int(meta.get("iteration", 0))

@@ -33,6 +33,20 @@ device.
   only when the chunk is needed: the transfer overlaps the compute, on
   NCCL's stream or gloo's worker. One code path for every backend; at
   axis size 1 it is the identity and issues nothing.
+- `StageLink` is a pipeline's boundary hop (parallel/pipeline.py): rank
+  (s, i) sends its stage's boundary activation to rank (s + 1, i) and
+  receives its gradient back. Each boundary pair has one process group
+  a direction. NCCL matches point-to-point ops in the order they are
+  posted on one communicator and runs them on one stream, so with one
+  group for both directions 1F1B's steady state (stage s sending
+  act(m + 1) while stage s + 1 sends grad(m)) would deadlock; with two,
+  each direction's sends and receives are in microbatch order on both
+  sides. Receives are
+  posted ahead (`irecv`) and sends waited on at the end of the update,
+  the same design on every backend. The route is the backend's, fixed in
+  the code: NCCL carries CUDA tensors and gloo CPU tensors as they are;
+  gloo with CUDA tensors (two ranks sharing one card, where gloo refuses
+  `isend`/`irecv` on CUDA tensors) goes through pinned host buffers.
 """
 
 from __future__ import annotations
@@ -100,6 +114,13 @@ def world_size() -> int:
     import torch.distributed as dist
 
     return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def rank() -> int:
+    """This process's rank (0 when no group is started)."""
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 def is_multiprocess() -> bool:
@@ -236,3 +257,144 @@ def mesh_device(mesh) -> torch.device:
     if mesh.device_type == "cuda":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(mesh.device_type)
+
+
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float64,
+           torch.int32, torch.int64)
+
+
+class StageLink:
+    """The boundary hops of this rank of an S-stage pipeline of
+    `per_stage` ranks a stage (the module docstring). `send_act` /
+    `recv_act` move a microbatch's boundary activation forward,
+    `send_grad` / `recv_grad` its gradient back; each direction delivers
+    in microbatch order within an update (`begin_update`, `end_update`).
+    The first activation on a boundary is preceded by a header (its dtype
+    and this rank's block shape), which is also the gradient's. Every rank
+    constructs it, in the same order: its groups are made over the
+    world."""
+
+    AHEAD = 2  # activation receives posted past the one waited on
+
+    def __init__(self, num_stages: int, per_stage: int, device,
+                 retry_policy=None):
+        import torch.distributed as dist
+
+        rank = dist.get_rank()
+        self.stage, self.index = divmod(rank, per_stage)
+        self.device = torch.device(device)
+        self.retry_policy = retry_policy
+        self._peer, self._group = {}, {}
+        for b in range(num_stages - 1):
+            for i in range(per_stage):
+                pair = [b * per_stage + i, (b + 1) * per_stage + i]
+                for d in ("act", "grad"):
+                    g = dist.new_group(pair)
+                    if rank in pair:
+                        self._group[d, b] = g
+                        self._peer[d, b] = pair[1] if rank == pair[0] \
+                            else pair[0]
+        # the route, by backend: gloo carries no CUDA tensor point to
+        # point, so gloo with CUDA tensors goes through pinned host buffers
+        self._host = (backend_name() == "gloo"
+                      and self.device.type == "cuda")
+        self._wire = (self.device if self.device.type == "cuda"
+                      and not self._host else torch.device("cpu"))
+        self._meta = {}     # boundary -> (dtype, this rank's block shape)
+        self._posted = {}   # (direction, boundary) -> {m: (work, buf)}
+        self._next = {}     # (direction, boundary) -> next m to post
+        self._sends = []    # (work, buf) posted this update
+        self._micro = 0
+
+    def begin_update(self, num_micro: int) -> None:
+        self._micro = num_micro
+        self._next.clear()
+
+    def end_update(self) -> None:
+        """Wait on the update's sends (their buffers live until then)."""
+        for work, _ in self._sends:
+            work.wait()
+        self._sends.clear()
+        left = {k: sorted(v) for k, v in self._posted.items() if v}
+        if left:
+            raise RuntimeError(f"pipeline link: receives {left} posted past "
+                               "the update")
+
+    def _isend(self, d: str, b: int, buf: torch.Tensor):
+        import torch.distributed as dist
+
+        return dist.isend(buf, self._peer[d, b], group=self._group[d, b])
+
+    def _send(self, d: str, b: int, t: torch.Tensor) -> None:
+        """One hop under the `pipe/boundary_hop` fault and retry site: the
+        fault is checked before the send is posted, so a retry posts it
+        once."""
+        from flexflow_tpu_torch.runtime.resilience import run_resilient
+
+        t = t.detach().contiguous()
+        if self._host:
+            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            buf.copy_(t)
+        else:
+            buf = t
+        work = run_resilient("pipe/boundary_hop",
+                             lambda: self._isend(d, b, buf),
+                             self.retry_policy)
+        self._sends.append((work, buf))
+
+    def send_act(self, t: torch.Tensor, m: int,
+                 want_grad: bool = True) -> None:
+        """Microbatch m's boundary activation to the next stage; the
+        receive of its gradient is posted with it (`want_grad`: inference
+        sends none back)."""
+        b = self.stage
+        if b not in self._meta:
+            self._meta[b] = (t.dtype, tuple(t.shape))
+            head = [t.ndim, _DTYPES.index(t.dtype), *t.shape]
+            head = torch.tensor(head + [0] * (8 - len(head)),
+                                dtype=torch.int64, device=self._wire)
+            self._sends.append((self._isend("act", b, head), head))
+        self._send("act", b, t)
+        if want_grad:
+            self._post("grad", b, m + 1)
+
+    def send_grad(self, t: torch.Tensor) -> None:
+        """The gradient of this stage's boundary input to the stage
+        before (in the order its activations came)."""
+        self._send("grad", self.stage - 1, t)
+
+    def _post(self, d: str, b: int, end: int) -> None:
+        """Post direction d's receives on boundary b up to microbatch
+        `end` (exclusive, at most the update's count)."""
+        import torch.distributed as dist
+
+        posted = self._posted.setdefault((d, b), {})
+        dtype, shape = self._meta[b]
+        for m in range(self._next.get((d, b), 0), min(end, self._micro)):
+            buf = torch.empty(shape, dtype=dtype, device=self._wire,
+                              pin_memory=self._host)
+            posted[m] = (dist.irecv(buf, self._peer[d, b],
+                                    group=self._group[d, b]), buf)
+            self._next[d, b] = m + 1
+
+    def _take(self, d: str, b: int, m: int) -> torch.Tensor:
+        work, buf = self._posted[d, b].pop(m)
+        work.wait()
+        return buf.to(self.device, non_blocking=True) if self._host else buf
+
+    def recv_act(self, m: int) -> torch.Tensor:
+        """Microbatch m's boundary activation from the stage before."""
+        import torch.distributed as dist
+
+        b = self.stage - 1
+        if b not in self._meta:
+            head = torch.zeros(8, dtype=torch.int64, device=self._wire)
+            dist.recv(head, self._peer["act", b], group=self._group["act", b])
+            head = head.cpu().tolist()
+            self._meta[b] = (_DTYPES[head[1]], tuple(head[2:2 + head[0]]))
+        self._post("act", b, m + 1 + self.AHEAD)
+        return self._take("act", b, m)
+
+    def recv_grad(self, m: int) -> torch.Tensor:
+        """Microbatch m's gradient of this stage's boundary output."""
+        return self._take("grad", self.stage, m)

@@ -12,8 +12,9 @@ silently arm nothing):
   dataloader/transfer   host-to-device batch copy (the prefetch worker)
   checkpoint/write      checkpoint write and commit (caller or writer thread)
   fit/dispatch          train-step dispatch admission (index = global step)
-  distributed/init      process-group start (multi-GPU, not ported)
-  pipe/boundary_hop     pipeline stage-boundary transfer (not ported)
+  distributed/init      process-group start (runtime/distributed.py)
+  pipe/boundary_hop     pipeline stage-boundary send (StageLink, one
+                        index a hop this rank posts)
   health/nonfinite      NaN-poison the params before a step (index = the
                         1-based global step). NON-RAISING: fit asks
                         `poison()` and corrupts the params itself.

@@ -1,5 +1,5 @@
 """Durable checkpoints, preemption and auto-resume (counterpart:
-flexflow_tpu/runtime/resilience.py, its non-pipeline part).
+flexflow_tpu/runtime/resilience.py).
 
 - Durable snapshots commit atomically: `save_durable` writes the training
   state into a hidden `.tmp-*` directory (runtime/checkpoint.py, async by
@@ -28,6 +28,11 @@ flexflow_tpu/runtime/resilience.py, its non-pipeline part).
   `checkpoint/committed`, a restore `resume/restored`, a drain
   `preempt/drained`, and the failures `resume/drain_timeout` and
   `resume/snapshot_unusable` as errors.
+- A PipelinedModel's snapshot (parallel/pipeline.py) is the "pipeline"
+  format: its manifest carries the stage mesh and the pipeline block
+  (stages, schedule, cuts; JAX `resilience.py:319-366`), every rank
+  writes its stage's part of one `.tmp-<step>` directory (a name every
+  rank derives from the step alone), and rank 0 commits it.
 """
 
 from __future__ import annotations
@@ -273,18 +278,29 @@ def save_durable(model, root: str, progress: Optional[Dict[str, Any]] = None,
     for p in ck.active_writes(os.path.join(root, ".tmp-")):
         ck.wait_pending(p)
     step = int(model._iteration)
-    tag = f"{os.getpid():x}-{os.urandom(3).hex()}"
-    tmp = os.path.join(root, f".tmp-{step:010d}-{tag}")
+    pipelined = hasattr(model, "stage_cm")
+    if pipelined:
+        # every rank writes into it: a name from the step alone (the
+        # pipelined save is synchronous, so no two writers share it)
+        tmp = os.path.join(root, f".tmp-{step:010d}")
+    else:
+        tag = f"{os.getpid():x}-{os.urandom(3).hex()}"
+        tmp = os.path.join(root, f".tmp-{step:010d}-{tag}")
     final = os.path.join(root, f"ckpt-{step:010d}")
     manifest = {
         "version": 1,
         "committed": True,
         "step": step,
-        "format": "flat",
-        "mesh_axes": dict(model.strategy.mesh_axes),
+        "format": "pipeline" if pipelined else "flat",
+        "mesh_axes": dict(model.stage_machine.mesh_axes if pipelined
+                          else model.strategy.mesh_axes),
         "progress": dict(progress or {}),
         "config": dict(config) if config else effective_config(model),
     }
+    if pipelined:
+        manifest["pipeline"] = {"stages": model.num_stages,
+                                "schedule": model.schedule,
+                                "cuts": list(model.cuts)}
 
     def commit():
         if not os.path.isdir(tmp) and os.path.isdir(final):
@@ -310,6 +326,10 @@ def save_durable(model, root: str, progress: Optional[Dict[str, Any]] = None,
                   step=step)
         _prune(root, keep)
 
+    if pipelined:
+        ck.save_pipeline_checkpoint(model, tmp, commit=commit,
+                                    retry_policy=policy)
+        return final
     if block is None:
         block = not getattr(model.cfg, "async_checkpoint", True)
     ck.save_checkpoint(model, tmp, block=block, commit=commit,

@@ -254,6 +254,82 @@ def _best_groups(costs, n: int, b_local: int):
     return best
 
 
+def cut_boundary_tensor(layers, ci: int, last_use=None):
+    """The tensor that crosses cut ci (cut after topo index ci, JAX
+    `candidates.py:255-272`): the cut layer's output still consumed after
+    ci. A multi-output layer whose first output dies early is a valid cut
+    whose boundary is a later output, so callers never assume
+    outputs[0]."""
+    if last_use is None:
+        last_use = {}
+        for li, l in enumerate(layers):
+            for t in l.inputs:
+                last_use[t.guid] = li
+    for o in layers[ci].outputs:
+        if last_use.get(o.guid, -1) > ci:
+            return o
+    return layers[ci].outputs[0]  # ci == last layer (not a real cut)
+
+
+def stage_cut_candidates(model, machine: MachineSpec, num_stages: int,
+                         max_candidates: int = 12) -> List[tuple]:
+    """Candidate stage partitions (JAX `candidates.py:275-320`): tuples of
+    num_stages - 1 cut indices (cut after topo position i), each a
+    single-tensor cut point (unity.sequence_cut_indices: one live tensor
+    crosses, so a boundary is one transfer). Ranked by stage balance under
+    the data-parallel placement on the stage machine (per-layer op_time
+    prefix sums), the boundary bytes breaking ties; the first
+    `max_candidates` go to the cut search (search/dp.py
+    `search_pipelined`)."""
+    import itertools
+
+    from flexflow_tpu_torch.core.graph import topo_order
+    from flexflow_tpu_torch.search.unity import sequence_cut_indices
+
+    layers = topo_order(model.layers)
+    cuts = sequence_cut_indices(layers, model.input_tensors)
+    if num_stages <= 1:
+        return [()]
+    if len(cuts) < num_stages - 1:
+        return []
+    batch_sizes = {t.shape[0] for t in model.input_tensors if t.ndim > 0}
+    t_layer = []
+    for layer in layers:
+        cands = layer_candidates(layer, machine, batch_sizes)
+        t_layer.append(cands[0].op_time(layer, machine)
+                       if not cands[0].passthrough else 0.0)
+    prefix = [0.0]
+    for t in t_layer:
+        prefix.append(prefix[-1] + t)
+    last_use: Dict[int, int] = {}
+    for li, l in enumerate(layers):
+        for t in l.inputs:
+            last_use[t.guid] = li
+
+    def _cut_bytes(ci: int) -> int:
+        return cut_boundary_tensor(layers, ci, last_use).spec.size_bytes
+
+    # a deep model's cut list is thinned to ~24 points evenly spaced in
+    # cumulative cost before the combinations are enumerated
+    if len(cuts) > 24:
+        want = [prefix[-1] * (k + 1) / 25.0 for k in range(24)]
+        thinned, wi = [], 0
+        for ci in cuts:
+            if wi < len(want) and prefix[ci + 1] >= want[wi]:
+                thinned.append(ci)
+                wi += 1
+        cuts = thinned or cuts[:24]
+
+    def _rank(combo) -> tuple:
+        bounds = [-1] + list(combo) + [len(layers) - 1]
+        seg = [prefix[bounds[i + 1] + 1] - prefix[bounds[i] + 1]
+               for i in range(num_stages)]
+        return (max(seg), sum(_cut_bytes(c) for c in combo))
+
+    ranked = sorted(itertools.combinations(cuts, num_stages - 1), key=_rank)
+    return [tuple(c) for c in ranked[:max_candidates]]
+
+
 def layer_candidates(layer: "Layer", machine: MachineSpec, batch_sizes,
                      enable_parameter: bool = True,
                      enable_attribute: bool = True) -> List[Candidate]:

@@ -266,6 +266,190 @@ def _reshard_time(spec: TensorSpec, src: Sequence[DimSharding],
     return t
 
 
+# ------------------------------------------------------- pipeline costing
+def p2p_time(bytes_: float, machine: MachineSpec, axis: str = "pipe") -> float:
+    """One neighbor-hop point-to-point transfer (a stage-boundary
+    activation or its gradient crossing the pipe axis, JAX
+    `cost_model.py:362-369`): no (k-1)/k factor, the tensor moves once
+    over one link. A machine without a "pipe" bandwidth takes its chip's
+    link rate: on the H100 preset that is NVLink 4's 450 GB/s one way from
+    the data sheet, which has not been measured on NVLink (the port's
+    pipeline has run on one card only)."""
+    return bytes_ / machine.axis_bw(axis)
+
+
+def pipeline_schedule(schedule: str, num_stages: int, num_micro: int):
+    """Tick grid of a pipeline schedule: a list of ticks, each a list of
+    (stage, phase, microbatch) with phase "F" or "B". Ops in one tick run
+    concurrently (each stage at most once a tick); F(s,m) follows
+    F(s-1,m) and B(s,m) follows F(s,m) and B(s+1,m). Built from
+    `pipeline_order`, the one schedule definition the search prices, the
+    simulator replays and the executor (parallel/pipeline.py) runs.
+
+      gpipe: every stage runs all M forwards, then all M backwards (M
+             stashed inputs a stage).
+      1f1b:  stage s warms up with S-1-s forwards, then alternates one
+             backward and one forward (at most S stashed inputs), the
+             same (S-1)/(M+S-1) bubble."""
+    S, M = num_stages, num_micro
+    order = pipeline_order(schedule, S, M)
+    done: Dict[Tuple[str, int, int], int] = {}
+    idx = [0] * S
+    ticks = []
+    while any(idx[s] < len(order[s]) for s in range(S)):
+        row = []
+        for s in range(S):
+            if idx[s] >= len(order[s]):
+                continue
+            ph, m = order[s][idx[s]]
+            if ph == "F":
+                ok = s == 0 or done.get(("F", s - 1, m), 10 ** 9) < len(ticks)
+            else:
+                ok = done.get(("F", s, m), 10 ** 9) < len(ticks) and (
+                    s == S - 1
+                    or done.get(("B", s + 1, m), 10 ** 9) < len(ticks))
+            if ok:
+                row.append((s, ph, m))
+        if not row:
+            raise RuntimeError("pipeline schedule deadlocked "
+                               f"({schedule}, S={S}, M={M})")
+        for s, ph, m in row:
+            done[(ph, s, m)] = len(ticks)
+            idx[s] += 1
+        ticks.append(row)
+    return ticks
+
+
+def pipeline_order(schedule: str, num_stages: int, num_micro: int):
+    """Each stage's op order: {stage: [(phase, microbatch), ...]}. A stage
+    is one serial resource; the schedule is this order plus the data
+    dependencies F(s,m) -> F(s+1,m) -> ... -> B(s+1,m) -> B(s,m)."""
+    S, M = num_stages, num_micro
+    if schedule not in ("gpipe", "1f1b"):
+        raise ValueError(f"unknown pipeline schedule {schedule!r}")
+    order: Dict[int, list] = {}
+    for s in range(S):
+        if schedule == "gpipe":
+            ops = [("F", m) for m in range(M)] + [("B", m) for m in range(M)]
+        else:
+            warm = min(S - 1 - s, M)
+            ops = [("F", m) for m in range(warm)]
+            nf, nb = warm, 0
+            while nb < M:
+                if nf < M:
+                    ops.append(("F", nf))
+                    nf += 1
+                ops.append(("B", nb))
+                nb += 1
+        order[s] = ops
+    return order
+
+
+def pipeline_timeline(schedule: str, num_micro: int,
+                      fwd_times: Sequence[float],
+                      bwd_times: Sequence[float],
+                      p2p: float = 0.0):
+    """Event-driven replay of a schedule on per-stage serial timelines: an
+    op starts at max(stage free, producer finish + p2p hop); returns
+    (makespan, {(phase, stage, micro): (start, end)}). Stages are not
+    lockstepped: a tick-grid max would charge 1f1b's F/B interleaving for
+    a duration mismatch that asynchronous stages never pay."""
+    S = len(fwd_times)
+    order = pipeline_order(schedule, S, num_micro)
+    fin: Dict[Tuple[str, int, int], float] = {}
+    events: Dict[Tuple[str, int, int], Tuple[float, float]] = {}
+    avail = [0.0] * S
+    idx = [0] * S
+    pending = sum(len(o) for o in order.values())
+    while pending:
+        progressed = False
+        for s in range(S):
+            while idx[s] < len(order[s]):
+                ph, m = order[s][idx[s]]
+                if ph == "F":
+                    dep = 0.0 if s == 0 else fin.get(("F", s - 1, m))
+                else:
+                    up = 0.0 if s == S - 1 else fin.get(("B", s + 1, m))
+                    mine = fin.get(("F", s, m))
+                    dep = None if (up is None or mine is None) \
+                        else max(up, mine)
+                if dep is None:
+                    break  # producer not scheduled yet: the next sweep
+                start = max(avail[s], dep + (p2p if dep > 0.0 else 0.0))
+                dur = fwd_times[s] if ph == "F" else bwd_times[s]
+                fin[(ph, s, m)] = start + dur
+                events[(ph, s, m)] = (start, start + dur)
+                avail[s] = start + dur
+                idx[s] += 1
+                pending -= 1
+                progressed = True
+        if not progressed:
+            raise RuntimeError(f"pipeline schedule deadlocked ({schedule})")
+    return max(avail), events
+
+
+def pipeline_span(schedule: str, num_micro: int, fwd_times: Sequence[float],
+                  bwd_times: Sequence[float], p2p: float = 0.0) -> float:
+    return pipeline_timeline(schedule, num_micro, fwd_times, bwd_times,
+                             p2p)[0]
+
+
+def pipeline_bubble(schedule: str, num_micro: int, fwd_times: Sequence[float],
+                    bwd_times: Sequence[float], p2p: float = 0.0) -> float:
+    """Idle share of the S x span stage-time area of the replay: 1 -
+    work / (S * span); for balanced stages the closed form (S-1)/(M+S-1)
+    under both schedules (1f1b's gain is in-flight memory)."""
+    S = len(fwd_times)
+    span = pipeline_span(schedule, num_micro, fwd_times, bwd_times, p2p)
+    if span <= 0.0:
+        return 0.0
+    work = num_micro * sum(fwd_times[s] + bwd_times[s] for s in range(S))
+    return max(0.0, 1.0 - work / (S * span))
+
+
+def pipeline_bubble_fraction(schedule: str, num_stages: int,
+                             num_micro: int) -> float:
+    """Closed-form bubble of a balanced pipeline, (S-1)/(M+S-1), for
+    gpipe and 1f1b alike."""
+    S, M = num_stages, num_micro
+    if S <= 1 or M <= 0:
+        return 0.0
+    return (S - 1) / (M + S - 1)
+
+
+def pipeline_inflight_acts(schedule: str, num_stages: int,
+                           num_micro: int) -> int:
+    """Peak stashed boundary inputs a stage holds: M under gpipe, min(S, M)
+    under 1f1b."""
+    return num_micro if schedule == "gpipe" else min(num_stages, num_micro)
+
+
+def pipeline_phase_times(stage_costs: Sequence[float]):
+    """Per-phase durations of the schedule the executor runs, from whole
+    stage step costs (1x forward + 2x backward, compute_time's 3x
+    convention): the forward slot is c/3; the backward slot is a full c,
+    since it recomputes the stage forward from the stashed input; the
+    last stage's forward slot is free (its loss and gradient share one
+    forward in the backward slot). Kept in lockstep with
+    parallel/pipeline.py's executor."""
+    fwd = [c / 3.0 for c in stage_costs]
+    bwd = [float(c) for c in stage_costs]
+    fwd[-1] = 0.0
+    return fwd, bwd
+
+
+def pipeline_step_time(fwd_times: Sequence[float], bwd_times: Sequence[float],
+                       boundary_bytes: Sequence[float], machine: MachineSpec,
+                       schedule: str, num_micro: int) -> float:
+    """Predicted wall time of one pipeline update (M microbatches): the
+    replay's makespan plus every boundary crossing as a neighbor-hop P2P
+    (the activation forward and its gradient back, once a microbatch a
+    boundary)."""
+    t = pipeline_span(schedule, num_micro, list(fwd_times), list(bwd_times))
+    t += sum(2.0 * num_micro * p2p_time(b, machine) for b in boundary_bytes)
+    return t
+
+
 # --------------------------------------------------------- remat costing
 # Per-layer rematerialization policies the DP searches over:
 # policy -> (recompute_frac, keep_frac).

@@ -10,9 +10,13 @@ connections) the frontier carries both tensors, which prices the branch
 interaction exactly. Beam pruning bounds the state count on wide graphs.
 
 Memory is tracked per state and a quadratic penalty applies beyond the HBM
-budget (the memory-aware lambda search analog, graph.cc:2046-2160). The
-pipelined cut search (`stage_machine_for`, `search_pipelined`) is not
-ported yet: it comes with the pipeline.
+budget (the memory-aware lambda search analog, graph.cc:2046-2160).
+
+The pipelined cut search (JAX `dp.py:546-760`): `stage_machine_for` carves
+one stage's machine out of the full one, `search_pipelined` prices each
+candidate cut tuple by running this DP on every stage's sub-graph and
+replaying the schedule, and `choose_pipeline` ranks no pipeline against
+pipelines of several stage counts under the same score.
 """
 
 from __future__ import annotations
@@ -503,3 +507,206 @@ def _search_graph_impl(model, machine: MachineSpec, beam_width: int = 64,
         # distinct layouts are materially different strategies
         return [_to_result(e) for e in ranked[:topk]]
     return _to_result(ranked[0])
+
+
+# ------------------------------------------------------- pipeline search
+@dataclasses.dataclass
+class PipelineSearchResult:
+    """One costed pipeline strategy: where to cut, how to schedule, and
+    its predicted cost, comparable with a plain SearchResult through
+    `score` (the DP's `_score`, so the memory penalty speaks the same
+    units)."""
+
+    stages: int
+    cuts: Tuple[int, ...]          # topo indices: cut after layers[i]
+    schedule: str                  # "gpipe" | "1f1b" ("none" at 1 stage)
+    cost: float                    # predicted time of ONE update (M micro)
+    mem_bytes: int                 # per-device high-water, worst stage
+    bubble: float                  # predicted bubble share of the schedule
+    score: float                   # _score(cost, mem_bytes, mem_budget)
+    stage_costs: List[float] = dataclasses.field(default_factory=list)
+    choices: Optional[Dict[str, Candidate]] = None  # merged stage layouts
+
+
+def stage_machine_for(machine: MachineSpec, num_stages: int) -> MachineSpec:
+    """The machine one pipeline stage runs on: the full machine with the
+    pipe dimension taken out. An explicit "pipe" axis is dropped (its
+    degree must equal num_stages); else the batch axis's degree divides
+    by num_stages (stages take whole groups of devices, which keep data
+    parallelism inside)."""
+    axes = dict(machine.mesh_axes)
+    if "pipe" in axes:
+        if axes["pipe"] != num_stages:
+            raise ValueError(f"mesh pipe={axes['pipe']} != "
+                             f"--pipeline-stages {num_stages}")
+        axes.pop("pipe")
+    else:
+        from flexflow_tpu_torch.search.candidates import _batch_axes
+
+        ba = next(iter(_batch_axes(machine)), None)
+        if ba is None or axes.get(ba, 1) % num_stages != 0:
+            raise ValueError(
+                f"cannot split {num_stages} pipeline stages out of mesh "
+                f"{axes}: no batch axis with degree divisible by "
+                f"{num_stages} (add pipe={num_stages} to --mesh)")
+        axes[ba] //= num_stages
+        if axes[ba] == 1 and len(axes) > 1:
+            axes.pop(ba)
+    if not axes:
+        axes = {"data": 1}
+    return MachineSpec(mesh_axes=axes, chip=machine.chip,
+                       flops=machine.flops, hbm_bw=machine.hbm_bw,
+                       hbm_bytes=machine.hbm_bytes,
+                       ici_bw=dict(machine.ici_bw),
+                       dcn_axes=tuple(a for a in machine.dcn_axes
+                                      if a in axes),
+                       dcn_bw=machine.dcn_bw,
+                       mxu_flop_overhead=machine.mxu_flop_overhead,
+                       mxu_min_dim=machine.mxu_min_dim,
+                       axis_type=dict(machine.axis_type),
+                       overlap_frac=machine.overlap_frac,
+                       host_bw=machine.host_bw)
+
+
+def search_pipelined(model, machine: MachineSpec, num_stages: int,
+                     microbatches: int, schedule: str = "1f1b",
+                     mem_budget: Optional[float] = None,
+                     beam_width: int = 16, cost_fn=None,
+                     enable_parameter: bool = True,
+                     enable_attribute: bool = True,
+                     opt_mem: "Optional[cm.OptMemSpec]" = None,
+                     max_candidates: int = 12,
+                     ) -> Optional[PipelineSearchResult]:
+    """The cut search (the reference's sequential inter-op splits; JaxPP's
+    stage assignment): each candidate cut tuple
+    (candidates.stage_cut_candidates) is priced by this DP on every stage
+    sub-graph on the stage machine, then the schedule's replay prices the
+    update:
+
+      cost = pipeline_step_time(stage fwd/bwd, boundary P2P, M)
+      mem  = worst stage's high-water + its stashed boundary inputs
+             (M under gpipe, min(S, M) under 1f1b, value and gradient)
+
+    Returns the best PipelineSearchResult, or None when the graph has too
+    few single-tensor cut points for `num_stages`."""
+    from flexflow_tpu_torch.search.candidates import (cut_boundary_tensor,
+                                                      stage_cut_candidates)
+    from flexflow_tpu_torch.search.pcg import PCG
+
+    if num_stages <= 1:
+        raise ValueError("search_pipelined needs num_stages > 1")
+    smach = stage_machine_for(machine, num_stages)
+    mem_budget = mem_budget or machine.hbm_bytes
+    layers = topo_order(model.layers)
+    combos = stage_cut_candidates(model, smach, num_stages,
+                                  max_candidates=max_candidates)
+    if not combos:
+        return None
+    inflight = cm.pipeline_inflight_acts(schedule, num_stages, microbatches)
+    best: Optional[PipelineSearchResult] = None
+    for cuts in combos:
+        bounds = [-1] + list(cuts) + [len(layers) - 1]
+        stage_results: List[SearchResult] = []
+        feasible = True
+        for si in range(num_stages):
+            seg = layers[bounds[si] + 1:bounds[si + 1] + 1]
+            internal = {o.guid for l in seg for o in l.outputs}
+            ext, seen = [], set()
+            for l in seg:
+                for t in l.inputs:
+                    if t.guid not in internal and t.guid not in seen:
+                        seen.add(t.guid)
+                        ext.append(t)
+            try:
+                r = search_graph(PCG.from_layers(seg, ext), smach,
+                                 beam_width=beam_width,
+                                 mem_budget=mem_budget, cost_fn=cost_fn,
+                                 enable_parameter=enable_parameter,
+                                 enable_attribute=enable_attribute,
+                                 opt_mem=opt_mem)
+            except (KeyError, RuntimeError):
+                feasible = False
+                break
+            stage_results.append(r)
+        if not feasible:
+            continue
+        boundary_bytes = []
+        for ci in cuts:
+            bt = cut_boundary_tensor(layers, ci)
+            boundary_bytes.append(cm.shard_bytes(
+                bt.spec, _dp_dims_for(bt.spec.shape, smach, model), smach))
+        # the executor's phase split (cost_model.pipeline_phase_times)
+        fwd, bwd = cm.pipeline_phase_times([r.cost for r in stage_results])
+        cost = cm.pipeline_step_time(fwd, bwd, boundary_bytes, machine,
+                                     schedule, microbatches)
+        bubble = cm.pipeline_bubble(schedule, microbatches, fwd, bwd)
+        mems = []
+        for si, r in enumerate(stage_results):
+            stash = 2 * inflight * boundary_bytes[si - 1] if si > 0 else 0
+            mems.append(r.mem_bytes + stash)
+        mem = max(mems)
+        score = _score(cost, mem, mem_budget)
+        if best is None or score < best.score:
+            merged: Dict[str, Candidate] = {}
+            for r in stage_results:
+                merged.update(r.choices)
+            best = PipelineSearchResult(
+                stages=num_stages, cuts=tuple(cuts), schedule=schedule,
+                cost=cost, mem_bytes=mem, bubble=bubble, score=score,
+                stage_costs=[r.cost for r in stage_results],
+                choices=merged)
+    if best is not None:
+        # the simulator replays the winner and checks every dependency
+        from flexflow_tpu_torch.search.simulator import simulate_pipeline
+
+        vf, vb = cm.pipeline_phase_times(best.stage_costs)
+        best.bubble = simulate_pipeline(vf, vb, best.schedule,
+                                        microbatches)["bubble"]
+    return best
+
+
+def _dp_dims_for(shape, machine: MachineSpec, model):
+    from flexflow_tpu_torch.search.candidates import _dp_dims
+
+    batch_sizes = {t.shape[0] for t in model.input_tensors if t.ndim > 0}
+    return _dp_dims(shape, machine, batch_sizes)
+
+
+def choose_pipeline(model, machine: MachineSpec, microbatches: int,
+                    stages_options: Sequence[int] = (1, 2, 4),
+                    schedule: str = "1f1b",
+                    mem_budget: Optional[float] = None,
+                    beam_width: int = 16,
+                    opt_mem: "Optional[cm.OptMemSpec]" = None,
+                    ) -> PipelineSearchResult:
+    """The best of no pipeline and a pipeline of each stage count, under
+    one score (cost times the quadratic over-HBM penalty). No pipeline is
+    this DP on the full machine, its cost scaled to M microbatches (one
+    update); a pipeline wins when the memory cap makes every device
+    holding every weight infeasible and the bubble costs less than the
+    penalty."""
+    mem_budget = mem_budget or machine.hbm_bytes
+    results: List[PipelineSearchResult] = []
+    for s in stages_options:
+        if s <= 1:
+            r0 = search_graph(model, machine, beam_width=beam_width,
+                              mem_budget=mem_budget, opt_mem=opt_mem)
+            results.append(PipelineSearchResult(
+                stages=1, cuts=(), schedule="none",
+                cost=microbatches * r0.cost, mem_bytes=r0.mem_bytes,
+                bubble=0.0,
+                score=_score(microbatches * r0.cost, r0.mem_bytes,
+                             mem_budget),
+                stage_costs=[r0.cost], choices=r0.choices))
+            continue
+        try:
+            r = search_pipelined(model, machine, s, microbatches,
+                                 schedule=schedule, mem_budget=mem_budget,
+                                 beam_width=beam_width, opt_mem=opt_mem)
+        except ValueError:
+            r = None
+        if r is not None:
+            results.append(r)
+    if not results:
+        raise RuntimeError("no feasible parallelization found")
+    return min(results, key=lambda r: r.score)

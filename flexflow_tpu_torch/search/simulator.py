@@ -25,8 +25,8 @@ Transfers larger than `segment_bytes` (reference
 `--simulator-segment-size`, 16 MB) are split into chunks chained on their
 link, so short transfers interleave with long ones.
 
-`simulate_pipeline` (the replay of a pipeline schedule) is not here: it
-needs the pipeline's cost terms, which come with the pipeline.
+`simulate_pipeline` replays a pipeline schedule: each stage one serial
+resource, every dependency edge checked against the replayed times.
 """
 
 from __future__ import annotations
@@ -356,3 +356,39 @@ def rerank(model, machine: MachineSpec, results: Sequence,
                for r in results]
     best = min(range(len(results)), key=lambda i: reports[i].makespan)
     return results[best], reports
+
+
+# ----------------------------------------------------- pipeline validation
+def simulate_pipeline(fwd_times: Sequence[float], bwd_times: Sequence[float],
+                      schedule: str, num_micro: int,
+                      p2p: float = 0.0) -> dict:
+    """Event-driven replay of a pipeline schedule (JAX `simulator.py:
+    373-409`): each stage one serial resource, an op starts at max(stage
+    free, producer finish + p2p). Every dependency edge is checked against
+    the replayed times (a schedule fault surfaces as a consumer starting
+    before its producer ends). Returns {"makespan", "bubble", "events"},
+    events keyed (phase, stage, microbatch) -> (start, end)."""
+    span, events = cm.pipeline_timeline(schedule, num_micro,
+                                        list(fwd_times), list(bwd_times),
+                                        p2p=p2p)
+    S = len(fwd_times)
+    for (ph, s, m), (start, _end) in events.items():
+        deps = []
+        if ph == "F" and s > 0:
+            deps.append(("F", s - 1, m))
+        if ph == "B":
+            deps.append(("F", s, m))
+            if s < S - 1:
+                deps.append(("B", s + 1, m))
+        for d in deps:
+            if events[d][1] > start + 1e-12:
+                raise RuntimeError(
+                    f"invalid pipeline schedule: {ph}(s={s}, m={m}) starts "
+                    f"at {start} before its producer {d} ends at "
+                    f"{events[d][1]}")
+    return {
+        "makespan": span,
+        "bubble": cm.pipeline_bubble(schedule, num_micro, list(fwd_times),
+                                     list(bwd_times), p2p=p2p),
+        "events": events,
+    }

@@ -100,7 +100,10 @@ def knob_fingerprint(cfg) -> str:
     by the machine fingerprint; --substitution-json by its file content).
     The remat knobs change both the searched space and the artifact
     (Strategy.remat): a strategy searched without the remat dimension must
-    never serve a compile that asked for it, and vice versa."""
+    never serve a compile that asked for it, and vice versa. So do the
+    pipeline's stage count, schedule and (pipelined only) microbatch count
+    (JAX `strategy_cache.py:117-127`): a warm entry carries its `pipeline`
+    block, and the compile then skips the cut search."""
     sub = ""
     if cfg.substitution_json:
         try:
@@ -113,7 +116,12 @@ def knob_fingerprint(cfg) -> str:
              cfg.base_optimize_threshold, cfg.memory_search, sub,
              cfg.simulator_mode, cfg.simulator_topk,
              cfg.simulator_segment_size, cfg.remat, cfg.remat_search,
-             cfg.remat_policies if cfg.remat_search else "")
+             cfg.remat_policies if cfg.remat_search else "",
+             # the pipeline changes the searched machine (a stage's) and
+             # the artifact (Strategy.pipeline); M prices the bubble the
+             # cut search ranks by, so only a pipelined compile keys on it
+             cfg.pipeline_stages, cfg.pipeline_schedule,
+             cfg.accum_steps if cfg.pipeline_stages > 1 else 1)
     return hashlib.sha256(repr(knobs).encode()).hexdigest()[:16]
 
 

@@ -59,7 +59,9 @@ DISPATCH_MODULES = [
     "flexflow_tpu_torch.compiler.compile", "flexflow_tpu_torch.optimizers",
     "flexflow_tpu_torch.kernels.fused_optim",
     "flexflow_tpu_torch.serving.scheduler", "flexflow_tpu_torch.config",
-    "flexflow_tpu_torch.losses", "flexflow_tpu_torch.runtime.distributed"]
+    "flexflow_tpu_torch.losses", "flexflow_tpu_torch.runtime.distributed",
+    "flexflow_tpu_torch.parallel.pipeline",
+    "flexflow_tpu_torch.parallel.machine"]
 
 _IMPORT_ONE = r"""
 import importlib, sys
@@ -68,6 +70,31 @@ print(sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "flexflow_tpu" or m.startswith("flexflow_tpu.")))
 """
+
+
+def _imported_roots(path):
+    """The top-level package of every import statement in `path`."""
+    import ast
+
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("rel", ["parallel/pipeline.py",
+                                 "runtime/distributed.py"])
+def test_pipeline_and_hop_import_torch_numpy_and_stdlib_only(rel):
+    """parallel/pipeline.py and the hop (runtime/distributed.py) import
+    torch, numpy, the standard library and the port, nothing else."""
+    roots = _imported_roots(PKG / rel)
+    extra = {r for r in roots - {"torch", "numpy", "flexflow_tpu_torch"}
+             if r not in sys.stdlib_module_names}
+    assert not extra, extra
+    assert "flexflow_tpu" not in roots and "jax" not in roots
 
 
 @pytest.mark.parametrize("module", DISPATCH_MODULES)

@@ -106,8 +106,8 @@ def test_parse_args_reads_the_kernel_environment(monkeypatch):
     device._DEFAULT[0] = "cuda"
     assert FFConfig.parse_args([]).batch_size == 64
     assert device._DEFAULT[0] == "cuda"
-    monkeypatch.setenv("FF_LAUNCH_ARGS", "--pipeline-schedule 1f1b")
-    with pytest.raises(NotImplementedError, match="--pipeline-schedule"):
+    monkeypatch.setenv("FF_LAUNCH_ARGS", "--serve-objective latency")
+    with pytest.raises(NotImplementedError, match="--serve-objective"):
         FFConfig.parse_args()
 
 

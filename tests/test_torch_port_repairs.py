@@ -18,7 +18,15 @@ package on the CPU:
 5. `FFModel.fit(..., steps_per_dispatch=K)` reaches `CompiledModel.fit`:
    K updates a dispatch, the `step_stats` and losses JAX's give.
 
-`--serve` is a plain field, as in JAX, and no longer an unported flag.
+`--serve` is a plain field, as in JAX, and no longer an unported flag;
+so is `--pipeline-schedule`, with JAX's default "1f1b".
+
+6. The ring rounds once: in bf16 at P = 4 the port's ring (its per-step
+   functions for 4 ranks, `ring_lockstep_fwd`/`_bwd`, the chunk steps the
+   per-rank ring runs) equals JAX's `ring_attention` on a CPU mesh of 4
+   devices within one rounding, 2**-8 of the largest value, for out, dQ,
+   dK and dV; and the collective matmul's backward takes its partial
+   products in f32.
 """
 
 import ast
@@ -71,7 +79,6 @@ def test_lr_reaches_the_default_optimizer_as_in_jax():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--pipeline-schedule", "1f1b"], 9), (["--pipeline-schedule", "gpipe"], 9),
     (["--serve-objective", "latency"], 9),
     (["--serve-objective", "throughput"], 9)])
 def test_unported_flags_raise_naming_their_item(argv, item):
@@ -185,9 +192,9 @@ def test_unported_errors_name_the_roadmap_item_of_their_feature():
     the item whose text lists its feature."""
     items = _queue1_items()
     raises = _unported_raises()
-    # item 8 (the simulator, MCMC, the learned tier) is ported: what is
-    # left names the multi-GPU item
-    assert len(raises) >= 4
+    # item 8 (the simulator, MCMC, the learned tier) and item 9's pipeline
+    # are ported: what is left names the multi-GPU item
+    assert len(raises) >= 2
     for where, msg in raises:
         n = int(re.search(r"item (\d+)", msg).group(1))
         assert n != 8, f"{where}: item 8 is ported, yet {msg!r}"
@@ -431,3 +438,79 @@ def test_seq_parallel_ep_and_inter_compile_over_a_mesh(tmp_path, axis):
     assert out.returncode == 0, out.stderr[-3000:]
     line = [l for l in out.stdout.splitlines() if l.startswith("LOSSES")]
     assert line and all(np.isfinite(float(v)) for v in line[0].split()[1:])
+
+
+@pytest.mark.parametrize("argv", [[], ["--pipeline-schedule", "gpipe"],
+                                  ["--pipeline-schedule", "1f1b"]])
+def test_pipeline_schedule_is_a_plain_field_as_in_jax(argv):
+    assert FFConfig.parse_args(argv).pipeline_schedule \
+        == JFFConfig.parse_args(argv).pipeline_schedule
+    assert FFConfig().pipeline_schedule == JFFConfig().pipeline_schedule \
+        == "1f1b"
+
+
+# ------------------------------------------- 6. the ring rounds once
+RING_SHAPE = (1, 2, 256, 64)  # b, h, s, d: 64 rows a rank at P = 4
+ONE_ROUNDING = 2.0 ** -8
+
+
+def _ring_inputs(seed):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=RING_SHAPE).astype(np.float32) for _ in range(4)]
+
+
+def _jax_ring_bf16(arrs, p, causal):
+    """JAX's ring over a "model" axis of p CPU devices in bf16: (out, dq,
+    dk, dv) as f32 arrays."""
+    import jax
+
+    from flexflow_tpu.kernels.ring_attention import ring_attention
+    from flexflow_tpu.parallel.machine import MachineSpec, build_mesh
+
+    mesh = build_mesh(MachineSpec(mesh_axes={"model": p}))
+
+    @jax.jit
+    def run(q, k, v, do):
+        out, pull = jax.vjp(lambda *a: ring_attention(
+            *a, mesh, "model", causal=causal), q, k, v)
+        return (out, *pull(do))
+
+    return [np.asarray(t.astype(jnp.float32))
+            for t in run(*(jnp.asarray(a, jnp.bfloat16) for a in arrs))]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_bf16_rounds_once_as_jax(devices, causal):
+    from flexflow_tpu_torch.kernels import ring_attention as R
+
+    p = 4
+    arrs = _ring_inputs(20)
+    want = _jax_ring_bf16(arrs, p, causal)
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16) for a in arrs)
+    qs, ks, vs, dos = (t.chunk(p, dim=2) for t in (q, k, v, do))
+    scale = 1.0 / RING_SHAPE[-1] ** 0.5
+    outs, lses = R.ring_lockstep_fwd(qs, ks, vs, causal, scale)
+    dq, dk, dv = R.ring_lockstep_bwd(qs, ks, vs, outs, lses, dos, causal,
+                                     scale)
+    got = [torch.cat(t, 2) for t in (outs, dq, dk, dv)]
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16
+        err = np.abs(g.float().numpy() - w).max() / np.abs(w).max()
+        assert err <= ONE_ROUNDING, f"{name}: {err:.3e} > one rounding"
+    # the plain version of the whole ring rounds the same way
+    o2, l2 = R.ring_plain_fwd(q, k, v, p, causal, scale)
+    g2 = R.ring_plain_bwd(q, k, v, o2, l2, do, p, causal, scale)
+    for name, g, w in zip(("out", "dq", "dk", "dv"), (o2, *g2), want):
+        err = np.abs(g.float().numpy() - w).max() / np.abs(w).max()
+        assert err <= ONE_ROUNDING, f"plain {name}: {err:.3e}"
+
+
+def test_collective_matmul_backward_products_in_f32():
+    from flexflow_tpu_torch.kernels import collective_matmul as C
+
+    rng = np.random.default_rng(3)
+    a, b = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
+        torch.bfloat16) for s in ((16, 32), (32, 8)))
+    got = C._mm_f32(a, b)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, a.float() @ b.float())

@@ -480,13 +480,16 @@ def _compile(m, **kw):
                                   "multi_device", "serving_search"])
 def test_unported_modes_raise(case, tmp_path):
     if case == "pipeline":
+        # the pipeline is ported (parallel/pipeline.py): at world 1 two
+        # stages raise JAX's "need N devices, have M"
         _, pm = _gpt2_pair(pipeline_stages=2)
-        with pytest.raises(NotImplementedError, match="pipelined"):
+        with pytest.raises(ValueError, match="need 2 devices, have 1"):
             _compile(pm)
     elif case == "pipeline_schedule":
-        flag = ["--pipeline-schedule", "1f1b"]
-        with pytest.raises(NotImplementedError, match=flag[0]):
-            FFConfig.parse_args(flag)
+        # a plain field now, JAX's default "1f1b"
+        flag = ["--pipeline-schedule", "gpipe"]
+        assert FFConfig.parse_args(flag).pipeline_schedule == "gpipe"
+        assert FFConfig.parse_args([]).pipeline_schedule == "1f1b"
     elif case == "multi_device":
         path = tmp_path / "machine.json"
         path.write_text(json.dumps(MachineSpec.from_json(
