@@ -505,7 +505,8 @@ Phases, each fatal on failure (nothing is caught to let the run exit 0):
         c10d's in the ranks and the functional ones DTensor calls each
         in a pair of processes of its own (a crash kills only its pair),
         printed; then every leg they allow, config #5's widths at full
-        depth, global batch 8, 3 Adam steps from the seed: {"data": 2}
+        depth, global batch 8, 2 Adam steps from the seed (`P17B_STEPS`,
+        cut from 3 for phase 20's time): {"data": 2}
         with zero off, zero1 and zero2, and {"data": 1, "model": 2}
         under the Megatron template; each leg's losses within
         `P17_LOSS_RTOL` of (a)'s world-1 run, the params bitwise equal
@@ -572,6 +573,32 @@ Phases, each fatal on failure (nothing is caught to let the run exit 0):
     (c) config #5's width at 8 layers over 4 stages on four ranks: 2
         updates, a snapshot, the next update; restored onto 2 stages on
         two ranks, that update within `P19_LOSS_RTOL`.
+
+20. Serving over a mesh (serving/program.py `serving_optimize`, the
+    engine, the heads-sharded KV pools and the lockstep scheduler), run
+    last, GPT-2 medium at full width and depth, bf16, 8 slots, random
+    weights from the seed, each check fatal:
+    (a) world 1 with `search_budget=16` (one device searches nothing:
+        both programs take the data-parallel strategy): phase 3's 16
+        requests, bf16 and int8 KV, served bitwise phase 3's streams,
+        with zero DP expansions;
+    (b) two gloo ranks sharing cuda:0 over {"data": 1, "model": 2}
+        (`P20_MESH`; on a one-axis mesh the search puts the slots on its
+        only axis, data parallel, and shards no head), `search_budget=16`,
+        int8 and bf16 KV: the searched prefill and decode layouts (the
+        embeddings, the first block's attention and MLP, lm_head),
+        `attn_head_degree`, `kv_shard_degree` and the KV bytes a rank
+        against world 1's; each rank's prefill launches #1 on the heads
+        of the prefill's layout (all 16 where its search replicates the
+        attention) and its int8 decode #4 on its 8 of the 16 (the launch
+        counters exact, a profile window after a lead call); world 1's
+        tokens fed back
+        (`P20_TF_STEPS` teacher-forced steps after the prefill), every
+        last-position logit within `P20_LOGIT_TOL` of the largest of
+        world 1's; `P20_REQUESTS` requests served in lockstep, the greedy
+        tokens' agreement with world 1's, and tokens/s, TTFT and the
+        decode step p50 as the host's cost of the mesh on one card (gloo's
+        host copies carry the reductions: no parallel speed).
 
 The line before the last is `{"kernels": [...]}`, and the one before it
 `{"ring_programs": [...]}` (the two ring programs, with the same keys);
@@ -6822,6 +6849,9 @@ def phase16(seed: int, graph_5b: dict) -> dict:
 # in bf16 compute, each rank's rows and the gradients' all-reduce in
 # another order (a relative tolerance on each of the 3 losses)
 P17_STEPS = 3
+# 17b's legs take 2 steps of 17a's 3 (the losses held to world 1's first
+# two): the time limit's cut for phase 20
+P17B_STEPS = 2
 P17_LOSS_RTOL = 5e-3
 P17_TIMEOUT_S = 600
 P17_MESH = {"data": 1}
@@ -7287,7 +7317,7 @@ def p17_probe_pairs() -> dict:
 def p17_rank(rank: int, port: int, seed: int, carried, out_q) -> None:
     """17b's rank: a gloo group of two on cuda:0, the probe, then every
     leg the probe allows: config #5's widths at full depth, global batch
-    8, 3 Adam steps from the seed's weights; then 18c's legs
+    8, P17B_STEPS Adam steps from the seed's weights; then 18c's legs
     (`p18_rank`). Each part prints as it ends (the parent's watchdog
     names the last)."""
     import traceback
@@ -7325,9 +7355,9 @@ def p17_rank(rank: int, port: int, seed: int, carried, out_q) -> None:
             zero_launch_counts()
             builds0 = fo.table_builds
             t1 = time.perf_counter()
-            losses = p17_steps(cm, seed, gc.vocab)
+            losses = p17_steps(cm, seed, gc.vocab, P17B_STEPS)
             torch.cuda.synchronize()
-            say(f"{name}: {P17_STEPS} steps in "
+            say(f"{name}: {P17B_STEPS} steps in "
                 f"{time.perf_counter() - t1:.1f} s, losses {losses}")
             mem = cm.memory_stats()
             legs[name] = {"mesh": mesh, "zero": cm._zero, "losses": losses,
@@ -7423,11 +7453,12 @@ def p17_two_ranks(seed: int, world1: dict) -> dict:
             f"{world1['moment_bytes']}); launches {leg['launches']}; "
             f"{leg['wall_s']:.1f} s")
         want = {n: 0 for n in leg["launches"]}
-        want.update(flash_attention_fwd=LAYERS * P17_STEPS,
-                    flash_attention_dq=LAYERS * P17_STEPS,
-                    flash_attention_dkv=LAYERS * P17_STEPS,
-                    fused_adam=P17_STEPS)
-        if rel > P17_LOSS_RTOL or not row["ranks_bitwise_equal"] or \
+        want.update(flash_attention_fwd=LAYERS * P17B_STEPS,
+                    flash_attention_dq=LAYERS * P17B_STEPS,
+                    flash_attention_dkv=LAYERS * P17B_STEPS,
+                    fused_adam=P17B_STEPS)
+        if len(leg["losses"]) != P17B_STEPS or rel > P17_LOSS_RTOL or \
+                not row["ranks_bitwise_equal"] or \
                 leg["launches"] != want or other["launches"] != want or \
                 (half and 2 * leg["moment_bytes"] != world1["moment_bytes"]):
             fail(f"17b {name}: {row}")
@@ -8643,6 +8674,445 @@ def ring_program_rows(p18: dict, card: str) -> list:
     return rows
 
 
+# ------------------------------------------------ phase 20: serving over a mesh
+# 20b's mesh: a unit batch axis beside the model axis, so the serving
+# searches may shard the heads (on a one-axis mesh the slots take its
+# only axis); its requests and new tokens (one wave of the 8 slots: the
+# time limit's cut of phase 3's 16 x 32), and the teacher-forced steps
+P20_MESH = {"data": 1, "model": 2}
+P20_REQUESTS, P20_NEW_TOKENS, P20_TF_STEPS = 8, 8, 4
+P20_BUDGET = 16
+# each last-position logit of 20b against world 1's, as a share of the
+# largest |logit| of world 1's call: bf16 both sides, and each layer's two
+# row-parallel products round their halves to bf16 before the sum (one
+# rounding world 1 does not take), 48 of them over 24 layers
+P20_LOGIT_TOL = 2.0 ** -5
+P20_TIMEOUT_S = 420
+
+
+def p20_engine(seed: int, kv: str, mesh=None, cache_dir: str = ""):
+    """GPT-2 medium's serving engine as phase 3 builds it, with
+    `search_budget=P20_BUDGET`, over `mesh` when one is given."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.models import GPT2Config, build_gpt2
+    from flexflow_tpu_torch.serving import compile_serving
+
+    cfg = FFConfig(seed=seed, compute_dtype="bfloat16",
+                   max_batch_slots=SLOTS, kv_page_size=PAGE,
+                   max_decode_len=NEW_TOKENS, kv_cache_dtype=kv,
+                   search_budget=P20_BUDGET, mesh_shape=dict(mesh or {}),
+                   strategy_cache_dir=cache_dir,
+                   strategy_cache=bool(cache_dir))
+    model = FFModel(cfg)
+    build_gpt2(model, GPT2Config.medium(), batch=SLOTS)
+    return compile_serving(model)
+
+
+def p20_teacher(engine, params, prompts, feed=None,
+                steps: int = P20_TF_STEPS):
+    """The first wave's prompts prefilled into every slot, then `steps`
+    decode steps: the last-position logits of each call (f32, on the
+    host) and the tokens fed, world 1's greedy ones when `feed` is None
+    (steps x slots), else `feed`'s. The cache is left empty."""
+    from flexflow_tpu_torch.serving import gpt2_prompt_inputs, gpt2_step_inputs
+
+    kv, slots, dev = engine.kv, engine.slots, engine.device
+    ids = np.zeros((slots, SEQ), np.int32)
+    lengths = np.zeros((slots,), np.int32)
+    for s, p in enumerate(prompts[:slots]):
+        ids[s, :len(p)], lengths[s] = p, len(p)
+        kv.admit(s, len(p), len(p) + NEW_TOKENS)
+    kv.push()
+    rows = torch.arange(slots, device=dev)
+    with torch.no_grad():
+        logits, kv_state = engine.prefill(params,
+                                          gpt2_prompt_inputs(ids, lengths))
+        kv.commit_prefill(kv_state, np.arange(slots, dtype=np.int32),
+                          lengths)
+        out = [logits[rows, torch.from_numpy(lengths - 1).to(dev)]
+               .float().cpu()]
+        state, fed = kv.state, []
+        for t in range(steps):
+            tok = out[-1].argmax(-1) if feed is None else feed[t]
+            fed.append(tok.to(torch.int32))
+            logits, state = engine.decode_step(
+                params, state, gpt2_step_inputs(
+                    tok.to(torch.int32).to(dev)[:, None], state))
+            out.append(logits[:, -1].float().cpu())
+    kv.adopt(state)
+    kv.sync_after(steps)
+    for s in range(slots):
+        kv.evict(s)
+    kv.push()
+    return torch.stack(out), torch.stack(fed)
+
+
+def p20_serve(engine, params, prompts) -> tuple:
+    """`P20_REQUESTS` requests of `P20_NEW_TOKENS` through the scheduler,
+    every launch counter 0 just before: (summary, streams)."""
+    from flexflow_tpu_torch.serving import (ContinuousBatchingScheduler,
+                                            Request, gpt2_prompt_inputs,
+                                            gpt2_step_inputs)
+
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=P20_NEW_TOKENS)
+            for i, p in enumerate(prompts[:P20_REQUESTS])]
+    sched = ContinuousBatchingScheduler(engine, params, gpt2_prompt_inputs,
+                                        gpt2_step_inputs)
+    sync(engine.device)
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    done = sched.run(reqs)
+    sync(engine.device)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    if len(done) != len(reqs) or sched.shed or sched.failed:
+        fail(f"20: {len(done)} of {len(reqs)} requests completed")
+    tokens = sum(len(r.tokens) for r in done)
+    ttft = np.array([r.ttft_s for r in done])
+    return ({"requests": len(done), "tokens": tokens, "wall_s": wall,
+             "tokens_per_s": tokens / wall,
+             "ttft_p50_ms": 1e3 * float(np.percentile(ttft, 50)),
+             "decode_step_p50_ms": 1e3 * float(np.median(sched.step_times)),
+             "prefills": sched.prefills, "decode_steps": sched.decode_steps,
+             "launches": counts},
+            {r.rid: list(r.tokens) for r in done})
+
+
+def _p20_layouts(engine) -> dict:
+    """The searched layouts phase 20 prints: each program's weight dims
+    of the embeddings, the first block's attention and MLP, lm_head."""
+    names = ("wte", "h0_attn", "h0_mlp_up", "h0_mlp_down", "lm_head")
+    out = {}
+    for tag, st in (("prefill", engine.prefill_strategy),
+                    ("decode", engine.decode_strategy)):
+        out[tag] = {n: {w: d for w, d in st.sharding_for(n).weights.items()
+                        if w in ("kernel", "wq", "wo")} for n in names}
+    return out
+
+
+def p20_rank(rank: int, port: int, seed: int, refs_path: str,
+             cache_dir: str, out_q) -> None:
+    """20b's rank: a gloo group of two on cuda:0; for int8 and bf16 KV the
+    searched engine over P20_MESH, its layouts and bytes, the
+    teacher-forced logits against world 1's, the profiled launches, and
+    the served requests."""
+    import traceback
+
+    def say(msg):
+        print(f"[20b rank {rank}] {msg}", flush=True)
+
+    try:
+        from flexflow_tpu_torch.kernels import flash_attention as fa
+        from flexflow_tpu_torch.ops import attention_ops as ao
+        from flexflow_tpu_torch.runtime.distributed import init_distributed
+        from flexflow_tpu_torch.serving.program import attn_head_degree
+
+        init_distributed(f"localhost:{port}", 2, rank, local_device_ids=[0],
+                         backend="gloo")
+        dev = torch.device("cuda", 0)
+        refs = torch.load(refs_path, weights_only=False)
+        prompts = refs["prompts"]
+        legs = {}
+        for kv in ("int8", "auto"):
+            t0 = time.perf_counter()
+            engine = p20_engine(seed, kv, P20_MESH, cache_dir)
+            params = engine.init(seed=seed)
+            sync(dev)
+            t_compile = time.perf_counter() - t0
+            mem = engine.memory_stats()
+            leg = {"layouts": _p20_layouts(engine),
+                   "attn_head_degree": attn_head_degree(
+                       engine.decode_strategy, engine.attn_layers,
+                       engine.machine),
+                   "prefill_head_degree": attn_head_degree(
+                       engine.prefill_strategy, engine.attn_layers,
+                       engine.machine),
+                   "kv_shard_degree": engine.kv_shard_degree,
+                   "local_heads": engine.kv.local_heads,
+                   "kv_bytes_per_rank": mem["actual_kv_cache_bytes_per_device"],
+                   "param_bytes_per_rank":
+                       mem["actual_param_bytes_per_device"],
+                   "predicted_kv_bytes": mem["predicted_kv_cache_bytes"],
+                   "compile_s": t_compile}
+            say(f"[{kv}] compiled in {t_compile:.1f} s: head degree "
+                f"{leg['attn_head_degree']}, kv_shard_degree "
+                f"{leg['kv_shard_degree']}, KV {leg['kv_bytes_per_rank']} B "
+                f"a rank")
+            # the heads each kernel call sees (the rank's block: #1 takes
+            # (b, h, s, d), #4 (b, s, h, d)), and its launches, over the
+            # teacher-forced calls
+            seen = {"flash": set(), "dequant": set()}
+            flash0, deq0 = fa.flash_attention, \
+                ao.paged_dequant_decode_attention
+
+            def flash_rec(q, *a, **k):
+                seen["flash"].add(int(q.shape[1]))
+                return flash0(q, *a, **k)
+
+            def deq_rec(qh, *a, **k):
+                seen["dequant"].add(int(qh.shape[2]))
+                return deq0(qh, *a, **k)
+            fa.flash_attention, ao.paged_dequant_decode_attention = \
+                flash_rec, deq_rec
+            zero_launch_counts()
+            try:
+                got, _ = p20_teacher(engine, params, prompts,
+                                     feed=refs[kv]["fed"])
+            finally:
+                fa.flash_attention, ao.paged_dequant_decode_attention = \
+                    flash0, deq0
+            sync(dev)
+            leg["teacher_launches"] = launch_counts()
+            leg["heads_seen"] = {k: sorted(v) for k, v in seen.items()}
+            want = refs[kv]["logits"]
+            scale = want.abs().amax(dim=-1).amax(dim=-1)      # per call
+            err = (got - want).abs().amax(dim=-1).amax(dim=-1) / scale
+            leg["logit_err_share"] = [float(e) for e in err]
+            leg["logit_abs_max"] = [float(x) for x in scale]
+            leg["argmax_agree"] = float(
+                (got.argmax(-1) == want.argmax(-1)).float().mean())
+            say(f"[{kv}] teacher-forced logits, error as a share of the "
+                f"largest: max {max(leg['logit_err_share']):.3e}; heads "
+                f"a kernel call {leg['heads_seen']}; launches "
+                f"{leg['teacher_launches']}")
+            if kv == "int8":
+                # the profile: one counted prefill, then one counted decode
+                # step, each window after a lead call
+                from flexflow_tpu_torch.serving import (gpt2_prompt_inputs,
+                                                        gpt2_step_inputs)
+
+                kvc = engine.kv
+                ids = np.zeros((SLOTS, SEQ), np.int32)
+                lengths = np.zeros((SLOTS,), np.int32)
+                for s, p in enumerate(prompts[:SLOTS]):
+                    ids[s, :len(p)], lengths[s] = p, len(p)
+                    kvc.admit(s, len(p), len(p) + NEW_TOKENS)
+                kvc.push()
+                inputs = gpt2_prompt_inputs(ids, lengths)
+
+                def pre():
+                    with torch.no_grad():
+                        engine.prefill(params, inputs)
+                prof = {"prefill": _device_profile(pre, 1, dev, lead=pre)}
+                with torch.no_grad():
+                    _, kv_state = engine.prefill(params, inputs)
+                kvc.commit_prefill(kv_state, np.arange(SLOTS, dtype=np.int32),
+                                   lengths)
+                box = {"state": kvc.state,
+                       "tok": torch.ones((SLOTS, 1), dtype=torch.int32,
+                                         device=dev)}
+
+                def step():
+                    st = box["state"]
+                    with torch.no_grad():
+                        logits, box["state"] = engine.decode_step(
+                            params, st, gpt2_step_inputs(box["tok"], st))
+                    box["tok"] = logits[:, -1].argmax(-1).to(
+                        torch.int32)[:, None]
+                prof["decode_step"] = _device_profile(step, 1, dev,
+                                                      lead=step)
+                kvc.adopt(box["state"])
+                kvc.sync_after(2)
+                for s in range(SLOTS):
+                    kvc.evict(s)
+                kvc.push()
+                leg["profile"] = {k: {
+                    "wall_ms_per_call": v.get("wall_ms_per_call"),
+                    "device_busy_ms_per_call":
+                        v.get("device_busy_ms_per_call"),
+                    "device_idle_share": v.get("device_idle_share"),
+                    "port_kernels": v.get("port_kernels")}
+                    for k, v in prof.items()}
+            run, streams = p20_serve(engine, params, prompts)
+            leg["serve"], leg["streams"] = run, streams
+            say(f"[{kv}] served: {run['tokens_per_s']:.1f} tokens/s, TTFT "
+                f"p50 {run['ttft_p50_ms']:.1f} ms, decode step p50 "
+                f"{run['decode_step_p50_ms']:.2f} ms, launches "
+                f"{run['launches']}")
+            legs[kv] = leg
+            del engine, params
+            collect_garbage()
+            torch.cuda.empty_cache()
+        out_q.put((rank, "ok", legs))
+    except Exception:  # the parent fails the phase with it
+        out_q.put((rank, "error", traceback.format_exc()))
+
+
+def phase20(seed: int, prompts, streams: dict) -> dict:
+    """20a and 20b (the module docstring)."""
+    import queue as queue_mod
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from flexflow_tpu_torch.search import dp
+
+    t0 = time.perf_counter()
+    card = card_line()
+    out = {"card": card, "20a": {}, "20b": {}}
+    refs = {"prompts": prompts}
+    for kv in ("auto", "int8"):
+        e0 = dp.SEARCH_STATS.get("expansions", 0)
+        engine = p20_engine(seed, kv)
+        params = engine.init(seed=seed)
+        run, got = serve(engine, params, prompts, f"20a {kv}")
+        names = {engine.prefill_strategy.name, engine.decode_strategy.name}
+        leg = dict(run, strategies=sorted(names),
+                   expansions=dp.SEARCH_STATS.get("expansions", 0) - e0,
+                   bitwise_phase3=got == streams[kv],
+                   kv_bytes=engine.memory_stats()[
+                       "actual_kv_cache_bytes_per_device"])
+        out["20a"][kv] = leg
+        log(f"[20a {kv}] world 1, search_budget={P20_BUDGET}: strategies "
+            f"{leg['strategies']}, {leg['expansions']} DP expansions, "
+            f"streams bitwise phase 3's: {leg['bitwise_phase3']}; "
+            f"{run['tokens_per_s']:.1f} tokens/s; {card}")
+        if not leg["bitwise_phase3"] or leg["expansions"]:
+            fail(f"20a {kv}: {leg}")
+        # world 1's references for 20b: teacher-forced logits, the tokens
+        # fed, the served streams and the host's times
+        logits, fed = p20_teacher(engine, params, prompts)
+        w1, w1_streams = p20_serve(engine, params, prompts)
+        refs[kv] = {"logits": logits, "fed": fed, "streams": w1_streams,
+                    "serve": w1, "kv_bytes": leg["kv_bytes"]}
+        del engine, params
+        collect_garbage()
+        torch.cuda.empty_cache()
+    t_a = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="ff_p20_") as tdir:
+        refs_path = os.path.join(tdir, "refs.pt")
+        torch.save(refs, refs_path)
+        cache_dir = os.path.join(tdir, "strategy")
+        ctx = mp.get_context("spawn")
+        q = ctx.Queue()
+        port = _free_port()
+        procs = [ctx.Process(target=p20_rank,
+                             args=(r, port, seed, refs_path, cache_dir, q))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        res = {}
+        try:
+            while len(res) < 2:
+                try:
+                    r, kind, val = q.get(timeout=1.0)
+                except queue_mod.Empty:
+                    dead = [i for i, p in enumerate(procs)
+                            if i not in res and not p.is_alive()]
+                    if dead and q.empty():
+                        fail(f"20b: ranks {dead} ended with exit codes "
+                             f"{[procs[i].exitcode for i in dead]} and no "
+                             "result")
+                    if time.perf_counter() - t1 > P20_TIMEOUT_S:
+                        fail(f"20b: ranks {sorted({0, 1} - set(res))} did "
+                             f"not finish in {P20_TIMEOUT_S} s")
+                    continue
+                if kind != "ok":
+                    fail(f"20b rank {r}:\n{val}")
+                res[r] = val
+        finally:
+            for p in procs:
+                p.join(30)
+                if p.is_alive():
+                    p.kill()
+                    p.join(5)
+    t_b = time.perf_counter() - t1
+    for kv in ("int8", "auto"):
+        a, b = res[0][kv], res[1][kv]
+        ref = refs[kv]
+        streams_b = a.pop("streams")
+        agree = [sum(x == y for x, y in zip(streams_b[i], ref["streams"][i]))
+                 / len(ref["streams"][i]) for i in sorted(ref["streams"])]
+        prefix = [next((j for j, (x, y) in enumerate(
+            zip(streams_b[i], ref["streams"][i])) if x != y),
+            len(ref["streams"][i])) for i in sorted(ref["streams"])]
+        leg = dict(a, greedy_agreement=float(np.mean(agree)),
+                   common_prefix=prefix,
+                   ranks_same_streams=streams_b == b.pop("streams"),
+                   kv_bytes_world1=ref["kv_bytes"],
+                   serve_world1=ref["serve"],
+                   launches_rank1=b["serve"]["launches"],
+                   teacher_launches_rank1=b["teacher_launches"],
+                   logit_err_share_rank1=b["logit_err_share"])
+        out["20b"][kv] = leg
+        dec = leg["layouts"]["decode"]
+        log(f"[20b {kv}] {card}: decode layouts {dec}; prefill layouts "
+            f"{leg['layouts']['prefill']}")
+        log(f"[20b {kv}] attn_head_degree {leg['attn_head_degree']} "
+            f"(prefill {leg['prefill_head_degree']}), heads a kernel call "
+            f"{leg['heads_seen']}, "
+            f"kv_shard_degree {leg['kv_shard_degree']}, KV bytes a rank "
+            f"{leg['kv_bytes_per_rank']} against world 1's "
+            f"{ref['kv_bytes']}; logits within "
+            f"{max(leg['logit_err_share']):.3e} (rank 1 "
+            f"{max(leg['logit_err_share_rank1']):.3e}) of the largest, "
+            f"limit {P20_LOGIT_TOL:.3e}; argmax agreement "
+            f"{leg['argmax_agree']:.3f}; greedy agreement "
+            f"{leg['greedy_agreement']:.3f}, common prefixes {prefix}")
+        log(f"[20b {kv}] the host's cost of the mesh on one card ({card}): "
+            f"{leg['serve']['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+            f"{leg['serve']['ttft_p50_ms']:.1f} ms, decode step p50 "
+            f"{leg['serve']['decode_step_p50_ms']:.2f} ms; world 1 "
+            f"{ref['serve']['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+            f"{ref['serve']['ttft_p50_ms']:.1f} ms, decode step p50 "
+            f"{ref['serve']['decode_step_p50_ms']:.2f} ms")
+        if "profile" in leg:
+            log(f"[20b {kv}] profiled (rank 0, after a lead call): " + "; ".join(
+                f"{k}: {v['wall_ms_per_call']:.2f} ms wall, busy "
+                f"{v['device_busy_ms_per_call']:.2f} ms, idle "
+                f"{v['device_idle_share']:.3f}, port kernels "
+                f"{v['port_kernels']}" for k, v in leg["profile"].items()))
+        half = HEADS // 2
+        want_tf = {n: 0 for n in leg["teacher_launches"]}
+        want_tf["flash_attention_fwd"] = LAYERS
+        want_srv = {n: 0 for n in leg["serve"]["launches"]}
+        want_srv["flash_attention_fwd"] = LAYERS * leg["serve"]["prefills"]
+        if kv == "int8":
+            want_tf["dequant_decode_attention"] = LAYERS * P20_TF_STEPS
+            want_srv["dequant_decode_attention"] = \
+                LAYERS * leg["serve"]["decode_steps"]
+        bad = []
+        if leg["attn_head_degree"] != 2 or leg["kv_shard_degree"] != 2 or \
+                leg["local_heads"] != half:
+            bad.append("the decode search did not shard the heads in two")
+        if 2 * leg["kv_bytes_per_rank"] != ref["kv_bytes"]:
+            bad.append("KV bytes a rank are not half of world 1's")
+        # #1 runs the rank's heads of the prefill layout (every head where
+        # the prefill search replicates the attention), #4 the cache's
+        if leg["heads_seen"]["flash"] != [
+                HEADS // leg["prefill_head_degree"]] or (
+                kv == "int8" and leg["heads_seen"]["dequant"] != [half]):
+            bad.append(f"kernel calls saw heads {leg['heads_seen']}")
+        if leg["teacher_launches"] != want_tf or \
+                leg["teacher_launches_rank1"] != want_tf:
+            bad.append(f"teacher-forced launches, want {want_tf}")
+        if leg["serve"]["launches"] != want_srv or \
+                leg["launches_rank1"] != want_srv:
+            bad.append(f"served launches, want {want_srv}")
+        if kv == "int8":
+            pk = leg["profile"]
+            if pk["prefill"]["port_kernels"].get("flash_fwd_tc_kernel", {}) \
+                    .get("launches_per_call") != LAYERS or \
+                    pk["decode_step"]["port_kernels"].get(
+                        "paged_dequant_decode_kernel", {}).get(
+                        "launches_per_call") != LAYERS:
+                bad.append(f"profiled kernels {pk}")
+        if max(leg["logit_err_share"] + leg["logit_err_share_rank1"]) > \
+                P20_LOGIT_TOL:
+            bad.append("logits past P20_LOGIT_TOL")
+        if not leg["ranks_same_streams"]:
+            bad.append("the two ranks served different tokens")
+        if bad:
+            fail(f"20b {kv}: {bad}")
+    out["20a_s"], out["20b_s"] = t_a, t_b
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[phase 20] {out['wall_s']:.1f} s on {card} (20a {t_a:.1f} s, "
+        f"20b {t_b:.1f} s)")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8914,6 +9384,11 @@ def main() -> None:
     # the last stage), an S = 4 snapshot restored onto S = 2, the cut
     # search and its warm cache
     p19 = phase19(args.seed)
+    # ---- 20. serving over a mesh: world 1 with the serving search asked
+    # for (none runs on one device) bitwise phase 3; two gloo ranks on the
+    # card, the searched programs and the heads-sharded pools, against
+    # world 1
+    p20 = phase20(args.seed, prompts, streams)
 
     # launches on the main paths: both serving runs, the 12 Adam training
     # steps and the Adam fit epoch, the 12 padded-vocab SGD steps and the
@@ -9031,6 +9506,15 @@ def main() -> None:
         paths[f"p19b_{k}"] = v
     for k in ("19a", "19b"):
         paths[f"p{k}_world1_twin"] = p19["world1"][k]["launches"]
+    # phase 20's: GPT-2 medium served (#1 causal, #4 int8) at world 1 and
+    # on each of 20b's ranks
+    for kv, leg in p20["20a"].items():
+        paths[f"p20a_serve_{kv}"] = leg["launches"]
+    for kv, leg in p20["20b"].items():
+        paths[f"p20b_{kv}_teacher_rank0"] = leg["teacher_launches"]
+        paths[f"p20b_{kv}_teacher_rank1"] = leg["teacher_launches_rank1"]
+        paths[f"p20b_{kv}_serve_rank0"] = leg["serve"]["launches"]
+        paths[f"p20b_{kv}_serve_rank1"] = leg["launches_rank1"]
     for r in rows:
         causal = r.get("causal")
         counted = (paths if causal else paths9 if causal is False
@@ -9061,6 +9545,7 @@ def main() -> None:
     log(json.dumps({"phase17": p17}, default=str))
     log(json.dumps({"phase18": p18}, default=str))
     log(json.dumps({"phase19": p19}, default=str))
+    log(json.dumps({"phase20": p20}, default=str))
     log(json.dumps({"ring_programs": ring_program_rows(p18, card)}))
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

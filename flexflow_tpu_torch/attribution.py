@@ -303,16 +303,32 @@ def build_report(items: List[Dict[str, Any]],
     roofline's forward leg. tag: the op/attr events' "source". device and
     compute_dtype: where and in what dtype MeasuredCost times the ops
     (the compile's); with `inference` it times the forward only.
-    state_fn(layer): the lowering state a measured op reads (the serving
-    engine's synthetic paged cache for a decode attention). `coverage`:
+    state_fn(layer, rows): the lowering state a measured op reads (the
+    serving engine's synthetic paged cache for a decode attention), for
+    the layer as one device runs it. `coverage`:
     on the trace path the share of the trace's device time credited to a
     layer; on the measure path the isolated times' sum over the step
     (JAX's).
     """
+    rows, att = measure_rows(items, step_time_s, mult, profile_dir, source,
+                             measure_repeats, measure_warmup, inference,
+                             device, compute_dtype, state_fn)
+    return assemble_report(rows, att, step_time_s, mult, emit, tag)
+
+
+def measure_rows(items: List[Dict[str, Any]],
+                 step_time_s: Optional[float] = None, mult: int = 1,
+                 profile_dir: Optional[str] = None, source: str = "auto",
+                 measure_repeats: int = 3, measure_warmup: int = 1,
+                 inference: bool = False, device=None,
+                 compute_dtype: str = "float32", state_fn=None):
+    """`build_report`'s rows before the step time rescales them: (rows,
+    the trace's attribution or None). On the trace path a row's
+    measured_s is its whole-run trace credit in seconds. A pipelined
+    model pools the rows of every stage (each measured on its own rank)
+    before `assemble_report`."""
     from flexflow_tpu_torch.search.measure import MeasuredCost
 
-    if emit is None:
-        emit = tel.enabled()
     att = None
     if source in ("auto", "trace"):
         # trace totals are WHOLE-RUN device-time sums: only their
@@ -331,8 +347,6 @@ def build_report(items: List[Dict[str, Any]],
                 raise ValueError(f"no parseable profiler trace crediting a "
                                  f"layer under {profile_dir!r} (run with "
                                  "--profiling)")
-    used_source = "trace" if att is not None else "measure"
-
     mcs: Dict[str, MeasuredCost] = {}  # one per machine fingerprint
 
     def mc_for(machine):
@@ -391,7 +405,21 @@ def build_report(items: List[Dict[str, Any]],
             "key": feature_key(feats),
             "features": feats,
         })
+    return rows, att
 
+
+def assemble_report(rows: List[Dict[str, Any]], att,
+                    step_time_s: Optional[float] = None, mult: int = 1,
+                    emit: Optional[bool] = None,
+                    tag: Optional[str] = None) -> Dict[str, Any]:
+    """The report of `measure_rows`' rows: on the trace path each row's
+    share of the traced time times the step time, then every row's
+    attributed time (the measured times rescaled to sum to the step
+    time), its MFU, the order, the coverage and the drift; the op/attr
+    and drift events when `emit` (default: telemetry on)."""
+    if emit is None:
+        emit = tel.enabled()
+    used_source = "trace" if att is not None else "measure"
     if used_source == "trace":
         # per-update measured time = the op's share of the profiled
         # stream x the real step time

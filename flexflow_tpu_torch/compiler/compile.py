@@ -140,6 +140,7 @@ from flexflow_tpu_torch.optimizers import SGDOptimizer
 from flexflow_tpu_torch.parallel.default_strategy import data_parallel_strategy
 from flexflow_tpu_torch.parallel.machine import MachineSpec, build_mesh
 from flexflow_tpu_torch.parallel.sharding import (Strategy, constrainable,
+                                                  mesh_placements,
                                                   pins_nothing, placements)
 from flexflow_tpu_torch.runtime.dataloader import (SingleDataLoader,
                                                    group_microbatches,
@@ -640,14 +641,9 @@ class CompiledModel:
         return dict(self.machine.mesh_axes)
 
     def _pl(self, dims, shape) -> list:
-        """The placements of `dims` for a tensor of `shape`: replicated
-        where `constrainable` refuses the layout or DTensor cannot say it
-        (JAX's `_weight_sharding` and `input_sharding` rule)."""
-        from torch.distributed.tensor import Replicate
-
-        pl = (placements(dims, self.mesh)
-              if constrainable(dims, shape, self._axes) else None)
-        return pl if pl is not None else [Replicate()] * self.mesh.ndim
+        """The placements of `dims` for a tensor of `shape`
+        (`sharding.mesh_placements`)."""
+        return mesh_placements(dims, shape, self.mesh)
 
     def _weight_dims(self, layer_name: str, wname: str, shape) -> list:
         dims = self.strategy.sharding_for(layer_name).weight_dims(wname)
@@ -1608,6 +1604,39 @@ class CompiledModel:
         return outs[0] if len(outs) == 1 else outs
 
     # -------------------------------------------------------------- weights
+    def parallel_view(self, layer_name: str, out_idx: int = 0):
+        """The ParallelTensor view of a layer output under the compiled
+        strategy: per-dim degrees, the shard shape, the replica axes (JAX
+        `compile.py:1599`)."""
+        from flexflow_tpu_torch.parallel.ptensor import ParallelTensor
+
+        layer = self.model.get_layer_by_name(layer_name)
+        sh = self.strategy.op_shardings.get(layer_name)
+        dims = sh.outputs[out_idx] if sh and out_idx < len(sh.outputs) else []
+        return ParallelTensor.build(layer.outputs[out_idx].spec, list(dims),
+                                    self.machine)
+
+    def weight_view(self, layer_name: str, wname: str = "kernel"):
+        """The ParallelTensor view of a weight under the compiled strategy;
+        a fork-join branch's "b{i}.{sub}.{w}" on stacked storage is the
+        stacked weight's slice, without the stacked dim and its sharding
+        (JAX `compile.py:1624`)."""
+        from flexflow_tpu_torch.core.tensor import TensorSpec
+        from flexflow_tpu_torch.parallel.ptensor import ParallelTensor
+
+        layer = self.model.get_layer_by_name(layer_name)
+        sh = self.strategy.op_shardings.get(layer_name)
+        alias = self._stacked_alias(layer, wname)
+        if alias is not None:
+            spec = layer.weight_specs[alias[0]]
+            dims = list(sh.weights.get(alias[0], []) if sh else [])
+            return ParallelTensor.build(
+                TensorSpec(spec.shape[1:], spec.dtype), dims[1:],
+                self.machine)
+        dims = sh.weights.get(wname, []) if sh else []
+        return ParallelTensor.build(layer.weight_specs[wname], list(dims),
+                                    self.machine)
+
     @staticmethod
     def _stacked_alias(layer, wname: str):
         """A fork-join branch's "b{i}.{sub}.{w}" resolved against stacked
@@ -1636,13 +1665,11 @@ class CompiledModel:
         device), as a new device tensor: the fused optimizer's pointer
         table is rebuilt at the next step. A fork-join branch's
         "b{i}.{sub}.{w}" on stacked storage writes slice i of the stacked
-        weight in place."""
+        weight in place; over a mesh each rank writes its own block of it
+        (the rank holding row i of the stacked dim, its block of the
+        other dims), and nothing is gathered (JAX `compile.py:1656-1667`)."""
         layer = self.model.get_layer_by_name(layer_name)
         alias = self._stacked_alias(layer, wname)
-        if alias is not None and self.mesh is not None:
-            raise NotImplementedError(
-                "set_weight of one fork-join branch over a mesh (ROADMAP "
-                "Queue 1 item 9: the placed fork-join)")
         if alias is not None:
             stk, b = alias
             target = self.params[layer_name][stk]
@@ -1652,11 +1679,35 @@ class CompiledModel:
                                  f"{tuple(value.shape)} vs expected "
                                  f"{tuple(target.shape[1:])}")
             with torch.no_grad():
-                target[b].copy_(value)
+                if self.mesh is None:
+                    target[b].copy_(value)
+                else:
+                    self._set_stacked_block(target, b, value)
             return
         self.params[layer_name][wname] = self._place(
             _host_or_tensor(value), layer.weight_specs[wname],
             f"{layer_name}.{wname}", (layer_name, wname))
+
+    def _set_stacked_block(self, target, b: int, value) -> None:
+        """Row b of a stacked DTensor `target` := `value`, on the rank(s)
+        whose block of the stacked dim holds row b: the block of `value`
+        that the other dims' placements give this rank."""
+        from torch.distributed.tensor import Replicate, Shard
+
+        from flexflow_tpu_torch.runtime.distributed import local_rows
+
+        coord = self.mesh.get_coordinate()
+        lo, n = 0, target.shape[0]
+        for j, p in enumerate(target.placements):
+            if isinstance(p, Shard) and p.dim == 0:
+                n //= self.mesh.size(j)
+                lo += coord[j] * n
+        if not lo <= b < lo + n:
+            return
+        rest = [Shard(p.dim - 1) if isinstance(p, Shard) and p.dim > 0
+                else Replicate() for p in target.placements]
+        local = target.to_local()
+        local[b - lo].copy_(local_rows(value, self.mesh, rest))
 
     # ------------------------------------------------------------ cost model
     def _candidate_for(self, layer):

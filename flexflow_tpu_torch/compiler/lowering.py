@@ -120,12 +120,13 @@ def cast_exempt(layers: Sequence[Layer]) -> Dict[str, set]:
     return out
 
 
-def maybe_constrain(x, dims, mesh):
+def maybe_constrain(x, dims, mesh, move=None):
     """`x` redistributed to the layout `dims` pins on `mesh` (JAX
     `maybe_constrain`): unchanged when there is no mesh, when `x` is not a
     DTensor, when `dims` pins nothing (fully replicating would force an
     all-gather the next op may not need) or when `constrainable` refuses
-    it."""
+    it. `move(x, placements)` moves it instead of DTensor's redistribute
+    (the serving programs' `relayout`, by c10d)."""
     from torch.distributed.tensor import DTensor
 
     if mesh is None or not isinstance(x, DTensor) or pins_nothing(dims):
@@ -136,7 +137,7 @@ def maybe_constrain(x, dims, mesh):
     pl = placements(dims, mesh)
     if pl is None or tuple(pl) == tuple(x.placements):
         return x
-    return x.redistribute(mesh, pl)
+    return move(x, pl) if move is not None else x.redistribute(mesh, pl)
 
 
 class GraphForward(nn.Module):
@@ -168,6 +169,10 @@ class GraphForward(nn.Module):
         # a torch.profiler record_function range named after the layer
         # (attribution.py credits the trace's kernels through them)
         self.layer_ranges = False
+        # over a mesh, what moves a layer's outputs to the strategy's
+        # layout (maybe_constrain): DTensor's redistribute, or the serving
+        # programs' c10d `relayout` (no autograd: inference only)
+        self.move: Optional[Callable] = None
 
     def _ctx(self, state, training, rng, device) -> LoweringCtx:
         return LoweringCtx(state=state, enable_fusion=self.enable_fusion,
@@ -207,7 +212,8 @@ class GraphForward(nn.Module):
             outs = get_op_def(layer.op_type).lower(layer, ins, w, ctx)
         if self.mesh is not None:
             sh = self.strategy.sharding_for(layer.name)
-            outs = [maybe_constrain(o, sh.output_dims(i), self.mesh)
+            outs = [maybe_constrain(o, sh.output_dims(i), self.mesh,
+                                    self.move)
                     for i, o in enumerate(outs)]
         for t, o in zip(layer.outputs, outs):
             env[t.guid] = o
@@ -237,7 +243,7 @@ class GraphForward(nn.Module):
                 arr = arr.to(cast_to)
             if self.mesh is not None:
                 arr = maybe_constrain(arr, self.strategy.input_dims(t.name),
-                                      self.mesh)
+                                      self.mesh, self.move)
             env[t.guid] = arr
         scope = (torch.profiler.record_function if self.layer_ranges
                  else None)

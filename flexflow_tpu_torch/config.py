@@ -5,10 +5,8 @@ and command-line flags match the JAX package's `FFConfig`, so a command
 line that configures one package configures the other the same way.
 
 The parser knows every option string of the JAX parser, with the same
-choices. A flag whose feature is not ported yet (`_UNPORTED`) parses, and
-`parse_args` raises `NotImplementedError` naming its ROADMAP Queue 1 item
-when the command line sets it; flags that neither package knows are
-ignored, as in JAX.
+choices and defaults, and every one is ported; flags that neither
+package knows are ignored, as in JAX.
 """
 
 from __future__ import annotations
@@ -125,6 +123,10 @@ class FFConfig:
     max_decode_len: int = 0
     kv_page_size: int = 16
     max_batch_slots: int = 8
+    #   serve_objective - the serving searches' score (search/dp.py
+    #                     `_score`): "latency" ranks by time alone,
+    #                     "throughput" adds a memory-pressure term
+    serve_objective: str = "latency"
     #   kv_cache_dtype — paged-KV storage dtype: "auto" follows
     #                    compute_dtype, "bf16" forces bf16 pools, "int8"
     #                    stores int8 pools with per-(entry, head) f32 scales
@@ -302,11 +304,8 @@ class FFConfig:
     @staticmethod
     def build_parser() -> argparse.ArgumentParser:
         """Every option string of the JAX package's parser, with its
-        choices. The unported ones (`_UNPORTED`) have no default: they
-        appear in the parsed namespace only when the command line sets
-        them, and `parse_args` then raises."""
+        choices and defaults."""
         p = argparse.ArgumentParser("flexflow_tpu_torch", allow_abbrev=False)
-        U = argparse.SUPPRESS
         p.add_argument("-e", "--epochs", type=int, default=1)
         p.add_argument("-b", "--batch-size", type=int, default=64)
         p.add_argument("--lr", "--learning-rate", dest="lr", type=float,
@@ -393,7 +392,7 @@ class FFConfig:
         p.add_argument("--max-decode-len", type=int, default=0)
         p.add_argument("--kv-page-size", type=int, default=16)
         p.add_argument("--max-batch-slots", type=int, default=8)
-        p.add_argument("--serve-objective", type=str, default=U,
+        p.add_argument("--serve-objective", type=str, default="latency",
                        choices=("latency", "throughput"))
         p.add_argument("--serve-watch-dir", type=str, default="")
         p.add_argument("--serve-ttft-budget-ms", type=float, default=0.0)
@@ -457,12 +456,6 @@ class FFConfig:
 
                 device.set_default_device(os.environ["FLEXFLOW_PLATFORM"])
         args, _unknown = FFConfig.build_parser().parse_known_args(argv)
-        given = sorted(d for d in _UNPORTED if hasattr(args, d))
-        if given:
-            raise NotImplementedError(
-                "not ported yet: " + "; ".join(
-                    f"{_UNPORTED[d][0]} (ROADMAP Queue 1 item "
-                    f"{_UNPORTED[d][1]})" for d in given))
         mesh: Dict[str, int] = {}
         if args.mesh:
             for part in args.mesh.split(","):
@@ -522,6 +515,7 @@ class FFConfig:
             serve_decode_timeout_ms=args.serve_decode_timeout_ms,
             serve_slo=args.serve_slo,
             serve_max_context=args.serve_max_context,
+            serve_objective=args.serve_objective,
             serve_watch_dir=args.serve_watch_dir,
             serve_reqtrace=args.serve_reqtrace,
             kv_host_pages=args.kv_host_pages,
@@ -559,9 +553,3 @@ class FFConfig:
             fault_plan=args.fault_plan,
         )
 
-
-# The JAX parser's flags whose features the port has not yet: argparse
-# dest -> (flag, ROADMAP Queue 1 item that ports it)
-_UNPORTED = {
-    "serve_objective": ("--serve-objective", 9),
-}

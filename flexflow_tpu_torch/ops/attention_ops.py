@@ -16,6 +16,18 @@ Two lowerings, as in the JAX package:
   einsum paths (the compute-dtype cache, `--no-fusion`) gather each slot's
   pages first, as the JAX lowering does.
 
+Serving over a mesh (serving/engine.py): the paged cache holds each
+rank's block of the heads as plain local tensors (serving/kv_cache.py),
+and the engine tells the forward its layout (`ctx.cache[KV_HEADS_KEY]`,
+the placements of a `[slots, S, heads, d]` block). The projections' K/V
+(and, decoding, Q) are redistributed to that layout and run on the
+rank's heads (`_cache_heads`): the prefill hands them to the cache as
+they are, the decode writes them into its pools and runs the dequant
+kernel (int8) or the einsum (compute dtype) on them, and its output,
+this rank's heads of the embed dim, enters the output projection as the
+DTensor of that layout, whose product DTensor reduces as the strategy
+pins it (a pending sum where wo is sharded by rows).
+
 Unlike the JAX lowering, nothing here falls back to einsum: with fusion on
 (or `impl="flash"`) the kernel wrapper is the one gate, and on a CUDA
 tensor it launches its kernel or raises (a shape it does not cover, a
@@ -49,6 +61,9 @@ from flexflow_tpu_torch.ops.registry import LoweringCtx, register_op
 
 if TYPE_CHECKING:
     from flexflow_tpu_torch.core.layer import Layer
+
+# ctx.cache key of the paged cache's heads placements over a mesh
+KV_HEADS_KEY = "serve/kv_heads"
 
 
 def _mha_infer(layer: "Layer"):
@@ -93,8 +108,34 @@ def _proj(weights, x, w, b):
     return y
 
 
+def _kv_heads_pl(ctx: LoweringCtx, mesh) -> list:
+    """The placements of the paged cache's heads over `mesh` (the
+    engine's `KV_HEADS_KEY`; every head when it set none)."""
+    from torch.distributed.tensor import Replicate
+
+    return ctx.cache.get(KV_HEADS_KEY) or [Replicate()] * mesh.ndim
+
+
+def _cache_heads(ctx: LoweringCtx, x, heads: int):
+    """A projection (b, s, embed) as the heads the paged cache holds: the
+    (b, s, h, d) split of a plain tensor; over a mesh this rank's block of
+    a DTensor in the cache's layout (`KV_HEADS_KEY`, every head when the
+    engine set none; moved by c10d, `relayout`: serving runs no
+    autograd), a plain (b, s, h / degree, d) tensor."""
+    from torch.distributed.tensor import DTensor
+
+    from flexflow_tpu_torch.runtime.distributed import relayout
+
+    if not isinstance(x, DTensor):
+        return _split_heads(x, heads)
+    loc = relayout(x, _kv_heads_pl(ctx, x.device_mesh)).to_local()
+    return loc.reshape(loc.shape[0], loc.shape[1], -1, x.shape[-1] // heads)
+
+
 def _out_proj(weights, out, b, s, embed):
-    y = weight_matmul(out.reshape(b, s, embed), weights["wo"].to(out.dtype))
+    if out.ndim == 4:
+        out = out.reshape(b, s, embed)
+    y = weight_matmul(out, weights["wo"].to(out.dtype))
     if "bo" in weights:
         y = y + weights["bo"].to(out.dtype)
     return y
@@ -136,9 +177,11 @@ def _mha_decode_lower(layer: "Layer", inputs, weights, ctx: LoweringCtx):
     embed = p["embed_dim"]
     hd = embed // heads
     dt = q.dtype
-    qh = _split_heads(_proj(weights, inputs[0], "wq", "bq"), heads)
-    kh = _split_heads(_proj(weights, inputs[1], "wk", "bk"), heads)
-    vh = _split_heads(_proj(weights, inputs[2], "wv", "bv"), heads)
+    # over a mesh: this rank's heads, as plain tensors (the docstring)
+    qh = _cache_heads(ctx, _proj(weights, inputs[0], "wq", "bq"), heads)
+    kh = _cache_heads(ctx, _proj(weights, inputs[1], "wk", "bk"), heads)
+    vh = _cache_heads(ctx, _proj(weights, inputs[2], "wv", "bv"), heads)
+    heads = qh.shape[2]
 
     cache = ctx.state[layer.name]
     k_pool, v_pool = cache["k"], cache["v"]
@@ -165,7 +208,7 @@ def _mha_decode_lower(layer: "Layer", inputs, weights, ctx: LoweringCtx):
         out = paged_dequant_decode_attention(
             qh, k_pool, cache["k_scale"], v_pool, cache["v_scale"], pt, pos,
             scale=scale)
-        return [_out_proj(weights, out, b, s, embed)]
+        return [_out_proj(weights, _heads_out(ctx, q, out), b, s, embed)]
     # gather each slot's pages: [slots, L, h, (d)]
     if quantized:
         K = (k_pool[ptl].reshape(b, -1, heads, hd).float()
@@ -181,7 +224,21 @@ def _mha_decode_lower(layer: "Layer", inputs, weights, ctx: LoweringCtx):
     logits = logits.masked_fill(~keep, torch.finfo(logits.dtype).min)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, V)
-    return [_out_proj(weights, out, b, s, embed)]
+    return [_out_proj(weights, _heads_out(ctx, q, out), b, s, embed)]
+
+
+def _heads_out(ctx: LoweringCtx, q, out):
+    """The decode attention's output (b, s, h, d) for the output
+    projection: as it is off a mesh; over one this rank's heads of the
+    embed dim, as the DTensor (b, s, embed) of the cache's layout."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(q, DTensor):
+        return out
+    b, s = out.shape[:2]
+    return DTensor.from_local(out.reshape(b, s, -1), q.device_mesh,
+                              _kv_heads_pl(ctx, q.device_mesh),
+                              run_check=False)
 
 
 def _jax_flash_gate(sk: int) -> bool:
@@ -227,8 +284,9 @@ def _mha_lower(layer: "Layer", inputs, weights, ctx: LoweringCtx):
     vp = _proj(weights, v, "wv", "bv")
     if p.get("kv_out", False):
         # serving prefill: the per-head K/V of the prompt, for the cache
-        ctx.new_state[layer.name] = {"k": _split_heads(kp, heads),
-                                     "v": _split_heads(vp, heads)}
+        # (over a mesh this rank's heads of them)
+        ctx.new_state[layer.name] = {"k": _cache_heads(ctx, kp, heads),
+                                     "v": _cache_heads(ctx, vp, heads)}
     b_ = k.shape[0]
     if "bias_k" in weights:  # add_bias_kv: one learned key/value position
         kp = torch.cat([kp, weights["bias_k"].to(kp.dtype).expand(

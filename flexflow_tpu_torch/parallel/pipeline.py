@@ -588,8 +588,9 @@ class PipelinedModel:
         (the loop reads no device value mid-epoch). Durable checkpoints,
         the SIGTERM drain and resume work as on the flat path, through the
         per-layer pipeline checkpoint, so a relaunch may use another stage
-        count or stage mesh; periodic snapshots are by steps (every rank
-        counts the same updates; a clock differs by rank)."""
+        count or stage mesh; periodic snapshots come by steps or by rank
+        0's clock, and a SIGTERM on any rank drains them all (the ranks
+        agree once an update: runtime/resilience.py `FitResilience`)."""
         from flexflow_tpu_torch.metrics import PerfMetrics
         from flexflow_tpu_torch.runtime.resilience import FitResilience
 
@@ -607,14 +608,9 @@ class PipelinedModel:
         M = max(1, int(accum_steps or self.cfg.accum_steps))
         order = cm.pipeline_order(self.schedule, self.num_stages,
                                   M)[self.stage]
-        secs = (self.cfg.checkpoint_every_secs
-                if checkpoint_every_secs is None else checkpoint_every_secs)
-        if secs:
-            raise ValueError("a pipelined fit checkpoints by steps "
-                             "(checkpoint_every_steps): a time trigger "
-                             "would fire on different updates on each rank")
         res = FitResilience.build(self, resume, checkpoint_dir,
-                                  checkpoint_every_steps, 0.0)
+                                  checkpoint_every_steps,
+                                  checkpoint_every_secs)
         if res is not None:
             res.set_effective(batch_size, M)
             self._retry_policy = self.link.retry_policy = res.policy
@@ -970,18 +966,33 @@ class PipelinedModel:
                 + mem["actual_opt_state_bytes_per_device"])
         return {"sentinels": sent, "watermarks": wm}
 
+    def _gather_stage_rows(self, mine) -> list:
+        """`mine` of the first rank of each stage, in stage order, on
+        every rank (a host-side gather of picklable values, as at an
+        epoch's end)."""
+        import torch.distributed as dist
+
+        got = [None] * dist.get_world_size()
+        dist.all_gather_object(got, (self.stage, self.index, mine))
+        return [v for _, _, v in sorted(
+            (g for g in got if g[1] == 0), key=lambda g: g[0])]
+
     def op_attribution(self, step_time_s: Optional[float] = None,
                        source: str = "auto", top: int = 0,
                        print_table: bool = True) -> dict:
-        """Per-op attribution of this rank's stage (attribution.py), rows
-        tagged with the stage, every column per update (mult = M): the
-        update's measured wall time is the makespan of concurrent stages,
-        so attributed times are each op's share of the wall clock."""
+        """Per-op attribution of every stage (attribution.py, JAX
+        `pipeline.py:1093`), rows tagged with their stage, every column per
+        update (mult = M): each stage's rows are measured on its first
+        rank, every rank gathers them (one host-side gather, as at an
+        epoch's end) and rescales the pooled rows to the update's measured
+        wall time, the makespan of concurrent stages, so attributed times
+        are each op's share of the wall clock. Every rank calls it."""
         from flexflow_tpu_torch import attribution
         from flexflow_tpu_torch.search.candidates import compiled_candidate
 
         if step_time_s is None:
-            step_time_s = self.drift_stats().get("measured_step_time_s")
+            step_time_s = self._gather_stage_rows(
+                self.drift_stats().get("measured_step_time_s"))[0]
         pred = getattr(self.strategy, "_predicted_op_costs", None) or {}
         bs = self._batch_sizes()
         items = []
@@ -996,21 +1007,39 @@ class PipelinedModel:
                           "stage": self.stage})
         profile_dir = (self.cfg.profile_dir or "./ff_profile") \
             if self.cfg.profiling else None
-        report = attribution.build_report(
-            items, step_time_s=step_time_s,
-            mult=max(1, int(self.cfg.accum_steps)),
+        mult = max(1, int(self.cfg.accum_steps))
+        rows, att = attribution.measure_rows(
+            items, step_time_s=step_time_s, mult=mult,
             profile_dir=profile_dir, source=source, device=self.device,
             compute_dtype=self.cfg.compute_dtype)
+        pooled = self._gather_stage_rows((rows, att))
+        if len({a is None for _, a in pooled}) > 1:
+            raise ValueError("pipelined op_attribution: some stages read a "
+                             "profiler trace and others measured; profile "
+                             "every stage or none")
+        atts = [a for _, a in pooled if a is not None]
+        if atts:
+            att = {"layers": {k: v for a in atts
+                              for k, v in a["layers"].items()},
+                   "file": atts[0]["file"],
+                   "device_us": sum(a["device_us"] for a in atts),
+                   "credited_us": sum(a["credited_us"] for a in atts),
+                   "kernels": {k: v for a in atts
+                               for k, v in a["kernels"].items()}}
+        report = attribution.assemble_report(
+            [r for rs, _ in pooled for r in rs], att if atts else None,
+            step_time_s=step_time_s, mult=mult)
         if print_table:
             for line in attribution.format_report(report, top=top):
                 print(line)
         return report
 
     def profile_report(self, top: int = 0, print_table: bool = True):
-        """Per-op timing of this rank's stage (analytic, and measured
-        alone), with [pipeline] predicted against measured bubble,
-        [drift], [goodput], [health] and [memory] lines. Every rank calls
-        it (memory_stats gathers)."""
+        """Per-op timing of every stage (analytic, and measured alone on
+        the stage's first rank; JAX `pipeline.py:1135`), rows tagged with
+        their stage and gathered to every rank, with [pipeline] predicted
+        against measured bubble, [drift], [goodput], [health] and [memory]
+        lines. Every rank calls it (the rows and memory_stats gather)."""
         from flexflow_tpu_torch.search.candidates import layer_candidates
         from flexflow_tpu_torch.search.measure import MeasuredCost
 
@@ -1028,7 +1057,8 @@ class PipelinedModel:
                          "analytic_us": cand.op_time(
                              layer, self.stage_machine) * 1e6,
                          "measured_us": mc.op_time(layer, cand) * 1e6})
-        rows.sort(key=lambda x: -x["measured_us"])
+        rows = [r for rs in self._gather_stage_rows(rows) for r in rs]
+        rows.sort(key=lambda x: (x["stage"], -x["measured_us"]))
         if top:
             rows = rows[:top]
         mem = self.memory_stats()

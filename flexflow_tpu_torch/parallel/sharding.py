@@ -97,6 +97,17 @@ def placements(dims: Sequence[DimSharding], mesh) -> Optional[list]:
     return out
 
 
+def mesh_placements(dims: Sequence[DimSharding], shape, mesh) -> list:
+    """The placements of a tensor of `shape` laid out by `dims` on `mesh`:
+    replicated where `constrainable` refuses the layout or DTensor cannot
+    say it (JAX's `_weight_sharding` and `input_sharding` rule)."""
+    from torch.distributed.tensor import Replicate
+
+    axes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    pl = placements(dims, mesh) if constrainable(dims, shape, axes) else None
+    return pl if pl is not None else [Replicate()] * mesh.ndim
+
+
 def dims_of(pl: Sequence, mesh, ndim: int) -> List[DimSharding]:
     """The dim list of DTensor placements `pl` (Partial reads as
     replicated: the sum it stands for is not laid out yet)."""

@@ -252,6 +252,98 @@ def ring_shift(tensors, mesh, axis: str, shift: int = 1) -> RingHop:
     return RingHop(work, recv, metas, offs, send)
 
 
+_HOST_GROUP: list = []
+
+
+def host_group():
+    """A group over the world that carries host (CPU) tensors: the world's
+    own under gloo, else a gloo group made once. The first call is
+    collective: every rank makes it, in the same order."""
+    import torch.distributed as dist
+
+    if not _HOST_GROUP:
+        _HOST_GROUP.append(dist.group.WORLD if dist.get_backend() == "gloo"
+                           else dist.new_group(backend="gloo"))
+    return _HOST_GROUP[0]
+
+
+def rank0_clock() -> float:
+    """Rank 0's `time.perf_counter()` on every rank: one broadcast of one
+    host float64 (a collective). Decisions that read a clock take it, so
+    every rank makes them alike (the serving scheduler's lockstep)."""
+    import time
+
+    import torch.distributed as dist
+
+    buf = torch.tensor([time.perf_counter()], dtype=torch.float64)
+    dist.broadcast(buf, 0, group=host_group())
+    return float(buf[0])
+
+
+def rank0_object(obj):
+    """Rank 0's `obj` (picklable) on every rank (a collective): a decision
+    rank 0 made from its clock or its file system."""
+    import torch.distributed as dist
+
+    box = [obj]
+    dist.broadcast_object_list(box, 0, group=host_group())
+    return box[0]
+
+
+def relayout(x, pl):
+    """The DTensor `x` in placements `pl`, moved by c10d's collectives on
+    each rank's block: a pending sum all-reduced, a shard gathered
+    (`all_gather_into_tensor`; mesh dims from the last, as nested shards
+    unwind), then the shards `pl` asks for cut from what each rank holds,
+    with nothing sent. DTensor's own redistribute takes the functional
+    collectives, whose all-gather gloo does not carry on CUDA tensors
+    (it segfaults on the card's torch); c10d's are what the serving
+    engine moves its weights and logits with. Shards divide evenly (the
+    `constrainable` rule)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh, cur = x.device_mesh, list(x.placements)
+    pl = list(pl)
+    if cur == pl:
+        return x
+    local = x.to_local()
+    for j in reversed(range(mesh.ndim)):
+        a = cur[j]
+        if a == pl[j] or a.is_replicate():
+            continue
+        group = mesh.get_group(j)
+        if a.is_partial():
+            local = local.contiguous()
+            dist.all_reduce(local, group=group)
+        else:
+            n = mesh.size(j)
+            flat = torch.empty((n * local.numel(),), dtype=local.dtype,
+                               device=local.device)
+            dist.all_gather_into_tensor(flat, local.contiguous().view(-1),
+                                        group=group)
+            local = torch.cat(flat.view(n, *local.shape).unbind(0),
+                              dim=a.dim)
+        cur[j] = Replicate()
+    for j, b in enumerate(pl):
+        if isinstance(b, Shard) and cur[j] != b:
+            local = local.chunk(mesh.size(j), dim=b.dim)[
+                mesh.get_local_rank(j)]
+            cur[j] = b
+    return DTensor.from_local(local.contiguous(), mesh, pl, run_check=False)
+
+
+def full_local(x):
+    """A DTensor's full value on every rank as a plain tensor, gathered by
+    `relayout` (a collective: every rank calls it); a plain tensor as it
+    is."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(x, DTensor):
+        return x
+    return relayout(x, [Replicate()] * x.device_mesh.ndim).to_local()
+
+
 def mesh_device(mesh) -> torch.device:
     """The device this rank's blocks live on."""
     if mesh.device_type == "cuda":

@@ -472,7 +472,16 @@ class PreemptionGuard:
 class FitResilience:
     """What fit needs in one handle: the snapshot policy (every N updates
     or every T seconds), the preemption guard, and resume. Built per fit
-    call; None when neither a checkpoint root nor a resume is set."""
+    call; None when neither a checkpoint root nor a resume is set.
+
+    Over a process group of several ranks (a mesh or a pipeline: one
+    process a rank, where JAX has one controller) every rank must snapshot
+    the same updates and drain together: once an update the ranks agree
+    by one max all-reduce of a small host tensor (`_agreed`) on the
+    preemption flag (a SIGTERM on any one rank drains every rank), on
+    whether a snapshot is due (the step count, alike everywhere, and rank
+    0's clock alone for `every_secs`) and on whether any rank's previous
+    async write is still running (then no rank starts the next)."""
 
     def __init__(self, model, root: str, every_steps: int, every_secs: float,
                  resume: str, keep: int, policy: Optional[RetryPolicy] = None):
@@ -533,8 +542,35 @@ class FitResilience:
         if self.every_steps and \
                 int(self.model._iteration) - self._last_iter >= self.every_steps:
             return True
-        return bool(self.every_secs) and \
+        return bool(self.every_secs) and self._clock_due()
+
+    def _clock_due(self) -> bool:
+        """The time trigger: over a group only rank 0's clock says."""
+        from flexflow_tpu_torch.runtime.distributed import rank
+
+        return (not self._grouped() or rank() == 0) and \
             time.monotonic() - self._last_time >= self.every_secs
+
+    @staticmethod
+    def _grouped() -> bool:
+        from flexflow_tpu_torch.runtime.distributed import world_size
+
+        return world_size() > 1
+
+    def _agreed(self, *flags) -> List[bool]:
+        """Each flag's max over the ranks of the group (one all-reduce of a
+        host tensor, a collective every rank makes at the same update);
+        the flags as they are on one process."""
+        if not self._grouped():
+            return [bool(f) for f in flags]
+        import torch
+        import torch.distributed as dist
+
+        from flexflow_tpu_torch.runtime.distributed import host_group
+
+        t = torch.tensor([float(bool(f)) for f in flags], dtype=torch.float64)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=host_group())
+        return [bool(v) for v in t.tolist()]
 
     def save(self, progress: Dict[str, Any],
              block: Optional[bool] = None) -> str:
@@ -556,22 +592,28 @@ class FitResilience:
         and `Preempted`; when a periodic snapshot is due, an async save,
         skipped while the previous one is still being written (it fires
         once that writer is done)."""
-        if not (self.guard.requested or self.due()):
-            return
         from flexflow_tpu_torch.runtime import checkpoint as ck
 
-        if not self.guard.requested and \
-                ck.active_writes(os.path.join(self.root, ".tmp-")):
+        def busy():
+            return bool(self.root) and bool(
+                ck.active_writes(os.path.join(self.root, ".tmp-")))
+        if self._grouped():
+            requested, due, busy_now = self._agreed(
+                self.guard.requested, self.due(), busy())
+        else:
+            requested, due = self.guard.requested, self.due()
+            busy_now = not requested and due and busy()
+        if not (requested or due) or (not requested and busy_now):
             return
         prog = make_progress()
-        if self.guard.requested:
+        if requested:
             self.preempt_now(prog)
         self.save(prog)
 
     def epoch_end(self, epoch: int, history: List[Dict[str, Any]]) -> None:
         """A signal that landed after the epoch's last update drains here,
         with the next epoch's start as the progress."""
-        if self.guard.requested:
+        if self._agreed(self.guard.requested)[0]:
             self.preempt_now(progress_dict(epoch + 1, 0, 0.0, {}, 0,
                                            history))
 

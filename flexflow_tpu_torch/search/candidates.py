@@ -449,8 +449,10 @@ def _layer_candidates(layer: "Layer", machine: MachineSpec, batch_sizes,
         from flexflow_tpu_torch.kernels.flash_attention import \
             flash_supported
 
+        # a serving decode attention runs its own paged lowering, never the
+        # flash kernel (JAX's gate refuses its short queries too)
         isz = q.dtype.itemsize
-        flash_ok = flash_supported(
+        flash_ok = not layer.params.get("decode") and flash_supported(
             seq, seq_k, head_d, q.dtype.torch_dtype,
             causal=bool(layer.params.get("causal")),
             batch_heads=q.shape[0] * heads)

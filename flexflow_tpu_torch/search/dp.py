@@ -67,14 +67,22 @@ def _drop_axis(d, ax):
     return d
 
 
-def _score(cost: float, mem: int, mem_budget: float) -> float:
+def _score(cost: float, mem: int, mem_budget: float,
+           objective: str = "latency") -> float:
     """Cost scaled by a quadratic over-HBM penalty (memory-aware lambda
     analog). Multiplicative so the penalty has the same units as the cost;
     the small floor keeps the penalty alive even at zero accumulated cost.
-    Under the budget the rank is by time alone."""
+
+    `objective` is the serving searches' knob (--serve-objective, JAX
+    `dp.py:66-85`): "latency" ranks by time alone under the budget (the
+    training default); "throughput" adds a mild linear memory-pressure
+    term under it (a byte a strategy holds is one the KV cache cannot
+    turn into sequences). Over the budget both fall off the same cliff."""
     if mem > mem_budget:
         over = (mem - mem_budget) / mem_budget
         return (cost + 1e-9) * (1.0 + 10.0 * over * over)
+    if objective == "throughput":
+        return cost * (1.0 + 0.25 * mem / mem_budget)
     return cost
 
 
@@ -196,6 +204,8 @@ def _search_graph_impl(model, machine: MachineSpec, beam_width: int = 64,
                  opt_mem: "Optional[cm.OptMemSpec]" = None,
                  remat_policies: Optional[Sequence[str]] = None,
                  learned=None,
+                 objective: str = "latency",
+                 inference: bool = False,
                  ) -> "SearchResult | List[SearchResult]":
     """The best SearchResult for `model` (anything with .layers /
     .input_tensors: an FFModel or a PCG) on `machine`.
@@ -229,6 +239,13 @@ def _search_graph_impl(model, machine: MachineSpec, beam_width: int = 64,
     moments counted and sized by the optimizer's actual state dtype. None
     keeps the legacy params-x4 accounting.
 
+    `objective` ("latency" | "throughput") picks the `_score` the beam
+    ranks by (the serving searches' knob). `inference` drops the
+    training-only terms (JAX `dp.py:293-317`, `:470`): no gradient
+    all-reduce on an op, the forward value alone in the live activations,
+    and no remat dimension. The defaults leave a training search as it
+    was, expansions and costs bitwise.
+
     `prefix_cache` (tier-3 fast path) resumes the DP from the deepest beam
     snapshot whose canonical graph prefix + boundary liveness match this
     graph, re-pricing only the frontier window a rewrite touched. The
@@ -261,14 +278,17 @@ def _search_graph_impl(model, machine: MachineSpec, beam_width: int = 64,
         for t in model.input_tensors))
     specs = {t.guid: t.spec for t in model.input_tensors}
 
-    # forward value + gradient held for the backward pass
-    act_mult = 2
+    # forward value + gradient held for the backward pass; inference holds
+    # the forward value only
+    act_mult = 1 if inference else 2
 
     # searched remat: "none" is always present at index 0 (passthrough
     # candidates pin to it, and the search must be able to keep any layer
     # unrematerialized).
     policies: Tuple[str, ...] = tuple(dict.fromkeys(
         ("none",) + tuple(remat_policies or ())))
+    if inference:  # no backward stash to free
+        policies = ("none",)
 
     def _live_act_bytes(frontier_map, mults=None) -> int:
         # act_mult x: forward value + gradient held for the backward pass;
@@ -283,7 +303,7 @@ def _search_graph_impl(model, machine: MachineSpec, beam_width: int = 64,
             for g, d in frontier_map.items()))
 
     def score(c: float, m: int) -> float:
-        return _score(c, m, mem_budget)
+        return _score(c, m, mem_budget, objective)
 
     # beam entries: frontier -> (cost, w_mem, act_high, trace, mults)
     # w_mem = cumulative persistent weight memory (params+grads+opt moments:
@@ -435,10 +455,12 @@ def _search_graph_impl(model, machine: MachineSpec, beam_width: int = 64,
                 # compute. Purely additive costing
                 # (overlap_frac=0) systematically over-prices strategies
                 # whose collectives ride behind the next op's matmuls.
-                op_comm = cand.extra_comm + cm.grad_sync_time(
-                    layer.weight_specs, cand.weight_dims, machine,
-                    _batch_axes_cached,
-                    zero=bool(opt_mem and opt_mem.zero_axes))
+                op_comm = cand.extra_comm
+                if not inference:  # a serving program syncs no gradient
+                    op_comm += cm.grad_sync_time(
+                        layer.weight_specs, cand.weight_dims, machine,
+                        _batch_axes_cached,
+                        zero=bool(opt_mem and opt_mem.zero_axes))
                 comp = max(0.0, total - op_comm)
                 base_c = cost + cm.overlapped_step_cost(
                     comp, edge_comm + op_comm, machine)

@@ -80,10 +80,11 @@ class MeasuredCost:
                  warmup: int = 2, windows: int = 3,
                  cache_dir: Optional[str] = None, device=None,
                  compute_dtype: str = "bfloat16", forward_only: bool = False,
-                 state_fn: Optional[Callable[[Layer], dict]] = None):
+                 state_fn: Optional[Callable[[Layer, int], dict]] = None):
         # forward_only: time no backward (serving attribution; bwd is 0).
-        # state_fn(layer): the lowering state an op reads (a serving
-        # decode attention's paged cache), else none
+        # state_fn(layer, rows): the lowering state an op reads (a serving
+        # decode attention's paged cache), else none; `layer` as one
+        # device runs it (its heads), `rows` its first input's rows there
         self.forward_only = bool(forward_only)
         self.state_fn = state_fn
         self.machine = machine
@@ -262,7 +263,8 @@ class MeasuredCost:
         local = _local_layer(layer, {w: tuple(t.shape)
                                      for w, t in weights.items()})
         lower = get_op_def(layer.op_type).lower
-        state = self.state_fn(layer) if self.state_fn is not None else {}
+        state = (self.state_fn(local, int(ins[0].shape[0]))
+                 if self.state_fn is not None else {})
 
         def apply():
             return lower(local, ins, weights, LoweringCtx(

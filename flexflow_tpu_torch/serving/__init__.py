@@ -10,6 +10,8 @@ from flexflow_tpu_torch.serving.engine import (  # noqa: F401
 from flexflow_tpu_torch.serving.fleet import (  # noqa: F401
     AdmissionControl, FleetRouter, ReplicaHandle, RollingSwapController,
     ServingFleet, merge_histograms, merge_slo_trackers)
+from flexflow_tpu_torch.serving.program import (  # noqa: F401
+    attn_head_degree, clone_for_serving, serving_optimize)
 from flexflow_tpu_torch.serving.kv_cache import (  # noqa: F401
     ACTIVE_KEY, PAGE_TABLE_KEY, POS_KEY, KVCacheSpec, KVPoolExhausted,
     PagedKVCache, derive_prefetch_ahead, kv_dequantize, kv_quantize)

@@ -8,6 +8,29 @@ returns a `ServingCompiled` holding both programs and the `PagedKVCache`
 they share. Serving is deterministic by construction: both programs run
 in inference mode and every dropout in the clones is rate 0.
 
+The strategies (JAX `engine.py:187-215`): with `search_budget` > 0, not
+`only_data_parallel` and a machine of several devices, each program gets
+its own from the serving searches (serving/program.py
+`serving_optimize`: compute-priced prefill, bandwidth-priced decode with
+the KV bytes in its cost and its memory cap); otherwise both take the
+data-parallel strategy (one device never searches). The verify program
+takes the decode strategy: no third search.
+
+Over a mesh (`over_mesh`: the config names one, or the group has more
+than one rank) every rank runs the programs SPMD, as the training
+compile does (compiler/compile.py): every weight is a DTensor in the
+DECODE strategy's layout (the steady-state program; `_place_params`, the
+placement rule of `compile()`), placed from the full tree every rank
+holds (`init`, `load_params`, a hot-swap), each rank keeping its block.
+The prefill takes the weights whose prefill layout differs moved into it
+(by c10d, `runtime.distributed.relayout`), once per params tree. The
+cache's pools hold each rank's block of the heads over the decode
+strategy's head axis (`kv_shard_degree`), and the attention lowerings
+run on those heads (ops/attention_ops.py). Inputs go in as the DTensors
+of the programs' input layouts, and the logits come back whole on every
+rank (gathered by c10d), so every rank's scheduler takes the same tokens
+and makes the same calls in the same order (serving/scheduler.py).
+
 Speculative decoding: with a `draft` model (or `--serve-draft-model`
 naming a JSON of GPT2Config overrides) and `spec_tokens=K > 0`, the draft
 is compiled by this same function with the target's slots, page size and
@@ -66,14 +89,17 @@ import torch
 
 from flexflow_tpu_torch import health
 from flexflow_tpu_torch import telemetry as tel
+from flexflow_tpu_torch.compiler.compile import _local
 from flexflow_tpu_torch.compiler.lowering import (build_forward, cast_dtype,
                                                   cast_exempt)
 from flexflow_tpu_torch.core.graph import topo_order
 from flexflow_tpu_torch.device import resolve_device, to_device_async
 from flexflow_tpu_torch.initializers import init_params
 from flexflow_tpu_torch.kernels.dequant_attention import MAX_QUERY_ROWS
+from flexflow_tpu_torch.ops.attention_ops import KV_HEADS_KEY
 from flexflow_tpu_torch.ops.op_type import OperatorType
 from flexflow_tpu_torch.parallel.default_strategy import data_parallel_strategy
+from flexflow_tpu_torch.parallel.sharding import mesh_placements
 from flexflow_tpu_torch.runtime.checkpoint import (TREE_FILE,
                                                    CheckpointMismatchError,
                                                    _graph_fingerprint)
@@ -83,7 +109,8 @@ from flexflow_tpu_torch.runtime.resilience import (RetryPolicy,
 from flexflow_tpu_torch.serving.kv_cache import (ACTIVE_KEY, PAGE_TABLE_KEY,
                                                  POS_KEY, KVCacheSpec,
                                                  PagedKVCache)
-from flexflow_tpu_torch.serving.program import clone_for_serving
+from flexflow_tpu_torch.serving.program import (clone_for_serving,
+                                                serving_optimize)
 
 log = logging.getLogger("flexflow_tpu_torch")
 
@@ -132,7 +159,10 @@ def compile_serving(model, max_batch_slots: Optional[int] = None,
     defaults. A `draft` with `spec_tokens` K > 0 turns on speculative
     decoding; `kv_host_pages` gives the cache a host tier (see the module
     docstring)."""
-    from flexflow_tpu_torch.compiler.compile import resolve_machine
+    from flexflow_tpu_torch.compiler.compile import (_overlay_parallel_ops,
+                                                     over_mesh,
+                                                     resolve_machine)
+    from flexflow_tpu_torch.parallel.machine import build_mesh
 
     dev = resolve_device(device)
     cfg = model.config
@@ -140,10 +170,6 @@ def compile_serving(model, max_batch_slots: Optional[int] = None,
     if getattr(cfg, "telemetry_dir", ""):
         tel.configure(cfg.telemetry_dir,
                       max_mb=getattr(cfg, "telemetry_max_mb", None))
-    if getattr(cfg, "search_budget", 0) > 0:
-        raise NotImplementedError(
-            "compile_serving with search_budget > 0: the serving searches "
-            "(serving_optimize) are not ported yet (ROADMAP Queue 1 item 9)")
     slots = int(max_batch_slots or getattr(cfg, "max_batch_slots", 8) or 8)
     max_new = int(max_decode_len or getattr(cfg, "max_decode_len", 0) or 32)
     page = int(kv_page_size or getattr(cfg, "kv_page_size", 16) or 16)
@@ -167,6 +193,7 @@ def compile_serving(model, max_batch_slots: Optional[int] = None,
                   spec_tokens=spec_k if draft is not None else 0,
                   kv_dtype=str(kv_dtype)):
         machine = resolve_machine(cfg, device=dev)
+        mesh = build_mesh(machine, dev) if over_mesh(cfg) else None
         pre_model, attn = clone_for_serving(model, "prefill", slots)
         dec_model, _ = clone_for_serving(model, "decode", slots)
         pages_per_slot = -(-(seq + max_new) // page)
@@ -181,6 +208,18 @@ def compile_serving(model, max_batch_slots: Optional[int] = None,
             page_size=page, itemsize=kv_itemsize,
             scale_itemsize=kv_scale_itemsize,
             host_pages=host_pages, device_pages=device_pages)
+        prefetch_ahead = max(1, int(getattr(cfg, "kv_prefetch_ahead", 2)
+                                    or 2))
+        if (getattr(cfg, "search_budget", 0) > 0
+                and not cfg.only_data_parallel and machine.num_devices > 1):
+            pre_st = serving_optimize(pre_model, machine, "prefill", attn)
+            dec_st = serving_optimize(dec_model, machine, "decode", attn,
+                                      kv_spec, prefetch_ahead=prefetch_ahead)
+        else:
+            pre_st = data_parallel_strategy(pre_model, machine)
+            dec_st = data_parallel_strategy(dec_model, machine)
+        _overlay_parallel_ops(pre_model, pre_st)
+        _overlay_parallel_ops(dec_model, dec_st)
         ver_model = None
         draft_engine = None
         if draft is not None and spec_k > 0:
@@ -199,6 +238,9 @@ def compile_serving(model, max_batch_slots: Optional[int] = None,
                     f"{MAX_QUERY_ROWS - 1}")
             ver_model, _ = clone_for_serving(model, "decode", slots,
                                              decode_seq=spec_k + 1)
+            # the verify program runs the searched decode strategy (layer
+            # names are kept): no third search, no third cache entry
+            _overlay_parallel_ops(ver_model, dec_st)
             draft_engine = compile_serving(
                 draft, max_batch_slots=slots, max_decode_len=max_new,
                 kv_page_size=page, spec_tokens=0,
@@ -208,7 +250,22 @@ def compile_serving(model, max_batch_slots: Optional[int] = None,
                                kv_quantized=kv_quantized, device=dev,
                                verify_model=ver_model,
                                spec_tokens=spec_k if draft_engine else 0,
-                               draft=draft_engine, machine=machine)
+                               draft=draft_engine, machine=machine,
+                               mesh=mesh, prefill_strategy=pre_st,
+                               decode_strategy=dec_st)
+
+
+def _wq_heads_axis(strategy, attn_layers):
+    """The mesh axis (or axis tuple) the decode strategy put on the
+    attention heads, dim 1 of the first attention's wq that has one (JAX
+    `engine.py:66-76`): the KV pools shard their heads over it."""
+    for name in attn_layers:
+        sh = strategy.op_shardings.get(name)
+        dims = sh.weights.get("wq") if sh is not None else None
+        if dims and len(dims) > 1 and dims[1] is not None:
+            d = dims[1]
+            return tuple(d) if isinstance(d, list) else d
+    return None
 
 
 class ServingCompiled:
@@ -220,11 +277,14 @@ class ServingCompiled:
                  max_decode_len: int, kv_dtype=torch.float32,
                  kv_quantized: bool = False, device=None,
                  verify_model=None, spec_tokens: int = 0,
-                 draft: Optional["ServingCompiled"] = None, *, machine):
+                 draft: Optional["ServingCompiled"] = None, *, machine,
+                 mesh=None, prefill_strategy=None, decode_strategy=None):
         self.model = model
         self.cfg = model.config
         self.device = resolve_device(device)
         self.machine = machine  # the MachineSpec compile_serving resolved
+        # the DeviceMesh the programs run over, or None (one device)
+        self.mesh = mesh
         self.prefill_model = prefill_model
         self.decode_model = decode_model
         self.attn_layers = list(attn_layers)
@@ -236,29 +296,50 @@ class ServingCompiled:
         self.spec_tokens = int(spec_tokens)
         self.draft = draft
         self.verify_model = verify_model
-        # one device: both programs take the data-parallel strategy, as the
-        # JAX engine does on one device (what op_attribution prices)
-        self.prefill_strategy = data_parallel_strategy(prefill_model,
-                                                       self.machine)
-        self.decode_strategy = data_parallel_strategy(decode_model,
-                                                      self.machine)
+        # the searched strategies, or data parallel (compile_serving)
+        self.prefill_strategy = prefill_strategy or data_parallel_strategy(
+            prefill_model, self.machine)
+        self.decode_strategy = decode_strategy or data_parallel_strategy(
+            decode_model, self.machine)
         self.kv = PagedKVCache(kv_spec, self.attn_layers, dtype=kv_dtype,
                                quantized=self.kv_quantized, device=self.device,
-                               machine=self.machine)
+                               machine=self.machine, mesh=mesh,
+                               heads_axis=_wq_heads_axis(
+                                   self.decode_strategy, self.attn_layers))
+        # the degree the pools' heads are sharded over (1: every head)
+        self.kv_shard_degree = int(self.kv.degree)
         self._watermarks = health.WatermarkTracker()
-        fwd_kw = dict(compute_dtype=self.cfg.compute_dtype,
-                      enable_fusion=self.cfg.enable_fusion)
-        self._prefill_fwd = build_forward(
-            prefill_model.layers, prefill_model.input_tensors,
-            prefill_model.layers[-1].outputs[:1], **fwd_kw)
-        self._decode_fwd = build_forward(
-            decode_model.layers, decode_model.input_tensors,
-            decode_model.layers[-1].outputs[:1], **fwd_kw)
+
+        def fwd(smodel, strategy):
+            f = build_forward(smodel.layers, smodel.input_tensors,
+                              smodel.layers[-1].outputs[:1],
+                              compute_dtype=self.cfg.compute_dtype,
+                              enable_fusion=self.cfg.enable_fusion,
+                              mesh=mesh, strategy=strategy)
+            if mesh is not None:
+                from flexflow_tpu_torch.runtime.distributed import relayout
+
+                f.cache[KV_HEADS_KEY] = self.kv.head_placements
+                f.move = relayout  # c10d, not DTensor's functional ones
+            return f
+        self._prefill_fwd = fwd(prefill_model, self.prefill_strategy)
+        self._decode_fwd = fwd(decode_model, self.decode_strategy)
         self._verify_fwd = None
         if verify_model is not None and self.spec_tokens > 0:
-            self._verify_fwd = build_forward(
-                verify_model.layers, verify_model.input_tensors,
-                verify_model.layers[-1].outputs[:1], **fwd_kw)
+            self._verify_fwd = fwd(verify_model, self.decode_strategy)
+        # over a mesh: each weight's placements in the decode and prefill
+        # layouts, and the prefill's tree of the last params it was given
+        self._w_pl: Dict[tuple, list] = {}
+        self._pre_pl: Dict[tuple, list] = {}
+        self._pre_tree = (None, None)
+        if mesh is not None:
+            for layer in self._weight_layers():
+                for w, spec in layer.weight_specs.items():
+                    for pls, st in ((self._w_pl, self.decode_strategy),
+                                    (self._pre_pl, self.prefill_strategy)):
+                        pls[layer.name, w] = mesh_placements(
+                            st.sharding_for(layer.name).weight_dims(w),
+                            spec.shape, mesh)
         self.params: Optional[Dict[str, Any]] = None
         # inside spec_round_step: its steps record no span of their own
         self._in_round = False
@@ -299,8 +380,13 @@ class ServingCompiled:
         self._sample_watermark("serve_init")
         return self.params
 
+    def _local_params(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """The params as this rank holds them (each DTensor's block)."""
+        return {n: {w: _local(t) for w, t in d.items()}
+                for n, d in (self.params or {}).items()}
+
     def _sample_watermark(self, tag: str) -> None:
-        self._watermarks.sample(tag, (self.params, self.kv.state),
+        self._watermarks.sample(tag, (self._local_params(), self.kv.state),
                                 device=self.device)
 
     def _validate_incoming(self, params, source: str) -> None:
@@ -348,7 +434,13 @@ class ServingCompiled:
     def _place_params(self, params, source: str = "load_params"
                       ) -> Dict[str, Any]:
         """Validate a params tree against the decode graph and place it on
-        the device in `_placed_dtypes`."""
+        the device in `_placed_dtypes`; over a mesh each weight is the
+        DTensor of its decode layout, each rank keeping its block of the
+        full tree it was given (compiler/compile.py `_place`'s rule)."""
+        from torch.distributed.tensor import DTensor
+
+        from flexflow_tpu_torch.runtime.distributed import local_rows
+
         self._validate_incoming(params, source)
         placed = {}
         for name, dtypes in self._placed_dtypes().items():
@@ -357,7 +449,15 @@ class ServingCompiled:
                 x = params[name][w]
                 if not isinstance(x, torch.Tensor):
                     x = torch.from_numpy(np.ascontiguousarray(x))
-                d[w] = x.to(device=self.device, dtype=dt).contiguous()
+                if self.mesh is None:
+                    d[w] = x.to(device=self.device, dtype=dt).contiguous()
+                    continue
+                pl = self._w_pl[name, w]
+                local = local_rows(x, self.mesh, pl).to(
+                    device=self.device, dtype=dt).clone(
+                        memory_format=torch.contiguous_format)
+                d[w] = DTensor.from_local(local, self.mesh, pl,
+                                          run_check=False)
             placed[name] = d
         return placed
 
@@ -403,17 +503,19 @@ class ServingCompiled:
         on."""
         if not self._watch_root or self._pinned:
             return False
-        now = time.monotonic()
-        if not force and now - self._last_poll < self._watch_poll_s:
+        if self.mesh is None:
+            pick = self._poll_pick(force)
+        else:
+            # over a mesh rank 0 reads its clock and the root, and every
+            # rank takes its pick (the scheduler's lockstep)
+            from flexflow_tpu_torch.runtime.distributed import (rank,
+                                                                rank0_object)
+
+            pick = rank0_object(self._poll_pick(force) if rank() == 0
+                                else None)
+        if pick is None:
             return False
-        self._last_poll = now
-        snaps = committed_snapshots(self._watch_root)
-        if not snaps:
-            return False
-        step, path, _man = snaps[-1]
-        cur = self.swap_stats.active_version
-        if (cur is not None and step <= cur) or path in self._bad_snapshots:
-            return False
+        step, path = pick
         try:
             self.hot_swap(path, step)
             return True
@@ -429,6 +531,23 @@ class ServingCompiled:
             log.warning("hot-swap failed for %s (will retry next poll): %s",
                         path, e)
             return False
+
+    def _poll_pick(self, force: bool):
+        """(step, path) of the snapshot a poll swaps to now, or None: the
+        poll interval not yet over, no committed snapshot newer than the
+        live version, or the newest one rejected before."""
+        now = time.monotonic()
+        if not force and now - self._last_poll < self._watch_poll_s:
+            return None
+        self._last_poll = now
+        snaps = committed_snapshots(self._watch_root)
+        if not snaps:
+            return None
+        step, path, _man = snaps[-1]
+        cur = self.swap_stats.active_version
+        if (cur is not None and step <= cur) or path in self._bad_snapshots:
+            return None
+        return step, path
 
     def hot_swap(self, path: str, step: Optional[int] = None,
                  rollback: bool = False) -> Dict[str, Any]:
@@ -470,7 +589,8 @@ class ServingCompiled:
             del self._versions[oldest]
         lat = time.perf_counter() - t0
         self.swap_bytes = sum(int(t.numel() * t.element_size())
-                              for d in placed.values() for t in d.values())
+                              for d in placed.values()
+                              for t in map(_local, d.values()))
         self.swap_stats.record_swap(step, lat, rollback=rollback)
         if tel.enabled():
             tel.record("serve/param_swap", t0_us, cat="serve",
@@ -545,18 +665,53 @@ class ServingCompiled:
             return x.to(self.device)
         return to_device_async(x, self.device)
 
+    def _inputs(self, smodel, strategy, input_arrays) -> list:
+        """The program's inputs on the device; over a mesh the DTensors of
+        the strategy's input layouts, each rank keeping its block of the
+        full arrays every rank holds."""
+        inputs = [self._input(x) for x in input_arrays]
+        if self.mesh is None:
+            return inputs
+        from flexflow_tpu_torch.runtime.distributed import \
+            global_batch_from_full
+
+        return [global_batch_from_full(x, self.mesh, mesh_placements(
+            strategy.input_dims(t.name), tuple(x.shape), self.mesh))
+            for x, t in zip(inputs, smodel.input_tensors)]
+
+    def _prefill_params(self, params):
+        """`params` in the prefill strategy's layout: over a mesh the
+        weights whose layout differs moved into it (`relayout`), kept for
+        the same tree until another comes."""
+        if self.mesh is None:
+            return params
+        if self._pre_tree[0] is params:
+            return self._pre_tree[1]
+        from flexflow_tpu_torch.runtime.distributed import relayout
+
+        tree = {n: {w: relayout(t, self._pre_pl[n, w]) for w, t in d.items()}
+                for n, d in params.items()}
+        self._pre_tree = (params, tree)
+        return tree
+
     def prefill(self, params, input_arrays):
         """Run the prefill program: returns (logits, kv_state) where
         kv_state maps each attention layer to its `[slots, S, h, d]`
-        per-head K/V for `PagedKVCache.commit_prefill`. With telemetry
+        per-head K/V for `PagedKVCache.commit_prefill` (over a mesh this
+        rank's heads, and the logits whole on every rank). With telemetry
         on, a `serve/prefill` span of the host's dispatch."""
+        from flexflow_tpu_torch.runtime.distributed import full_local
+
         t0 = tel.now_us() if tel.enabled() else None
-        inputs = [self._input(x) for x in input_arrays]
+        inputs = self._inputs(self.prefill_model, self.prefill_strategy,
+                              input_arrays)
         with torch.no_grad():
-            outs, kv_state = self._prefill_fwd(params, {}, inputs)
+            outs, kv_state = self._prefill_fwd(self._prefill_params(params),
+                                               {}, inputs)
+            logits = full_local(outs[0])
         if t0 is not None:
             tel.record("serve/prefill", t0, cat="serve", slots=self.slots)
-        return outs[0], kv_state
+        return logits, kv_state
 
     def decode_step(self, params, state, input_arrays):
         """One single-token step over all slots: returns (logits
@@ -564,16 +719,20 @@ class ServingCompiled:
         Nothing is synchronized with the host. With telemetry on, one
         `serve/decode_step` span of the host's dispatch (none inside a
         speculative round, which is one span)."""
+        from flexflow_tpu_torch.runtime.distributed import full_local
+
         t0 = tel.now_us() if tel.enabled() and not self._in_round else None
-        inputs = [self._input(x) for x in input_arrays]
+        inputs = self._inputs(self.decode_model, self.decode_strategy,
+                              input_arrays)
         with torch.no_grad():
             outs, ns = self._decode_fwd(params, state, inputs)
             # device-side sequence advance: every ACTIVE slot cached one
             # more token this step (inactive slots stay parked)
             ns[POS_KEY] = state[POS_KEY] + state[ACTIVE_KEY]
+            logits = full_local(outs[0])
         if t0 is not None:
             tel.record("serve/decode_step", t0, cat="serve")
-        return outs[0], ns
+        return logits, ns
 
     def verify_step(self, params, state, input_arrays):
         """One verify pass: the `[slots, K+1]` program takes the last
@@ -585,15 +744,19 @@ class ServingCompiled:
             raise RuntimeError("verify_step: engine compiled without a "
                                "draft (pass draft=/--serve-draft-model and "
                                "spec_tokens > 0)")
-        inputs = [self._input(x) for x in input_arrays]
+        from flexflow_tpu_torch.runtime.distributed import full_local
+
+        inputs = self._inputs(self.verify_model, self.decode_strategy,
+                              input_arrays)
         with torch.no_grad():
             outs, ns = self._verify_fwd(params, state, inputs)
             ns[POS_KEY] = state[POS_KEY] + \
                 (self.spec_tokens + 1) * state[ACTIVE_KEY]
+            logits = full_local(outs[0])
         if t0 is not None:
             tel.record("serve/decode_step", t0, cat="serve",
                        verify=True, steps=self.spec_tokens + 1)
-        return outs[0], ns
+        return logits, ns
 
     def build_spec_program(self, step_inputs_fn: Callable) -> Callable:
         """One whole speculative round as one function of device tensors:
@@ -647,27 +810,40 @@ class ServingCompiled:
         return out
 
     def _predicted_param_bytes(self) -> int:
-        """The bytes `_place_params` places."""
+        """The bytes `_place_params` places on a device: each weight's
+        block over its decode layout's degree."""
         specs = {l.name: l.weight_specs for l in self._weight_layers()}
-        return sum(math.prod(specs[name][w].shape)
+
+        def degree(name, w):
+            if self.mesh is None:
+                return 1
+            return math.prod(self.mesh.size(j) for j, p in
+                             enumerate(self._w_pl[name, w]) if p.is_shard())
+        return sum(math.prod(specs[name][w].shape) // degree(name, w)
                    * torch.empty((), dtype=dt).element_size()
                    for name, d in self._placed_dtypes().items()
                    for w, dt in d.items())
 
     def memory_stats(self) -> Dict[str, int]:
-        """Predicted vs measured KV-cache bytes (the device pool) and param
-        bytes; the host tier's bytes beside them, apart from the device
-        figures; with a draft, the draft's under `draft_` keys."""
-        pred_kv = int(self.kv_spec.total_bytes())
+        """Predicted vs measured bytes a device holds (JAX `engine.py:
+        700-725`): the KV pools over `kv_shard_degree` and the params in
+        their decode layout (over a mesh, this rank's blocks); the host
+        tier's bytes beside them, apart from the device figures; with a
+        draft, the draft's under `draft_` keys."""
+        pred_kv = int(self.kv_spec.per_device_bytes(self.kv_shard_degree))
         pred_params = self._predicted_param_bytes()
+        actual_params = sum(int(t.numel() * t.element_size())
+                            for d in self._local_params().values()
+                            for t in d.values())
         stats = {
+            "kv_shard_degree": int(self.kv_shard_degree),
             "predicted_kv_cache_bytes": pred_kv,
             "actual_kv_cache_bytes": self.kv.device_bytes(),
+            "actual_kv_cache_bytes_per_device": self.kv.device_bytes(),
             "predicted_param_bytes": pred_params,
             "predicted_total_bytes": pred_kv + pred_params,
-            "actual_param_bytes": sum(
-                int(t.numel() * t.element_size())
-                for d in (self.params or {}).values() for t in d.values()),
+            "actual_param_bytes": actual_params,
+            "actual_param_bytes_per_device": actual_params,
             "kv_pool_pages": int(self.kv_spec.pool_pages),
             "predicted_kv_host_bytes": int(self.kv_spec.host_bytes()),
             "actual_kv_host_bytes": int(self.kv.host_bytes()),
@@ -691,18 +867,22 @@ class ServingCompiled:
                     self.memory_stats()["predicted_total_bytes"]),
                 "serving": serving}
 
-    def _measure_state(self, layer) -> Dict[str, Any]:
-        """The lowering state MeasuredCost gives a decode attention: fresh
-        pools of the cache's geometry, every slot holding all its pages
-        and its position at the last one the cache admits (the longest
-        context); nothing of the live cache is touched."""
+    def _measure_state(self, layer, rows: int) -> Dict[str, Any]:
+        """The lowering state MeasuredCost gives a decode attention as one
+        device runs it (`layer`'s heads, `rows` slots; over a mesh a
+        rank's block): fresh pools of the cache's geometry, every slot
+        holding all its pages and its position at the last one the cache
+        admits (the longest context); nothing of the live cache is
+        touched."""
         if not layer.params.get("decode"):
             return {}
-        spec, dev = self.kv_spec, self.device
+        spec, dev = dataclasses.replace(
+            self.kv_spec, layers=1, host_pages=0, device_pages=0,
+            slots=int(rows), heads=int(layer.params["num_heads"])), \
+            self.device
         pps, page = spec.pages_per_slot, spec.page_size
-        st = PagedKVCache(dataclasses.replace(spec, layers=1,
-                                              host_pages=0, device_pages=0),
-                          [layer.name], device=dev, dtype=self.kv_dtype,
+        st = PagedKVCache(spec, [layer.name], device=dev,
+                          dtype=self.kv_dtype,
                           quantized=self.kv_quantized).state
         st[PAGE_TABLE_KEY] = (1 + torch.arange(
             spec.slots * pps, dtype=torch.int32, device=dev)).reshape(

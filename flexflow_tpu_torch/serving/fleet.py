@@ -458,6 +458,12 @@ class ServingFleet:
                  **sched_kwargs: Any):
         if not engines:
             raise ValueError("ServingFleet needs at least one engine")
+        if any(getattr(e, "mesh", None) is not None and e.mesh.size() > 1
+               for e in engines):
+            raise NotImplementedError(
+                "ServingFleet over a mesh: the multi-GPU fleet (in-process "
+                "replicas, each SPMD over the group) is not ported yet "
+                "(ROADMAP Queue 1 item 9)")
         self.engines = list(engines)
         cfg = self.engines[0].cfg
         self.prompt_inputs_fn = prompt_inputs_fn

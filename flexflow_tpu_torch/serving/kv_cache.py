@@ -19,6 +19,20 @@ The pools + table + per-slot position/active vectors travel through the
 decode program as lowering state: `state[layer_name] = {"k", "v"}`,
 `state["serve/page_table"]`, `state["serve/pos"]`, `state["serve/active"]`.
 
+Over a mesh (the engine over a process group) the pools' heads dim is
+sharded over the axis the decode strategy put on the attention heads
+(`heads_axis`: the wq output dim's axis, JAX `kv_cache.py:135-175`), when
+every axis of it is on the mesh and its degree divides the heads; else
+every rank holds every head. Each rank allocates only its `heads /
+degree` heads of every pool and scale tensor, as PLAIN local tensors
+(not DTensors: the cache writes are index-puts, which DTensor does not
+shard right on the card's torch), and `head_placements` says which block
+it holds (Shard(2) of a `[slots, S, heads, d]` tensor on those axes). The
+page accounting is host-side and the same on every rank (the ranks make
+the same calls in the same order); a spill, refill, export or import
+moves this rank's heads only, while the byte counters count every head,
+as JAX's do.
+
 Host cold tier (`kv_host_pages` > 0): causal decode reads a slot's whole
 committed extent every step, so the tier works at SLOT granularity, as in
 the JAX package. `spill` parks an active slot: its pages' K/V are
@@ -49,6 +63,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import math
 import time
 from typing import Dict, List, Optional
 
@@ -181,14 +196,37 @@ class PagedKVCache:
 
     def __init__(self, spec: KVCacheSpec, attn_layers: List[str], *, device,
                  dtype: torch.dtype = torch.float32, quantized: bool = False,
-                 machine=None):
+                 machine=None, mesh=None, heads_axis=None):
         # `device` has no default: the engine passes the one it resolved
         self.spec = spec
         self.machine = machine  # host_bw for the transfer rows' pricing
         self.attn_layers = list(attn_layers)
         self.quantized = bool(quantized)
         self.device = torch.device(device)
-        shape = (spec.pool_pages, spec.page_size, spec.heads, spec.head_dim)
+        self.mesh = mesh
+        # the heads layout over the mesh (the module docstring): the axis,
+        # its degree and the placements of this rank's block
+        self.heads_axis = None
+        self.degree = 1
+        self.head_placements = None
+        if mesh is not None:
+            from torch.distributed.tensor import Replicate
+
+            from flexflow_tpu_torch.parallel.sharding import placements
+
+            self.head_placements = [Replicate()] * mesh.ndim
+            axes = (() if heads_axis is None else (heads_axis,)
+                    if isinstance(heads_axis, str) else tuple(heads_axis))
+            names = list(mesh.mesh_dim_names)
+            if axes and all(a in names for a in axes):
+                deg = math.prod(mesh.size(names.index(a)) for a in axes)
+                pl = placements([None, None, heads_axis], mesh)
+                if pl is not None and spec.heads % deg == 0:
+                    self.heads_axis, self.degree = heads_axis, deg
+                    self.head_placements = pl
+        self.local_heads = spec.heads // self.degree
+        shape = (spec.pool_pages, spec.page_size, self.local_heads,
+                 spec.head_dim)
         pool_dtype = torch.int8 if self.quantized else dtype
 
         def layer_state():
@@ -559,9 +597,10 @@ class PagedKVCache:
     # ---------------------------------------------------------- device ops
     def commit_prefill(self, kv_state, slot_ids, lengths) -> None:
         """Scatter the prefill program's per-head K/V (`[Bp, S, h, d]` per
-        layer) into the pools of the slots in `slot_ids`. Positions past
-        lengths[r] (right padding) and past the slot's pages go to the
-        scratch page."""
+        layer; over a mesh this rank's heads, as the prefill lowering
+        leaves them for the cache) into the pools of the slots in
+        `slot_ids`. Positions past lengths[r] (right padding) and past the
+        slot's pages go to the scratch page."""
         pt = self.state[PAGE_TABLE_KEY].long()
         slot_ids = self._put(slot_ids, np.int64)
         lengths = self._put(lengths, np.int64)
@@ -595,7 +634,8 @@ class PagedKVCache:
         self.state = new_state
 
     def device_bytes(self) -> int:
-        """Pool bytes (values and, for int8, scales) held on the device."""
+        """Pool bytes (values and, for int8, scales) held on the device:
+        over a mesh this rank's heads, the bytes a device holds."""
         return sum(int(leaf.numel() * leaf.element_size())
                    for n in self.attn_layers for leaf in self.state[n].values())
 

@@ -66,6 +66,21 @@ Policy, as in the JAX package:
   (`serve/hist`) at the end of a run.
 - TRACE EXPORT (`serve_trace_out`): the offered load is written as a
   replayable `tracefmt` trace at the end of `run()`.
+- LOCKSTEP OVER A MESH (an engine whose programs run over a process
+  group, serving/engine.py): JAX's scheduler is one controller; here
+  every rank runs this loop on its own, and the ranks must make the same
+  engine calls in the same order. Token-driven decisions agree by
+  themselves (the logits come back whole and alike on every rank), so
+  what is left is every decision that reads a clock or the file system:
+  each clock read of the loop is rank 0's (`runtime.distributed.
+  rank0_clock`, one broadcast of one host float64), which makes the
+  arrivals, the admission waves and sheds (TTFT budgets, deadlines), the
+  watchdog, the prefill EMA and the KV tier's autotuned lead alike on
+  every rank; the hot-swap poll is decided by rank 0 and broadcast
+  (`engine.poll_swap`). Telemetry goes, as in training over a mesh, to
+  each process's own file (`telemetry-<pid>.jsonl`), and the trace
+  export is written by rank 0 alone. The fleet hooks (`feed`, `control`,
+  `handoff`) are not ported over a mesh: `handoff=` raises there.
 
 Every outcome ends in one terminal record (`reqtrace.terminal_record`),
 which the engine's SLO tracker classifies and which rides the telemetry
@@ -107,6 +122,7 @@ import torch
 
 from flexflow_tpu_torch import telemetry as tel
 from flexflow_tpu_torch.device import to_device_async
+from flexflow_tpu_torch.runtime.distributed import rank as dist_rank
 from flexflow_tpu_torch.runtime.resilience import RetryPolicy, run_resilient
 from flexflow_tpu_torch.serving.kv_cache import (POS_KEY, KVPoolExhausted,
                                                  derive_prefetch_ahead,
@@ -234,6 +250,15 @@ class ContinuousBatchingScheduler:
         self.exec_lock = exec_lock
         self._exec = (exec_lock if exec_lock is not None
                       else contextlib.nullcontext())
+        # over a mesh: every clock read is rank 0's (the module docstring)
+        self._lockstep = (getattr(engine, "mesh", None) is not None
+                          and engine.mesh.size() > 1)
+        # the trace export's one writer: rank 0 over a mesh
+        self._writer = not self._lockstep or dist_rank() == 0
+        if self.handoff is not None and self._lockstep:
+            raise NotImplementedError(
+                "handoff= over a mesh: the multi-GPU fleet (disaggregated "
+                "handoff) is not ported yet (ROADMAP Queue 1 item 9)")
         if self.handoff is not None and self._spec:
             raise ValueError("prefill-only handoff does not compose with "
                              "speculative decoding (no draft-cache handoff)")
@@ -265,8 +290,16 @@ class ContinuousBatchingScheduler:
         self._trace_arrivals: List[Request] = []
         self._t0 = time.perf_counter()
 
+    def _clock(self) -> float:
+        """The loop's clock: `time.perf_counter()`, over a mesh rank 0's."""
+        if self._lockstep:
+            from flexflow_tpu_torch.runtime.distributed import rank0_clock
+
+            return rank0_clock()
+        return time.perf_counter()
+
     def _now(self) -> float:
-        return time.perf_counter() - self._t0
+        return self._clock() - self._t0
 
     def _settle(self) -> None:
         """Under a fleet: the work just queued runs to completion before
@@ -425,7 +458,7 @@ class ContinuousBatchingScheduler:
             ids[req.slot, :n] = req.prompt[:n]
             lengths[req.slot] = n
         all_slots = np.arange(self.slots, dtype=np.int32)
-        t_pre = time.perf_counter()
+        t_pre = self._clock()
         try:
             logits, kv_state = run_resilient(
                 "serve/prefill",
@@ -458,7 +491,7 @@ class ContinuousBatchingScheduler:
                 np.maximum(lengths - 1, 0).astype(np.int64), logits.device)
             rows = torch.arange(self.slots, device=logits.device)
             first_tok = logits[rows, last].argmax(dim=-1).cpu().numpy()
-        t_first = time.perf_counter()
+        t_first = self._clock()
         serve_ms = 1e3 * (t_first - t_pre)
         self._ema_serve_ms = (serve_ms if not self._ema_serve_ms
                               else 0.5 * self._ema_serve_ms + 0.5 * serve_ms)
@@ -705,7 +738,7 @@ class ContinuousBatchingScheduler:
         with self._exec:
             mats = torch.cat(window_toks, dim=1).cpu().numpy()  # [slots, steps]
         steps = mats.shape[1]
-        t_now = time.perf_counter()
+        t_now = self._clock()
         self.materializations += 1
         per_step = (t_now - window_t0) / steps
         self.step_times.extend([per_step] * steps)
@@ -754,7 +787,7 @@ class ContinuousBatchingScheduler:
         never read stale: the next round writes position pos+i before any
         query reads it (query i sees keys up to pos+i)."""
         K = self.spec_tokens
-        t0 = time.perf_counter()
+        t0 = self._clock()
         with self._exec:
             last = to_device_async(next_host, self.device)
             t_pred_dev, ver_in, tstate, dstate = self.engine.spec_round_step(
@@ -764,7 +797,7 @@ class ContinuousBatchingScheduler:
             both = torch.cat([t_pred_dev, ver_in[:, 1:]],
                              dim=1).cpu().numpy()
         t_pred, drafted = both[:, :K + 1], both[:, K + 1:]
-        wall = time.perf_counter() - t0
+        wall = self._clock() - t0
         self.materializations += 1
         t_end_off = (t0 + wall) - self._t0
         match = drafted == t_pred[:, :-1]                    # [slots, K]
@@ -830,7 +863,7 @@ class ContinuousBatchingScheduler:
         to completion; returns the COMPLETED ones with tokens and latency
         fields filled. Shed requests land in `self.shed`, timed-out and
         failed ones in `self.failed`, each with its outcome and reason."""
-        self._t0 = time.perf_counter()
+        self._t0 = self._clock()
         if self.tracer is not None:
             self.tracer.begin(self._t0)
         queue = deque(sorted(requests, key=lambda r: (r.arrival_s, r.rid)))
@@ -840,7 +873,7 @@ class ContinuousBatchingScheduler:
         state = self.kv.state
         next_dev = self._upload(next_host)
         window_toks: List[torch.Tensor] = []  # dispatched, unmaterialized
-        window_t0 = time.perf_counter()
+        window_t0 = self._clock()
 
         while (queue or waiting or active or self.parked
                or self._pending_handoffs
@@ -870,7 +903,7 @@ class ContinuousBatchingScheduler:
                                               window_t0)
                 window_toks = []
                 state = self.kv.state
-                window_t0 = time.perf_counter()
+                window_t0 = self._clock()
             if not window_toks and (self.control is not None
                                     or self.engine.watching):
                 # the swap's safe point: nothing dispatched holds params.
@@ -902,7 +935,7 @@ class ContinuousBatchingScheduler:
                 if self._admit(waiting, active, next_host):
                     state = self.kv.state
                     next_dev = self._upload(next_host)
-                    window_t0 = time.perf_counter()
+                    window_t0 = self._clock()
             if self.handoff is not None and active and not window_toks:
                 # prefill replica: what it admitted leaves for the decode
                 # pool right after its first-token sync
@@ -959,7 +992,7 @@ class ContinuousBatchingScheduler:
                     self._evict_wedged(active, "failed", self._now(), e)
                 state = self.kv.state
                 next_dev = self._upload(next_host)
-                window_t0 = time.perf_counter()
+                window_t0 = self._clock()
                 continue
             with self._exec:
                 # the one launch the scheduler owns (the engine's own calls
@@ -988,7 +1021,7 @@ class ContinuousBatchingScheduler:
                                          if self._ema_serve_ms else None))
             except Exception as e:  # noqa: BLE001 - a served run stands
                 _LOG.warning("serving op attribution failed: %r", e)
-        if self.trace_out and self._trace_arrivals:
+        if self.trace_out and self._trace_arrivals and self._writer:
             from flexflow_tpu_torch.serving import tracefmt
             tracefmt.save_trace(
                 self.trace_out,

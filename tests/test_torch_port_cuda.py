@@ -1476,3 +1476,46 @@ def test_frontends_import_a_module_that_lives_on_card():
     om.import_weights(cm2)
     assert cm2.state["bn/mean"].device.type == "cuda"
     assert float(cm2.state["bn/var"][0]) == 2.0
+
+
+@pytest.mark.cuda
+def test_searched_engine_at_world_1_on_card():
+    """chip_smoke 20a's half on the card: `compile_serving` with
+    `search_budget=16` on one card searches nothing (both programs data
+    parallel) and serves, int8 KV in bf16, the tokens `search_budget=0`
+    serves, launching the flash and dequant kernels."""
+    from flexflow_tpu_torch.kernels import launch_counts
+    from flexflow_tpu_torch.search import dp
+    from flexflow_tpu_torch.serving import (ContinuousBatchingScheduler,
+                                            Request, gpt2_step_inputs)
+
+    dev = _cuda_or_skip()
+    streams, launches = {}, {}
+    for budget in (0, 16):
+        m = FFModel(FFConfig(search_budget=budget, compute_dtype="bfloat16",
+                             kv_cache_dtype="int8", max_batch_slots=4,
+                             kv_page_size=16, max_decode_len=8))
+        build_gpt2(m, GPT2Config(vocab=512, seq=128, d_model=128, heads=2,
+                                 layers=2), batch=4)
+        e0 = dp.SEARCH_STATS.get("expansions", 0)
+        eng = compile_serving(m, device=dev)
+        assert dp.SEARCH_STATS.get("expansions", 0) == e0
+        assert eng.decode_strategy.name == "data_parallel"
+        assert eng.memory_stats()["kv_shard_degree"] == 1
+        eng.init(seed=0)
+        rng = np.random.default_rng(0)
+        reqs = [Request(rid=i, prompt=[int(t) for t in
+                                       rng.integers(1, 512, size=n)],
+                        max_new_tokens=6)
+                for i, n in enumerate((5, 40, 100, 17, 3, 64))]
+        before = launch_counts()
+        sched = ContinuousBatchingScheduler(eng, eng.params,
+                                            gpt2_prompt_inputs,
+                                            gpt2_step_inputs)
+        streams[budget] = {r.rid: r.tokens for r in sched.run(reqs)}
+        after = launch_counts()
+        launches[budget] = {k: after[k] - before[k] for k in after}
+    assert streams[16] == streams[0] and len(streams[0]) == 6
+    assert launches[16] == launches[0]
+    assert launches[16]["flash_attention_fwd"] > 0
+    assert launches[16]["dequant_decode_attention"] > 0

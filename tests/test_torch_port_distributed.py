@@ -290,10 +290,15 @@ def test_two_process_fit_ranks_agree(tmp_path):
 
 # ------------------------------------------------ config, refusals, launch
 def test_unported_holds_only_the_pipeline_schedule_and_serve_objective():
-    from flexflow_tpu_torch.config import _UNPORTED
+    """--pipeline-schedule and --serve-objective are ported: the
+    mechanism for unported flags is gone and both parse into fields."""
+    from flexflow_tpu_torch import config
 
-    # --pipeline-schedule is a plain field since the pipeline is ported
-    assert sorted(v[0] for v in _UNPORTED.values()) == ["--serve-objective"]
+    assert not hasattr(config, "_UNPORTED")
+    c = F.FFConfig.parse_args(["--pipeline-schedule", "gpipe",
+                               "--serve-objective", "throughput"])
+    assert (c.pipeline_schedule, c.serve_objective) == ("gpipe",
+                                                        "throughput")
 
 
 @pytest.mark.parametrize("argv", [

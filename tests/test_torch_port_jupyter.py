@@ -106,9 +106,10 @@ def test_parse_args_reads_the_kernel_environment(monkeypatch):
     device._DEFAULT[0] = "cuda"
     assert FFConfig.parse_args([]).batch_size == 64
     assert device._DEFAULT[0] == "cuda"
-    monkeypatch.setenv("FF_LAUNCH_ARGS", "--serve-objective latency")
-    with pytest.raises(NotImplementedError, match="--serve-objective"):
-        FFConfig.parse_args()
+    # the launcher's FF_LAUNCH_ARGS carries --serve-objective into the
+    # kernel's config
+    monkeypatch.setenv("FF_LAUNCH_ARGS", "--serve-objective throughput")
+    assert FFConfig.parse_args().serve_objective == "throughput"
 
 
 def test_spec_environment_compiles_and_fits_in_a_subprocess(tmp_path):

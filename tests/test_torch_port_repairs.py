@@ -3,9 +3,9 @@ package on the CPU:
 
 1. `FFConfig.parse_args` knows every option string of the JAX parser,
    with the same choices; `--lr` reaches `learning_rate` and the
-   compile's default optimizer, as in JAX; a flag whose feature is not
-   ported raises `NotImplementedError` naming its ROADMAP item; a flag
-   neither package knows is ignored.
+   compile's default optimizer, as in JAX; `--serve-objective`, the
+   last flag that raised, parses as JAX's; a flag neither package knows
+   is ignored.
 2. The unfused sparse cross-entropy takes an out-of-range label as JAX
    does (lse minus the label's logit by `take_along_axis`'s rules: a
    negative label counts from the end, one outside [-v, v) reads NaN),
@@ -82,11 +82,12 @@ def test_lr_reaches_the_default_optimizer_as_in_jax():
     (["--serve-objective", "latency"], 9),
     (["--serve-objective", "throughput"], 9)])
 def test_unported_flags_raise_naming_their_item(argv, item):
-    JFFConfig.parse_args(argv)          # the JAX package takes them
-    flag = argv[0].replace("--no-", "--")
-    with pytest.raises(NotImplementedError,
-                       match=f"{flag} \\(ROADMAP Queue 1 item {item}\\)"):
-        FFConfig.parse_args(argv)
+    """The last flag that raised (`--serve-objective`, item 9) is ported:
+    it parses into JAX's field and value, and nothing raises."""
+    jcfg, pcfg = JFFConfig.parse_args(argv), FFConfig.parse_args(argv)
+    assert pcfg.serve_objective == jcfg.serve_objective == argv[1]
+    assert FFConfig().serve_objective == JFFConfig().serve_objective \
+        == "latency"
 
 
 @pytest.mark.parametrize("argv", [
@@ -514,3 +515,154 @@ def test_collective_matmul_backward_products_in_f32():
     got = C._mm_f32(a, b)
     assert got.dtype == torch.float32
     assert torch.equal(got, a.float() @ b.float())
+
+
+# ------------------------------------ more faults found against JAX
+# 7. `set_weight` of one fork-join branch over a mesh (it raised): each
+#    rank writes its block of the stacked weight, nothing is gathered.
+# 8. A pipelined model's `op_attribution` and `profile_report` report every
+#    stage (they reported the rank's own); a pipelined fit takes
+#    `checkpoint_every_secs` (it raised), rank 0's clock deciding for every
+#    rank; a SIGTERM on one rank drains every rank, pipelined and on the
+#    flat mesh fit alike (it drained the signalled rank alone).
+# 9. `compile_serving` with `search_budget > 0` on one device serves as
+#    with 0 (it raised): JAX searches only on a machine of several devices.
+import _torch_port_ranks as ranks  # noqa: E402
+
+RANKS_MOD = "_torch_port_repair_ranks"
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _close_rank_groups():
+    yield
+    ranks.close_all()
+
+
+def test_set_weight_of_a_placed_branch_over_a_mesh_matches_jax():
+    """Over {"model": 2}, each rank holding one branch's block of the
+    stacked weights: `set_weight("fj", "b1.mid.kernel", v)` writes rank
+    1's block alone and `get_weight` of both branches equals JAX's after
+    the same write, bitwise in f32."""
+    import jax
+
+    import _torch_port_repair_ranks as R
+    from flexflow_tpu import SGDOptimizer as JSGDOptimizer
+    from flexflow_tpu_torch.convert import params_from_jax
+
+    jm = R.fat_fork_join(__import__("flexflow_tpu"),
+                         JFFConfig(batch_size=32, mesh_shape={"data": 1},
+                                   only_data_parallel=True,
+                                   log_level="warning"))
+    jcm = jm.compile(JSGDOptimizer(lr=0.01), "mean_squared_error", [])
+    jcm.init(seed=0)
+    params = params_from_jax(jax.device_get(jcm.params))
+    value = np.random.default_rng(5).normal(size=(16, 64)).astype(np.float32)
+    jcm.set_weight("fj", "b1.mid.kernel", value)
+    want = {b: np.asarray(jcm.get_weight("fj", f"{b}.mid.kernel"))
+            for b in ("b0", "b1")}
+    outs = ranks.shared(2, RANKS_MOD).run("rank_set_branch", params, value)
+    for r, o in enumerate(outs):
+        assert np.array_equal(o["b1"], want["b1"])
+        assert np.array_equal(o["b0"], want["b0"])
+        assert o["local"] == (1, 16, 64)
+        assert o["local_changed"] == (r == 1)
+
+
+def test_pipelined_reports_carry_every_stage_as_jax():
+    """At world 2 (a stage a rank) `op_attribution` and `profile_report`
+    return every stage's rows, tagged with their stage, on both ranks:
+    the (stage, layer, op, candidate) rows of JAX's PipelinedModel on
+    {"data": 2}; the attributed times sum to the update's time."""
+    import flexflow_tpu as J
+
+    jm = J.FFModel(JFFConfig(batch_size=8, only_data_parallel=True, seed=3,
+                             pipeline_stages=2, accum_steps=2,
+                             mesh_shape={"data": 2}, log_level="warning"))
+    t = jm.create_tensor([8, 64], name="x")
+    h = jm.dense(t, 256, activation="gelu", name="up")
+    h = jm.dense(h, 64, name="down")
+    h = jm.dense(h, 128, activation="relu", name="mid")
+    jm.dense(h, 8, name="head")
+    jcm = jm.compile(J.AdamOptimizer(alpha=0.01),
+                     "sparse_categorical_crossentropy", [])
+    jcm.init(seed=0)
+    import _torch_port_repair_ranks as R
+    jcm.fit(*R._mlp_data(), epochs=1, verbose=False)
+    jatt = jcm.op_attribution(source="measure", print_table=False)
+    jprof = jcm.profile_report(print_table=False)
+    want_att = sorted((r["stage"], r["layer"], r["op"], r["candidate"])
+                      for r in jatt["rows"])
+    want_prof = sorted((r["stage"], r["layer"], r["op"], r["candidate"])
+                       for r in jprof)
+    outs = ranks.shared(2, RANKS_MOD).run("rank_pipeline_reports")
+    assert [o["stage"] for o in outs] == [0, 1]
+    for o in outs:
+        assert o["attribution"] == want_att
+        assert {s for s, *_ in o["attribution"]} == {0, 1}
+        assert sorted(o["profile"]) == want_prof
+        assert [s for s, *_ in o["profile"]] == sorted(
+            s for s, *_ in o["profile"])
+        assert o["attributed_total"] == pytest.approx(o["step_time"])
+    assert outs[0]["attribution"] == outs[1]["attribution"]
+
+
+@pytest.mark.parametrize("flat", [False, True])
+def test_time_triggered_snapshots_fire_on_the_same_update(tmp_path, flat):
+    """`checkpoint_every_secs=1` with rank 0's clock 1000x fast and rank
+    1's real: both ranks snapshot the same updates (rank 0's clock
+    decides), periodic ones among them, and the newest snapshots commit;
+    the pipelined fit takes the time trigger at all."""
+    root = str(tmp_path / "root")
+    a, b = ranks.shared(2, RANKS_MOD).run("rank_time_trigger", root, flat)
+    assert a["saved"] == b["saved"]
+    assert len(a["saved"]) >= 2 and a["saved"][0] < a["iteration"]
+    assert a["losses"] == b["losses"]
+    # the root keeps the newest `keep_checkpoints` (3) snapshots
+    assert a["snapshots"] == b["snapshots"] == sorted(set(a["saved"]))[-3:]
+
+
+@pytest.mark.parametrize("flat", [False, True])
+def test_sigterm_on_one_rank_drains_every_rank(tmp_path, flat):
+    """SIGTERM to rank 1 alone after its second update: both ranks drain
+    at the same update with a committed snapshot and exit cleanly
+    (`Preempted`, code 0), pipelined and on the flat mesh fit."""
+    root = str(tmp_path / "root")
+    a, b = ranks.shared(2, RANKS_MOD).run("rank_sigterm_one_rank", root,
+                                          flat, timeout=60)
+    assert a["ended"] == b["ended"] == "preempted code 0"
+    assert a["iteration"] == b["iteration"] == 2
+    assert a["snapshots"] == b["snapshots"] == [2]
+
+
+def test_compile_serving_search_budget_on_one_device_serves_as_zero():
+    """One device searches nothing (JAX `engine.py:187-189`): with
+    `search_budget=16` both programs take the data-parallel strategy and
+    serve the tokens `search_budget=0` serves."""
+    from flexflow_tpu_torch.models import GPT2Config, build_gpt2
+    from flexflow_tpu_torch.search import dp
+    from flexflow_tpu_torch.serving import (ContinuousBatchingScheduler,
+                                            Request, compile_serving,
+                                            gpt2_prompt_inputs,
+                                            gpt2_step_inputs)
+
+    streams = {}
+    for budget in (0, 16):
+        m = FFModel(FFConfig(search_budget=budget, max_batch_slots=4,
+                             kv_page_size=4, max_decode_len=6))
+        build_gpt2(m, GPT2Config(vocab=256, seq=16, d_model=64, heads=4,
+                                 layers=1, dropout=0.1), batch=8)
+        e0 = dp.SEARCH_STATS.get("expansions", 0)
+        eng = compile_serving(m, device="cpu")
+        assert dp.SEARCH_STATS.get("expansions", 0) == e0
+        assert eng.prefill_strategy.name == eng.decode_strategy.name \
+            == "data_parallel"
+        eng.init(seed=0)
+        rng = np.random.default_rng(0)
+        reqs = [Request(rid=i, prompt=[int(t) for t in
+                                       rng.integers(1, 256, size=3)],
+                        max_new_tokens=4) for i in range(6)]
+        sched = ContinuousBatchingScheduler(eng, eng.params,
+                                            gpt2_prompt_inputs,
+                                            gpt2_step_inputs)
+        streams[budget] = {r.rid: r.tokens for r in sched.run(reqs)}
+    assert streams[16] == streams[0] and len(streams[0]) == 6

@@ -500,9 +500,14 @@ def test_unported_modes_raise(case, tmp_path):
         with pytest.raises(ValueError, match="needs \\d+ devices, have 1"):
             _compile(pm)
     else:
+        # the serving search is ported: one device searches nothing
+        # (JAX's condition) and both programs take data parallel
         _, pm = _gpt2_pair(search_budget=BUDGET)
-        with pytest.raises(NotImplementedError, match="serving"):
-            compile_serving(pm, device="cpu")
+        e0 = SEARCH_STATS.get("expansions", 0)
+        eng = compile_serving(pm, device="cpu")
+        assert SEARCH_STATS.get("expansions", 0) == e0
+        assert eng.prefill_strategy.name == eng.decode_strategy.name \
+            == "data_parallel"
 
 
 def test_no_search_falls_back_silently(monkeypatch):
