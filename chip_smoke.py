@@ -89,10 +89,11 @@ Phases, each fatal on failure (nothing is caught to let the run exit 0):
        every layer of the same model give the loss of remat off exactly
        and its gradients within `REMAT_GRAD_TOL` (expected bitwise; the
        count of bitwise-equal gradients is printed);
-   (b) full depth, 12 steps with remat off and 12 with `FFConfig(remat=
-       True)` ("full" on every layer), reported as 5b; each step launches
-       each CE kernel and Adam once and no flash kernel;
-   (c) full depth at dropout 0, 12 steps with remat off and 12 with remat
+   (b) full depth, 6 steps with remat off and 6 with `FFConfig(remat=
+       True)` ("full" on every layer; 2 warm-up, `P6_TIMED_STEPS` timed),
+       reported as 5b; each step launches each CE kernel and Adam once and
+       no flash kernel;
+   (c) full depth at dropout 0, 6 steps with remat off and 6 with remat
        "full": the flash forward launches 48 times a step (the forward
        and its recompute), dQ and dK/dV 24; the losses of the two runs
        agree within `RUN_LOSS_RTOL`;
@@ -480,8 +481,12 @@ Phases, each fatal on failure (nothing is caught to let the run exit 0):
     (e) a kernelspec installed into a temporary prefix from a
         reference-format config; a process with its environment parses
         the flags and fits an MLP on the card (the plain SGD kernel once
-        an update); the port's quickstart notebook's cells on the card,
-        the loss falling;
+        an update); the port's quickstart notebook's one-device cells on
+        the card, the loss falling; then its mesh cells as a kernel with
+        `--mesh data=1,model=2` runs them: `run_over_mesh` starts two
+        gloo ranks on the card, the searched strategy shards the weights,
+        the loss falls, and the plain SGD kernel runs on each rank's
+        leaves once an update;
     (f) the C API library built, examples/c/mlp_train.c compiled against
         it into build/flexflow_tpu_torch/ and run on the card: it prints
         C_API_OK, `forward_ok dims=2 (32, 4)` and a falling final_loss,
@@ -599,6 +604,31 @@ Phases, each fatal on failure (nothing is caught to let the run exit 0):
         tokens' agreement with world 1's, and tokens/s, TTFT and the
         decode step p50 as the host's cost of the mesh on one card (gloo's
         host copies carry the reductions: no parallel speed).
+
+21. The serving fleet over a mesh (serving/fleet.py: two replicas, each
+    SPMD over the same ranks, the card granted in rank 0's order), run
+    last, in 20b's two gloo ranks sharing cuda:0 over `P20_MESH` after
+    20b's legs (as 18c runs in 17b's): two int8
+    engines a rank (`search_budget=16`, the heads sharded in two) on
+    phase 13's cut model, weights and snapshots, 8 slots, pages of 16,
+    `P13_HOST_PAGES` host pages, 8 of phase 3's prompts with 8 new tokens
+    each, each check fatal:
+    (a) a one-replica fleet bitwise the plain mesh scheduler on the same
+        engine, #1 and #4 launched as often, exact;
+    (b) two replicas, colocated and then disaggregated (one prefill, one
+        decode), an open-loop trace at `P13_RATE` a replica: every stream
+        (a)'s; disaggregated, each request handed off once and
+        `kv_handoff_bytes` pages x layers x page bytes (each rank's host
+        tier took its 8 heads' half); #4 4 x each replica's decode steps,
+        #1 4 x its prefills; every rank's routes and handoffs rank 0's;
+        rank 0 alone writes the trace; the host's cost a decode step and
+        TTFT printed;
+    (c) the rolling swap as 13c: replica 0 swaps, then replica 1, nothing
+        dropped; with a burn ceiling replica 0 swaps, is rolled back and
+        the rollout freezes; the swaps the same on both ranks;
+    (d) the twin replays (b)'s colocated trace (rank 0's) with costs from
+        the live report: every request completes, and its report carries
+        the live report's keys.
 
 The line before the last is `{"kernels": [...]}`, and the one before it
 `{"ring_programs": [...]}` (the two ring programs, with the same keys);
@@ -2374,9 +2404,11 @@ def grad_check(make, inputs, label, tols, tag: str, depth: str,
 
 
 def train_full(seed: int, optimizer, vocab_pad_to: int, exact: dict,
-               tag: str, dropout: float = 0.0, **cfg) -> tuple:
-    """GPT-2 medium at full depth: 2 warm-up and 10 timed steps on one
-    batch, the launch counters zeroed before the 12 steps and read after.
+               tag: str, dropout: float = 0.0,
+               timed_steps: int = TRAIN_STEPS, **cfg) -> tuple:
+    """GPT-2 medium at full depth: 2 warm-up and `timed_steps` (10) timed
+    steps on one batch, the launch counters zeroed before them and read
+    after.
     `exact` gives every kernel's launches per step (a kernel it does not
     name must not launch). The optimizer's pointer table must be built
     in the first step and never again. Step i draws its dropout from
@@ -2413,7 +2445,7 @@ def train_full(seed: int, optimizer, vocab_pad_to: int, exact: dict,
     torch.cuda.synchronize()
     builds = [fo.table_builds - builds0]
     windows = []
-    for _ in range(TRAIN_STEPS // 2):
+    for _ in range(timed_steps // 2):
         t0 = time.perf_counter()
         step()
         step()
@@ -2421,7 +2453,7 @@ def train_full(seed: int, optimizer, vocab_pad_to: int, exact: dict,
         windows.append((time.perf_counter() - t0) / 2)
     counts = launch_counts()
     builds.append(fo.table_builds - builds0 - builds[0])
-    steps = WARMUP_STEPS + TRAIN_STEPS
+    steps = WARMUP_STEPS + timed_steps
     loss_vals = [float(x) for x in losses]
     step_s = float(np.median(windows))
     tokens = BATCH * SEQ
@@ -2548,6 +2580,9 @@ REMAT_GRAD_TOL = 1e-3
 # relative
 RUN_LOSS_RTOL = 1e-3
 FIT_LAYERS = 4   # 6d's depth: the fit is interrupted, resumed and rerun
+# 6b's and 6c's timed steps after the 2 warm-up ones (5b's 10: the time
+# limit's cut since phase 21, PERF.md section 4)
+P6_TIMED_STEPS = 4
 
 
 class MaskLog:
@@ -4891,13 +4926,14 @@ def _idle_profile(fn, dev: torch.device) -> dict:
 
 
 def p13_serve(runner, reqs, label: str, count_syncs: bool = False,
-              profile: bool = False, **serve_kw) -> dict:
+              profile: bool = False, new_tokens: int = NEW_TOKENS,
+              **serve_kw) -> dict:
     """One run of `runner` (a `ServingFleet`, or a plain scheduler) over
     `reqs`, with every launch counter set to 0 just before it and read
     just after; `count_syncs` counts the host syncs (torch's sync debug
     mode), `profile` runs it under torch.profiler for the device's busy
     time and idle share. Fails unless every request completes with
-    NEW_TOKENS tokens."""
+    `new_tokens` tokens."""
     import warnings
 
     fleet = hasattr(runner, "replicas")
@@ -4932,16 +4968,19 @@ def p13_serve(runner, reqs, label: str, count_syncs: bool = False,
     if len(done) != len(reqs) or runner.shed or runner.failed:
         fail(f"{label}: {len(done)} of {len(reqs)} requests completed, "
              f"{len(runner.shed)} shed, {len(runner.failed)} failed")
-    if any(len(r.tokens) != NEW_TOKENS for r in done):
-        fail(f"{label}: a request ended short of {NEW_TOKENS} tokens")
+    if any(len(r.tokens) != new_tokens for r in done):
+        fail(f"{label}: a request ended short of {new_tokens} tokens")
     ttft = np.array([r.ttft_s for r in done])
     tokens = sum(len(r.tokens) for r in done)
+    steps = [t for s in scheds for t in s.step_times]
     out = {"runner": runner, "streams": {r.rid: list(r.tokens)
                                          for r in done},
            "requests": len(done), "wall_s": wall, "launches": counts,
            "host_syncs": syncs, "tokens_per_s": tokens / wall,
            "ttft_p50_ms": 1e3 * float(np.percentile(ttft, 50)),
            "ttft_p99_ms": 1e3 * float(np.percentile(ttft, 99)),
+           "decode_step_p50_ms": (1e3 * float(np.median(steps)) if steps
+                                  else None),
            "decode_steps": sum(s.decode_steps for s in scheds),
            "prefills": sum(s.prefills for s in scheds),
            "materializations": sum(s.materializations for s in scheds)}
@@ -5199,6 +5238,9 @@ def p13_rolling(engines, gc, params, prompts, arrivals, want: dict,
         e.unpin()
         e.slo = SLOTracker(parse_slo(""))
     out = {k: _p13_summary(v) for k, v in runs.items()}
+    # the published snapshots, for phase 21's rolling swap
+    out["snapshots"] = {step: os.path.join(live, os.path.basename(path))
+                        for step, path in staged.items()}
     out["snapshot_write_s"] = write_s
     out["swap_latency_ms"] = [1e3 * x for e in engines
                               for x in e.swap_stats.latencies_s]
@@ -5240,13 +5282,15 @@ def p13_scaling(engines, prompts, want: dict, seed: int) -> dict:
     return out
 
 
-def p13_twin(engine, live_fleet, trace_path: str) -> dict:
-    """13e: (b)'s colocated trace through the twin, against the live run."""
+def p13_twin(engine, live_fleet, trace_path: str, n: int = REQUESTS,
+             label: str = "13e") -> dict:
+    """13e: (b)'s colocated trace (`n` requests) through the twin, against
+    the live run."""
     from flexflow_tpu_torch.serving import tracefmt, twin
 
     trace = tracefmt.load_trace(trace_path)
-    if len(trace) != REQUESTS or trace.skipped:
-        fail(f"13e: the exported trace holds {len(trace)} records")
+    if len(trace) != n or trace.skipped:
+        fail(f"{label}: the exported trace holds {len(trace)} records")
     live_rep = live_fleet.report()
     spec = twin.TwinSpec.from_engine(engine, replicas=len(
         live_fleet.replicas), dispatch_ahead=4)
@@ -5257,15 +5301,17 @@ def p13_twin(engine, live_fleet, trace_path: str) -> dict:
         trace.records, spec, costs, live_rep["stats"]["wall_s"])
     res = twin.simulate(trace.records, spec, costs)
     rep = res.report()
-    # kept for 16c, which prices the same replay with the learned rung
-    _TWIN_REPLAY.update(records=trace.records, spec=spec, live=live_rep,
-                        costs=costs, machine=engine.machine, cfg=engine.cfg)
-    if res.stats["completed"] != REQUESTS or res.stats["shed"]:
-        fail(f"13e: the twin completed {res.stats['completed']} of "
-             f"{REQUESTS}")
+    if label == "13e":
+        # kept for 16c, which prices the same replay with the learned rung
+        _TWIN_REPLAY.update(records=trace.records, spec=spec, live=live_rep,
+                            costs=costs, machine=engine.machine,
+                            cfg=engine.cfg)
+    if res.stats["completed"] != n or res.stats["shed"]:
+        fail(f"{label}: the twin completed {res.stats['completed']} of {n}")
     missing = sorted(set(live_rep) - set(rep))
     if missing:
-        fail(f"13e: the twin's report lacks the live report's {missing}")
+        fail(f"{label}: the twin's report lacks the live report's "
+             f"{missing}")
 
     def metrics(r):
         h = r["hists"]
@@ -5275,7 +5321,7 @@ def p13_twin(engine, live_fleet, trace_path: str) -> dict:
                 "per_token_p50_s": h["per_token"]["p50"],
                 "queue_wait_p50_s": h["queue_wait"]["p50"]}
     val = twin.validate(metrics(live_rep), metrics(rep))
-    log(f"[13e] twin ({costs.source}: decode step "
+    log(f"[{label}] twin ({costs.source}: decode step "
         f"{1e3 * costs.decode_step_s:.2f} ms, prefill "
         f"{1e3 * costs.prefill_base_s:.2f} ms, window overhead "
         f"{1e3 * costs.window_overhead_s:.2f} ms) against live: " + ", ".join(
@@ -5287,9 +5333,11 @@ def p13_twin(engine, live_fleet, trace_path: str) -> dict:
 
 
 def phase13(gc, params, prompts, streams: dict, seed: int,
-            host_bw: float) -> dict:
+            host_bw: float, keep: str = "") -> dict:
     """Phase 13 on phase 3's weights, prompts and int8 streams, in a
-    temporary directory removed at the end."""
+    temporary directory removed at the end; 13c's snapshots are moved into
+    `keep` first (phase 21 publishes them again), their paths in
+    `out["snapshots"]`."""
     import shutil
     import tempfile
 
@@ -5318,6 +5366,13 @@ def phase13(gc, params, prompts, streams: dict, seed: int,
         out["13c"] = p13_rolling(engines, gc, params, prompts, arrivals,
                                  want, seed, root)
         walls["13c"] = time.perf_counter() - t0
+        snaps = out["13c"].pop("snapshots")
+        if keep:
+            out["snapshots"] = {}
+            for step, path in snaps.items():
+                out["snapshots"][step] = os.path.join(
+                    keep, os.path.basename(path))
+                os.replace(path, out["snapshots"][step])
         t0 = time.perf_counter()
         out["13d"] = p13_scaling(engines, prompts, want, seed)
         walls["13d"] = time.perf_counter() - t0
@@ -6736,7 +6791,7 @@ def p16_jupyter(tmpdir: str) -> dict:
     t0 = time.perf_counter()
     try:
         ns = {}
-        for src in notebook_cells():
+        for src in notebook_cells(tag="one-device"):
             exec(compile(src, "<quickstart-cell>", "exec"), ns)
     finally:
         sys.argv = argv
@@ -6754,7 +6809,91 @@ def p16_jupyter(tmpdir: str) -> dict:
             "loss"] or out["quickstart"]["launches"]["fused_sgd_plain"] <= 0:
         fail(f"16e: the quickstart gave {out['quickstart']}")
     del ns
+    out["quickstart_mesh"] = p16_quickstart_mesh()
     return out
+
+
+# 16e's mesh cells: the kernel's mesh, two gloo ranks sharing the card
+P16_MESH_ARGS = "--mesh data=1,model=2"
+
+
+def p16_counted(cfg, ref, *args):
+    """A rank of 16e's mesh cells: the cell's function, then every rank's
+    launch counts (gathered to all)."""
+    import torch
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch.jupyter import _function
+    from flexflow_tpu_torch.kernels import launch_counts
+
+    out = _function(ref)(cfg, *args)
+    torch.cuda.synchronize()
+    counts = [None] * dist.get_world_size()
+    dist.all_gather_object(counts, launch_counts())
+    out["launches_by_rank"] = counts
+    return out
+
+
+def p16_quickstart_mesh() -> dict:
+    """16e's mesh cells as a kernel with `P16_MESH_ARGS` runs them: the
+    notebook's `run_over_mesh` starts two gloo ranks on the card (NCCL
+    refuses two ranks on one card); each rank's launches are read by
+    `p16_counted` around the cell's function."""
+    import linecache
+
+    from flexflow_tpu_torch import jupyter as jup
+    from flexflow_tpu_torch.jupyter import notebook_cells
+
+    real = jup.run_over_mesh
+
+    def counted(fn, cfg, *args, **kw):
+        return real(p16_counted, cfg, jup._function_ref(fn), *args, **kw)
+    saved = {k: os.environ.get(k) for k in ("FF_LAUNCH_ARGS",
+                                            "FLEXFLOW_PLATFORM")}
+    argv = sys.argv
+    os.environ.update(FF_LAUNCH_ARGS=P16_MESH_ARGS, FLEXFLOW_PLATFORM="gpu")
+    sys.argv, jup.run_over_mesh = ["kernel"], counted
+    t0 = time.perf_counter()
+    try:
+        ns = {}
+        for i, src in enumerate(notebook_cells(tag="mesh")):
+            # as IPython runs a cell: its source kept for inspect, which
+            # reads back the function the cell hands run_over_mesh
+            name = f"<quickstart-mesh-cell-{i}>"
+            linecache.cache[name] = (len(src), None, src.splitlines(True),
+                                     name)
+            exec(compile(src, name, "exec"), ns)
+    finally:
+        sys.argv, jup.run_over_mesh = argv, real
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    mesh, steps = ns["mesh"], 3 * 1024 // 64
+    views = {w: [(d.size, d.degree, list(d.axes)) for d in dims]
+             for w, dims in mesh["views"].items()}
+    res = {"mesh": dict(ns["mcfg"].mesh_shape),
+           "strategy": mesh["strategy"], "device": mesh["device"],
+           "views": views, "loss": [h["loss"] for h in mesh["history"]],
+           "accuracy": mesh["history"][-1]["accuracy"],
+           "ops": {n: mesh["strategy_json"]["ops"][n]
+                   for n in ("up", "down", "head")},
+           "launches_by_rank": mesh["launches_by_rank"],
+           "wall_s": time.perf_counter() - t0}
+    log(f"[16e] quickstart's mesh cells over {res['mesh']} ({P16_MESH_ARGS!r}"
+        f", two gloo ranks on {res['device']}): {res['strategy']}; up's "
+        f"views {views}; losses {res['loss']}, accuracy "
+        f"{res['accuracy']:.3f}; #8 (fused_sgd_plain) a rank "
+        f"{[c['fused_sgd_plain'] for c in res['launches_by_rank']]} "
+        f"({res['wall_s']:.1f} s)")
+    sharded = any(d[1] > 1 for dims in views.values() for d in dims)
+    if not res["device"].startswith("cuda") or not sharded or \
+            not res["loss"][-1] < res["loss"][0] or \
+            [c["fused_sgd_plain"] for c in res["launches_by_rank"]] != \
+            [steps] * 2:
+        fail(f"16e: the quickstart's mesh cells gave {res}")
+    return res
 
 
 def p16_capi(tmpdir: str) -> dict:
@@ -8678,9 +8817,10 @@ def ring_program_rows(p18: dict, card: str) -> list:
 # 20b's mesh: a unit batch axis beside the model axis, so the serving
 # searches may shard the heads (on a one-axis mesh the slots take its
 # only axis); its requests and new tokens (one wave of the 8 slots: the
-# time limit's cut of phase 3's 16 x 32), and the teacher-forced steps
+# time limit's cut of phase 3's 16 x 32; 4 new tokens since phase 21 ran
+# in its ranks, 8 before), and the teacher-forced steps
 P20_MESH = {"data": 1, "model": 2}
-P20_REQUESTS, P20_NEW_TOKENS, P20_TF_STEPS = 8, 8, 4
+P20_REQUESTS, P20_NEW_TOKENS, P20_TF_STEPS = 8, 4, 4
 P20_BUDGET = 16
 # each last-position logit of 20b against world 1's, as a share of the
 # largest |logit| of world 1's call: bf16 both sides, and each layer's two
@@ -8933,13 +9073,20 @@ def p20_rank(rank: int, port: int, seed: int, refs_path: str,
             del engine, params
             collect_garbage()
             torch.cuda.empty_cache()
+        if "p21" in refs:
+            # phase 21 in these ranks, as 18c runs in 17b's
+            legs["21"] = p21_legs(rank, seed, refs["p21"],
+                                  os.path.dirname(refs_path))
         out_q.put((rank, "ok", legs))
-    except Exception:  # the parent fails the phase with it
+    except BaseException:  # fail()'s exit too: the parent fails the phase
         out_q.put((rank, "error", traceback.format_exc()))
+        raise
 
 
-def phase20(seed: int, prompts, streams: dict) -> dict:
-    """20a and 20b (the module docstring)."""
+def phase20(seed: int, prompts, streams: dict, p21: dict = None) -> dict:
+    """20a and 20b (the module docstring); with `p21` (`p21_inputs`),
+    20b's ranks go on to phase 21's legs, whose results come back in
+    `out["21"]`."""
     import queue as queue_mod
     import tempfile
 
@@ -8951,6 +9098,8 @@ def phase20(seed: int, prompts, streams: dict) -> dict:
     card = card_line()
     out = {"card": card, "20a": {}, "20b": {}}
     refs = {"prompts": prompts}
+    if p21 is not None:
+        refs["p21"] = p21
     for kv in ("auto", "int8"):
         e0 = dp.SEARCH_STATS.get("expansions", 0)
         engine = p20_engine(seed, kv)
@@ -9019,6 +9168,9 @@ def phase20(seed: int, prompts, streams: dict) -> dict:
                     p.kill()
                     p.join(5)
     t_b = time.perf_counter() - t1
+    if p21 is not None:
+        out["21"] = {r: res[r].pop("21") for r in res}
+        t_b -= out["21"][0]["wall_s"]
     for kv in ("int8", "auto"):
         a, b = res[0][kv], res[1][kv]
         ref = refs[kv]
@@ -9110,6 +9262,258 @@ def phase20(seed: int, prompts, streams: dict) -> dict:
     out["wall_s"] = time.perf_counter() - t0
     log(f"[phase 20] {out['wall_s']:.1f} s on {card} (20a {t_a:.1f} s, "
         f"20b {t_b:.1f} s)")
+    return out
+
+# --------------------------------------- phase 21: the fleet over a mesh
+# two gloo ranks share cuda:0 over P20_MESH, two int8 engines a rank with
+# search_budget=P20_BUDGET on phase 13's cut model (SERVE_CUT_LAYERS at
+# full width), weights and prompts, P13_HOST_PAGES host pages each; 8 of
+# the prompts with 8 new tokens each (20b's cut), arriving at P13_RATE a
+# replica
+P21_REQUESTS, P21_NEW_TOKENS = 8, 8
+
+
+def p21_requests(prompts, arrivals):
+    from flexflow_tpu_torch.serving import Request
+
+    return [Request(rid=i, prompt=prompts[i], max_new_tokens=P21_NEW_TOKENS,
+                    arrival_s=float(a)) for i, a in enumerate(arrivals)]
+
+
+def p21_legs(rank: int, seed: int, inp: dict, root: str) -> dict:
+    """21 on one of 20b's ranks (the module docstring): (a)-(d) on two
+    engines over P20_MESH, every check fatal; the logs, launches and host
+    times go back to the parent, which holds the ranks against each other.
+    `inp` holds phase 13's cut model, weights, prompts and snapshots."""
+    import shutil
+    import threading
+
+    from flexflow_tpu_torch.health import SLOTracker, parse_slo
+    from flexflow_tpu_torch.serving import (ContinuousBatchingScheduler,
+                                            gpt2_prompt_inputs,
+                                            gpt2_step_inputs)
+
+    t_legs = time.perf_counter()
+    gc, params, prompts = inp["gc"], inp["params"], inp["prompts"]
+    t0 = time.perf_counter()
+    engines = [p12_engine(gc, params, "int8", seed,
+                          kv_host_pages=P13_HOST_PAGES,
+                          mesh_shape=dict(P20_MESH),
+                          search_budget=P20_BUDGET,
+                          strategy_cache_dir=os.path.join(root, "st"))
+               for _ in range(2)]
+    sync(engines[0].device)
+    out = {"compile_s": time.perf_counter() - t0,
+           "kv_shard_degree": engines[0].kv_shard_degree,
+           "layouts": [e.kv.head_layout() for e in engines]}
+    layers = len(engines[0].attn_layers)
+    at0 = [0.0] * P21_REQUESTS
+    # (a) one replica against the plain mesh scheduler
+    plain = p13_serve(ContinuousBatchingScheduler(
+        engines[0], engines[0].params, gpt2_prompt_inputs,
+        gpt2_step_inputs), p21_requests(prompts, at0), "21a plain",
+        new_tokens=P21_NEW_TOKENS)
+    one = p13_serve(p13_fleet([engines[0]]), p21_requests(prompts, at0),
+                    "21a one replica", new_tokens=P21_NEW_TOKENS)
+    want = plain["streams"]
+    if one["streams"] != want:
+        fail("21a: the one-replica fleet's streams differ from the plain "
+             "mesh scheduler's")
+    for k in ("flash_attention_fwd", "dequant_decode_attention"):
+        if one["launches"][k] != plain["launches"][k]:
+            fail(f"21a: {k} launched {one['launches'][k]} times in the "
+                 f"fleet, {plain['launches'][k]} in the plain scheduler")
+    if one["runner"].replicas[0].thread is not None:
+        fail("21a: the one-replica fleet started a thread")
+    p13_exact_launches(plain, "21a plain", layers)
+    out["21a"] = {"plain": _p13_summary(plain),
+                  "one_replica": _p13_summary(one)}
+    # (b) two replicas, colocated then disaggregated, open loop
+    arrivals = p13_arrivals(seed + 21, P21_REQUESTS, 2 * P13_RATE)
+    trace_path = os.path.join(root, f"fleet_trace_rank{rank}.jsonl")
+    engines[0].cfg.serve_trace_out = trace_path
+    try:
+        colo = p13_serve(p13_fleet(engines, topology="colocated",
+                                   router="least_loaded"),
+                         p21_requests(prompts, arrivals),
+                         "21b colocated", new_tokens=P21_NEW_TOKENS)
+    finally:
+        engines[0].cfg.serve_trace_out = ""
+    before = [dict(e.kv.tier_counters) for e in engines]
+    rank_before = [e.kv.handoff_bytes_rank for e in engines]
+    dis = p13_serve(p13_fleet(engines, topology="disagg"),
+                    p21_requests(prompts, arrivals), "21b disagg",
+                    new_tokens=P21_NEW_TOKENS)
+    spec = engines[0].kv.spec
+    reckoned = sum(engines[0].kv.pages_needed(
+        len(p) + P21_NEW_TOKENS + 4) for p in prompts[:P21_REQUESTS])
+    want_bytes = reckoned * spec.layers * spec.page_bytes()
+    imports = [e.kv.tier_counters["kv_handoffs"] - b["kv_handoffs"]
+               for e, b in zip(engines, before)]
+    moved = [e.kv.tier_counters["kv_handoff_bytes"] - b["kv_handoff_bytes"]
+             for e, b in zip(engines, before)]
+    moved_rank = [e.kv.handoff_bytes_rank - b
+                  for e, b in zip(engines, rank_before)]
+    for run, label in ((colo, "21b colocated"), (dis, "21b disagg")):
+        if run["streams"] != want:
+            fail(f"{label}: streams differ from (a)'s")
+        p13_exact_launches(run, label, layers)
+    fleet = dis["runner"]
+    if fleet.stats["handoffs"] != P21_REQUESTS or \
+            imports != [0, P21_REQUESTS] or \
+            sorted(fleet.decisions["handoffs"]) != \
+            list(range(P21_REQUESTS)):
+        fail(f"21b disagg: {fleet.stats['handoffs']} handoffs, imports "
+             f"{imports}, routes {fleet.decisions['handoffs']}")
+    if moved != [0, want_bytes] or \
+            moved_rank != [0, want_bytes // out["kv_shard_degree"]]:
+        fail(f"21b disagg: kv_handoff_bytes {moved} (this rank's "
+             f"{moved_rank}), want {want_bytes} ({reckoned} pages x "
+             f"{spec.layers} layers x {spec.page_bytes()} B)")
+    if colo["runner"].stats["handoffs"]:
+        fail("21b colocated: a request was handed off")
+    out["21b"] = {"colocated": _p13_summary(colo),
+                  "disagg": _p13_summary(dis),
+                  "handoff_bytes": want_bytes,
+                  "handoff_bytes_rank": moved_rank[1],
+                  "handoff_pages": reckoned,
+                  "orders": {"colocated": colo["runner"].report()[
+                      "stats"]["order"],
+                      "disagg": fleet.report()["stats"]["order"]},
+                  "wrote_trace": os.path.exists(trace_path)}
+    # (d) rank 0 wrote the trace: the twin replays it
+    if rank == 0:
+        out["21d"] = p13_twin(engines[0], colo["runner"], trace_path,
+                              n=P21_REQUESTS, label="21d")
+    # (c) the rolling swap, then the rollback and the freeze
+    live = os.path.join(root, "live")
+    if rank == 0:
+        os.makedirs(live)
+    staged = inp["snapshots"]
+    for e in engines:
+        e.slo = SLOTracker(parse_slo(P13_SLO))
+    runs = {}
+    for step, burn in ((2, 0.0), (3, P13_BURN_MAX)):
+        label = f"21c {'rollback' if burn else 'rolling swap'}"
+        fleet = p13_fleet(engines, rollout_burn_max=burn)
+        prefill, published = engines[0].prefill, threading.Event()
+
+        def publish(p, inputs, prefill=prefill, published=published,
+                    step=step):
+            res = prefill(p, inputs)
+            if not published.is_set():
+                if rank == 0:
+                    os.replace(staged[step], os.path.join(
+                        live, os.path.basename(staged[step])))
+                published.set()
+            return res
+        engines[0].prefill = publish
+        seen = {}
+        if burn:
+            rollback0 = engines[0].rollback
+
+            def judged(*a, rollback0=rollback0, fleet=fleet, **kw):
+                res = rollback0(*a, **kw)
+                seen["mats1"] = fleet.replicas[1].sched.materializations
+                return res
+            engines[0].rollback = judged
+        try:
+            run = p13_serve(fleet, p21_requests(prompts, arrivals), label,
+                            new_tokens=P21_NEW_TOKENS, watch_root=live,
+                            poll_interval_s=0.0)
+        finally:
+            for e in engines:
+                for name in ("prefill", "rollback"):
+                    e.__dict__.pop(name, None)
+        if run["streams"] != want:
+            fail(f"{label}: streams differ from (a)'s")
+        rolling = fleet.rolling
+        if burn:
+            if rolling.swaps != [(0, 3)] or \
+                    rolling.rollbacks != [(0, 2)] or \
+                    not rolling.halted or \
+                    engines[1].active_version != 2:
+                fail(f"{label}: swaps {rolling.swaps}, rollbacks "
+                     f"{rolling.rollbacks}, halted {rolling.halted}")
+            if fleet.replicas[1].sched.materializations <= \
+                    seen.get("mats1", 1 << 30):
+                fail(f"{label}: replica 1 served nothing after the "
+                     "rollback")
+            run["bake_waits"] = rolling.bake_waits
+        elif rolling.swaps != [(0, 2), (1, 2)] or rolling.rollbacks or \
+                rolling.halted:
+            fail(f"{label}: swaps {rolling.swaps}, rollbacks "
+                 f"{rolling.rollbacks}")
+        run["order"] = fleet.report()["stats"]["order"]
+        runs[label] = _p13_summary(run)
+    out["21c"] = runs
+    out["swap_latency_ms"] = [1e3 * x for e in engines
+                              for x in e.swap_stats.latencies_s]
+    del engines
+    collect_garbage()
+    torch.cuda.empty_cache()
+    if rank == 0:
+        shutil.rmtree(live, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_legs
+    print(f"[21 rank {rank}] (a)-(d) passed in {out['wall_s']:.1f} s; "
+          f"compile {out['compile_s']:.1f} s", flush=True)
+    return out
+
+
+def p21_inputs(gc, params, prompts, snapshots: dict) -> dict:
+    """What 21's legs take into 20b's ranks: phase 13's cut model, its
+    weights on the host, the prompts and 13c's snapshots."""
+    return {"gc": gc, "prompts": prompts[:P21_REQUESTS],
+            "params": {n: {w: t.cpu() for w, t in d.items()}
+                       for n, d in params.items()},
+            "snapshots": snapshots}
+
+
+def phase21(res: dict) -> dict:
+    """21 (the module docstring): the two ranks' results (run in 20b's
+    ranks, after its legs) held against each other and reported."""
+    card = card_line()
+    a, b = res[0], res[1]
+    bad = []
+    if a["21b"]["orders"] != b["21b"]["orders"]:
+        bad.append("21b: rank 1's routes and handoffs differ from rank 0's")
+    for label in a["21c"]:
+        if a["21c"][label]["order"] != b["21c"][label]["order"]:
+            bad.append(f"{label}: rank 1's swaps or routes differ from "
+                       "rank 0's")
+    if (a["21b"]["wrote_trace"], b["21b"]["wrote_trace"]) != (True, False):
+        bad.append("21b: the trace was not written by rank 0 alone")
+    if a["kv_shard_degree"] != 2 or a["layouts"][0] != a["layouts"][1]:
+        bad.append(f"21: kv_shard_degree {a['kv_shard_degree']}, layouts "
+                   f"{a['layouts']}")
+    if bad:
+        fail(f"21: {bad}")
+    out = {"card": card, "ranks": res, "wall_s": a["wall_s"]}
+    for tag in ("colocated", "disagg"):
+        r0, r1 = a["21b"][tag], b["21b"][tag]
+        log(f"[21b {tag}] {card}: streams = (a)'s on both ranks; rank 0 "
+            f"{r0['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+            f"{r0['ttft_p50_ms']:.1f} ms, decode step p50 "
+            f"{r0['decode_step_p50_ms']:.2f} ms (the host's cost: gloo's "
+            f"host copies); rank 1 TTFT p50 {r1['ttft_p50_ms']:.1f} ms; "
+            f"{r0['prefills']} prefills, {r0['decode_steps']} decode steps, "
+            f"launches {r0['launches']}")
+    log(f"[21b] {P21_REQUESTS} handoffs, {a['21b']['handoff_bytes']} B "
+        f"({a['21b']['handoff_pages']} pages; each rank's host tier "
+        f"{a['21b']['handoff_bytes_rank']} B, its 8 heads); every rank's "
+        f"routes and handoffs rank 0's: {a['21b']['orders']}")
+    for label, run in a["21c"].items():
+        log(f"[{label}] {card}: order {run['order']['swaps']} swaps, "
+            f"{run['order']['rollbacks']} rollbacks, the same on both ranks; "
+            f"{run['requests']} of {P21_REQUESTS} completed, streams = (a)'s"
+            + (f"; replica 1 held {run['bake_waits']} times by the bake"
+               if "bake_waits" in run else ""))
+    log(f"[21a] {card}: plain mesh scheduler TTFT p50 "
+        f"{a['21a']['plain']['ttft_p50_ms']:.1f} ms, decode step p50 "
+        f"{a['21a']['plain']['decode_step_p50_ms']:.2f} ms; the one-replica "
+        f"fleet bitwise it, launches equal")
+    log(f"[phase 21] {out['wall_s']:.1f} s on {card} (in 20b's ranks; "
+        f"compile {a['compile_s']:.1f} s a rank)")
     return out
 
 
@@ -9305,7 +9709,8 @@ def main() -> None:
     for remat in (False, True):
         tag = f"6b dropout remat {'full' if remat else 'off'}"
         drop[tag], cm, inputs, label = train_full(
-            args.seed, None, PAD_TO, ce_adam, tag, DROPOUT, remat=remat)
+            args.seed, None, PAD_TO, ce_adam, tag, DROPOUT,
+            timed_steps=P6_TIMED_STEPS, remat=remat)
         profiles[tag] = profile_train(cm, inputs, label, tag,
                                       rng=ff_random.key(args.seed))
         del cm, inputs, label
@@ -9315,7 +9720,8 @@ def main() -> None:
         exact = dict(ce_adam, flash_attention_fwd=(2 if remat else 1) * LAYERS,
                      flash_attention_dq=LAYERS, flash_attention_dkv=LAYERS)
         drop[tag], cm, inputs, label = train_full(
-            args.seed, None, PAD_TO, exact, tag, 0.0, remat=remat)
+            args.seed, None, PAD_TO, exact, tag, 0.0,
+            timed_steps=P6_TIMED_STEPS, remat=remat)
         profiles[tag] = profile_train(cm, inputs, label, tag)
         del cm, inputs, label
         torch.cuda.empty_cache()
@@ -9354,9 +9760,13 @@ def main() -> None:
                         cut_runs)
     # ---- 13. the serving fleet (identity, colocated against disagg, the
     # rolling swap and its rollback, scaling) and the capacity twin
+    import tempfile
+
+    keep13 = tempfile.mkdtemp(prefix="ff_p13_snapshots_")
     serving13 = phase13(gcc, params, prompts, cut_streams, args.seed,
-                        serving12["tier"]["int8"]["host_bw_GBps"] * 1e9)
-    del params, params_host
+                        serving12["tier"]["int8"]["host_bw_GBps"] * 1e9,
+                        keep=keep13)
+    del params
     torch.cuda.empty_cache()
     # ---- 14. the model zoo: gradient checks, every remaining model at its
     # builder's defaults, the fork-join pass, the K-step graph, a searched
@@ -9388,7 +9798,20 @@ def main() -> None:
     # for (none runs on one device) bitwise phase 3; two gloo ranks on the
     # card, the searched programs and the heads-sharded pools, against
     # world 1
-    p20 = phase20(args.seed, prompts, streams)
+    # ---- 21. the fleet over a mesh in 20b's ranks, after its legs: two
+    # replicas each SPMD over both ranks, on phase 13's cut model, weights
+    # and snapshots (one replica against the plain mesh scheduler,
+    # colocated and disaggregated, the rolling swap and its rollback, the
+    # twin)
+    import shutil
+
+    try:
+        p20 = phase20(args.seed, prompts, streams, p21_inputs(
+            gcc, params_host, prompts, serving13.pop("snapshots")))
+    finally:
+        shutil.rmtree(keep13, ignore_errors=True)
+    del params_host
+    p21 = phase21(p20.pop("21"))
 
     # launches on the main paths: both serving runs, the 12 Adam training
     # steps and the Adam fit epoch, the 12 padded-vocab SGD steps and the
@@ -9515,6 +9938,18 @@ def main() -> None:
         paths[f"p20b_{kv}_teacher_rank1"] = leg["teacher_launches_rank1"]
         paths[f"p20b_{kv}_serve_rank0"] = leg["serve"]["launches"]
         paths[f"p20b_{kv}_serve_rank1"] = leg["launches_rank1"]
+    # phase 21's: #1 (causal) and #4 on each rank's heads, every run
+    for rank, rr in p21["ranks"].items():
+        for part in ("21a", "21b"):
+            for leg, run in rr[part].items():
+                if isinstance(run, dict) and "launches" in run:
+                    paths[f"p{part}_{leg}_rank{rank}"] = run["launches"]
+        for leg, run in rr["21c"].items():
+            paths[f"p{leg.replace(' ', '_')}_rank{rank}"] = run["launches"]
+    # 16e's mesh cells: #8 on each rank's leaves
+    for rank, c in enumerate(p16["16e"]["quickstart_mesh"][
+            "launches_by_rank"]):
+        paths9[f"p16e_quickstart_mesh_rank{rank}"] = c
     for r in rows:
         causal = r.get("causal")
         counted = (paths if causal else paths9 if causal is False
@@ -9546,6 +9981,7 @@ def main() -> None:
     log(json.dumps({"phase18": p18}, default=str))
     log(json.dumps({"phase19": p19}, default=str))
     log(json.dumps({"phase20": p20}, default=str))
+    log(json.dumps({"phase21": p21}, default=str))
     log(json.dumps({"ring_programs": ring_program_rows(p18, card)}))
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

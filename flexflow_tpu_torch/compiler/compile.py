@@ -534,10 +534,29 @@ def _rows_apart(logits, label) -> bool:
 
 def _full(x):
     """A DTensor's full value on every rank, a plain tensor (a collective:
-    every rank calls it); the tensor itself otherwise."""
-    from torch.distributed.tensor import DTensor
+    every rank calls it, by c10d: `runtime.distributed.full_local`); the
+    tensor itself otherwise. Nothing is differentiated through it."""
+    from flexflow_tpu_torch.runtime.distributed import full_local
 
-    return x.full_tensor() if isinstance(x, DTensor) else x
+    return full_local(x)
+
+
+def _classes_whole(logits):
+    """Logits whose class (last) dim a mesh dim shards, made whole on it
+    by c10d with the gradient sliced back (`relayout_grad`); the loss
+    then reads whole rows. DTensor's own redistribute here takes the
+    functional all-gather, which gloo does not carry on CUDA tensors."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from flexflow_tpu_torch.runtime.distributed import relayout_grad
+
+    if not isinstance(logits, DTensor):
+        return logits
+    last = logits.ndim - 1
+    pl = [Replicate() if isinstance(p, Shard) and p.dim % logits.ndim == last
+          else p for p in logits.placements]
+    return (logits if pl == list(logits.placements)
+            else relayout_grad(logits, pl))
 
 
 class CompiledModel:
@@ -863,8 +882,10 @@ class CompiledModel:
         if fused_ce.use_fused_ce(self.loss_type, logits, self.fused_loss_mode,
                                  self.cfg.enable_fusion):
             return fused_ce.fused_cross_entropy(logits, label)
-        if self.mesh is not None and _rows_apart(logits, label):
-            return self._local_loss(logits, label)
+        if self.mesh is not None:
+            logits = _classes_whole(logits)
+            if _rows_apart(logits, label):
+                return self._local_loss(logits, label)
         return compute_loss(self.loss_type, logits.float(), label)
 
     def _local_loss(self, logits, label):

@@ -238,11 +238,13 @@ class MachineSpec:
                            dcn_axes=tuple(dcn_axes), **extra)
 
 
-def build_mesh(spec: MachineSpec, device=None):
+def build_mesh(spec: MachineSpec, device=None, own_groups: bool = False):
     """The machine's mesh over the ranks of the started process group: a
     `DeviceMesh` of `device`'s type (default: the entry points' device)
     named by the axes. It must cover the world, one device a rank; a mesh
-    larger than the world raises JAX's message."""
+    larger than the world raises JAX's message. `own_groups`: its groups
+    are made for it alone (`runtime.distributed.own_groups_mesh`; a
+    serving engine's, so two replicas never share one)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -264,6 +266,10 @@ def build_mesh(spec: MachineSpec, device=None):
             f"mesh {spec.mesh_axes}: no process group (call "
             "flexflow_tpu_torch.runtime.distributed.init_distributed, or "
             "run under torchrun)")
+    if own_groups:
+        from flexflow_tpu_torch.runtime.distributed import own_groups_mesh
+
+        return own_groups_mesh(resolve_device(device).type, shape, names)
     return init_device_mesh(resolve_device(device).type, shape,
                             mesh_dim_names=names)
 

@@ -51,6 +51,7 @@ device.
 
 from __future__ import annotations
 
+import math
 import os
 from typing import Optional, Sequence
 
@@ -267,38 +268,91 @@ def host_group():
     return _HOST_GROUP[0]
 
 
-def rank0_clock() -> float:
-    """Rank 0's `time.perf_counter()` on every rank: one broadcast of one
-    host float64 (a collective). Decisions that read a clock take it, so
-    every rank makes them alike (the serving scheduler's lockstep)."""
-    import time
-
+def new_host_group():
+    """A gloo group over the world of its own (a collective: every rank
+    makes it, in the same order). A serving replica's lockstep reads go
+    on one, so two replicas' threads on a rank never pair one replica's
+    broadcast with the other's on another rank."""
     import torch.distributed as dist
 
-    buf = torch.tensor([time.perf_counter()], dtype=torch.float64)
-    dist.broadcast(buf, 0, group=host_group())
-    return float(buf[0])
+    return dist.new_group(backend="gloo")
 
 
-def rank0_object(obj):
-    """Rank 0's `obj` (picklable) on every rank (a collective): a decision
-    rank 0 made from its clock or its file system."""
+def own_groups_mesh(device_type: str, shape, names):
+    """A `DeviceMesh` of the world's ranks laid out in `shape` (row major)
+    with dim `names`, over process groups of its own: for each mesh dim,
+    one `dist.new_group` a line of ranks along it, made by every rank in
+    the same order (a collective). What runs over it never meets another
+    mesh's collectives on a group."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    layout = torch.arange(math.prod(shape), dtype=torch.int).reshape(
+        tuple(shape))
+    me = dist.get_rank()
+    groups = []
+    for j in range(layout.ndim):
+        lines = layout.movedim(j, -1).reshape(-1, layout.shape[j]).tolist()
+        mine = None
+        for line in lines:
+            g = dist.new_group(line)
+            if me in line:
+                mine = g
+        groups.append(mine)
+    return DeviceMesh.from_group(
+        groups if len(groups) > 1 else groups[0], device_type,
+        mesh=layout if len(groups) > 1 else None,
+        mesh_dim_names=tuple(names))
+
+
+def rank0_values(values, group=None) -> list:
+    """Rank 0's `values` (numbers; every rank passes as many) on every
+    rank: one broadcast of one host float64 tensor (a collective) on
+    `group` (default `host_group()`)."""
+    import torch.distributed as dist
+
+    buf = torch.tensor([float(v) for v in values], dtype=torch.float64)
+    dist.broadcast(buf, 0, group=group if group is not None
+                   else host_group())
+    return buf.tolist()
+
+
+def rank0_clock(group=None) -> float:
+    """Rank 0's `time.perf_counter()` on every rank: one broadcast of one
+    host float64 (a collective, on `group`, default `host_group()`).
+    Decisions that read a clock take it, so every rank makes them alike
+    (the serving scheduler's lockstep)."""
+    import time
+
+    return rank0_values([time.perf_counter()], group)[0]
+
+
+def rank0_object(obj, group=None):
+    """Rank 0's `obj` (picklable) on every rank (a collective, on `group`,
+    default `host_group()`): a decision rank 0 made from its clock or its
+    file system."""
     import torch.distributed as dist
 
     box = [obj]
-    dist.broadcast_object_list(box, 0, group=host_group())
+    dist.broadcast_object_list(box, 0, group=group if group is not None
+                               else host_group())
     return box[0]
+
+
+_PENDING_OPS = {"sum": "SUM", "avg": "SUM", "max": "MAX", "min": "MIN"}
 
 
 def relayout(x, pl):
     """The DTensor `x` in placements `pl`, moved by c10d's collectives on
-    each rank's block: a pending sum all-reduced, a shard gathered
+    each rank's block: a pending reduction all-reduced (a sum, a max or a
+    min; an average as the sum over the dim's size), a shard gathered
     (`all_gather_into_tensor`; mesh dims from the last, as nested shards
     unwind), then the shards `pl` asks for cut from what each rank holds,
     with nothing sent. DTensor's own redistribute takes the functional
     collectives, whose all-gather gloo does not carry on CUDA tensors
     (it segfaults on the card's torch); c10d's are what the serving
-    engine moves its weights and logits with. Shards divide evenly (the
+    engine moves its weights and logits with, and the trainer its loss's
+    logits and the full values it reads back. Shards divide evenly (the
     `constrainable` rule)."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor, Replicate, Shard
@@ -314,8 +368,13 @@ def relayout(x, pl):
             continue
         group = mesh.get_group(j)
         if a.is_partial():
+            op = getattr(a, "reduce_op", "sum")
             local = local.contiguous()
-            dist.all_reduce(local, group=group)
+            dist.all_reduce(local, op=getattr(dist.ReduceOp,
+                                              _PENDING_OPS[op]),
+                            group=group)
+            if op == "avg":
+                local = local / mesh.size(j)
         else:
             n = mesh.size(j)
             flat = torch.empty((n * local.numel(),), dtype=local.dtype,
@@ -331,6 +390,30 @@ def relayout(x, pl):
                 mesh.get_local_rank(j)]
             cur[j] = b
     return DTensor.from_local(local.contiguous(), mesh, pl, run_check=False)
+
+
+class _Relayout(torch.autograd.Function):
+    """`relayout` with its gradient: the gradient moved back into the
+    input's placements by `relayout` too (a slice where the forward
+    gathered), a pending input's dims taken replicated, as DTensor's own
+    redistribute takes them."""
+
+    @staticmethod
+    def forward(ctx, x, pl):
+        from torch.distributed.tensor import Replicate
+
+        ctx.placements = [Replicate() if p.is_partial() else p
+                          for p in x.placements]
+        return relayout(x, pl)
+
+    @staticmethod
+    def backward(ctx, g):
+        return relayout(g, ctx.placements), None
+
+
+def relayout_grad(x, pl):
+    """`relayout` that autograd differentiates (the trainer's moves)."""
+    return _Relayout.apply(x, list(pl))
 
 
 def full_local(x):

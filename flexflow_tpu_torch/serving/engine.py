@@ -26,7 +26,11 @@ The prefill takes the weights whose prefill layout differs moved into it
 (by c10d, `runtime.distributed.relayout`), once per params tree. The
 cache's pools hold each rank's block of the heads over the decode
 strategy's head axis (`kv_shard_degree`), and the attention lowerings
-run on those heads (ops/attention_ops.py). Inputs go in as the DTensors
+run on those heads (ops/attention_ops.py). Each engine's mesh is made of
+process groups of its own, and it has a gloo group of its own
+(`host_group`) for the lockstep reads of its scheduler and its hot-swap
+polls: the replicas of a fleet over the same ranks never share a group
+(serving/fleet.py). Inputs go in as the DTensors
 of the programs' input layouts, and the logits come back whole on every
 rank (gathered by c10d), so every rank's scheduler takes the same tokens
 and makes the same calls in the same order (serving/scheduler.py).
@@ -163,6 +167,7 @@ def compile_serving(model, max_batch_slots: Optional[int] = None,
                                                      over_mesh,
                                                      resolve_machine)
     from flexflow_tpu_torch.parallel.machine import build_mesh
+    from flexflow_tpu_torch.runtime.distributed import new_host_group
 
     dev = resolve_device(device)
     cfg = model.config
@@ -193,7 +198,12 @@ def compile_serving(model, max_batch_slots: Optional[int] = None,
                   spec_tokens=spec_k if draft is not None else 0,
                   kv_dtype=str(kv_dtype)):
         machine = resolve_machine(cfg, device=dev)
-        mesh = build_mesh(machine, dev) if over_mesh(cfg) else None
+        # over a mesh the engine's groups are its own, and so is the gloo
+        # group its scheduler's lockstep reads go on: a fleet's replicas,
+        # each SPMD over the same ranks, never share a group
+        mesh = (build_mesh(machine, dev, own_groups=True) if over_mesh(cfg)
+                else None)
+        host = new_host_group() if mesh is not None else None
         pre_model, attn = clone_for_serving(model, "prefill", slots)
         dec_model, _ = clone_for_serving(model, "decode", slots)
         pages_per_slot = -(-(seq + max_new) // page)
@@ -251,7 +261,8 @@ def compile_serving(model, max_batch_slots: Optional[int] = None,
                                verify_model=ver_model,
                                spec_tokens=spec_k if draft_engine else 0,
                                draft=draft_engine, machine=machine,
-                               mesh=mesh, prefill_strategy=pre_st,
+                               mesh=mesh, host_group=host,
+                               prefill_strategy=pre_st,
                                decode_strategy=dec_st)
 
 
@@ -278,13 +289,16 @@ class ServingCompiled:
                  kv_quantized: bool = False, device=None,
                  verify_model=None, spec_tokens: int = 0,
                  draft: Optional["ServingCompiled"] = None, *, machine,
-                 mesh=None, prefill_strategy=None, decode_strategy=None):
+                 mesh=None, host_group=None, prefill_strategy=None,
+                 decode_strategy=None):
         self.model = model
         self.cfg = model.config
         self.device = resolve_device(device)
         self.machine = machine  # the MachineSpec compile_serving resolved
-        # the DeviceMesh the programs run over, or None (one device)
+        # the DeviceMesh the programs run over, or None (one device), and
+        # the gloo group of the lockstep reads (rank 0's clock and polls)
         self.mesh = mesh
+        self.host_group = host_group
         self.prefill_model = prefill_model
         self.decode_model = decode_model
         self.attn_layers = list(attn_layers)
@@ -512,7 +526,7 @@ class ServingCompiled:
                                                                 rank0_object)
 
             pick = rank0_object(self._poll_pick(force) if rank() == 0
-                                else None)
+                                else None, self.host_group)
         if pick is None:
             return False
         step, path = pick

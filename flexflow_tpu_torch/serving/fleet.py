@@ -36,6 +36,21 @@ each replica's work the same order on the card as on the JAX runtime,
 which serializes its replicas the same way. One colocated replica takes
 the plain scheduler's path: no proxy, no thread, no added sync.
 
+Over a mesh (engines compiled over a process group, one process a GPU)
+every rank runs the same fleet: the same replica threads, each replica
+SPMD over the ranks on process groups of its own (serving/engine.py), and
+every choice that reads a clock or a live signal is rank 0's, broadcast:
+the card's lock grants in rank 0's order (`_Turnstile`: otherwise rank 0
+could hold it inside replica A's all-reduce while rank 1 holds it inside
+B's, and both wait for ever); the pump's arrival times and the router's
+picks go on the fleet's control group, each drain of a replica's feed
+takes as many items as rank 0's took (`_LockstepFeed`), and the handoff's
+routes and the rolling swap's burn, bake and cursor verdicts go on the
+replica's own group. Each rank's `decisions` then hold the same routing,
+handoff and swap order, the report carries them (`stats["order"]`), and
+rank 0 alone writes the trace export. The one-card path takes none of
+this: no added collective, no added sync.
+
 A replica thread's exception is recorded and re-raised by `serve` after
 the join, so a failed replica never returns fewer requests quietly.
 Histograms share fixed bucket edges, so the fleet's merge equals one
@@ -48,6 +63,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
+from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -56,6 +72,8 @@ from flexflow_tpu_torch import telemetry as tel
 from flexflow_tpu_torch.health import (SLOTracker,  # noqa: F401
                                        merge_slo_trackers, parse_slo,
                                        scaling_signal)
+from flexflow_tpu_torch.runtime.distributed import (new_host_group, rank,
+                                                    rank0_values)
 from flexflow_tpu_torch.serving.reqtrace import (HIST_METRICS,
                                                  StreamingHistogram,
                                                  terminal_record)
@@ -182,7 +200,145 @@ class _Feed:
         self.closed = True
 
 
+class _LockstepFeed(_Feed):
+    """A replica's feed over a mesh: each drain takes, on every rank, as
+    many items as rank 0's took (one broadcast of the count and whether
+    the feed was closed, on the replica's own group); a rank whose pump
+    or handoffs are behind waits for them. Every rank pushes the same
+    items in the same order (rank 0's routes), so the loops agree."""
+
+    def __init__(self, group):
+        super().__init__()
+        self._group = group
+        self._root = rank() == 0
+        self._cond = threading.Condition(self._lock)
+        self._done = False
+
+    def push(self, item: Any) -> None:
+        with self._cond:
+            self._items.append(item)
+            self._cond.notify_all()
+
+    def drain(self) -> List[Any]:
+        if self._root:
+            with self._lock:
+                closed = self.closed
+                out, self._items = self._items, []
+            rank0_values([len(out), closed], self._group)
+        else:
+            n, closed = rank0_values([0, 0], self._group)
+            with self._cond:
+                while len(self._items) < n:
+                    self._cond.wait()
+                out = self._items[:int(n)]
+                del self._items[:int(n)]
+        self._done = bool(closed)
+        return out
+
+    @property
+    def exhausted(self) -> bool:
+        """Rank 0's feed was closed at the last drain, which took all it
+        held: nothing more can arrive, on any rank."""
+        return self._done
+
+
 # -------------------------------------------------------- shared runtime
+class _Turnstile:
+    """The fleet's device lock over a mesh: re-entrant, and granted in
+    rank 0's order on every rank. On rank 0 a replica thread takes a plain
+    lock and broadcasts its replica's index on the turnstile's group; on
+    every other rank a receiver thread queues those grants, and a replica
+    thread waits until the next grant is its replica's. A replica's calls
+    come in the same order on every rank (the lockstep), so its k-th grant
+    on rank 0 and on rank r are the same call. `bind(index)` names the
+    replica of the calling thread."""
+
+    def __init__(self, group):
+        self._group = group
+        self._root = rank() == 0
+        self._lock = threading.Lock()
+        self._cond = threading.Condition()
+        self._grants: deque = deque()
+        self._holder: Optional[int] = None
+        self._depth = 0
+        self._local = threading.local()
+        self._receiver: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def bind(self, index: int) -> None:
+        self._local.index = index
+
+    def start(self) -> None:
+        if not self._root:
+            self._receiver = threading.Thread(
+                target=self._receive, name="fleet-turnstile", daemon=True)
+            self._receiver.start()
+
+    def _receive(self) -> None:
+        try:
+            while True:
+                index = int(rank0_values([0], self._group)[0])
+                if index < 0:
+                    return
+                with self._cond:
+                    self._grants.append(index)
+                    self._cond.notify_all()
+        except BaseException as e:  # noqa: BLE001 - raised by the waiters
+            with self._cond:
+                self._error = e
+                self._cond.notify_all()
+
+    def acquire(self) -> None:
+        me = threading.get_ident()
+        if self._holder == me:
+            self._depth += 1
+            return
+        index = getattr(self._local, "index", None)
+        if index is None:
+            raise RuntimeError("fleet turnstile: a thread of no replica")
+        if self._root:
+            self._lock.acquire()
+            self._holder, self._depth = me, 1
+            rank0_values([index], self._group)
+        else:
+            with self._cond:
+                while not (self._grants and self._grants[0] == index
+                           and self._holder is None):
+                    if self._error is not None:
+                        raise RuntimeError("fleet turnstile: the grants "
+                                           "stopped") from self._error
+                    self._cond.wait()
+                self._grants.popleft()
+                self._holder, self._depth = me, 1
+
+    def release(self) -> None:
+        self._depth -= 1
+        if self._depth:
+            return
+        self._holder = None
+        if self._root:
+            self._lock.release()
+        else:
+            with self._cond:
+                self._cond.notify_all()
+
+    def __enter__(self):
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.release()
+
+    def close(self) -> None:
+        """After every replica thread ended: the last grant (-1) ends the
+        receivers."""
+        if self._root:
+            with self._lock:
+                rank0_values([-1], self._group)
+        elif self._receiver is not None:
+            self._receiver.join()
+
+
 def _run_to_completion(device: torch.device, *streams) -> None:
     """Wait, inside the fleet's lock, for the work a call queued: the
     calling thread's current stream (and `streams`)."""
@@ -358,12 +514,23 @@ class RollingSwapController:
     ceiling (`bake_waits` counts the next replica's safe points held
     meanwhile). JAX's controller has no bake: there the next replica may
     swap before the first one's burn is judged. With nothing to judge by,
-    the cursor moves at the swap, as in JAX."""
+    the cursor moves at the swap, as in JAX.
 
-    def __init__(self, engines: List[Any], burn_max: float = 0.0):
+    Over a mesh the fleet passes its turnstile as `lock` (the replicas
+    reach their safe points in rank 0's order on every rank) and `agree`,
+    which makes each verdict rank 0's: `agree(idx, code)` returns rank
+    0's code for replica `idx` (a broadcast on its group)."""
+
+    _ACTIONS = (None, "rollback", "bake_wait", "poll")
+
+    def __init__(self, engines: List[Any], burn_max: float = 0.0,
+                 lock: Any = None,
+                 agree: Optional[Callable[[int, Tuple[int, int]],
+                                          Tuple[int, int]]] = None):
         self.engines = list(engines)
         self.burn_max = float(burn_max or 0.0)
-        self._lock = threading.Lock()
+        self._lock = lock if lock is not None else threading.Lock()
+        self._agree = agree
         self._cursor = 0
         # (replica, the requests it had finished at its swap)
         self._baking: Optional[Tuple[int, int]] = None
@@ -396,15 +563,36 @@ class RollingSwapController:
         burn = slo.report().get("worst_burn_rate")
         return burn is not None and burn > self.burn_max
 
+    def _verdict(self, idx: int, sched) -> Tuple[int, int]:
+        """(whether the swapped replica's bake ends, the action) at replica
+        `idx`'s safe point, from the controller's state; nothing changes."""
+        eng = self.engines[idx]
+        swapped = any(r == idx for r, _ in self.swaps)
+        rolled = any(r == idx for r, _ in self.rollbacks)
+        if swapped and not rolled and self._burned(eng):
+            return 0, self._ACTIONS.index("rollback")
+        # served and judged under the ceiling since its swap
+        unbake = int(self._baking is not None and self._baking[0] == idx
+                     and self._served(eng, sched) > self._baking[1])
+        if self.halted or idx != self._cursor % len(self.engines):
+            return unbake, 0
+        if self._baking is not None and not unbake:
+            return unbake, self._ACTIONS.index("bake_wait")
+        if not getattr(eng, "watching", False):
+            return unbake, 0
+        return unbake, self._ACTIONS.index("poll")
+
     def at_safe_point(self, idx: int, sched=None) -> bool:
         """Called by replica `idx` between dispatch windows. True iff its
         live params changed (a swap or a rollback): the scheduler then
         takes the engine's params."""
         with self._lock:
+            verdict = self._verdict(idx, sched)
+            if self._agree is not None:
+                verdict = self._agree(idx, verdict)
+            unbake, action = int(verdict[0]), self._ACTIONS[int(verdict[1])]
             eng = self.engines[idx]
-            swapped = any(r == idx for r, _ in self.swaps)
-            rolled = any(r == idx for r, _ in self.rollbacks)
-            if swapped and not rolled and self._burned(eng):
+            if action == "rollback":
                 try:
                     eng.rollback()
                 except ValueError:  # nothing retained to re-pin
@@ -416,17 +604,12 @@ class RollingSwapController:
                 tel.event("serve/fleet_rollout", cat="serve", replica=idx,
                           action="rollback", version=ver)
                 return True
-            if self._baking is not None and self._baking[0] == idx and \
-                    self._served(eng, sched) > self._baking[1]:
-                self._baking = None    # served and judged under the ceiling
-            if self.halted or idx != self._cursor % len(self.engines):
-                return False
-            if self._baking is not None:
+            if unbake:
+                self._baking = None
+            if action == "bake_wait":
                 self.bake_waits += 1
                 return False
-            if not getattr(eng, "watching", False):
-                return False
-            if not eng.poll_swap():
+            if action != "poll" or not eng.poll_swap():
                 return False
             self._cursor += 1
             if self._judged_slo(eng) is not None:
@@ -447,7 +630,11 @@ class ServingFleet:
 
     Engines must be homogeneous (one compiled model); the disagg topology
     needs every replica built with `kv_host_pages > 0` (the handoff
-    travels through the host tier on both sides)."""
+    travels through the host tier on both sides), and over a mesh the
+    same heads on every replica (`kv_shard_degree` and head placements).
+    Over a mesh every rank builds and serves the same fleet (the module
+    docstring); `decisions` holds the routes, handoffs and swaps in
+    rank 0's order."""
 
     def __init__(self, engines: List[Any], prompt_inputs_fn: Callable,
                  step_inputs_fn: Callable, eos_id: Optional[int] = None,
@@ -458,12 +645,14 @@ class ServingFleet:
                  **sched_kwargs: Any):
         if not engines:
             raise ValueError("ServingFleet needs at least one engine")
-        if any(getattr(e, "mesh", None) is not None and e.mesh.size() > 1
-               for e in engines):
-            raise NotImplementedError(
-                "ServingFleet over a mesh: the multi-GPU fleet (in-process "
-                "replicas, each SPMD over the group) is not ported yet "
-                "(ROADMAP Queue 1 item 9)")
+        meshed = [getattr(e, "mesh", None) is not None and e.mesh.size() > 1
+                  for e in engines]
+        if len(set(meshed)) > 1:
+            raise ValueError("ServingFleet: every replica over the mesh or "
+                             "none (replicas over a mesh: "
+                             f"{[i for i, m in enumerate(meshed) if m]})")
+        # over a mesh: the lockstep of the module docstring
+        self.over_mesh = meshed[0]
         self.engines = list(engines)
         cfg = self.engines[0].cfg
         self.prompt_inputs_fn = prompt_inputs_fn
@@ -499,6 +688,15 @@ class ServingFleet:
                         "disagg topology: every replica needs "
                         "kv_host_pages > 0 (the KV handoff travels "
                         "through the host tier)")
+            layouts = [eng.kv.head_layout() for eng in self.engines]
+            if len(set(layouts)) > 1:
+                raise ValueError(
+                    "disagg topology: the replicas hold other KV heads "
+                    "(kv_shard_degree, local heads, head placements): "
+                    + ", ".join(f"replica {i} {lay}"
+                                for i, lay in enumerate(layouts))
+                    + "; a rank hands its own heads through its own host "
+                    "tier, so every replica must hold the same")
         else:
             roles = ["mixed"] * n
         self.replicas = [ReplicaHandle(i, eng, roles[i])
@@ -526,9 +724,17 @@ class ServingFleet:
         self.shed: List[Request] = []
         self.failed: List[Request] = []
         self.stats: Dict[str, Any] = {}
+        # the routes (request id, replica) in arrival order, each handoff's
+        # decode replica by request id, and the rollout's swaps and
+        # rollbacks: rank 0's order on every rank over a mesh
+        self.decisions: Dict[str, Any] = {}
         self._shed_fleet: List[Request] = []
         self._lock = threading.Lock()
         self._t0 = time.perf_counter()
+        # over a mesh: the control group (the pump's decisions) and the
+        # turnstile's, made at the first threaded serve
+        self._groups: Optional[Tuple[Any, Any]] = None
+        self._run_lock: Any = None
 
     # ----------------------------------------------------------- plumbing
     def _build_sched(self, h: ReplicaHandle,
@@ -547,14 +753,66 @@ class ServingFleet:
         h.sched = sched
         return sched
 
-    def _route_handoff(self, req: Request, payload: Dict) -> None:
+    def _route_handoff(self, req: Request, payload: Dict,
+                       src: Optional[ReplicaHandle] = None) -> None:
         """From a prefill replica's thread: deliver the committed K/V to
-        the router's pick of the decode replicas."""
+        the router's pick of the decode replicas (over a mesh rank 0's,
+        broadcast on the prefill replica `src`'s group)."""
         pool = [x for x in self.replicas if x.role == "decode"]
-        with self._lock:
-            h = self.router.pick(pool)
-            h.assigned += 1
+        if self.over_mesh:
+            pick = 0
+            if rank() == 0:
+                with self._lock:
+                    pick = pool.index(self.router.pick(pool))
+            h = pool[int(rank0_values([pick], src.engine.host_group)[0])]
+            with self._lock:
+                h.assigned += 1
+        else:
+            with self._lock:
+                h = self.router.pick(pool)
+                h.assigned += 1
+        self.decisions["handoffs"][req.rid] = h.index
         h.feed.push((req, payload))
+
+    def _arrival(self, req: Request, pool: List[ReplicaHandle]
+                 ) -> Tuple[Optional[ReplicaHandle], float]:
+        """The pump at one arrival: wait for it, then its replica (None:
+        shed by fleet admission) and the time. Over a mesh rank 0 waits
+        and picks, and every rank takes its pick and its time (one
+        broadcast on the fleet's control group)."""
+        if self.over_mesh and rank() != 0:
+            pick, now = rank0_values([0, 0], self._groups[0])
+            h = None if pick < 0 else self.replicas[int(pick)]
+            if h is not None:
+                with self._lock:
+                    h.assigned += 1
+            return h, now
+        delay = self._t0 + req.arrival_s - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        now = time.perf_counter() - self._t0
+        h = None
+        if self.admission.permanent_shed_reason(req) is None:
+            with self._lock:
+                h = self.router.pick(pool)
+                h.assigned += 1
+        if self.over_mesh:
+            rank0_values([-1 if h is None else h.index, now], self._groups[0])
+        return h, now
+
+    def _device_lock(self):
+        """The lock every device call of every replica runs under: over a
+        mesh the turnstile (rank 0's grant order)."""
+        if not self.over_mesh:
+            return threading.RLock()
+        if self._groups is None:
+            self._groups = (new_host_group(), new_host_group())
+        return _Turnstile(self._groups[1])
+
+    def _agree(self, idx: int, verdict: Tuple[int, int]) -> Tuple[int, int]:
+        """Rank 0's rollout verdict for replica `idx`, on its group."""
+        got = rank0_values(verdict, self.replicas[idx].engine.host_group)
+        return int(got[0]), int(got[1])
 
     def _fleet_shed(self, req: Request, reason: str, now_s: float) -> None:
         req.outcome = "shed"
@@ -566,9 +824,11 @@ class ServingFleet:
         tel.event("serve/request_shed", cat="serve", reason=reason,
                   fleet=True, **rec)
 
-    @staticmethod
-    def _replica_main(h: ReplicaHandle) -> None:
+    def _replica_main(self, h: ReplicaHandle) -> None:
         try:
+            bind = getattr(self._run_lock, "bind", None)
+            if bind is not None:
+                bind(h.index)
             h.sched.run([])
         except BaseException as e:  # noqa: BLE001 - re-raised by serve()
             h.error = e
@@ -585,6 +845,8 @@ class ServingFleet:
         thread has been joined."""
         self.completed, self.shed, self.failed = [], [], []
         self._shed_fleet = []
+        self.decisions = {"routes": [], "handoffs": {}, "swaps": [],
+                          "rollbacks": []}
         for h in self.replicas:
             h.assigned = 0
             h.error = None
@@ -603,19 +865,25 @@ class ServingFleet:
             return list(self.completed)
         # the replicas share the card: every device call of every replica
         # is serialized under this lock and run to completion inside it
-        run_lock = threading.RLock()
+        run_lock = self._run_lock = self._device_lock()
         proxies = [_SharedRuntimeEngine(h.engine, run_lock)
                    for h in self.replicas]
         self.rolling = (RollingSwapController(
-            proxies, burn_max=self.rollout_burn_max)
+            proxies, burn_max=self.rollout_burn_max,
+            **(dict(lock=run_lock, agree=self._agree) if self.over_mesh
+               else {}))
             if watch_root is not None else None)
         prefill_pool = [h for h in self.replicas if h.role != "decode"]
         decode_pool = [h for h in self.replicas if h.role != "prefill"]
         for h, proxy in zip(self.replicas, proxies):
-            handoff = self._route_handoff if h.role == "prefill" else None
+            handoff = (
+                (lambda req, payload, h=h: self._route_handoff(req, payload,
+                                                               h))
+                if h.role == "prefill" else None)
             sched = self._build_sched(h, handoff=handoff, engine=proxy,
                                       exec_lock=run_lock)
-            h.feed = _Feed()
+            h.feed = (_LockstepFeed(h.engine.host_group) if self.over_mesh
+                      else _Feed())
             sched.feed = h.feed
             if self.rolling is not None:
                 sched.control = self.rolling.control(h.index)
@@ -627,21 +895,19 @@ class ServingFleet:
         # replica thread starts on the device's default stream, the one
         # its engine and cache were built and served on, and must never
         # run under another `torch.cuda.stream(...)` context.
+        start = getattr(run_lock, "start", None)
+        if start is not None:
+            start()
         for h in self.replicas:
             h.thread.start()
         # the pump: fleet admission and routing at each request's arrival
         for req in sorted(requests, key=lambda r: (r.arrival_s, r.rid)):
-            delay = self._t0 + req.arrival_s - time.perf_counter()
-            if delay > 0:
-                time.sleep(delay)
-            now = time.perf_counter() - self._t0
-            reason = self.admission.permanent_shed_reason(req)
-            if reason is not None:
-                self._fleet_shed(req, reason, now)
+            h, now = self._arrival(req, prefill_pool)
+            if h is None:
+                self._fleet_shed(req, self.admission.permanent_shed_reason(
+                    req), now)
                 continue
-            with self._lock:
-                h = self.router.pick(prefill_pool)
-                h.assigned += 1
+            self.decisions["routes"].append((req.rid, h.index))
             h.feed.push(req)
         # drain the prefill replicas first: their handoffs feed the decode
         # pool
@@ -652,8 +918,12 @@ class ServingFleet:
                 h.feed.close()
             for h in pool:
                 h.thread.join()
+        close = getattr(run_lock, "close", None)
+        if close is not None:
+            close()
         self._collect()
-        if self.trace_out and requests:
+        if self.trace_out and requests and (not self.over_mesh
+                                            or rank() == 0):
             from flexflow_tpu_torch.serving import tracefmt
             tracefmt.save_trace(
                 self.trace_out,
@@ -710,9 +980,13 @@ class ServingFleet:
             self.stats["rollout_swaps"] = len(self.rolling.swaps)
             self.stats["rollout_rollbacks"] = len(self.rolling.rollbacks)
             self.stats["rollout_halted"] = self.rolling.halted
+            self.decisions["swaps"] = list(self.rolling.swaps)
+            self.decisions["rollbacks"] = list(self.rolling.rollbacks)
+        if self.over_mesh:
+            self.stats["order"] = self.decisions
         tel.event("serve/fleet", cat="serve",
                   **{k: v for k, v in self.stats.items()
-                     if k != "per_replica"})
+                     if k not in ("per_replica", "order")})
 
     def report(self) -> Dict[str, Any]:
         """Fleet-wide observability: the exact cross-replica histogram

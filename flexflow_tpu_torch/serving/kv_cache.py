@@ -56,6 +56,9 @@ own host tier: the slot lands PARKED, so the ordinary rotation (refill on
 the side stream, then `join`) carries it to the device, bitwise the spill
 path. The import writes host pages on the host; a host page whose
 earlier refill may still be reading it on the card is waited for first.
+Over a mesh each rank hands its own heads through its own host tier and
+nothing crosses ranks; the payload names its block (`head_layout`), and
+an import into a cache holding another block raises.
 """
 
 from __future__ import annotations
@@ -267,6 +270,9 @@ class PagedKVCache:
         # transfers, for `transfer_times`
         self._timed: "collections.deque" = collections.deque(maxlen=512)
         self.host_syncs = 0  # spills that waited for their copy to land
+        # the handoff bytes this rank's host tier took in (its heads): the
+        # tier counters count every head, JAX's global figure
+        self.handoff_bytes_rank = 0
         self.tier_counters: Dict[str, int] = {
             "kv_spills": 0, "kv_refills": 0, "kv_prefetch_hits": 0,
             "kv_prefetch_stalls": 0, "kv_spilled_bytes": 0,
@@ -520,6 +526,14 @@ class PagedKVCache:
         return stalled
 
     # ------------------------------------------------------ replica handoff
+    def head_layout(self) -> tuple:
+        """Which heads this rank's pools hold: (degree, local heads, the
+        placements of the block). A handoff moves a rank's own block
+        through its own host tier, so both sides must hold the same."""
+        pl = self.head_placements
+        return (self.degree, self.local_heads,
+                None if pl is None else tuple(str(p) for p in pl))
+
     def export_parked(self, slot: int) -> Dict:
         """A PARKED slot's host-tier rows (every layer's values and, int8,
         scales, in the slot's page order) and its committed position, for
@@ -531,6 +545,7 @@ class PagedKVCache:
             raise ValueError(f"slot {slot} is not parked (spill it first)")
         idx = torch.tensor(host_ids, dtype=torch.long)
         return {"pos": int(self._pos[slot]), "pages": len(host_ids),
+                "heads": self.head_layout(),
                 "layers": {n: {key: buf.index_select(0, idx)
                                for key, buf in self._host[n].items()}
                            for n in self.attn_layers}}
@@ -542,11 +557,19 @@ class PagedKVCache:
     def import_parked(self, slot: int, payload: Dict) -> None:
         """Adopt a handed-off slot into this cache's host tier: it lands
         PARKED with its position kept, and the rotation refills and rejoins
-        it. Counts `kv_handoffs` and `kv_handoff_bytes` and writes a
+        it. Counts `kv_handoffs` and `kv_handoff_bytes` (every head, JAX's
+        count; `handoff_bytes_rank` this rank's heads) and writes a
         `kv_transfer` row (direction "handoff"). Raises `KVPoolExhausted`
-        when the host free list is short (backpressure)."""
+        when the host free list is short (backpressure), and `ValueError`
+        when the payload holds another block of heads than this cache."""
         if self._active[slot] or slot in self._cold:
             raise ValueError(f"slot {slot} is occupied")
+        theirs = payload.get("heads", self.head_layout())
+        if theirs != self.head_layout():
+            raise ValueError(
+                f"handoff across head layouts: the payload holds (degree, "
+                f"local heads, placements) {theirs}, this cache "
+                f"{self.head_layout()}")
         need = int(payload["pages"])
         if not self.can_import(payload):
             raise KVPoolExhausted(slot, need, len(self.free_host_pages))
@@ -567,6 +590,7 @@ class PagedKVCache:
         moved = self.spec.layers * need * self.spec.page_bytes()
         self.tier_counters["kv_handoffs"] += 1
         self.tier_counters["kv_handoff_bytes"] += moved
+        self.handoff_bytes_rank += moved // self.degree
         self._transfer_row("handoff", need, time.perf_counter() - t0)
 
     def tier_stats(self) -> Dict[str, int]:

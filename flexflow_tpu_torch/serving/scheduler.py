@@ -77,10 +77,16 @@ Policy, as in the JAX package:
   arrivals, the admission waves and sheds (TTFT budgets, deadlines), the
   watchdog, the prefill EMA and the KV tier's autotuned lead alike on
   every rank; the hot-swap poll is decided by rank 0 and broadcast
-  (`engine.poll_swap`). Telemetry goes, as in training over a mesh, to
-  each process's own file (`telemetry-<pid>.jsonl`), and the trace
-  export is written by rank 0 alone. The fleet hooks (`feed`, `control`,
-  `handoff`) are not ported over a mesh: `handoff=` raises there.
+  (`engine.poll_swap`). The broadcasts go on the engine's own gloo group
+  (`engine.host_group`), so the schedulers of a fleet's replicas, one
+  thread each on every rank, never pair one replica's read with
+  another's. Telemetry goes, as in training over a mesh, to each
+  process's own file (`telemetry-<pid>.jsonl`), and the trace export is
+  written by rank 0 alone. Under a fleet over a mesh the fleet hooks are
+  lockstep too (serving/fleet.py): the feed hands every rank's loop the
+  items rank 0's drained, the rolling swap's verdicts and the handoff's
+  routes are rank 0's, and `exec_lock` grants the card in rank 0's
+  order.
 
 Every outcome ends in one terminal record (`reqtrace.terminal_record`),
 which the engine's SLO tracker classifies and which rides the telemetry
@@ -255,10 +261,6 @@ class ContinuousBatchingScheduler:
                           and engine.mesh.size() > 1)
         # the trace export's one writer: rank 0 over a mesh
         self._writer = not self._lockstep or dist_rank() == 0
-        if self.handoff is not None and self._lockstep:
-            raise NotImplementedError(
-                "handoff= over a mesh: the multi-GPU fleet (disaggregated "
-                "handoff) is not ported yet (ROADMAP Queue 1 item 9)")
         if self.handoff is not None and self._spec:
             raise ValueError("prefill-only handoff does not compose with "
                              "speculative decoding (no draft-cache handoff)")
@@ -295,7 +297,7 @@ class ContinuousBatchingScheduler:
         if self._lockstep:
             from flexflow_tpu_torch.runtime.distributed import rank0_clock
 
-            return rank0_clock()
+            return rank0_clock(getattr(self.engine, "host_group", None))
         return time.perf_counter()
 
     def _now(self) -> float:

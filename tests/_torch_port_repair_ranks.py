@@ -172,3 +172,57 @@ def rank_sigterm_one_rank(root, flat):
         ended = f"preempted code {e.code}"
     return {"ended": ended, "iteration": cm._iteration,
             "snapshots": [s for s, _, _ in committed_snapshots(root)]}
+
+
+def quickstart_mlp(cfg):
+    """The quickstart notebook's MLP (64 -> 4096 relu -> 64 -> 10)."""
+    m = F.FFModel(cfg)
+    x = m.create_tensor([64, 64], name="x")
+    h = m.dense(x, 4096, activation="relu", name="up")
+    h = m.dense(h, 64, name="down")
+    m.dense(h, 10, name="head")
+    cm = m.compile(F.SGDOptimizer(lr=0.05), "sparse_categorical_crossentropy",
+                   ["accuracy"], device="cpu")
+    cm.init(seed=0)
+    return cm
+
+
+def rank_class_sharded_fit(xs, ys):
+    """The quickstart's MLP over {"data": 1, "model": 2} searched on the
+    H100 preset's machine (its pick splits the head over its classes), two
+    epochs, counting DTensor's functional all-gathers."""
+    import torch.distributed._functional_collectives as fc
+
+    from flexflow_tpu_torch.parallel import machine as mm
+
+    detect, gathers = mm.MachineSpec.detect, []
+    # every functional all-gather (torch's versions name them apart)
+    saved = {n: getattr(fc, n) for n in dir(fc)
+             if n.startswith("all_gather") and callable(getattr(fc, n))}
+
+    def h100(mesh_axes=None, dcn_axes=(), device=None):
+        m = detect(mesh_axes, dcn_axes, device)
+        return mm.MachineSpec(mesh_axes=dict(m.mesh_axes), chip="h100",
+                              dcn_axes=tuple(dcn_axes))
+
+    def counted(fn):
+        def call(*a, **kw):
+            gathers.append(1)
+            return fn(*a, **kw)
+        return call
+    mm.MachineSpec.detect = staticmethod(h100)
+    for n, fn in saved.items():
+        setattr(fc, n, counted(fn))
+    try:
+        cm = quickstart_mlp(F.FFConfig(batch_size=64, search_budget=8,
+                                       mesh_shape={"data": 1, "model": 2}))
+        hist = cm.fit(xs, ys, epochs=2, verbose=False)
+    finally:
+        mm.MachineSpec.detect = staticmethod(detect)
+        for n, fn in saved.items():
+            setattr(fc, n, fn)
+    return {"head": [list(d) if isinstance(d, (list, tuple)) else d
+                     for d in cm.strategy.op_shardings["head"].weights[
+                         "kernel"]],
+            "gathers": len(gathers), "losses": [h["loss"] for h in hist],
+            "accuracy": hist[-1]["accuracy"]}

@@ -423,6 +423,28 @@ def test_tier_swap_and_trace_modules_load_no_jax():
     assert out.stdout.strip() == str({n: [] for n in SERVING_MODULES})
 
 
+# the fleet over a mesh and the notebook over ranks: the modules they
+# changed or added to
+MESH_FLEET_MODULES = (
+    "flexflow_tpu_torch.runtime.distributed",
+    "flexflow_tpu_torch.parallel.machine",
+    "flexflow_tpu_torch.serving.fleet", "flexflow_tpu_torch.serving.kv_cache",
+    "flexflow_tpu_torch.serving.scheduler",
+    "flexflow_tpu_torch.serving.engine", "flexflow_tpu_torch.jupyter")
+
+
+def test_mesh_fleet_and_notebook_modules_load_no_jax():
+    """The fleet's turnstile and lockstep feed, the replicas' own groups,
+    the heads-sharded handoff and the notebook's `run_over_mesh`, each
+    module imported in turn into a fresh interpreter, load neither JAX nor
+    the JAX package."""
+    out = subprocess.run([sys.executable, "-c", _IMPORT_EACH,
+                          *MESH_FLEET_MODULES],
+                         cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == str({n: [] for n in MESH_FLEET_MODULES})
+
+
 def test_tiered_and_watching_engines_raise_without_cuda(monkeypatch,
                                                          tmp_path):
     """A tiered compile_serving, and one that watches a snapshot root from

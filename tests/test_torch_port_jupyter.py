@@ -5,11 +5,16 @@ The kernelspec bodies equal JAX's for the same config except the dropped
 XLA entry (`virtual_devices`, an XLA host device count, has no meaning for
 torch, and neither has the CPU pin the JAX package adds with it).
 `FFConfig.parse_args()` reads the spec's `FF_LAUNCH_ARGS` and
-`FLEXFLOW_PLATFORM`, and the port's one-device quickstart notebook runs
-cell by cell under `FLEXFLOW_PLATFORM=cpu`, its loss falling.
+`FLEXFLOW_PLATFORM`. The port's quickstart notebook runs cell by cell
+under `FLEXFLOW_PLATFORM=cpu`: its one-device part with no mesh, its loss
+falling; its mesh part over `run_over_mesh`'s 8 gloo ranks (JAX's
+{'data': 4, 'model': 2}, budget 8), whose searched layouts of up, down and
+head and up's sharded weight_view dims are exactly those of JAX's notebook
+on its 8-device CPU mesh, its loss falling.
 """
 
 import json
+import linecache
 import os
 import subprocess
 import sys
@@ -143,19 +148,69 @@ def test_spec_environment_compiles_and_fits_in_a_subprocess(tmp_path):
     assert out.stdout.split()[-3:] == ["16", "2", "cpu"]
 
 
+def _run_cells(srcs, ns, tag):
+    """Each cell as IPython runs one: its source kept in `linecache`, so
+    `inspect.getsource` reads back a function the cell defines."""
+    for i, src in enumerate(srcs):
+        name = f"<quickstart-{tag}-cell-{i}>"
+        linecache.cache[name] = (len(src), None, src.splitlines(True), name)
+        exec(compile(src, name, "exec"), ns)
+
+
 def test_quickstart_notebook_executes(monkeypatch):
-    """Every code cell of the port's one-device quickstart, in one
-    namespace, under FLEXFLOW_PLATFORM=cpu: compile, init, a fit whose
-    loss falls, the strategy JSON."""
+    """Every code cell of the port's quickstart's one-device part, in one
+    namespace, under FLEXFLOW_PLATFORM=cpu and no mesh: compile, init, a
+    fit whose loss falls, the strategy JSON."""
     monkeypatch.setenv("FLEXFLOW_PLATFORM", "cpu")
     monkeypatch.delenv("FF_LAUNCH_ARGS", raising=False)
     monkeypatch.setattr(sys, "argv", ["kernel"])
     assert os.path.dirname(notebook_path()).endswith(
         os.path.join("flexflow_tpu_torch", "jupyter"))
     ns = {}
-    for src in notebook_cells():
+    for src in notebook_cells(tag="one-device"):
         exec(compile(src, "<quickstart-cell>", "exec"), ns)
     assert ns["cm"].device.type == "cpu"
     assert ns["history"][-1]["loss"] < ns["history"][0]["loss"]
     assert ns["history"][-1]["accuracy"] > 0.3
     assert "up" in ns["st"]["ops"]
+
+
+def _dims(view_dims):
+    return [(d.size, d.degree, tuple(d.axes)) for d in view_dims]
+
+
+def test_quickstart_mesh_cells_match_jax_notebook(monkeypatch):
+    """The quickstart's mesh cells under FLEXFLOW_PLATFORM=cpu and no
+    kernel flags: `run_over_mesh` runs them over 8 gloo ranks of the
+    default {'data': 4, 'model': 2} with budget 8. The searched strategy's
+    layouts of up, down and head and up's weight_view dims equal JAX's
+    notebook's on its 8-device CPU mesh (its compile and sharded init
+    cells), and the loss falls over the mesh."""
+    import jax
+
+    assert len(jax.devices()) == 8
+    monkeypatch.setenv("FLEXFLOW_PLATFORM", "cpu")
+    monkeypatch.delenv("FF_LAUNCH_ARGS", raising=False)
+    monkeypatch.setattr(sys, "argv", ["kernel"])
+    ns = {}
+    _run_cells(notebook_cells(tag="mesh"), ns, "mesh")
+    mesh = ns["mesh"]
+    assert ns["mcfg"].mesh_shape == {"data": 4, "model": 2}
+    assert ns["mcfg"].search_budget == 8
+    jns = {}
+    jcells = notebook_cells(os.path.join(REPO, "examples", "notebooks",
+                                         "quickstart.ipynb"))
+    for src in jcells[:3]:  # the mesh, the compile, the sharded init
+        exec(compile(src, "<jax-quickstart-cell>", "exec"), jns)
+    jcm = jns["cm"]
+    jops = jcm.strategy.to_json()["ops"]
+    for name in ("up", "down", "head"):
+        assert mesh["strategy_json"]["ops"][name] == jops[name], name
+    assert {w: _dims(d) for w, d in mesh["views"].items()} == \
+        {w: _dims(jcm.weight_view("up", w).dims) for w in jcm.params["up"]}
+    assert any(d[1] > 1 for d in _dims(mesh["views"]["kernel"]))
+    assert mesh["strategy"].startswith("unity")
+    assert jcm.strategy.name.startswith("unity")
+    losses = [h["loss"] for h in mesh["history"]]
+    assert losses[-1] < losses[0] and mesh["history"][-1]["accuracy"] > 0.3
+    assert mesh["device"] == "cpu"
