@@ -630,6 +630,38 @@ Phases, each fatal on failure (nothing is caught to let the run exit 0):
         the live report: every request completes, and its report carries
         the live report's keys.
 
+22. The operator tools and the examples on the card (flexflow_tpu_torch/
+    tools/, flexflow_tpu_torch/examples/), run last, each check fatal:
+    (a) `python -m flexflow_tpu_torch.tools.trace_report` and `...monitor
+        --once --prom-file` as subprocesses over the telemetry of 11a's
+        first eager and K-step fits with telemetry on (the directories
+        phase 11 keeps for this phase): both exit 0; the Chrome document
+        passes `validate_chrome` and holds a fit/dispatch span a
+        dispatch; the monitor's step count is the fit's dispatches; every
+        sample line of the Prometheus file parses;
+    (b) `profile_attribution.run` on the card (the GPT-2 twin, SGD, with
+        fusion off: its head dim 16 is not the flash kernels', whose
+        wrapper raises on it; the fused SGD kept on) and its contract
+        (`verify`): the per-op times sum to the measured update, every
+        row priced, the drift top-K's worst op the one furthest off, a
+        non-empty corpus; #8 once an update, nothing else;
+    (c) `calibrate` on the `mlp` and `gpt2_medium_block` rows (phase 16's
+        MeasuredCost reused for the bf16 ops) and `measure_overlap` on one
+        stream and on two: every column finite and positive, #1-#3 and #8
+        launched;
+    (d) the `transformer_lm` example through the launcher in a
+        subprocess: exit 0, a finite FINAL loss, Adam (#7) and the fused
+        cross-entropy (#5, #6: GPT-2 tiny's vocab 5120 is a multiple of
+        128) once an update each; GPT-2 tiny trains at GPT2Config's
+        default dropout 0.1, whose attention takes the einsum path, so
+        #1-#3 stay at 0.
+    In (b), (c) and (d) each kernel's first launch at each new signature
+    (its tensors' shapes and dtypes) is also held against its plain
+    version on the same inputs, at the tolerances of the kernel's own
+    check (`ShadowKernels`): the CE kernels at GPT-2 tiny's logits, Adam
+    on its leaves, the plain SGD on the twin's and the mlp's, #1-#3 at
+    GPT-2 medium's block; a kernel launched but never so held fails.
+
 The line before the last is `{"kernels": [...]}`, and the one before it
 `{"ring_programs": [...]}` (the two ring programs, with the same keys);
 the last line is `{"ok": true, "device": {...}}`.
@@ -1450,6 +1482,171 @@ class PlainKernels:
             fail("a kernel launched inside the plain-version run")
 
 
+def _signature(args) -> tuple:
+    """A kernel call's shapes and dtypes: each tensor's, a list of
+    tensors as its length and total size, the plain scalars as they
+    are."""
+    out = []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            out.append(("x".join(map(str, a.shape)) or "()") + " "
+                       + str(a.dtype).replace("torch.", ""))
+        elif isinstance(a, (list, tuple)) and a and \
+                isinstance(a[0], torch.Tensor):
+            out.append(f"{len(a)} leaves of {sum(t.numel() for t in a)} "
+                       + str(a[0].dtype).replace("torch.", ""))
+        elif a is None or isinstance(a, (bool, int, float, str)):
+            out.append(a)
+    return tuple(out)
+
+
+def _max_abs(got, want) -> float:
+    return max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(got, want))
+
+
+def _shadow_flash_fwd(orig, q, k, v, causal, scale, out_dtype=None):
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    o, lse = orig(q, k, v, causal, scale, out_dtype)
+    ro, rlse = fa._fwd_plain(q, k, v, causal, scale, out_dtype)
+    return (o, lse), "flash_attention_fwd", [
+        ("O over max(1, max |plain|)", rel_err(o, ro), TOL[q.dtype]),
+        ("lse over max(1, max |plain|)", rel_err(lse, rlse), LSE_TOL)]
+
+
+def _shadow_flash_dq(orig, *args, **kw):
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    dq = orig(*args, **kw)
+    return dq, "flash_attention_dq", [
+        ("dQ over max(1, max |plain|)",
+         rel_err(dq, fa._dq_plain(*args, **kw)), TOL[args[0].dtype])]
+
+
+def _shadow_flash_dkv(orig, *args, **kw):
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    dk, dv = orig(*args, **kw)
+    rk, rv = fa._dkv_plain(*args, **kw)
+    return (dk, dv), "flash_attention_dkv", [
+        ("dK, dV over max(1, max |plain|)",
+         max(rel_err(dk, rk), rel_err(dv, rv)), TOL[args[0].dtype])]
+
+
+def _shadow_ce_fwd(orig, x2, y2):
+    from flexflow_tpu_torch.kernels import fused_ce as fc
+    loss, lse = orig(x2, y2)
+    return (loss, lse), "fused_ce_fwd", [
+        ("loss, lse max abs", _max_abs((loss, lse), fc._fwd_plain(x2, y2)),
+         CE_TOL["fwd"])]
+
+
+def _shadow_ce_bwd(orig, x2, y2, lse, g):
+    from flexflow_tpu_torch.kernels import fused_ce as fc
+    dx = orig(x2, y2, lse, g)
+    # the kernel divides the cotangent by N on the card
+    want = fc._bwd_plain(x2, y2, lse, g / x2.shape[0])
+    return dx, "fused_ce_bwd", [("dX ulps, element by element",
+                                 ulp_err(dx, want),
+                                 CE_TOL["bwd_ulps"][x2.dtype])]
+
+
+def _shadow_adam(orig, plan, gs, mus, nus, ps, sc):
+    from flexflow_tpu_torch.kernels import fused_optim as fo
+    want = [[t.clone() for t in ts] for ts in (mus, nus, ps)]
+    fo._adam_plain(plan, gs, *want, sc)
+    orig(plan, gs, mus, nus, ps, sc)
+    # check_adam's tolerances: the moments as max abs err over max |plain|
+    # per tensor, a stored bf16 moment one bf16 ulp (2**-8) away at most
+    merr = max(float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max().clamp_min(1e-30))
+               for a, b in zip(mus + nus, want[0] + want[1]))
+    mtol = 1e-6 if plan["state_dtype"] == torch.float32 else 2 ** -7
+    return None, "fused_adam", [("params max abs", _max_abs(ps, want[2]),
+                                 1e-6), ("moments relative", merr, mtol)]
+
+
+def _shadow_sgd(orig, plan, gs, traces, ps):
+    from flexflow_tpu_torch.kernels import fused_optim as fo
+    wt = None if traces is None else [t.clone() for t in traces]
+    wp = [p.clone() for p in ps]
+    fo._sgd_plain(plan, gs, wt, wp)
+    orig(plan, gs, traces, ps)
+    return None, ("fused_sgd_plain" if traces is None else "fused_sgd"), [
+        ("params and trace max abs",
+         _max_abs(ps + (traces or []), wp + (wt or [])), 1e-6)]
+
+
+class ShadowKernels:
+    """Inside the block, a kernel wrapper's first launch at each new
+    signature (`_signature`: its tensors' shapes and dtypes) also runs the
+    kernel's plain version on the same inputs (on copies of what the
+    kernel writes in place) and holds the two at the tolerances of the
+    kernel's own check: the kernels checked on the path's own data at the
+    path's shapes. A launch inside a CUDA graph capture is not shadowed (a
+    capture takes no sync). The path's counts stay its own: the plain
+    versions count nothing. `report()` is JSON; `check_shadow` fails on
+    it."""
+
+    def __enter__(self):
+        from flexflow_tpu_torch.kernels import flash_attention as fa
+        from flexflow_tpu_torch.kernels import fused_ce as fc
+        from flexflow_tpu_torch.kernels import fused_optim as fo
+        self.seen, self.checked = set(), {}
+        self.saved = []
+        for mod, name, shadow in ((fa, "_fwd_cuda", _shadow_flash_fwd),
+                                  (fa, "_dq_cuda", _shadow_flash_dq),
+                                  (fa, "_dkv_cuda", _shadow_flash_dkv),
+                                  (fc, "_fwd_cuda", _shadow_ce_fwd),
+                                  (fc, "_bwd_cuda", _shadow_ce_bwd),
+                                  (fo, "_adam_cuda", _shadow_adam),
+                                  (fo, "_sgd_cuda", _shadow_sgd)):
+            orig = getattr(mod, name)
+            self.saved.append((mod, name, orig))
+            setattr(mod, name, self._wrap(mod.__name__ + "." + name, orig,
+                                          shadow))
+        return self
+
+    def _wrap(self, where, orig, shadow):
+        def wrapped(*args, **kw):
+            key = (where, _signature(args))
+            if key in self.seen or torch.cuda.is_current_stream_capturing():
+                return orig(*args, **kw)
+            self.seen.add(key)
+            with torch.no_grad():
+                out, counter, errs = shadow(orig, *args, **kw)
+            self.checked.setdefault(counter, []).append(
+                {"signature": ", ".join(map(str, key[1])),
+                 "errs": [[what, err, tol] for what, err, tol in errs]})
+            return out
+        return wrapped
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+    def report(self) -> dict:
+        return {"checked": self.checked}
+
+
+def check_shadow(report: dict, counts: dict, label: str) -> None:
+    """Fails unless every kernel that `counts` shows launched was held
+    against its plain version at least once (`ShadowKernels`) and every
+    such check is within its tolerance; logs each check."""
+    checked = report["checked"]
+    for counter, checks in sorted(checked.items()):
+        for c in checks:
+            log(f"[{label}] {counter} at {c['signature']} against its plain "
+                "version on the path's inputs: " + ", ".join(
+                    f"{w} {e:.3e} (tolerance {t:.1e})"
+                    for w, e, t in c["errs"]))
+            if not all(e <= t for _, e, t in c["errs"]):
+                fail(f"{label}: {counter} disagrees with its plain version "
+                     f"on the path's inputs: {c}")
+    unchecked = [n for n, c in counts.items() if c and n not in checked]
+    if unchecked:
+        fail(f"{label}: {unchecked} launched but never held against the "
+             f"plain version (every launch inside a graph capture?)")
+
+
 def launch_counts() -> dict:
     """Every kernel wrapper's launch counter, by the kernel's name."""
     from flexflow_tpu_torch.kernels import launch_counts as counts
@@ -1570,13 +1767,18 @@ class _Range:
 class _Record:
     """What `_device_profile` reads of a profiler record (the fields of a
     FunctionEvent: name, device type, user annotation, start and end in
-    µs on the host's clock)."""
-    __slots__ = ("name", "device_type", "is_user_annotation", "time_range")
+    µs on the host's clock), and its correlation id: a kernel's is the id
+    of the launch call that enqueued it (a graph's kernels carry their
+    cudaGraphLaunch's)."""
+    __slots__ = ("name", "device_type", "is_user_annotation", "time_range",
+                 "correlation")
 
-    def __init__(self, name, device_type, annotation, start, end):
+    def __init__(self, name, device_type, annotation, start, end,
+                 correlation=0):
         self.name, self.device_type = name, device_type
         self.is_user_annotation, self.time_range = annotation, _Range(start,
                                                                      end)
+        self.correlation = correlation
 
 
 def _profile_records(prof) -> list:
@@ -1601,7 +1803,7 @@ def _profile_records(prof) -> list:
                                  else raw)
         out.append(_Record(name, e.device_type(), e.is_user_annotation(),
                            (e.start_ns() - t0) / 1e3,
-                           (e.end_ns() - t0) / 1e3))
+                           (e.end_ns() - t0) / 1e3, e.correlation_id()))
     return out
 
 
@@ -1619,18 +1821,28 @@ def _device_profile(fn, reps: int, dev: torch.device, lead=None) -> dict:
     milliseconds of device work after its window opens, whatever idle time
     precedes them (one layer's forward of a one-step GPT-2 or BERT window,
     five BERT layers of a replayed graph). Where the counts must be exact,
-    pass `lead`: it runs once inside the window before the counted calls,
-    a device sync and PROFILE_EDGE_S apart from them, and nothing of it is
-    counted (host events by their start, kernels by theirs, up to half of
-    PROFILE_EDGE_S early)."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    pass `lead`: it runs once in the profiler's warm-up step (its schedule's
+    `warmup`: the device tracing is already on and its records are
+    dropped), so the counted window opens on a profiler that has been
+    tracing, a device sync and PROFILE_EDGE_S before the counted calls.
+    The window's kernels are read by correlation: a kernel counts when
+    the runtime call that enqueued it (a cudaLaunchKernel, a copy, a
+    cudaGraphLaunch, on the host's clock) started in the counted range,
+    whatever time the device's converted clock gives the kernel (a window
+    read by the kernels' own times once held none of 18a's ring forward
+    kernels)."""
+    from torch.profiler import (ProfilerActivity, profile, record_function,
+                                schedule)
 
+    kw = {} if lead is None else {"schedule": schedule(
+        wait=0, warmup=1, active=1, repeat=1)}
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA], **kw) as prof:
         sync(dev)
         if lead is not None:
             lead()
             sync(dev)
+            prof.step()  # the warm-up step ends: the counted window opens
         time.sleep(PROFILE_EDGE_S)
         with record_function(COUNTED_RANGE):
             t0 = time.perf_counter()
@@ -1641,15 +1853,20 @@ def _device_profile(fn, reps: int, dev: torch.device, lead=None) -> dict:
         time.sleep(PROFILE_EDGE_S)
     cuda = torch.autograd.DeviceType.CUDA
     # the range's own device span (a user annotation) is no kernel
-    events = [e for e in _profile_records(prof)
-              if e.device_type != cuda or not (
-                  e.name == COUNTED_RANGE or e.is_user_annotation)]
-    first_us = min(e.time_range.start for e in events
+    records = [e for e in _profile_records(prof)
+               if e.device_type != cuda or not (
+                   e.name == COUNTED_RANGE or e.is_user_annotation)]
+    first_us = min(e.time_range.start for e in records
                    if e.name == COUNTED_RANGE)
-    events = [e for e in events if e.time_range.start >= first_us
-              or (e.device_type == cuda and
-                  e.time_range.start >= first_us - 5e5 * PROFILE_EDGE_S)]
-    kern = [e for e in events if e.device_type == cuda]
+    host = [e for e in records
+            if e.device_type != cuda and e.time_range.start >= first_us]
+    # the CUDA API calls (launches, copies, sets) of the range: every
+    # device record the range enqueued carries one's id
+    launched = {e.correlation for e in host
+                if e.name.startswith(("cuda", "cu"))}
+    kern = [e for e in records if e.device_type == cuda
+            and e.correlation in launched]
+    events = host + kern
     launch_us = min((e.time_range.start for e in events
                      if e.name in LAUNCH_CALLS), default=None)
     # gathers `pool[table]` (and any other advanced-index read) on the host
@@ -4377,9 +4594,11 @@ def p11_serving(engine, params, prompts, tdir: str) -> dict:
 P11_LAYERS = 6
 
 
-def phase11(seed: int) -> dict:
+def phase11(seed: int, keep_tel: str = "") -> dict:
     """Phase 11 on GPT-2 medium as 5b trains it at P11_LAYERS deep (11d at
-    FIT_LAYERS), in a temporary directory removed at the end."""
+    FIT_LAYERS), in a temporary directory removed at the end; 11a's
+    telemetry moves to `keep_tel` first when one is given (phase 22
+    reads it)."""
     import shutil
     import tempfile
 
@@ -4404,6 +4623,8 @@ def phase11(seed: int) -> dict:
         collect_garbage()
         torch.cuda.empty_cache()
         out["halt"] = p11_halt(seed, os.path.join(root, "ckpt"))
+        if keep_tel:
+            shutil.move(os.path.join(root, "tel"), keep_tel)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     out["wall_s"] = time.perf_counter() - t_phase
@@ -6978,6 +7199,7 @@ def phase16(seed: int, graph_5b: dict) -> dict:
     card = card_line()
     out["wall_s"] = time.perf_counter() - t_phase
     out["walls_s"] = walls
+    out["measured_cost"] = mc  # phase 22's calibrate reuses its cache
     log(f"[phase 16] {out['wall_s']:.1f} s on {card} ("
         + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()) + ")")
     return out
@@ -9517,6 +9739,262 @@ def phase21(res: dict) -> dict:
     return out
 
 
+
+# ------------------------------- phase 22: the operator tools on the card
+P22_TIMEOUT_S = 300
+P22_EXAMPLE = os.path.join("flexflow_tpu_torch", "examples", "native",
+                           "transformer_lm.py")
+P22_EXAMPLE_ARGS = ("-b", "8", "-e", "1")
+P22_CALIBRATE = ("mlp", "gpt2_medium_block")
+# the launcher's main in a subprocess, the kernels' counters around it
+P22_RUNNER = r"""
+import json, sys
+from chip_smoke import ShadowKernels, launch_counts, zero_launch_counts
+from flexflow_tpu_torch.__main__ import main
+
+zero_launch_counts()
+with ShadowKernels() as shadow:
+    rc = main(sys.argv[1:])
+print("P22D " + json.dumps({"rc": rc, "launches": launch_counts(),
+                            "shadow": shadow.report()}))
+"""
+
+
+# what phase 17a leaves in this process's environment for its world-1 group:
+# a subprocess that found it would rendezvous as torchrun's rank
+P22_DROP_ENV = ("FLEXFLOW_PLATFORM", "FF_LAUNCH_ARGS", "WORLD_SIZE", "RANK",
+                "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR",
+                "MASTER_PORT")
+
+
+def _p22_env() -> dict:
+    env = {k: v for k, v in os.environ.items() if k not in P22_DROP_ENV}
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def _prom_samples(text: str) -> dict:
+    """The sample lines of a Prometheus text export, each parsed; fails on
+    a line that does not parse."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("# "):
+            continue
+        m = re.fullmatch(r"([a-zA-Z_:][a-zA-Z0-9_:]*(?:\{[^}]*\})?) (\S+)",
+                         line)
+        if m is None or not math.isfinite(float(m.group(2))):
+            fail(f"22a: a Prometheus line does not parse: {line!r}")
+        out[m.group(1)] = float(m.group(2))
+    return out
+
+
+def p22_start(tel_root: str, tmpdir: str) -> dict:
+    """22(a) and 22(d) started together: the two tools over each kept
+    telemetry directory and the example through the launcher, each a
+    subprocess (the tools use no device)."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    procs = {}
+    for k in (1, GRAPH_K):
+        src = os.path.join(tel_root, f"k{k}-1")
+        cmds = {"trace_report": ["flexflow_tpu_torch.tools.trace_report",
+                                 src, "--out",
+                                 os.path.join(tmpdir, f"k{k}.trace.json")],
+                "monitor": ["flexflow_tpu_torch.tools.monitor", src,
+                            "--once", "--prom-file",
+                            os.path.join(tmpdir, f"k{k}.prom")]}
+        for tool, args in cmds.items():
+            procs[f"k{k} {tool}"] = [sys.executable, "-m", *args]
+    procs["example"] = [sys.executable, "-c", P22_RUNNER,
+                        *P22_EXAMPLE_ARGS, os.path.join(repo, P22_EXAMPLE)]
+    t0 = time.perf_counter()
+    return {"t0": t0, "procs": {
+        tag: (cmd, subprocess.Popen(cmd, cwd=tmpdir, env=_p22_env(),
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+        for tag, cmd in procs.items()}}
+
+
+def p22_finish(started: dict, tmpdir: str, p11_runs: dict) -> dict:
+    """Wait for 22(a)'s and 22(d)'s subprocesses and check them."""
+    from flexflow_tpu_torch.tools.trace_report import validate_chrome
+
+    outs = {}
+    for tag, (cmd, proc) in started["procs"].items():
+        try:
+            out, err = proc.communicate(timeout=P22_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            fail(f"22: `{' '.join(cmd[1:])}` ran past {P22_TIMEOUT_S} s")
+        if proc.returncode != 0:
+            fail(f"22: `{' '.join(cmd[1:])}` exited {proc.returncode}:\n"
+                 f"{out[-2000:]}\n{err[-3000:]}")
+        outs[tag] = out
+    res = {"wall_s": time.perf_counter() - started["t0"], "tools": {}}
+    for k in (1, GRAPH_K):
+        dispatches = p11_runs[f"k{k}"][1]["step_stats"]["dispatches"]
+        with open(os.path.join(tmpdir, f"k{k}.trace.json")) as fh:
+            doc = json.load(fh)
+        problems = validate_chrome(doc)
+        spans = sum(e.get("ph") == "X" and e.get("name") == "fit/dispatch"
+                    for e in doc["traceEvents"])
+        steps = re.search(r"^steps .*\(n=(\d+)\)$",
+                          outs[f"k{k} monitor"], re.M)
+        with open(os.path.join(tmpdir, f"k{k}.prom")) as fh:
+            prom = _prom_samples(fh.read())
+        got = {"dispatches": dispatches, "chrome_events":
+               len(doc["traceEvents"]), "chrome_problems": problems,
+               "chrome_dispatch_spans": spans,
+               "monitor_steps": int(steps.group(1)) if steps else None,
+               "prom_samples": len(prom),
+               "prom_step_time_s": prom.get("flexflow_step_time_seconds"),
+               "prom_goodput": prom.get("flexflow_goodput_ratio")}
+        log(f"[22a K={k}] trace_report: {got['chrome_events']} Chrome "
+            f"events, {spans} fit/dispatch spans, problems {problems}; "
+            f"monitor: {got['monitor_steps']} steps, "
+            f"{got['prom_samples']} Prometheus samples (step "
+            f"{got['prom_step_time_s']} s, goodput {got['prom_goodput']});"
+            f" the fit's dispatches {dispatches}")
+        if problems or spans != dispatches or \
+                got["monitor_steps"] != dispatches or \
+                got["prom_step_time_s"] is None or \
+                got["prom_goodput"] is None:
+            fail(f"22a K={k}: {got}")
+        res["tools"][f"k{k}"] = got
+    lines = [l for l in outs["example"].splitlines()
+             if l.startswith(("P22D ", "FINAL "))]
+    ex = json.loads([l for l in lines if l.startswith("P22D ")][-1][5:])
+    final = [l for l in lines if l.startswith("FINAL ")]
+    loss = float(final[-1].split("loss=")[1]) if final else float("nan")
+    ex.update(loss=loss, command="python -m flexflow_tpu_torch "
+              + " ".join(P22_EXAMPLE_ARGS) + " " + P22_EXAMPLE)
+    batch, epochs = int(P22_EXAMPLE_ARGS[1]), int(P22_EXAMPLE_ARGS[3])
+    updates = 4 * epochs  # the example trains on 4 batches an epoch
+    # Adam and the fused cross-entropy (GPT-2 tiny's vocab 5120 is a
+    # multiple of 128) once an update each
+    want = {n: 0 for n in ex["launches"]}
+    want.update(fused_adam=updates, fused_ce_fwd=updates,
+                fused_ce_bwd=updates)
+    log(f"[22d] `{ex['command']}` exited 0: FINAL loss {loss}, launches "
+        f"{ex['launches']} (batch {batch}; expected Adam and each CE "
+        f"kernel {updates}, the attention on the einsum path at dropout "
+        f"0.1)")
+    if ex["rc"] != 0 or not math.isfinite(loss) or ex["launches"] != want:
+        fail(f"22d: {ex}, expected launches {want}")
+    check_shadow(ex["shadow"], ex["launches"], "22d")
+    res["example"] = ex
+    return res
+
+
+def p22_attribution() -> dict:
+    """22(b): profile_attribution's run on the card and its contract."""
+    from flexflow_tpu_torch.tools import profile_attribution
+
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    with ShadowKernels() as shadow:
+        res = profile_attribution.run(device="cuda", verbose=False)
+    torch.cuda.synchronize()
+    res["launches"] = launch_counts()
+    res["shadow"] = shadow.report()
+    res["wall_s"] = time.perf_counter() - t0
+    try:
+        profile_attribution.verify(res)
+    except AssertionError as e:
+        fail(f"22b: the attribution contract fails on the card: {e}")
+    updates = res["epochs"] * 8  # 64 samples at batch 8 an epoch
+    want = {n: 0 for n in res["launches"]}
+    want["fused_sgd_plain"] = updates
+    log(f"[22b] {res['model']} on {res['device']}: {res['rows']} op rows "
+        f"({res['source']}), attributed/step "
+        f"{res['attributed_over_step']:.4f} (tolerance "
+        f"{res['sum_tolerance']}), step {1e3 * res['step_time_s']:.3f} ms, "
+        f"worst mispriced {res['worst_mispriced_op']} (explains "
+        f"{res['top_drift_explained']:.3f}), {res['corpus_rows']} corpus "
+        f"rows, launches {res['launches']}, {res['wall_s']:.1f} s")
+    if res["launches"] != want:
+        fail(f"22b: launches {res['launches']}, expected {want}")
+    check_shadow(res["shadow"], res["launches"], "22b")
+    return res
+
+
+def p22_calibrate(mc16) -> dict:
+    """22(c): calibrate's rows of P22_CALIBRATE on the card (phase 16's
+    MeasuredCost for the bf16 ops) and the overlap probe."""
+    from flexflow_tpu_torch.tools import calibrate
+
+    collect_garbage()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    with ShadowKernels() as shadow:
+        rows, machine = calibrate.calibrate(
+            P22_CALIBRATE, device="cuda", measured_costs={"bfloat16": mc16})
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    overlap = calibrate.measure_overlap("cuda")
+    out = {"machine": machine.chip, "rows": rows, "launches": counts,
+           "shadow": shadow.report(), "overlap": overlap,
+           "wall_s": time.perf_counter() - t0}
+    for r in rows:
+        log(f"[22c] {r['workload']} ({r['compute_dtype']}): analytic "
+            f"{r['analytic_ms']:.4f}, simulated {r['simulated_ms']:.4f}, "
+            f"measured {r['measured_ms']:.4f}, step {r['step_ms']:.4f} ms "
+            f"(windows {[round(w, 4) for w in r['step_windows_ms']]}, "
+            f"spread {r['spread']:.3f}, reliable {r['reliable']}); over "
+            f"the step {r['analytic_over_step']:.3f} / "
+            f"{r['simulated_over_step']:.3f} / "
+            f"{r['measured_over_step']:.3f}")
+        nums = [r[k] for k in ("analytic_ms", "simulated_ms", "measured_ms",
+                               "step_ms", "last_loss")]
+        if not all(math.isfinite(x) and x > 0 for x in nums):
+            fail(f"22c: {r['workload']}: {r}")
+    log(f"[22c] overlap probe: {overlap}; launches {counts}; "
+        f"{out['wall_s']:.1f} s on machine {machine.chip}")
+    times = [overlap[k] for k in ("t_mm_ms", "t_mem_ms",
+                                  "t_both_same_stream_ms",
+                                  "t_both_two_streams_ms")]
+    if machine.chip != "h100" or not all(
+            t is not None and math.isfinite(t) and t > 0 for t in times):
+        fail(f"22c: machine {machine.chip}, overlap {overlap}")
+    if min(counts[n] for n in ("flash_attention_fwd", "flash_attention_dq",
+                               "flash_attention_dkv", "fused_sgd_plain")) \
+            <= 0 or any(counts[n] for n in counts if n not in (
+                "flash_attention_fwd", "flash_attention_dq",
+                "flash_attention_dkv", "fused_sgd_plain")):
+        fail(f"22c: launches {counts}")
+    check_shadow(out["shadow"], counts, "22c")
+    return out
+
+
+def phase22(tel_root: str, p11_runs: dict, mc16) -> dict:
+    """Phase 22 (module docstring), in a temporary directory removed at
+    the end."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tmpdir = tempfile.mkdtemp(prefix="ff_p22_")
+    try:
+        started = p22_start(tel_root, tmpdir)
+        out = p22_finish(started, tmpdir, p11_runs)
+        out["attribution"] = p22_attribution()
+        out["calibrate"] = p22_calibrate(mc16)
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+    collect_garbage()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[phase 22] {out['wall_s']:.1f} s on {card_line()} (22a and 22d "
+        f"{out['wall_s'] - out['attribution']['wall_s'] - out['calibrate']['wall_s']:.1f} s, "
+        f"22b {out['attribution']['wall_s']:.1f} s, 22c "
+        f"{out['calibrate']['wall_s']:.1f} s)")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -9746,8 +10224,14 @@ def main() -> None:
         for t, g in graph.items()))
 
     # ---- 11. telemetry, run health and per-op attribution (11f ran with
-    # phase 3's int8 leg)
-    health11 = phase11(args.seed)
+    # phase 3's int8 leg); 11a's telemetry is kept for phase 22
+    import atexit
+    import shutil
+    import tempfile
+
+    keep11 = tempfile.mkdtemp(prefix="ff_p11_tel_")
+    atexit.register(shutil.rmtree, keep11, True)
+    health11 = phase11(args.seed, keep_tel=os.path.join(keep11, "tel"))
     health11["serving"] = serve_telemetry
 
     # ---- 12. the tiered KV cache, hot-swap and rollback, request tracing,
@@ -9760,8 +10244,6 @@ def main() -> None:
                         cut_runs)
     # ---- 13. the serving fleet (identity, colocated against disagg, the
     # rolling swap and its rollback, scaling) and the capacity twin
-    import tempfile
-
     keep13 = tempfile.mkdtemp(prefix="ff_p13_snapshots_")
     serving13 = phase13(gcc, params, prompts, cut_streams, args.seed,
                         serving12["tier"]["int8"]["host_bw_GBps"] * 1e9,
@@ -9778,6 +10260,7 @@ def main() -> None:
     # ---- 16. the task-graph simulator, MCMC, the learned cost model and
     # its refit loop on config #5; the native core, Jupyter, the C API
     p16 = phase16(args.seed, graph["5b"])
+    mc16 = p16.pop("measured_cost")
     # ---- 17. multi-GPU, first part: config #5 over a world-1 NCCL mesh
     # against the plain compile, two ranks on the card over gloo (zero
     # off, zero1, zero2, a model axis, as far as gloo carries), the
@@ -9803,8 +10286,6 @@ def main() -> None:
     # and snapshots (one replica against the plain mesh scheduler,
     # colocated and disaggregated, the rolling swap and its rollback, the
     # twin)
-    import shutil
-
     try:
         p20 = phase20(args.seed, prompts, streams, p21_inputs(
             gcc, params_host, prompts, serving13.pop("snapshots")))
@@ -9812,6 +10293,12 @@ def main() -> None:
         shutil.rmtree(keep13, ignore_errors=True)
     del params_host
     p21 = phase21(p20.pop("21"))
+    # ---- 22. the operator tools and the examples on the card: the trace
+    # report and the monitor over 11a's telemetry, the attribution run,
+    # calibrate's rows and the overlap probe, the transformer_lm example
+    # through the launcher
+    p22 = phase22(os.path.join(keep11, "tel"), health11["telemetry"], mc16)
+    del mc16
 
     # launches on the main paths: both serving runs, the 12 Adam training
     # steps and the Adam fit epoch, the 12 padded-vocab SGD steps and the
@@ -9950,6 +10437,11 @@ def main() -> None:
     for rank, c in enumerate(p16["16e"]["quickstart_mesh"][
             "launches_by_rank"]):
         paths9[f"p16e_quickstart_mesh_rank{rank}"] = c
+    # phase 22's: the attribution twin (#8), calibrate's rows (#1-#3 on
+    # GPT-2 medium's block, #8), the example (#5-#7)
+    paths["p22b_profile_attribution"] = p22["attribution"]["launches"]
+    paths["p22c_calibrate"] = p22["calibrate"]["launches"]
+    paths["p22d_transformer_lm_example"] = p22["example"]["launches"]
     for r in rows:
         causal = r.get("causal")
         counted = (paths if causal else paths9 if causal is False
@@ -9982,6 +10474,7 @@ def main() -> None:
     log(json.dumps({"phase19": p19}, default=str))
     log(json.dumps({"phase20": p20}, default=str))
     log(json.dumps({"phase21": p21}, default=str))
+    log(json.dumps({"phase22": p22}, default=str))
     log(json.dumps({"ring_programs": ring_program_rows(p18, card)}))
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -288,7 +288,8 @@ def build_report(items: List[Dict[str, Any]],
                  tag: Optional[str] = None,
                  device=None,
                  compute_dtype: str = "float32",
-                 state_fn=None) -> Dict[str, Any]:
+                 state_fn=None, enable_fusion: bool = True
+                 ) -> Dict[str, Any]:
     """Assemble the attribution report (JAX's arguments and keys).
 
     items: one dict per placed op, {"layer", "cand", "machine",
@@ -305,14 +306,15 @@ def build_report(items: List[Dict[str, Any]],
     (the compile's); with `inference` it times the forward only.
     state_fn(layer, rows): the lowering state a measured op reads (the
     serving engine's synthetic paged cache for a decode attention), for
-    the layer as one device runs it. `coverage`:
+    the layer as one device runs it. enable_fusion: the compile's
+    --fusion (MeasuredCost times the routes the program runs). `coverage`:
     on the trace path the share of the trace's device time credited to a
     layer; on the measure path the isolated times' sum over the step
     (JAX's).
     """
     rows, att = measure_rows(items, step_time_s, mult, profile_dir, source,
                              measure_repeats, measure_warmup, inference,
-                             device, compute_dtype, state_fn)
+                             device, compute_dtype, state_fn, enable_fusion)
     return assemble_report(rows, att, step_time_s, mult, emit, tag)
 
 
@@ -321,7 +323,8 @@ def measure_rows(items: List[Dict[str, Any]],
                  profile_dir: Optional[str] = None, source: str = "auto",
                  measure_repeats: int = 3, measure_warmup: int = 1,
                  inference: bool = False, device=None,
-                 compute_dtype: str = "float32", state_fn=None):
+                 compute_dtype: str = "float32", state_fn=None,
+                 enable_fusion: bool = True):
     """`build_report`'s rows before the step time rescales them: (rows,
     the trace's attribution or None). On the trace path a row's
     measured_s is its whole-run trace credit in seconds. A pipelined
@@ -357,7 +360,8 @@ def measure_rows(items: List[Dict[str, Any]],
                                    device=device,
                                    compute_dtype=compute_dtype,
                                    forward_only=inference,
-                                   state_fn=state_fn)
+                                   state_fn=state_fn,
+                                   enable_fusion=enable_fusion)
         return mcs[fp]
 
     rows: List[Dict[str, Any]] = []

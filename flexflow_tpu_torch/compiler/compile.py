@@ -118,6 +118,8 @@ a CUDA device they raise unless the caller passes `device="cpu"`.
 
 from __future__ import annotations
 
+import contextlib
+import logging
 import os
 import time
 import warnings
@@ -362,6 +364,47 @@ def _pick_strategy(model, machine: MachineSpec, optimizer=None,
     return strategy
 
 
+def apply_log_level(cfg) -> None:
+    """The config's `log_level` on the package's logger (never over a
+    level the application set), as JAX's compile applies it."""
+    level = getattr(logging, cfg.log_level.upper(), None)
+    if not isinstance(level, int):
+        raise ValueError(f"unknown log_level {cfg.log_level!r}")
+    lg = logging.getLogger("flexflow_tpu_torch")
+    if lg.level == logging.NOTSET:
+        lg.setLevel(level)
+
+
+@contextlib.contextmanager
+def matmul_precision(cfg):
+    """The config's `allow_tensor_op_math_conversion` for one program, as
+    JAX applies its matmul precision per program: with False, every
+    float32 product inside at full float32 precision (TF32 off for cuBLAS
+    and cuDNN), the process's settings restored after; with True, the
+    process's settings as they are."""
+    if cfg.allow_tensor_op_math_conversion:
+        yield
+        return
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def compile_serving(model, **kwargs):
+    """The serving compile (serving/engine.py `compile_serving`), under
+    JAX's second name for it."""
+    from flexflow_tpu_torch.serving.engine import \
+        compile_serving as _compile_serving
+
+    return _compile_serving(model, **kwargs)
+
+
 def compile_model(model, optimizer, loss_type, metrics: Sequence = (),
                   device=None, outputs=None) -> "CompiledModel":
     """The training program of `model`'s graph, its outputs `outputs`
@@ -373,6 +416,7 @@ def compile_model(model, optimizer, loss_type, metrics: Sequence = (),
     (runtime/faults.py), as the JAX compile does."""
     device = resolve_device(device)
     cfg = model.config
+    apply_log_level(cfg)
     if cfg.telemetry_dir:
         tel.configure(cfg.telemetry_dir, max_mb=cfg.telemetry_max_mb)
     if cfg.fault_plan:
@@ -977,19 +1021,21 @@ class CompiledModel:
         inputs, label = self._feed(inputs, label)
         order = [(l, w) for l, ws in params.items() for w, t in ws.items()
                  if t.requires_grad]
-        outs, new_state = self.forward_fn(params, state, inputs,
-                                          training=True, rng=rng)
-        logits = outs[0]
-        loss = self._loss(logits, label)
-        for (ln, wn), terms in self._regularizers.items():
-            w = params[ln][wn].float()
-            for mode, lam in terms:
-                loss = loss + lam * (w.abs().sum() if mode == "l1"
-                                     else (w * w).sum())
-        # a param the outputs do not reach (compiled with `outputs=` short
-        # of the last layer) gets a zero gradient, as jax.grad gives it
-        flat = torch.autograd.grad(loss, [params[l][w] for l, w in order],
-                                   allow_unused=True)
+        with matmul_precision(self.cfg):
+            outs, new_state = self.forward_fn(params, state, inputs,
+                                              training=True, rng=rng)
+            logits = outs[0]
+            loss = self._loss(logits, label)
+            for (ln, wn), terms in self._regularizers.items():
+                w = params[ln][wn].float()
+                for mode, lam in terms:
+                    loss = loss + lam * (w.abs().sum() if mode == "l1"
+                                         else (w * w).sum())
+            # a param the outputs do not reach (compiled with `outputs=`
+            # short of the last layer) gets a zero gradient, as jax.grad
+            # gives it
+            flat = torch.autograd.grad(loss, [params[l][w] for l, w in order],
+                                       allow_unused=True)
         grads: Dict[str, Dict[str, torch.Tensor]] = {}
         for (l, w), g in zip(order, flat):
             grads.setdefault(l, {})[w] = (torch.zeros_like(params[l][w])
@@ -1179,7 +1225,8 @@ class CompiledModel:
     @torch.no_grad()
     def eval_step(self, params, state, inputs, label):
         inputs, label = self._feed(inputs, label)
-        outs, _ = self.forward_fn(params, state, inputs)
+        with matmul_precision(self.cfg):
+            outs, _ = self.forward_fn(params, state, inputs)
         logits = outs[0].float()
         loss = _full(compute_loss(self.loss_type, logits, label))
         return loss, compute_metrics(self.metrics, _full(logits),
@@ -1193,7 +1240,8 @@ class CompiledModel:
         else:
             ins = [self._put(x, self.input_placements(t))
                    for x, t in zip(inputs, self.model.input_tensors)]
-        outs, _ = self.forward_fn(params, state, ins)
+        with matmul_precision(self.cfg):
+            outs, _ = self.forward_fn(params, state, ins)
         return outs
 
     def _coerce_batch(self, batch_size: Optional[int]) -> int:
@@ -1910,7 +1958,8 @@ class CompiledModel:
             items, step_time_s=step_time_s,
             mult=max(1, int(self._accum_steps)),
             profile_dir=profile_dir, source=source, device=self.device,
-            compute_dtype=self.cfg.compute_dtype)
+            compute_dtype=self.cfg.compute_dtype,
+            enable_fusion=self.cfg.enable_fusion)
         if print_table:
             for line in attribution.format_report(report, top=top):
                 print(line)
@@ -1926,7 +1975,8 @@ class CompiledModel:
 
         mc = MeasuredCost(self.machine, repeats=3, warmup=1, cache_dir="",
                           device=self.device,
-                          compute_dtype=self.cfg.compute_dtype)
+                          compute_dtype=self.cfg.compute_dtype,
+                          enable_fusion=self.cfg.enable_fusion)
         rows = []
         for layer in self.model.layers:
             cand = self._candidate_for(layer)
@@ -1953,6 +2003,19 @@ class CompiledModel:
                 print(f"{x['layer'][:28]:28} {x['op'][:18]:18} "
                       f"{x['analytic_us']:9.1f}u {x['measured_us']:9.1f}u "
                       f"{100 * x['measured_us'] / total:4.1f}%")
+            from flexflow_tpu_torch.search import memo
+
+            stats = self.search_cache_stats()
+            cs, dp = stats["strategy_cache"], stats["dp"]
+            info = self.search_cache_info or {}
+            print(f"[strategy-cache] this_compile="
+                  f"{info.get('event', 'off/skipped')} "
+                  f"hits={cs['hits']} misses={cs['misses']} "
+                  f"stores={cs['stores']} invalidated={cs['invalidated']}")
+            print(f"[search] dp_calls={dp.get('calls', 0)} "
+                  f"expansions={dp.get('expansions', 0)} "
+                  f"prefix_skipped_layers={dp.get('layers_skipped', 0)}; "
+                  f"{memo.stats_line()}")
             mem = self.memory_stats()
             mb = 1024 * 1024
             print(f"[memory] predicted/device: weight-state "

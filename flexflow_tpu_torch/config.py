@@ -98,6 +98,14 @@ class FFConfig:
     # caps each JSONL segment (0 = unbounded)
     telemetry_dir: str = ""
     telemetry_max_mb: float = 512.0
+    # the "flexflow_tpu_torch" logger's level, set at compile unless the
+    # application set one
+    log_level: str = "info"
+    # False: every float32 product of the compiled model's steps and
+    # forward at full float32 precision (TF32 off for cuBLAS and cuDNN
+    # while they run, compile.matmul_precision); True leaves PyTorch's
+    # precision settings as they are
+    allow_tensor_op_math_conversion: bool = True
     # numerics sentinels (health.py): the grad norm and a non-finite flag
     # folded into the step's deferred metrics and read at fit's existing
     # syncs; halt_on_nonfinite raises NonFiniteError naming the last
@@ -300,6 +308,19 @@ class FFConfig:
         if "none" not in pols:
             pols = ("none",) + pols
         return pols
+
+    @property
+    def total_devices(self) -> int:
+        """The mesh's devices; without a mesh, the world's (one device a
+        rank: 1 when no process group is started)."""
+        if self.mesh_shape:
+            n = 1
+            for v in self.mesh_shape.values():
+                n *= v
+            return n
+        from flexflow_tpu_torch.runtime.distributed import world_size
+
+        return world_size()
 
     @staticmethod
     def build_parser() -> argparse.ArgumentParser:

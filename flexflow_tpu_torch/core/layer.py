@@ -14,7 +14,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 from flexflow_tpu_torch.core.tensor import Tensor, TensorSpec
-from flexflow_tpu_torch.ops.op_type import OperatorType
+from flexflow_tpu_torch.ops.op_type import WEIGHTED_OPS, OperatorType
 
 
 def _freeze(v):
@@ -42,6 +42,10 @@ class Layer:
         self.weight_specs: Dict[str, TensorSpec] = {}
         self.branches: Optional[List[Tuple[List["Layer"], Tensor, Tensor]]] \
             = None
+
+    @property
+    def has_weights(self) -> bool:
+        return self.op_type in WEIGHTED_OPS
 
     def add_output(self, spec: TensorSpec, idx: int = 0,
                    name: Optional[str] = None) -> Tensor:

@@ -69,6 +69,10 @@ class Tensor:
         return self.spec.shape
 
     @property
+    def dims(self) -> Tuple[int, ...]:
+        return self.spec.shape
+
+    @property
     def dtype(self) -> DataType:
         return self.spec.dtype
 

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import enum
 
+import numpy as np
 import torch
 
 
@@ -24,6 +25,13 @@ class DataType(enum.Enum):
     @property
     def torch_dtype(self) -> torch.dtype:
         return _TORCH[self]
+
+    @property
+    def np_dtype(self):
+        """The numpy type of a host array of this dtype. numpy has no
+        bfloat16: BF16's host arrays are float32, as the port's host copies
+        of bf16 tensors are (convert.py)."""
+        return _NP[self]
 
     @property
     def itemsize(self) -> int:
@@ -53,6 +61,17 @@ _TORCH = {
     DataType.BF16: torch.bfloat16,
     DataType.FLOAT: torch.float32,
     DataType.DOUBLE: torch.float64,
+}
+
+
+_NP = {
+    DataType.BOOL: np.bool_,
+    DataType.INT32: np.int32,
+    DataType.INT64: np.int64,
+    DataType.HALF: np.float16,
+    DataType.BF16: np.float32,
+    DataType.FLOAT: np.float32,
+    DataType.DOUBLE: np.float64,
 }
 
 

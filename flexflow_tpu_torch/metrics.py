@@ -56,6 +56,12 @@ class PerfMetrics:
     _dev_chunks: Dict[str, List] = dataclasses.field(
         default_factory=dict, repr=False)
 
+    def update(self, batch: int, values: Dict[str, float]):
+        """Add host values now (the synchronous loop's accumulation)."""
+        self.train_all += batch
+        for k, v in values.items():
+            self.sums[k] = self.sums.get(k, 0.0) + v * batch
+
     def update_deferred(self, batch: int, values: Dict[str, torch.Tensor]):
         """Queue device scalars; nothing is read to the host here."""
         self.train_all += batch
@@ -63,6 +69,10 @@ class PerfMetrics:
             self._pending.append((batch, dict(values)))
             if len(self._pending) >= self.fold_after:
                 self._fold_on_device()
+
+    @property
+    def pending_updates(self) -> int:
+        return len(self._pending)
 
     def _fold_on_device(self):
         chunk: Dict[str, torch.Tensor] = {}
@@ -74,13 +84,15 @@ class PerfMetrics:
             self._dev_chunks.setdefault(k, []).append(v)
         self._pending.clear()
 
-    def materialize(self) -> None:
+    def materialize(self) -> bool:
         """Drain deferred updates into host `sums`: the one place deferred
-        mode reads the device."""
+        mode reads the device. Returns whether anything was pending (the
+        fit loop's host-sync counter keys off this)."""
+        had = bool(self._pending) or bool(self._dev_chunks)
         vals = [v for chunks in self._dev_chunks.values() for v in chunks]
         vals += [v for _, values in self._pending for v in values.values()]
         if not vals:
-            return
+            return had
         host = iter(torch.stack([v.detach().float().reshape(())
                                  for v in vals]).tolist())
         for k, chunks in self._dev_chunks.items():
@@ -91,6 +103,12 @@ class PerfMetrics:
                 self.sums[k] = self.sums.get(k, 0.0) + next(host) * batch
         self._dev_chunks.clear()
         self._pending.clear()
+        return had
+
+    @property
+    def train_correct(self) -> int:
+        self.materialize()
+        return int(self.sums.get("accuracy", 0.0))
 
     def summary(self) -> Dict[str, float]:
         self.materialize()

@@ -89,6 +89,17 @@ def load() -> ctypes.CDLL:
         return lib
 
 
+def available() -> bool:
+    """Whether the library builds and loads here (a host C++ compiler is
+    needed). Asking is not a fallback: `batch_gather` and `topo_order`
+    still raise when it does not."""
+    try:
+        load()
+    except (RuntimeError, OSError, subprocess.SubprocessError):
+        return False
+    return True
+
+
 def gather_applies(arr: np.ndarray) -> bool:
     """Whether `batch_gather` takes `arr`: a C-contiguous array of one or
     more dims and a plain dtype (copying a strided dataset each batch

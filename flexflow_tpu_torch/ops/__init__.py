@@ -5,6 +5,7 @@ from flexflow_tpu_torch.ops.registry import (  # noqa: F401
     LoweringCtx,
     OpDef,
     get_op_def,
+    has_op_def,
     io_bytes,
     register_op,
 )

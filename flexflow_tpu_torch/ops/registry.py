@@ -85,6 +85,8 @@ class LoweringCtx:
                 f"layer {layer.name} needs an rng but none was provided")
         return ff_random.fold_in(self.rng, layer.guid)
 
+    rng_for = layer_key  # JAX's name
+
     def dropout_mask(self, layer: "Layer", shape, keep: float,
                      device) -> torch.Tensor:
         """The layer's keep mask: bool, True with probability `keep`
@@ -126,6 +128,10 @@ def get_op_def(op_type: OperatorType) -> OpDef:
     if op_type not in _REGISTRY:
         raise NotImplementedError(f"no OpDef registered for {op_type}")
     return _REGISTRY[op_type]
+
+
+def has_op_def(op_type: OperatorType) -> bool:
+    return op_type in _REGISTRY
 
 
 def io_bytes(layer: "Layer") -> int:

@@ -591,6 +591,7 @@ class PipelinedModel:
         count or stage mesh; periodic snapshots come by steps or by rank
         0's clock, and a SIGTERM on any rank drains them all (the ranks
         agree once an update: runtime/resilience.py `FitResilience`)."""
+        from flexflow_tpu_torch.compiler.compile import matmul_precision
         from flexflow_tpu_torch.metrics import PerfMetrics
         from flexflow_tpu_torch.runtime.resilience import FitResilience
 
@@ -685,8 +686,9 @@ class PipelinedModel:
                                 and self.stage == 0:
                             self.stage_cm._poison_first_param()
                     rng_iter = ff_random.fold_in(base_rng, self._iteration)
-                    part, mvals, gn_sq = self._pipeline_step(
-                        gxs, gy, rng_iter, order, M)
+                    with matmul_precision(self.cfg):
+                        part, mvals, gn_sq = self._pipeline_step(
+                            gxs, gy, rng_iter, order, M)
                     gm.lap("dispatch")
                     if part is not None:
                         part_sum = part if part_sum is None \
@@ -786,13 +788,13 @@ class PipelinedModel:
         """One batch through the stages in inference mode: the last stage
         returns its outputs (and, with a label, the loss and metrics);
         the others None."""
-        from flexflow_tpu_torch.compiler.compile import _full
+        from flexflow_tpu_torch.compiler.compile import _full, matmul_precision
         from flexflow_tpu_torch.losses import compute_loss
         from flexflow_tpu_torch.metrics import compute_metrics
 
         scm, link, s = self.stage_cm, self.link, self.stage
         link.begin_update(1)
-        with torch.no_grad():
+        with torch.no_grad(), matmul_precision(self.cfg):
             if s == 0:
                 x = [self._in_put(a, t) for a, t in zip(xs, self.stage_inputs)]
             else:
@@ -1011,7 +1013,8 @@ class PipelinedModel:
         rows, att = attribution.measure_rows(
             items, step_time_s=step_time_s, mult=mult,
             profile_dir=profile_dir, source=source, device=self.device,
-            compute_dtype=self.cfg.compute_dtype)
+            compute_dtype=self.cfg.compute_dtype,
+            enable_fusion=self.cfg.enable_fusion)
         pooled = self._gather_stage_rows((rows, att))
         if len({a is None for _, a in pooled}) > 1:
             raise ValueError("pipelined op_attribution: some stages read a "
@@ -1045,7 +1048,8 @@ class PipelinedModel:
 
         mc = MeasuredCost(self.stage_machine, repeats=3, warmup=1,
                           cache_dir="", device=self.device,
-                          compute_dtype=self.cfg.compute_dtype)
+                          compute_dtype=self.cfg.compute_dtype,
+                          enable_fusion=self.cfg.enable_fusion)
         bs = self._batch_sizes()
         rows = []
         for layer in self.stage_layers[self.stage]:

@@ -53,8 +53,22 @@ class ParallelTensor:
         return ParallelTensor(spec, tuple(pdims), replicas)
 
     @property
+    def total_degree(self) -> int:
+        d = 1
+        for pd in self.dims:
+            d *= pd.degree
+        return d
+
+    @property
     def shard_shape(self) -> Tuple[int, ...]:
         return tuple(pd.shard_size for pd in self.dims)
+
+    @property
+    def shard_bytes(self) -> int:
+        n = 1
+        for s in self.shard_shape:
+            n *= s
+        return n * self.spec.dtype.itemsize
 
     def __repr__(self):
         parts = [f"{pd.size}/{pd.degree}"

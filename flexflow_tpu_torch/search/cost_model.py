@@ -533,3 +533,13 @@ def _grad_sync_time(weight_specs, weight_dims, machine, batch_axes,
         else:
             t += all_reduce_time(b, replica_axes, machine)
     return t
+
+
+def __getattr__(name):
+    # KVCacheSpec lives with the cache (serving/kv_cache.py); JAX's cost
+    # model defines it here. Lazy: the serving package imports this module
+    if name == "KVCacheSpec":
+        from flexflow_tpu_torch.serving.kv_cache import KVCacheSpec
+
+        return KVCacheSpec
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -80,13 +80,17 @@ class MeasuredCost:
                  warmup: int = 2, windows: int = 3,
                  cache_dir: Optional[str] = None, device=None,
                  compute_dtype: str = "bfloat16", forward_only: bool = False,
-                 state_fn: Optional[Callable[[Layer, int], dict]] = None):
+                 state_fn: Optional[Callable[[Layer, int], dict]] = None,
+                 enable_fusion: bool = True):
         # forward_only: time no backward (serving attribution; bwd is 0).
         # state_fn(layer, rows): the lowering state an op reads (a serving
         # decode attention's paged cache), else none; `layer` as one
         # device runs it (its heads), `rows` its first input's rows there
         self.forward_only = bool(forward_only)
         self.state_fn = state_fn
+        # the compile's --fusion: False times the ops' plain routes, as
+        # the compiled program runs them (the attention's einsum path)
+        self.enable_fusion = bool(enable_fusion)
         self.machine = machine
         self.repeats = repeats
         self.warmup = warmup
@@ -104,7 +108,8 @@ class MeasuredCost:
             self.cache_path = os.path.join(
                 os.path.expanduser(cache_dir),
                 f"measured-{memo.machine_fingerprint(machine)}"
-                f"-{compute_dtype}.json")
+                f"-{compute_dtype}{'' if enable_fusion else '-nofusion'}"
+                ".json")
             self._load_disk()
 
     # ------------------------------------------------------------ store
@@ -269,7 +274,7 @@ class MeasuredCost:
         def apply():
             return lower(local, ins, weights, LoweringCtx(
                 state=state, training=False, device=dev,
-                compute_dtype=cast_to))
+                compute_dtype=cast_to, enable_fusion=self.enable_fusion))
 
         def run_fwd():
             with torch.no_grad():

@@ -81,6 +81,20 @@ def stats() -> Dict[str, Dict[str, int]]:
                 "misses": _MISSES.get(n, 0)} for n in sorted(names)}
 
 
+def stats_line() -> str:
+    """One line of every table's hits over lookups (the compile report's
+    [search] line)."""
+    s = stats()
+    if not s:
+        return "memo: empty"
+    total_h = sum(v["hits"] for v in s.values())
+    total_m = sum(v["misses"] for v in s.values())
+    parts = " ".join(f"{n}={v['hits']}/{v['hits'] + v['misses']}"
+                     for n, v in s.items())
+    return (f"memo: {total_h}/{total_h + total_m} hits ({parts})"
+            if _ENABLED else "memo: disabled")
+
+
 # ------------------------------------------------------------- fingerprints
 def machine_fingerprint(machine) -> str:
     """Content hash of a MachineSpec — the (machine view) half of every memo

@@ -79,7 +79,8 @@ def graph_optimize(model, machine: MachineSpec, measured: bool = False,
         # re-run every microbenchmark)
         mc = MeasuredCost(machine, cache_dir=sc.resolve_dir(cfg),
                           device=measure_device,
-                          compute_dtype=cfg.compute_dtype)
+                          compute_dtype=cfg.compute_dtype,
+                          enable_fusion=cfg.enable_fusion)
         cost_fn = mc.op_time
         measure_cache_path = mc.cache_path
     # the learned tier: None unless simulator_mode is "learned" and a model
@@ -143,6 +144,13 @@ def graph_optimize(model, machine: MachineSpec, measured: bool = False,
             meta["learned_coverage"] = learned.coverage()
         sc.store(cache_dir, key, st, meta=meta)
     return st
+
+
+def predict_step_time(model, machine: MachineSpec,
+                      beam_width: int = 64) -> float:
+    """Predicted per-step time of the best found strategy (simulator
+    query)."""
+    return search_graph(model, machine, beam_width=beam_width).cost
 
 
 def strategy_cost(model, machine: MachineSpec, strategy: Strategy,

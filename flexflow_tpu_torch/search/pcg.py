@@ -123,3 +123,10 @@ class PCG:
     @property
     def num_parallel_nodes(self) -> int:
         return sum(1 for l in self.layers if l.op_type in PARALLEL_OPS)
+
+    def to_dot(self) -> str:
+        from flexflow_tpu_torch.core.graph import to_dot
+
+        ann = {l: f"pin={self.pins[l.name]}" for l in self.layers
+               if l.name in self.pins}
+        return to_dot(self.layers, ann)

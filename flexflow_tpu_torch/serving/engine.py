@@ -955,7 +955,8 @@ class ServingCompiled:
                 items, step_time_s=t_step, mult=1, source="measure",
                 inference=True, tag=tag, device=self.device,
                 compute_dtype=self.cfg.compute_dtype,
-                state_fn=self._measure_state)
+                state_fn=self._measure_state,
+                enable_fusion=self.cfg.enable_fusion)
             if print_table:
                 print(f"[{tag}]")
                 for line in attribution.format_report(report, top=top):

@@ -57,8 +57,23 @@ def _serve(rank, world, port, module, cmd, res):
     dist.destroy_process_group()
 
 
+# a port free when `_free_port` picks it can be taken by another process
+# before rank 0 binds it: the group then starts again on a fresh port
+START_ATTEMPTS = 3
+
+
 class RankGroup:
     def __init__(self, world: int, module: str):
+        for attempt in range(START_ATTEMPTS):
+            try:
+                self._start(world, module)
+                return
+            except AssertionError as e:
+                if "EADDRINUSE" not in str(e) or \
+                        attempt == START_ATTEMPTS - 1:
+                    raise
+
+    def _start(self, world: int, module: str):
         ctx = mp.get_context("spawn")
         self.world = world
         self.cmd = [ctx.Queue() for _ in range(world)]

@@ -4,6 +4,8 @@ quietly, its attention takes the kernel wrappers whenever fusion is on (no
 shape decides it behind the wrapper's back), and its kernel wrappers count
 no launch when they run their plain versions."""
 
+import json
+import os
 import pathlib
 import re
 import subprocess
@@ -500,3 +502,99 @@ def test_frontend_sources_name_no_jax_package():
             text = path.read_text()
             assert not re.search(r"^\s*(from|import) (jax|flexflow_tpu)\b",
                                  text, re.M), path
+
+
+_TOOL_RUNS = r"""
+import contextlib, io, json, runpy, sys
+for name in ("jax", "flexflow_tpu"):
+    try:
+        __import__(name)
+    except ImportError as e:
+        assert "is not installed here" in str(e), e
+    else:
+        raise SystemExit(name + " imported")
+tel, prom, examples = sys.argv[1], sys.argv[2], sys.argv[3:]
+# each tool as `python -m` starts it: trace_report and the monitor over a
+# stream, the three that run a model their usage
+for tool, args in (("trace_report", [tel]),
+                   ("monitor", [tel, "--once", "--prom-file", prom]),
+                   ("profile_attribution", ["--help"]),
+                   ("calibrate", ["--help"]), ("perf_probe", ["--help"])):
+    sys.argv, out = [tool] + args, io.StringIO()
+    with contextlib.redirect_stdout(out):
+        try:
+            runpy.run_module("flexflow_tpu_torch.tools." + tool,
+                             run_name="__main__", alter_sys=True)
+            code = 0
+        except SystemExit as e:
+            code = e.code or 0
+    print("RUN " + json.dumps([tool, code, out.getvalue()]))
+for path in examples:
+    runpy.run_path(path, run_name="example")  # imports, no main()
+from flexflow_tpu_torch.parallel.machine import MachineSpec
+from flexflow_tpu_torch.tools import calibrate, profile_attribution
+model = dict(calibrate._workloads())["mlp"]()[0]
+calibrate.predicted(model, MachineSpec(mesh_axes={"data": 1}, chip="cpu-sim"))
+profile_attribution._build_twin("twin-telemetry", 1, device="cpu")
+from flexflow_tpu_torch.models import GPT2Config
+GPT2Config.medium = staticmethod(lambda: GPT2Config(
+    vocab=64, seq=16, d_model=32, heads=2, layers=1))
+from flexflow_tpu_torch.tools import perf_probe
+perf_probe.probe(iters=1, windows=1, device="cpu")
+print(sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "flexflow_tpu" or m.startswith("flexflow_tpu.")))
+"""
+
+EXAMPLES = sorted((PKG / "examples").rglob("*.py"))
+
+
+def jax_blocker(root: pathlib.Path) -> pathlib.Path:
+    """A directory whose `jax` and `flexflow_tpu` packages raise on import,
+    as on the card's machine, which has neither: put it first on
+    PYTHONPATH."""
+    for name in ("jax", "flexflow_tpu"):
+        (root / name).mkdir(parents=True)
+        (root / name / "__init__.py").write_text(
+            f"raise ImportError('{name} is not installed here')\n")
+    return root
+
+
+def test_tools_and_examples_run_where_jax_cannot_be_imported(tmp_path):
+    """In one process where `import jax` and `import flexflow_tpu` raise,
+    as on the card's machine: each of the five tools starts as `python -m`
+    starts it (trace_report and the monitor over a stream; the three that
+    run a model, their usage), the examples import, and what the three
+    reach runs (calibrate's pricing, the attribution twin's compile,
+    perf_probe's probe on a tiny GPT-2); none of them loads either.
+    (mnist_mlp trains through the launcher in such a process in
+    test_torch_port_launcher.py.)"""
+    block = jax_blocker(tmp_path / "block")
+    tdir = tmp_path / "tel"
+    tdir.mkdir()
+    (tdir / "telemetry-1.jsonl").write_text("\n".join(json.dumps(e) for e in [
+        {"name": "fit/dispatch", "ph": "X", "ts": 1.0, "dur": 1500.0},
+        {"name": "health/goodput", "ph": "i", "ts": 2.0,
+         "args": {"epoch": 0, "wall_s": 2.0, "goodput": 0.8}}]) + "\n")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("FLEXFLOW_PLATFORM", "FF_LAUNCH_ARGS")}
+    env.update(PYTHONPATH=os.pathsep.join([str(block), str(REPO)]),
+               FLEXFLOW_PLATFORM="cpu")
+    out = subprocess.run(
+        [sys.executable, "-c", _TOOL_RUNS, str(tdir), str(tmp_path / "n.prom"),
+         *map(str, EXAMPLES)], cwd=tmp_path, env=env, capture_output=True,
+        text=True, timeout=240)
+    assert out.returncode == 0, out.stderr[-3000:]
+    runs = {r[0]: r[1:] for r in (json.loads(l[4:]) for l in
+                                  out.stdout.splitlines()
+                                  if l.startswith("RUN "))}
+    assert sorted(runs) == sorted(["trace_report", "monitor", "calibrate",
+                                   "profile_attribution", "perf_probe"])
+    assert all(code == 0 for code, _ in runs.values()), runs
+    assert "fit/dispatch" in runs["trace_report"][1]
+    assert "flexflow_tpu_torch run monitor" in runs["monitor"][1]
+    assert "flexflow_goodput_ratio 0.8" in (tmp_path / "n.prom").read_text()
+    for tool in ("profile_attribution", "calibrate", "perf_probe"):
+        assert "usage:" in runs[tool][1], tool
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+    assert len(EXAMPLES) == 5

@@ -9,7 +9,10 @@
 - `FLEXFLOW_PLATFORM=cpu` makes `device=None` mean the CPU for the script
   (a subprocess trains there); without it the script's compile asks for
   the GPU and raises on a machine without one; an unknown platform
-  raises.
+  raises;
+- the port's examples (flexflow_tpu_torch/examples/): mnist_mlp through
+  the port's launcher prints JAX's FINAL fields, near JAX's values, and
+  asks for the GPU without the platform variable.
 """
 
 import json
@@ -139,3 +142,68 @@ def test_unknown_platform_raises(monkeypatch):
     monkeypatch.setattr(device, "_DEFAULT", ["cuda"])
     device.set_default_device("cpu")
     assert device.resolve_device(None) == torch.device("cpu")
+
+
+# ----------------------------------------------------------- the examples
+EXAMPLE = REPO / "flexflow_tpu_torch" / "examples" / "native" / "mnist_mlp.py"
+EXAMPLE_ARGS = ["-b", "128", "--lr", "0.5", "-e", "1"]
+
+
+def _final(stdout):
+    line = [l for l in stdout.splitlines() if l.startswith("FINAL ")][-1]
+    return {k: float(v) for k, v in
+            (kv.split("=") for kv in line.split()[1:])}
+
+
+def _env(platform):
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("FLEXFLOW_PLATFORM", "FF_LAUNCH_ARGS")}
+    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    if platform:
+        env["FLEXFLOW_PLATFORM"] = platform
+    return env
+
+
+def test_mnist_mlp_example_final_line_against_jax(tmp_path):
+    """The port's mnist_mlp through the port's launcher and JAX's through
+    JAX's, one epoch each on the same data: the same FINAL fields; the
+    weights start from other random numbers (a torch generator against
+    threefry), so the loss agrees within 25% and the test accuracy
+    within 0.05. The port's runs where `import jax` and `import
+    flexflow_tpu` raise, as on the card's machine."""
+    block = tmp_path / "block"
+    for name in ("jax", "flexflow_tpu"):
+        (block / name).mkdir(parents=True)
+        (block / name / "__init__.py").write_text(
+            f"raise ImportError('{name} is not installed here')\n")
+    env = _env("cpu")
+    env["PYTHONPATH"] = str(block) + os.pathsep + env["PYTHONPATH"]
+    port = subprocess.Popen(
+        [sys.executable, "-m", "flexflow_tpu_torch", *EXAMPLE_ARGS,
+         str(EXAMPLE)], cwd=tmp_path, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    jax_run = subprocess.run(
+        [sys.executable, "-m", "flexflow_tpu", *EXAMPLE_ARGS,
+         str(REPO / "examples" / "native" / "mnist_mlp.py")],
+        cwd=tmp_path, env=dict(_env("cpu"), JAX_PLATFORMS="cpu"),
+        capture_output=True, text=True, timeout=300)
+    out, err = port.communicate(timeout=300)
+    assert port.returncode == 0, err[-3000:]
+    assert jax_run.returncode == 0, jax_run.stderr[-3000:]
+    got, want = _final(out), _final(jax_run.stdout)
+    assert set(got) == set(want) == {"loss", "test_accuracy"}
+    assert got["loss"] == pytest.approx(want["loss"], rel=0.25)
+    assert got["test_accuracy"] == pytest.approx(want["test_accuracy"],
+                                                 abs=0.05)
+    assert got["test_accuracy"] > 0.5  # ten classes: chance is 0.1
+
+
+def test_example_without_platform_asks_for_the_gpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a machine with a GPU runs the example there")
+    out = subprocess.run(
+        [sys.executable, "-m", "flexflow_tpu_torch", *EXAMPLE_ARGS,
+         str(EXAMPLE)], cwd=tmp_path, env=_env(None), capture_output=True,
+        text=True, timeout=300)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr

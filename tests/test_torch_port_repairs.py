@@ -27,6 +27,13 @@ so is `--pipeline-schedule`, with JAX's default "1f1b".
    devices within one rounding, 2**-8 of the largest value, for out, dQ,
    dK and dV; and the collective matmul's backward takes its partial
    products in f32.
+7. MeasuredCost times the routes the compiled program runs: the
+   compile's `enable_fusion` reaches it (attribution, the profile
+   report, the measured search), and its store keeps the two apart.
+8. `allow_tensor_op_math_conversion=False` is the model's own: TF32 is
+   off while its steps and forward run, as JAX sets its precision per
+   program, and the process's settings are as they were outside them
+   (a later model compiled with True runs under those).
 """
 
 import ast
@@ -689,3 +696,88 @@ def test_class_sharded_loss_takes_no_functional_all_gather():
         assert o["head"][1] in ("model", ["model"]) and o["gathers"] == 0
         np.testing.assert_allclose(o["losses"], want, rtol=1e-6)
         assert o["losses"][-1] < o["losses"][0]
+
+
+def test_measured_costs_follow_the_compiles_fusion(monkeypatch, tmp_path):
+    """MeasuredCost times the routes the compiled program runs: with
+    `enable_fusion=False` (`--no-fusion`) the attribution's, the profile
+    report's and the measured search's op timings take the attention's
+    einsum path, as the train step does. (On the card the flash wrapper
+    raises on a shape it does not cover, such as the GPT-2 twin's head
+    dim 16: the measurement raised where the fit ran.) Its store keeps
+    the two apart."""
+    from flexflow_tpu_torch import SGDOptimizer
+    from flexflow_tpu_torch.models import GPT2Config, build_gpt2
+    from flexflow_tpu_torch.ops import attention_ops
+    from flexflow_tpu_torch.parallel.machine import MachineSpec
+    from flexflow_tpu_torch.search.candidates import layer_candidates
+    from flexflow_tpu_torch.search.measure import MeasuredCost
+
+    def flash(*a, **k):
+        raise AssertionError("the flash wrapper ran")
+    monkeypatch.setattr(attention_ops, "flash_attention_qkv", flash)
+    m = FFModel(FFConfig(batch_size=8, enable_fusion=False))
+    build_gpt2(m, GPT2Config(vocab=64, seq=16, d_model=64, heads=4,
+                             layers=1, dropout=0.0), batch=8)
+    cm = m.compile(SGDOptimizer(lr=0.01), "sparse_categorical_crossentropy",
+                   [], device="cpu")
+    cm.init(seed=0)
+    rep = cm.op_attribution(step_time_s=1e-3, source="measure",
+                            print_table=False)
+    assert any(r["op"] == "multihead_attention" for r in rep["rows"])
+    assert cm.profile_report(print_table=False)
+    attn = [l for l in m.layers if l.op_type.value == "multihead_attention"]
+    machine = MachineSpec(mesh_axes={"data": 1}, chip="cpu-sim")
+    cand = layer_candidates(attn[0], machine, {8})[0]
+    plain = MeasuredCost(machine, repeats=1, warmup=0, windows=1,
+                         device="cpu", compute_dtype="float32",
+                         enable_fusion=False, cache_dir=str(tmp_path))
+    assert plain.op_time(attn[0], cand) > 0
+    assert plain.cache_path.endswith("-float32-nofusion.json")
+    fused = MeasuredCost(machine, repeats=1, warmup=0, windows=1,
+                         device="cpu", compute_dtype="float32",
+                         cache_dir=str(tmp_path))
+    assert fused.cache_path.endswith("-float32.json")
+    with pytest.raises(AssertionError, match="flash wrapper ran"):
+        fused.op_time(attn[0], cand)
+
+
+def test_tf32_off_only_inside_the_strict_models_programs(monkeypatch):
+    from flexflow_tpu_torch import SGDOptimizer
+
+    cuda_mm, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    monkeypatch.setattr(cuda_mm, "allow_tf32", True)
+    monkeypatch.setattr(cudnn, "allow_tf32", True)
+
+    def flags():
+        return cuda_mm.allow_tf32, cudnn.allow_tf32
+
+    seen = {}
+
+    def build(allow):
+        m = FFModel(FFConfig(batch_size=8,
+                             allow_tensor_op_math_conversion=allow))
+        x = m.create_tensor([8, 16], name="x")
+        m.dense(m.dense(x, 32, activation="relu"), 4)
+        cm = m.compile(SGDOptimizer(lr=0.1), "sparse_categorical_crossentropy",
+                       [], device="cpu")
+        cm.init(seed=0)
+        fwd = cm.forward_fn
+
+        def watched(*a, **k):
+            seen.setdefault(allow, set()).add(flags())
+            return fwd(*a, **k)
+        cm.forward_fn = watched
+        return cm
+
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(16, 16)).astype(np.float32)
+    y = rng.integers(0, 4, size=(16,)).astype(np.int32)
+    strict = build(False)
+    assert flags() == (True, True)
+    strict.fit(x, y, epochs=1, verbose=False)
+    strict.evaluate(x, y)
+    strict.forward(x[:8])
+    assert flags() == (True, True)
+    build(True).fit(x, y, epochs=1, verbose=False)
+    assert seen == {False: {(False, False)}, True: {(True, True)}}
